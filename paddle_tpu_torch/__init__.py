@@ -4,15 +4,16 @@ It keeps the JAX package's Program / op-type / slot / attr schema, its
 parameter names and its layouts, so one Program and one set of weights
 run in both packages. Ops lower to PyTorch; the TPU's Pallas kernels
 become hand-written CUDA kernels for Hopper (csrc/, built with nvcc at
-first use). Entry points run on the card unless the caller passes
+first use). ``optimizer.Adam(...).minimize(loss)`` appends the backward
+and the updates, and ``Executor.run`` trains. Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
 Import as ``import paddle_tpu_torch as fluid``.
 """
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
-from . import (convert, core, inference, initializer, io,  # noqa: F401
-               layers, models)
+from . import (clip, convert, core, inference, initializer,  # noqa: F401
+               io, layers, models, optimizer, regularizer)
 from .core.executor import Executor  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.program import (  # noqa: F401

@@ -9,6 +9,13 @@ no plan cache, no jit and no CUDA graph in this version.
 
     inputs  = feed tensors + persistable state read from the Scope
     outputs = fetches (numpy) + persistable state written back to the Scope
+
+A training Program (``optimizer.minimize``) runs the same way: params,
+optimizer moments, beta powers and a learning rate an op writes are
+read-write state, written back after the step; grad vars are
+temporaries, released after their last reader like any other. Ops
+return new tensors, so the scope's tensors are never updated in place.
+The RNG chain lives in the scope between runs.
 """
 
 from __future__ import annotations
@@ -59,11 +66,18 @@ class Executor:
                  for n, v in (feed or {}).items()}
         (_, fetch_names, const_state, mut_state, pure_written, needs_rng,
          step) = analyze_block(program, sorted(feeds), fetch_names, scope)
-        rng = scope.find_var(RNG_VAR) if needs_rng else None
-        if needs_rng and rng is None:
-            seed = program.random_seed if program.random_seed is not None \
-                else 0
-            rng = torch.Generator().manual_seed(int(seed))
+        rng = None
+        if needs_rng:
+            # a copy: the scope's generator is never advanced in place, so
+            # a scope snapshot (a dict of its values) replays the same step
+            rng = torch.Generator()
+            saved = scope.find_var(RNG_VAR)
+            if saved is None:
+                seed = program.random_seed \
+                    if program.random_seed is not None else 0
+                rng.manual_seed(int(seed))
+            else:
+                rng.set_state(saved.get_state())
         state = {n: _require(scope, n) for n in const_state + mut_state}
         with torch.no_grad():
             fetches, written = step(feeds, state, rng, self.device)

@@ -49,6 +49,11 @@ class LowerContext:
         g.manual_seed(seed)
         return g
 
+    def pure(self) -> "LowerContext":
+        """Context for re-running a forward lowering inside a vjp: the
+        same block, device and mode, no RNG (as in the JAX package)."""
+        return LowerContext(self.block, None, self.device, self.is_test)
+
 
 def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
     opdef = get_op(op.type)

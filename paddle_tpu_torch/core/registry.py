@@ -6,9 +6,10 @@ with the same ``fn(ctx, ins, attrs) -> {slot: [values]}`` contract, so
 one Program (op types, slots, attrs) runs in both packages. The
 executor calls the lowerings eagerly in program order.
 
-Gradients: ``get_op`` synthesizes a ``*_grad`` op from ``core/autodiff.py``,
-which this package gains with training; until then asking for a grad op
-raises ImportError.
+Gradients: ``get_op`` synthesizes a ``*_grad`` op from the forward
+lowering (core/autodiff.py, ``torch.func.vjp``); an op registers a custom
+grad lowering only where its grad must differ from the vjp of its
+forward (dropout reusing its saved mask) or has a cheaper closed form.
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ def has_op(type: str) -> bool:
 
 def all_ops() -> List[str]:
     """Sorted registered op types. ``*_grad`` ops whose lowering is derived
-    mechanically from the forward (via jax.vjp, see core.autodiff) are
+    mechanically from the forward (via torch.func.vjp, see core.autodiff) are
     synthesized LAZILY by get_op — they appear here only once something
     has requested them (their OpDef carries ``synthesized=True``).
     Eagerly materializing all of them would double the registry with

@@ -1,8 +1,9 @@
-"""Op lowerings — importing this package registers every op.
+"""Op lowerings: importing this package registers every op.
 
-The port registers torch lowerings for the op types of the BERT encoder
-inference program and its startup program, module by module beside their
-paddle_tpu/ops counterparts.
+The port registers torch lowerings for the op types of the BERT-base
+training program (forward, grads, Adam) and its startup program, module
+by module beside their paddle_tpu/ops counterparts.
 """
 
-from . import activations, attention, basic, math, nn, tensor_ops  # noqa: F401
+from . import (activations, attention, basic, math, nn,  # noqa: F401
+               optimizer_ops, tensor_ops)

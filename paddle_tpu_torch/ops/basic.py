@@ -1,4 +1,6 @@
-"""Basic tensor ops: constants, random init, scale, range.
+"""Basic tensor ops: constants, random init, assign, cast, scale, range,
+and the clipping / sign ops that gradient clipping and regularizers
+append.
 
 Counterparts of paddle_tpu/ops/basic.py. Random ops draw from torch
 generators (core/lowering.py LowerContext.next_rng), so their values
@@ -40,6 +42,16 @@ def _uniform_random(ctx, ins, attrs):
     return {"Out": [out * (hi - lo) + lo]}
 
 
+@register_op("assign")
+def _assign(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("cast")
+def _cast(ctx, ins, attrs):
+    return {"Out": [ins["X"][0].to(as_torch_dtype(attrs["out_dtype"]))]}
+
+
 @register_op("scale")
 def _scale(ctx, ins, attrs):
     x = ins["X"][0]
@@ -63,3 +75,25 @@ def _range(ctx, ins, attrs):
     s, e, st = (float(v.reshape(())) for v in (start, end, step))
     out = torch.arange(s, e, st, dtype=torch.float32, device=ctx.device)
     return {"Out": [out.to(start.dtype)]}
+
+
+@register_op("clip")
+def _clip(ctx, ins, attrs):
+    return {"Out": [torch.clamp(ins["X"][0], attrs.get("min"),
+                                attrs.get("max"))]}
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(x * x))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12),
+                        torch.ones_like(norm))
+    return {"Out": [x * scale.to(x.dtype)]}
+
+
+@register_op("sign", no_grad=True)
+def _sign(ctx, ins, attrs):
+    return {"Out": [torch.sign(ins["X"][0])]}

@@ -1,7 +1,10 @@
-"""Math ops: ``mul`` and the broadcasted elementwise family.
+"""Math ops: ``mul``, the broadcasted elementwise family, ``sum`` /
+``mean``, the reductions and ``squared_l2_norm``.
 
 Counterparts of paddle_tpu/ops/math.py. The matrix product stays a plain
-``torch.matmul``, as the JAX package leaves it to XLA.
+``torch.matmul``, as the JAX package leaves it to XLA. Integer sums and
+products stay int32, as the JAX package's do with 64-bit types off
+(torch would widen them to int64).
 """
 
 from __future__ import annotations
@@ -63,3 +66,89 @@ def _ew(name, fn, diff=True):
 
 
 _ew("elementwise_add", operator.add)
+_ew("elementwise_sub", operator.sub)
+_ew("elementwise_mul", operator.mul)
+_ew("elementwise_div", operator.truediv)
+_ew("elementwise_max", torch.maximum)
+_ew("elementwise_min", torch.minimum)
+_ew("elementwise_pow", torch.pow)
+_ew("elementwise_mod", torch.remainder, diff=False)
+_ew("elementwise_floordiv", torch.floor_divide, diff=False)
+
+
+@register_op("sum")
+def _sum(ctx, ins, attrs):
+    """Multi-input add: the gradient-aggregation op (sum_op.cc)."""
+    xs = [x for x in ins["X"] if x is not None]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": [out]}
+
+
+@register_op("mean")
+def _mean(ctx, ins, attrs):
+    return {"Out": [torch.mean(_as_float(ins["X"][0]))]}
+
+
+# ---------------------------------------------------------------- reductions
+def _as_float(x):
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _int32(fn):
+    """An integer reduction keeps the JAX package's int32 result."""
+    def red(x, dims, keep):
+        out = fn(x, dims, keep)
+        if not x.is_floating_point() and out.dtype == torch.int64:
+            out = out.to(torch.int32)
+        return out
+
+    return red
+
+
+def _prod(x, dims, keep):
+    out = x
+    for d in sorted(dims, reverse=True):
+        out = torch.prod(out, dim=d, keepdim=keep)
+    return out
+
+
+_REDUCE = {
+    "reduce_sum": _int32(lambda x, d, k: torch.sum(x, dim=d, keepdim=k)),
+    "reduce_mean": lambda x, d, k: torch.mean(_as_float(x), dim=d,
+                                              keepdim=k),
+    "reduce_max": lambda x, d, k: torch.amax(x, dim=d, keepdim=k),
+    "reduce_min": lambda x, d, k: torch.amin(x, dim=d, keepdim=k),
+    "reduce_prod": _int32(_prod),
+    "reduce_all": lambda x, d, k: torch.all(x.bool(), dim=d, keepdim=k),
+    "reduce_any": lambda x, d, k: torch.any(x.bool(), dim=d, keepdim=k),
+}
+
+
+def _reduce(name, diff=True):
+    @register_op(name, no_grad=not diff)
+    def _op(ctx, ins, attrs, _fn=_REDUCE[name]):
+        x = ins["X"][0]
+        if attrs.get("reduce_all", False):
+            dims = tuple(range(x.ndim))
+        else:
+            dims = tuple(d % x.ndim for d in attrs.get("dim", [0]))
+        return {"Out": [_fn(x, dims, attrs.get("keep_dim", False))]}
+
+    return _op
+
+
+_reduce("reduce_sum")
+_reduce("reduce_mean")
+_reduce("reduce_max")
+_reduce("reduce_min")
+_reduce("reduce_prod")
+_reduce("reduce_all", diff=False)
+_reduce("reduce_any", diff=False)
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.sum(x * x).reshape(())]}

@@ -1,0 +1,522 @@
+"""The port's training slice, held against the JAX package on the CPU.
+
+- Op grads: every differentiable op the port registers, its ``*_grad``
+  lowering in both packages on the same numpy inputs and output
+  cotangents. Generic grads go through each package's vjp of the forward
+  lowering (``torch.func.vjp`` / ``jax.vjp``); custom ones (dropout,
+  softmax_with_cross_entropy, fused_attention, and the port's fixed-order
+  lookup_table / gather) through their grad lowerings. Tolerances: atol
+  1e-5 (f32 sums and transcendentals in another order), 1e-5 plus rtol
+  1e-5 for the activations and reductions whose grads grow with their
+  inputs, 5e-5 for fused_attention (the JAX package's flash backward
+  tolerance; with PADDLE_TPU_FLASH_MIN_SEQ=0 from conftest the JAX side
+  runs its Pallas kernels in interpret mode, the port its plain
+  versions).
+- The whole slice: a 2-layer BERT MLM (the serving test's CFG, dropout
+  0.0) built by both packages gives the same main and startup programs
+  after ``Adam.minimize``; the JAX startup scope moves into the port with
+  ``params_from_jax`` and both take 5 Adam steps (lr 1e-3) on the same
+  feeds. Losses agree to a relative 1e-5 and params to atol 1e-4
+  (lr / 10): Adam's first step moves a param by lr * g / (|g| + 3e-7),
+  so where a grad is zero up to rounding (the key projections': softmax
+  ignores a per-row shift of the scores) two packages' rounding noise of
+  about 1e-8 moves it by up to about 3e-5 (2.2e-5 measured); every other
+  param agrees to about 5e-6.
+- Within the port, with dropout 0.1: the same seed gives bitwise the
+  same losses in two runs, and the loss falls over 20 steps on one batch.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import paddle_tpu as jf
+import paddle_tpu_torch as pt
+from paddle_tpu.core.lowering import LowerContext as JaxContext
+from paddle_tpu.core.registry import get_op as jax_op
+from paddle_tpu.models import bert as jbert
+from paddle_tpu_torch.convert import params_from_jax
+from paddle_tpu_torch.core.autodiff import ATTR_DIFF, ATTR_FWD_IN, \
+    ATTR_FWD_OUT
+from paddle_tpu_torch.core.lowering import LowerContext
+from paddle_tpu_torch.core.registry import all_ops, get_op
+from paddle_tpu_torch.models import bert as tbert
+
+CPU = torch.device("cpu")
+CFG = dict(d_model=64, d_ff=128, n_head=4, n_layer=2, vocab=100,
+           type_vocab=2, max_length=40, dropout=0.0)
+S, M, B = 40, 6, 3
+LR = 1e-3
+
+
+def _arr(rs, shape, dtype="float32"):
+    if np.dtype(dtype).kind in "iu":
+        return rs.randint(0, 10, shape).astype(dtype)
+    return rs.randn(*shape).astype(dtype)
+
+
+def _grads_both(op_type, ins, attrs, diff, rs, cot_slots=None):
+    """Run ``<op_type>_grad`` in both packages. The forward outputs come
+    from the JAX lowering (the custom grads read them), the output
+    cotangents are random for each float output of ``cot_slots`` (all
+    by default) and absent for the rest. Returns ({slot@GRAD: [jax]},
+    {slot@GRAD: [port]}) as numpy."""
+    j_ins = {k: [None if v is None else jnp.asarray(v) for v in vs]
+             for k, vs in ins.items()}
+    fwd = jax_op(op_type).lowering(JaxContext(None, jax.random.PRNGKey(0)),
+                                   j_ins, dict(attrs))
+    outs = {k: [np.asarray(v) for v in (vs if isinstance(vs, (list, tuple))
+                                         else [vs])]
+            for k, vs in fwd.items()}
+    cots = {}
+    for slot, vs in outs.items():
+        if cot_slots is not None and slot not in cot_slots:
+            continue
+        if all(np.issubdtype(v.dtype, np.floating) for v in vs):
+            cots[slot + "@GRAD"] = [
+                np.asarray(rs.randn(*v.shape)).astype(v.dtype) for v in vs]
+    gattrs = dict(attrs)
+    gattrs[ATTR_FWD_IN] = {k: len(v) for k, v in ins.items()}
+    gattrs[ATTR_FWD_OUT] = {k: len(v) for k, v in outs.items()}
+    gattrs[ATTR_DIFF] = [list(d) for d in diff]
+    gins = dict(ins, **outs, **cots)
+    jg = jax_op(op_type + "_grad").lowering(
+        JaxContext(None, None),
+        {k: [None if v is None else jnp.asarray(v) for v in vs]
+         for k, vs in gins.items()}, dict(gattrs))
+    tg = get_op(op_type + "_grad").lowering(
+        LowerContext(None, None, CPU),
+        {k: [None if v is None else torch.from_numpy(np.array(v))
+             for v in vs] for k, vs in gins.items()}, dict(gattrs))
+    return jg, tg
+
+
+def _check_grad(op_type, ins, attrs, diff, atol, rtol=0.0, cot_slots=None,
+                seed=0):
+    rs = np.random.RandomState(seed)
+    jg, tg = _grads_both(op_type, ins, attrs, diff, rs, cot_slots)
+    for slot, i in diff:
+        a = np.asarray(jg[slot + "@GRAD"][i])
+        b = tg[slot + "@GRAD"][i]
+        assert b is not None, (op_type, slot)
+        b = b.detach().numpy()
+        assert a.shape == b.shape, (op_type, slot, a.shape, b.shape)
+        np.testing.assert_allclose(b, a, atol=atol, rtol=rtol,
+                                   err_msg="%s %s@GRAD" % (op_type, slot))
+    for slot, vs in tg.items():  # inputs not differentiated take None
+        for i, v in enumerate(vs):
+            if (slot[:-len("@GRAD")], i) not in diff:
+                assert v is None, (op_type, slot, i)
+
+
+GRAD_CASES = {}
+
+
+def grad_case(*names):
+    def deco(fn):
+        for n in names:
+            GRAD_CASES[n] = (lambda rs, _n=n, _fn=fn: _fn(rs, _n))
+        return fn
+
+    return deco
+
+
+@grad_case("elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_max", "elementwise_min",
+           "elementwise_pow")
+def _ew(rs, op):
+    x = _arr(rs, (2, 3, 4))
+    if op == "elementwise_pow":
+        x = np.abs(x) + 0.5
+    for y, axis in ((_arr(rs, (3,)), 1), (_arr(rs, (4,)), -1),
+                    (_arr(rs, (2, 3, 4)), -1)):
+        if op == "elementwise_div":
+            y = np.where(np.abs(y) < 0.3, 0.7, y).astype("float32")
+        _check_grad(op, {"X": [x], "Y": [y]}, {"axis": axis},
+                    [("X", 0), ("Y", 0)], 1e-5, 1e-5)
+
+
+@grad_case("mul")
+def _mul(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 4))], "Y": [_arr(rs, (4, 5))]},
+                {"x_num_col_dims": 2, "y_num_col_dims": 1},
+                [("X", 0), ("Y", 0)], 1e-5)
+
+
+@grad_case("sum")
+def _sum(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4)) for _ in range(3)]}, {},
+                [("X", 0), ("X", 2)], 1e-6)
+
+
+@grad_case("mean")
+def _mean(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4))]}, {}, [("X", 0)], 1e-6)
+
+
+@grad_case("reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod")
+def _reduce(rs, op):
+    x = _arr(rs, (2, 3, 4))
+    if op == "reduce_prod":
+        x = np.abs(x) * 0.5 + 0.75
+    for attrs in ({"dim": [1]}, {"dim": [0, 2], "keep_dim": True},
+                  {"reduce_all": True}):
+        _check_grad(op, {"X": [x]}, attrs, [("X", 0)], 1e-5, 1e-5)
+
+
+@grad_case("assign", "scale")
+def _unary_copy(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4))]},
+                {"scale": 2.5, "bias": 1.0}, [("X", 0)], 1e-6)
+
+
+@grad_case("cast")
+def _cast(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4))]}, {"out_dtype": "float16"},
+                [("X", 0)], 1e-3)
+
+
+@grad_case("clip", "clip_by_norm", "squared_l2_norm")
+def _clip(rs, op):
+    x = _arr(rs, (4, 5))
+    _check_grad(op, {"X": [x]}, {"min": -0.5, "max": 0.7, "max_norm": 1.0},
+                [("X", 0)], 1e-5)
+
+
+@grad_case("reshape", "reshape2", "transpose", "transpose2", "unsqueeze2")
+def _shape(rs, op):
+    attrs = {"reshape": {"shape": [0, -1]}, "reshape2": {"shape": [-1, 2]},
+             "transpose": {"axis": [2, 0, 1]},
+             "transpose2": {"axis": [0, 2, 1]},
+             "unsqueeze2": {"axes": [1]}}[op]
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 4))]}, attrs, [("X", 0)], 0)
+
+
+@grad_case("gather")
+def _gather(rs, op):
+    x = _arr(rs, (6, 4))
+    _check_grad(op, {"X": [x], "Index": [np.array([0, 3, 3, 5, 3],
+                                                  "int32")]},
+                {}, [("X", 0)], 1e-6)
+    _check_grad(op, {"X": [_arr(rs, (2, 5, 3))],
+                     "Index": [np.array([4, 0, 4], "int32")]},
+                {"axis": 1}, [("X", 0)], 1e-6)
+
+
+@grad_case("lookup_table")
+def _lookup_table(rs, op):
+    w = _arr(rs, (10, 4))
+    ids = np.array([[1, 2, 2], [7, 1, 2]], "int32")  # repeated ids
+    _check_grad(op, {"W": [w], "Ids": [ids]}, {"padding_idx": -1},
+                [("W", 0)], 1e-6)
+    _check_grad(op, {"W": [w], "Ids": [ids[..., None]]},
+                {"padding_idx": 2}, [("W", 0)], 1e-6)
+
+
+@grad_case("layer_norm")
+def _layer_norm(rs, op):
+    x = _arr(rs, (2, 3, 8)) * 3 + 1
+    _check_grad(op, {"X": [x], "Scale": [_arr(rs, (8,))],
+                     "Bias": [_arr(rs, (8,))]},
+                {"begin_norm_axis": 2, "epsilon": 1e-5},
+                [("X", 0), ("Scale", 0), ("Bias", 0)], 1e-5, cot_slots=["Y"])
+
+
+@grad_case("dropout")
+def _dropout(rs, op):
+    # the custom grad multiplies by the saved mask, so no RNG is replayed
+    _check_grad(op, {"X": [_arr(rs, (4, 6))]},
+                {"dropout_prob": 0.3, "dropout_implementation":
+                 "upscale_in_train"}, [("X", 0)], 1e-6, cot_slots=["Out"])
+
+
+@grad_case("softmax_with_cross_entropy")
+def _swce(rs, op):
+    logits = _arr(rs, (6, 7)) * 2
+    label = np.array([[0], [3], [6], [-100], [2], [3]], "int32")
+    diff = [("Logits", 0)]
+    _check_grad(op, {"Logits": [logits], "Label": [label]}, {}, diff, 1e-5,
+                cot_slots=["Loss"])
+    _check_grad(op, {"Logits": [logits], "Label": [np.abs(label) % 7]},
+                {"ignore_index": 3}, diff, 1e-5, cot_slots=["Loss"])
+    soft = rs.rand(6, 7).astype("float32")
+    _check_grad(op, {"Logits": [logits],
+                     "Label": [soft / soft.sum(-1, keepdims=True)]},
+                {"soft_label": True}, diff, 1e-5, cot_slots=["Loss"])
+
+
+@grad_case("fused_attention")
+def _fused_attention(rs, op):
+    q, k, v = (_arr(rs, (2, 2, 40, 16)) for _ in range(3))
+    bias = np.zeros((2, 1, 1, 40), "float32")
+    bias[1, ..., 30:] = -1e9
+    diff = [("Q", 0), ("K", 0), ("V", 0)]
+    # dropout 0.1: the saved mask scales the output grad in both packages
+    _check_grad(op, {"Q": [q], "K": [k], "V": [v], "Bias": [bias]},
+                {"scale": 0.25, "dropout": 0.1, "causal": False}, diff,
+                5e-5, cot_slots=["Out"])
+    _check_grad(op, {"Q": [q], "K": [k], "V": [v]},
+                {"scale": 0.25, "dropout": 0.0, "causal": True}, diff,
+                5e-5, cot_slots=["Out"])
+
+
+ACTIVATIONS = ["relu", "sigmoid", "tanh", "sqrt", "rsqrt", "abs", "exp",
+               "log", "square", "reciprocal", "softplus", "softsign",
+               "ceil", "floor", "round", "cos", "sin", "gelu", "relu6",
+               "leaky_relu", "elu", "pow", "stanh", "hard_sigmoid",
+               "hard_swish", "swish", "brelu", "soft_relu", "logsigmoid",
+               "tanh_shrink", "thresholded_relu", "hard_shrink", "mish",
+               "silu"]
+_POSITIVE = {"sqrt", "rsqrt", "log", "reciprocal", "pow"}
+
+
+@grad_case(*ACTIVATIONS)
+def _act(rs, op):
+    # inputs keep clear of the kinks (0, thresholds) where the two
+    # packages may pick different one-sided derivatives
+    x = rs.uniform(0.15, 2.5, (4, 6)).astype("float32")
+    x *= np.where(rs.rand(4, 6) < 0.5, -1.0, 1.0).astype("float32")
+    if op in _POSITIVE:
+        x = np.abs(x)
+    attrs_list = {"gelu": [{}, {"approximate": True}],
+                  "pow": [{"factor": 1.5}]}.get(op, [{}])
+    for attrs in attrs_list:
+        _check_grad(op, {"X": [x]}, attrs, [("X", 0)], 1e-5, 1e-5)
+
+
+def test_every_differentiable_port_op_has_a_grad_case():
+    want = sorted(t for t in all_ops()
+                  if not get_op(t).no_grad and not get_op(t).synthesized)
+    assert sorted(GRAD_CASES) == want
+
+
+@pytest.mark.parametrize("op_type", sorted(GRAD_CASES))
+def test_grad_matches_jax(op_type):
+    GRAD_CASES[op_type](np.random.RandomState(1))
+
+
+def test_generic_grad_contract():
+    """Zero cotangents for absent output grads, a broadcast cotangent of
+    another dtype, and None for inputs not differentiated."""
+    rs = np.random.RandomState(2)
+    x, y = _arr(rs, (2, 3, 4)), _arr(rs, (4,))
+    out = x + y
+    base = {"X": [x], "Y": [y], "Out": [out]}
+    attrs = {ATTR_FWD_IN: {"X": 1, "Y": 1}, ATTR_FWD_OUT: {"Out": 1},
+             "axis": -1}
+    g = rs.randn(1, 3, 4).astype("float16")  # broadcasts to Out, cast
+    cases = [(dict(base, **{"Out@GRAD": [g]}), [["X", 0]]),
+             (dict(base, **{"Out@GRAD": [None]}), [["X", 0], ["Y", 0]])]
+    for ins, diff in cases:
+        a = dict(attrs, **{ATTR_DIFF: diff})
+        jg = jax_op("elementwise_add_grad").lowering(
+            JaxContext(None, None),
+            {k: [None if v is None else jnp.asarray(v) for v in vs]
+             for k, vs in ins.items()}, dict(a))
+        tg = get_op("elementwise_add_grad").lowering(
+            LowerContext(None, torch.Generator(), CPU),
+            {k: [None if v is None else torch.from_numpy(v) for v in vs]
+             for k, vs in ins.items()}, dict(a))
+        for slot, i in diff:
+            np.testing.assert_allclose(tg[slot + "@GRAD"][i].numpy(),
+                                       np.asarray(jg[slot + "@GRAD"][i]),
+                                       atol=1e-3, rtol=0)
+        if len(diff) == 1:
+            assert tg["Y@GRAD"] == [None]
+        else:
+            assert not tg["X@GRAD"][0].any()  # zero cotangent
+
+
+def test_pure_context_keeps_device_and_mode_but_no_rng():
+    ctx = LowerContext("blk", torch.Generator(), CPU, is_test=True)
+    pure = ctx.pure()
+    assert (pure.block, pure.device, pure.is_test) == ("blk", CPU, True)
+    with pytest.raises(RuntimeError, match="pure context"):
+        pure.next_rng()
+
+
+# ------------------------------------------------------------ whole slice
+def _build_train(pkg, bert_mod, cfg=CFG, opt=None):
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = 11
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        loss, _ = bert_mod.build(cfg, seq_len=S, max_mask=M)
+        (opt or pkg.optimizer.Adam)(learning_rate=LR).minimize(loss)
+    return main, startup, loss
+
+
+def _feeds(n, seed=0):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        mask = np.ones((B, S), "float32")
+        pos = np.zeros((B, M), "int64")
+        weight = np.zeros((B, M), "float32")
+        for i in range(B):
+            real = S - rs.randint(S // 10, 2 * S // 5 + 1)
+            mask[i, real:] = 0.0
+            picks = rs.choice(real, M - i, replace=False)
+            pos[i, :M - i] = i * S + picks
+            weight[i, :M - i] = 1.0
+        out.append({
+            "src_ids": rs.randint(0, CFG["vocab"], (B, S)).astype("int64"),
+            "sent_ids": rs.randint(0, 2, (B, S)).astype("int64"),
+            "input_mask": mask, "mask_pos": pos,
+            "mask_label": rs.randint(0, CFG["vocab"], (B, M)).astype(
+                "int64"),
+            "mask_weight": weight})
+    return out
+
+
+def test_both_packages_build_the_same_training_program():
+    jmain, jstart, _ = _build_train(jf, jbert)
+    tmain, tstart, _ = _build_train(pt, tbert)
+    assert tmain.to_dict() == jmain.to_dict()
+    assert tstart.to_dict() == jstart.to_dict()
+    types = [op.type for op in tmain.global_block().ops]
+    assert types.count("fused_attention_grad") == CFG["n_layer"]
+    assert types.count("adam") == len(tmain.global_block().all_parameters())
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX package: startup, its post-startup scope as numpy, and 5
+    Adam steps (losses and final params)."""
+    main, startup, loss = _build_train(jf, jbert)
+    exe = jf.Executor(jf.CPUPlace())
+    scope = jf.Scope()
+    exe.run(startup, scope=scope)
+    state = {v.name: np.asarray(scope.find_var(v.name))
+             for v in main.list_vars() if v.persistable}
+    losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                       scope=scope)[0]).reshape(()))
+              for f in _feeds(5)]
+    params = {p.name: np.asarray(scope.find_var(p.name))
+              for p in main.global_block().all_parameters()}
+    return dict(state=state, losses=losses, params=params)
+
+
+def test_params_from_jax_carries_the_training_scope(jax_run):
+    tmain, _, _ = _build_train(pt, tbert)
+    state = jax_run["state"]
+    names = set(state)
+    assert any(n.endswith("_moment1_0") for n in names)
+    assert any(n.endswith("_moment2_0") for n in names)
+    assert any("beta1_pow" in n for n in names)
+    assert any("beta2_pow" in n for n in names)
+    assert any(n.startswith("learning_rate") for n in names)
+    moved = params_from_jax(state, tmain, CPU)
+    assert set(moved) == names
+    for n, v in moved.items():
+        np.testing.assert_array_equal(v.numpy(), state[n])
+
+
+def test_port_trains_like_jax_from_a_transplanted_scope(jax_run):
+    tmain, _, loss = _build_train(pt, tbert)
+    scope = pt.Scope()
+    for n, v in params_from_jax(jax_run["state"], tmain, CPU).items():
+        scope.set_var(n, v)
+    exe = pt.Executor(pt.CPUPlace())
+    losses = [float(np.asarray(exe.run(tmain, feed=f, fetch_list=[loss],
+                                       scope=scope)[0]).reshape(()))
+              for f in _feeds(5)]
+    np.testing.assert_allclose(losses, jax_run["losses"], rtol=1e-5, atol=0)
+    for n, want in jax_run["params"].items():
+        np.testing.assert_allclose(scope.find_var(n).numpy(), want,
+                                   atol=1e-4, rtol=0, err_msg=n)
+
+
+def _port_losses(steps, feed):
+    cfg = dict(CFG, dropout=0.1)
+    main, startup, loss = _build_train(pt, tbert, cfg)
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    return [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                     scope=scope)[0]).reshape(()))
+            for _ in range(steps)]
+
+
+def test_port_training_with_dropout_is_repeatable_and_learns():
+    feed = _feeds(1, seed=3)[0]
+    first = _port_losses(20, feed)
+    assert _port_losses(20, feed) == first  # bitwise, dropout included
+    assert np.isfinite(first).all()
+    assert first[-1] < 0.7 * first[0]
+
+
+def test_a_step_replays_bitwise_from_a_scope_snapshot():
+    """The executor replaces scope values and never updates them in
+    place, the RNG state included: a snapshot replays the same step."""
+    main, startup, loss = _build_train(pt, tbert, dict(CFG, dropout=0.1))
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _feeds(1, seed=4)[0]
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    snap = {n: scope.find_var(n) for n in scope.local_var_names()}
+    runs = []
+    for _ in range(2):
+        sc = pt.Scope()
+        for n, v in snap.items():
+            sc.set_var(n, v)
+        (val,) = exe.run(main, feed=feed, fetch_list=[loss], scope=sc)
+        runs.append((val, {n: sc.find_var(n) for n in snap}))
+    assert runs[0][0] == runs[1][0]
+    for n in snap:
+        v0, v1 = runs[0][1][n], runs[1][1][n]
+        if isinstance(v0, torch.Tensor):
+            assert torch.equal(v0, v1), n
+        else:  # the RNG chain
+            assert torch.equal(v0.get_state(), v1.get_state())
+
+
+def test_other_optimizers_build_and_sgd_momentum_run():
+    feed = _feeds(1, seed=5)[0]
+    for opt in (pt.optimizer.SGD, pt.optimizer.Momentum):
+        kw = {"momentum": 0.9} if opt is pt.optimizer.Momentum else {}
+        main, startup, loss = _build_train(
+            pt, tbert, opt=lambda learning_rate, _o=opt, _kw=kw:
+            _o(learning_rate=learning_rate, **_kw))
+        exe = pt.Executor(pt.CPUPlace())
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+              for _ in range(3)]
+        assert np.isfinite(ls).all()
+    # an optimizer whose update op is not ported builds, and its run says so
+    main, startup, loss = _build_train(pt, tbert, opt=pt.optimizer.Adagrad)
+    assert "adagrad" in {op.type for op in main.global_block().ops}
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    with pytest.raises(KeyError, match="no registered lowering"):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+
+def test_global_norm_clip_and_l2_decay_train():
+    from paddle_tpu_torch import clip, regularizer
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M)
+        clip.set_gradient_clip(clip.GradientClipByGlobalNorm(0.5))
+        try:
+            pt.optimizer.Adam(
+                learning_rate=LR,
+                regularization=regularizer.L2Decay(1e-4)).minimize(loss)
+        finally:
+            clip.set_gradient_clip(None)
+    types = {op.type for op in main.global_block().ops}
+    assert {"squared_l2_norm", "sqrt", "elementwise_max"} <= types
+    exe = pt.Executor(pt.CPUPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feed = _feeds(1, seed=6)[0]
+    ls = [float(np.asarray(exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=scope)[0]).reshape(()))
+          for _ in range(4)]
+    assert np.isfinite(ls).all() and ls[-1] < ls[0]
