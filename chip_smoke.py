@@ -15,11 +15,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
    its time, the plain version's, one PyTorch library call's
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    and the least time the card could take (the bound);
-3b. backward kernels: the flash dK/dV and dQ kernels against their
-   plain versions on the phase-3 cases (a trainable-bias score grad on
-   the causal and the ragged case), with their times, the plain versions', the
-   backward of one ``scaled_dot_product_attention`` call (a yardstick
-   the port never calls) and the bound;
+3b. backward kernels: the CTAs per SM the card grants the flash dK/dV
+   and dQ kernels (per dtype, head dim and bias kind); then both kernels
+   against their plain versions on the phase-3 cases (a trainable-bias
+   score grad on the causal and the ragged cases), two launches on the
+   same inputs bitwise equal, with each kernel's device time and call
+   time, the plain versions', and per case the backward as a whole
+   (dK/dV + dQ) beside the backward of one
+   ``scaled_dot_product_attention`` call (a yardstick the port never
+   calls) and the bound of the 10 units of work a backward needs;
 3c. tier kernels: the fused residual + layer norm forward (K4) and
    backward (K5, launched through autograd on the fused function, its
    one path) at [4096, 768], [512, 768], a ragged [1000, 1000] and a
@@ -249,11 +253,16 @@ def _ptxas_summary(report):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|dkv|dq)_kernel)I(\w+?)Li(\d+)E",
+            k = re.search(r"(flash_(?:fwd|dkv|dq)\w*?_kernel)I(\w*?)Li(\d+)E",
                           m.group(1))
-            kernel = m.group(1) if k is None else "%s<%s, %s>" % (
-                k.group(1), "float" if k.group(2) == "f" else "bfloat16",
-                k.group(3))
+            if k is None:
+                kernel = m.group(1)
+            elif k.group(2):  # templated on the element type too
+                kernel = "%s<%s, %s>" % (
+                    k.group(1), "float" if k.group(2) == "f" else "bfloat16",
+                    k.group(3))
+            else:
+                kernel = "%s<%s>" % (k.group(1), k.group(3))
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -271,6 +280,10 @@ ATTN_CASES = [
     ("causal_f32", (2, 12, 1024, 64), torch.float32, None, True),
     ("ragged200_f32", (2, 12, 200, 64), torch.float32, "full", False),
     ("d128_f32", (4, 8, 512, 128), torch.float32, "keypad", False),
+    # the tensor-core backward's own masking and edge code
+    ("causal_bf16", (2, 12, 1024, 64), torch.bfloat16, None, True),
+    ("ragged200_bf16", (2, 12, 200, 64), torch.bfloat16, "full", False),
+    ("d128_bf16", (4, 8, 512, 128), torch.bfloat16, "keypad", False),
 ]
 
 
@@ -360,30 +373,55 @@ def phase_kernels(seed):
 
 # --------------------------------------------------------------- phase 3b
 # the cases that also check the raw score grad (a trainable bias's): on
-# the causal one the dK/dV kernel skips the tiles above the diagonal
-BWD_WANT_DB = {"causal_f32", "ragged200_f32"}
+# the causal ones the dK/dV kernel skips the tiles above the diagonal
+BWD_WANT_DB = {"causal_f32", "ragged200_f32", "causal_bf16", "ragged200_bf16"}
 
 
 def _bwd_bounds(shape, dtype, bias, causal, want_db):
-    """Bounds of the dK/dV and dQ kernels: (ms, bound_by) each. The
-    dK/dV kernel does 8 FLOPs per (pair, head-dim element), the dQ
-    kernel 6; each reads q, k, v, dO, lse, delta and the bias once and
-    writes its outputs once."""
+    """Bounds of the dK/dV kernel, the dQ kernel and the backward as a
+    whole: (ms, bound_by) each. A unit is B*H*P*D FLOPs (P the visible
+    (query, key) pairs): the dK/dV kernel does 8, the dQ kernel 6 and
+    the backward needs 10 (s, dp, dV, dK and dQ, two FLOPs each). Each
+    reads q, k, v, dO, lse, delta and the bias once and writes its
+    outputs once."""
     B, H, S, D = shape
     pairs = S * (S + 1) // 2 if causal else S * S
     esize = torch.tensor([], dtype=dtype).element_size()
     ins = 4 * B * H * S * D * esize + 2 * B * H * S * 4
     if bias is not None:
         ins += bias.numel() * 4
+    ds_bytes = B * H * S * S * 4 if want_db else 0
     out = []
     for flops_per, nbytes in (
-            (8, ins + 2 * B * H * S * D * esize
-             + (B * H * S * S * 4 if want_db else 0)),
-            (6, ins + B * H * S * D * esize)):
+            (8, ins + 2 * B * H * S * D * esize + ds_bytes),
+            (6, ins + B * H * S * D * esize),
+            (10, ins + 3 * B * H * S * D * esize + ds_bytes)):
         t_ops = flops_per * B * H * pairs * D / PEAK_FLOPS[dtype]
         t_bytes = nbytes / PEAK_BYTES
         out.append((max(t_ops, t_bytes) * 1e3,
                     "operations" if t_ops >= t_bytes else "bytes"))
+    return out
+
+
+def _bwd_occupancy():
+    """CTAs per SM the card grants each backward kernel, per dtype, head
+    dim and bias kind (none, a key-pad row, a full tile)."""
+    from paddle_tpu_torch.ops import attention as attn
+
+    out = []
+    for what in ("flash_attention_dkv", "flash_attention_dq"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in (64, 128):
+                _, threads, _ = attn._bwd_config(what, d, dtype)
+                occ = {str(b): attn.flash_attention_bwd_occupancy(
+                    what, d, dtype, b) for b in (None, "row", "full")}
+                out.append(dict(kernel=what, dtype=str(dtype), head_dim=d,
+                                threads=threads, occupancy=occ))
+                log("occupancy %-19s %-14s D = %3d, %d threads: %s" % (
+                    what, dtype, d, threads, ", ".join(
+                        "bias %s %d CTA(s) x %d B = %d warps/SM"
+                        % (b, n, sm, n * threads // 32)
+                        for b, (n, sm) in occ.items())))
     return out
 
 
@@ -393,6 +431,7 @@ def phase_bwd_kernels(seed):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
+    occupancy = _bwd_occupancy()
     rows = []
     for name, shape, dtype, bias_kind, causal in ATTN_CASES:
         want_db = name in BWD_WANT_DB
@@ -413,6 +452,14 @@ def phase_bwd_kernels(seed):
                 .launches) != (n_dkv + 1, n_dq + 1):
             raise AssertionError("%s: a backward wrapper did not count its "
                                  "launch" % name)
+        # no atomics: a second launch on the same inputs, the same bits
+        dk2, dv2, ds2 = attn.flash_attention_dkv(*args, want_db=want_db)
+        dq2 = attn.flash_attention_dq(*args)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in (
+            (dk, dk2), (dv, dv2), (dq, dq2))) and (
+            not want_db or torch.equal(ds, ds2))
+        del dk2, dv2, ds2, dq2
         # the plain versions on f32 copies of the same inputs
         ref_args = (*f32[:3], bias, f32[3], lse, delta, scale, causal)
         rdk, rdv, rds = attn.flash_attention_dkv_reference(
@@ -423,49 +470,87 @@ def phase_bwd_kernels(seed):
                                 ("dv", dv, rdv))}
         if want_db:
             errs["ds"] = float((ds - rds).abs().max())
+        # at bf16, also against the plain versions on the bf16 inputs
+        # themselves, which round p and ds to bf16 where the kernels do
+        # (not a gate: it shows where the two round alike)
+        same_dtype = {}
+        if dtype != torch.float32:
+            bdk, bdv, _ = attn.flash_attention_dkv_reference(*args)
+            bdq = attn.flash_attention_dq_reference(*args)
+            same_dtype = {n: float((a.float() - b.float()).abs().max())
+                          for n, a, b in (("dq", dq, bdq), ("dk", dk, bdk),
+                                          ("dv", dv, bdv))}
+            del bdk, bdv, bdq
         tol = BWD_TOL[dtype]
-        ok = max(errs.values()) <= tol and all(
+        ok = max(errs.values()) <= tol and bitwise and all(
             bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
-        ms_dkv = time_ms(lambda: attn.flash_attention_dkv(
-            *args, want_db=want_db))
-        ms_dq = time_ms(lambda: attn.flash_attention_dq(*args))
-        plain_dkv = time_ms(lambda: attn.flash_attention_dkv_reference(
-            *args, want_db=want_db))
-        plain_dq = time_ms(lambda: attn.flash_attention_dq_reference(*args))
+        dkv_fn = lambda: attn.flash_attention_dkv(  # noqa: E731
+            *args, want_db=want_db)
+        dq_fn = lambda: attn.flash_attention_dq(*args)  # noqa: E731
+        # the kernels' own device time (torch.profiler), and the time of
+        # back-to-back calls (CUDA events), which holds the host's launch
+        t_dkv = dict(ms=device_ms(dkv_fn, ("flash_dkv",)),
+                     call_ms=time_ms(dkv_fn),
+                     plain_ms=time_ms(lambda: attn
+                                      .flash_attention_dkv_reference(
+                                          *args, want_db=want_db)))
+        t_dq = dict(ms=device_ms(dq_fn, ("flash_dq",)), call_ms=time_ms(dq_fn),
+                    plain_ms=time_ms(lambda: attn
+                                     .flash_attention_dq_reference(*args)))
         # yardstick: the backward alone of one scaled_dot_product_attention
         lq, lk, lv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
             lq, lk, lv, attn_mask=None if bias is None else bias.to(dtype),
             is_causal=causal, scale=scale)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, (lq, lk, lv), g, retain_graph=True))
-        (b_dkv, by_dkv), (b_dq, by_dq) = _bwd_bounds(shape, dtype, bias,
-                                                     causal, want_db)
+        lib_fn = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (lq, lk, lv), g, retain_graph=True)
+        library_ms = time_ms(lib_fn)
+        library_device_ms = device_ms(lib_fn, ("",))
+        bounds = _bwd_bounds(shape, dtype, bias, causal, want_db)
+        for t, (b, by) in zip((t_dkv, t_dq), bounds):
+            t.update(bound_ms=b, bound_by=by, roofline_share=b / t["ms"])
+        both_ms = t_dkv["ms"] + t_dq["ms"]
+        bwd = dict(ms=both_ms, call_ms=t_dkv["call_ms"] + t_dq["call_ms"],
+                   library_ms=library_ms,
+                   library_device_ms=library_device_ms,
+                   bound_ms=bounds[2][0], bound_by=bounds[2][1],
+                   roofline_share=bounds[2][0] / both_ms)
         row = dict(case=name, shape=list(shape), dtype=str(dtype),
                    bias=None if bias is None else list(bias.shape),
                    causal=causal, want_db=want_db, max_abs_err=errs, tol=tol,
-                   dkv=dict(ms=ms_dkv, plain_ms=plain_dkv, bound_ms=b_dkv,
-                            bound_by=by_dkv, roofline_share=b_dkv / ms_dkv),
-                   dq=dict(ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq,
-                           bound_by=by_dq, roofline_share=b_dq / ms_dq),
+                   max_abs_err_vs_plain_in_dtype=same_dtype,
+                   bitwise_repeatable=bitwise, dkv=t_dkv, dq=t_dq, bwd=bwd,
                    library_ms=library_ms, ok=ok)
         rows.append(row)
-        log("bwd %-14s %-22s err %s | dkv %.4f ms (plain %.4f, bound %.4f "
-            "%s, %.1f%%) | dq %.4f ms (plain %.4f, bound %.4f %s, %.1f%%) | "
-            "sdpa bwd %.4f ms%s" % (
+        log("bwd %-14s %-22s err %s%s | dkv %.4f ms on the card, %.4f a "
+            "call (plain %.4f, bound %.4f %s, %.1f%%) | dq %.4f ms, %.4f a "
+            "call (plain %.4f, bound %.4f %s, %.1f%%)%s" % (
                 name, tuple(shape),
-                " ".join("%s %.2e" % kv for kv in errs.items()), ms_dkv,
-                plain_dkv, b_dkv, by_dkv, 100 * b_dkv / ms_dkv, ms_dq,
-                plain_dq, b_dq, by_dq, 100 * b_dq / ms_dq, library_ms,
+                " ".join("%s %.2e" % kv for kv in errs.items()),
+                "" if bitwise else " NOT BITWISE REPEATABLE", t_dkv["ms"],
+                t_dkv["call_ms"], t_dkv["plain_ms"], t_dkv["bound_ms"],
+                t_dkv["bound_by"], 100 * t_dkv["roofline_share"], t_dq["ms"],
+                t_dq["call_ms"], t_dq["plain_ms"], t_dq["bound_ms"],
+                t_dq["bound_by"], 100 * t_dq["roofline_share"],
                 "" if ok else "  <-- FAILED"))
+        log("bwd %-14s dkv + dq %.4f ms on the card, %.4f a call | sdpa "
+            "bwd %.4f ms a call, %.4f on the card | bound (10 units) %.4f "
+            "%s, %.1f%% | two launches bitwise equal: %s%s" % (
+                name, both_ms, bwd["call_ms"], library_ms, library_device_ms,
+                bwd["bound_ms"], bwd["bound_by"], 100 * bwd["roofline_share"],
+                bitwise, "" if not same_dtype else
+                " | err vs the plain versions at bf16 " + " ".join(
+                    "%s %.2e" % kv for kv in same_dtype.items())))
         del q, k, v, g, bias, f32, o, lse, delta, args, ref_args, dk, dv, ds
-        del dq, rdk, rdv, rds, rdq, lq, lk, lv, lib_out
+        del dq, rdk, rdv, rds, rdq, lq, lk, lv, lib_out, dkv_fn, dq_fn
+        del lib_fn
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError("flash backward kernels disagree with their "
-                             "plain versions in %s" % bad)
-    return rows
+                             "plain versions (or are not bitwise "
+                             "repeatable) in %s" % bad)
+    return rows, occupancy
 
 
 # --------------------------------------------------------------- phase 3c
@@ -1413,7 +1498,7 @@ def main():
     smi = phase_card()
     build_s = phase_build()
     rows = phase_kernels(args.seed)
-    bwd_rows = phase_bwd_kernels(args.seed)
+    bwd_rows, bwd_occupancy = phase_bwd_kernels(args.seed)
     tier_rows, k5_launches = phase_tier_kernels(args.seed)
     tuned = phase_tune()
     torch.cuda.empty_cache()
@@ -1489,6 +1574,7 @@ def main():
             json.dump(dict(card=smi, torch=torch.__version__,
                            build_s=build_s, kernel_cases=rows,
                            bwd_kernel_cases=bwd_rows,
+                           bwd_occupancy=bwd_occupancy,
                            tier_kernel_cases=tier_rows, tune=tuned,
                            serve=serve, profile=profile, train=train,
                            train_sgd=train_sgd, kernels=kernels,

@@ -1,16 +1,15 @@
 // FlashAttention-2 backward for Hopper (sm_90a), f32 and bf16 inputs:
-// two kernels, dK/dV and dQ.
+// two kernels, dK/dV and dQ, each in a bf16 and an f32 design.
 //
-// Replaces paddle_tpu/ops/attention.py `_dkv_kernel` and `_dq_kernel`
-// (driven by `_backward_pallas`), the Pallas TPU kernels. They compute
-// the same functions, from the forward's per-row logsumexp (lse) and
-// delta = rowsum(dO * O) (minus the lse cotangent), both computed
-// outside the kernels:
+// Replaces paddle_tpu/ops/attention.py `_dkv_kernel` (:383) and
+// `_dq_kernel` (:432), driven by `_backward_pallas` (:469), the Pallas
+// TPU kernels. They compute the same functions, from the forward's
+// per-row logsumexp (lse) and delta = rowsum(dO * O) (minus the lse
+// cotangent), both computed outside the kernels:
 //
 //   s   = (q k^T) * scale + bias      bias broadcast over
 //                                     [B|1, H|1, Sq|1, Sk] by strides
-//   s   = -1e9 where key > query      when causal (Sq == Sk)
-//   p   = exp(s - lse)
+//   p   = exp(s - lse), 0 where key > query when causal (Sq == Sk)
 //   dp  = dO v^T
 //   ds  = p * (dp - delta) * scale
 //   dV  = p^T dO,  dK = ds^T q        (dkv kernel; optionally the raw
@@ -19,37 +18,64 @@
 //
 // The [Sq, Sk] probabilities are recomputed per tile and never reach
 // device memory (except the raw score grad, when a trainable bias asks
-// for it).
+// for it). Both kernels recompute s and dp (the backward needs 10 units
+// of B*H*P*D FLOPs, P the visible (query, key) pairs; the two kernels do
+// 8 + 6 = 14), so that every output element is written by exactly one
+// CTA: no atomics, and a result is bitwise repeatable.
 //
-// What bounds it on an H100: the dkv kernel does 8*B*H*P*D FLOPs and the
-// dq kernel 6*B*H*P*D (P = visible (query, key) pairs) of plain f32
-// FMAs, against the card's 67 TFLOP/s of non-tensor-core f32: both are
-// operations-bound at f32 (each moves a few bytes per FLOP). This first
-// version is simple and right, not fast:
+// What bounds each dtype on an H100:
+//   bf16: operations on the tensor cores, 989 TFLOP/s dense. Every
+//     product is a warp-level mma.sync m16n8k16 (bf16 in, f32
+//     accumulate), operands from ldmatrix (.trans where the layout needs
+//     it). P and dS are rounded to bf16 before the dV, dK and dQ
+//     products, as the TPU kernel and the plain version do.
+//   f32: operations on the f32 FMA units, 67 TFLOP/s (no tensor cores:
+//     TF32 would change the result, and the main path runs with TF32
+//     off). Register micro-tiles of 4 rows x 8 (D = 64) or 4 (D = 128)
+//     keys for the scores and 4 owned rows x 8 columns for the outputs
+//     keep 10.7 FMAs per 16-byte shared-memory load.
 //
-//   - no atomics: the dkv kernel runs one CTA per (b*h, 64-key tile) and
-//     sweeps the query tiles, accumulating dK and dV in registers; the dq
-//     kernel runs one CTA per (b*h, 64-query tile) and sweeps the key
-//     tiles. Every output element is written by exactly one CTA, so a
-//     result is bitwise repeatable;
-//   - 2*D threads per CTA (128 at D = 64, 256 at D = 128), so the per-
-//     thread accumulators stay at 32 floats per output at both head dims;
-//   - tiles staged in shared memory as f32, row-major with a padded
-//     leading dim (bf16 converted on load); each thread reads float4 runs
-//     that the 8 lanes of a quarter warp spread over distinct banks;
-//   - score products (thread owns 4 query rows x 64/(D/8) keys) and
-//     output products (thread owns 4 rows x 8 columns) are f32 FMAs: no
-//     tensor cores, no wgmma, no TMA, no warp specialization (later
-//     work);
-//   - causal: the dkv kernel skips query tiles wholly above the diagonal,
-//     the dq kernel key tiles wholly above it (the dkv kernel writes
-//     zeros to the raw score grad of the tiles it skips); ragged Sq and
-//     Sk are bounds-checked (rows past Sq and keys past Sk take p = 0),
-//     never padded; the bias is read through its strides, never
-//     materialized.
+// Layout, both designs: one CTA per (b*h, 64-key tile) for dK/dV, which
+// sweeps the query tiles; one CTA per (b*h, 64-query tile) for dQ, which
+// sweeps the key tiles. The swept tiles arrive by cp.async (16 bytes,
+// zero-filled past Sq / Sk, no trip through registers), with the tile's
+// lse and delta (dK/dV) and its bias slice, copied once per tile through
+// the bias' strides (4-byte cp.async, zero-filled); a bias that
+// broadcasts over the query rows (a key-pad mask) is one row, which the
+// dK/dV kernels keep in registers for the whole sweep. exp is exp2f of
+// (x - lse) * log2(e); masked scores take p = 0 without one.
 //
-// Shared memory per CTA: dkv 104,448 B at D = 64 (two CTAs per SM),
-// 169,984 B at D = 128 (one); dq 87,040 B and 152,576 B.
+//   bf16 (128 threads, 4 warps; each warp owns 16 rows of the CTA's 64):
+//     a two-stage ring, so tile i+1 loads while tile i is computed.
+//     dK/dV: K and V stay in shared memory; per swept tile the warp
+//       computes S^T = K Q^T and dP^T = V dO^T into mma accumulators,
+//       forms P^T and dS^T in registers, packs them to bf16 A fragments
+//       and accumulates dV += P^T dO and dK += dS^T Q (B operands from
+//       the ring by ldmatrix.trans). P^T and dS^T never touch shared
+//       memory; the raw score grad is written from the f32 fragments.
+//     dQ: the warp's Q and dO fragments stay in registers; per swept key
+//       tile S = Q K^T, dP = dO V^T, dS in registers, dQ += dS K.
+//     Rows are padded by 16 bytes, so ldmatrix reads them without bank
+//       conflicts. Swept tiles: 32 query rows for dK/dV; 64 keys for dQ
+//       at D = 64, 32 at D = 128 (fewer accumulator registers). The
+//       epilogue, not the products, bounds both kernels, so a tile wholly
+//       inside [Sq, Sk] and below the causal diagonal takes an
+//       instantiation without masks.
+//   f32 (2 D threads): one stage of the swept tile, so that two CTAs of
+//     4 warps share an SM at D = 64 and one of the two overlaps the
+//     other's loads; p and ds * scale go through shared memory to the
+//     output products (for dK/dV a full bias tile is staged where p then
+//     goes). A two-stage ring costs the second CTA (140-175 KB): with
+//     one CTA of 8 warps per SM the ring measured slower than this.
+//
+// Shared memory per CTA, at D = 64 | 128 (bf16 dK/dV: a full bias tile /
+// a key-pad row or none; dQ: a full tile / a row / none):
+//   bf16 dK/dV  54,784 / 37,376 B         |  87,552 / 70,144 B
+//   bf16 dQ     90,112 / 55,840 / 55,296   |  88,064 / 69,920 / 69,632
+//   f32 dK/dV  104,960                     | 170,496
+//   f32 dQ     104,448 / 87,312 / 87,040   | 169,984 / 152,848 / 152,576
+// (flash_attention_bwd_occupancy reports the CTAs per SM the card grants
+// each; for bf16 the registers bind first: 3 CTAs at D = 64, 2 at 128).
 //
 // C interface, loaded with ctypes (kernels/build.py): every pointer and
 // the stream are void*; each launch returns a cudaError_t as int.
@@ -59,94 +85,559 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kTile = 64;       // query rows and keys per tile
-constexpr int kLdP = kTile + 4;  // leading dim of the [64][64] tiles
-constexpr float kMask = -1e9f;  // the causal mask value of the TPU kernel
+using bf16 = __nv_bfloat16;
 
-template <int D>
-struct Cfg {
-  static constexpr int kThreads = 2 * D;
-  static constexpr int kLd = D + 4;         // leading dim of [64][D] tiles
-  // score tiles [64 rows][64 keys]: 16 row groups x kCG key groups; a
-  // thread owns rows rg + 16 i (i < 4) and keys cg + kCG j (j < kNC)
-  static constexpr int kCG = kThreads / 16;
-  static constexpr int kNC = kTile / kCG;
-  // output tiles [64][D]: 16 groups of 4 rows x kDG column groups; a
-  // thread owns rows 4 og + i and columns 4 dg + c, D/2 + 4 dg + c
-  static constexpr int kDG = D / 8;
-  static constexpr int kTileFloats = kTile * kLd;
-  static constexpr int kPFloats = kTile * kLdP;
-  static constexpr int kDkvSmem = (4 * kTileFloats + 2 * kPFloats) * 4;
-  static constexpr int kDqSmem = (4 * kTileFloats + kPFloats) * 4;
+constexpr int kOwn = 64;  // keys (dK/dV) or query rows (dQ) per CTA
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------- helpers
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4-byte async copy global -> shared; zero-filled when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [row0, row0 + R) of a row-major [S][D] matrix into a [R][LD] tile;
+// rows past S are zero
+template <typename T, int R, int D, int LD, int NT>
+__device__ __forceinline__ void async_tile(T* dst, const T* src, int row0,
+                                           int S) {
+  constexpr int kE = 16 / sizeof(T);  // elements per 16 bytes
+  constexpr int kC = D / kE;          // 16-byte chunks per row
+  for (int i = threadIdx.x; i < R * kC; i += NT) {
+    const int r = i / kC, c = (i % kC) * kE, row = row0 + r;
+    const bool ok = row < S;
+    cp_async16(dst + r * LD + c, src + (int64_t)(ok ? row : 0) * D + c, ok);
+  }
+}
+
+// n floats from src[i0 ...] (zero past S)
+template <int NT>
+__device__ __forceinline__ void async_vec(float* dst, const float* src,
+                                          int i0, int n, int S) {
+  for (int i = threadIdx.x; i < n; i += NT) {
+    const bool ok = i0 + i < S;
+    cp_async4(dst + i, src + (ok ? i0 + i : 0), ok);
+  }
+}
+
+struct Bias {
+  const float* p;  // this (b, h)'s slice, or null
+  int64_t sq, sk;  // element strides over query rows and keys (0: broadcast)
 };
 
+// rows [row0, row0 + rows) x keys [col0, col0 + C) of the bias into a
+// [rows][LDB] f32 tile through its strides; zero past Sq / Sk
+template <int C, int LDB, int NT>
+__device__ __forceinline__ void async_bias(float* dst, const Bias& b,
+                                           int rows, int row0, int Sq,
+                                           int col0, int Sk) {
+  for (int i = threadIdx.x; i < rows * C; i += NT) {
+    const int r = i / C, c = i % C, row = row0 + r, col = col0 + c;
+    const bool ok = row < Sq && col < Sk;
+    cp_async4(dst + r * LDB + c,
+              b.p + (ok ? (int64_t)row * b.sq + (int64_t)col * b.sk : 0), ok);
+  }
+}
+
+// 2^x by the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p = exp(x - lse), x = s * scale + bias, or 0 where masked. x - lse is
+// taken before the scaling by log2(e), so that a row whose every key
+// carries the -1e9 mask (x and lse both near -1e9) keeps the plain
+// version's rounding
+__device__ __forceinline__ float prob(float s, float bias, float lse,
+                                      float scale, bool live) {
+  return live ? ex2((fmaf(s, scale, bias) - lse) * kLog2e) : 0.f;
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// a tile wholly inside [Sq, Sk] and below the causal diagonal needs no
+// masks: its epilogue is instantiated without them
+using Masked = std::true_type;
+using Interior = std::false_type;
+
+// ------------------------------------------ bf16: tensor cores (mma.sync)
+template <int D>
+struct Bf {
+  static constexpr int kThreads = 128;                // 4 warps x 16 rows
+  // CTAs per SM the registers must allow: 3 at D = 64 (at most 168
+  // registers, which both kernels fit without spills); 2 at D = 128,
+  // where a cap of 168 spills hundreds of bytes
+  static constexpr int kMinBlocks = D == 64 ? 3 : 2;
+  // rows per swept tile: 32 query rows for dK/dV (at 64 its registers
+  // spill under the cap of 168); 64 keys for dQ at D = 64, 32 at D = 128
+  static constexpr int kDkvSweep = 32;
+  static constexpr int kDqSweep = D == 64 ? 64 : 32;
+  static constexpr int kLd = D + 8;                   // padded row, bf16
+  // dK/dV ring stage: q, dO, lse, delta and `brows` bias rows of 64 keys
+  __host__ __device__ static constexpr int dkv_stage(int brows) {
+    return 4 * kDkvSweep * kLd + 8 * kDkvSweep + brows * (kOwn + 4) * 4;
+  }
+  __host__ __device__ static constexpr int dkv_smem(int brows) {
+    return 4 * kOwn * kLd + 2 * dkv_stage(brows);
+  }
+  // dQ ring stage: k, v and `brows` bias rows of kDqSweep keys
+  __host__ __device__ static constexpr int dq_stage(int brows) {
+    return 4 * kDqSweep * kLd + brows * (kDqSweep + 4) * 4;
+  }
+  __host__ __device__ static constexpr int dq_smem(int brows) {
+    return 4 * kOwn * kLd + 2 * dq_stage(brows);
+  }
+};
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// c += a b on one 16 x 8 block: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Fragment conventions (lane = 4 gi + t): an accumulator block x[j][0..3]
+// holds rows gi, gi + 8 and columns 8 j + 2 t, + 1 of a 16 x 8 NJ tile.
+
+// acc (16 x 8 NJ) += A B^T: A the warp's fragments (16 rows x 16 KD), B
+// rows [0, 8 NJ) of a row-major [.][LD] shared tile (non-transposed
+// ldmatrix gives the mma's column operand)
+template <int NJ, int KD, int LD>
+__device__ __forceinline__ void mma_rbt(float (&acc)[NJ][4],
+                                        const uint32_t (&a)[KD][4],
+                                        const bf16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      uint32_t f[4];
+      ldsm4(f, b + (16 * jj + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                   16 * kk + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * jj], a[kk], f[0], f[1]);
+      mma16816(acc[2 * jj + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// the A fragments of rows [0, 16) x [0, 16 KD) of a row-major [.][LD] tile
+template <int KD, int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KD][4], const bf16* p,
+                                       int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm4(a[kk], p + (lane & 15) * LD + 16 * kk + (lane >> 4) * 8);
+}
+
+// out (16 x D) += X B: X the bf16 rounding of the accumulator blocks
+// x (16 x 8 NJ) as A fragments, B rows [0, 8 NJ) x [0, D) of a row-major
+// [.][LD] shared tile (ldmatrix.trans)
+template <int NJ, int D, int LD>
+__device__ __forceinline__ void mma_xb(float (&out)[D / 8][4],
+                                       const float (&x)[NJ][4],
+                                       const bf16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    const uint32_t a[4] = {pack2(x[2 * kk][0], x[2 * kk][1]),
+                           pack2(x[2 * kk][2], x[2 * kk][3]),
+                           pack2(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           pack2(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int nd = 0; nd < D / 16; ++nd) {
+      uint32_t f[4];
+      ldsm4t(f, b + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    16 * nd + (lane >> 4) * 8);
+      mma16816(out[2 * nd], a, f[0], f[1]);
+      mma16816(out[2 * nd + 1], a, f[2], f[3]);
+    }
+  }
+}
+
+// rows r0 (+8) of a 16 x D accumulator into a row-major [S][D] bf16
+// matrix, rows past S dropped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst,
+                                           const float (&x)[D / 8][4],
+                                           int row0, int row1, int S, int t) {
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (row0 < S)
+      *reinterpret_cast<uint32_t*>(dst + (int64_t)row0 * D + c) =
+          pack2(x[nd][0], x[nd][1]);
+    if (row1 < S)
+      *reinterpret_cast<uint32_t*>(dst + (int64_t)row1 * D + c) =
+          pack2(x[nd][2], x[nd][3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bf<D>::kThreads, Bf<D>::kMinBlocks)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ bias, int64_t bias_sb,
+                      int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
+                      const bf16* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float* __restrict__ ds, int H,
+                      int Sq, int Sk, float scale, int causal) {
+  using C = Bf<D>;
+  constexpr int BM = C::kDkvSweep, LD = C::kLd, NT = C::kThreads;
+  constexpr int NJ = BM / 8, LDB = kOwn + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // [64 keys][LD]
+  bf16* vs = ks + kOwn * LD;                 // [64 keys][LD]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kOwn * LD);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int ik = blockIdx.x, bh = blockIdx.y, k0 = ik * kOwn;
+  const bf16* qb = q + (int64_t)bh * Sq * D;
+  const bf16* gb = g + (int64_t)bh * Sq * D;
+  const float* lb = lse + (int64_t)bh * Sq;
+  const float* db = delta + (int64_t)bh * Sq;
+  Bias bb{nullptr, bias_sq, bias_sk};
+  if (bias != nullptr)
+    bb.p = bias + (int64_t)(bh / H) * bias_sb + (int64_t)(bh % H) * bias_sh;
+  float* dsb = ds == nullptr ? nullptr : ds + (int64_t)bh * Sq * Sk;
+  // bias rows staged per query tile: a full tile, or none (a bias that
+  // broadcasts over the query rows is read once, below, per key)
+  const int sbr = bias != nullptr && bias_sq != 0 ? BM : 0;
+  const int stage = C::dkv_stage(sbr);
+
+  // this thread's accumulator rows: keys kr[0], kr[1] of the CTA's 64
+  const int kr[2] = {16 * warp + gi, 16 * warp + gi + 8};
+  bool kval[2];
+  float brk[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kval[h] = k0 + kr[h] < Sk;
+    brk[h] = bb.p != nullptr && sbr == 0 && kval[h]
+                 ? bb.p[(int64_t)(k0 + kr[h]) * bias_sk]
+                 : 0.f;
+  }
+
+  const int nq = (Sq + BM - 1) / BM;
+  const int iq0 = causal ? k0 / BM : 0;  // earlier tiles: all key > query
+  if (dsb != nullptr) {  // their score grad is 0, written here
+    const int rows = min(iq0 * BM, Sq);
+    for (int e = threadIdx.x; e < rows * kOwn; e += NT) {
+      const int key = k0 + e % kOwn;
+      if (key < Sk) dsb[(int64_t)(e / kOwn) * Sk + key] = 0.f;
+    }
+  }
+
+  auto load_stage = [&](int iq, int st) {
+    unsigned char* s = ring + st * stage;
+    bf16* qs = reinterpret_cast<bf16*>(s);
+    bf16* gs = qs + BM * LD;
+    float* ls = reinterpret_cast<float*>(gs + BM * LD);
+    const int q0 = iq * BM;
+    async_tile<bf16, BM, D, LD, NT>(qs, qb, q0, Sq);
+    async_tile<bf16, BM, D, LD, NT>(gs, gb, q0, Sq);
+    async_vec<NT>(ls, lb, q0, BM, Sq);
+    async_vec<NT>(ls + BM, db, q0, BM, Sq);
+    if (sbr) async_bias<kOwn, LDB, NT>(ls + 2 * BM, bb, BM, q0, Sq, k0, Sk);
+  };
+
+  async_tile<bf16, kOwn, D, LD, NT>(ks, k + (int64_t)bh * Sk * D, k0, Sk);
+  async_tile<bf16, kOwn, D, LD, NT>(vs, v + (int64_t)bh * Sk * D, k0, Sk);
+  load_stage(iq0, 0);
+  cp_async_commit();
+
+  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+  for (int iq = iq0, st = 0; iq < nq; ++iq, st ^= 1) {
+    if (iq + 1 < nq) load_stage(iq + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait1();  // this tile (and K, V) have landed
+    __syncthreads();
+    const bf16* qs = reinterpret_cast<const bf16*>(ring + st * stage);
+    const bf16* gs = qs + BM * LD;
+    const float* ls = reinterpret_cast<const float*>(gs + BM * LD);
+    const float* dl = ls + BM;
+    const float* bs = dl + BM;
+    const int q0 = iq * BM;
+
+    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BM queries
+    float sa[NJ][4] = {}, pa[NJ][4] = {};
+    {
+      uint32_t a[D / 16][4];
+      load_a<D / 16, LD>(a, ks + 16 * warp * LD, lane);
+      mma_rbt<NJ, D / 16, LD>(sa, a, qs, lane);
+      load_a<D / 16, LD>(a, vs + 16 * warp * LD, lane);
+      mma_rbt<NJ, D / 16, LD>(pa, a, gs, lane);
+    }
+    // P^T and dS^T in registers
+    auto epilogue = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 l2 = load2(ls + 8 * j + 2 * t);
+        const float2 d2 = load2(dl + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, qc = 8 * j + 2 * t + (e & 1), row = q0 + qc;
+          const int key = k0 + kr[h];
+          const bool live =
+              !kMasked || (row < Sq && kval[h] && !(causal && key > row));
+          const float b = sbr ? bs[qc * LDB + kr[h]] : brk[h];
+          const float p =
+              prob(sa[j][e], b, (e & 1) ? l2.y : l2.x, scale, live);
+          const float dsr = p * (pa[j][e] - ((e & 1) ? d2.y : d2.x));
+          if (dsb != nullptr && (!kMasked || (row < Sq && kval[h])))
+            dsb[(int64_t)row * Sk + key] = dsr;
+          sa[j][e] = p;
+          pa[j][e] = dsr * scale;
+        }
+      }
+    };
+    if (q0 + BM > Sq || k0 + kOwn > Sk || (causal && q0 < k0 + kOwn))
+      epilogue(Masked{});
+    else
+      epilogue(Interior{});
+    // dV += P^T dO, dK += dS^T Q (bf16 operands, f32 sums)
+    mma_xb<NJ, D, LD>(dva, sa, gs, lane);
+    mma_xb<NJ, D, LD>(dka, pa, qs, lane);
+    __syncthreads();  // this stage is read; load_stage may refill it
+  }
+
+  store_rows<D>(dk + (int64_t)bh * Sk * D, dka, k0 + kr[0], k0 + kr[1], Sk,
+                t);
+  store_rows<D>(dv + (int64_t)bh * Sk * D, dva, k0 + kr[0], k0 + kr[1], Sk,
+                t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Bf<D>::kThreads, Bf<D>::kMinBlocks)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const float* __restrict__ bias, int64_t bias_sb,
+                     int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
+                     const bf16* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dq,
+                     int H, int Sq, int Sk, float scale, int causal) {
+  using C = Bf<D>;
+  constexpr int BN = C::kDqSweep, LD = C::kLd, NT = C::kThreads;
+  constexpr int NJ = BN / 8, KD = D / 16, LDB = BN + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // [64 rows][LD]
+  bf16* gs = qs + kOwn * LD;                 // [64 rows][LD]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(gs + kOwn * LD);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gi = lane >> 2, t = lane & 3;
+  const int iq = blockIdx.x, bh = blockIdx.y, q0 = iq * kOwn;
+  const bf16* kb = k + (int64_t)bh * Sk * D;
+  const bf16* vb = v + (int64_t)bh * Sk * D;
+  Bias bb{nullptr, bias_sq, bias_sk};
+  if (bias != nullptr)
+    bb.p = bias + (int64_t)(bh / H) * bias_sb + (int64_t)(bh % H) * bias_sh;
+  // bias rows staged per key tile: the CTA's 64 rows, or one row when the
+  // bias broadcasts over the query rows
+  const int sbr = bias == nullptr ? 0 : (bias_sq == 0 ? 1 : kOwn);
+  const int stage = C::dq_stage(sbr);
+
+  // this thread's accumulator rows
+  int row[2], rr[2];
+  float l[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rr[h] = 16 * warp + gi + 8 * h;
+    row[h] = q0 + rr[h];
+    const bool ok = row[h] < Sq;
+    l[h] = ok ? lse[(int64_t)bh * Sq + row[h]] : 0.f;
+    dl[h] = ok ? delta[(int64_t)bh * Sq + row[h]] : 0.f;
+  }
+
+  int nk = (Sk + BN - 1) / BN;
+  if (causal) nk = min(nk, (q0 + kOwn - 1) / BN + 1);  // later: key > query
+
+  auto load_stage = [&](int ik, int st) {
+    bf16* ks = reinterpret_cast<bf16*>(ring + st * stage);
+    bf16* vs = ks + BN * LD;
+    const int kt0 = ik * BN;
+    async_tile<bf16, BN, D, LD, NT>(ks, kb, kt0, Sk);
+    async_tile<bf16, BN, D, LD, NT>(vs, vb, kt0, Sk);
+    if (sbr)
+      async_bias<BN, LDB, NT>(reinterpret_cast<float*>(vs + BN * LD), bb,
+                              sbr, sbr == 1 ? 0 : q0, Sq, kt0, Sk);
+  };
+
+  async_tile<bf16, kOwn, D, LD, NT>(qs, q + (int64_t)bh * Sq * D, q0, Sq);
+  async_tile<bf16, kOwn, D, LD, NT>(gs, g + (int64_t)bh * Sq * D, q0, Sq);
+  cp_async_commit();
+  load_stage(0, 0);
+  cp_async_commit();
+  cp_async_wait1();  // q and dO have landed
+  __syncthreads();
+  uint32_t qa[KD][4], ga[KD][4];  // this warp's 16 rows, in registers
+  load_a<KD, LD>(qa, qs + 16 * warp * LD, lane);
+  load_a<KD, LD>(ga, gs + 16 * warp * LD, lane);
+
+  float dqa[D / 8][4] = {};
+  for (int ik = 0, st = 0; ik < nk; ++ik, st ^= 1) {
+    if (ik + 1 < nk) load_stage(ik + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const bf16* ks = reinterpret_cast<const bf16*>(ring + st * stage);
+    const bf16* vs = ks + BN * LD;
+    const float* bs = reinterpret_cast<const float*>(vs + BN * LD);
+    const int kt0 = ik * BN;
+
+    // S = Q K^T, dP = dO V^T: this warp's 16 rows x BN keys
+    float sa[NJ][4] = {}, pa[NJ][4] = {};
+    mma_rbt<NJ, KD, LD>(sa, qa, ks, lane);
+    mma_rbt<NJ, KD, LD>(pa, ga, vs, lane);
+    auto epilogue = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int kc0 = 8 * j + 2 * t;
+        const float2 brow = sbr == 1 ? load2(bs + kc0) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, kc = kc0 + (e & 1), key = kt0 + kc;
+          const bool live = !kMasked || (row[h] < Sq && key < Sk &&
+                                         !(causal && key > row[h]));
+          float b = (e & 1) ? brow.y : brow.x;
+          if (sbr == kOwn) b = bs[rr[h] * LDB + kc];
+          const float p = prob(sa[j][e], b, l[h], scale, live);
+          sa[j][e] = p * (pa[j][e] - dl[h]) * scale;
+        }
+      }
+    };
+    if (q0 + kOwn > Sq || kt0 + BN > Sk || (causal && kt0 + BN - 1 > q0))
+      epilogue(Masked{});
+    else
+      epilogue(Interior{});
+    // dQ += dS K
+    mma_xb<NJ, D, LD>(dqa, sa, ks, lane);
+    __syncthreads();
+  }
+
+  store_rows<D>(dq + (int64_t)bh * Sq * D, dqa, row[0], row[1], Sq, t);
+}
+
+// ------------------------------------------- f32: exact f32 FMAs, cp.async
+// Geometry, both f32 kernels: 2 D threads, whose register micro-tiles of
+// 4 rows x 8 (D = 64) or 4 (D = 128) keys cover the 64 x 64 score tile
+// and whose micro-tiles of 4 owned rows x 8 columns cover the [64][D]
+// outputs (10.7 FMAs per 16-byte shared-memory load in both); one stage
+// of the swept tile, so that two CTAs of 4 warps share an SM at D = 64
+// and one CTA of 8 warps has it at D = 128.
+template <int D>
+struct F32 {
+  static constexpr int kThreads = 2 * D;
+  static constexpr int kNC = D == 64 ? 8 : 4;
+  static constexpr int kDG = D / 8;
+  static constexpr int kLd = D + 4, kLdP = kOwn + 4;
+  static_assert(kOwn * kOwn / (4 * kNC) == kThreads && 16 * kDG == kThreads,
+                "");
+  // dK/dV: k, v, q, dO, the bias tile then p, ds * scale, lse, delta
+  __host__ __device__ static constexpr int dkv_smem() {
+    return (4 * kOwn * kLd + 2 * kOwn * kLdP + 2 * kOwn) * 4;
+  }
+  // dQ: q, dO, k, v, (ds * scale)^T and `brows` bias rows
+  __host__ __device__ static constexpr int dq_smem(int brows) {
+    return (4 * kOwn * kLd + (kOwn + brows) * kLdP) * 4;
+  }
+};
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  union {
-    uint2 u;
-    __nv_bfloat162 h[2];
-  } x;
-  x.u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(x.h[0]);
-  const float2 b = __bfloat1622float2(x.h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
+__device__ __forceinline__ void store4(float* p, const float* x) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+// the score micro-tile of thread tid: rows rg + 16 i, keys cg + SC/NC j
+template <int SC, int NC>
+__device__ __forceinline__ void score_map(int tid, int& rg, int& cg) {
+  rg = tid / (SC / NC);
+  cg = tid % (SC / NC);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  union {
-    uint2 u;
-    __nv_bfloat162 h[2];
-  } x;
-  x.h[0] = __floats2bfloat162_rn(a, b);
-  x.h[1] = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) = x.u;
-}
-
-// rows [row0, row0 + 64) of a row-major [S][D] matrix into a [64][kLd]
-// f32 tile; rows past S are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int S) {
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kTile * kVec; i += Cfg<D>::kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 4, row = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S) x = load4(src + (int64_t)row * D + c);
-    *reinterpret_cast<float4*>(dst + r * Cfg<D>::kLd + c) = x;
-  }
-}
-
-// acc[i][j] = sum_d a[rg + 16 i][d] * b[cg + kCG j][d] over two [64][kLd]
-// tiles (the score-tile thread mapping)
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][Cfg<D>::kNC],
-                                         const float* a, const float* b,
-                                         int rg, int cg) {
-  constexpr int kLd = Cfg<D>::kLd, kCG = Cfg<D>::kCG, kNC = Cfg<D>::kNC;
+// acc[i][j] = sum_d a[rg + SR/4 i][d] * b[cg + SC/NC j][d] over two
+// [.][LD] tiles
+template <int D, int LD, int SR, int SC, int NC>
+__device__ __forceinline__ void tile_dot(float (&acc)[4][NC], const float* a,
+                                         const float* b, int rg, int cg) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < kNC; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     float4 av[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = load4(a + (rg + 16 * i) * kLd + d);
+    for (int i = 0; i < 4; ++i) av[i] = load4(a + (rg + SR / 4 * i) * LD + d);
 #pragma unroll
-    for (int j = 0; j < kNC; ++j) {
-      const float4 bv = load4(b + (cg + kCG * j) * kLd + d);
+    for (int j = 0; j < NC; ++j) {
+      const float4 bv = load4(b + (cg + SC / NC * j) * LD + d);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
@@ -158,180 +649,204 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][Cfg<D>::kNC],
   }
 }
 
-struct Bias {
-  const float* p;  // this (b, h)'s slice, or null
-  int64_t sq, sk;
-};
-
-// p = exp(s - lse) for one score element; 0 past Sq / Sk
-__device__ __forceinline__ float prob(float s, int row, int key, int Sq,
-                                      int Sk, float lse, float scale,
-                                      const Bias& bias, int causal) {
-  if (row >= Sq || key >= Sk) return 0.f;
-  float x = s * scale;
-  if (bias.p != nullptr) x += bias.p[(int64_t)row * bias.sq + (int64_t)key * bias.sk];
-  if (causal && key > row) x = kMask;
-  return expf(x - lse);
+// output column c of column group dg (< DG): 4-column chunks, DG groups
+// apart
+template <int DG>
+__device__ __forceinline__ int out_col(int dg, int c) {
+  return 4 * dg + (c & 3) + (c >> 2) * 4 * DG;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
-                 int64_t bias_sk, const T* __restrict__ g,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, float* __restrict__ ds, int H, int Sq,
-                 int Sk, float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int kLd = C::kLd, kCG = C::kCG, kNC = C::kNC, kDG = C::kDG;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                   // [64 keys][kLd]
-  float* vs = ks + C::kTileFloats;    // [64 keys][kLd]
-  float* qs = vs + C::kTileFloats;    // [64 rows][kLd]
-  float* gs = qs + C::kTileFloats;    // [64 rows][kLd]
-  float* ps = gs + C::kTileFloats;    // [64 rows][kLdP]  p
-  float* dss = ps + C::kPFloats;      // [64 rows][kLdP]  ds * scale
+// acc[i][c] += x[r][4 og + i] * y[r][out_col(dg, c)] over rows [0, R) of
+// a [.][LDX] and a [.][LDY] tile
+template <int DG, int OC, int R, int LDX, int LDY>
+__device__ __forceinline__ void out_product(float (&acc)[4][OC],
+                                            const float* x, const float* y,
+                                            int og, int dg) {
+#pragma unroll 2
+  for (int r = 0; r < R; ++r) {
+    const float4 xv = load4(x + r * LDX + 4 * og);
+    const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+    float yr[OC];
+#pragma unroll
+    for (int c = 0; c < OC; c += 4) {
+      const float4 y4 = load4(y + r * LDY + out_col<DG>(dg, c));
+      yr[c] = y4.x, yr[c + 1] = y4.y, yr[c + 2] = y4.z, yr[c + 3] = y4.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(xr[i], yr[c], acc[i][c]);
+  }
+}
+
+// rows row0 + i (i < 4) of acc into a row-major [S][D] matrix
+template <int D, int DG, int OC>
+__device__ __forceinline__ void store_out(float* dst,
+                                          const float (&acc)[4][OC], int row0,
+                                          int S, int dg) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (row0 + i >= S) continue;
+#pragma unroll
+    for (int c = 0; c < OC; c += 4)
+      store4(dst + (int64_t)(row0 + i) * D + out_col<DG>(dg, c), acc[i] + c);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads)
+flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias, int64_t bias_sb,
+                     int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
+                     const float* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ ds, int H,
+                     int Sq, int Sk, float scale, int causal) {
+  using C = F32<D>;
+  constexpr int BM = kOwn, LD = C::kLd, LDP = C::kLdP;
+  constexpr int NT = C::kThreads, NC = C::kNC, DG = C::kDG;
+  extern __shared__ __align__(16) float smf[];
+  float* ks = smf;              // [64 keys][LD]
+  float* vs = ks + kOwn * LD;   // [64 keys][LD]
+  float* qs = vs + kOwn * LD;   // [64 rows][LD]
+  float* gs = qs + BM * LD;     // [64 rows][LD]
+  float* ps = gs + BM * LD;     // [64 rows][LDP]  the bias tile, then p
+  float* dss = ps + BM * LDP;   // [64 rows][LDP]  ds * scale
+  float* ls = dss + BM * LDP;   // [64]  lse
+  float* dl = ls + BM;          // [64]  delta
 
   const int tid = threadIdx.x;
-  const int rg = tid / kCG, cg = tid % kCG;  // score-tile mapping
-  const int og = tid / kDG, dg = tid % kDG;  // output-tile mapping (keys)
-  const int ik = blockIdx.x, bh = blockIdx.y, k0 = ik * kTile;
-
-  const T* qb = q + (int64_t)bh * Sq * D;
-  const T* gb = g + (int64_t)bh * Sq * D;
-  const T* kb = k + (int64_t)bh * Sk * D;
-  const T* vb = v + (int64_t)bh * Sk * D;
+  int rg, cg;  // scores: rows rg + 16 i, keys cg + 64/NC j
+  score_map<kOwn, NC>(tid, rg, cg);
+  const int og = tid / DG, dg = tid % DG;  // outputs: keys 4 og + i
+  const int ik = blockIdx.x, bh = blockIdx.y, k0 = ik * kOwn;
+  const float* qb = q + (int64_t)bh * Sq * D;
+  const float* gb = g + (int64_t)bh * Sq * D;
   const float* lb = lse + (int64_t)bh * Sq;
   const float* db = delta + (int64_t)bh * Sq;
   Bias bb{nullptr, bias_sq, bias_sk};
   if (bias != nullptr)
     bb.p = bias + (int64_t)(bh / H) * bias_sb + (int64_t)(bh % H) * bias_sh;
   float* dsb = ds == nullptr ? nullptr : ds + (int64_t)bh * Sq * Sk;
+  const bool full_bias = bias != nullptr && bias_sq != 0;
 
-  load_tile<T, D>(ks, kb, k0, Sk);
-  load_tile<T, D>(vs, vb, k0, Sk);
-
-  float dk_acc[4][8], dv_acc[4][8];
+  bool kval[NC];
+  float brk[NC];  // a bias broadcast over the query rows, per key
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  for (int j = 0; j < NC; ++j) {
+    const int key = k0 + cg + kOwn / NC * j;
+    kval[j] = key < Sk;
+    brk[j] = bb.p != nullptr && !full_bias && kval[j]
+                 ? bb.p[(int64_t)key * bias_sk]
+                 : 0.f;
+  }
 
-  const int nq = (Sq + kTile - 1) / kTile;
-  const int iq0 = causal ? ik : 0;
-  // query tiles below iq0 lie wholly above the causal diagonal: their
-  // score grad is 0, written here so that every element of ds has a value
-  if (dsb != nullptr) {
-    const int rows = min(iq0 * kTile, Sq);
-    for (int e = tid; e < rows * kTile; e += C::kThreads) {
-      const int key = k0 + e % kTile;
-      if (key < Sk) dsb[(int64_t)(e / kTile) * Sk + key] = 0.f;
+  const int nq = (Sq + BM - 1) / BM;
+  const int iq0 = causal ? ik : 0;  // earlier tiles: all key > query
+  if (dsb != nullptr) {  // their score grad is 0, written here
+    const int rows = min(iq0 * BM, Sq);
+    for (int e = tid; e < rows * kOwn; e += NT) {
+      const int key = k0 + e % kOwn;
+      if (key < Sk) dsb[(int64_t)(e / kOwn) * Sk + key] = 0.f;
     }
   }
+
+  async_tile<float, kOwn, D, LD, NT>(ks, k + (int64_t)bh * Sk * D, k0, Sk);
+  async_tile<float, kOwn, D, LD, NT>(vs, v + (int64_t)bh * Sk * D, k0, Sk);
+
+  float dva[4][8] = {}, dka[4][8] = {};
   for (int iq = iq0; iq < nq; ++iq) {
-    const int q0 = iq * kTile;
-    __syncthreads();  // the previous tile's readers of qs/gs/ps/dss are done
-    load_tile<T, D>(qs, qb, q0, Sq);
-    load_tile<T, D>(gs, gb, q0, Sq);
+    const int q0 = iq * BM;
+    // the previous tile's readers are done (the loop ends in a barrier)
+    async_tile<float, BM, D, LD, NT>(qs, qb, q0, Sq);
+    async_tile<float, BM, D, LD, NT>(gs, gb, q0, Sq);
+    async_vec<NT>(ls, lb, q0, BM, Sq);
+    async_vec<NT>(dl, db, q0, BM, Sq);
+    if (full_bias) async_bias<kOwn, LDP, NT>(ps, bb, BM, q0, Sq, k0, Sk);
+    cp_async_commit();
+    cp_async_wait0();
     __syncthreads();
 
-    float s[4][kNC], dp[4][kNC];
-    tile_dot<D>(s, qs, ks, rg, cg);
-    tile_dot<D>(dp, gs, vs, rg, cg);
+    float s[4][NC], dp[4][NC];
+    tile_dot<D, LD, BM, kOwn, NC>(s, qs, ks, rg, cg);
+    tile_dot<D, LD, BM, kOwn, NC>(dp, gs, vs, rg, cg);
+    auto epilogue = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 16 * i, row = q0 + r;
-      const bool live = row < Sq;
-      const float l = live ? lb[row] : 0.f;
-      const float dl = live ? db[row] : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + 16 * i, row = q0 + r;
+        const bool rv = !kMasked || row < Sq;
+        const float l = ls[r], dlt = dl[r];
 #pragma unroll
-      for (int j = 0; j < kNC; ++j) {
-        const int c = cg + kCG * j, key = k0 + c;
-        const float p = prob(s[i][j], row, key, Sq, Sk, l, scale, bb, causal);
-        const float dsr = p * (dp[i][j] - dl);
-        if (dsb != nullptr && live && key < Sk)
-          dsb[(int64_t)row * Sk + key] = dsr;
-        ps[r * kLdP + c] = p;
-        dss[r * kLdP + c] = dsr * scale;
-      }
-    }
-    __syncthreads();
-
-    // dV[key][d] += sum_r p[r][key] g[r][d];  dK[key][d] += sum_r ds[r][key] q[r][d]
-#pragma unroll 2
-    for (int r = 0; r < kTile; ++r) {
-      const float4 pv = load4(ps + r * kLdP + 4 * og);
-      const float4 sv = load4(dss + r * kLdP + 4 * og);
-      const float4 g0 = load4(gs + r * kLd + 4 * dg);
-      const float4 g1 = load4(gs + r * kLd + D / 2 + 4 * dg);
-      const float4 q0v = load4(qs + r * kLd + 4 * dg);
-      const float4 q1v = load4(qs + r * kLd + D / 2 + 4 * dg);
-      const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-      const float gr[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float qr[8] = {q0v.x, q0v.y, q0v.z, q0v.w,
-                           q1v.x, q1v.y, q1v.z, q1v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          dv_acc[i][c] = fmaf(pr[i], gr[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(sr[i], qr[c], dk_acc[i][c]);
+        for (int j = 0; j < NC; ++j) {
+          const int c = cg + kOwn / NC * j, key = k0 + c;
+          const bool live =
+              !kMasked || (rv && kval[j] && !(causal && key > row));
+          // this thread reads its bias element and overwrites it with p
+          const float b = full_bias ? ps[r * LDP + c] : brk[j];
+          const float p = prob(s[i][j], b, l, scale, live);
+          const float dsr = p * (dp[i][j] - dlt);
+          if (dsb != nullptr && (!kMasked || (rv && kval[j])))
+            dsb[(int64_t)row * Sk + key] = dsr;
+          ps[r * LDP + c] = p;
+          dss[r * LDP + c] = dsr * scale;
         }
-    }
+      }
+    };
+    if (q0 + BM > Sq || k0 + kOwn > Sk || (causal && q0 < k0 + kOwn))
+      epilogue(Masked{});
+    else
+      epilogue(Interior{});
+    __syncthreads();
+
+    // dV[key][d] += sum_r p[r][key] g[r][d]
+    // dK[key][d] += sum_r ds[r][key] q[r][d]
+    out_product<DG, 8, BM, LDP, LD>(dva, ps, gs, og, dg);
+    out_product<DG, 8, BM, LDP, LD>(dka, dss, qs, og, dg);
+    __syncthreads();
   }
 
-  T* dkb = dk + (int64_t)bh * Sk * D;
-  T* dvb = dv + (int64_t)bh * Sk * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * og + i;
-    if (key >= Sk) continue;
-    const int64_t o = (int64_t)key * D + 4 * dg;
-    store4(dkb + o, dk_acc[i][0], dk_acc[i][1], dk_acc[i][2], dk_acc[i][3]);
-    store4(dkb + o + D / 2, dk_acc[i][4], dk_acc[i][5], dk_acc[i][6],
-           dk_acc[i][7]);
-    store4(dvb + o, dv_acc[i][0], dv_acc[i][1], dv_acc[i][2], dv_acc[i][3]);
-    store4(dvb + o + D / 2, dv_acc[i][4], dv_acc[i][5], dv_acc[i][6],
-           dv_acc[i][7]);
-  }
+  store_out<D, DG, 8>(dv + (int64_t)bh * Sk * D, dva, k0 + 4 * og, Sk, dg);
+  store_out<D, DG, 8>(dk + (int64_t)bh * Sk * D, dka, k0 + 4 * og, Sk, dg);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D>::kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
-                int64_t bias_sb, int64_t bias_sh, int64_t bias_sq,
-                int64_t bias_sk, const T* __restrict__ g,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
-                int Sq, int Sk, float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int kLd = C::kLd, kCG = C::kCG, kNC = C::kNC, kDG = C::kDG;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // [64 rows][kLd]
-  float* gs = qs + C::kTileFloats;    // [64 rows][kLd]
-  float* ks = gs + C::kTileFloats;    // [64 keys][kLd]
-  float* vs = ks + C::kTileFloats;    // [64 keys][kLd]
-  float* dsT = vs + C::kTileFloats;   // [64 keys][kLdP]  ds * scale, transposed
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads)
+flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ bias, int64_t bias_sb,
+                    int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
+                    const float* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int Sq, int Sk, float scale, int causal) {
+  using C = F32<D>;
+  constexpr int BN = kOwn, LD = C::kLd, LDT = C::kLdP;
+  constexpr int NT = C::kThreads, NC = C::kNC, DG = C::kDG;
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf;              // [64 rows][LD]
+  float* gs = qs + kOwn * LD;   // [64 rows][LD]
+  float* ks = gs + kOwn * LD;   // [64 keys][LD]
+  float* vs = ks + BN * LD;     // [64 keys][LD]
+  float* dsT = vs + BN * LD;    // [64 keys][LDT]  ds * scale, transposed
+  float* bs = dsT + BN * LDT;   // [64 rows | 1][LDT]  the bias tile
 
   const int tid = threadIdx.x;
-  const int rg = tid / kCG, cg = tid % kCG;  // score-tile mapping
-  const int og = tid / kDG, dg = tid % kDG;  // output-tile mapping (rows)
-  const int iq = blockIdx.x, bh = blockIdx.y, q0 = iq * kTile;
-
-  const T* qb = q + (int64_t)bh * Sq * D;
-  const T* gb = g + (int64_t)bh * Sq * D;
-  const T* kb = k + (int64_t)bh * Sk * D;
-  const T* vb = v + (int64_t)bh * Sk * D;
+  int rg, cg;  // scores: rows rg + 16 i, keys cg + 64/NC j
+  score_map<BN, NC>(tid, rg, cg);
+  const int og = tid / DG, dg = tid % DG;  // outputs: rows 4 og + i
+  const int iq = blockIdx.x, bh = blockIdx.y, q0 = iq * kOwn;
+  const float* kb = k + (int64_t)bh * Sk * D;
+  const float* vb = v + (int64_t)bh * Sk * D;
   Bias bb{nullptr, bias_sq, bias_sk};
   if (bias != nullptr)
     bb.p = bias + (int64_t)(bh / H) * bias_sb + (int64_t)(bh % H) * bias_sh;
+  // bias rows staged per key tile: the CTA's 64 rows, or one row when the
+  // bias broadcasts over the query rows
+  const int sbr = bias == nullptr ? 0 : (bias_sq == 0 ? 1 : kOwn);
 
-  load_tile<T, D>(qs, qb, q0, Sq);
-  load_tile<T, D>(gs, gb, q0, Sq);
   float l[4], dl[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -340,102 +855,112 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     dl[i] = row < Sq ? delta[(int64_t)bh * Sq + row] : 0.f;
   }
 
-  float dq_acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) dq_acc[i][c] = 0.f;
-
-  int nk = (Sk + kTile - 1) / kTile;
+  int nk = (Sk + BN - 1) / BN;
   if (causal) nk = min(nk, iq + 1);  // later key tiles: all key > query
+
+  async_tile<float, kOwn, D, LD, NT>(qs, q + (int64_t)bh * Sq * D, q0, Sq);
+  async_tile<float, kOwn, D, LD, NT>(gs, g + (int64_t)bh * Sq * D, q0, Sq);
+
+  float acc[4][8] = {};
   for (int ik = 0; ik < nk; ++ik) {
-    const int k0 = ik * kTile;
-    __syncthreads();  // the previous tile's readers of ks/vs/dsT are done
-    load_tile<T, D>(ks, kb, k0, Sk);
-    load_tile<T, D>(vs, vb, k0, Sk);
+    const int kt0 = ik * BN;
+    // the previous tile's readers are done (the loop ends in a barrier)
+    async_tile<float, BN, D, LD, NT>(ks, kb, kt0, Sk);
+    async_tile<float, BN, D, LD, NT>(vs, vb, kt0, Sk);
+    if (sbr)
+      async_bias<BN, LDT, NT>(bs, bb, sbr, sbr == 1 ? 0 : q0, Sq, kt0, Sk);
+    cp_async_commit();
+    cp_async_wait0();
     __syncthreads();
 
-    float s[4][kNC], dp[4][kNC];
-    tile_dot<D>(s, qs, ks, rg, cg);
-    tile_dot<D>(dp, gs, vs, rg, cg);
+    float s[4][NC], dp[4][NC];
+    tile_dot<D, LD, kOwn, BN, NC>(s, qs, ks, rg, cg);
+    tile_dot<D, LD, kOwn, BN, NC>(dp, gs, vs, rg, cg);
+    auto epilogue = [&](auto masked) {
+      constexpr bool kMasked = decltype(masked)::value;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 16 * i, row = q0 + r;
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + 16 * i, row = q0 + r;
 #pragma unroll
-      for (int j = 0; j < kNC; ++j) {
-        const int c = cg + kCG * j;
-        const float p = prob(s[i][j], row, k0 + c, Sq, Sk, l[i], scale, bb,
-                             causal);
-        dsT[c * kLdP + r] = p * (dp[i][j] - dl[i]) * scale;
+        for (int j = 0; j < NC; ++j) {
+          const int c = cg + BN / NC * j, key = kt0 + c;
+          const bool live =
+              !kMasked || (row < Sq && key < Sk && !(causal && key > row));
+          const float b = sbr ? bs[(sbr == 1 ? 0 : r) * LDT + c] : 0.f;
+          const float p = prob(s[i][j], b, l[i], scale, live);
+          dsT[c * LDT + r] = p * (dp[i][j] - dl[i]) * scale;
+        }
       }
-    }
+    };
+    if (q0 + kOwn > Sq || kt0 + BN > Sk || (causal && kt0 + BN - 1 > q0))
+      epilogue(Masked{});
+    else
+      epilogue(Interior{});
     __syncthreads();
 
     // dQ[row][d] += sum_key ds[row][key] k[key][d]
-#pragma unroll 2
-    for (int c = 0; c < kTile; ++c) {
-      const float4 sv = load4(dsT + c * kLdP + 4 * og);
-      const float4 k0v = load4(ks + c * kLd + 4 * dg);
-      const float4 k1v = load4(ks + c * kLd + D / 2 + 4 * dg);
-      const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-      const float kr[8] = {k0v.x, k0v.y, k0v.z, k0v.w,
-                           k1v.x, k1v.y, k1v.z, k1v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < 8; ++cc)
-          dq_acc[i][cc] = fmaf(sr[i], kr[cc], dq_acc[i][cc]);
-    }
+    out_product<DG, 8, BN, LDT, LD>(acc, dsT, ks, og, dg);
+    __syncthreads();
   }
 
-  T* dqb = dq + (int64_t)bh * Sq * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * og + i;
-    if (row >= Sq) continue;
-    const int64_t o = (int64_t)row * D + 4 * dg;
-    store4(dqb + o, dq_acc[i][0], dq_acc[i][1], dq_acc[i][2], dq_acc[i][3]);
-    store4(dqb + o + D / 2, dq_acc[i][4], dq_acc[i][5], dq_acc[i][6],
-           dq_acc[i][7]);
+  store_out<D, DG, 8>(dq + (int64_t)bh * Sq * D, acc, q0 + 4 * og, Sq, dg);
+}
+
+// ------------------------------------------------------------- launches
+struct Geometry {
+  const void* kernel;  // null: no configuration
+  int threads;
+  int smem_max;  // with a full bias tile
+  int smem;      // with this launch's bias
+};
+
+// bias kind: 0 none, 1 broadcast over the query rows, 2 full
+template <int D>
+Geometry geometry_d(int which, int dtype, int kind) {
+  if (dtype == 0 && which == 0)
+    return {reinterpret_cast<const void*>(flash_dkv_f32_kernel<D>),
+            F32<D>::kThreads, F32<D>::dkv_smem(),
+            F32<D>::dkv_smem()};
+  if (dtype == 0) {
+    using C = F32<D>;
+    return {reinterpret_cast<const void*>(flash_dq_f32_kernel<D>),
+            C::kThreads, C::dq_smem(kOwn),
+            C::dq_smem(kind == 2 ? kOwn : kind)};
   }
+  using C = Bf<D>;
+  if (which == 0)
+    return {reinterpret_cast<const void*>(flash_dkv_bf16_kernel<D>),
+            C::kThreads, C::dkv_smem(C::kDkvSweep),
+            C::dkv_smem(kind == 2 ? C::kDkvSweep : 0)};
+  return {reinterpret_cast<const void*>(flash_dq_bf16_kernel<D>),
+          C::kThreads, C::dq_smem(kOwn), C::dq_smem(kind == 2 ? kOwn : kind)};
 }
 
-template <typename T, int D>
-int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
-               int64_t sb, int64_t sh, int64_t sq, int64_t sk, const void* g,
-               const float* lse, const float* delta, void* dk, void* dv,
-               float* ds, int B, int H, int Sq, int Sk, float scale,
-               int causal, cudaStream_t stream) {
-  const int smem = Cfg<D>::kDkvSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sk + kTile - 1) / kTile, B * H);
-  flash_dkv_kernel<T, D><<<grid, Cfg<D>::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, sb, sh, sq, sk,
-      static_cast<const T*>(g), lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), ds, H, Sq, Sk, scale, causal);
-  return (int)cudaGetLastError();
+Geometry geometry(int which, int D, int dtype, int kind) {
+  if ((which != 0 && which != 1) || (dtype != 0 && dtype != 1) || kind < 0 ||
+      kind > 2)
+    return {nullptr, 0, 0, 0};
+  if (D == 64) return geometry_d<64>(which, dtype, kind);
+  if (D == 128) return geometry_d<128>(which, dtype, kind);
+  return {nullptr, 0, 0, 0};
 }
 
-template <typename T, int D>
-int launch_dq(const void* q, const void* k, const void* v, const float* bias,
-              int64_t sb, int64_t sh, int64_t sq, int64_t sk, const void* g,
-              const float* lse, const float* delta, void* dq, int B, int H,
-              int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
-  const int smem = Cfg<D>::kDqSmem;
+int bias_kind(const void* bias, int64_t bias_sq) {
+  return bias == nullptr ? 0 : (bias_sq == 0 ? 1 : 2);
+}
+
+// args: the kernel's parameters in order, each a pointer to its value
+int launch(int which, int D, int dtype, int kind, int sweep, int BH,
+           void** args, cudaStream_t stream) {
+  const Geometry geo = geometry(which, D, dtype, kind);
+  if (geo.kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      geo.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_max);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
-  flash_dq_kernel<T, D><<<grid, Cfg<D>::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, sb, sh, sq, sk,
-      static_cast<const T*>(g), lse, delta, static_cast<T*>(dq), H, Sq, Sk,
-      scale, causal);
+  const dim3 grid((sweep + kOwn - 1) / kOwn, BH);
+  err = cudaLaunchKernel(geo.kernel, grid, dim3(geo.threads), args,
+                         (size_t)geo.smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -443,30 +968,40 @@ int launch_dq(const void* q, const void* k, const void* v, const float* bias,
 
 extern "C" {
 
-// Launch geometry of kernel `which` (0 = dK/dV, 1 = dQ) at head dim D:
-// rows (query rows or keys) per CTA, threads per CTA and dynamic shared
-// memory bytes. Returns cudaErrorInvalidValue for an unsupported D. The
-// wrapper checks these against the card's limits before it launches.
-int flash_attention_bwd_config(int which, int D, int* rows, int* threads,
-                               int* smem_bytes) {
-  *rows = kTile;
-  if (D == 64) {
-    *threads = Cfg<64>::kThreads;
-    *smem_bytes = which == 0 ? Cfg<64>::kDkvSmem : Cfg<64>::kDqSmem;
-  } else if (D == 128) {
-    *threads = Cfg<128>::kThreads;
-    *smem_bytes = which == 0 ? Cfg<128>::kDkvSmem : Cfg<128>::kDqSmem;
-  } else {
-    *threads = 0;
-    *smem_bytes = 0;
-    return (int)cudaErrorInvalidValue;
-  }
-  return 0;
+// Launch geometry of kernel `which` (0 = dK/dV, 1 = dQ) at head dim D and
+// dtype (0 = float32, 1 = bfloat16): rows (keys or query rows) per CTA,
+// threads per CTA and the most dynamic shared memory a launch takes (with
+// a full bias tile). Returns cudaErrorInvalidValue for an unsupported D or
+// dtype. The wrapper checks these against the card's limits before it
+// launches.
+int flash_attention_bwd_config(int which, int D, int dtype, int* rows,
+                               int* threads, int* smem_bytes) {
+  const Geometry geo = geometry(which, D, dtype, 2);
+  *rows = kOwn;
+  *threads = geo.threads;
+  *smem_bytes = geo.smem_max;
+  return geo.kernel == nullptr ? (int)cudaErrorInvalidValue : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null; its strides are in
-// elements, 0 on each broadcast dim. ds may be null; when given it
-// receives the raw score grad p * (dp - delta) as f32 [B, H, Sq, Sk].
+// CTAs per SM the card grants kernel `which` at D and dtype with a bias
+// of kind `bias` (0 none, 1 broadcast over the query rows, 2 full), and
+// the dynamic shared memory per CTA that takes.
+int flash_attention_bwd_occupancy(int which, int D, int dtype, int bias,
+                                  int* blocks, int* smem_bytes) {
+  const Geometry geo = geometry(which, D, dtype, bias);
+  if (geo.kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      geo.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.smem_max);
+  if (err != cudaSuccess) return (int)err;
+  *smem_bytes = geo.smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, geo.kernel, geo.threads, (size_t)geo.smem);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, g 16-byte aligned. bias may
+// be null; its strides are in elements, 0 on each broadcast dim. ds may
+// be null; when given it receives the raw score grad p * (dp - delta) as
+// f32 [B, H, Sq, Sk].
 int flash_attention_dkv(const void* q, const void* k, const void* v,
                         const void* bias, int64_t bias_sb, int64_t bias_sh,
                         int64_t bias_sq, int64_t bias_sk, const void* g,
@@ -474,29 +1009,12 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
                         void* dv, void* ds, int B, int H, int Sq, int Sk,
                         int D, int dtype, float scale, int causal,
                         void* stream) {
-  const float* b = static_cast<const float*>(bias);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  float* dsp = static_cast<float*>(ds);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(q, k, v, b, bias_sb, bias_sh, bias_sq,
-                                 bias_sk, g, l, dl, dk, dv, dsp, B, H, Sq, Sk,
-                                 scale, causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(q, k, v, b, bias_sb, bias_sh, bias_sq,
-                                  bias_sk, g, l, dl, dk, dv, dsp, B, H, Sq,
-                                  Sk, scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, b, bias_sb, bias_sh,
-                                         bias_sq, bias_sk, g, l, dl, dk, dv,
-                                         dsp, B, H, Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_dkv<__nv_bfloat16, 128>(q, k, v, b, bias_sb, bias_sh,
-                                          bias_sq, bias_sk, g, l, dl, dk, dv,
-                                          dsp, B, H, Sq, Sk, scale, causal,
-                                          s);
-  return (int)cudaErrorInvalidValue;
+  void* args[] = {&q,     &k,       &v,     &bias, &bias_sb, &bias_sh,
+                  &bias_sq, &bias_sk, &g,   &lse,  &delta,   &dk,
+                  &dv,    &ds,      &H,     &Sq,   &Sk,      &scale,
+                  &causal};
+  return launch(0, D, dtype, bias_kind(bias, bias_sq), Sk, B * H, args,
+                static_cast<cudaStream_t>(stream));
 }
 
 int flash_attention_dq(const void* q, const void* k, const void* v,
@@ -505,27 +1023,11 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
                        const void* lse, const void* delta, void* dq, int B,
                        int H, int Sq, int Sk, int D, int dtype, float scale,
                        int causal, void* stream) {
-  const float* b = static_cast<const float*>(bias);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(q, k, v, b, bias_sb, bias_sh, bias_sq,
-                                bias_sk, g, l, dl, dq, B, H, Sq, Sk, scale,
-                                causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(q, k, v, b, bias_sb, bias_sh, bias_sq,
-                                 bias_sk, g, l, dl, dq, B, H, Sq, Sk, scale,
-                                 causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, b, bias_sb, bias_sh,
-                                        bias_sq, bias_sk, g, l, dl, dq, B, H,
-                                        Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_dq<__nv_bfloat16, 128>(q, k, v, b, bias_sb, bias_sh,
-                                         bias_sq, bias_sk, g, l, dl, dq, B,
-                                         H, Sq, Sk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  void* args[] = {&q,     &k,       &v,   &bias, &bias_sb, &bias_sh,
+                  &bias_sq, &bias_sk, &g, &lse,  &delta,   &dq,
+                  &H,     &Sq,      &Sk,  &scale, &causal};
+  return launch(1, D, dtype, bias_kind(bias, bias_sq), Sq, B * H, args,
+                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -24,14 +24,18 @@ package with a CUDA C++ kernel for Hopper (sm_90a):
 - ``flash_attention_dq`` (same source) replaces ``_dq_kernel``: dQ, one
   CTA per (b*h, 64-query tile) sweeping the key tiles; 6*B*H*P*D FLOPs.
 
-All three use f32 FMAs (tensor cores, TMA and warp specialization are
-later work), skip tiles wholly above the causal diagonal, bounds-check
-the ragged Sq / Sk edges instead of padding, and read the bias through
-its strides (0 on broadcast dims) without materializing it. The
-backward kernels use no atomics: every output element is written by one
-CTA, so a backward is bitwise repeatable. delta = rowsum(dO * O) (minus
-the lse cotangent) is computed outside the kernels, as in the JAX
-package.
+The forward uses f32 FMAs (tensor cores, TMA and warp specialization
+are later work). The backward kernels run bf16 on the tensor cores
+(``mma.sync``, P and dS rounded to bf16 before their products, as in
+the JAX package) and f32 as exact f32 FMAs; both copy the swept tiles
+into shared memory by 16-byte ``cp.async`` (bf16 into a two-stage
+ring), so q / k / v / g must be 16-byte aligned. All three skip tiles
+wholly above the causal diagonal, bounds-check the ragged Sq / Sk edges
+instead of padding, and read the bias through its strides (0 on
+broadcast dims) without materializing it. The backward kernels use no
+atomics: every output element is written by one CTA, so a backward is
+bitwise repeatable. delta = rowsum(dO * O) (minus the lse cotangent) is
+computed outside the kernels, as in the JAX package.
 
 On CPU tensors each wrapper computes its plain version
 (``composed_attention_with_lse``, ``flash_attention_dkv_reference``,
@@ -52,18 +56,20 @@ two agree wherever a row has one unmasked key.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from ..core.registry import register_grad_lowering, register_op
 from ..kernels import build
-from ..kernels.common import ceil_div, check_launch, check_tensor
+from ..kernels.common import ceil_div, check_launch, check_tensor, on_device
 from ..kernels.registry import register_kernel
 
 __all__ = ["causal_bias_block", "composed_attention",
            "composed_attention_with_lse", "flash_attention",
-           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_bwd", "flash_attention_bwd_occupancy",
+           "flash_attention_bwd_reference",
            "flash_attention_dkv", "flash_attention_dkv_reference",
            "flash_attention_dq", "flash_attention_dq_reference",
            "flash_attention_fwd", "flash_attention_with_lse",
@@ -272,8 +278,12 @@ def _bwd_lib():
             p, i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_dq.restype = i
         lib.flash_attention_bwd_config.argtypes = [
-            i, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i)]
+            i, i, i, ctypes.POINTER(i), ctypes.POINTER(i),
+            ctypes.POINTER(i)]
         lib.flash_attention_bwd_config.restype = i
+        lib.flash_attention_bwd_occupancy.argtypes = [
+            i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.flash_attention_bwd_occupancy.restype = i
         lib._typed = True
     return lib
 
@@ -296,34 +306,62 @@ def _check_bwd_inputs(what, q, k, v, bias, g, lse, delta, causal):
                                 tuple(q.shape[:3])))
 
 
+_BWD_ALIGN = 16  # bytes: the kernels copy q / k / v / g by 16-byte cp.async
+
+
 def check_bwd_kernel_launch(what, q, k, v, bias, g, lse, delta,
                             causal=False):
     """Everything the backward kernel ``what`` requires of its inputs: a
-    supported head dim, vector-aligned q / k / v / g (the kernel reads
-    them four elements at a time) and a legal launch. Returns (grid,
-    block, shared-memory bytes)."""
+    supported head dim, 16-byte-aligned q / k / v / g (the kernels copy
+    them into shared memory 16 bytes at a time, at either dtype) and a
+    legal launch for the dtype's geometry. Returns (grid, block,
+    shared-memory bytes)."""
     _check_bwd_inputs(what, q, k, v, bias, g, lse, delta, causal)
     B, H, Sq, D = q.shape
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError("%s kernel supports head dim %s, got %d"
                          % (what, _KERNEL_HEAD_DIMS, D))
-    align = 4 * q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-        if t.data_ptr() % align:
+        if t.data_ptr() % _BWD_ALIGN:
             raise ValueError("%s: %s is not %d-byte aligned"
-                             % (what, name, align))
-    lib = _bwd_lib()
-    rows, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if lib.flash_attention_bwd_config(_BWD_KERNELS[what], D,
-                                      ctypes.byref(rows),
-                                      ctypes.byref(threads),
-                                      ctypes.byref(smem)):
-        raise ValueError("%s has no configuration for head dim %d"
-                         % (what, D))
+                             % (what, name, _BWD_ALIGN))
+    rows, threads, smem = _bwd_config(what, D, q.dtype)
     sweep = k.shape[2] if what == "flash_attention_dkv" else Sq
-    grid = (ceil_div(sweep, rows.value), B * H, 1)
-    check_launch(what, grid, (threads.value, 1, 1), smem.value)
-    return grid, (threads.value, 1, 1), smem.value
+    grid = (ceil_div(sweep, rows), B * H, 1)
+    check_launch(what, grid, (threads, 1, 1), smem)
+    return grid, (threads, 1, 1), smem
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_config(what, D, dtype):
+    """(rows per CTA, threads per CTA, the most shared memory a launch
+    takes) of the backward kernel ``what`` at head dim D and dtype, asked
+    of the built library once per key."""
+    rows, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if _bwd_lib().flash_attention_bwd_config(
+            _BWD_KERNELS[what], D, _KERNEL_DTYPES[dtype], ctypes.byref(rows),
+            ctypes.byref(threads), ctypes.byref(smem)):
+        raise ValueError("%s has no configuration for head dim %d at %s"
+                         % (what, D, dtype))
+    return rows.value, threads.value, smem.value
+
+
+_BIAS_KINDS = {None: 0, "row": 1, "full": 2}
+
+
+def flash_attention_bwd_occupancy(what, head_dim, dtype, bias=None):
+    """(CTAs per SM, shared-memory bytes per CTA) the card grants the
+    backward kernel ``what`` at ``head_dim`` and ``dtype``, with no bias
+    (``bias=None``), one broadcast over the query rows (``"row"``, a
+    key-pad mask) or a full one (``"full"``). Needs the card."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = _bwd_lib().flash_attention_bwd_occupancy(
+        _BWD_KERNELS[what], head_dim, _KERNEL_DTYPES[dtype],
+        _BIAS_KINDS[bias], ctypes.byref(blocks), ctypes.byref(smem))
+    if err:
+        raise RuntimeError("%s occupancy query failed with cudaError %d"
+                           % (what, err))
+    return blocks.value, smem.value
 
 
 def _bwd_probs(q, k, v, bias, g, lse, delta, scale, causal):
@@ -409,7 +447,7 @@ def flash_attention_dkv(q, k, v, bias, g, lse, delta, scale, causal=False,
                      device=q.device) if want_db else None
     head, dims = _bwd_launch_args(q, k, v, bias, g, lse, delta)
     lib = _bwd_lib()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_dkv(
             *head, dk.data_ptr(), dv.data_ptr(),
@@ -437,7 +475,7 @@ def flash_attention_dq(q, k, v, bias, g, lse, delta, scale, causal=False):
     dq = torch.empty_like(q)
     head, dims = _bwd_launch_args(q, k, v, bias, g, lse, delta)
     lib = _bwd_lib()
-    with torch.cuda.device(q.device):
+    with on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_dq(*head, dq.data_ptr(), *dims,
                                      float(scale), int(bool(causal)), stream)

@@ -210,6 +210,28 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
                 torch.zeros(B, H, 64, 32), lse, lse)
 
 
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 4),
+                                          (torch.float32, 2)])
+def test_backward_kernels_require_16_byte_alignment(dtype, offset):
+    """The backward kernels copy q / k / v / g by 16-byte cp.async at
+    either dtype: a view ``offset`` elements (8 bytes) into its storage
+    is refused by the launch check, before any kernel is built."""
+    q, k, v = _qkv(dtype=dtype)
+    g = torch.randn(q.shape).to(dtype)
+    lse = torch.zeros(q.shape[:3])
+    flat = torch.zeros(q.numel() + offset, dtype=dtype)
+    shifted = flat[offset:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    for what in ("flash_attention_dkv", "flash_attention_dq"):
+        for i in range(4):
+            args = [q, k, v, g]
+            args[i] = shifted
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tattn.check_bwd_kernel_launch(what, *args[:3], None,
+                                              args[3], lse, lse)
+    assert "flash_attention_bwd" not in build._LOADED
+
+
 def test_dispatch_threshold(monkeypatch):
     monkeypatch.delenv("PADDLE_TPU_FLASH_MIN_SEQ", raising=False)
     assert tattn.flash_min_seq() == 256

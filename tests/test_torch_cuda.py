@@ -9,10 +9,12 @@ where only the port is installed:
 - The flash forward kernel against its plain version
   (``composed_attention_with_lse``), at atol 2e-5 on O and 1e-5 on lse
   at f32 and 2e-2 at bf16.
-- The flash dK/dV and dQ kernels against their plain versions, with the
-  raw score grad (``want_db``) both without and with causal masking,
-  at atol 5e-5 at f32 (the JAX package's stated backward tolerance) and
-  2e-2 at bf16.
+- The flash dK/dV and dQ kernels against their plain versions on f32
+  copies of the inputs, with the raw score grad (``want_db``) both
+  without and with causal masking, at S = 8 (below one tensor-core
+  tile), 200 and 1000, at atol 5e-5 at f32 (the JAX package's stated
+  backward tolerance) and 2e-2 at bf16; and two launches of each on the
+  same inputs give the same bits.
 - One training step of a 2-layer BERT MLM with dropout launches the
   forward kernel twice and each backward kernel once per layer.
 - The kernel tier's kernels against their plain versions: the fused
@@ -81,37 +83,68 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, d):
                                    atol=1e-5 if tol == 2e-5 else tol, rtol=0)
 
 
+def _bwd_inputs(dtype, d, S, causal, dev):
+    """q, k, v, g and the kernels' remaining arguments (bias, g, lse,
+    delta, scale, causal), with the f32 copies the plain versions take.
+    The bias is a full [2, 1, S, S] one, -1e9 on the last quarter of batch
+    1's keys."""
+    q, k, v = _qkv((2, 3, S, d), dtype, dev)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    g = g.to(dtype).to(dev)
+    bias = torch.randn(2, 1, S, S, generator=torch.Generator().manual_seed(2))
+    bias = bias.to(dev)
+    bias[1, ..., S - S // 4:] = -1e9
+    f32 = [t.float() for t in (q, k, v, g)]
+    o, lse = tattn.composed_attention_with_lse(*f32[:3], bias, d ** -0.5,
+                                               causal)
+    delta = (f32[3] * o).sum(-1)
+    return (q, k, v), (bias, g, lse, delta, d ** -0.5, causal), f32
+
+
+# S: below one mma tile (8), not a multiple of 16 (200), and a causal
+# sweep over many tiles that is not a multiple of 64 (1000)
+BWD_CASES = [(8, False), (8, True), (200, False), (200, True), (1000, True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_backward_kernels_match_plain_versions(cuda_device, dtype, d):
-    q, k, v = _qkv((2, 3, 200, d), dtype, cuda_device)
-    g = torch.randn(q.shape, device=cuda_device).to(dtype)
-    bias = torch.randn(2, 1, 200, 200, device=cuda_device)
-    bias[1, ..., 150:] = -1e9
+@pytest.mark.parametrize("S,causal", BWD_CASES)
+def test_cuda_backward_kernels_match_plain_versions(cuda_device, dtype, d,
+                                                    S, causal):
+    (q, k, v), args, f32 = _bwd_inputs(dtype, d, S, causal, cuda_device)
     tol = 5e-5 if dtype == torch.float32 else 2e-2
-    f32 = [t.float() for t in (q, k, v, g)]
-    for causal in (False, True):
-        o, lse = tattn.composed_attention_with_lse(*f32[:3], bias,
-                                                   d ** -0.5, causal)
-        delta = (f32[3] * o).sum(-1)
-        args = (bias, g, lse, delta, d ** -0.5, causal)
-        before = (tattn.flash_attention_dkv.launches,
-                  tattn.flash_attention_dq.launches)
-        dk, dv, ds = tattn.flash_attention_dkv(q, k, v, *args, want_db=True)
-        dq = tattn.flash_attention_dq(q, k, v, *args)
-        assert (tattn.flash_attention_dkv.launches,
-                tattn.flash_attention_dq.launches) == (before[0] + 1,
-                                                       before[1] + 1)
-        ref_args = (*f32[:3], bias, f32[3], lse, delta, d ** -0.5, causal)
-        rdk, rdv, rds = tattn.flash_attention_dkv_reference(*ref_args,
-                                                            want_db=True)
-        rdq = tattn.flash_attention_dq_reference(*ref_args)
-        for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
-            torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
-        # under causal the tiles above the diagonal are skipped: their
-        # score grad is written as 0, as the plain version gives
-        torch.testing.assert_close(ds, rds, atol=tol, rtol=0)
+    before = (tattn.flash_attention_dkv.launches,
+              tattn.flash_attention_dq.launches)
+    dk, dv, ds = tattn.flash_attention_dkv(q, k, v, *args, want_db=True)
+    dq = tattn.flash_attention_dq(q, k, v, *args)
+    assert (tattn.flash_attention_dkv.launches,
+            tattn.flash_attention_dq.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref_args = (*f32[:3], args[0], f32[3], *args[2:])
+    rdk, rdv, rds = tattn.flash_attention_dkv_reference(*ref_args,
+                                                        want_db=True)
+    rdq = tattn.flash_attention_dq_reference(*ref_args)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+    # under causal the tiles above the diagonal are skipped: their
+    # score grad is written as 0, as the plain version gives
+    torch.testing.assert_close(ds, rds, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_backward_kernels_are_bitwise_repeatable(cuda_device, dtype,
+                                                      d):
+    """No atomics: two launches on the same inputs give the same bits."""
+    for S, causal in ((200, False), (1000, True)):
+        (q, k, v), args, _ = _bwd_inputs(dtype, d, S, causal, cuda_device)
+        runs = [(*tattn.flash_attention_dkv(q, k, v, *args, want_db=True),
+                 tattn.flash_attention_dq(q, k, v, *args))
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def _feed(rs):
