@@ -10,11 +10,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
    switched off for f32 products;
 2. build: every CUDA source of the port compiled with nvcc for sm_90a,
    in parallel;
-3. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the main path's shapes and a few edge shapes, with
-   its time, the plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention``, a yardstick the port never calls)
-   and the least time the card could take (the bound);
+3. kernels: the CTAs per SM the card grants the flash forward kernel
+   (per dtype, head dim and bias kind); then the kernel against its
+   plain PyTorch version on the card, at the main path's shapes and a
+   few edge shapes (at bf16 also against the plain version run at
+   bf16), two launches on the same inputs bitwise equal, with its device
+   time and call time, the plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention``, a yardstick the port never calls;
+   call and device time) and the least time the card could take (the
+   bound);
 3b. backward kernels: the CTAs per SM the card grants the flash dK/dV
    and dQ kernels (per dtype, head dim and bias kind); then both kernels
    against their plain versions on the phase-3 cases (a trainable-bias
@@ -317,7 +321,39 @@ def _attn_bound(shape, dtype, bias, causal):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def _fwd_occupancy():
+    """CTAs per SM the card grants the flash forward kernel, per dtype,
+    head dim and bias kind (none, a key-pad row, a full tile)."""
+    from paddle_tpu_torch.ops import attention as attn
+
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            rows, threads, _ = attn._kernel_config(d, dtype)
+            occ = {str(b): attn.flash_attention_fwd_occupancy(d, dtype, b)
+                   for b in (None, "row", "full")}
+            out.append(dict(kernel="flash_attention_fwd", dtype=str(dtype),
+                            head_dim=d, rows=rows, threads=threads,
+                            occupancy=occ))
+            log("occupancy flash_attention_fwd %-14s D = %3d, %d rows, %d "
+                "threads: %s" % (dtype, d, rows, threads, ", ".join(
+                    "bias %s %d CTA(s) x %d B = %d warps/SM"
+                    % (b, n, sm, n * threads // 32)
+                    for b, (n, sm) in occ.items())))
+    return out
+
+
 def phase_kernels(seed):
+    """The flash forward kernel (K1) against its plain version on each of
+    ``ATTN_CASES``: two launches bitwise equal, its device time
+    (torch.profiler) and call time (CUDA events around back-to-back
+    calls), the plain version's, one ``scaled_dot_product_attention``
+    call's (call and device time) and the bound. At bf16 it is also held
+    against the plain version run at bf16 (not a gate: that version
+    rounds the normalized p to bf16, the kernel the unnormalized one, as
+    the TPU kernel does). Takes whichever ``paddle_tpu_torch`` is first
+    on the path, so a parent's checkout can be timed by the same
+    measurement."""
     from paddle_tpu_torch.ops import attention as attn
 
     dev = torch.device("cuda", 0)
@@ -333,41 +369,65 @@ def phase_kernels(seed):
         if attn.flash_attention_fwd.launches != before + 1:
             raise AssertionError("%s: the wrapper did not count its launch"
                                  % name)
+        out2, lse2 = attn.flash_attention_fwd(q, k, v, bias, scale, causal)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del out2, lse2
         want, want_lse = attn.composed_attention_with_lse(
             q.float(), k.float(), v.float(), bias, scale, causal)
         err_o = float((out.float() - want).abs().max())
         err_lse = float((lse - want_lse).abs().max())
+        same_dtype = None
+        if dtype != torch.float32:
+            b_out, b_lse = attn.composed_attention_with_lse(q, k, v, bias,
+                                                            scale, causal)
+            same_dtype = dict(
+                out=float((out.float() - b_out.float()).abs().max()),
+                lse=float((lse - b_lse).abs().max()))
+            del b_out, b_lse
         tol_o, tol_lse = (2e-5, 1e-5) if dtype == torch.float32 else \
             (2e-2, 2e-2)
-        ok = err_o <= tol_o and err_lse <= tol_lse and \
+        ok = err_o <= tol_o and err_lse <= tol_lse and bitwise and \
             bool(torch.isfinite(out).all())
-        ms = time_ms(lambda: attn.flash_attention_fwd(q, k, v, bias, scale,
-                                                      causal))
+        fn = lambda: attn.flash_attention_fwd(  # noqa: E731
+            q, k, v, bias, scale, causal)
+        ms = device_ms(fn, ("flash_fwd",))
+        call_ms = time_ms(fn)
         plain_ms = time_ms(lambda: attn.composed_attention_with_lse(
             q, k, v, bias, scale, causal))
         lib_mask = None if bias is None else bias.to(dtype)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=lib_mask, is_causal=causal, scale=scale))
+        lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=lib_mask, is_causal=causal, scale=scale)
+        library_ms = time_ms(lib_fn)
+        library_device_ms = device_ms(lib_fn, ("",))
         bound_ms, bound_by, flops, nbytes = _attn_bound(shape, dtype, bias,
                                                         causal)
         row = dict(case=name, shape=list(shape), dtype=str(dtype),
                    bias=None if bias is None else list(bias.shape),
                    causal=causal, max_abs_err=err_o, max_abs_err_lse=err_lse,
-                   tol=[tol_o, tol_lse], ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
+                   max_abs_err_vs_plain_in_dtype=same_dtype,
+                   bitwise_repeatable=bitwise, tol=[tol_o, tol_lse], ms=ms,
+                   call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms, bound_ms=bound_ms,
                    bound_by=bound_by, flops=flops, bytes=nbytes,
                    roofline_share=bound_ms / ms, ok=ok)
         rows.append(row)
-        log("kernel %-14s %-22s err O %.2e lse %.2e | kernel %.4f ms plain "
-            "%.4f ms sdpa %.4f ms | bound %.4f ms (%s) = %.1f%% of roofline"
-            "%s" % (name, tuple(shape), err_o, err_lse, ms, plain_ms,
-                    library_ms, bound_ms, bound_by, 100 * bound_ms / ms,
-                    "" if ok else "  <-- FAILED"))
-        del q, k, v, bias, out, lse, want, want_lse
+        log("kernel %-14s %-22s err O %.2e lse %.2e%s | kernel %.4f ms on "
+            "the card, %.4f a call | plain %.4f ms | sdpa %.4f ms a call, "
+            "%.4f on the card | bound %.4f ms (%s) = %.1f%% of roofline | "
+            "two launches bitwise equal: %s%s" % (
+                name, tuple(shape), err_o, err_lse,
+                "" if same_dtype is None else
+                " (vs the plain version at bf16: O %.2e lse %.2e)" % (
+                    same_dtype["out"], same_dtype["lse"]),
+                ms, call_ms, plain_ms, library_ms, library_device_ms,
+                bound_ms, bound_by, 100 * bound_ms / ms, bitwise,
+                "" if ok else "  <-- FAILED"))
+        del q, k, v, bias, out, lse, want, want_lse, fn, lib_fn, lib_mask
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError("flash kernel disagrees with its plain version "
-                             "in %s" % bad)
+                             "(or is not bitwise repeatable) in %s" % bad)
     return rows
 
 
@@ -1497,6 +1557,7 @@ def main():
     t_start = time.perf_counter()
     smi = phase_card()
     build_s = phase_build()
+    fwd_occupancy = _fwd_occupancy()
     rows = phase_kernels(args.seed)
     bwd_rows, bwd_occupancy = phase_bwd_kernels(args.seed)
     tier_rows, k5_launches = phase_tier_kernels(args.seed)
@@ -1572,7 +1633,8 @@ def main():
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__,
-                           build_s=build_s, kernel_cases=rows,
+                           build_s=build_s, fwd_occupancy=fwd_occupancy,
+                           kernel_cases=rows,
                            bwd_kernel_cases=bwd_rows,
                            bwd_occupancy=bwd_occupancy,
                            tier_kernel_cases=tier_rows, tune=tuned,

@@ -10,13 +10,9 @@ Three kernel wrappers, each replacing a Pallas TPU kernel of the JAX
 package with a CUDA C++ kernel for Hopper (sm_90a):
 
 - ``flash_attention_fwd`` (``csrc/flash_attention_fwd.cu``) replaces
-  ``_fwd_kernel`` / ``_forward_pallas``: out and the per-row logsumexp.
-  At f32 it does 4*B*H*Sq*Sk*D FLOPs of plain f32 FMAs against the
-  card's 67 TFLOP/s of non-tensor-core f32, so it is compute-bound
-  (about 96 us at [8, 12, 512, 64]); at bf16 the tensor-core rate puts
-  the bound on the bytes moved. One CTA of 128 threads per (b*h, 64-row
-  query tile); k and v tiles of 64 keys staged in shared memory as f32;
-  the online-softmax state in f32 registers.
+  ``_fwd_kernel`` / ``_forward_pallas``: out and the per-row logsumexp,
+  4*B*H*Sq*Sk*D FLOPs. One CTA per (b*h, query tile) sweeping the key
+  tiles with an online softmax in f32.
 - ``flash_attention_dkv`` (``csrc/flash_attention_bwd.cu``) replaces
   ``_dkv_kernel``: dK and dV (and, for a trainable bias, the raw score
   grad), one CTA per (b*h, 64-key tile) sweeping the query tiles;
@@ -24,15 +20,16 @@ package with a CUDA C++ kernel for Hopper (sm_90a):
 - ``flash_attention_dq`` (same source) replaces ``_dq_kernel``: dQ, one
   CTA per (b*h, 64-query tile) sweeping the key tiles; 6*B*H*P*D FLOPs.
 
-The forward uses f32 FMAs (tensor cores, TMA and warp specialization
-are later work). The backward kernels run bf16 on the tensor cores
-(``mma.sync``, P and dS rounded to bf16 before their products, as in
-the JAX package) and f32 as exact f32 FMAs; both copy the swept tiles
-into shared memory by 16-byte ``cp.async`` (bf16 into a two-stage
-ring), so q / k / v / g must be 16-byte aligned. All three skip tiles
-wholly above the causal diagonal, bounds-check the ragged Sq / Sk edges
-instead of padding, and read the bias through its strides (0 on
-broadcast dims) without materializing it. The backward kernels use no
+All three run bf16 on the tensor cores (``mma.sync``, with P, and in the
+backward dS, rounded to bf16 in registers before their products, as in
+the JAX package) and f32 as exact f32 FMAs (the main path runs with TF32
+off); all copy the swept tiles into shared memory by 16-byte
+``cp.async`` (bf16 into a two-stage ring), so q / k / v / g must be
+16-byte aligned. The launch geometry (rows and threads per CTA, shared
+memory) differs by dtype and head dim. All three skip tiles wholly above
+the causal diagonal, bounds-check the ragged Sq / Sk edges instead of
+padding, and read the bias through its strides (0 on broadcast dims)
+without materializing it, once per tile. The backward kernels use no
 atomics: every output element is written by one CTA, so a backward is
 bitwise repeatable. delta = rowsum(dO * O) (minus the lse cotangent) is
 computed outside the kernels, as in the JAX package.
@@ -72,7 +69,8 @@ __all__ = ["causal_bias_block", "composed_attention",
            "flash_attention_bwd_reference",
            "flash_attention_dkv", "flash_attention_dkv_reference",
            "flash_attention_dq", "flash_attention_dq_reference",
-           "flash_attention_fwd", "flash_attention_with_lse",
+           "flash_attention_fwd", "flash_attention_fwd_occupancy",
+           "flash_attention_with_lse",
            "flash_effective", "flash_min_seq", "fused_attention_enabled"]
 
 _MASK = -1e9  # additive mask value, as in the JAX package
@@ -124,7 +122,10 @@ def composed_attention_with_lse(q, k, v, bias=None, scale=1.0,
     """The plain version of the flash kernel: (out [B,H,Sq,D] in q's
     dtype, lse [B,H,Sq] f32). Scores and softmax in f32; the
     probabilities are cast to v's dtype before the second product, as in
-    the JAX package's ``composed_attention``."""
+    the JAX package's ``composed_attention``. The probabilities are
+    normalized by their sum, not by exp(lse): in a row whose every key
+    carries the -1e9 mask, lse rounds to -1e9 (the ulp of 1e9 is 64) and
+    exp(s - lse) would give each key weight 1 instead of 1/Sk."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias
@@ -133,7 +134,7 @@ def composed_attention_with_lse(q, k, v, bias=None, scale=1.0,
         keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril()
         s = s.masked_fill(~keep, _MASK)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse.unsqueeze(-1))
+    p = torch.softmax(s, dim=-1)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(q.dtype), lse
 
@@ -183,29 +184,62 @@ def _check_inputs(q, k, v, bias, causal, what="flash_attention_fwd"):
 
 def check_kernel_launch(q, k, v, bias=None, causal=False):
     """Everything the CUDA kernel requires of its inputs beyond
-    ``_check_inputs``: a supported head dim and a legal launch. Returns
+    ``_check_inputs``: a supported head dim, 16-byte-aligned q / k / v
+    (the kernel copies them into shared memory 16 bytes at a time, at
+    either dtype) and a legal launch for the dtype's geometry. Returns
     (grid, block, shared-memory bytes)."""
     _check_inputs(q, k, v, bias, causal)
     B, H, Sq, D = q.shape
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError("flash_attention_fwd kernel supports head dim %s, "
                          "got %d" % (_KERNEL_HEAD_DIMS, D))
-    rows, threads, smem = _kernel_config(D)
+    _check_aligned("flash_attention_fwd", (("q", q), ("k", k), ("v", v)))
+    rows, threads, smem = _kernel_config(D, q.dtype)
     grid = (ceil_div(Sq, rows), B * H, 1)
     check_launch("flash_attention_fwd", grid, (threads, 1, 1), smem)
     return grid, (threads, 1, 1), smem
 
 
-def _kernel_config(D):
-    lib = _lib()
+_ALIGN = 16  # bytes: the kernels copy q / k / v / g by 16-byte cp.async
+# bias kinds of the occupancy queries: none, a key-pad row, a full tile
+_BIAS_KINDS = {None: 0, "row": 1, "full": 2}
+
+
+def _check_aligned(what, named):
+    for name, t in named:
+        if t.data_ptr() % _ALIGN:
+            raise ValueError("%s: %s is not %d-byte aligned"
+                             % (what, name, _ALIGN))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_config(D, dtype):
+    """(query rows per CTA, threads per CTA, the most shared memory a
+    launch takes) of the forward kernel at head dim D and dtype, asked of
+    the built library once per key."""
     rows, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.flash_attention_fwd_config(D, ctypes.byref(rows),
-                                         ctypes.byref(threads),
-                                         ctypes.byref(smem))
+    err = _lib().flash_attention_fwd_config(
+        D, _KERNEL_DTYPES[dtype], ctypes.byref(rows), ctypes.byref(threads),
+        ctypes.byref(smem))
     if err:
         raise ValueError("flash_attention_fwd has no configuration for "
-                         "head dim %d" % D)
+                         "head dim %d at %s" % (D, dtype))
     return rows.value, threads.value, smem.value
+
+
+def flash_attention_fwd_occupancy(head_dim, dtype, bias=None):
+    """(CTAs per SM, shared-memory bytes per CTA) the card grants the
+    forward kernel at ``head_dim`` and ``dtype``, with no bias
+    (``bias=None``), one broadcast over the query rows (``"row"``, a
+    key-pad mask) or a full one (``"full"``). Needs the card."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = _lib().flash_attention_fwd_occupancy(
+        head_dim, _KERNEL_DTYPES[dtype], _BIAS_KINDS[bias],
+        ctypes.byref(blocks), ctypes.byref(smem))
+    if err:
+        raise RuntimeError("flash_attention_fwd occupancy query failed with "
+                           "cudaError %d" % err)
+    return blocks.value, smem.value
 
 
 def _lib():
@@ -217,8 +251,11 @@ def _lib():
             i, i, i, i, i, i, ctypes.c_float, i, p]
         lib.flash_attention_fwd.restype = i
         lib.flash_attention_fwd_config.argtypes = [
-            i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i)]
+            i, i, ctypes.POINTER(i), ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.flash_attention_fwd_config.restype = i
+        lib.flash_attention_fwd_occupancy.argtypes = [
+            i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.flash_attention_fwd_occupancy.restype = i
         lib._typed = True
     return lib
 
@@ -306,9 +343,6 @@ def _check_bwd_inputs(what, q, k, v, bias, g, lse, delta, causal):
                                 tuple(q.shape[:3])))
 
 
-_BWD_ALIGN = 16  # bytes: the kernels copy q / k / v / g by 16-byte cp.async
-
-
 def check_bwd_kernel_launch(what, q, k, v, bias, g, lse, delta,
                             causal=False):
     """Everything the backward kernel ``what`` requires of its inputs: a
@@ -321,10 +355,7 @@ def check_bwd_kernel_launch(what, q, k, v, bias, g, lse, delta,
     if D not in _KERNEL_HEAD_DIMS:
         raise ValueError("%s kernel supports head dim %s, got %d"
                          % (what, _KERNEL_HEAD_DIMS, D))
-    for name, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-        if t.data_ptr() % _BWD_ALIGN:
-            raise ValueError("%s: %s is not %d-byte aligned"
-                             % (what, name, _BWD_ALIGN))
+    _check_aligned(what, (("q", q), ("k", k), ("v", v), ("g", g)))
     rows, threads, smem = _bwd_config(what, D, q.dtype)
     sweep = k.shape[2] if what == "flash_attention_dkv" else Sq
     grid = (ceil_div(sweep, rows), B * H, 1)
@@ -344,9 +375,6 @@ def _bwd_config(what, D, dtype):
         raise ValueError("%s has no configuration for head dim %d at %s"
                          % (what, D, dtype))
     return rows.value, threads.value, smem.value
-
-
-_BIAS_KINDS = {None: 0, "row": 1, "full": 2}
 
 
 def flash_attention_bwd_occupancy(what, head_dim, dtype, bias=None):

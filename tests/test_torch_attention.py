@@ -232,6 +232,48 @@ def test_backward_kernels_require_16_byte_alignment(dtype, offset):
     assert "flash_attention_bwd" not in build._LOADED
 
 
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 4),
+                                          (torch.float32, 2)])
+def test_forward_kernel_requires_16_byte_alignment(dtype, offset):
+    """The forward kernel copies q / k / v by 16-byte cp.async at either
+    dtype: a view ``offset`` elements (8 bytes) into its storage is
+    refused by the launch check, before the kernel is built."""
+    q, k, v = _qkv(dtype=dtype)
+    flat = torch.zeros(q.numel() + offset, dtype=dtype)
+    shifted = flat[offset:].view(q.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    for i in range(3):
+        args = [q, k, v]
+        args[i] = shifted
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tattn.check_kernel_launch(*args)
+    assert "flash_attention_fwd" not in build._LOADED
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fully_masked_row_takes_uniform_weight_as_in_jax(causal):
+    """A batch row whose every key carries the -1e9 mask: the port's plain
+    version (what ``flash_attention_fwd`` computes on CPU tensors) spreads
+    the weight uniformly over the keys, as the JAX package's
+    ``composed_attention`` does; the lse is the mask value's."""
+    S = 40
+    rs = np.random.RandomState(5)
+    q, k, v = (rs.randn(B, H, S, D).astype("float32") for _ in range(3))
+    bias = np.zeros((B, 1, 1, S), "float32")
+    bias[1] = -1e9
+    want = jattn.composed_attention(_j(q), _j(k), _j(v), _j(bias), SCALE,
+                                    causal)
+    out, lse = tattn.flash_attention_fwd(_t(q), _t(k), _t(v), _t(bias),
+                                         SCALE, causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    if not causal:
+        np.testing.assert_allclose(
+            out[1].numpy(), np.broadcast_to(v[1].mean(1, keepdims=True),
+                                            (H, S, D)), atol=ATOL, rtol=0)
+        np.testing.assert_array_equal(lse[1].numpy(), -1e9)
+
+
 def test_dispatch_threshold(monkeypatch):
     monkeypatch.delenv("PADDLE_TPU_FLASH_MIN_SEQ", raising=False)
     assert tattn.flash_min_seq() == 256

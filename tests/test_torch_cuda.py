@@ -8,7 +8,9 @@ where only the port is installed:
 
 - The flash forward kernel against its plain version
   (``composed_attention_with_lse``), at atol 2e-5 on O and 1e-5 on lse
-  at f32 and 2e-2 at bf16.
+  at f32 and 2e-2 at bf16, at S = 8, 200 and a causal 1000, two launches
+  bitwise equal; and on a batch row whose keys all carry the -1e9 mask
+  (uniform weight over the real keys), with a key-pad and a full bias.
 - The flash dK/dV and dQ kernels against their plain versions on f32
   copies of the inputs, with the raw score grad (``want_db``) both
   without and with causal masking, at S = 8 (below one tensor-core
@@ -64,23 +66,62 @@ def _qkv(shape, dtype, dev):
             for _ in range(3)]
 
 
+# S: below one mma tile (8), not a multiple of 16 (200), and a causal
+# sweep over many tiles that is not a multiple of 64 (1000)
+BWD_CASES = [(8, False), (8, True), (200, False), (200, True), (1000, True)]
+
+
+def _fwd_tols(dtype):
+    """(out, lse) tolerances of the forward kernel against its plain
+    version on f32 copies."""
+    return (2e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype, d):
-    q, k, v = _qkv((2, 3, 200, d), dtype, cuda_device)
-    bias = torch.zeros(2, 1, 1, 200, device=cuda_device)
-    bias[1, ..., 150:] = -1e9
-    for causal in (False, True):
-        before = tattn.flash_attention_fwd.launches
-        out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, causal)
-        assert tattn.flash_attention_fwd.launches == before + 1
-        want, want_lse = tattn.composed_attention_with_lse(
-            q.float(), k.float(), v.float(), bias, d ** -0.5, causal)
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        torch.testing.assert_close(out.float(), want, atol=tol, rtol=0)
-        torch.testing.assert_close(lse, want_lse,
-                                   atol=1e-5 if tol == 2e-5 else tol, rtol=0)
+@pytest.mark.parametrize("S,causal", BWD_CASES)
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype, d, S,
+                                           causal):
+    q, k, v = _qkv((2, 3, S, d), dtype, cuda_device)
+    bias = torch.zeros(2, 1, 1, S, device=cuda_device)
+    bias[1, ..., S - max(S // 4, 1):] = -1e9  # batch 1's last keys padded
+    before = tattn.flash_attention_fwd.launches
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, causal)
+    assert tattn.flash_attention_fwd.launches == before + 1
+    want, want_lse = tattn.composed_attention_with_lse(
+        q.float(), k.float(), v.float(), bias, d ** -0.5, causal)
+    tol_o, tol_lse = _fwd_tols(dtype)
+    torch.testing.assert_close(out.float(), want, atol=tol_o, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=tol_lse, rtol=0)
+    # two launches on the same inputs give the same bits
+    again = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5, causal)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["keypad", "full"])
+def test_cuda_kernel_fully_masked_row_matches_plain_version(cuda_device,
+                                                            dtype, d, kind):
+    """Every key of batch row 1 carries the -1e9 mask: the kernel spreads
+    the weight uniformly over the real keys, as the plain version does,
+    and its lse is the mask value's (S = 200, a ragged key tile)."""
+    S = 200
+    q, k, v = _qkv((2, 3, S, d), dtype, cuda_device)
+    g = torch.Generator().manual_seed(3)
+    shape = (2, 1, 1, S) if kind == "keypad" else (2, 1, S, S)
+    bias = torch.randn(shape, generator=g).to(cuda_device)
+    bias[1] = -1e9
+    out, lse = tattn.flash_attention_fwd(q, k, v, bias, d ** -0.5)
+    want, want_lse = tattn.composed_attention_with_lse(
+        q.float(), k.float(), v.float(), bias, d ** -0.5)
+    tol_o, tol_lse = _fwd_tols(dtype)
+    torch.testing.assert_close(out.float(), want, atol=tol_o, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=tol_lse, rtol=0)
+    uniform = v[1].float().mean(1, keepdim=True).expand(3, S, d)
+    torch.testing.assert_close(out[1].float(), uniform, atol=tol_o, rtol=0)
 
 
 def _bwd_inputs(dtype, d, S, causal, dev):
@@ -99,11 +140,6 @@ def _bwd_inputs(dtype, d, S, causal, dev):
                                                causal)
     delta = (f32[3] * o).sum(-1)
     return (q, k, v), (bias, g, lse, delta, d ** -0.5, causal), f32
-
-
-# S: below one mma tile (8), not a multiple of 16 (200), and a causal
-# sweep over many tiles that is not a multiple of 64 (1000)
-BWD_CASES = [(8, False), (8, True), (200, False), (200, True), (1000, True)]
 
 
 @pytest.mark.cuda
