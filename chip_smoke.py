@@ -9,7 +9,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
 1. the card: nvidia-smi's name and power limit, the torch version, TF32
    switched off for f32 products;
 2. build: every CUDA source of the port compiled with nvcc for sm_90a,
-   in parallel;
+   in parallel; ptxas' registers and spills per kernel, and no spill in
+   any instantiation of K5, K6 or K7;
 3. kernels: the CTAs per SM the card grants the flash forward kernel
    (per dtype, head dim and bias kind); then the kernel against its
    plain PyTorch version on the card, at the main path's shapes and a
@@ -34,7 +35,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
    wide [2048, 4096] (the kernels for rows over 2048 columns), f32 and
    bf16; the grouped Adam (K6) and SGD (K7) updates over BERT-base's
    157 param shapes and an odd-sized edge list; each against its plain
-   version, with its time, the plain version's, one library call's
+   version, two launches bitwise equal (K5, K6, K7), the entries K6 and
+   K7 stream at 16 bytes, with its device time and call time, the plain
+   version's, one library call's device time and call time
    (``torch.add`` + ``F.layer_norm``, ``native_layer_norm_backward``,
    ``torch._fused_adam_``, ``torch._foreach_add_``: yardsticks the port
    never calls) and the bound;
@@ -69,9 +72,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
    params; from the same scope and RNG state, the flash and the composed
    attention path, and level 2 with the tier's kernels and level 0,
    agree on the first step's param grads and on the losses and params
-   of 3 steps within the stated tolerances; the step time (10 pairs) and
-   the host's time by op class (the median of 3 pairs) at level 2 and at
-   level 0, in turns; one more step is profiled;
+   of 3 steps within the stated tolerances; from the second step on,
+   every entry of the Adam group takes K6's 16-byte path (counted); the
+   step time (10 pairs) and the host's time by op class (the median of 3
+   pairs) at level 2 and at level 0, in turns; one more step is
+   profiled, with K4's and K6's device time in it;
 7. train with SGD: the same model with ``SGD.minimize``, 3 steps at
    level 2 (K4 25 times and K7 once per step, counted), losses finite,
    and 3 steps at level 0 from the same scope within phase 6's bounds.
@@ -243,36 +248,54 @@ def phase_build():
     secs = time.perf_counter() - t0
     log("build: %d kernel(s) in %.1f s %s" % (len(took), secs, {
         k: round(v, 1) for k, v in took.items()}))
+    spilled = []
     for name in build.sources():
-        for line in _ptxas_summary(build.ptxas_report(name)):
-            log("  ptxas %s: %s" % (name, line))
+        for kernel, regs, spills in _ptxas_summary(build.ptxas_report(name)):
+            log("  ptxas %s: %s: %s registers; %s" % (name, kernel, regs,
+                                                      spills))
+            if kernel.startswith(NO_SPILL_KERNELS) and \
+                    not re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                  r"loads", spills):
+                spilled.append(kernel)
+    if spilled:
+        raise AssertionError("ptxas spilled registers in %s" % spilled)
     return secs
 
 
+# kernels whose every instantiation must compile without register spills
+NO_SPILL_KERNELS = ("ln_res_bwd", "adam_group_kernel", "sgd_group_kernel")
+
+
+def _kernel_label(mangled):
+    """``name<type, ints...>`` from a kernel's mangled name: its template
+    arguments (element type and integer parameters) where it has them."""
+    m = re.search(r"\d((?:flash_(?:fwd|dkv|dq)|ln_res|adam_group|sgd_group)"
+                  r"\w*?_kernel)(I.*?EEv)?", mangled)
+    if m is None:
+        return mangled
+    if not m.group(2):
+        return m.group(1)
+    targs = m.group(2)[1:-3]
+    args = (["bfloat16"] if targs.startswith("13__nv_bfloat16") else
+            ["float"] if targs.startswith("f") else [])
+    args += re.findall(r"Li(\d+)E", targs)
+    return "%s<%s>" % (m.group(1), ", ".join(args))
+
+
 def _ptxas_summary(report):
-    """One line per compiled kernel from ``-Xptxas=-v``: the kernel, its
-    element type and head dim (from the mangled name), its registers and
-    its spills."""
+    """(kernel, registers, spills) per compiled kernel from
+    ``-Xptxas=-v``: the kernel with its template arguments (element type,
+    head dim or columns per thread), its registers and its spill line."""
     out, kernel, spills = [], "?", "?"
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|dkv|dq)\w*?_kernel)I(\w*?)Li(\d+)E",
-                          m.group(1))
-            if k is None:
-                kernel = m.group(1)
-            elif k.group(2):  # templated on the element type too
-                kernel = "%s<%s, %s>" % (
-                    k.group(1), "float" if k.group(2) == "f" else "bfloat16",
-                    k.group(3))
-            else:
-                kernel = "%s<%s>" % (k.group(1), k.group(3))
+            kernel = _kernel_label(m.group(1))
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
-            out.append("%s: %s registers; %s" % (
-                kernel, regs.group(1) if regs else "?", spills))
+            out.append((kernel, regs.group(1) if regs else "?", spills))
     return out
 
 
@@ -581,7 +604,8 @@ def phase_bwd_kernels(seed):
                    causal=causal, want_db=want_db, max_abs_err=errs, tol=tol,
                    max_abs_err_vs_plain_in_dtype=same_dtype,
                    bitwise_repeatable=bitwise, dkv=t_dkv, dq=t_dq, bwd=bwd,
-                   library_ms=library_ms, ok=ok)
+                   library_ms=library_ms, library_device_ms=library_device_ms,
+                   ok=ok)
         rows.append(row)
         log("bwd %-14s %-22s err %s%s | dkv %.4f ms on the card, %.4f a "
             "call (plain %.4f, bound %.4f %s, %.1f%%) | dq %.4f ms, %.4f a "
@@ -677,7 +701,20 @@ def _group_on_card(shapes, gen, dev):
             "LearningRate": [torch.full((1,), TRAIN_LR, device=dev)] * k}
 
 
+def _library_times(fn):
+    """A library yardstick's device time per call (every device kernel in
+    the profiled window) and its call time (CUDA events around
+    back-to-back calls): ``library_ms`` and ``library_call_ms``."""
+    return dict(library_ms=device_ms(fn, ("",)), library_call_ms=time_ms(fn))
+
+
 def phase_tier_kernels(seed):
+    """K4 and K5 on ``LN_CASES``, K6 and K7 on BERT-base's params and an
+    edge list: each against its plain version, two launches bitwise
+    equal, its device and call time, the plain version's, its library
+    yardstick's device and call time, and the bound. Takes whichever
+    ``paddle_tpu_torch`` is first on the path, so a parent's checkout is
+    timed by the same measurement."""
     from paddle_tpu_torch.kernels import layernorm as ln
     from paddle_tpu_torch.kernels import optimizer_update as ou
 
@@ -734,42 +771,57 @@ def phase_tier_kernels(seed):
         tol_f, tol_b = LN_TOL[dtype]
         ok = err_f <= tol_f and err_b <= tol_b and same and all(
             bool(torch.isfinite(t).all()) for t in (y, dx, dsc, db))
+        # two launches of K5 on the same inputs: the same bits
+        again = ln.layernorm_residual_bwd(*bwd_args)
+        bitwise = all(torch.equal(a, a2) for a, a2 in zip((dx, dsc, db),
+                                                          again))
+        ok = ok and bitwise
+        del again
         fwd = lambda: ln.layernorm_residual_fwd(x, r, sc, b, 1e-5)  # noqa
         bwd = lambda: ln.layernorm_residual_bwd(*bwd_args)  # noqa: E731
+        rstd = torch.rsqrt(var + 1e-5)
+        lib_fwd = lambda: F.layer_norm(  # noqa: E731
+            torch.add(x, r), (d,), sc, b, 1e-5)
+        lib_bwd = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
+            gy, s, [d], mean, rstd, sc, b, [True, True, True])
         t_fwd = dict(
             ms=device_ms(fwd, ("ln_res_fwd",)), call_ms=time_ms(fwd),
             plain_ms=time_ms(lambda: ln.composed_layernorm_residual(
                 x, r, sc, b, eps=1e-5)),
-            library_ms=time_ms(lambda: F.layer_norm(
-                torch.add(x, r), (d,), sc, b, 1e-5)))
-        rstd = torch.rsqrt(var + 1e-5)
+            **_library_times(lib_fwd))
         t_bwd = dict(
             ms=device_ms(bwd, ("ln_res_bwd",)), call_ms=time_ms(bwd),
             plain_ms=time_ms(
                 lambda: ln.layernorm_residual_bwd_reference(*bwd_args)),
-            library_ms=time_ms(
-                lambda: torch.ops.aten.native_layer_norm_backward(
-                    gy, s, [d], mean, rstd, sc, b, [True, True, True])))
+            **_library_times(lib_bwd))
         for t, (bound, by) in zip((t_fwd, t_bwd), _ln_bounds(n, d, dtype)):
             t.update(bound_ms=bound, bound_by=by,
                      roofline_share=bound / t["ms"])
         row = dict(case=name, shape=[n, d], dtype=str(dtype),
                    max_abs_err=dict(fwd=err_f, bwd=err_b),
-                   autograd_equals_kernels=same, tol=[tol_f, tol_b],
-                   fwd=t_fwd, bwd=t_bwd, ok=ok)
+                   autograd_equals_kernels=same, bwd_bitwise=bitwise,
+                   bwd_launch=(list(ln.bwd_launch(ln._lib(), n, d, dtype,
+                                                  dev))
+                               if hasattr(ln, "bwd_launch") else None),
+                   tol=[tol_f, tol_b], fwd=t_fwd, bwd=t_bwd, ok=ok)
         rows.append(row)
         log("tier %-12s %-12s err fwd %.2e bwd %.2e | K4 %.4f ms on the "
-            "card, %.4f ms a call (plain %.4f, add+layer_norm %.4f, bound "
-            "%.4f %s, %.1f%%) | K5 %.4f ms, %.4f a call (plain %.4f, "
-            "native_layer_norm_backward %.4f, bound %.4f %s, %.1f%%)%s" % (
+            "card, %.4f a call (plain %.4f; add+layer_norm %.4f on the "
+            "card, %.4f a call; bound %.4f %s, %.1f%%) | K5 %.4f ms on the "
+            "card, %.4f a call (plain %.4f; native_layer_norm_backward "
+            "%.4f on the card, %.4f a call; bound %.4f %s, %.1f%%; grid %s; "
+            "bitwise %s)%s" % (
                 name, (n, d), err_f, err_b, t_fwd["ms"], t_fwd["call_ms"],
-                t_fwd["plain_ms"], t_fwd["library_ms"], t_fwd["bound_ms"],
+                t_fwd["plain_ms"], t_fwd["library_ms"],
+                t_fwd["library_call_ms"], t_fwd["bound_ms"],
                 t_fwd["bound_by"], 100 * t_fwd["roofline_share"],
                 t_bwd["ms"], t_bwd["call_ms"], t_bwd["plain_ms"],
-                t_bwd["library_ms"], t_bwd["bound_ms"], t_bwd["bound_by"],
-                100 * t_bwd["roofline_share"], "" if ok else "  <-- FAILED"))
+                t_bwd["library_ms"], t_bwd["library_call_ms"],
+                t_bwd["bound_ms"], t_bwd["bound_by"],
+                100 * t_bwd["roofline_share"], row["bwd_launch"], bitwise,
+                "" if ok else "  <-- FAILED"))
         del x, r, gy, gs, sc, b, ins, outs, want, y, s, mean, var, dx, dsc
-        del db, ref, bwd_args, rstd, fwd, bwd
+        del db, ref, bwd_args, rstd, fwd, bwd, lib_fwd, lib_bwd
 
     # K6 and K7
     main, _, _, _ = _bert_train_program("Adam")
@@ -781,19 +833,27 @@ def phase_tier_kernels(seed):
         ins = _group_on_card(shapes, gen, dev)
         n = sum(int(np.prod(s)) for s in shapes)
         k = len(shapes)
-        errs = {}
-        for kind, fn, ref in (
-                ("adam", lambda: ou.adam_group(ins, ADAM_HYPER),
+        errs, bitwise, vector = {}, {}, {}
+        for kind, wrapper, fn, ref in (
+                ("adam", ou.adam_group,
+                 lambda: ou.adam_group(ins, ADAM_HYPER),
                  lambda: ou.adam_group_reference(ins, ADAM_HYPER)),
-                ("sgd", lambda: ou.sgd_group(ins),
+                ("sgd", ou.sgd_group, lambda: ou.sgd_group(ins),
                  lambda: ou.sgd_group_reference(ins))):
-            got, want = fn(), ref()
+            # the entries that take the 16-byte path (a parent's wrapper
+            # may not count them)
+            before = getattr(wrapper, "vector_entries", None)
+            got, again, want = fn(), fn(), ref()
             torch.cuda.synchronize()
+            vector[kind] = None if before is None else \
+                (wrapper.vector_entries - before) // 2
             errs[kind] = max(float((a - w).abs().max())
                              for slot in want
                              for a, w in zip(got[slot], want[slot]))
-            del got, want
-        ok = max(errs.values()) <= OPT_TOL
+            bitwise[kind] = all(torch.equal(a, a2) for slot in got
+                                for a, a2 in zip(got[slot], again[slot]))
+            del got, again, want
+        ok = max(errs.values()) <= OPT_TOL and all(bitwise.values())
         adam = lambda: ou.adam_group(ins, ADAM_HYPER)  # noqa: E731
         sgd = lambda: ou.sgd_group(ins)  # noqa: E731
         t_adam = dict(ms=device_ms(adam, ("adam_group_kernel",)),
@@ -807,28 +867,34 @@ def phase_tier_kernels(seed):
         lib = {s: [t.clone() for t in ins[s]]
                for s in ("Param", "Grad", "Moment1", "Moment2")}
         steps = [torch.full((), 3.0, device=dev) for _ in shapes]
-        t_adam["library_ms"] = time_ms(lambda: torch._fused_adam_(
+        t_adam.update(_library_times(lambda: torch._fused_adam_(
             lib["Param"], lib["Grad"], lib["Moment1"], lib["Moment2"], [],
             steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999, weight_decay=0.0,
-            eps=1e-8, amsgrad=False, maximize=False))
-        t_sgd["library_ms"] = time_ms(lambda: torch._foreach_add_(
-            lib["Param"], lib["Grad"], alpha=-TRAIN_LR))
+            eps=1e-8, amsgrad=False, maximize=False)))
+        t_sgd.update(_library_times(lambda: torch._foreach_add_(
+            lib["Param"], lib["Grad"], alpha=-TRAIN_LR)))
         for t, (bound, by) in ((t_adam, _opt_bound(n, k, 7, 13)),
                                (t_sgd, _opt_bound(n, k, 3, 2))):
             t.update(bound_ms=bound, bound_by=by,
                      roofline_share=bound / t["ms"])
         row = dict(case=name, params=k, elements=n, max_abs_err=errs,
+                   bitwise_repeatable=bitwise, vector_entries=vector,
                    tol=OPT_TOL, adam=t_adam, sgd=t_sgd, ok=ok)
         rows.append(row)
-        log("tier %-10s %d params, %d elements: err adam %.2e sgd %.2e | "
-            "K6 %.4f ms on the card, %.4f a call (plain %.4f, _fused_adam_ "
-            "%.4f, bound %.4f %s, %.1f%%) | K7 %.4f ms, %.4f a call (plain "
-            "%.4f, _foreach_add_ %.4f, bound %.4f %s, %.1f%%)%s" % (
-                name, k, n, errs["adam"], errs["sgd"], t_adam["ms"],
-                t_adam["call_ms"], t_adam["plain_ms"], t_adam["library_ms"],
+        log("tier %-10s %d params, %d elements: err adam %.2e sgd %.2e; "
+            "two launches bitwise equal %s; entries on the 16-byte path %s "
+            "| K6 %.4f ms on the card, %.4f a call (plain %.4f; "
+            "_fused_adam_ %.4f on the card, %.4f a call; bound %.4f %s, "
+            "%.1f%%) | K7 %.4f ms on the card, %.4f a call (plain %.4f; "
+            "_foreach_add_ %.4f on the card, %.4f a call; bound %.4f %s, "
+            "%.1f%%)%s" % (
+                name, k, n, errs["adam"], errs["sgd"], bitwise, vector,
+                t_adam["ms"], t_adam["call_ms"], t_adam["plain_ms"],
+                t_adam["library_ms"], t_adam["library_call_ms"],
                 t_adam["bound_ms"], t_adam["bound_by"],
                 100 * t_adam["roofline_share"], t_sgd["ms"], t_sgd["call_ms"],
-                t_sgd["plain_ms"], t_sgd["library_ms"], t_sgd["bound_ms"],
+                t_sgd["plain_ms"], t_sgd["library_ms"],
+                t_sgd["library_call_ms"], t_sgd["bound_ms"],
                 t_sgd["bound_by"], 100 * t_sgd["roofline_share"],
                 "" if ok else "  <-- FAILED"))
         del ins, lib, steps, adam, sgd
@@ -1345,6 +1411,8 @@ def phase_train(seed):
     """BERT-base MLM training through the port's entry points: layers,
     ``Adam.minimize``, ``Executor.run`` on the card, at level 2 with the
     tier's kernels."""
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
     t0 = time.perf_counter()
     (exe, scope, main, loss, params, grads, batches,
      tier) = _train_setup("Adam", seed)
@@ -1385,9 +1453,10 @@ def phase_train(seed):
     _zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
+    losses, step_ms, vector = [], [], []
     for i in range(WARMUP_STEPS + TIMED_STEPS):
         before = _counts()
+        vec0 = ou.adam_group.vector_entries
         t1 = time.perf_counter()
         val = step(scope, batches[i % len(batches)])
         if i >= WARMUP_STEPS:
@@ -1400,6 +1469,13 @@ def phase_train(seed):
         if not np.isfinite(val):
             raise AssertionError("step %d: loss %r is not finite" % (i, val))
         losses.append(val)
+        # from the second step on, params and moments are K6's padded
+        # output views: every entry streams at 16 bytes
+        vector.append(ou.adam_group.vector_entries - vec0)
+        if i >= 1 and vector[-1] != len(params):
+            raise AssertionError("step %d: %d of %d Adam entries took K6's "
+                                 "16-byte path" % (i, vector[-1],
+                                                   len(params)))
     launches = _counts()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # ---- end of the main path
@@ -1445,6 +1521,11 @@ def phase_train(seed):
                              float(np.median(turn0))))
     prof = _profiled(lambda: step(scope, batches[1]))
     _log_breakdown("train step", prof)
+    k4_ms = prof["by_class_ms"].get("layer norm (K4/K5)", 0.0)
+    k6_ms = prof["by_class_ms"].get("optimizer (K6/K7)", 0.0)
+    log("train: K4 + K6 %.4f + %.4f ms of the profiled step's device time; "
+        "Adam entries on K6's 16-byte path by step %s (of %d)" % (
+            k4_ms, k6_ms, vector, len(params)))
 
     med = float(np.median(step_ms))
     tokens_per_s = TRAIN_BATCH * SEQ / (med / 1e3)
@@ -1463,13 +1544,16 @@ def phase_train(seed):
                 parity=dict(steps=PARITY_STEPS, **parity), host=host,
                 host_level0=host0,
                 step_ms_in_turns={"level 2": turn2, "level 0": turn0},
-                profile=prof)
+                profile=prof, k4_ms=k4_ms, k6_ms=k6_ms,
+                adam_vector_entries=vector)
 
 
 # ---------------------------------------------------------------- phase 7
 def phase_train_sgd(seed):
     """BERT-base MLM with ``SGD.minimize``: 3 steps at level 2 (K4 and
     K7), then 3 steps at level 0 from the same scope."""
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
     (exe, scope, main, loss, params, grads, batches,
      tier) = _train_setup("SGD", seed)
     cfg = bert_cfg()
@@ -1492,12 +1576,14 @@ def phase_train_sgd(seed):
     for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
         os.environ.pop(k, None)
     _zero_counts()
-    losses, step_ms = [], []
+    losses, step_ms, vector = [], [], []
     for i in range(PARITY_STEPS):
         before = _counts()
+        vec0 = ou.sgd_group.vector_entries
         t1 = time.perf_counter()
         losses.append(step(scope, batches[i % len(batches)]))
         step_ms.append((time.perf_counter() - t1) * 1e3)
+        vector.append(ou.sgd_group.vector_entries - vec0)
         got = tuple(a - b for a, b in zip(_counts(), before))
         if got != per_step:
             raise AssertionError("SGD step %d launched %s = %s kernels, "
@@ -1514,29 +1600,35 @@ def phase_train_sgd(seed):
     param_diff = max(float((main_path[2][n] - ref[2][n]).abs().max())
                      for n in params)
     log("train SGD: level 2 %d ops (%d fused layer norms, a group of %s "
-        "params); losses %s; step ms %s; launches %s = %s; vs level 0 over "
+        "params); losses %s; step ms %s; launches %s = %s; entries on K7's "
+        "16-byte path by step %s; vs level 0 over "
         "%d steps: loss rel diff %.3e (<= %.0e), param max |diff| %.3e "
         "(<= %.0e)" % (
             tier["ops_after"], tier["ln_residual_fused"],
             tier["optimizer_groups"], ["%.4f" % v for v in losses],
-            ["%.1f" % v for v in step_ms], COUNT_NAMES, launches,
+            ["%.1f" % v for v in step_ms], COUNT_NAMES, launches, vector,
             PARITY_STEPS, loss_rel, PARITY_LOSS_RTOL, param_diff,
             PARITY_PARAM_ATOL))
     if loss_rel > PARITY_LOSS_RTOL or param_diff > PARITY_PARAM_ATOL:
         raise AssertionError("SGD training at level 2 and level 0 disagree")
     return dict(tier=tier, losses=losses, step_ms=step_ms,
                 launches=dict(zip(COUNT_NAMES, launches)),
+                sgd_vector_entries=vector,
                 parity=dict(steps=PARITY_STEPS, loss_rel=loss_rel,
                             param_max_abs=param_diff))
 
 
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
-                library_ms):
+                library_ms, library_call_ms):
+    """One kernel's entry of the result line: ``ms`` and ``library_ms``
+    are device times (torch.profiler), ``library_call_ms`` the library
+    call's time from CUDA events around back-to-back calls."""
     return dict(name=name, ported=True, route="cuda", source=source,
                 replaces=replaces, launches=launches,
                 launches_by_path=by_path, max_abs_err=err, ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=library_ms)
+                bound_by=t["bound_by"], library_ms=library_ms,
+                library_call_ms=library_call_ms)
 
 
 def main():
@@ -1587,41 +1679,48 @@ def main():
                     serve["launches"]["flash"] + t_launch["flash fwd"],
                     dict(serve=serve["launches"]["flash"],
                          train=t_launch["flash fwd"]),
-                    fwd["max_abs_err"], fwd, fwd["library_ms"]),
+                    fwd["max_abs_err"], fwd, fwd["library_device_ms"],
+                    fwd["library_ms"]),
         _kernel_row("flash_attention_dkv",
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                     "paddle_tpu/ops/attention.py:383",
                     t_launch["flash dkv"], dict(train=t_launch["flash dkv"]),
                     max(bwd["max_abs_err"][n] for n in ("dk", "dv")),
-                    bwd["dkv"], bwd["library_ms"]),
+                    bwd["dkv"], bwd["library_device_ms"],
+                    bwd["library_ms"]),
         _kernel_row("flash_attention_dq",
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                     "paddle_tpu/ops/attention.py:432", t_launch["flash dq"],
                     dict(train=t_launch["flash dq"]),
-                    bwd["max_abs_err"]["dq"], bwd["dq"], bwd["library_ms"]),
+                    bwd["max_abs_err"]["dq"], bwd["dq"],
+                    bwd["library_device_ms"], bwd["library_ms"]),
         _kernel_row("layernorm_residual_fwd",
                     "paddle_tpu_torch/csrc/layernorm_residual.cu",
                     "paddle_tpu/kernels/layernorm.py:98", sum(k4.values()),
                     k4, ln_row["max_abs_err"]["fwd"], ln_row["fwd"],
-                    ln_row["fwd"]["library_ms"]),
+                    ln_row["fwd"]["library_ms"],
+                    ln_row["fwd"]["library_call_ms"]),
         _kernel_row("layernorm_residual_bwd",
                     "paddle_tpu_torch/csrc/layernorm_residual.cu",
                     "paddle_tpu/kernels/layernorm.py:143", k5_launches,
                     dict(autograd=k5_launches),
                     ln_row["max_abs_err"]["bwd"], ln_row["bwd"],
-                    ln_row["bwd"]["library_ms"]),
+                    ln_row["bwd"]["library_ms"],
+                    ln_row["bwd"]["library_call_ms"]),
         _kernel_row("adam_group",
                     "paddle_tpu_torch/csrc/optimizer_update.cu",
                     "paddle_tpu/kernels/optimizer_update.py:149",
                     t_launch["K6"], dict(train=t_launch["K6"]),
                     opt_row["max_abs_err"]["adam"], opt_row["adam"],
-                    opt_row["adam"]["library_ms"]),
+                    opt_row["adam"]["library_ms"],
+                    opt_row["adam"]["library_call_ms"]),
         _kernel_row("sgd_group",
                     "paddle_tpu_torch/csrc/optimizer_update.cu",
                     "paddle_tpu/kernels/optimizer_update.py:233",
                     s_launch["K7"], dict(train_sgd=s_launch["K7"]),
                     opt_row["max_abs_err"]["sgd"], opt_row["sgd"],
-                    opt_row["sgd"]["library_ms"]),
+                    opt_row["sgd"]["library_ms"],
+                    opt_row["sgd"]["library_call_ms"]),
     ]
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
     # pl.pallas_call has its port; none is left out

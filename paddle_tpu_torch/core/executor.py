@@ -19,7 +19,9 @@ of tracing one XLA computation. There is no jit and no CUDA graph in
 this version.
 
     inputs  = feed tensors + persistable state read from the Scope
-    outputs = fetches (numpy) + persistable state written back to the Scope
+    outputs = fetches (numpy, or tensors on the device under
+              ``return_numpy=False``) + persistable state written back
+              to the Scope
 
 A training Program (``optimizer.minimize``) runs the same way: params,
 optimizer moments, beta powers and a learning rate an op writes are
@@ -76,9 +78,14 @@ class Executor:
         feed: Optional[Dict[str, Any]] = None,
         fetch_list: Optional[Sequence] = None,
         scope: Optional[Scope] = None,
-    ) -> List[np.ndarray]:
-        """Run ``program`` on this executor's device; fetches come back
-        as numpy arrays."""
+        return_numpy: bool = True,
+    ) -> List[Any]:
+        """Run ``program`` on this executor's device. A feed is a numpy
+        array (or anything ``np.asarray`` takes) or a ``torch.Tensor``,
+        which moves to the device without a numpy round trip. Fetches
+        come back as numpy arrays, or with ``return_numpy=False`` as
+        tensors on the executor's device (the reference's device
+        arrays)."""
         require_device(self.device)
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -108,8 +115,9 @@ class Executor:
             scope.set_var(n, written[n])
         if needs_rng:
             scope.set_var(RNG_VAR, rng)
+        if not return_numpy:
+            return list(fetches)
         return [v.cpu().numpy() for v in fetches]
-
 
     def close(self):
         """Drop every cached plan."""
@@ -244,19 +252,32 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
             needs_rng, step)
 
 
+def _check_int32_range(name: str, lo: int, hi: int) -> None:
+    info = np.iinfo(np.int32)
+    if lo < info.min or hi > info.max:
+        raise OverflowError(
+            "feed %r has values in [%d, %d], outside the device int32 "
+            "range [%d, %d]" % (name, lo, hi, info.min, info.max))
+
+
 def feed_to_device(name: str, val, var, device: torch.device) -> torch.Tensor:
     """One feed to a tensor on ``device`` at its on-device dtype. int64
     ids narrow to int32 with an explicit range check, as in the JAX
-    package (never a silent wraparound)."""
+    package (never a silent wraparound). A ``torch.Tensor`` moves (and
+    casts) with ``.to`` wherever it lies, as the reference passes device
+    arrays through with a device-side cast; anything else goes through
+    numpy."""
     want = as_torch_dtype(var.dtype) if var is not None else None
+    if isinstance(val, torch.Tensor):
+        t = val
+        if t.numel() and t.dtype == torch.int64:
+            lo, hi = torch.aminmax(t)
+            _check_int32_range(name, int(lo), int(hi))
+            t = t.to(torch.int32)
+        return t.to(device=device, dtype=want or t.dtype)
     arr = np.asarray(val)
     if arr.size and arr.dtype.kind in "iu" and arr.dtype.itemsize == 8:
-        info = np.iinfo(np.int32)
-        lo, hi = arr.min(), arr.max()
-        if lo < info.min or hi > info.max:
-            raise OverflowError(
-                "feed %r has values in [%d, %d], outside the device int32 "
-                "range [%d, %d]" % (name, lo, hi, info.min, info.max))
+        _check_int32_range(name, int(arr.min()), int(arr.max()))
         arr = arr.astype(np.int32)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=device, dtype=want or t.dtype)

@@ -11,12 +11,13 @@ numbers.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Sequence
 
 import torch
 
 __all__ = ["SMEM_PER_BLOCK", "MAX_THREADS_PER_BLOCK", "ceil_div",
-           "check_launch", "check_tensor", "on_device"]
+           "check_launch", "check_tensor", "on_device", "sm_count"]
 
 # Hopper (sm_90) limits: 227 KB of opt-in dynamic shared memory per block
 SMEM_PER_BLOCK = 232448
@@ -72,3 +73,14 @@ def on_device(device: torch.device):
     if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors: the persistent grids' unit."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

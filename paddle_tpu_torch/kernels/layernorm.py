@@ -17,7 +17,13 @@ replacing a Pallas TPU kernel of the JAX package:
   ``_backward_pallas``: dx per row, and dscale / dbias from per-CTA
   partial rows added in a second pass in a fixed order (the TPU kernel
   adds into one revisited block along its sequential grid), so a
-  backward is bitwise repeatable. About 50.4 MB, 0.0150 ms.
+  backward is bitwise repeatable. About 50.4 MB, 0.0150 ms. A
+  persistent grid of CTAs of 8 warps (as many per SM as stay resident,
+  2 to 4), each CTA a contiguous block of rows; a row in registers as
+  groups of 4 contiguous columns (16-byte loads at f32, 8-byte at
+  bf16), one warp per row up to D = 1024, the whole CTA per row up to
+  8192, a streaming kernel that reads each row twice above;
+  per-row-group dscale / dbias sums in shared memory.
 
 On CPU tensors each wrapper computes its plain version
 (``composed_layernorm_residual``, ``layernorm_residual_bwd_reference``);
@@ -25,11 +31,10 @@ on CUDA tensors it launches its kernel or raises. Each counts its
 launches in ``<wrapper>.launches``. ``layernorm_residual`` (what the
 fused op launches on the card) is differentiable through ``_LnRes``, a
 ``torch.autograd.Function`` whose backward is K5 plus the mean /
-variance cotangent terms, as ``_ln_res_bwd`` in the JAX package. Each
-kernel has one launch configuration for rows of up to 2048 columns: 8
-rows (warps) per CTA forward, 16 rows over 8 warps backward. Wider rows
-take the source's wide kernels: one CTA of 256 threads per row forward,
-4 rows per such CTA backward, no shared row.
+variance cotangent terms, as ``_ln_res_bwd`` in the JAX package. The
+forward has one launch configuration for rows of up to 2048 columns (8
+rows, one per warp, per CTA) and one for wider rows (one CTA of 256
+threads per row); the backward's grid is ``bwd_launch``.
 
 Parity vs the plain versions: forward atol 1e-5 and backward 5e-5 at
 float32 (the reduction order inside a row differs), 2e-2 at bfloat16.
@@ -42,18 +47,17 @@ import ctypes
 import torch
 
 from . import build
-from .common import ceil_div, check_launch, check_tensor, on_device
+from .common import (ceil_div, check_launch, check_tensor, on_device,
+                     sm_count)
 
-__all__ = ["composed_layernorm_residual", "layernorm_residual",
+__all__ = ["bwd_launch", "composed_layernorm_residual", "layernorm_residual",
            "layernorm_residual_bwd", "layernorm_residual_bwd_reference",
            "layernorm_residual_fwd"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 2048                  # the widest row a warp holds
+_MAX_D = 2048                  # the widest row a warp holds (forward)
 _ROWS = 8                      # forward: rows (warps) per CTA
-_BWD_ROWS, _BWD_WARPS = 16, 8  # backward: rows per CTA, warps per CTA
 _WIDE_THREADS = 256            # threads of a CTA for rows wider than _MAX_D
-_WIDE_BWD_ROWS = 4             # backward: rows per such CTA
 
 
 def composed_layernorm_residual(x, r, scale, bias, *, eps=1e-5):
@@ -89,8 +93,9 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.layernorm_residual_fwd.argtypes = [p] * 8 + [i, i, i, f, i, p]
         lib.layernorm_residual_fwd.restype = i
-        lib.layernorm_residual_bwd.argtypes = [p] * 11 + [i, i, i, f, i, i,
-                                                          p]
+        lib.layernorm_residual_bwd.argtypes = [p] * 11 + [i, i, i, f, i, p]
+        lib.layernorm_residual_bwd_grid.argtypes = [i, i, i, i, p, p]
+        lib.layernorm_residual_bwd_grid.restype = i
         lib.layernorm_residual_bwd.restype = i
         lib._typed = True
     return lib
@@ -122,6 +127,17 @@ def _check_kernel_width(what, d):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def bwd_launch(lib, n, d, dtype, device):
+    """K5's row kernel for [n, d] rows on ``device``, as the library
+    lays it out: (CTAs, threads per CTA, dynamic shared memory bytes)."""
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    with on_device(device):
+        ctas = lib.layernorm_residual_bwd_grid(
+            n, d, _DTYPES[dtype], sm_count(device), ctypes.byref(threads),
+            ctypes.byref(smem))
+    return ctas, threads.value, smem.value
 
 
 def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
@@ -169,8 +185,8 @@ def layernorm_residual_bwd(s, mean, var, scale, gy, gres, eps=1e-5):
     saved rows s [N, D], mean and var [N, 1] f32, scale [D] and the
     cotangents gy (of y) and gres (of s), all [N, D] in s's dtype. CPU
     tensors take the plain version; CUDA tensors launch the kernel (dx
-    and per-CTA partial sums, then a fixed-order column reduction) or
-    raise."""
+    and per-CTA partial sums over a persistent grid, ``bwd_launch``,
+    then a fixed-order column reduction) or raise."""
     what = "layernorm_residual_bwd"
     _check_rows(what, [("s", s), ("gy", gy), ("gres", gres)],
                 [("scale", scale)])
@@ -185,12 +201,9 @@ def layernorm_residual_bwd(s, mean, var, scale, gy, gres, eps=1e-5):
         return layernorm_residual_bwd_reference(s, mean, var, scale, gy,
                                                 gres, eps)
     _check_kernel_width(what, d)
-    if d <= _MAX_D:
-        rows, block, smem = _BWD_ROWS, (32 * _BWD_WARPS, 1, 1), 2 * d * 4
-    else:
-        rows, block, smem = _WIDE_BWD_ROWS, (_WIDE_THREADS, 1, 1), 0
-    ctas = max(1, ceil_div(n, rows))
-    grid = (ctas, 1, 1)
+    lib = _lib()
+    ctas, threads, smem = bwd_launch(lib, max(n, 1), d, s.dtype, s.device)
+    grid, block = (ctas, 1, 1), (threads, 1, 1)
     check_launch(what, grid, block, smem)
     dx = torch.empty_like(s)
     part = torch.empty((2, ctas, d), dtype=torch.float32, device=s.device)
@@ -198,14 +211,13 @@ def layernorm_residual_bwd(s, mean, var, scale, gy, gres, eps=1e-5):
     dbias = torch.empty_like(dscale)
     if n == 0:
         return dx, dscale.zero_(), dbias.zero_()
-    lib = _lib()
     with on_device(s.device):
         err = lib.layernorm_residual_bwd(
             s.data_ptr(), mean.data_ptr(), var.data_ptr(), scale.data_ptr(),
             gy.data_ptr(), gres.data_ptr(), dx.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), n, d, _DTYPES[s.dtype], float(eps), rows,
-            _BWD_WARPS, _stream(s.device))
+            dbias.data_ptr(), n, d, _DTYPES[s.dtype], float(eps), ctas,
+            _stream(s.device))
     if err:
         raise RuntimeError("layernorm_residual_bwd launch failed with "
                            "cudaError %d (grid %s, block %s)"

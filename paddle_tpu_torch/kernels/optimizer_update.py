@@ -13,18 +13,25 @@ same-hyperparameter ``adam`` / ``sgd`` ops into one
 The JAX package concatenates every param, grad and moment into one
 stream, broadcasts the per-param scalars into two more streams and
 splits the outputs back. The port does a multi-tensor apply instead: a
-table of per-param pointers and sizes (``ADAM_FIELDS`` / ``SGD_FIELDS``)
-is uploaded from pinned memory with a stream-ordered copy, each CTA
-updates one chunk of one param, and the bias-corrected rate, the decay
-rate and the new beta powers are computed on the device from the
+table of per-param pointers, sizes, first tiles and alignment flags
+(``ADAM_FIELDS`` / ``SGD_FIELDS``) is uploaded from pinned memory with a
+stream-ordered copy; a persistent grid (as many CTAs of 256 threads per
+SM as the card keeps resident) gives each CTA one contiguous run of
+2048-element tiles, streamed with 16-byte loads and stores (a scalar
+loop, in the same launch, for an entry whose streams are not all
+16-byte aligned and for the last 1-3 elements of a size not divisible
+by 4); the bias-corrected rate, the
+decay rate and the new beta powers are computed on the device from the
 param's own ``LearningRate`` / ``Beta1Pow`` / ``Beta2Pow`` tensors (no
 ``.item()``, no host sync). Outputs are new tensors: the port's ops
-never update the scope in place (each output slot is one new buffer,
-viewed per param). Bound by bytes: 7 (Adam) or 3 (SGD)
+never update the scope in place. Each output slot is one new buffer,
+viewed per param at offsets padded to 32 elements (128 bytes,
+``padded_offsets``), so the next step's inputs, which are these views,
+take the vector path. Each wrapper adds the entries that took it to
+``<wrapper>.vector_entries``. Bound by bytes: 7 (Adam) or 3 (SGD)
 four-byte streams per element, 1.111 / 0.476 ms for BERT-base's
 132,919,866 f32 params at 3.35 TB/s. f32 only: a group of another dtype
-raises on the card. One launch configuration: 256 threads per CTA, 16384
-elements per CTA.
+raises on the card.
 
 On CPU tensors each wrapper computes its plain version
 (``adam_group_reference``, ``sgd_group_reference``: the per-param
@@ -42,11 +49,12 @@ import numpy as np
 import torch
 
 from . import build
-from .common import check_launch, check_tensor, on_device
+from .common import check_launch, check_tensor, on_device, sm_count
 
 __all__ = ["ADAM_FIELDS", "OPT_IN_SLOTS", "OPT_OUT_SLOTS", "SGD_FIELDS",
-           "adam_group", "adam_group_reference", "sgd_group",
-           "sgd_group_reference"]
+           "adam_group", "adam_group_reference", "padded_offsets",
+           "sgd_group", "sgd_group_reference", "table_rows",
+           "vector_entries"]
 
 # THE slot tables for fused_optimizer_update: the fusion pass
 # (core/passes/kernel_fuse.py) assembles the fused op's ins/outs from
@@ -68,12 +76,21 @@ OPT_OUT_SLOTS = {
 # AdamEntry / SgdEntry structs of csrc/optimizer_update.cu
 ADAM_FIELDS = ("Param", "Grad", "Moment1", "Moment2", "LearningRate",
                "Beta1Pow", "Beta2Pow", "ParamOut", "Moment1Out",
-               "Moment2Out", "Beta1PowOut", "Beta2PowOut", "n", "first_cta")
+               "Moment2Out", "Beta1PowOut", "Beta2PowOut", "n",
+               "first_tile", "vector")
 SGD_FIELDS = ("Param", "Grad", "LearningRate", "ParamOut", "n",
-              "first_cta")
+              "first_tile", "vector")
+# the element streams whose alignment decides an entry's path
+_STREAMS = {"adam": ("Param", "Grad", "Moment1", "Moment2", "ParamOut",
+                     "Moment1Out", "Moment2Out"),
+            "sgd": ("Param", "Grad", "ParamOut")}
 
+# the launch configuration of csrc/optimizer_update.cu (kThreads,
+# kTile), checked against the built library when it loads
 _THREADS = 256
-_CHUNK = 16384  # elements per CTA
+_TILE = 2048        # elements per tile
+_VECTOR_BYTES = 16  # one float4
+_PAD = 32           # elements: each output view starts on 128 bytes
 
 
 def _hyper(hyper):
@@ -115,10 +132,17 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                         ctypes.c_float)
-        lib.adam_group.argtypes = [p, i, i64, i64, i] + [f] * 6 + [p]
+        lib.adam_group.argtypes = [p, i, i64, i] + [f] * 6 + [p]
         lib.adam_group.restype = i
-        lib.sgd_group.argtypes = [p, i, i64, i64, i, p]
+        lib.sgd_group.argtypes = [p, i, i64, i, p]
         lib.sgd_group.restype = i
+        lib.optimizer_group_grid.argtypes = [i, i64, i]
+        lib.optimizer_group_grid.restype = i
+        built = (lib.optimizer_group_threads(), lib.optimizer_group_tile())
+        if built != (_THREADS, _TILE):
+            raise RuntimeError("csrc/optimizer_update.cu was built with "
+                               "(threads, tile) = %s, the wrapper lays out "
+                               "%s" % (built, (_THREADS, _TILE)))
         lib._typed = True
     return lib
 
@@ -152,29 +176,64 @@ def _check_group(what, kind, ins):
     return sizes
 
 
+def padded_offsets(sizes):
+    """Each param's offset in a flat output buffer, in elements, and the
+    buffer's length: offsets rounded up to multiples of 32 elements (128
+    bytes), so every view starts 16-byte aligned (at most 31 elements of
+    padding per param)."""
+    padded = -(-np.asarray(sizes, np.int64) // _PAD) * _PAD
+    offs = np.concatenate([[0], np.cumsum(padded)[:-1]]).astype(np.int64)
+    return offs, int(padded.sum())
+
+
 def _outputs(flat_rows, like, sizes):
     """Per-param views of the rows of one new flat buffer, each shaped
-    like its param: one allocation per output slot, not one per param."""
+    like its param, at ``padded_offsets``: one allocation per output
+    slot, not one per param."""
+    offs, _ = padded_offsets(sizes)
+    gaps = np.diff(np.append(offs, offs[-1] + sizes[-1])) - sizes
+    # one split into [size, gap, size, gap, ...], the gaps dropped
+    pieces = [int(v) for pair in zip(sizes, gaps) for v in pair]
     outs = []
     for row in flat_rows:
-        outs.append([v.view(p.shape) for v, p in
-                     zip(torch.split(row, sizes), like)])
+        views = torch.split(row[:sum(pieces)], pieces)[::2]
+        outs.append([v.view(p.shape) for v, p in zip(views, like)])
     return outs
 
 
-def _table(columns, sizes, dev):
-    """The per-param table on ``dev`` (one int64 row per param: the
-    columns' pointers, its size, its first CTA) and the total CTA count.
-    Each param gets at least one CTA (its first writes the beta powers).
-    Uploaded from pinned memory with a copy ordered on the current
-    stream: the host does not wait for the card."""
+def vector_entries(kind, columns):
+    """Which entries take the kernel's 16-byte path: a boolean per param,
+    true where every element stream's address (``columns``: slot name ->
+    per-param addresses, the slots of ``_STREAMS[kind]``) is a multiple
+    of 16 bytes."""
+    addrs = np.stack([np.asarray(columns[s], np.int64)
+                      for s in _STREAMS[kind]])
+    return np.bitwise_or.reduce(addrs, axis=0) % _VECTOR_BYTES == 0
+
+
+def table_rows(kind, columns, sizes):
+    """The per-param table (one int64 row per param: the pointer columns
+    in ``*_FIELDS`` order, its size, its first tile, its vector flag),
+    the total tile count and the number of vector entries. Each param
+    gets at least one tile (the CTA that owns it writes the beta
+    powers)."""
+    fields = ADAM_FIELDS if kind == "adam" else SGD_FIELDS
     n = np.asarray(sizes, np.int64)
-    ctas = np.maximum(1, -(-n // _CHUNK))
-    first = np.concatenate([[0], np.cumsum(ctas)[:-1]])
-    arr = np.stack([np.asarray(c, np.int64) for c in columns]
-                   + [n, first], axis=1)
+    tiles = np.maximum(1, -(-n // _TILE))
+    first = np.concatenate([[0], np.cumsum(tiles)[:-1]])
+    vec = vector_entries(kind, columns)
+    arr = np.stack([np.asarray(columns[f], np.int64) for f in fields[:-3]]
+                   + [n, first, vec.astype(np.int64)], axis=1)
+    return arr, int(tiles.sum()), int(vec.sum())
+
+
+def _table(kind, columns, sizes, dev):
+    """``table_rows`` on ``dev``, uploaded from pinned memory with a copy
+    ordered on the current stream: the host does not wait for the
+    card."""
+    arr, tiles, vec = table_rows(kind, columns, sizes)
     table = torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
-    return table, int(ctas.sum())
+    return table, tiles, vec
 
 
 def _ptrs(ts):
@@ -183,19 +242,25 @@ def _ptrs(ts):
 
 def _flat_ptrs(flat_row, sizes):
     """Pointers of the per-param views of one flat f32 row."""
-    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
-    return flat_row.data_ptr() + 4 * offs
+    return flat_row.data_ptr() + 4 * padded_offsets(sizes)[0]
 
 
-def _launch(what, fn, table, count, ctas, *args):
-    check_launch(what, (ctas, 1, 1), (_THREADS, 1, 1), 0)
+def _launch(what, table, count, tiles, *args):
+    """Launch ``what`` (``adam_group`` or ``sgd_group``) over the table:
+    the grid is as many CTAs per SM as the card keeps resident (the
+    library asks the card), at most one per tile."""
     dev = table.device
+    sms = sm_count(dev)
+    lib = _lib()
     with on_device(dev):
-        err = fn(table.data_ptr(), count, ctas, _CHUNK, _THREADS, *args,
-                 torch.cuda.current_stream(dev).cuda_stream)
+        grid = lib.optimizer_group_grid(0 if what == "adam_group" else 1,
+                                        tiles, sms)
+        check_launch(what, (grid, 1, 1), (_THREADS, 1, 1), 0)
+        err = getattr(lib, what)(table.data_ptr(), count, tiles, sms, *args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("%s launch failed with cudaError %d (%d CTAs of "
-                           "%d threads)" % (what, err, ctas, _THREADS))
+                           "%d threads)" % (what, err, grid, _THREADS))
 
 
 def adam_group(ins, hyper):
@@ -211,22 +276,28 @@ def adam_group(ins, hyper):
         return adam_group_reference(ins, hyper)
     b1, b2, eps, wd = _hyper(hyper)
     dev, k = ps[0].device, len(ps)
-    flat = torch.empty((3, sum(sizes)), dtype=torch.float32, device=dev)
+    flat = torch.empty((3, padded_offsets(sizes)[1]), dtype=torch.float32,
+                       device=dev)
     pows = torch.empty((2, k), dtype=torch.float32, device=dev)
     p_out, m_out, v_out = _outputs(flat, ps, sizes)
-    b1_out, b2_out = _outputs(pows, ins["Beta1Pow"], [1] * k)
-    columns = [_ptrs(ins[s]) for s in ADAM_FIELDS[:7]]
-    columns += [_flat_ptrs(row, sizes) for row in flat]
-    columns += [_flat_ptrs(row, [1] * k) for row in pows]
-    table, ctas = _table(columns, sizes, dev)
-    _launch("adam_group", _lib().adam_group, table, k, ctas,
-            b1, b2, 1 - b1, 1 - b2, eps, wd)
+    b1_out, b2_out = ([t.view(b.shape) for t, b in zip(row.split(1), ins[s])]
+                      for row, s in zip(pows, ("Beta1Pow", "Beta2Pow")))
+    columns = {s: _ptrs(ins[s]) for s in ADAM_FIELDS[:7]}
+    columns.update(zip(ADAM_FIELDS[7:10],
+                       (_flat_ptrs(row, sizes) for row in flat)))
+    columns.update(zip(ADAM_FIELDS[10:12], (
+        row.data_ptr() + 4 * np.arange(k, dtype=np.int64) for row in pows)))
+    table, tiles, vec = _table("adam", columns, sizes, dev)
+    _launch("adam_group", table, k, tiles, b1, b2, 1 - b1, 1 - b2, eps,
+            wd)
     adam_group.launches += 1
+    adam_group.vector_entries += vec
     return {"ParamOut": p_out, "Moment1Out": m_out, "Moment2Out": v_out,
             "Beta1PowOut": b1_out, "Beta2PowOut": b2_out}
 
 
 adam_group.launches = 0
+adam_group.vector_entries = 0
 
 
 def sgd_group(ins):
@@ -239,14 +310,17 @@ def sgd_group(ins):
     if ps[0].device.type == "cpu":
         return sgd_group_reference(ins)
     dev = ps[0].device
-    flat = torch.empty((1, sum(sizes)), dtype=torch.float32, device=dev)
+    flat = torch.empty((1, padded_offsets(sizes)[1]), dtype=torch.float32,
+                       device=dev)
     (p_out,) = _outputs(flat, ps, sizes)
-    columns = [_ptrs(ins[s]) for s in SGD_FIELDS[:3]]
-    columns.append(_flat_ptrs(flat[0], sizes))
-    table, ctas = _table(columns, sizes, dev)
-    _launch("sgd_group", _lib().sgd_group, table, len(ps), ctas)
+    columns = {s: _ptrs(ins[s]) for s in SGD_FIELDS[:3]}
+    columns["ParamOut"] = _flat_ptrs(flat[0], sizes)
+    table, tiles, vec = _table("sgd", columns, sizes, dev)
+    _launch("sgd_group", table, len(ps), tiles)
     sgd_group.launches += 1
+    sgd_group.vector_entries += vec
     return {"ParamOut": p_out}
 
 
 sgd_group.launches = 0
+sgd_group.vector_entries = 0

@@ -10,6 +10,7 @@ differ from the JAX package's; shape, dtype and range agree.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.lowering import as_torch_dtype
@@ -76,10 +77,17 @@ def _range(ctx, ins, attrs):
     # the layer records static bounds in attrs; the tensor inputs are kept
     # only for desc-level parity with range_op.cc
     if "static_start" in attrs:
-        out = torch.arange(attrs["static_start"], attrs["static_end"],
-                           attrs["static_step"], dtype=torch.float32,
-                           device=ctx.device)
+        bounds = [attrs[k] for k in ("static_start", "static_end",
+                                     "static_step")]
+        # integer bounds count exactly, as the reference's int32
+        # jnp.arange of Python ints; float bounds in float32, as its
+        # float32 jnp.arange
+        exact = all(isinstance(b, (int, np.integer)) for b in bounds)
+        out = torch.arange(*bounds, device=ctx.device,
+                           dtype=torch.int64 if exact else torch.float32)
         return {"Out": [out.to(_dt(attrs))]}
+    # the reference takes the tensor bounds through Python floats into a
+    # float32 jnp.arange (x64 off), whatever their dtype; so does the port
     start, end, step = ins["Start"][0], ins["End"][0], ins["Step"][0]
     s, e, st = (float(v.reshape(())) for v in (start, end, step))
     out = torch.arange(s, e, st, dtype=torch.float32, device=ctx.device)

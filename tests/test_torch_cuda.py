@@ -23,9 +23,20 @@ where only the port is installed:
   residual + layer norm forward (K4) at atol 1e-5 and its backward (K5,
   through ``torch.autograd``) at 5e-5 at f32, 2e-2 at bf16; the grouped
   Adam (K6) and SGD (K7) updates at 2e-6.
+- K5 alone at D = 7, 768, 1000, 2048 and 4096 and N = 1, 17 and 4096
+  (a warp per row, a CTA per row, vector and scalar columns), f32 and
+  bf16, against its plain version on f32 copies; two launches bitwise
+  equal.
+- K6 and K7 over odd sizes, a 30522-element param before larger ones
+  and one param that is a view at an odd 4-byte offset (its entry takes
+  the scalar path, every other one the 16-byte path), at 2e-6; two
+  launches bitwise equal; the outputs are views at 128-byte aligned
+  offsets, so a second step on them takes the 16-byte path throughout.
 - A level-2 training step of the same BERT, with nothing in the tuned
   table, launches K4 once per fused layer norm (2 * n_layer + 1) and K6
   (Adam) or K7 (SGD) once.
+- ``Executor.run`` takes CUDA-tensor feeds: the same fetches as the
+  numpy feeds, and with ``return_numpy=False`` tensors on the card.
 - The tuner measures the flash kernel against the composed attention on
   the card and records the faster.
 """
@@ -297,6 +308,84 @@ def test_cuda_optimizer_group_kernels_match_plain_versions(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 768, 1000, 2048, 4096])
+@pytest.mark.parametrize("n", [1, 17, 4096])
+def test_cuda_layernorm_bwd_kernel_matches_plain_version(cuda_device, dtype,
+                                                        d, n):
+    g = torch.Generator().manual_seed(n * 10007 + d)
+    x, r, gy, gs = (0.5 * torch.randn(n, d, generator=g)
+                    for _ in range(4))
+    x, r, gy, gs = (t.to(dtype).to(cuda_device) for t in (x, r, gy, gs))
+    sc = (1 + 0.1 * torch.randn(d, generator=g)).to(dtype).to(cuda_device)
+    b = (0.1 * torch.randn(d, generator=g)).to(dtype).to(cuda_device)
+    _, s, mean, var = tln.layernorm_residual_fwd(x, r, sc, b, 1e-5)
+    before = tln.layernorm_residual_bwd.launches
+    got = tln.layernorm_residual_bwd(s, mean, var, sc, gy, gs, 1e-5)
+    again = tln.layernorm_residual_bwd(s, mean, var, sc, gy, gs, 1e-5)
+    assert tln.layernorm_residual_bwd.launches == before + 2
+    want = tln.layernorm_residual_bwd_reference(
+        s.float(), mean, var, sc.float(), gy.float(), gs.float(), 1e-5)
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    rtol = 0 if dtype == torch.float32 else 2 ** -8  # dx's bf16 rounding
+    for a, w, rt in zip(got, want, (rtol, 0, 0)):
+        torch.testing.assert_close(a.float(), w, atol=tol, rtol=rt)
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
+# odd sizes: one-element params, sizes one past a tile, a size no tile
+# divides
+EDGE_SHAPES = [(1,), (3,), (4097,), (16385,), (1000, 7), (123457,)]
+
+
+@pytest.mark.cuda
+def test_cuda_optimizer_groups_take_the_vector_path(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    shapes = [(30522,), (768, 768), (30522, 64)] + EDGE_SHAPES
+    odd = shapes.index((4097,))
+    mk = lambda s: torch.rand(s, generator=g).to(cuda_device) + 0.1  # noqa
+    k = len(shapes)
+    ins = {"Param": [mk(s) for s in shapes],
+           "Grad": [mk(s) - 0.6 for s in shapes],
+           "Moment1": [mk(s) * 0.1 for s in shapes],
+           "Moment2": [mk(s) * 0.01 for s in shapes],
+           "Beta1Pow": [torch.full((1,), 0.9, device=cuda_device)] * k,
+           "Beta2Pow": [torch.full((1,), 0.999, device=cuda_device)] * k,
+           "LearningRate": [torch.full((1,), 1e-3, device=cuda_device)] * k}
+    # a param that is a view 4 bytes into its buffer: the scalar path
+    ins["Param"][odd] = mk((4098,))[1:]
+    assert ins["Param"][odd].data_ptr() % 16 == 4
+    hyper = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    for kind, fn, ref in (
+            ("adam", lambda i: topt.adam_group(i, hyper),
+             lambda i: topt.adam_group_reference(i, hyper)),
+            ("sgd", topt.sgd_group, topt.sgd_group_reference)):
+        wrapper = topt.adam_group if kind == "adam" else topt.sgd_group
+        before = (wrapper.launches, wrapper.vector_entries)
+        got, again = fn(ins), fn(ins)
+        assert (wrapper.launches - before[0],
+                wrapper.vector_entries - before[1]) == (2, 2 * (k - 1))
+        want = ref(ins)
+        for slot in want:
+            for a, a2, w in zip(got[slot], again[slot], want[slot]):
+                torch.testing.assert_close(a, w, atol=2e-6, rtol=0)
+                assert torch.equal(a, a2)
+        outs = [t for slot in ("ParamOut", "Moment1Out", "Moment2Out")
+                if slot in got for t in got[slot]]
+        assert all(t.data_ptr() % 128 == 0 for t in outs)
+        assert [tuple(t.shape) for t in got["ParamOut"]] == shapes
+    # the second step reads the first one's outputs: every entry vectors
+    step2 = dict(ins, Param=got["ParamOut"], Grad=[mk(s) - 0.6
+                                                   for s in shapes])
+    before = topt.sgd_group.vector_entries
+    out2 = topt.sgd_group(step2)
+    assert topt.sgd_group.vector_entries - before == k
+    for a, w in zip(out2["ParamOut"],
+                    topt.sgd_group_reference(step2)["ParamOut"]):
+        torch.testing.assert_close(a, w, atol=2e-6, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("opt", ["Adam", "SGD"])
 def test_cuda_level2_step_launches_the_tier_kernels(cuda_device,
                                                    monkeypatch, opt):
@@ -319,6 +408,33 @@ def test_cuda_level2_step_launches_the_tier_kernels(cuda_device,
     assert (after[0] - before[0], after[1] - before[1]) == (
         2 * CFG["n_layer"] + 1, 1)
     assert np.isfinite(val).all()
+
+
+@pytest.mark.cuda
+def test_cuda_tensor_feeds_match_numpy_feeds(cuda_device):
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    snap = {n: scope.find_var(n) for n in scope.local_var_names()}
+
+    def fresh():
+        sc = pt.Scope()
+        for n, v in snap.items():
+            sc.set_var(n, v)
+        return sc
+
+    feed = _feed(np.random.RandomState(1))
+    want = exe.run(main, feed=feed, fetch_list=[loss], scope=fresh())
+    got = exe.run(main, feed={n: torch.from_numpy(v).to(cuda_device)
+                              for n, v in feed.items()},
+                  fetch_list=[loss], scope=fresh(), return_numpy=False)
+    assert got[0].device.type == "cuda"
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0])
 
 
 @pytest.mark.cuda

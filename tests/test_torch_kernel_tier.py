@@ -199,6 +199,69 @@ def test_k6_k7_wrappers_check_their_groups():
         O.adam_group(bad, {})
 
 
+def test_k6_cpu_wrapper_matches_jax_composed_adam_group():
+    hyper = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+             "weight_decay": 0.01}
+    ins = _group("adam", np.random.RandomState(5))
+    want = JO.composed_adam_group(
+        {k: [jnp.asarray(a) for a in v] for k, v in ins.items()},
+        beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.01)
+    got = O.adam_group({k: [torch.from_numpy(a) for a in v]
+                        for k, v in ins.items()}, hyper)
+    for slot, w in zip(("ParamOut", "Moment1Out", "Moment2Out"), want):
+        for g, wv in zip(got[slot], w):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wv),
+                                       atol=2e-6, rtol=0, err_msg=slot)
+
+
+@pytest.mark.parametrize("sizes", [[30522, 768, 1, 33], [1], [32, 64, 5],
+                                   [7, 3, 4097, 16385, 123457]])
+def test_k6_padded_output_views_are_aligned_disjoint_and_shaped(sizes):
+    offs, total = O.padded_offsets(sizes)
+    assert (offs % 32 == 0).all() and offs[0] == 0
+    ends = offs + np.asarray(sizes)
+    assert (ends[:-1] <= offs[1:]).all() and ends[-1] <= total
+    assert (offs[1:] - ends[:-1] < 32).all()  # under 128 bytes of padding
+    shapes = [(n,) if i % 2 else (1, n) for i, n in enumerate(sizes)]
+    like = [torch.empty(sh) for sh in shapes]
+    flat = torch.zeros(2, total)
+    for row in O._outputs(flat, like, sizes):
+        assert [tuple(v.shape) for v in row] == shapes
+        assert [v.storage_offset() % total for v in row] == list(offs)
+        for i, v in enumerate(row):
+            v.fill_(i + 1)
+    # every element written once, the padding untouched
+    assert int((flat != 0).sum()) == 2 * sum(sizes)
+    # the kernel's pointer columns are the views' addresses
+    np.testing.assert_array_equal(O._flat_ptrs(flat[1], sizes),
+                                  [v.data_ptr() for v in
+                                   O._outputs(flat, like, sizes)[1]])
+
+
+def test_k6_k7_alignment_classification():
+    base = 1 << 20
+    adam = {s: [base + 16 * i for i in range(4)]
+            for s in O._STREAMS["adam"]}
+    assert O.vector_entries("adam", adam).tolist() == [True] * 4
+    adam["Moment2"] = [base, base + 4, base + 8, base + 48]
+    adam["ParamOut"][0] = base + 12
+    assert O.vector_entries("adam", adam).tolist() == [False, False, False,
+                                                       True]
+    sgd = {s: [base, base + 32] for s in O._STREAMS["sgd"]}
+    sgd["Grad"] = [base + 2, base + 64]
+    assert O.vector_entries("sgd", sgd).tolist() == [False, True]
+    # the table carries the flag, its first tiles and the vector count
+    sizes = [5000, 1, 2048]
+    cols = {f: [base + 64 * i for i in range(3)]
+            for f in O.ADAM_FIELDS[:12]}
+    cols["Grad"] = [base + 4, base + 64, base + 128]
+    rows, tiles, vec = O.table_rows("adam", cols, sizes)
+    assert (tiles, vec) == (3 + 1 + 1, 2)
+    assert rows[:, O.ADAM_FIELDS.index("first_tile")].tolist() == [0, 3, 4]
+    assert rows[:, O.ADAM_FIELDS.index("vector")].tolist() == [0, 1, 1]
+    assert rows[:, O.ADAM_FIELDS.index("n")].tolist() == sizes
+
+
 # --------------------------------------------- the route of the fused ops
 def _dispatches():
     return {(op, impl): KERNEL_DISPATCHES.labels(op=op, impl=impl).value

@@ -452,6 +452,63 @@ def test_port_trains_like_jax_from_a_transplanted_scope(jax_run):
                                    atol=1e-4, rtol=0, err_msg=n)
 
 
+def _transplanted(jax_run):
+    """The port's training program on a fresh copy of the JAX package's
+    post-startup scope: (main, loss, scope)."""
+    tmain, _, loss = _build_train(pt, tbert)
+    scope = pt.Scope()
+    for n, v in params_from_jax(jax_run["state"], tmain, CPU).items():
+        scope.set_var(n, v)
+    return tmain, loss, scope
+
+
+def test_tensor_feeds_and_device_fetches_match_numpy_and_jax(jax_run):
+    """C1: a torch.Tensor feed takes the same step as its numpy array (and
+    as the JAX package's first step on it); ``return_numpy=False`` hands
+    back the fetches as tensors on the executor's device."""
+    feed = _feeds(5)[0]
+    exe = pt.Executor(pt.CPUPlace())
+    main, loss, scope = _transplanted(jax_run)
+    want = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    main, loss, scope = _transplanted(jax_run)
+    got = exe.run(main, feed={k: torch.from_numpy(v) for k, v in
+                              feed.items()},
+                  fetch_list=[loss], scope=scope, return_numpy=False)
+    assert all(isinstance(v, torch.Tensor) and v.device == CPU
+               for v in got)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_allclose(float(want[0].reshape(())),
+                               jax_run["losses"][0], rtol=1e-5, atol=0)
+
+
+def test_tensor_feeds_narrow_int64_and_cast_to_the_var_dtype(jax_run):
+    """C1: an int64 tensor feed narrows to int32 with the numpy path's
+    range check; a float64 tensor fed to a float32 var is cast."""
+    from paddle_tpu_torch.core.executor import feed_to_device
+
+    main, loss, scope = _transplanted(jax_run)
+    block = main.global_block()
+    ids = torch.full((B, S), 2 ** 31, dtype=torch.int64)
+    with pytest.raises(OverflowError, match="outside the device int32"):
+        feed_to_device("src_ids", ids, block.var("src_ids"), CPU)
+    feed = dict(_feeds(5)[0])
+    with pytest.raises(OverflowError, match="src_ids"):
+        pt.Executor(pt.CPUPlace()).run(
+            main, feed=dict(feed, src_ids=ids), fetch_list=[loss],
+            scope=scope)
+    small = feed_to_device("src_ids", torch.from_numpy(feed["src_ids"]),
+                           block.var("src_ids"), CPU)
+    assert small.dtype == torch.int32
+    np.testing.assert_array_equal(small.numpy(), feed["src_ids"])
+    mask64 = torch.from_numpy(feed["input_mask"].astype("float64") / 3)
+    cast = feed_to_device("input_mask", mask64, block.var("input_mask"),
+                          CPU)
+    assert cast.dtype == torch.float32
+    np.testing.assert_array_equal(cast.numpy(),
+                                  (feed["input_mask"].astype("float64")
+                                   / 3).astype("float32"))
+
+
 def _port_losses(steps, feed):
     cfg = dict(CFG, dropout=0.1)
     main, startup, loss = _build_train(pt, tbert, cfg)
