@@ -10,7 +10,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    switched off for f32 products;
 2. build: every CUDA source of the port compiled with nvcc for sm_90a,
    in parallel; ptxas' registers and spills per kernel, and no spill in
-   any instantiation of K5, K6 or K7;
+   any instantiation of K4 (its AMP one included), K5, K6 or K7;
 3. kernels: the CTAs per SM the card grants the flash forward kernel
    (per dtype, head dim and bias kind); then the kernel against its
    plain PyTorch version on the card, at the main path's shapes and a
@@ -40,7 +40,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
    version's, one library call's device time and call time
    (``torch.add`` + ``F.layer_norm``, ``native_layer_norm_backward``,
    ``torch._fused_adam_``, ``torch._foreach_add_``: yardsticks the port
-   never calls) and the bound;
+   never calls) and the bound; then AMP's dtypes: K4's AMP instantiation
+   at [4096, 768] on bf16 x with bf16 r (BERT's path) and with f32 r
+   (rounded in registers), s bitwise and y / mean / var within 1e-5 of
+   its plain version, two launches bitwise equal, against ``torch.add``
+   at bf16 then ``F.layer_norm`` of the f32 sum; K6 and K7 on an AMP
+   step's grads (bf16 but the layer norms'), against the plain version,
+   two launches bitwise equal, and bitwise equal to the launch on the
+   grads widened to f32, against widening then ``_fused_adam_`` /
+   ``_foreach_add_``;
 3d. tune: the port's tuner measures its one op, the flash kernel against
    the composed attention, at S = 512 and 128 on the card with CUDA
    events, and prints each time and its pick; the winners are dropped
@@ -58,6 +66,13 @@ Phases, each of which passes or ends the script with a non-zero exit:
    [B, 512, 768], and agree with the composed attention path and with
    level 0 (no pass pipeline) on the card; each request is then timed
    at level 2 and at level 0 in turns;
+4b. serve AMP (after phase 5's profile): the same program with bf16 AMP
+   on (``Program.set_amp``), saved and served by the Predictor for the
+   same requests: every dispatch launches the bf16 flash kernel 12
+   times and K4's AMP instantiation 25 times (counted, no other flash or
+   K4 launch); the f32 answers of the encoder (12 bf16 layers) against
+   phase 4's f32 Predictor within 5e-2 in l2; latency and one profiled
+   request per batch size;
 5. profile: one more request per batch size under torch.profiler, for
    the device's busy share and its time by kernel (after the main path's
    counts are read);
@@ -77,9 +92,20 @@ Phases, each of which passes or ends the script with a non-zero exit:
    step time (10 pairs) and the host's time by op class (the median of 3
    pairs) at level 2 and at level 0, in turns; one more step is
    profiled, with K4's and K6's device time in it;
+6b. train AMP: the same model and batches with ``Adam`` wrapped in
+   ``contrib.mixed_precision.decorate`` (bf16 AMP), level 2: every step
+   launches the bf16 flash kernels (24, 12, 12), K4's AMP instantiation
+   25 times, K6 once on the step's grads (103 bf16 and 54 f32, counted)
+   and no f32 flash kernel; params and moments stay f32; losses finite;
+   level 2 against level 0 from one scope within the AMP tolerances
+   (``AMP_PARITY_*``); the first loss against phase 6's; the step time,
+   tokens/s, peak memory and one profiled step beside phase 6's;
 7. train with SGD: the same model with ``SGD.minimize``, 3 steps at
    level 2 (K4 25 times and K7 once per step, counted), losses finite,
-   and 3 steps at level 0 from the same scope within phase 6's bounds.
+   and 3 steps at level 0 from the same scope within phase 6's bounds;
+7b. train SGD AMP: 3 steps under AMP at level 2, each launching K7
+   once on the bf16 grads, the bf16 flash kernels and K4's AMP
+   instantiation (counted); losses finite, params f32.
 
 It prints one JSON line of kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` it also writes
@@ -154,6 +180,35 @@ LN_CASES = [
     ("wide_f32", (2048, 4096), torch.float32),
     ("wide_bf16", (2048, 4096), torch.bfloat16),
 ]
+# K4's AMP instantiation (phase 3c): s = bf16(bf16(x) + bf16(r)) stored
+# bf16 and compared bitwise; y, mean and var f32 at K4's f32 tolerance.
+# x and r bf16 as on BERT's path, and r f32 (rounded in registers)
+LN_AMP_TOL = 1e-5
+LN_AMP_CASES = [
+    ("bert_b8_amp", (4096, 768), torch.bfloat16),
+    ("bert_b8_amp_rf32", (4096, 768), torch.float32),
+]
+# bf16 AMP (phases 4b, 6b, 7b), level 2 against level 0 on the card.
+# The two differ only by K4's and K6's f32 rounding, but a difference
+# that moves one bf16 rounding downstream moves that value by 2^-8 of
+# it, and where the value is a relu pre-activation near 0 it flips the
+# unit's grad. The loss is a bf16 value (its elementwise_div is of the
+# bf16 class): within two of its ulps, 2^-6 relative. The first step's
+# grads within 0.15 in l2 (7.3e-2 measured on the last layer's norm
+# scale, NVIDIA H100 80GB HBM3, 700 W), where a missing or mis-cast term
+# is off by its whole size. Each param's update over 3 steps within 0.5
+# in l2: Adam scales each element's step by its grad's running size, so
+# an element whose grad is near 0 takes a step of about lr whose sign
+# the rounding decides (0.22 measured, a bias); a wrong update is off by
+# 1 or more. Serving against the f32 Predictor (phase 4's weights): the
+# encoder's output through 12 bf16 layers within 5e-2 in l2 (8.5e-3
+# measured).
+AMP_PARITY_LOSS_RTOL = 2 ** -6
+AMP_PARITY_GRAD_L2 = 0.15
+AMP_PARITY_UPDATE_L2 = 0.5
+AMP_SERVE_L2 = 5e-2
+AMP_SERVE_REPEATS = 5
+AMP_SGD_STEPS = 3
 # an odd-sized edge list for the grouped updates: one-element params,
 # sizes one past a CTA's chunk, a size no chunk divides
 EDGE_SHAPES = [(1,), (3,), (4097,), (16385,), (1000, 7), (123457,)]
@@ -263,7 +318,8 @@ def phase_build():
 
 
 # kernels whose every instantiation must compile without register spills
-NO_SPILL_KERNELS = ("ln_res_bwd", "adam_group_kernel", "sgd_group_kernel")
+NO_SPILL_KERNELS = ("ln_res_fwd", "ln_res_bwd", "adam_group_kernel",
+                    "sgd_group_kernel")
 
 
 def _kernel_label(mangled):
@@ -657,21 +713,24 @@ def _ln_bounds(n, d, dtype):
     return out
 
 
-def _opt_bound(n, k, streams, ops):
+def _opt_bound(n, k, streams, ops, n_bf16=0):
     """Bound of a grouped update over n f32 elements in k params:
-    ``streams`` four-byte streams per element (each read or write once)
-    and the per-param scalars (3 read and 2 written for Adam, 1 read for
-    SGD); ``ops`` f32 operations per element."""
+    ``streams`` four-byte streams per element (each read or write once),
+    of which the grad stream is two bytes for the ``n_bf16`` elements
+    whose grads are bf16, and the per-param scalars (3 read and 2
+    written for Adam, 1 read for SGD); ``ops`` f32 operations per
+    element."""
     scalars = (5 if streams == 7 else 1) * 4 * k
-    t_bytes = (streams * 4 * n + scalars) / PEAK_BYTES
+    t_bytes = (streams * 4 * n - 2 * n_bf16 + scalars) / PEAK_BYTES
     t_ops = ops * n / PEAK_FLOPS[torch.float32]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _bert_train_program(opt):
+def _bert_train_program(opt, amp=False):
     """BERT-base MLM training program (no startup run): (main, startup,
-    loss, params_grads)."""
+    loss, params_grads). With ``amp``, the optimizer goes through
+    ``contrib.mixed_precision.decorate``: bf16 AMP."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
 
@@ -679,8 +738,10 @@ def _bert_train_program(opt):
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
         loss, _ = bert.build(bert.base_config(), seq_len=SEQ,
                              max_mask=MAX_MASK)
-        _, params_grads = getattr(fluid.optimizer, opt)(
-            learning_rate=TRAIN_LR).minimize(loss)
+        optimizer = getattr(fluid.optimizer, opt)(learning_rate=TRAIN_LR)
+        if amp:
+            optimizer = fluid.contrib.mixed_precision.decorate(optimizer)
+        _, params_grads = optimizer.minimize(loss)
     return main, startup, loss, params_grads
 
 
@@ -824,10 +885,11 @@ def phase_tier_kernels(seed):
         del db, ref, bwd_args, rstd, fwd, bwd, lib_fwd, lib_bwd
 
     # K6 and K7
-    main, _, _, _ = _bert_train_program("Adam")
+    main, _, _, params_grads = _bert_train_program("Adam")
     bert_shapes = [tuple(p.shape)
                    for p in main.global_block().all_parameters()]
-    del main
+    grad_bf16 = _amp_grad_bf16(main, [g.name for _, g in params_grads])
+    del main, params_grads
     for name, shapes in (("bert_base", bert_shapes),
                          ("edge", EDGE_SHAPES)):
         ins = _group_on_card(shapes, gen, dev)
@@ -899,11 +961,176 @@ def phase_tier_kernels(seed):
                 "" if ok else "  <-- FAILED"))
         del ins, lib, steps, adam, sgd
         torch.cuda.empty_cache()
+    # K4's AMP instantiation and K6 / K7 on an AMP step's grads
+    rows += [_ln_amp_case(name, n, d, r_dtype, gen, dev)
+             for name, (n, d), r_dtype in LN_AMP_CASES]
+    rows.append(_opt_amp_case(bert_shapes, grad_bf16, gen, dev))
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError("tier kernels disagree with their plain "
                              "versions in %s" % bad)
     return rows, k5_launches
+
+
+def _amp_grad_bf16(main, grad_names):
+    """Whether each param's grad comes out bf16 in an AMP step: the AMP
+    class of the grad op that writes it (for a ``sum`` of a param's
+    renamed grads, bf16 unless one of its terms is f32). In BERT the
+    layer norms' Scale / Bias grads are f32, every other grad bf16."""
+    from paddle_tpu_torch.core.amp import policy_for
+
+    writer = {n: op for op in main.global_block().ops
+              for n in op.output_names()}
+
+    def bf16(name):
+        op = writer[name]
+        if op.type == "sum":
+            return all(bf16(n) for n in op.input("X") if n)
+        return policy_for(op.type) == "bf16"
+
+    return [bf16(g) for g in grad_names]
+
+
+def _ln_amp_bound(n, d, x_dtype, r_dtype):
+    """Bound of K4's AMP instantiation: x and r read in their dtypes, s
+    written bf16 and y f32, the statistics, f32 scale and bias; about 8
+    f32 operations an element."""
+    esize = lambda t: torch.tensor([], dtype=t).element_size()  # noqa
+    nbytes = n * d * (esize(x_dtype) + esize(r_dtype) + 2 + 4) + 8 * n + \
+        8 * d
+    t_ops = 8 * n * d / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _ln_amp_case(name, n, d, r_dtype, gen, dev):
+    """K4's AMP instantiation on bf16 x and ``r_dtype`` r, f32 scale and
+    bias, against its plain version (s bitwise, y / mean / var within
+    LN_AMP_TOL), two launches bitwise equal, with its device and call
+    time, the plain version's, the library's (``torch.add`` at bf16 then
+    ``F.layer_norm`` of the f32 sum) and the bound."""
+    from paddle_tpu_torch.kernels import layernorm as ln
+
+    x = (0.5 * torch.randn(n, d, generator=gen, device=dev)).bfloat16()
+    r = (0.5 * torch.randn(n, d, generator=gen, device=dev)).to(r_dtype)
+    sc = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    b = 0.1 * torch.randn(d, generator=gen, device=dev)
+    fwd = lambda: ln.layernorm_residual_fwd_amp(x, r, sc, b, 1e-5)  # noqa
+    plain = lambda: ln.composed_layernorm_residual(  # noqa: E731
+        x, r, sc, b, eps=1e-5, amp=True)
+    got, again, want = fwd(), fwd(), plain()
+    torch.cuda.synchronize()
+    s_exact = torch.equal(got[1], want[1]) and got[1].dtype == torch.bfloat16
+    err = max(float((g - w).abs().max()) for i, (g, w) in
+              enumerate(zip(got, want)) if i != 1)
+    bitwise = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+    ok = s_exact and err <= LN_AMP_TOL and bitwise and \
+        got[0].dtype == torch.float32 and bool(torch.isfinite(got[0]).all())
+    del got, again, want
+    lib = lambda: F.layer_norm(  # noqa: E731
+        torch.add(x.bfloat16(), r.bfloat16()).float(), (d,), sc, b, 1e-5)
+    t = dict(ms=device_ms(fwd, ("ln_res_fwd",)), call_ms=time_ms(fwd),
+             plain_ms=time_ms(plain), **_library_times(lib))
+    t["bound_ms"], t["bound_by"] = _ln_amp_bound(n, d, x.dtype, r.dtype)
+    t["roofline_share"] = t["bound_ms"] / t["ms"]
+    log("tier %-16s %-12s x %s r %s: s bitwise %s, err y/mean/var %.2e | "
+        "K4 AMP %.4f ms on the card, %.4f a call (plain %.4f; add + "
+        "layer_norm %.4f on the card, %.4f a call; bound %.4f %s, %.1f%%; "
+        "bitwise %s)%s" % (
+            name, (n, d), x.dtype, r.dtype, s_exact, err, t["ms"],
+            t["call_ms"], t["plain_ms"], t["library_ms"],
+            t["library_call_ms"], t["bound_ms"], t["bound_by"],
+            100 * t["roofline_share"], bitwise,
+            "" if ok else "  <-- FAILED"))
+    return dict(case=name, shape=[n, d], dtype="amp", r_dtype=str(r.dtype),
+                s_bitwise=s_exact, max_abs_err=dict(fwd=err),
+                fwd_bitwise=bitwise, tol=LN_AMP_TOL, fwd=t, ok=ok)
+
+
+def _opt_amp_case(shapes, grad_bf16, gen, dev):
+    """K6 and K7 over BERT-base's params with an AMP step's grads (bf16
+    where ``grad_bf16``): against the plain version, two launches
+    bitwise equal, and bitwise equal to the launch on the grads widened
+    to f32; device and call time, the plain version's, the library's
+    (each grad widened, then ``torch._fused_adam_`` / ``_foreach_add_``)
+    and the bound of the real split of 2- and 4-byte grads."""
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
+    ins = _group_on_card(shapes, gen, dev)
+    ins["Grad"] = [g.bfloat16() if bf else g
+                   for g, bf in zip(ins["Grad"], grad_bf16)]
+    widened = dict(ins, Grad=[g.float() for g in ins["Grad"]])
+    n = sum(int(np.prod(s)) for s in shapes)
+    n_bf16 = sum(int(np.prod(s)) for s, bf in zip(shapes, grad_bf16) if bf)
+    k = len(shapes)
+    errs, bitwise, same_as_f32, vector, bf16_entries = {}, {}, {}, {}, {}
+    for kind, wrapper, fn, ref in (
+            ("adam", ou.adam_group, lambda i: ou.adam_group(i, ADAM_HYPER),
+             lambda: ou.adam_group_reference(ins, ADAM_HYPER)),
+            ("sgd", ou.sgd_group, ou.sgd_group,
+             lambda: ou.sgd_group_reference(ins))):
+        v0, b0 = wrapper.vector_entries, wrapper.bf16_grad_entries
+        got, again = fn(ins), fn(ins)
+        vector[kind] = (wrapper.vector_entries - v0) // 2
+        bf16_entries[kind] = (wrapper.bf16_grad_entries - b0) // 2
+        wide, want = fn(widened), ref()
+        torch.cuda.synchronize()
+        errs[kind] = max(float((a - w).abs().max()) for slot in want
+                         for a, w in zip(got[slot], want[slot]))
+        bitwise[kind] = all(torch.equal(a, a2) for slot in got
+                            for a, a2 in zip(got[slot], again[slot]))
+        same_as_f32[kind] = all(torch.equal(a, a2) for slot in got
+                                for a, a2 in zip(got[slot], wide[slot]))
+        del got, again, wide, want
+    ok = max(errs.values()) <= OPT_TOL and all(bitwise.values()) and \
+        all(same_as_f32.values()) and \
+        set(bf16_entries.values()) == {sum(grad_bf16)}
+    adam = lambda: ou.adam_group(ins, ADAM_HYPER)  # noqa: E731
+    sgd = lambda: ou.sgd_group(ins)  # noqa: E731
+    t_adam = dict(ms=device_ms(adam, ("adam_group_kernel",)),
+                  call_ms=time_ms(adam), plain_ms=time_ms(
+                      lambda: ou.adam_group_reference(ins, ADAM_HYPER)))
+    t_sgd = dict(ms=device_ms(sgd, ("sgd_group_kernel",)),
+                 call_ms=time_ms(sgd),
+                 plain_ms=time_ms(lambda: ou.sgd_group_reference(ins)))
+    lib = {s: [t.clone() for t in ins[s]]
+           for s in ("Param", "Moment1", "Moment2")}
+    steps = [torch.full((), 3.0, device=dev) for _ in shapes]
+    t_adam.update(_library_times(lambda: torch._fused_adam_(
+        lib["Param"], [g.float() for g in ins["Grad"]], lib["Moment1"],
+        lib["Moment2"], [], steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)))
+    t_sgd.update(_library_times(lambda: torch._foreach_add_(
+        lib["Param"], [g.float() for g in ins["Grad"]], alpha=-TRAIN_LR)))
+    for t, (bound, by) in ((t_adam, _opt_bound(n, k, 7, 13, n_bf16)),
+                           (t_sgd, _opt_bound(n, k, 3, 2, n_bf16))):
+        t.update(bound_ms=bound, bound_by=by, roofline_share=bound / t["ms"])
+    log("tier %-10s %d params (%d bf16 grads, %d of %d elements): err adam "
+        "%.2e sgd %.2e; two launches bitwise equal %s; bitwise equal to "
+        "the launch on f32-widened grads %s; entries on the vector path %s, "
+        "with a bf16 grad %s | K6 %.4f ms on the card, %.4f a call (plain "
+        "%.4f; widen + _fused_adam_ %.4f on the card, %.4f a call; bound "
+        "%.4f %s, %.1f%%) | K7 %.4f ms on the card, %.4f a call (plain "
+        "%.4f; widen + _foreach_add_ %.4f on the card, %.4f a call; bound "
+        "%.4f %s, %.1f%%)%s" % (
+            "bert_base_amp", k, sum(grad_bf16), n_bf16, n, errs["adam"],
+            errs["sgd"], bitwise, same_as_f32, vector, bf16_entries,
+            t_adam["ms"], t_adam["call_ms"], t_adam["plain_ms"],
+            t_adam["library_ms"], t_adam["library_call_ms"],
+            t_adam["bound_ms"], t_adam["bound_by"],
+            100 * t_adam["roofline_share"], t_sgd["ms"], t_sgd["call_ms"],
+            t_sgd["plain_ms"], t_sgd["library_ms"], t_sgd["library_call_ms"],
+            t_sgd["bound_ms"], t_sgd["bound_by"],
+            100 * t_sgd["roofline_share"], "" if ok else "  <-- FAILED"))
+    del ins, widened, lib, steps
+    torch.cuda.empty_cache()
+    return dict(case="bert_base_amp", params=k, elements=n,
+                bf16_grads=sum(grad_bf16), bf16_elements=n_bf16,
+                max_abs_err=errs, bitwise_repeatable=bitwise,
+                bitwise_equal_to_f32_grads=same_as_f32,
+                vector_entries=vector, bf16_grad_entries=bf16_entries,
+                tol=OPT_TOL, adam=t_adam, sgd=t_sgd, ok=ok)
 
 
 # --------------------------------------------------------------- phase 3d
@@ -1137,8 +1364,11 @@ def _kernel_class(name):
         return "layer norm (K4/K5)"
     if "adam_group" in name or "sgd_group" in name:
         return "optimizer (K6/K7)"
-    if any(t in name for t in ("gemm", "cutlass", "cublas", "xmma")):
+    if any(t in name for t in ("gemm", "cutlass", "cublas", "xmma",
+                               "nvjet")):
         return "matmul"
+    if "copy_kernel" in name:
+        return "casts and copies"
     return "other"
 
 
@@ -1290,27 +1520,35 @@ def _host_breakdown(samples, what):
 
 
 def _kernel_counts():
-    """Launch counts of every kernel a training step runs: flash fwd,
-    dK/dV, dQ, K4, K6, K7."""
+    """The launch counters of every kernel a training step or a serving
+    dispatch runs, as (wrapper, attribute): flash fwd, dK/dV, dQ (all
+    launches, then the bf16 instantiations' alone), K4, K6, K7 and K4's
+    AMP instantiation."""
     from paddle_tpu_torch.kernels import layernorm as ln
     from paddle_tpu_torch.kernels import optimizer_update as ou
     from paddle_tpu_torch.ops import attention as attn
 
-    return (attn.flash_attention_fwd, attn.flash_attention_dkv,
-            attn.flash_attention_dq, ln.layernorm_residual_fwd,
-            ou.adam_group, ou.sgd_group)
+    flash = (attn.flash_attention_fwd, attn.flash_attention_dkv,
+             attn.flash_attention_dq)
+    return ([(w, "launches") for w in flash]
+            + [(ln.layernorm_residual_fwd, "launches"),
+               (ou.adam_group, "launches"), (ou.sgd_group, "launches")]
+            + [(w, "bf16_launches") for w in flash]
+            + [(ln.layernorm_residual_fwd_amp, "launches")])
 
 
 def _counts():
-    return tuple(w.launches for w in _kernel_counts())
+    return tuple(getattr(w, a) for w, a in _kernel_counts())
 
 
 def _zero_counts():
-    for w in _kernel_counts():
-        w.launches = 0
+    for w, a in _kernel_counts():
+        setattr(w, a, 0)
 
 
-COUNT_NAMES = ("flash fwd", "flash dkv", "flash dq", "K4", "K6", "K7")
+COUNT_NAMES = ("flash fwd", "flash dkv", "flash dq", "K4", "K6", "K7",
+               "flash fwd bf16", "flash dkv bf16", "flash dq bf16",
+               "K4 AMP")
 
 
 def _grad_parity(flash, composed):
@@ -1327,12 +1565,13 @@ def _grad_parity(flash, composed):
     return l2, top
 
 
-def _train_setup(opt, seed):
-    """BERT-base MLM with ``opt``, started on the card: (exe, scope, main,
-    loss, params, grads name -> param, batches, the level-2 stats)."""
+def _train_setup(opt, seed, amp=False):
+    """BERT-base MLM with ``opt`` (under bf16 AMP with ``amp``), started
+    on the card: (exe, scope, main, loss, params, grads name -> param,
+    batches, the level-2 stats)."""
     import paddle_tpu_torch as fluid
 
-    main, startup, loss, params_grads = _bert_train_program(opt)
+    main, startup, loss, params_grads = _bert_train_program(opt, amp)
     main.random_seed = startup.random_seed = seed
     exe = fluid.Executor(fluid.CUDAPlace(0))
     scope = fluid.Scope()
@@ -1431,7 +1670,7 @@ def phase_train(seed):
             tier["ops_after"], tier["ln_residual_fused"],
             tier["optimizer_groups"]))
     per_step = (2 * cfg["n_layer"], cfg["n_layer"], cfg["n_layer"],
-                2 * cfg["n_layer"] + 1, 1, 0)
+                2 * cfg["n_layer"] + 1, 1, 0, 0, 0, 0, 0)
     if (tier["ln_residual_fused"], tier["optimizer_groups"]) != (
             per_step[3], [len(params)]):
         raise AssertionError("level 2 fused %d layer norms and optimizer "
@@ -1548,6 +1787,275 @@ def phase_train(seed):
                 adam_vector_entries=vector)
 
 
+# --------------------------------------------------------------- phase 6b
+def _amp_step_fn(exe, main, loss):
+    """One step of an AMP program; its loss, and the values of ``fetch``
+    (as f32 numpy: an AMP grad is bf16) when asked."""
+    def step(sc, feed, fetch=()):
+        vals = exe.run(main, feed=feed, fetch_list=[loss, *fetch], scope=sc,
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        val = float(vals[0].float().reshape(()))
+        return ((val, [v.float().cpu().numpy() for v in vals[1:]])
+                if fetch else val)
+
+    return step
+
+
+def _amp_per_step(cfg, opt):
+    """The launches of one AMP step (``COUNT_NAMES`` order): every flash
+    launch the bf16 instantiation's, every fused layer norm K4's AMP
+    instantiation, one K6 (Adam) or K7 (SGD)."""
+    n = cfg["n_layer"]
+    return (2 * n, n, n, 0, int(opt == "Adam"), int(opt == "SGD"), 2 * n, n,
+            n, 2 * n + 1)
+
+
+def _f32_masters(scope, params):
+    """Every param and optimizer moment in the scope is still f32: the
+    names of the floating values that are not."""
+    return [n for n in scope.local_var_names()
+            if (n in params or "moment" in n)
+            and isinstance(scope.find_var(n), torch.Tensor)
+            and scope.find_var(n).dtype != torch.float32]
+
+
+def _update_l2(a, b, before, params):
+    """Per param, the l2 norm of the difference of two paths' updates
+    (params after minus before) over the l2 norm of the second's: the
+    worst as (param, value)."""
+    worst = ("", 0.0)
+    for n in params:
+        da = (a[n] - before[n]).double()
+        db = (b[n] - before[n]).double()
+        r = float((da - db).norm() / max(float(db.norm()), 1e-30))
+        worst = max(worst, (n, r), key=lambda t: t[1])
+    return worst
+
+
+def phase_train_amp(seed, f32):
+    """BERT-base MLM under bf16 AMP (``contrib.mixed_precision.decorate``
+    around ``Adam``), at level 2: the launches of every step (bf16 flash
+    kernels, K4's AMP instantiation, K6 on the bf16 grads), f32 masters,
+    finite losses, level 2 against level 0 over 3 steps, the first loss
+    against the f32 step's (phase 6, same weights, batch and dropout
+    masks), the step time and one profiled step beside phase 6's."""
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
+    t0 = time.perf_counter()
+    (exe, scope, main, loss, params, grads, batches,
+     tier) = _train_setup("Adam", seed, amp=True)
+    cfg = bert_cfg()
+    per_step = _amp_per_step(cfg, "Adam")
+    grad_bf16 = _amp_grad_bf16(main, list(grads))
+    if (tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            per_step[9], [len(params)]):
+        raise AssertionError("AMP level 2 fused %d layer norms and "
+                             "optimizer groups %s" % (
+                                 tier["ln_residual_fused"],
+                                 tier["optimizer_groups"]))
+    log("train AMP: BERT-base MLM under bf16 AMP (level 2, %d ops, %d "
+        "fused layer norms, a group of %s params, %d grads bf16) built and "
+        "started in %.1f s" % (tier["ops_after"], tier["ln_residual_fused"],
+                               tier["optimizer_groups"], sum(grad_bf16),
+                               time.perf_counter() - t0))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+
+    # ---- the main path: counts zeroed here, read after the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(WARMUP_STEPS + TIMED_STEPS):
+        before = _counts()
+        bf0 = ou.adam_group.bf16_grad_entries
+        t1 = time.perf_counter()
+        val = step(scope, batches[i % len(batches)])
+        if i >= WARMUP_STEPS:
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        got = tuple(a - b for a, b in zip(_counts(), before))
+        if got != per_step:
+            raise AssertionError("AMP step %d launched %s = %s kernels, "
+                                 "expected %s" % (i, COUNT_NAMES, got,
+                                                  per_step))
+        if ou.adam_group.bf16_grad_entries - bf0 != sum(grad_bf16):
+            raise AssertionError("AMP step %d: K6 took %d bf16 grads, "
+                                 "expected %d" % (
+                                     i, ou.adam_group.bf16_grad_entries
+                                     - bf0, sum(grad_bf16)))
+        if not np.isfinite(val):
+            raise AssertionError("AMP step %d: loss %r is not finite"
+                                 % (i, val))
+        losses.append(val)
+    launches = _counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # ---- end of the main path
+    not_f32 = _f32_masters(scope, params)
+    if not_f32:
+        raise AssertionError("AMP left params or moments that are not f32: "
+                             "%s" % not_f32[:5])
+
+    # level 2 against level 0 (no K4, no K6) from the same scope and RNG
+    # state: the first step's grads, the losses and the param updates of
+    # PARITY_STEPS steps
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()),
+        "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"}, (3, 4, 5, 9))})
+    p = _parity(paths["main"], paths["level 0"], params)
+    p["update_l2_rel"] = _update_l2(paths["main"][2], paths["level 0"][2],
+                                    snap, params)
+    del paths
+    log("train AMP: main path vs level 0: param grads worst l2 rel diff "
+        "%.3e (%s, <= %.3g); over %d steps loss rel diff %.3e (<= %.3g), "
+        "param update worst l2 rel diff %.3e (%s, <= %.3g), param max "
+        "|diff| %.3e" % (
+            p["grad_l2_rel"][1], p["grad_l2_rel"][0], AMP_PARITY_GRAD_L2,
+            PARITY_STEPS, p["loss_rel"], AMP_PARITY_LOSS_RTOL,
+            p["update_l2_rel"][1], p["update_l2_rel"][0],
+            AMP_PARITY_UPDATE_L2, p["param_max_abs"]))
+    if p["grad_l2_rel"][1] > AMP_PARITY_GRAD_L2 or \
+            p["loss_rel"] > AMP_PARITY_LOSS_RTOL or \
+            p["update_l2_rel"][1] > AMP_PARITY_UPDATE_L2:
+        raise AssertionError("AMP training at level 2 and level 0 "
+                             "disagree")
+
+    turn2, turn0 = _in_turns(
+        lambda: _synced_ms(lambda: step(scope, batches[2])), 3)
+    prof = _profiled(lambda: step(scope, batches[1]))
+    _log_breakdown("AMP train step", prof)
+    _log_breakdown("f32 train step (phase 6)", f32["profile"])
+    med = float(np.median(step_ms))
+    tokens_per_s = TRAIN_BATCH * SEQ / (med / 1e3)
+    first_rel = abs(losses[0] - f32["losses"][0]) / abs(f32["losses"][0])
+    log("train AMP: losses %s; first loss %.6f against the f32 step's "
+        "%.6f (rel %.3e); step median %.3f ms (f32 %.3f), max %.3f over %d "
+        "steps; %.1f tokens/s (f32 %.1f); in turns, level 2 %.3f ms, level "
+        "0 %.3f ms; launches %s = %s; peak device memory %.1f MiB (f32 "
+        "%.1f)" % (
+            ["%.4f" % v for v in losses], losses[0], f32["losses"][0],
+            first_rel, med, f32["step_ms_median"], max(step_ms),
+            len(step_ms), tokens_per_s, f32["tokens_per_s"],
+            float(np.median(turn2)), float(np.median(turn0)), COUNT_NAMES,
+            launches, peak_mb, f32["peak_mem_mib"]))
+    return dict(tier=tier, losses=losses, first_loss_vs_f32=dict(
+                    amp=losses[0], f32=f32["losses"][0], rel=first_rel),
+                step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=tokens_per_s,
+                launches=dict(zip(COUNT_NAMES, launches)),
+                bf16_grads=sum(grad_bf16), peak_mem_mib=peak_mb,
+                parity=dict(steps=PARITY_STEPS, **p),
+                step_ms_in_turns={"level 2": turn2, "level 0": turn0},
+                profile=prof)
+
+
+# --------------------------------------------------------------- phase 4b
+def phase_serve_amp(workdir, seed, pred_f32, reqs):
+    """The serving program of phase 4 with bf16 AMP on
+    (``Program.set_amp``), saved with ``save_inference_model`` (which
+    keeps the flag) and served by the Predictor: every dispatch launches
+    the bf16 flash kernel 12 times and K4's AMP instantiation 25 times;
+    its answers against the f32 Predictor's (phase 4, same weights)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.base_config()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        bert.build(cfg, seq_len=SEQ, is_test=True)
+    main.set_amp(True)
+    enc = _encoder_output(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(
+            workdir, ["src_ids", "sent_ids", "input_mask"], [enc], exe,
+            main_program=main)
+    del scope, exe
+    torch.cuda.empty_cache()
+    config = fluid.inference.AnalysisConfig(workdir)
+    config.warmup_batch_sizes = list(BUCKETS)
+    n = cfg["n_layer"]
+    per_dispatch = (n, 0, 0, 0, 0, 0, n, 0, 0, 2 * n + 1)
+
+    # ---- the main path: counts zeroed here, read after the last request
+    os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+    os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pred = fluid.inference.create_paddle_predictor(config)
+    if not pred.program.amp:
+        raise AssertionError("the saved program lost its AMP flag")
+    want = tuple(c * len(BUCKETS) for c in per_dispatch)
+    if _counts() != want:
+        raise AssertionError("AMP warmup launched %s = %s, expected %s"
+                             % (COUNT_NAMES, _counts(), want))
+    lat_ms, diffs = [], []
+    for req in reqs:
+        b = req["src_ids"].shape[0]
+        lat_ms.append([])
+        for rep in range(AMP_SERVE_REPEATS):
+            before = _counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (out,) = pred.run(req)
+            torch.cuda.synchronize()
+            lat_ms[-1].append((time.perf_counter() - t0) * 1e3)
+            got = tuple(a - c for a, c in zip(_counts(), before))
+            if got != per_dispatch:
+                raise AssertionError("AMP batch %d: launches %s = %s, "
+                                     "expected %s" % (b, COUNT_NAMES, got,
+                                                      per_dispatch))
+            if rep == 0:
+                first = out
+                if out.shape != (b, SEQ, cfg["d_model"]) or \
+                        out.dtype != np.float32 or \
+                        not np.isfinite(out).all():
+                    raise AssertionError("AMP batch %d: bad output %s %s"
+                                         % (b, out.shape, out.dtype))
+            elif not np.array_equal(out, first):
+                raise AssertionError("AMP batch %d: a repeated request "
+                                     "gave another answer" % b)
+        diffs.append(first)
+    launches = _counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # ---- end of the main path
+    rows = []
+    for req, amp_out, lat in zip(reqs, diffs, lat_ms):
+        (ref,) = pred_f32.run(req)
+        d = amp_out.astype(np.float64) - ref
+        rel = float(np.linalg.norm(d) / np.linalg.norm(ref))
+        rows.append(dict(batch=int(req["src_ids"].shape[0]), l2_rel=rel,
+                         max_abs=float(np.abs(d).max()),
+                         latency_ms=lat))
+        log("serve AMP: batch %d (bucket %d) latency median %.3f ms over %d "
+            "requests; against the f32 Predictor: l2 rel %.3e (<= %.0e), "
+            "max |diff| %.3e" % (
+                rows[-1]["batch"], pred.bucket_for(rows[-1]["batch"]) or
+                rows[-1]["batch"], float(np.median(lat)), len(lat), rel,
+                AMP_SERVE_L2, rows[-1]["max_abs"]))
+    prof = {}
+    for req in reqs:
+        b = int(req["src_ids"].shape[0])
+        pred.run(req)
+        torch.cuda.synchronize()
+        prof[b] = _profiled(lambda: pred.run(req))
+        _log_breakdown("AMP batch %d" % b, prof[b])
+    log("serve AMP: launches %s = %s on the main path; peak device memory "
+        "%.1f MiB" % (COUNT_NAMES, launches, peak_mb))
+    worst = max(r["l2_rel"] for r in rows)
+    if worst > AMP_SERVE_L2:
+        raise AssertionError("AMP answers differ from f32 by l2 rel %.3e > "
+                             "%.0e" % (worst, AMP_SERVE_L2))
+    return dict(requests=rows, launches=dict(zip(COUNT_NAMES, launches)),
+                peak_mem_mib=peak_mb, profile=prof)
+
+
 # ---------------------------------------------------------------- phase 7
 def phase_train_sgd(seed):
     """BERT-base MLM with ``SGD.minimize``: 3 steps at level 2 (K4 and
@@ -1558,7 +2066,7 @@ def phase_train_sgd(seed):
      tier) = _train_setup("SGD", seed)
     cfg = bert_cfg()
     per_step = (2 * cfg["n_layer"], cfg["n_layer"], cfg["n_layer"],
-                2 * cfg["n_layer"] + 1, 0, 1)
+                2 * cfg["n_layer"] + 1, 0, 1, 0, 0, 0, 0)
     if (tier["ln_residual_fused"], tier["optimizer_groups"]) != (
             per_step[3], [len(params)]):
         raise AssertionError("level 2 fused %d layer norms and optimizer "
@@ -1618,17 +2126,72 @@ def phase_train_sgd(seed):
                             param_max_abs=param_diff))
 
 
+def phase_train_sgd_amp(seed):
+    """BERT-base MLM with ``SGD`` under bf16 AMP: AMP_SGD_STEPS steps at
+    level 2, each launching K7 once on the step's grads (bf16 but the
+    layer norms'), the bf16 flash kernels and K4's AMP instantiation."""
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
+    (exe, scope, main, loss, params, grads, batches,
+     tier) = _train_setup("SGD", seed, amp=True)
+    per_step = _amp_per_step(bert_cfg(), "SGD")
+    grad_bf16 = _amp_grad_bf16(main, list(grads))
+    step = _amp_step_fn(exe, main, loss)
+    # ---- the main path: counts zeroed here, read after the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    _zero_counts()
+    losses, bf16_entries = [], []
+    for i in range(AMP_SGD_STEPS):
+        before = _counts()
+        bf0 = ou.sgd_group.bf16_grad_entries
+        losses.append(step(scope, batches[i % len(batches)]))
+        bf16_entries.append(ou.sgd_group.bf16_grad_entries - bf0)
+        got = tuple(a - b for a, b in zip(_counts(), before))
+        if got != per_step:
+            raise AssertionError("AMP SGD step %d launched %s = %s kernels, "
+                                 "expected %s" % (i, COUNT_NAMES, got,
+                                                  per_step))
+    launches = _counts()
+    # ---- end of the main path
+    if not np.isfinite(losses).all():
+        raise AssertionError("AMP SGD losses %s are not all finite" % losses)
+    if bf16_entries != [sum(grad_bf16)] * AMP_SGD_STEPS:
+        raise AssertionError("AMP SGD: K7 took %s bf16 grads per step, "
+                             "expected %d" % (bf16_entries, sum(grad_bf16)))
+    not_f32 = _f32_masters(scope, params)
+    if not_f32:
+        raise AssertionError("AMP SGD left params that are not f32: %s"
+                             % not_f32[:5])
+    log("train SGD AMP: level 2 %d ops (%d fused layer norms, a group of "
+        "%s params); losses %s; launches %s = %s; bf16 grads on K7 per "
+        "step %s" % (tier["ops_after"], tier["ln_residual_fused"],
+                     tier["optimizer_groups"], ["%.4f" % v for v in losses],
+                     COUNT_NAMES, launches, bf16_entries))
+    return dict(tier=tier, losses=losses,
+                launches=dict(zip(COUNT_NAMES, launches)),
+                bf16_grad_entries=bf16_entries)
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
-                library_ms, library_call_ms):
+                library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
     are device times (torch.profiler), ``library_call_ms`` the library
-    call's time from CUDA events around back-to-back calls."""
-    return dict(name=name, ported=True, route="cuda", source=source,
-                replaces=replaces, launches=launches,
-                launches_by_path=by_path, max_abs_err=err, ms=t["ms"],
-                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"], library_ms=library_ms,
-                library_call_ms=library_call_ms)
+    call's time from CUDA events around back-to-back calls. ``amp``:
+    the same numbers of the AMP path's instantiation or inputs (phase
+    3c's AMP case), where the kernel has one."""
+    row = dict(name=name, ported=True, route="cuda", source=source,
+               replaces=replaces, launches=launches,
+               launches_by_path=by_path, max_abs_err=err, ms=t["ms"],
+               plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+               bound_by=t["bound_by"], library_ms=library_ms,
+               library_call_ms=library_call_ms)
+    if amp is not None:
+        case, err_amp, t_amp = amp
+        row["amp"] = dict(case=case, max_abs_err=err_amp, **{
+            k: t_amp[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "library_call_ms")})
+    return row
 
 
 def main():
@@ -1658,48 +2221,78 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         serve, pred, reqs = phase_serve(workdir, args.seed)
     profile = phase_profile(pred, reqs)
+    with tempfile.TemporaryDirectory() as workdir:
+        serve_amp = phase_serve_amp(workdir, args.seed, pred, reqs)
     del pred
     torch.cuda.empty_cache()
     train = phase_train(args.seed)
     torch.cuda.empty_cache()
+    train_amp = phase_train_amp(args.seed, train)
+    torch.cuda.empty_cache()
     train_sgd = phase_train_sgd(args.seed)
+    torch.cuda.empty_cache()
+    train_sgd_amp = phase_train_sgd_amp(args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
     fwd, bwd = rows[0], bwd_rows[0]
+    # the AMP path's flash shapes: the same at bf16
+    fwd_b = next(r for r in rows if r["case"] == "bert_bf16")
+    bwd_b = next(r for r in bwd_rows if r["case"] == "bert_bf16")
+    flash_amp = lambda row, t, err: (row["case"], err, dict(  # noqa: E731
+        t, library_ms=row["library_device_ms"],
+        library_call_ms=row["library_ms"]))
     ln_row = tier_rows[0]
     opt_row = next(r for r in tier_rows if r["case"] == "bert_base")
+    ln_amp = next(r for r in tier_rows if r["case"] == "bert_b8_amp")
+    opt_amp = next(r for r in tier_rows if r["case"] == "bert_base_amp")
     t_launch, s_launch = train["launches"], train_sgd["launches"]
-    k4 = dict(serve=serve["launches"]["k4"], train=t_launch["K4"],
-              train_sgd=s_launch["K4"])
+    a_launch, as_launch = train_amp["launches"], train_sgd_amp["launches"]
+    sa_launch = serve_amp["launches"]
+    by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
+    k1 = by_path(serve=serve["launches"]["flash"],
+                 train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
+                 train_amp=a_launch["flash fwd"],
+                 train_sgd_amp=as_launch["flash fwd"])
+    k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
+                      train_sgd_amp=as_launch[c])
+              for c in ("flash dkv", "flash dq"))
+    k4 = by_path(serve=serve["launches"]["k4"], train=t_launch["K4"],
+                 train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
+                 train_amp=a_launch["K4 AMP"],
+                 train_sgd_amp=as_launch["K4 AMP"])
+    k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"])
+    k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
                     "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                    "paddle_tpu/ops/attention.py:281",
-                    serve["launches"]["flash"] + t_launch["flash fwd"],
-                    dict(serve=serve["launches"]["flash"],
-                         train=t_launch["flash fwd"]),
+                    "paddle_tpu/ops/attention.py:281", sum(k1.values()), k1,
                     fwd["max_abs_err"], fwd, fwd["library_device_ms"],
-                    fwd["library_ms"]),
+                    fwd["library_ms"],
+                    amp=flash_amp(fwd_b, fwd_b, fwd_b["max_abs_err"])),
         _kernel_row("flash_attention_dkv",
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "paddle_tpu/ops/attention.py:383",
-                    t_launch["flash dkv"], dict(train=t_launch["flash dkv"]),
+                    "paddle_tpu/ops/attention.py:383", sum(k2.values()), k2,
                     max(bwd["max_abs_err"][n] for n in ("dk", "dv")),
                     bwd["dkv"], bwd["library_device_ms"],
-                    bwd["library_ms"]),
+                    bwd["library_ms"],
+                    amp=flash_amp(bwd_b, bwd_b["dkv"], max(
+                        bwd_b["max_abs_err"][n] for n in ("dk", "dv")))),
         _kernel_row("flash_attention_dq",
                     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "paddle_tpu/ops/attention.py:432", t_launch["flash dq"],
-                    dict(train=t_launch["flash dq"]),
+                    "paddle_tpu/ops/attention.py:432", sum(k3.values()), k3,
                     bwd["max_abs_err"]["dq"], bwd["dq"],
-                    bwd["library_device_ms"], bwd["library_ms"]),
+                    bwd["library_device_ms"], bwd["library_ms"],
+                    amp=flash_amp(bwd_b, bwd_b["dq"],
+                                  bwd_b["max_abs_err"]["dq"])),
         _kernel_row("layernorm_residual_fwd",
                     "paddle_tpu_torch/csrc/layernorm_residual.cu",
                     "paddle_tpu/kernels/layernorm.py:98", sum(k4.values()),
                     k4, ln_row["max_abs_err"]["fwd"], ln_row["fwd"],
                     ln_row["fwd"]["library_ms"],
-                    ln_row["fwd"]["library_call_ms"]),
+                    ln_row["fwd"]["library_call_ms"],
+                    amp=(ln_amp["case"], ln_amp["max_abs_err"]["fwd"],
+                         ln_amp["fwd"])),
         _kernel_row("layernorm_residual_bwd",
                     "paddle_tpu_torch/csrc/layernorm_residual.cu",
                     "paddle_tpu/kernels/layernorm.py:143", k5_launches,
@@ -1710,17 +2303,21 @@ def main():
         _kernel_row("adam_group",
                     "paddle_tpu_torch/csrc/optimizer_update.cu",
                     "paddle_tpu/kernels/optimizer_update.py:149",
-                    t_launch["K6"], dict(train=t_launch["K6"]),
+                    sum(k6.values()), k6,
                     opt_row["max_abs_err"]["adam"], opt_row["adam"],
                     opt_row["adam"]["library_ms"],
-                    opt_row["adam"]["library_call_ms"]),
+                    opt_row["adam"]["library_call_ms"],
+                    amp=(opt_amp["case"], opt_amp["max_abs_err"]["adam"],
+                         opt_amp["adam"])),
         _kernel_row("sgd_group",
                     "paddle_tpu_torch/csrc/optimizer_update.cu",
                     "paddle_tpu/kernels/optimizer_update.py:233",
-                    s_launch["K7"], dict(train_sgd=s_launch["K7"]),
+                    sum(k7.values()), k7,
                     opt_row["max_abs_err"]["sgd"], opt_row["sgd"],
                     opt_row["sgd"]["library_ms"],
-                    opt_row["sgd"]["library_call_ms"]),
+                    opt_row["sgd"]["library_call_ms"],
+                    amp=(opt_amp["case"], opt_amp["max_abs_err"]["sgd"],
+                         opt_amp["sgd"])),
     ]
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
     # pl.pallas_call has its port; none is left out
@@ -1737,8 +2334,10 @@ def main():
                            bwd_kernel_cases=bwd_rows,
                            bwd_occupancy=bwd_occupancy,
                            tier_kernel_cases=tier_rows, tune=tuned,
-                           serve=serve, profile=profile, train=train,
-                           train_sgd=train_sgd, kernels=kernels,
+                           serve=serve, profile=profile,
+                           serve_amp=serve_amp, train=train,
+                           train_amp=train_amp, train_sgd=train_sgd,
+                           train_sgd_amp=train_sgd_amp, kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

@@ -5,15 +5,17 @@ parameter names and its layouts, so one Program and one set of weights
 run in both packages. Ops lower to PyTorch; the TPU's Pallas kernels
 become hand-written CUDA kernels for Hopper (csrc/, built with nvcc at
 first use). ``optimizer.Adam(...).minimize(loss)`` appends the backward
-and the updates, and ``Executor.run`` trains. Entry points run on the card unless the caller passes
+and the updates, and ``Executor.run`` trains; wrapped in
+``contrib.mixed_precision.decorate``, it trains under bf16 AMP
+(core/amp.py). Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
 Import as ``import paddle_tpu_torch as fluid``.
 """
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
-from . import (clip, convert, core, inference, initializer,  # noqa: F401
-               io, layers, models, optimizer, regularizer)
+from . import (clip, contrib, convert, core, inference,  # noqa: F401
+               initializer, io, layers, models, optimizer, regularizer)
 from .core.executor import Executor  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.program import (  # noqa: F401

@@ -11,6 +11,12 @@ eagerly, a probe would be a second forward of every op, so here the
 vjp'd function returns the float outputs and records which ones they
 are as it runs: one forward re-run per generic grad op, not two.
 
+Under bf16 AMP a grad op takes its forward op's class (core/amp.py
+``policy_for`` strips ``_grad``), and ``lower_op`` casts its inputs
+before this lowering runs: the forward re-runs in the dtypes the forward
+ran in, and each output cotangent is cast to its primal's dtype below,
+so a bf16 op's input grads come out bf16 and an f32 op's f32.
+
 Ops whose gradient must reuse saved forward state (dropout's mask,
 fused_attention's mask) or has a cheaper closed form register a custom
 grad lowering instead (registry.register_grad_lowering); it is called

@@ -48,7 +48,7 @@ from .program import Program, Variable, default_main_program, op_effects
 from .registry import get_op, has_op
 from .scope import Scope, global_scope
 
-__all__ = ["Executor", "analyze_block", "feed_to_device"]
+__all__ = ["Executor", "analyze_block", "feed_to_device", "to_numpy"]
 
 RNG_VAR = "@RNG_STATE@"
 
@@ -117,7 +117,7 @@ class Executor:
             scope.set_var(RNG_VAR, rng)
         if not return_numpy:
             return list(fetches)
-        return [v.cpu().numpy() for v in fetches]
+        return [to_numpy(v) for v in fetches]
 
     def close(self):
         """Drop every cached plan."""
@@ -236,11 +236,12 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
     # peak memory is its live set, not every activation it ever made
     release = release_schedule(
         block.ops, set(fetch_names) | set(mut_state) | set(pure_written))
+    amp = bool(getattr(program, "amp", False))
 
     def step(feeds, state, rng, device):
         env: Dict[str, Any] = dict(state)
         env.update(feeds)
-        ctx = LowerContext(block, rng, device)
+        ctx = LowerContext(block, rng, device, amp=amp)
         lower_block(ctx, block, env, release)
         missing_f = [n for n in fetch_names if n not in env]
         if missing_f:
@@ -281,6 +282,22 @@ def feed_to_device(name: str, val, var, device: torch.device) -> torch.Tensor:
         arr = arr.astype(np.int32)
     t = torch.from_numpy(np.ascontiguousarray(arr))
     return t.to(device=device, dtype=want or t.dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A fetched tensor as a host numpy array. numpy has no bfloat16 of
+    its own: a bf16 tensor (an AMP fetch) comes back as an
+    ``ml_dtypes.bfloat16`` array, bit for bit, as the JAX package's
+    fetches do, where ``ml_dtypes`` is installed, and widened exactly to
+    float32 where it is not."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
 def _require(scope: Scope, name: str):

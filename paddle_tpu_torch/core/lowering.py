@@ -12,6 +12,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from .amp import amp_cast
 from .program import Block
 from .registry import get_op
 
@@ -20,8 +21,9 @@ __all__ = ["LowerContext", "lower_op", "lower_ops", "lower_block",
 
 
 class LowerContext:
-    """Run-wide state across op lowerings: the device, the owning block
-    and the RNG chain.
+    """Run-wide state across op lowerings: the device, the owning block,
+    the RNG chain and the mode flags (``is_test``, and ``amp``: the
+    bf16 cast policy of core/amp.py, which ``lower_op`` applies).
 
     ``rng`` is a CPU ``torch.Generator`` that only hands out seeds: each
     ``next_rng()`` draws one and returns a fresh generator on the
@@ -32,11 +34,12 @@ class LowerContext:
     def __init__(self, block: Optional[Block] = None,
                  rng: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cpu"),
-                 is_test: bool = False):
+                 is_test: bool = False, amp: bool = False):
         self.block = block
         self._rng = rng
         self.device = device
         self.is_test = is_test
+        self.amp = amp
 
     def next_rng(self) -> torch.Generator:
         if self._rng is None:
@@ -51,8 +54,9 @@ class LowerContext:
 
     def pure(self) -> "LowerContext":
         """Context for re-running a forward lowering inside a vjp: the
-        same block, device and mode, no RNG (as in the JAX package)."""
-        return LowerContext(self.block, None, self.device, self.is_test)
+        same block, device and modes, no RNG (as in the JAX package)."""
+        return LowerContext(self.block, None, self.device, self.is_test,
+                            self.amp)
 
 
 def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
@@ -60,6 +64,10 @@ def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
     ins: Dict[str, List[Any]] = {}
     for slot, names in op.inputs.items():
         ins[slot] = [env[n] if n else None for n in names]
+    if ctx.amp:
+        # the __amp__ attr stamped by core/passes/amp_pass.py (or set per
+        # op by the user) overrides the table policy
+        ins = amp_cast(op.type, op.attrs, ins)
     outs = opdef.lowering(ctx, ins, op.attrs)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)

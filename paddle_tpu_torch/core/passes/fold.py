@@ -8,12 +8,13 @@ the single source of op semantics, so a folded value is bitwise the
 value the program would have computed — and the surviving reads are
 served by one ``assign_value`` op per still-consumed var.
 
-The one difference from the JAX package is ``_evaluate``: there a
-lowering runs through ``jax.numpy``; here it runs with the port's
-``LowerContext`` (no block, no RNG, the CPU) on tensors made from the
-folded numpy values, and the result comes back as numpy. Programs with
-bf16 AMP on fold nothing: the AMP cast policy (core/amp.py) is not
-ported yet.
+The one difference from the JAX package is the value type: there a
+lowering runs through ``jax.numpy`` on numpy values; here it runs with
+the port's ``LowerContext`` (no block, no RNG, the CPU) on CPU tensors,
+which the pass keeps as its folded values (numpy has no bfloat16). A
+Program with bf16 AMP on folds under the same per-op casts
+(core/amp.py ``amp_cast``) its lowering would apply, so a folded value
+is bitwise the value AMP computes, bf16 where AMP computes bf16.
 
 Folding is skipped wholesale when it would not shrink the op count
 (replacing one ``fill_constant`` with one ``assign_value`` is churn,
@@ -27,8 +28,9 @@ from __future__ import annotations
 import os
 from typing import Dict
 
-import numpy as np
+import torch
 
+from ..amp import amp_cast
 from ..ir import Graph, Pass, register_pass
 from ..lowering import LowerContext
 from ..registry import get_op
@@ -80,7 +82,7 @@ class ConstantFoldingPass(Pass):
         cap = fold_max_elems()
         self.rewrites = []
 
-        const_env: Dict[str, np.ndarray] = {}
+        const_env: Dict[str, torch.Tensor] = {}
         foldable = []  # op nodes, program order
         for node in graph.op_nodes:
             op = node.op
@@ -98,7 +100,7 @@ class ConstantFoldingPass(Pass):
                     out, ignore_fetch=True):
                 continue
             val = self._evaluate(op, const_env, amp)
-            if val is None or val.size > cap:
+            if val is None or val.numel() > cap:
                 continue
             const_env[out] = val
             foldable.append(node)
@@ -135,9 +137,9 @@ class ConstantFoldingPass(Pass):
                     if single_output_name(n.op) == name]
             new_node = graph.insert_op_node(
                 "assign_value", {}, {"Out": [name]},
-                attrs={"values": np.asarray(val).ravel().tolist(),
+                attrs={"values": val.ravel().tolist(),
                        "shape": list(val.shape),
-                       "dtype": str(val.dtype)},
+                       "dtype": str(val.dtype).replace("torch.", "")},
                 provenance_from=srcs)
             self.rewrites.append({"kind": "materialize",
                                   "into": new_node.op, "name": name,
@@ -150,16 +152,13 @@ class ConstantFoldingPass(Pass):
     def _evaluate(op, const_env, amp):
         """Run one op's registered lowering eagerly on concrete values.
         Any failure means "don't fold", never "fail the program"."""
-        if amp:
-            return None
         try:
-            import torch
-
-            ins = {slot: [torch.from_numpy(np.array(const_env[n]))
-                          if n else None for n in names]
+            ins = {slot: [const_env[n] if n else None for n in names]
                    for slot, names in op.inputs.items()}
+            if amp:
+                ins = amp_cast(op.type, op.attrs, ins)
             ctx = LowerContext(block=None, rng=None,
-                               device=torch.device("cpu"))
+                               device=torch.device("cpu"), amp=amp)
             with torch.no_grad():
                 outs = get_op(op.type).lowering(ctx, ins, dict(op.attrs))
             slot = next(s for s, ns in op.outputs.items()
@@ -167,8 +166,8 @@ class ConstantFoldingPass(Pass):
             val = outs.get(slot)
             if isinstance(val, (list, tuple)):
                 val = val[0]
-            if val is None:
+            if not isinstance(val, torch.Tensor):
                 return None
-            return val.numpy()
+            return val
         except Exception:
             return None

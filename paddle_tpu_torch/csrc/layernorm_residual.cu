@@ -1,5 +1,6 @@
 // Fused residual add + layer norm for Hopper (sm_90a): forward (K4) and
-// backward (K5), f32 and bf16 inputs, f32 statistics.
+// backward (K5), f32 and bf16 inputs, f32 statistics; and K4's AMP
+// instantiation, the function a bf16-AMP Program computes.
 //
 // Replaces paddle_tpu/kernels/layernorm.py `_fwd_kernel` (driven by
 // `_forward_pallas`) and `_bwd_kernel` (driven by `_backward_pallas`,
@@ -8,6 +9,11 @@
 //   forward   s    = x + r                       (f32, stored in x's type)
 //             mean = sum(s) / D,  var = sum((s - mean)^2) / D   (two-pass)
 //             y    = (s - mean) * rsqrt(var + eps) * scale + bias
+//   AMP       s    = bf16(bf16(x) + bf16(r))     (stored bf16; x, r f32
+//                                                 or bf16 each)
+//             mean, var and y as above from s, in f32; y stored f32
+//             with f32 scale and bias: AMP's bf16 elementwise_add
+//             followed by its f32 layer_norm
 //   backward  xhat = (s - mean) * rstd,  gyh = gy * scale
 //             dx   = rstd * (gyh - mean(gyh) - xhat * mean(gyh * xhat))
 //                    + gres
@@ -16,8 +22,10 @@
 // What bounds it on an H100: bytes. At [4096, 768] f32 the forward reads
 // x and r and writes y and s (4 x 12.58 MB) plus 32 KB of statistics,
 // 50.36 MB, 0.0150 ms at 3.35 TB/s; the backward reads s, gy and gres
-// and writes dx, about 50.4 MB. A few FLOPs per byte, far below the
-// card's balance point, so the design aims at moving each byte once.
+// and writes dx, about 50.4 MB. The AMP forward on BERT's bf16 x and r
+// reads 2 + 2 and writes 2 (s) + 4 (y) bytes an element, 31.5 MB and
+// 0.0094 ms. A few FLOPs per byte, far below the card's balance point,
+// so the design aims at moving each byte once.
 //
 // Forward (K4): one warp per row, the row in registers (VPT = ceil(D /
 // 32) values per lane, lane l holding columns l, l + 32, ...: every load
@@ -164,12 +172,53 @@ __device__ __forceinline__ void cta_rows(int N, int64_t* r0, int64_t* r1) {
   *r1 = (int64_t)N * (blockIdx.x + 1) / gridDim.x;
 }
 
-template <typename T, int VPT>
-__global__ void ln_res_fwd_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ r,
-                                  const T* __restrict__ scale,
-                                  const T* __restrict__ bias,
-                                  T* __restrict__ y, T* __restrict__ s_out,
+// the types of one forward instantiation: x, r, the stored sum s, the
+// scale / bias vectors and y. Plain<T> is the JAX kernel's function at
+// one dtype: s = x + r in f32 (stored in T), statistics of that f32 sum.
+// Amp<X, R> is AMP's (the bf16 elementwise_add, then the f32
+// layer_norm): each operand rounded to bf16 in registers, their sum
+// rounded once to bf16 and stored, the statistics and y in f32 from the
+// rounded sum, with f32 scale and bias.
+template <typename T>
+struct Plain {
+  using X = T;
+  using R = T;
+  using S = T;
+  using P = T;
+  using Y = T;
+  static constexpr bool kAmp = false;
+};
+
+template <typename XT, typename RT>
+struct Amp {
+  using X = XT;
+  using R = RT;
+  using S = __nv_bfloat16;
+  using P = float;
+  using Y = float;
+  static constexpr bool kAmp = true;
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// one element of the residual sum, as the instantiation computes it
+template <typename F>
+__device__ __forceinline__ float res_sum(typename F::X x, typename F::R r) {
+  if constexpr (F::kAmp)
+    return round_bf16(round_bf16(to_f32(x)) + round_bf16(to_f32(r)));
+  else
+    return to_f32(x) + to_f32(r);
+}
+
+template <typename F, int VPT>
+__global__ void ln_res_fwd_kernel(const typename F::X* __restrict__ x,
+                                  const typename F::R* __restrict__ r,
+                                  const typename F::P* __restrict__ scale,
+                                  const typename F::P* __restrict__ bias,
+                                  typename F::Y* __restrict__ y,
+                                  typename F::S* __restrict__ s_out,
                                   float* __restrict__ mean_out,
                                   float* __restrict__ var_out, int N, int D,
                                   float eps) {
@@ -185,7 +234,7 @@ __global__ void ln_res_fwd_kernel(const T* __restrict__ x,
     const int c = lane + kWarp * j;
     float t = 0.f;
     if (c < D) {
-      t = to_f32(x[off + c]) + to_f32(r[off + c]);
+      t = res_sum<F>(x[off + c], r[off + c]);
       store(s_out + off + c, t);
     }
     v[j] = t;
@@ -229,36 +278,36 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 }
 
 // the forward for rows wider than kMaxD: one CTA per row
-template <typename T>
-__global__ void ln_res_fwd_wide_kernel(const T* __restrict__ x,
-                                       const T* __restrict__ r,
-                                       const T* __restrict__ scale,
-                                       const T* __restrict__ bias,
-                                       T* __restrict__ y,
-                                       T* __restrict__ s_out,
+template <typename F>
+__global__ void ln_res_fwd_wide_kernel(const typename F::X* __restrict__ x,
+                                       const typename F::R* __restrict__ r,
+                                       const typename F::P* __restrict__ scale,
+                                       const typename F::P* __restrict__ bias,
+                                       typename F::Y* __restrict__ y,
+                                       typename F::S* __restrict__ s_out,
                                        float* __restrict__ mean_out,
                                        float* __restrict__ var_out, int D,
                                        float eps) {
   __shared__ float red[kWideThreads / kWarp];
   const int64_t row = blockIdx.x;
-  const T* xr = x + row * D;
-  const T* rr = r + row * D;
+  const typename F::X* xr = x + row * D;
+  const typename F::R* rr = r + row * D;
   float sum = 0.f;
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float t = to_f32(xr[c]) + to_f32(rr[c]);
+    const float t = res_sum<F>(xr[c], rr[c]);
     store(s_out + row * D + c, t);
     sum += t;
   }
   const float mean = block_sum(sum, red) / D;
   float sq = 0.f;
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float d = to_f32(xr[c]) + to_f32(rr[c]) - mean;
+    const float d = res_sum<F>(xr[c], rr[c]) - mean;
     sq += d * d;
   }
   const float var = block_sum(sq, red) / D;
   const float rstd = rsqrtf(var + eps);
   for (int c = threadIdx.x; c < D; c += blockDim.x) {
-    const float d = to_f32(xr[c]) + to_f32(rr[c]) - mean;
+    const float d = res_sum<F>(xr[c], rr[c]) - mean;
     store(y + row * D + c, d * rstd * to_f32(scale[c]) + to_f32(bias[c]));
   }
   if (threadIdx.x == 0) {
@@ -488,29 +537,63 @@ int vpt_for(int D) {
   return 0;
 }
 
-template <typename T, int VPT>
+#define LN_DISPATCH(VPT_, CALL)            \
+  switch (VPT_) {                          \
+    case 4: return CALL(4);                \
+    case 8: return CALL(8);                \
+    case 16: return CALL(16);              \
+    case 24: return CALL(24);              \
+    case 32: return CALL(32);              \
+    case 48: return CALL(48);              \
+    case 64: return CALL(64);              \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+template <typename F, int VPT>
 int launch_fwd(const void* x, const void* r, const void* scale,
                const void* bias, void* y, void* s, float* mean, float* var,
                int N, int D, float eps, int rows_per_cta,
                cudaStream_t stream) {
   const int grid = (N + rows_per_cta - 1) / rows_per_cta;
-  ln_res_fwd_kernel<T, VPT><<<grid, rows_per_cta * kWarp, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(y), static_cast<T*>(s), mean, var, N, D, eps);
+  ln_res_fwd_kernel<F, VPT><<<grid, rows_per_cta * kWarp, 0, stream>>>(
+      static_cast<const typename F::X*>(x),
+      static_cast<const typename F::R*>(r),
+      static_cast<const typename F::P*>(scale),
+      static_cast<const typename F::P*>(bias),
+      static_cast<typename F::Y*>(y), static_cast<typename F::S*>(s), mean,
+      var, N, D, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename F>
 int launch_fwd_wide(const void* x, const void* r, const void* scale,
                     const void* bias, void* y, void* s, float* mean,
                     float* var, int N, int D, float eps,
                     cudaStream_t stream) {
-  ln_res_fwd_wide_kernel<T><<<N, kWideThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(scale), static_cast<const T*>(bias),
-      static_cast<T*>(y), static_cast<T*>(s), mean, var, D, eps);
+  ln_res_fwd_wide_kernel<F><<<N, kWideThreads, 0, stream>>>(
+      static_cast<const typename F::X*>(x),
+      static_cast<const typename F::R*>(r),
+      static_cast<const typename F::P*>(scale),
+      static_cast<const typename F::P*>(bias),
+      static_cast<typename F::Y*>(y), static_cast<typename F::S*>(s), mean,
+      var, D, eps);
   return (int)cudaGetLastError();
+}
+
+// one instantiation's forward for [N, D] rows: the warp-per-row kernel
+// at the register width D needs, or the wide kernel past kMaxD
+template <typename F>
+int dispatch_fwd(const void* x, const void* r, const void* scale,
+                 const void* bias, void* y, void* s, float* mean, float* var,
+                 int N, int D, float eps, int rows_per_cta,
+                 cudaStream_t st) {
+  if (D > kMaxD)
+    return launch_fwd_wide<F>(x, r, scale, bias, y, s, mean, var, N, D, eps,
+                              st);
+#define FWD(V) \
+  launch_fwd<F, V>(x, r, scale, bias, y, s, mean, var, N, D, eps, rows_per_cta, st)
+  LN_DISPATCH(vpt_for(D), FWD)
+#undef FWD
 }
 
 int launch_reduce(const float* part_scale, const float* part_bias, int ctas,
@@ -648,17 +731,6 @@ int bwd_grid(int N, int D, int sms, int* smem) {
   return N < cap ? N : cap;
 }
 
-#define LN_DISPATCH(VPT_, CALL)            \
-  switch (VPT_) {                          \
-    case 4: return CALL(4);                \
-    case 8: return CALL(8);                \
-    case 16: return CALL(16);              \
-    case 24: return CALL(24);              \
-    case 32: return CALL(32);              \
-    case 48: return CALL(48);              \
-    case 64: return CALL(64);              \
-    default: return (int)cudaErrorInvalidValue; \
-  }
 
 
 }  // namespace
@@ -676,23 +748,40 @@ int layernorm_residual_fwd(const void* x, const void* r, const void* scale,
   float* v = static_cast<float*>(var);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  if (D > kMaxD) {
-    if (dtype == 0)
-      return launch_fwd_wide<float>(x, r, scale, bias, y, s, m, v, N, D, eps,
-                                    st);
-    if (dtype == 1)
-      return launch_fwd_wide<__nv_bfloat16>(x, r, scale, bias, y, s, m, v, N,
-                                            D, eps, st);
-    return (int)cudaErrorInvalidValue;
-  }
-  const int vpt = vpt_for(D);
-#define FWD_F32(V) launch_fwd<float, V>(x, r, scale, bias, y, s, m, v, N, D, eps, rows_per_cta, st)
-#define FWD_BF16(V) launch_fwd<__nv_bfloat16, V>(x, r, scale, bias, y, s, m, v, N, D, eps, rows_per_cta, st)
-  if (dtype == 0) LN_DISPATCH(vpt, FWD_F32)
-  if (dtype == 1) LN_DISPATCH(vpt, FWD_BF16)
-#undef FWD_F32
-#undef FWD_BF16
+  if (dtype == 0)
+    return dispatch_fwd<Plain<float>>(x, r, scale, bias, y, s, m, v, N, D,
+                                      eps, rows_per_cta, st);
+  if (dtype == 1)
+    return dispatch_fwd<Plain<__nv_bfloat16>>(x, r, scale, bias, y, s, m, v,
+                                              N, D, eps, rows_per_cta, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// AMP's residual add + layer norm (the Amp instantiation): x and r each
+// of their own dtype (0 = float32, 1 = bfloat16), rounded to bf16 in
+// registers; s = their sum rounded to bf16, stored bfloat16 [N, D];
+// scale and bias float32 [D]; y float32 [N, D]; mean and var float32
+// [N], of the rounded sum. The launch is the plain forward's. Returns a
+// cudaError_t.
+int layernorm_residual_fwd_amp(const void* x, const void* r,
+                               const void* scale, const void* bias, void* y,
+                               void* s, void* mean, void* var, int N, int D,
+                               int x_dtype, int r_dtype, float eps,
+                               int rows_per_cta, void* stream) {
+  float* m = static_cast<float*>(mean);
+  float* v = static_cast<float*>(var);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N < 1 || D < 1 || x_dtype < 0 || x_dtype > 1 || r_dtype < 0 ||
+      r_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+#define AMP_FWD(XT, RT)                                                    \
+  return dispatch_fwd<Amp<XT, RT>>(x, r, scale, bias, y, s, m, v, N, D, eps, \
+                                   rows_per_cta, st)
+  if (x_dtype == 1 && r_dtype == 1) AMP_FWD(__nv_bfloat16, __nv_bfloat16);
+  if (x_dtype == 1) AMP_FWD(__nv_bfloat16, float);
+  if (r_dtype == 1) AMP_FWD(float, __nv_bfloat16);
+  AMP_FWD(float, float);
+#undef AMP_FWD
 }
 
 

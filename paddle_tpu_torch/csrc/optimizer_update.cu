@@ -1,5 +1,7 @@
 // Grouped optimizer updates for Hopper (sm_90a): Adam (K6) and SGD (K7)
-// over every parameter of a fused group in one launch, f32.
+// over every parameter of a fused group in one launch: f32 params,
+// moments and scalars; each param's grad f32 or bf16 (a bf16-AMP step's
+// grads, widened exactly in registers).
 //
 // Replaces paddle_tpu/kernels/optimizer_update.py `_adam_kernel` and
 // `_sgd_kernel` (driven by `_sweep` / `sweep_group`). The TPU version
@@ -10,9 +12,10 @@
 //
 //   - a table in device memory holds, per param, its pointers (inputs,
 //     the new tensors to write, its learning rate and beta powers), its
-//     element count, the index of its first tile and whether all of its
-//     element streams are 16-byte aligned; the wrapper uploads it from
-//     pinned memory with a stream-ordered copy (no host sync);
+//     element count, the index of its first tile, whether all of its
+//     element streams are aligned for vectors (16 bytes; 8 for a bf16
+//     grad) and its grad's dtype; the wrapper uploads it from pinned
+//     memory with a stream-ordered copy (no host sync);
 //   - the bias-corrected rate lrt = lr * sqrt(1 - b2pow * beta2) /
 //     (1 - b1pow * beta1) and the decay rate lr * wd are computed on the
 //     device from the param's own LearningRate / Beta1Pow / Beta2Pow
@@ -29,8 +32,9 @@
 // What bounds it on an H100: bytes. Adam reads p, g, m, v and writes p',
 // m', v': 7 x 4 bytes per element, 3.72 GB for BERT-base's 132,919,866
 // parameters, 1.111 ms at 3.35 TB/s; SGD moves 3 x 4 bytes per element,
-// 0.476 ms. The design keeps enough bytes in flight to stream at that
-// rate:
+// 0.476 ms. A bf16 grad stream moves 2 bytes an element instead of 4
+// (26 and 10 bytes an element, 1.032 and 0.397 ms with every grad bf16).
+// The design keeps enough bytes in flight to stream at that rate:
 //
 //   - a param is cut into tiles of kTile elements; a persistent grid (as
 //     many CTAs per SM as are resident at once, at least 2 under the
@@ -39,14 +43,19 @@
 //     and then walks forward through the table, reading a row only when
 //     its run crosses into the next param;
 //   - a tile is one pass of the CTA: each thread issues kIlp 16-byte
-//     loads of every input stream before any arithmetic, then stores
-//     kIlp 16-byte vectors of every output stream; 32-bit offsets
+//     loads of every input stream (8-byte loads of a bf16 grad, four
+//     elements widened to f32 in registers, which is exact) before any
+//     arithmetic, then stores kIlp 16-byte vectors of every output
+//     stream; 32-bit offsets
 //     inside a tile. Plain loads and stores: on an H100, evict-first
 //     cache hints (__ldcs / __stcs) measured slower, and 1 or 4 vectors
 //     per thread, or 3 or 4 CTAs per SM, no faster;
-//   - an entry whose streams are not all 16-byte aligned (a view at an
-//     odd offset), and the last 1-3 elements of a size not divisible by
-//     4, take a scalar loop inside the same launch.
+//   - an entry whose streams are not all aligned (a view at an odd
+//     offset), and the last 1-3 elements of a size not divisible by 4,
+//     take a scalar loop inside the same launch;
+//   - the grad's dtype is a per-entry branch around one tile body
+//     templated on it, so an entry computes the same f32 arithmetic on a
+//     bf16 grad as on that grad widened to f32, bit for bit.
 //
 // The wrapper pads each param's offset in the flat output buffers to 32
 // elements (128 bytes), so from the second step on, when the outputs
@@ -56,6 +65,7 @@
 // C interface, loaded with ctypes (kernels/build.py); each launch
 // returns a cudaError_t as int.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -71,7 +81,7 @@ constexpr int kMinCtasPerSm = 2;  // the register cap: 128 a thread
 // ADAM_FIELDS / SGD_FIELDS name the columns in this order)
 struct AdamEntry {
   const float* p;
-  const float* g;
+  const void* g;  // float, or __nv_bfloat16 where gbf16
   const float* m;
   const float* v;
   const float* lr;
@@ -84,21 +94,43 @@ struct AdamEntry {
   float* b2po;
   int64_t n;
   int64_t first_tile;
-  int64_t vec;  // 1: p, g, m, v, po, mo, vo all 16-byte aligned
+  int64_t vec;  // 1: p, m, v, po, mo, vo 16-byte and g vector aligned
+  int64_t gbf16;  // 1: g is bfloat16
 };
 
 struct SgdEntry {
   const float* p;
-  const float* g;
+  const void* g;  // float, or __nv_bfloat16 where gbf16
   const float* lr;
   float* po;
   int64_t n;
   int64_t first_tile;
-  int64_t vec;  // 1: p, g, po all 16-byte aligned
+  int64_t vec;  // 1: p, po 16-byte and g vector aligned
+  int64_t gbf16;  // 1: g is bfloat16
 };
 
-static_assert(sizeof(AdamEntry) == 15 * 8, "table row of 15 int64");
-static_assert(sizeof(SgdEntry) == 7 * 8, "table row of 7 int64");
+static_assert(sizeof(AdamEntry) == 16 * 8, "table row of 16 int64");
+static_assert(sizeof(SgdEntry) == 8 * 8, "table row of 8 int64");
+
+// a grad's four elements j*4 .. j*4 + 3 (one vector: 16 bytes of f32, 8
+// of bf16) and one element, as f32
+__device__ __forceinline__ float4 load_g4(const float* g, int j) {
+  return reinterpret_cast<const float4*>(g)[j];
+}
+__device__ __forceinline__ float4 load_g4(const __nv_bfloat16* g, int j) {
+  const uint2 u = reinterpret_cast<const uint2*>(g)[j];
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ float load_g(const float* g, int j) {
+  return g[j];
+}
+__device__ __forceinline__ float load_g(const __nv_bfloat16* g, int j) {
+  return __bfloat162float(g[j]);
+}
 
 // the last entry whose first tile is at or before tile t
 template <typename E>
@@ -126,16 +158,25 @@ struct AdamConsts {
   float beta1, beta2, omb1, omb2, eps, wd, lrt, lrwd;
 };
 
+// One element's update, each rounding spelled out (the _rn intrinsics
+// are never contracted into other instructions): the vector and the
+// scalar path, and a bf16 grad's tile and an f32 grad's, compute the
+// same bits for the same values.
 __device__ __forceinline__ float adam_elem(float p, float g, float m,
                                            float v, const AdamConsts& c,
                                            float* mo, float* vo) {
-  const float mn = c.beta1 * m + c.omb1 * g;
-  const float vn = c.beta2 * v + c.omb2 * g * g;
-  float pn = p - c.lrt * mn / (sqrtf(vn) + c.eps);
-  if (c.wd != 0.f) pn = pn - c.lrwd * p;
+  const float mn = __fmaf_rn(c.beta1, m, __fmul_rn(c.omb1, g));
+  const float vn = __fmaf_rn(c.beta2, v, __fmul_rn(__fmul_rn(c.omb2, g), g));
+  float pn = __fsub_rn(p, __fdiv_rn(__fmul_rn(c.lrt, mn),
+                                    __fadd_rn(__fsqrt_rn(vn), c.eps)));
+  if (c.wd != 0.f) pn = __fmaf_rn(-c.lrwd, p, pn);
   *mo = mn;
   *vo = vn;
   return pn;
+}
+
+__device__ __forceinline__ float sgd_elem(float p, float g, float lr) {
+  return __fmaf_rn(-lr, g, p);
 }
 
 __device__ __forceinline__ float4 adam_vec(const float4 p, const float4 g,
@@ -160,6 +201,86 @@ __device__ __forceinline__ void cta_run(int64_t tiles, int64_t* t0,
                                         int64_t* t1) {
   *t0 = tiles * blockIdx.x / gridDim.x;
   *t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+}
+
+// one tile of an Adam entry: `len` elements from `base`, the grad of
+// type G
+template <typename G>
+__device__ __forceinline__ void adam_tile(const AdamEntry& e, int64_t base,
+                                          int len, const AdamConsts& c) {
+  const float* p = e.p + base;
+  const G* g = static_cast<const G*>(e.g) + base;
+  const float* m = e.m + base;
+  const float* v = e.v + base;
+  float* po = e.po + base;
+  float* mo = e.mo + base;
+  float* vo = e.vo + base;
+  int done = 0;
+  if (e.vec) {
+    const int nv = len >> 2;
+    float4 P[kIlp], G4[kIlp], M[kIlp], V[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j < nv) {
+        P[k] = reinterpret_cast<const float4*>(p)[j];
+        G4[k] = load_g4(g, j);
+        M[k] = reinterpret_cast<const float4*>(m)[j];
+        V[k] = reinterpret_cast<const float4*>(v)[j];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j < nv) {
+        float4 mn, vn;
+        const float4 pn = adam_vec(P[k], G4[k], M[k], V[k], c, &mn, &vn);
+        reinterpret_cast<float4*>(po)[j] = pn;
+        reinterpret_cast<float4*>(mo)[j] = mn;
+        reinterpret_cast<float4*>(vo)[j] = vn;
+      }
+    }
+    done = nv << 2;
+  }
+  for (int j = done + threadIdx.x; j < len; j += kThreads)
+    po[j] = adam_elem(p[j], load_g(g, j), m[j], v[j], c, &mo[j], &vo[j]);
+}
+
+// one tile of an SGD entry, the grad of type G
+template <typename G>
+__device__ __forceinline__ void sgd_tile(const SgdEntry& e, int64_t base,
+                                         int len, float lr) {
+  const float* p = e.p + base;
+  const G* g = static_cast<const G*>(e.g) + base;
+  float* po = e.po + base;
+  int done = 0;
+  if (e.vec) {
+    const int nv = len >> 2;
+    float4 P[kIlp], G4[kIlp];
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j < nv) {
+        P[k] = reinterpret_cast<const float4*>(p)[j];
+        G4[k] = load_g4(g, j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kIlp; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j < nv) {
+        float4 r;
+        r.x = sgd_elem(P[k].x, G4[k].x, lr);
+        r.y = sgd_elem(P[k].y, G4[k].y, lr);
+        r.z = sgd_elem(P[k].z, G4[k].z, lr);
+        r.w = sgd_elem(P[k].w, G4[k].w, lr);
+        reinterpret_cast<float4*>(po)[j] = r;
+      }
+    }
+    done = nv << 2;
+  }
+  for (int j = done + threadIdx.x; j < len; j += kThreads)
+    po[j] = sgd_elem(p[j], load_g(g, j), lr);
 }
 
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
@@ -192,42 +313,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
     for (; t < end; ++t) {
       const int64_t base = (t - e.first_tile) * kTile;
       const int len = (int)imin(kTile, e.n - base);
-      const float* p = e.p + base;
-      const float* g = e.g + base;
-      const float* m = e.m + base;
-      const float* v = e.v + base;
-      float* po = e.po + base;
-      float* mo = e.mo + base;
-      float* vo = e.vo + base;
-      int done = 0;
-      if (e.vec) {
-        const int nv = len >> 2;
-        float4 P[kIlp], G[kIlp], M[kIlp], V[kIlp];
-#pragma unroll
-        for (int k = 0; k < kIlp; ++k) {
-          const int j = threadIdx.x + k * kThreads;
-          if (j < nv) {
-            P[k] = reinterpret_cast<const float4*>(p)[j];
-            G[k] = reinterpret_cast<const float4*>(g)[j];
-            M[k] = reinterpret_cast<const float4*>(m)[j];
-            V[k] = reinterpret_cast<const float4*>(v)[j];
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kIlp; ++k) {
-          const int j = threadIdx.x + k * kThreads;
-          if (j < nv) {
-            float4 mn, vn;
-            const float4 pn = adam_vec(P[k], G[k], M[k], V[k], c, &mn, &vn);
-            reinterpret_cast<float4*>(po)[j] = pn;
-            reinterpret_cast<float4*>(mo)[j] = mn;
-            reinterpret_cast<float4*>(vo)[j] = vn;
-          }
-        }
-        done = nv << 2;
-      }
-      for (int j = done + threadIdx.x; j < len; j += kThreads)
-        po[j] = adam_elem(p[j], g[j], m[j], v[j], c, &mo[j], &vo[j]);
+      if (e.gbf16)
+        adam_tile<__nv_bfloat16>(e, base, len, c);
+      else
+        adam_tile<float>(e, base, len, c);
     }
   }
 }
@@ -245,37 +334,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
     for (; t < end; ++t) {
       const int64_t base = (t - e.first_tile) * kTile;
       const int len = (int)imin(kTile, e.n - base);
-      const float* p = e.p + base;
-      const float* g = e.g + base;
-      float* po = e.po + base;
-      int done = 0;
-      if (e.vec) {
-        const int nv = len >> 2;
-        float4 P[kIlp], G[kIlp];
-#pragma unroll
-        for (int k = 0; k < kIlp; ++k) {
-          const int j = threadIdx.x + k * kThreads;
-          if (j < nv) {
-            P[k] = reinterpret_cast<const float4*>(p)[j];
-            G[k] = reinterpret_cast<const float4*>(g)[j];
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kIlp; ++k) {
-          const int j = threadIdx.x + k * kThreads;
-          if (j < nv) {
-            float4 r;
-            r.x = P[k].x - lr * G[k].x;
-            r.y = P[k].y - lr * G[k].y;
-            r.z = P[k].z - lr * G[k].z;
-            r.w = P[k].w - lr * G[k].w;
-            reinterpret_cast<float4*>(po)[j] = r;
-          }
-        }
-        done = nv << 2;
-      }
-      for (int j = done + threadIdx.x; j < len; j += kThreads)
-        po[j] = p[j] - lr * g[j];
+      if (e.gbf16)
+        sgd_tile<__nv_bfloat16>(e, base, len, lr);
+      else
+        sgd_tile<float>(e, base, len, lr);
     }
   }
 }

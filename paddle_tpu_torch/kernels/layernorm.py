@@ -13,6 +13,12 @@ replacing a Pallas TPU kernel of the JAX package:
   ``_forward_pallas``: one warp per row, the row in registers, a two-pass
   f32 mean and variance by warp shuffles; f32 or bf16 rows. Bound by
   bytes: 50.36 MB at [4096, 768] f32, 0.0150 ms at 3.35 TB/s.
+  ``layernorm_residual_fwd_amp`` is its AMP instantiation, the function
+  a bf16-AMP Program computes where the JAX package replays a bf16
+  ``elementwise_add`` and an f32 ``layer_norm``: x and r each f32 or
+  bf16, rounded to bf16 in registers, s = their sum rounded once to
+  bf16, the statistics and y in f32 from that s with f32 scale and
+  bias. 31.5 MB at [4096, 768] with bf16 x and r, 0.0094 ms.
 - ``layernorm_residual_bwd`` (K5) replaces ``_bwd_kernel`` /
   ``_backward_pallas``: dx per row, and dscale / dbias from per-CTA
   partial rows added in a second pass in a fixed order (the TPU kernel
@@ -37,7 +43,8 @@ rows, one per warp, per CTA) and one for wider rows (one CTA of 256
 threads per row); the backward's grid is ``bwd_launch``.
 
 Parity vs the plain versions: forward atol 1e-5 and backward 5e-5 at
-float32 (the reduction order inside a row differs), 2e-2 at bfloat16.
+float32 (the reduction order inside a row differs), 2e-2 at bfloat16;
+the AMP forward's s bitwise and y, mean and var 1e-5.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from .common import (ceil_div, check_launch, check_tensor, on_device,
 
 __all__ = ["bwd_launch", "composed_layernorm_residual", "layernorm_residual",
            "layernorm_residual_bwd", "layernorm_residual_bwd_reference",
-           "layernorm_residual_fwd"]
+           "layernorm_residual_fwd", "layernorm_residual_fwd_amp"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 2048                  # the widest row a warp holds (forward)
@@ -60,15 +67,24 @@ _ROWS = 8                      # forward: rows (warps) per CTA
 _WIDE_THREADS = 256            # threads of a CTA for rows wider than _MAX_D
 
 
-def composed_layernorm_residual(x, r, scale, bias, *, eps=1e-5):
+def composed_layernorm_residual(x, r, scale, bias, *, eps=1e-5, amp=False):
     """The plain version of K4: (y, s, mean [N, 1] f32, var [N, 1] f32)
-    with the kernel's arithmetic — s = x + r in f32 (stored in x's dtype), the two-pass f32 mean and
-    variance of the f32 s, y from the f32 s."""
-    sf = x.float() + r.float()
+    with the kernel's arithmetic — s = x + r in f32 (stored in x's
+    dtype), the two-pass f32 mean and variance of the f32 s, y from the
+    f32 s. With ``amp``, the AMP instantiation's: AMP's casts, s = the
+    bf16 sum of x and r cast to bf16 (one rounding of their f32 sum),
+    then the statistics and y (f32) of the f32 s."""
+    if amp:
+        s = x.to(torch.bfloat16) + r.to(torch.bfloat16)
+        sf = s.float()
+    else:
+        sf = x.float() + r.float()
     mean = sf.mean(dim=-1, keepdim=True)
     var = ((sf - mean) ** 2).mean(dim=-1, keepdim=True)
     y = (sf - mean) * torch.rsqrt(var + eps)
     y = y * scale.float().reshape(1, -1) + bias.float().reshape(1, -1)
+    if amp:
+        return y, s, mean, var
     return y.to(x.dtype), sf.to(x.dtype), mean, var
 
 
@@ -93,6 +109,9 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.layernorm_residual_fwd.argtypes = [p] * 8 + [i, i, i, f, i, p]
         lib.layernorm_residual_fwd.restype = i
+        lib.layernorm_residual_fwd_amp.argtypes = [p] * 8 + [i] * 4 + [
+            f, i, p]
+        lib.layernorm_residual_fwd_amp.restype = i
         lib.layernorm_residual_bwd.argtypes = [p] * 11 + [i, i, i, f, i, p]
         lib.layernorm_residual_bwd_grid.argtypes = [i, i, i, i, p, p]
         lib.layernorm_residual_bwd_grid.restype = i
@@ -140,6 +159,19 @@ def bwd_launch(lib, n, d, dtype, device):
     return ctas, threads.value, smem.value
 
 
+def _fwd_launch(n, d):
+    """K4's grid and block for [n, d] rows (either instantiation): one
+    warp per row and 8 warps per CTA up to D = 2048, one CTA per row
+    above."""
+    _check_kernel_width("layernorm_residual_fwd", d)
+    if d <= _MAX_D:
+        grid, block = (max(1, ceil_div(n, _ROWS)), 1, 1), (32 * _ROWS, 1, 1)
+    else:
+        grid, block = (max(1, n), 1, 1), (_WIDE_THREADS, 1, 1)
+    check_launch("layernorm_residual_fwd", grid, block, 0)
+    return grid, block
+
+
 def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
     """K4: (y, s, mean [N, 1] f32, var [N, 1] f32) for rows x, r [N, D]
     (f32 or bf16, contiguous) and scale, bias [D] of the same dtype. CPU
@@ -151,12 +183,7 @@ def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
     if x.device.type == "cpu":
         return composed_layernorm_residual(x, r, scale, bias, eps=eps)
     n, d = x.shape
-    _check_kernel_width("layernorm_residual_fwd", d)
-    if d <= _MAX_D:
-        grid, block = (max(1, ceil_div(n, _ROWS)), 1, 1), (32 * _ROWS, 1, 1)
-    else:
-        grid, block = (max(1, n), 1, 1), (_WIDE_THREADS, 1, 1)
-    check_launch("layernorm_residual_fwd", grid, block, 0)
+    grid, block = _fwd_launch(n, d)
     y, s = torch.empty_like(x), torch.empty_like(x)
     mean = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
@@ -178,6 +205,53 @@ def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
 
 
 layernorm_residual_fwd.launches = 0
+
+
+def layernorm_residual_fwd_amp(x, r, scale, bias, eps=1e-5):
+    """K4's AMP instantiation: (y f32, s bf16, mean [N, 1] f32, var
+    [N, 1] f32) for rows x, r [N, D] (each f32 or bf16, contiguous) and
+    scale, bias [D] f32: s = bf16(bf16(x) + bf16(r)), y the f32 layer
+    norm of s. CPU tensors take the plain version
+    (``composed_layernorm_residual(..., amp=True)``); CUDA tensors launch
+    the kernel, with K4's launch configuration, or raise."""
+    what = "layernorm_residual_fwd_amp"
+    dev = x.device
+    for name, t in (("x", x), ("r", r)):
+        check_tensor("%s %s" % (what, name), t, _DTYPES, 2, dev)
+    if r.shape != x.shape:
+        raise ValueError("%s: r is %s, x is %s" % (what, tuple(r.shape),
+                                                  tuple(x.shape)))
+    for name, t in (("scale", scale), ("bias", bias)):
+        check_tensor("%s %s" % (what, name), t, (torch.float32,), 1, dev)
+        if t.shape[0] != x.shape[1]:
+            raise ValueError("%s: %s has %d elements, rows have %d"
+                             % (what, name, t.shape[0], x.shape[1]))
+    if dev.type == "cpu":
+        return composed_layernorm_residual(x, r, scale, bias, eps=eps,
+                                           amp=True)
+    n, d = x.shape
+    grid, block = _fwd_launch(n, d)
+    y = torch.empty((n, d), dtype=torch.float32, device=dev)
+    s = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
+    mean = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    var = torch.empty_like(mean)
+    if n == 0:
+        return y, s, mean, var
+    lib = _lib()
+    with on_device(dev):
+        err = lib.layernorm_residual_fwd_amp(
+            x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            y.data_ptr(), s.data_ptr(), mean.data_ptr(), var.data_ptr(), n,
+            d, _DTYPES[x.dtype], _DTYPES[r.dtype], float(eps), _ROWS,
+            _stream(dev))
+    if err:
+        raise RuntimeError("%s launch failed with cudaError %d (grid %s, "
+                           "block %s)" % (what, err, grid, block))
+    layernorm_residual_fwd_amp.launches += 1
+    return y, s, mean, var
+
+
+layernorm_residual_fwd_amp.launches = 0
 
 
 def layernorm_residual_bwd(s, mean, var, scale, gy, gres, eps=1e-5):

@@ -30,8 +30,13 @@ viewed per param at offsets padded to 32 elements (128 bytes,
 take the vector path. Each wrapper adds the entries that took it to
 ``<wrapper>.vector_entries``. Bound by bytes: 7 (Adam) or 3 (SGD)
 four-byte streams per element, 1.111 / 0.476 ms for BERT-base's
-132,919,866 f32 params at 3.35 TB/s. f32 only: a group of another dtype
-raises on the card.
+132,919,866 f32 params at 3.35 TB/s. Params, moments and scalars are
+f32; a grad is f32 or bf16 (a bf16-AMP step's grads, as they come: the
+kernel widens a bf16 grad in registers, which is exact, so an update
+on a bf16 grad is bitwise the update on that grad widened to f32). A
+bf16 grad streams 2 bytes an element and takes the vector path where
+it is 8-byte aligned; ``<wrapper>.bf16_grad_entries`` counts such
+entries. Any other dtype raises on the card.
 
 On CPU tensors each wrapper computes its plain version
 (``adam_group_reference``, ``sgd_group_reference``: the per-param
@@ -77,9 +82,9 @@ OPT_OUT_SLOTS = {
 ADAM_FIELDS = ("Param", "Grad", "Moment1", "Moment2", "LearningRate",
                "Beta1Pow", "Beta2Pow", "ParamOut", "Moment1Out",
                "Moment2Out", "Beta1PowOut", "Beta2PowOut", "n",
-               "first_tile", "vector")
+               "first_tile", "vector", "grad_bf16")
 SGD_FIELDS = ("Param", "Grad", "LearningRate", "ParamOut", "n",
-              "first_tile", "vector")
+              "first_tile", "vector", "grad_bf16")
 # the element streams whose alignment decides an entry's path
 _STREAMS = {"adam": ("Param", "Grad", "Moment1", "Moment2", "ParamOut",
                      "Moment1Out", "Moment2Out"),
@@ -90,6 +95,7 @@ _STREAMS = {"adam": ("Param", "Grad", "Moment1", "Moment2", "ParamOut",
 _THREADS = 256
 _TILE = 2048        # elements per tile
 _VECTOR_BYTES = 16  # one float4
+_BF16_VECTOR_BYTES = 8  # four bf16 grads
 _PAD = 32           # elements: each output view starts on 128 bytes
 
 
@@ -101,11 +107,13 @@ def _hyper(hyper):
 def adam_group_reference(ins, hyper):
     """The plain version of K6: every param's ``adam`` update, in the
     arithmetic of the op lowering (ops/optimizer_ops.py), as a slot dict
-    of per-param lists."""
+    of per-param lists. A bf16 grad is widened to the param's f32
+    first, as AMP's f32 cast of the ``adam`` op's inputs does."""
     b1, b2, eps, wd = _hyper(hyper)
     out = {s: [] for s in OPT_OUT_SLOTS["adam"]}
     for p, g, m, v, b1p, b2p, lr in zip(*(ins[s] for s in
                                           OPT_IN_SLOTS["adam"])):
+        g = g.to(p.dtype)
         lr_ = lr.reshape(()).to(p.dtype)
         m_new = b1 * m + (1 - b1) * g
         v_new = b2 * v + (1 - b2) * g * g
@@ -121,8 +129,9 @@ def adam_group_reference(ins, hyper):
 
 
 def sgd_group_reference(ins):
-    """The plain version of K7: every param's ``sgd`` update."""
-    return {"ParamOut": [p - lr.reshape(()).to(p.dtype) * g
+    """The plain version of K7: every param's ``sgd`` update (a bf16
+    grad widened to the param's f32 first)."""
+    return {"ParamOut": [p - lr.reshape(()).to(p.dtype) * g.to(p.dtype)
                          for p, g, lr in zip(ins["Param"], ins["Grad"],
                                              ins["LearningRate"])]}
 
@@ -148,12 +157,13 @@ def _lib():
 
 
 _SCALAR_SLOTS = ("LearningRate", "Beta1Pow", "Beta2Pow")
+_GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_group(what, kind, ins):
-    """Every slot holds one tensor per param; params, grads and moments
-    f32, contiguous, of the param's size; scalars one f32 element; all
-    on one device."""
+    """Every slot holds one tensor per param; params and moments f32,
+    grads f32 or bf16, contiguous, of the param's size; scalars one f32
+    element; all on one device."""
     ps = ins["Param"]
     if not ps:
         raise ValueError("%s: empty group" % what)
@@ -165,11 +175,12 @@ def _check_group(what, kind, ins):
             raise ValueError("%s: %d %s tensors for %d params"
                              % (what, len(ts), slot, len(ps)))
         want = [1] * len(ps) if slot in _SCALAR_SLOTS else sizes
+        dtypes = _GRAD_DTYPES if slot == "Grad" else (torch.float32,)
         for i, (t, n) in enumerate(zip(ts, want)):
-            if t.dtype is not torch.float32 or t.device != dev or \
+            if t.dtype not in dtypes or t.device != dev or \
                     not t.is_contiguous():
-                check_tensor("%s %s[%d]" % (what, slot, i), t,
-                             (torch.float32,), t.ndim, dev)
+                check_tensor("%s %s[%d]" % (what, slot, i), t, dtypes,
+                             t.ndim, dev)
             if t.numel() != n:
                 raise ValueError("%s: %s[%d] has %d elements, expected %d"
                                  % (what, slot, i, t.numel(), n))
@@ -201,43 +212,56 @@ def _outputs(flat_rows, like, sizes):
     return outs
 
 
-def vector_entries(kind, columns):
-    """Which entries take the kernel's 16-byte path: a boolean per param,
+def vector_entries(kind, columns, grad_bf16=None):
+    """Which entries take the kernel's vector path: a boolean per param,
     true where every element stream's address (``columns``: slot name ->
     per-param addresses, the slots of ``_STREAMS[kind]``) is a multiple
-    of 16 bytes."""
+    of 16 bytes, but the grad's of 8 where ``grad_bf16`` (a boolean per
+    param, default all False) marks a bf16 grad."""
     addrs = np.stack([np.asarray(columns[s], np.int64)
-                      for s in _STREAMS[kind]])
-    return np.bitwise_or.reduce(addrs, axis=0) % _VECTOR_BYTES == 0
+                      for s in _STREAMS[kind] if s != "Grad"])
+    grad = np.asarray(columns["Grad"], np.int64)
+    bf16 = (np.zeros(grad.shape, bool) if grad_bf16 is None
+            else np.asarray(grad_bf16, bool))
+    grad_ok = grad % np.where(bf16, _BF16_VECTOR_BYTES, _VECTOR_BYTES) == 0
+    return (np.bitwise_or.reduce(addrs, axis=0) % _VECTOR_BYTES == 0) & \
+        grad_ok
 
 
-def table_rows(kind, columns, sizes):
+def table_rows(kind, columns, sizes, grad_bf16=None):
     """The per-param table (one int64 row per param: the pointer columns
-    in ``*_FIELDS`` order, its size, its first tile, its vector flag),
-    the total tile count and the number of vector entries. Each param
-    gets at least one tile (the CTA that owns it writes the beta
-    powers)."""
+    in ``*_FIELDS`` order, its size, its first tile, its vector flag,
+    its grad's bf16 flag), the total tile count and the number of vector
+    entries. Each param gets at least one tile (the CTA that owns it
+    writes the beta powers)."""
     fields = ADAM_FIELDS if kind == "adam" else SGD_FIELDS
     n = np.asarray(sizes, np.int64)
     tiles = np.maximum(1, -(-n // _TILE))
     first = np.concatenate([[0], np.cumsum(tiles)[:-1]])
-    vec = vector_entries(kind, columns)
-    arr = np.stack([np.asarray(columns[f], np.int64) for f in fields[:-3]]
-                   + [n, first, vec.astype(np.int64)], axis=1)
+    bf16 = (np.zeros(n.shape, bool) if grad_bf16 is None
+            else np.asarray(grad_bf16, bool))
+    vec = vector_entries(kind, columns, bf16)
+    arr = np.stack([np.asarray(columns[f], np.int64) for f in fields[:-4]]
+                   + [n, first, vec.astype(np.int64), bf16.astype(np.int64)],
+                   axis=1)
     return arr, int(tiles.sum()), int(vec.sum())
 
 
-def _table(kind, columns, sizes, dev):
+def _table(kind, columns, sizes, grad_bf16, dev):
     """``table_rows`` on ``dev``, uploaded from pinned memory with a copy
     ordered on the current stream: the host does not wait for the
     card."""
-    arr, tiles, vec = table_rows(kind, columns, sizes)
+    arr, tiles, vec = table_rows(kind, columns, sizes, grad_bf16)
     table = torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
     return table, tiles, vec
 
 
 def _ptrs(ts):
     return [t.data_ptr() for t in ts]
+
+
+def _bf16_flags(grads):
+    return np.array([g.dtype == torch.bfloat16 for g in grads], bool)
 
 
 def _flat_ptrs(flat_row, sizes):
@@ -287,17 +311,20 @@ def adam_group(ins, hyper):
                        (_flat_ptrs(row, sizes) for row in flat)))
     columns.update(zip(ADAM_FIELDS[10:12], (
         row.data_ptr() + 4 * np.arange(k, dtype=np.int64) for row in pows)))
-    table, tiles, vec = _table("adam", columns, sizes, dev)
+    bf16 = _bf16_flags(ins["Grad"])
+    table, tiles, vec = _table("adam", columns, sizes, bf16, dev)
     _launch("adam_group", table, k, tiles, b1, b2, 1 - b1, 1 - b2, eps,
             wd)
     adam_group.launches += 1
     adam_group.vector_entries += vec
+    adam_group.bf16_grad_entries += int(bf16.sum())
     return {"ParamOut": p_out, "Moment1Out": m_out, "Moment2Out": v_out,
             "Beta1PowOut": b1_out, "Beta2PowOut": b2_out}
 
 
 adam_group.launches = 0
 adam_group.vector_entries = 0
+adam_group.bf16_grad_entries = 0
 
 
 def sgd_group(ins):
@@ -315,12 +342,15 @@ def sgd_group(ins):
     (p_out,) = _outputs(flat, ps, sizes)
     columns = {s: _ptrs(ins[s]) for s in SGD_FIELDS[:3]}
     columns["ParamOut"] = _flat_ptrs(flat[0], sizes)
-    table, tiles, vec = _table("sgd", columns, sizes, dev)
+    bf16 = _bf16_flags(ins["Grad"])
+    table, tiles, vec = _table("sgd", columns, sizes, bf16, dev)
     _launch("sgd_group", table, len(ps), tiles)
     sgd_group.launches += 1
     sgd_group.vector_entries += vec
+    sgd_group.bf16_grad_entries += int(bf16.sum())
     return {"ParamOut": p_out}
 
 
 sgd_group.launches = 0
 sgd_group.vector_entries = 0
+sgd_group.bf16_grad_entries = 0

@@ -296,10 +296,12 @@ def flash_attention_fwd(q, k, v, bias=None, scale=1.0, causal=False):
             "flash_attention_fwd launch failed with cudaError %d (grid %s, "
             "block %s, %d bytes of shared memory)" % (err, grid, block, smem))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.bf16_launches = 0  # of them, the bf16 instantiation's
 
 
 # -------------------------------------------------------------- backward
@@ -483,10 +485,12 @@ def flash_attention_dkv(q, k, v, bias, g, lse, delta, scale, causal=False,
             int(bool(causal)), stream)
     _launched(what, err, grid, block, smem)
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.bf16_launches += q.dtype == torch.bfloat16
     return dk, dv, ds
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.bf16_launches = 0  # of them, the bf16 instantiation's
 
 
 def flash_attention_dq(q, k, v, bias, g, lse, delta, scale, causal=False):
@@ -509,10 +513,12 @@ def flash_attention_dq(q, k, v, bias, g, lse, delta, scale, causal=False):
                                      float(scale), int(bool(causal)), stream)
     _launched(what, err, grid, block, smem)
     flash_attention_dq.launches += 1
+    flash_attention_dq.bf16_launches += q.dtype == torch.bfloat16
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.bf16_launches = 0  # of them, the bf16 instantiation's
 
 
 def _delta(g, o, g_lse):

@@ -6,15 +6,36 @@ append.
 Counterparts of paddle_tpu/ops/basic.py. Random ops draw from torch
 generators (core/lowering.py LowerContext.next_rng), so their values
 differ from the JAX package's; shape, dtype and range agree.
+
+``weak_scalar`` gives a Python scalar the JAX package's weak typing
+beside a bf16 (AMP) tensor: ``x * s`` is then the bf16 product of x and
+bf16(s), as there, where torch would multiply by the f32 value of s.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 from ..core.lowering import as_torch_dtype
 from ..core.registry import register_op
+
+
+@functools.lru_cache(maxsize=256)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def weak_scalar(v, like: torch.Tensor):
+    """The Python scalar ``v`` as it enters an expression with ``like``
+    in the JAX package, where a Python scalar is weakly typed: rounded to
+    ``like``'s dtype first where that is narrower than f32 (bf16 under
+    AMP), unchanged otherwise."""
+    if like.dtype in (torch.bfloat16, torch.float16):
+        return _rounded(float(v), like.dtype)
+    return v
 
 
 def _dt(attrs, default="float32"):
@@ -65,8 +86,8 @@ def _cast(ctx, ins, attrs):
 @register_op("scale")
 def _scale(ctx, ins, attrs):
     x = ins["X"][0]
-    s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    s = weak_scalar(attrs.get("scale", 1.0), x)
+    b = weak_scalar(attrs.get("bias", 0.0), x)
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_grad_lowering, register_op
+from .basic import weak_scalar
 from .tensor_ops import scatter_add_rows
 
 
@@ -74,7 +75,8 @@ def _dropout(ctx, ins, attrs):
     if attrs.get("is_test", False) or ctx.is_test:
         if impl == "upscale_in_train":
             return {"Out": [x], "Mask": [torch.ones_like(x)]}
-        return {"Out": [x * (1.0 - p)], "Mask": [torch.ones_like(x)]}
+        return {"Out": [x * weak_scalar(1.0 - p, x)],
+                "Mask": [torch.ones_like(x)]}
     if attrs.get("fix_seed", False):
         gen = torch.Generator(device=x.device)
         gen.manual_seed(int(attrs.get("seed", 0)))
@@ -83,7 +85,7 @@ def _dropout(ctx, ins, attrs):
     keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
-        mask = mask / max(1.0 - p, 1e-8)
+        mask = mask / weak_scalar(max(1.0 - p, 1e-8), mask)
     return {"Out": [x * mask], "Mask": [mask]}
 
 

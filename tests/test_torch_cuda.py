@@ -39,6 +39,13 @@ where only the port is installed:
   numpy feeds, and with ``return_numpy=False`` tensors on the card.
 - The tuner measures the flash kernel against the composed attention on
   the card and records the faster.
+- bf16 AMP: K4's AMP instantiation against its plain version (s
+  bitwise, y / mean / var at 1e-5) for every pair of f32 / bf16 x and r;
+  K6 and K7 on bf16 grads bitwise equal to the launch on the grads
+  widened to f32, a bf16 grad view 2 bytes into its buffer on the
+  scalar loop; one level-2 AMP step of the BERT above launching only
+  the bf16 flash kernels, K4's AMP instantiation and K6 / K7, with f32
+  masters and level 0's loss within two bf16 ulps.
 """
 
 import numpy as np
@@ -449,3 +456,143 @@ def test_cuda_tune_measures_flash_against_composed(cuda_device,
     best = min(dec["timings"], key=lambda t: t["seconds"])
     assert dec["choice"] == best["choice"]
     assert tune.lookup("attention", (256, 256))["choice"] == dec["choice"]
+
+
+# ------------------------------------------------------------------ AMP
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,r_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("n,d", [(300, 768), (64, 1000), (40, 5000)])
+def test_cuda_layernorm_amp_kernel_matches_plain_version(cuda_device,
+                                                         x_dtype, r_dtype,
+                                                         n, d):
+    """K4's AMP instantiation: s = bf16(bf16(x) + bf16(r)) bitwise equal
+    to its plain version, y, mean and var (f32) at K4's f32 tolerance;
+    two launches bitwise equal."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(n, d, generator=g).to(x_dtype).to(cuda_device)
+    r = torch.randn(n, d, generator=g).to(r_dtype).to(cuda_device)
+    sc, b = (torch.randn(d, generator=g).to(cuda_device) for _ in range(2))
+    before = tln.layernorm_residual_fwd_amp.launches
+    got = tln.layernorm_residual_fwd_amp(x, r, sc, b, 1e-5)
+    again = tln.layernorm_residual_fwd_amp(x, r, sc, b, 1e-5)
+    assert tln.layernorm_residual_fwd_amp.launches == before + 2
+    want = tln.composed_layernorm_residual(x, r, sc, b, eps=1e-5, amp=True)
+    y, s, mean, var = got
+    assert (y.dtype, s.dtype, mean.dtype) == (torch.float32, torch.bfloat16,
+                                              torch.float32)
+    assert torch.equal(s, want[1])
+    for a, w in zip((y, mean, var), (want[0], want[2], want[3])):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+    assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
+
+
+def _amp_group(shapes, dev, bf16):
+    g = torch.Generator().manual_seed(6)
+    mk = lambda s: torch.rand(s, generator=g).to(dev) + 0.1  # noqa: E731
+    k = len(shapes)
+    return {"Param": [mk(s) for s in shapes],
+            "Grad": [(mk(s) - 0.6).to(torch.bfloat16 if bf else
+                                       torch.float32)
+                     for s, bf in zip(shapes, bf16)],
+            "Moment1": [mk(s) * 0.1 for s in shapes],
+            "Moment2": [mk(s) * 0.01 for s in shapes],
+            "Beta1Pow": [torch.full((1,), 0.9, device=dev)] * k,
+            "Beta2Pow": [torch.full((1,), 0.999, device=dev)] * k,
+            "LearningRate": [torch.full((1,), 1e-3, device=dev)] * k}
+
+
+@pytest.mark.cuda
+def test_cuda_optimizer_groups_take_bf16_grads(cuda_device):
+    """K6 / K7 on an AMP step's grads (bf16 but two f32 ones): the same
+    bits as the launch on the grads widened to f32, the plain version at
+    2e-6, two launches bitwise equal; a bf16 grad view 2 bytes into its
+    buffer (not 8-byte aligned) takes the scalar loop, every other entry
+    the vector path."""
+    shapes = [(30522, 64), (768,), (768, 768), (3,), (4097,), (123457,)]
+    bf16 = [True, False, True, True, True, False]
+    ins = _amp_group(shapes, cuda_device, bf16)
+    odd = shapes.index((4097,))
+    ins["Grad"][odd] = torch.randn(4098, device=cuda_device).to(
+        torch.bfloat16)[1:]
+    assert ins["Grad"][odd].data_ptr() % 8 == 2
+    # the widened grads take the same paths: the odd entry's f32 grad is
+    # a view 4 bytes into its buffer, on the scalar loop too
+    wide_odd = torch.empty(4098, device=cuda_device)[1:]
+    wide_odd.copy_(ins["Grad"][odd])
+    assert wide_odd.data_ptr() % 16 == 4
+    widened = dict(ins, Grad=[wide_odd if i == odd else t.float()
+                              for i, t in enumerate(ins["Grad"])])
+    hyper = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+             "weight_decay": 0.01}
+    k = len(shapes)
+    for wrapper, fn, ref in (
+            (topt.adam_group, lambda i: topt.adam_group(i, hyper),
+             lambda i: topt.adam_group_reference(i, hyper)),
+            (topt.sgd_group, topt.sgd_group, topt.sgd_group_reference)):
+        before = (wrapper.launches, wrapper.vector_entries,
+                  wrapper.bf16_grad_entries)
+        got, again = fn(ins), fn(ins)
+        assert (wrapper.launches - before[0],
+                wrapper.vector_entries - before[1],
+                wrapper.bf16_grad_entries - before[2]) == (
+                    2, 2 * (k - 1), 2 * sum(bf16))
+        wide, want = fn(widened), ref(ins)
+        for slot in want:
+            for i, (a, a2, aw, w) in enumerate(zip(
+                    got[slot], again[slot], wide[slot], want[slot])):
+                torch.testing.assert_close(a, w, atol=2e-6, rtol=0)
+                assert torch.equal(a, a2), (slot, i, "two launches")
+                assert torch.equal(a, aw), (slot, i, "widened grads")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["Adam", "SGD"])
+def test_cuda_amp_level2_step_launches_the_amp_kernels(cuda_device,
+                                                       monkeypatch, opt):
+    """One level-2 step of the small BERT under bf16 AMP: the bf16 flash
+    kernels (2 * n_layer forward, n_layer each backward), K4's AMP
+    instantiation once per fused layer norm, K6 or K7 once on the bf16
+    grads; params and moments stay f32, the loss is finite and, from the
+    same scope, equals level 0's within two ulps of a bf16 value (the
+    loss is one: 2^-6 relative)."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")  # flash at S = 40
+    monkeypatch.delenv("PADDLE_TPU_OPTIMIZE", raising=False)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M)
+        pt.contrib.mixed_precision.decorate(
+            getattr(pt.optimizer, opt)(learning_rate=1e-3)).minimize(loss)
+    assert main.amp
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    snap = {n: scope.find_var(n) for n in scope.local_var_names()}
+    group = topt.adam_group if opt == "Adam" else topt.sgd_group
+    wrappers = (tattn.flash_attention_fwd, tattn.flash_attention_dkv,
+                tattn.flash_attention_dq)
+    counts = lambda: tuple(  # noqa: E731
+        [w.launches for w in wrappers] + [w.bf16_launches for w in wrappers]
+        + [tln.layernorm_residual_fwd_amp.launches,
+           tln.layernorm_residual_fwd.launches, group.launches])
+    feed = _feed(np.random.RandomState(0))
+    before = counts()
+    (val,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    n = CFG["n_layer"]
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        2 * n, n, n, 2 * n, n, n, 2 * n + 1, 0, 1)
+    assert np.isfinite(val).all()
+    for p in main.global_block().all_parameters():
+        assert scope.find_var(p.name).dtype == torch.float32, p.name
+    for name in scope.local_var_names():
+        if "moment" in name:
+            assert scope.find_var(name).dtype == torch.float32, name
+    monkeypatch.setenv("PADDLE_TPU_OPTIMIZE", "0")
+    scope0 = pt.Scope()
+    for k, v in snap.items():
+        scope0.set_var(k, v)
+    (val0,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope0)
+    np.testing.assert_allclose(np.asarray(val).reshape(()),
+                               np.asarray(val0).reshape(()), rtol=2 ** -6)

@@ -57,6 +57,7 @@ COPIES = {
          _SHAPE_RULES_ATTACH)],
     "analysis/tv.py": [],
     "clip.py": [],
+    "contrib/mixed_precision/__init__.py": [],
     "core/backward.py": [],
     # graph_viz_pass writes into the temporary directory (TMPDIR), not
     # into a fixed /tmp path
