@@ -62,10 +62,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
    each answered 10 times (the same answer every time). The Executor
    runs the level-2 optimized program: 25 ``fused_layernorm_residual``
    ops (the pass's stats). Every dispatch launches the flash kernel 12
-   times and K4 25 times (counted); the answers are finite, of shape
+   times and K4 25 times (counted on the card, as for every main path
+   below: see the launch meter); the answers are finite, of shape
    [B, 512, 768], and agree with the composed attention path and with
    level 0 (no pass pipeline) on the card; each request is then timed
    at level 2 and at level 0 in turns;
+4c. compiled serving (after phase 4, and after 4b under AMP): the
+   Predictor captured each warm-up bucket's plan as a CUDA graph at
+   load, and every request above was a replay; now each request of
+   batch 1, 3 and 8 is replayed against the plan's eager step in turns
+   (10 pairs): the latency of each, the busy share and device time of
+   one profiled request of each, answers bitwise equal, the launches the
+   card runs in a replay equal to an eager step's (launch meter),
+   each graph's capture seconds and the graphs' one memory pool;
 4b. serve AMP (after phase 5's profile): the same program with bf16 AMP
    on (``Program.set_amp``), saved and served by the Predictor for the
    same requests: every dispatch launches the bf16 flash kernel 12
@@ -100,12 +109,44 @@ Phases, each of which passes or ends the script with a non-zero exit:
    level 2 against level 0 from one scope within the AMP tolerances
    (``AMP_PARITY_*``); the first loss against phase 6's; the step time,
    tokens/s, peak memory and one profiled step beside phase 6's;
+6c. compiled training (after phase 6, and after 6b under AMP): from
+   phase 6's (6b's) snapshot, steps replayed from the plan's CUDA graph
+   (the first one captures it anew, on its own scope) against the
+   plan's eager step on a second scope, in turns (6 pairs after that
+   first pair): every loss and the final params bitwise equal, the step
+   medians and tokens/s, the busy share of a profiled replayed and eager
+   step, the launches the card runs in each (equal; launch meter), the capture
+   seconds, the device time of the state copy a replay still makes (the
+   beta powers: params and moments are updated in place by K6), peak
+   memory of a replayed and an eager step and the executor's graph pool;
+6d. plans sharing a pool (after 6c, f32): three training plans of one
+   new executor (two fetch lists, and half the batch) in turns on one
+   scope for PLAN_ROUNDS rounds, each run bitwise equal to its eager
+   step, no state copied in on switching, the three graphs' one pool
+   against 6c's, a round's peak memory and the replayed steps' times;
 7. train with SGD: the same model with ``SGD.minimize``, 3 steps at
    level 2 (K4 25 times and K7 once per step, counted), losses finite,
    and 3 steps at level 0 from the same scope within phase 6's bounds;
 7b. train SGD AMP: 3 steps under AMP at level 2, each launching K7
    once on the bf16 grads, the bf16 flash kernels and K4's AMP
    instantiation (counted); losses finite, params f32.
+
+From its second run on, every plan of a Program that ``Executor.run``
+runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
+cuda_graph.py). A replay calls no kernel wrapper: the card runs the
+graph's kernels. So the launch meter (``LaunchMeter``) counts every
+main path's launches on the card: each kernel counts its own launches
+on the device (paddle_tpu_torch/csrc/launch_count.cuh), read before
+and after each step or request. Every step and every dispatch must run
+the expected launches on the
+card, and the wrappers' own counters, zeroed just before the path,
+must show the launch calls of the eager first run and of the capture
+and none from a replay. The ``launches`` of the result line are the
+meter's. What a replayed K6 / K7 streams at 16 bytes or takes as bf16
+grads is read from the table the plan keeps on the card. A snapshot of
+a scope is a copy, since a replay updates the scope's state tensors in
+place; the host's time by op class (phase 6) is the eager step's,
+since a replay runs no lowering.
 
 It prints one JSON line of kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. With ``--out DIR`` it also writes
@@ -143,6 +184,12 @@ WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 10, 3
 # training steps at level 2 and at level 0, in turns: for the step time,
 # and for the host's time by op class (a timer around every op)
 TURN_PAIRS, HOST_PAIRS = 10, 3
+# replayed against eager, in turns: requests per batch size (phase 4c)
+# and steps after the first pair (phase 6c)
+COMPILED_PAIRS, TRAIN_COMPILED_PAIRS = 10, 6
+# three training plans of one executor in turns (phase 6d): rounds (the
+# first runs each eagerly, the second captures each)
+PLAN_ROUNDS = 4
 # flash vs composed training from one scope. The first step's param
 # grads: the l2 norm of each one's difference within PARITY_GRAD_L2 of
 # its own l2 norm. The two forwards differ by rounding, and where that
@@ -239,6 +286,23 @@ def time_ms(fn, budget_ms=150.0, max_iters=200):
     return start.elapsed_time(end) / iters
 
 
+# the profiler loses the device events of a window's start (H100, torch
+# 2.11: up to 43 kernels of a step, a whole short step, or the first
+# kernel of a window opened right after another; none in 300 windows
+# that waited 20 to 50 ms and then ran a few kernels first)
+PROFILER_SETTLE_S = 0.05
+
+
+def _settle():
+    """Before a profiler window's own work: wait PROFILER_SETTLE_S, then
+    run four one-cycle spin kernels (which ``device_events`` drops by
+    name) and synchronize."""
+    time.sleep(PROFILER_SETTLE_S)
+    for _ in range(4):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def device_events(fn, match=lambda name: True, attempts=3):
     """torch.profiler (CPU + CUDA, CUPTI) around ``fn()`` and a
     synchronize: the device events whose names ``match``, and the
@@ -250,13 +314,14 @@ def device_events(fn, match=lambda name: True, attempts=3):
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _settle()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and match(e.name)]
+                  and "spin_kernel" not in e.name and match(e.name)]
         if events:
             return events, wall_us
     raise AssertionError("the profiler saw no matching device event in %d "
@@ -1222,9 +1287,7 @@ def _tier_stats(program, fetch_names, scope):
 
 def phase_serve(workdir, seed):
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.kernels import layernorm as ln
     from paddle_tpu_torch.models import bert
-    from paddle_tpu_torch.ops import attention as attn
 
     cfg = bert.base_config()
     feeds = ["src_ids", "sent_ids", "input_mask"]
@@ -1258,74 +1321,53 @@ def phase_serve(workdir, seed):
     # ---- the main path: counts zeroed here, read after the last request
     os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)  # static threshold
     os.environ.pop("PADDLE_TPU_OPTIMIZE", None)  # level 2
-    attn.flash_attention_fwd.launches = 0
-    ln.layernorm_residual_fwd.launches = 0
-    counts = lambda: (attn.flash_attention_fwd.launches,  # noqa: E731
-                      ln.layernorm_residual_fwd.launches)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    pred = fluid.inference.create_paddle_predictor(config)
-    init_s = time.perf_counter() - t0
     # one fused_attention per layer; one fused layer norm per layer's two
     # residual seams but the first, plus the embedding's and the last
-    per_dispatch = (cfg["n_layer"], 2 * cfg["n_layer"] + 1)
-    if counts() != tuple(n * len(BUCKETS) for n in per_dispatch):
-        raise AssertionError("warmup launched (flash, K4) = %s, expected %s"
-                             % (counts(), tuple(n * len(BUCKETS)
-                                                for n in per_dispatch)))
+    n = cfg["n_layer"]
+    per_dispatch = (n, 0, 0, 2 * n + 1, 0, 0, 0, 0, 0, 0)
     answers, lat_ms = [], []
-    for req in reqs:
-        b = req["src_ids"].shape[0]
-        lat_ms.append([])
-        for rep in range(REPEATS):
-            before = counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (out,) = pred.run(req)
-            torch.cuda.synchronize()
-            lat_ms[-1].append((time.perf_counter() - t0) * 1e3)
-            got = tuple(a - c for a, c in zip(counts(), before))
-            if got != per_dispatch:  # one dispatch per request
-                raise AssertionError("batch %d: (flash, K4) launches %s, "
-                                     "expected %s" % (b, got, per_dispatch))
-            if rep == 0:
-                if out.shape != (b, SEQ, cfg["d_model"]) or \
-                        not np.isfinite(out).all():
-                    raise AssertionError("batch %d: bad output %s finite=%s"
-                                         % (b, out.shape,
-                                            np.isfinite(out).all()))
-                answers.append(out)
-            elif not np.array_equal(out, answers[-1]):
-                raise AssertionError("batch %d: a repeated request gave "
-                                     "another answer" % b)
-    launches = counts()
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    def check(b, rep, out):
+        if rep == 0:
+            if out.shape != (b, SEQ, cfg["d_model"]) or \
+                    not np.isfinite(out).all():
+                raise AssertionError("batch %d: bad output %s finite=%s"
+                                     % (b, out.shape, np.isfinite(out).all()))
+            answers.append(out)
+        elif not np.array_equal(out, answers[-1]):
+            raise AssertionError("batch %d: a repeated request gave "
+                                 "another answer" % b)
+
+    pred, init_s, path = _metered_serving(
+        "serve", lambda: fluid.inference.create_paddle_predictor(config),
+        reqs, REPEATS, per_dispatch, lat_ms, check)
+    launches, peak_mb = path["launches"], path["peak_mb"]
     # ---- end of the main path
 
     tier = _tier_stats(pred.program, pred.fetch_names, pred.scope)
-    if tier["ln_residual_fused"] != per_dispatch[1]:
+    if tier["ln_residual_fused"] != per_dispatch[3]:
         raise AssertionError("the pipeline fused %d layer norms, expected "
                              "%d" % (tier["ln_residual_fused"],
-                                     per_dispatch[1]))
+                                     per_dispatch[3]))
     # the same requests through the composed attention (flash threshold
     # above S) and through level 0 (no pass pipeline, so no K4)
     diffs = {}
     for name, env, silent in (
             ("composed attention", ("PADDLE_TPU_FLASH_MIN_SEQ", "100000"), 0),
-            ("level 0", ("PADDLE_TPU_OPTIMIZE", "0"), 1)):
+            ("level 0", ("PADDLE_TPU_OPTIMIZE", "0"), 3)):
         os.environ[env[0]] = env[1]
         try:
-            before = counts()
             diffs[name] = []
-            for req, out in zip(reqs, answers):
-                (ref,) = pred.run(req)
-                diffs[name].append(float(np.abs(out - ref).max()))
+            with LaunchMeter() as meter:
+                meter.mark()
+                for req, out in zip(reqs, answers):
+                    (ref,) = pred.run(req)
+                    diffs[name].append(float(np.abs(out - ref).max()))
         finally:
             os.environ.pop(env[0], None)
-        if counts()[silent] != before[silent]:
+        if meter.total()[silent]:
             raise AssertionError("the %s path launched the %s kernel" % (
-                name, ("flash", "K4")[silent]))
+                name, COUNT_NAMES[silent]))
     turns = {b: dict(zip(("level 2", "level 0"), _in_turns(
         lambda r=req: _synced_ms(lambda: pred.run(r)), REPEATS)))
         for b, req in zip(REQUESTS, reqs)}
@@ -1338,19 +1380,23 @@ def phase_serve(workdir, seed):
                len(lat), diffs["composed attention"][i],
                diffs["level 0"][i], float(np.median(turns[b]["level 2"])),
                float(np.median(turns[b]["level 0"]))))
-    log("serve: predictor init (3 warmup dispatches) %.2f s; program %d -> "
-        "%d ops at level 2 (%d fused layer norms); launches (flash, K4) %s "
-        "on the main path; peak device memory %.1f MiB"
+    log("serve: predictor init (per warm-up bucket an eager run, then a "
+        "capture and its replay) %.2f s; program %d -> %d ops at level 2 (%d "
+        "fused layer norms); launches %s = %s on the card on the main path "
+        "(launch calls from the host %s); peak device memory %.1f MiB"
         % (init_s, tier["ops_before"], tier["ops_after"],
-           tier["ln_residual_fused"], launches, peak_mb))
+           tier["ln_residual_fused"], COUNT_NAMES, launches,
+           path["host_launches"], peak_mb))
     worst = max(max(v) for v in diffs.values())
     if worst > SERVE_ATOL:
         raise AssertionError("serving answers differ by %.3e > %.0e: %s"
                              % (worst, SERVE_ATOL, diffs))
     return dict(requests=REQUESTS, buckets=BUCKETS, latency_ms=lat_ms,
                 latency_in_turns_ms=turns, max_abs_diff=diffs, init_s=init_s,
-                launches=dict(flash=launches[0], k4=launches[1]),
-                peak_mem_mib=peak_mb, n_params=n_params,
+                launches=dict(zip(COUNT_NAMES, launches)),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+                per_dispatch=per_dispatch, peak_mem_mib=peak_mb,
+                n_params=n_params,
                 tier=tier), pred, reqs
 
 
@@ -1367,6 +1413,8 @@ def _kernel_class(name):
     if any(t in name for t in ("gemm", "cutlass", "cublas", "xmma",
                                "nvjet")):
         return "matmul"
+    if "multi_tensor_apply" in name and "Copy" in name:
+        return "state copy"  # a replay's write-back (core/cuda_graph.py)
     if "copy_kernel" in name:
         return "casts and copies"
     return "other"
@@ -1424,6 +1472,281 @@ def phase_profile(pred, reqs):
     return out
 
 
+# --------------------------------------------------------------- phase 4c
+def _pred_eager(pred, req):
+    """``pred.run(req)`` through the plan's eager step (the same bucket
+    routing), never its CUDA graph."""
+    from paddle_tpu_torch.inference import batch_major
+
+    feed, n_rows = pred._route_bucket(pred._as_feed(req))
+    outs = pred._exe._run_eager(pred.program, feed=feed,
+                                fetch_list=pred.fetch_names,
+                                scope=pred.scope)
+    if n_rows is not None:
+        outs = [o[:n_rows] if batch_major(v) else o
+                for v, o in zip(pred.fetch_vars, outs)]
+    return outs
+
+
+def _captured(exe):
+    """The plans of ``exe`` that hold a captured CUDA graph."""
+    return [p for p in exe._cache.values() if p.graph is not None]
+
+
+def _request_plan(pred, req):
+    """The Predictor's cached plan that serves ``req`` (its bucket's)."""
+    from paddle_tpu_torch.core.executor import _cache_key, feed_to_device
+
+    feed, _ = pred._route_bucket(pred._as_feed(req))
+    block = pred.program.global_block()
+    feeds = {n: feed_to_device(n, v, block.vars.get(n), pred._exe.device)
+             for n, v in feed.items()}
+    return pred._exe._cache[_cache_key(pred.program, feeds,
+                                       pred.fetch_names)]
+
+
+def _pool_mib(plan):
+    """MiB of device memory in the pool of ``plan``'s CUDA graph, which
+    every graph of its executor shares: the caching allocator's segments
+    of that pool; None where the allocator's snapshot does not name
+    segments' pools."""
+    pid = tuple(plan.graph.graph.pool())
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == pid) / 2 ** 20
+
+
+def _timed(fn):
+    """(host-clock ms of ``fn()`` ended by a synchronize, its value)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, val
+
+
+def phase_compiled_serve(what, pred, reqs, per_dispatch):
+    """Phase 4c: each request replayed (its bucket's CUDA graph, captured
+    at load) against the plan's eager step, in turns: latency, the busy
+    share of a profiled request of each, answers bitwise equal, the
+    launches the card ran in a replay equal to an eager step's and to
+    ``per_dispatch`` (the launch meter: a profiler window of the device
+    activity alone); each graph's capture seconds
+    and the graphs' one memory pool."""
+    rows, capture = [], []
+    for req in reqs:
+        b = int(req["src_ids"].shape[0])
+        plan = _request_plan(pred, req)
+        if plan.graph is None or plan.compiled_sigs != {"run"}:
+            raise AssertionError("serve %s batch %d: its bucket's plan was "
+                                 "not captured at load" % (what, b))
+        capture.append(dict(bucket=pred.bucket_for(b) or b,
+                            capture_s=plan.graph.seconds,
+                            pool_mib=_pool_mib(plan)))
+        (replayed,) = pred.run(req)
+        (eager,) = _pred_eager(pred, req)
+        if not np.array_equal(replayed, eager):
+            raise AssertionError("serve %s batch %d: the replayed answer is "
+                                 "not the eager step's (max |diff| %.3e)" % (
+                                     what, b, float(np.abs(
+                                         replayed.astype(np.float64)
+                                         - eager).max())))
+        turns = ([], [])
+        for i in range(COMPILED_PAIRS):
+            for eager_turn in ((False, True) if i % 2 == 0
+                               else (True, False)):
+                fn = (lambda r=req: _pred_eager(pred, r)) if eager_turn \
+                    else (lambda r=req: pred.run(r))
+                ms, (out,) = _timed(fn)
+                if not np.array_equal(out, replayed):
+                    raise AssertionError("serve %s batch %d: another answer "
+                                         "in turns" % (what, b))
+                turns[eager_turn].append(ms)
+        prof_r = _profiled(lambda r=req: pred.run(r))
+        prof_e = _profiled(lambda r=req: _pred_eager(pred, r))
+        got = (_metered_launches(lambda r=req: pred.run(r)),
+               _metered_launches(lambda r=req: _pred_eager(pred, r)))
+        if not got[0] == got[1] == per_dispatch:
+            raise AssertionError("serve %s batch %d: the card ran %s = %s "
+                                 "kernels in a replay, %s in the eager step, "
+                                 "expected %s" % (
+                                     what, b, COUNT_NAMES, got[0], got[1],
+                                     per_dispatch))
+        row = dict(batch=b, bucket=pred.bucket_for(b) or b,
+                   replay_ms=turns[0], eager_ms=turns[1],
+                   replay_median_ms=float(np.median(turns[0])),
+                   eager_median_ms=float(np.median(turns[1])),
+                   replay_profile=prof_r, eager_profile=prof_e,
+                   launches=dict(zip(COUNT_NAMES, got[0])))
+        rows.append(row)
+        log("serve %s (4c): batch %d (bucket %d), in turns over %d pairs: "
+            "replayed median %.3f ms, eager %.3f ms; device busy %.3f ms of "
+            "%.3f (%.1f%%) replayed, %.3f of %.3f (%.1f%%) eager; answers "
+            "bitwise equal" % (
+                what, b, row["bucket"], COMPILED_PAIRS,
+                row["replay_median_ms"], row["eager_median_ms"],
+                prof_r["device_busy_ms"], prof_r["wall_ms"],
+                100 * prof_r["busy_share"], prof_e["device_busy_ms"],
+                prof_e["wall_ms"], 100 * prof_e["busy_share"]))
+    pool, n_graphs = capture[-1]["pool_mib"], len(_captured(pred._exe))
+    log("serve %s (4c): graphs captured at load, per bucket: %s; the "
+        "executor's %d graphs (phase 4's level 0 buckets too) in one pool "
+        "of %s MiB; device memory reserved %.1f MiB; launches on the card "
+        "in a replay equal the eager step's" % (
+            what, "; ".join("%d: %.3f s" % (c["bucket"], c["capture_s"])
+                            for c in capture), n_graphs,
+            "%.1f" % pool if pool is not None else "not measured",
+            torch.cuda.memory_reserved() / 2 ** 20))
+    return dict(pairs=COMPILED_PAIRS, requests=rows, graphs=capture,
+                graphs_in_pool=n_graphs,
+                reserved_mib=torch.cuda.memory_reserved() / 2 ** 20)
+
+
+# --------------------------------------------------------------- phase 6c
+def phase_compiled_train(what, exe, main, loss, snap, batches, params,
+                         step, per_step):
+    """Phase 6c: from ``snap``, replayed steps (the first captures the
+    plan anew on its own scope) against the plan's eager step on a
+    second scope, in turns: losses and final params bitwise equal, step
+    medians, tokens/s, profiled busy shares, the launches the card ran
+    in a replayed step equal to an eager step's (the launch meter) and to
+    ``per_step``, capture seconds, the state copy's device time, peak
+    memory and the executor's graph pool."""
+    scope_r, scope_e = _restored(snap), _restored(snap)
+    ms_first, first = _timed(lambda: step(scope_r, batches[0]))
+    plan = next(p for p in _captured(exe) if p.graph.bound_to(scope_r))
+    capture_s = plan.graph.seconds
+    _, first_e = _timed(lambda: step(scope_e, batches[0], eager=True))
+    losses = [(first, first_e)]
+    turns = ([], [])
+    for i in range(1, TRAIN_COMPILED_PAIRS + 1):
+        batch = batches[i % len(batches)]
+        pair = {}
+        for eager in ((False, True) if i % 2 else (True, False)):
+            ms, pair[eager] = _timed(lambda e=eager: step(
+                scope_e if e else scope_r, batch, eager=e))
+            turns[eager].append(ms)
+        losses.append((pair[False], pair[True]))
+    same_loss = all(a == b for a, b in losses)
+    same_params = all(torch.equal(scope_r.find_var(n), scope_e.find_var(n))
+                      for n in params)
+    if not (same_loss and same_params):
+        raise AssertionError("train %s (6c): replayed steps differ from the "
+                             "eager step: losses %s, params equal %s" % (
+                                 what, losses, same_params))
+    prof_r = _profiled(lambda: step(scope_r, batches[1]))
+    prof_e = _profiled(lambda: step(scope_e, batches[1], eager=True))
+    got = (_metered_launches(lambda: step(scope_r, batches[1])),
+           _metered_launches(lambda: step(scope_e, batches[1], eager=True)))
+    if not got[0] == got[1] == per_step:
+        raise AssertionError("train %s (6c): the card ran %s = %s kernels "
+                             "in a replayed step, %s in the eager step, "
+                             "expected %s" % (what, COUNT_NAMES, got[0],
+                                              got[1], per_step))
+    peaks = []
+    for eager in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(scope_e if eager else scope_r, batches[2], eager=eager)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 20)
+    pool, n_graphs = _pool_mib(plan), len(_captured(exe))
+    med_r, med_e = (float(np.median(t)) for t in turns)
+    out = dict(
+        pairs=TRAIN_COMPILED_PAIRS, capture_s=capture_s,
+        capture_step_ms=ms_first, losses=losses,
+        replay_ms=turns[0], eager_ms=turns[1], replay_median_ms=med_r,
+        eager_median_ms=med_e,
+        replay_tokens_per_s=TRAIN_BATCH * SEQ / (med_r / 1e3),
+        eager_tokens_per_s=TRAIN_BATCH * SEQ / (med_e / 1e3),
+        replay_profile=prof_r, eager_profile=prof_e,
+        state_copy_ms=prof_r["by_class_ms"].get("state copy", 0.0),
+        peak_mem_mib=dict(replay=peaks[0], eager=peaks[1]), pool_mib=pool,
+        graphs_in_pool=n_graphs)
+    _log_breakdown("%s replayed train step (6c)" % what, prof_r)
+    log("train %s (6c): capture %.3f s (its step %.1f ms); in turns over %d "
+        "pairs: replayed median %.3f ms (%.1f tokens/s), eager %.3f ms "
+        "(%.1f tokens/s); device busy %.1f%% replayed, %.1f%% eager; state "
+        "copy %.4f ms a replayed step; peak memory %.1f MiB replayed, %.1f "
+        "eager; the executor's %d graphs (phase 6's other paths too) in one "
+        "pool of %s MiB; %d losses and %d params bitwise equal; launches on "
+        "the card equal the eager step's"
+        % (what, capture_s, ms_first, TRAIN_COMPILED_PAIRS, med_r,
+           out["replay_tokens_per_s"], med_e, out["eager_tokens_per_s"],
+           100 * prof_r["busy_share"], 100 * prof_e["busy_share"],
+           out["state_copy_ms"], peaks[0], peaks[1], n_graphs,
+           "%.1f" % pool if pool is not None else "not measured",
+           len(losses), len(params)))
+    return out
+
+
+# --------------------------------------------------------------- phase 6d
+def phase_shared_pool(main, loss, snap, batches, params, compiled):
+    """Phase 6d: three training plans of one new executor (two fetch lists
+    at batch TRAIN_BATCH, one at half the batch) run in turns on one
+    scope for PLAN_ROUNDS rounds, each run against the plan's eager step
+    on a second scope: losses, fetches and final params bitwise equal,
+    the one memory pool the three graphs share against the one plan of
+    phase 6c, the state the switches copy in, a round's peak memory and
+    the replayed steps' times."""
+    import paddle_tpu_torch as fluid
+
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope_r, scope_e = _restored(snap), _restored(snap)
+    half = {k: v[:TRAIN_BATCH // 2] for k, v in batches[2].items()}
+    runs = [("loss", batches[0], [loss]),
+            ("loss + a bias", batches[1], [loss, params[-1]]),
+            ("loss, half batch", half, [loss])]
+    ms = {name: [] for name, _, _ in runs}
+    for r in range(PLAN_ROUNDS):
+        for name, feed, fetch in runs:
+            t, got = _timed(lambda: exe.run(main, feed=feed,
+                                            fetch_list=fetch, scope=scope_r))
+            if r >= 2:
+                ms[name].append(t)
+            want = exe._run_eager(main, feed=feed, fetch_list=fetch,
+                                  scope=scope_e)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("6d: round %d, %s: a replay differs "
+                                     "from the eager step" % (r, name))
+    if not all(torch.equal(scope_r.find_var(n), scope_e.find_var(n))
+               for n in params):
+        raise AssertionError("6d: params differ from the eager steps'")
+    plans = _captured(exe)
+    pools = {tuple(p.graph.graph.pool()) for p in plans}
+    adopted = sum(p.graph.adopted for p in plans)
+    if len(plans) != len(runs) or len(pools) != 1 or adopted:
+        raise AssertionError("6d: %d graphs in %d pools copied %d vars in, "
+                             "expected %d graphs in one pool and none"
+                             % (len(plans), len(pools), adopted, len(runs)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, feed, fetch in runs:
+        exe.run(main, feed=feed, fetch_list=fetch, scope=scope_r)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pool = _pool_mib(plans[0])
+    out = dict(rounds=PLAN_ROUNDS, plans=[n for n, _, _ in runs],
+               capture_s=[p.graph.seconds for p in plans],
+               replay_ms=ms, pool_mib=pool,
+               one_plan_pool_mib=compiled["pool_mib"],
+               round_peak_mib=peak, adopted=adopted)
+    log("train f32 (6d): %d plans of one executor in turns over %d rounds, "
+        "bitwise the eager steps; captures %s s; replayed medians %s ms; "
+        "one pool of %s MiB (phase 6c's executor: %s MiB); peak memory of "
+        "a round of replays %.1f MiB; %d vars copied in on switching" % (
+            len(plans), PLAN_ROUNDS,
+            ["%.3f" % p.graph.seconds for p in plans],
+            {k: "%.3f" % float(np.median(v)) for k, v in ms.items()},
+            "%.1f" % pool if pool is not None else "not measured",
+            "%.1f" % compiled["pool_mib"]
+            if compiled["pool_mib"] is not None else "not measured",
+            peak, adopted))
+    exe.close()
+    return out
+
+
 # ---------------------------------------------------------------- phase 6
 def _train_batch(cfg, rs):
     """One synthetic MLM batch: 10-40% padding per row; 15% of the real
@@ -1450,18 +1773,24 @@ def _train_batch(cfg, rs):
             "mask_weight": weight}
 
 
+def _copied(v):
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
 def _snapshot(scope):
-    """The scope's values by name. The executor replaces scope values
-    and never updates them in place, so this is the state as it is now."""
-    return {n: scope.find_var(n) for n in scope.local_var_names()}
+    """Copies of the scope's values by name: a replayed step updates the
+    scope's state tensors in place (the RNG chain's generator is
+    replaced, never advanced, so it is kept as it is)."""
+    return {n: _copied(scope.find_var(n)) for n in scope.local_var_names()}
 
 
 def _restored(snap):
+    """A new scope of copies of a snapshot's values."""
     import paddle_tpu_torch as fluid
 
     scope = fluid.Scope()
     for n, v in snap.items():
-        scope.set_var(n, v)
+        scope.set_var(n, _copied(v))
     return scope
 
 
@@ -1549,6 +1878,176 @@ def _zero_counts():
 COUNT_NAMES = ("flash fwd", "flash dkv", "flash dq", "K4", "K6", "K7",
                "flash fwd bf16", "flash dkv bf16", "flash dq bf16",
                "K4 AMP")
+def _device_counts():
+    """Every ``COUNT_NAMES`` kernel's launches the card has run so far, as
+    the kernels count themselves on the device (``build.device_launches``:
+    a CUDA graph's replays included), once the card has finished."""
+    from paddle_tpu_torch.kernels import build
+
+    torch.cuda.synchronize()
+    fwd = build.device_launches("flash_attention_fwd", 2)
+    bwd = build.device_launches("flash_attention_bwd", 4)
+    ln = build.device_launches("layernorm_residual", 2)
+    opt = build.device_launches("optimizer_update", 2)
+    return (fwd[0] + fwd[1], bwd[0] + bwd[2], bwd[1] + bwd[3], ln[0],
+            opt[0], opt[1], fwd[1], bwd[2], bwd[3], ln[1])
+
+
+def _times(counts, k):
+    return tuple(k * c for c in counts)
+
+
+class LaunchMeter:
+    """The main path's kernel launches, measured on the card: each kernel
+    counts its own launches on the device (``_device_counts``), launched
+    eagerly or by a CUDA graph's replay. ``mark()`` starts the next unit
+    of the window; after the window ``units`` holds each unit's counts,
+    in order. The wrappers' own counters (``_counts``) see only the
+    launch calls the host makes: an eager step's and a capture's."""
+
+    def __enter__(self):
+        self._reads = []
+        return self
+
+    def mark(self):
+        self._reads.append(_device_counts())
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self._reads.append(_device_counts())
+            self.units = [tuple(b - a for a, b in zip(r0, r1))
+                          for r0, r1 in zip(self._reads, self._reads[1:])]
+        return False
+
+    def total(self):
+        return tuple(int(v) for v in np.sum(self.units, axis=0))
+
+
+def _metered_launches(fn):
+    """The launches the card runs in ``fn()``, by the launch meter."""
+    with LaunchMeter() as meter:
+        meter.mark()
+        fn()
+    return meter.units[0]
+
+
+def _metered_steps(what, step, scope, batches, n_steps, per_step,
+                   host_extra=lambda: 0):
+    """A training phase's main path: ``n_steps`` steps on ``scope``
+    under the launch meter, the wrappers' counts zeroed just before.
+    Every step runs ``per_step`` launches on the card (the first eagerly,
+    the second captures the plan and replays it, the rest replay); the
+    wrappers count the launch calls of the eager step and of the capture
+    and no other. Returns the losses, step times, each step's device
+    launches, the device and host totals, the per-step deltas of
+    ``host_extra()`` and the peak memory."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, host, extra = [], [], [], []
+    with LaunchMeter() as meter:
+        for i in range(n_steps):
+            meter.mark()
+            before, x0 = _counts(), host_extra()
+            t1 = time.perf_counter()
+            losses.append(step(scope, batches[i % len(batches)]))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            host.append(tuple(a - b for a, b in zip(_counts(), before)))
+            extra.append(host_extra() - x0)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for i, (dev, h) in enumerate(zip(meter.units, host)):
+        if dev != per_step:
+            raise AssertionError("%s step %d ran %s = %s kernels on the "
+                                 "card, expected %s" % (
+                                     what, i, COUNT_NAMES, dev, per_step))
+        if h != (per_step if i < 2 else _times(per_step, 0)):
+            raise AssertionError("%s step %d: the wrappers counted %s = %s "
+                                 "launch calls (the eager step and the "
+                                 "capture call %s, a replay none)" % (
+                                     what, i, COUNT_NAMES, h, per_step))
+    if not np.isfinite(losses).all():
+        raise AssertionError("%s: losses %s are not all finite"
+                             % (what, losses))
+    return dict(losses=losses, step_ms=step_ms, device_by_step=meter.units,
+                launches=meter.total(), host_launches=_counts(),
+                host_extra=extra, peak_mb=peak_mb)
+
+
+def _metered_serving(what, make_pred, reqs, repeats, per_dispatch, lat_ms,
+                     check):
+    """A serving phase's main path under the launch meter, the wrappers'
+    counts zeroed just before: the Predictor made by ``make_pred()``
+    warms each bucket up (an eager run, then a capture and its replay),
+    then answers each request ``repeats`` times (``check(batch, repeat,
+    answer)``, latencies into ``lat_ms``). The warm-up runs 2 dispatches'
+    launches per bucket on the card and calls as many from the host; each
+    request runs one dispatch's (``per_dispatch``) on the card and calls
+    none from the host: it is a replay. Returns the Predictor, its
+    seconds to start and the launches."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchMeter() as meter:
+        meter.mark()
+        t0 = time.perf_counter()
+        pred = make_pred()
+        init_s = time.perf_counter() - t0
+        host_warm = _counts()
+        for req in reqs:
+            b = int(req["src_ids"].shape[0])
+            lat_ms.append([])
+            for rep in range(repeats):
+                meter.mark()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (out,) = pred.run(req)
+                torch.cuda.synchronize()
+                lat_ms[-1].append((time.perf_counter() - t0) * 1e3)
+                check(b, rep, out)
+    warm = _times(per_dispatch, 2 * len(BUCKETS))
+    if (meter.units[0], host_warm) != (warm, warm):
+        raise AssertionError("%s: the warm-up ran %s = %s kernels on the "
+                             "card and called %s from the host, expected %s"
+                             % (what, COUNT_NAMES, meter.units[0], host_warm,
+                                warm))
+    bad = [u for u in meter.units[1:] if u != per_dispatch]
+    if bad or _counts() != host_warm:
+        raise AssertionError("%s: requests ran %s = %s kernels on the card "
+                             "(expected %s each) and called %s from the "
+                             "host (expected none)" % (
+                                 what, COUNT_NAMES, bad[:1], per_dispatch,
+                                 tuple(a - b for a, b in zip(_counts(),
+                                                             host_warm))))
+    return pred, init_s, dict(launches=meter.total(),
+                              host_launches=_counts(),
+                              peak_mb=torch.cuda.max_memory_allocated()
+                              / 2 ** 20)
+
+
+def _check_bf16_grads(what, exe, scope, path, want):
+    """Each AMP step's group update takes ``want`` bf16 grads: as the
+    wrapper counted them in the eager step and the capture, and in the
+    table the plan's graph keeps, which every replay reads."""
+    n_tables, _, _, bf16 = _kept_table(exe, scope)
+    if path["host_extra"][:2] != [want, want] or (n_tables, bf16) != (
+            1, want):
+        raise AssertionError("%s: the group update took %s bf16 grads in "
+                             "the eager step and the capture, %d in the "
+                             "%d kept table(s), expected %d" % (
+                                 what, path["host_extra"][:2], bf16,
+                                 n_tables, want))
+
+
+def _kept_table(exe, scope):
+    """The optimizer table the plan's graph on ``scope`` keeps on the card
+    and every replay reads, read back: (the number of tables, its rows,
+    its entries on the 16-byte path, its bf16 grads; ``table_rows``'
+    last two columns)."""
+    plan = next(p for p in _captured(exe) if p.graph.bound_to(scope))
+    tables = plan.graph.tables
+    t = tables[0].cpu()
+    return len(tables), int(t.shape[0]), int(t[:, -2].sum()), \
+        int(t[:, -1].sum())
 
 
 def _grad_parity(flash, composed):
@@ -1679,9 +2178,11 @@ def phase_train(seed):
                                  tier["optimizer_groups"], per_step[3],
                                  len(params)))
 
-    def step(sc, feed, fetch=()):
-        """One step; its loss, and the values of ``fetch`` when asked."""
-        vals = exe.run(main, feed=feed, fetch_list=[loss, *fetch], scope=sc)
+    def step(sc, feed, fetch=(), eager=False):
+        """One step (with ``eager``, the plan's eager step, never its
+        graph); its loss, and the values of ``fetch`` when asked."""
+        vals = (exe._run_eager if eager else exe.run)(
+            main, feed=feed, fetch_list=[loss, *fetch], scope=sc)
         torch.cuda.synchronize()
         val = float(np.asarray(vals[0]).reshape(()))
         return (val, vals[1:]) if fetch else val
@@ -1689,35 +2190,25 @@ def phase_train(seed):
     # ---- the main path: counts zeroed here, read after the last step
     for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
         os.environ.pop(k, None)  # static flash threshold, level 2
-    _zero_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, vector = [], [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        before = _counts()
-        vec0 = ou.adam_group.vector_entries
-        t1 = time.perf_counter()
-        val = step(scope, batches[i % len(batches)])
-        if i >= WARMUP_STEPS:
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-        got = tuple(a - b for a, b in zip(_counts(), before))
-        if got != per_step:
-            raise AssertionError("step %d launched %s = %s kernels, "
-                                 "expected %s" % (i, COUNT_NAMES, got,
-                                                  per_step))
-        if not np.isfinite(val):
-            raise AssertionError("step %d: loss %r is not finite" % (i, val))
-        losses.append(val)
-        # from the second step on, params and moments are K6's padded
-        # output views: every entry streams at 16 bytes
-        vector.append(ou.adam_group.vector_entries - vec0)
-        if i >= 1 and vector[-1] != len(params):
-            raise AssertionError("step %d: %d of %d Adam entries took K6's "
-                                 "16-byte path" % (i, vector[-1],
-                                                   len(params)))
-    launches = _counts()
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    path = _metered_steps("train", step, scope, batches,
+                          WARMUP_STEPS + TIMED_STEPS, per_step,
+                          lambda: ou.adam_group.vector_entries)
     # ---- end of the main path
+    losses, launches = path["losses"], path["launches"]
+    step_ms, peak_mb = path["step_ms"][WARMUP_STEPS:], path["peak_mb"]
+    # from the second step on, params and moments are K6's padded output
+    # views: the capture's table streams every entry at 16 bytes, and
+    # every replay reads that table
+    n_tables, rows, vec, _ = _kept_table(exe, scope)
+    vector = dict(eager=path["host_extra"][0], capture=path["host_extra"][1],
+                  replayed=vec)
+    if (n_tables, rows, vec, path["host_extra"][1]) != (
+            1, len(params), len(params), len(params)):
+        raise AssertionError("the plan keeps %d tables of %d rows, %d on "
+                             "K6's 16-byte path (the capture counted %d), "
+                             "expected 1 of %d, all" % (
+                                 n_tables, rows, vec, path["host_extra"][1],
+                                 len(params)))
 
     # one step, twice, from the same scope: bitwise the same
     snap = _snapshot(scope)
@@ -1751,8 +2242,9 @@ def phase_train(seed):
     # each (which prepares the level-0 plan of this fetch list)
     _in_turns(lambda: step(scope, batches[0]), 1)
     host, host0 = (_host_breakdown(samples, what) for samples, what in zip(
-        _in_turns(lambda: _host_by_class(lambda: step(scope, batches[0])),
-                  HOST_PAIRS), ("level 2", "level 0")))
+        _in_turns(lambda: _host_by_class(
+            lambda: step(scope, batches[0], eager=True)), HOST_PAIRS),
+        ("level 2", "level 0")))
     turn2, turn0 = _in_turns(
         lambda: _synced_ms(lambda: step(scope, batches[2])), TURN_PAIRS)
     log("train: step time in turns over %d pairs: median level 2 %.3f ms, "
@@ -1763,37 +2255,46 @@ def phase_train(seed):
     k4_ms = prof["by_class_ms"].get("layer norm (K4/K5)", 0.0)
     k6_ms = prof["by_class_ms"].get("optimizer (K6/K7)", 0.0)
     log("train: K4 + K6 %.4f + %.4f ms of the profiled step's device time; "
-        "Adam entries on K6's 16-byte path by step %s (of %d)" % (
+        "Adam entries on K6's 16-byte path %s (of %d; replayed: read from "
+        "the table the plan keeps on the card)" % (
             k4_ms, k6_ms, vector, len(params)))
 
+    compiled = phase_compiled_train("f32", exe, main, loss, snap, batches,
+                                    params, step, per_step)
+    compiled["plans"] = phase_shared_pool(main, loss, snap, batches, params,
+                                          compiled)
     med = float(np.median(step_ms))
     tokens_per_s = TRAIN_BATCH * SEQ / (med / 1e3)
     log("train: losses %s" % ["%.4f" % v for v in losses])
-    log("train: step median %.3f ms, max %.3f ms over %d steps; %.1f "
-        "tokens/s; launches %s = %s on the main path; peak device memory "
-        "%.1f MiB; one step twice from one scope: bitwise equal" % (
+    log("train: step median %.3f ms, max %.3f ms over %d steps (under the "
+        "launch meter's profiler); %.1f tokens/s; launches %s = %s on the "
+        "card on the main path (launch calls from the host %s); peak device "
+        "memory %.1f MiB; one step twice from one scope: bitwise equal" % (
             med, max(step_ms), len(step_ms), tokens_per_s, COUNT_NAMES,
-            launches, peak_mb))
+            launches, path["host_launches"], peak_mb))
     return dict(ops=len(ops), adam_ops=ops.count("adam"),
                 grad_ops=sum(t.endswith("_grad") for t in ops),
                 tier=tier, losses=losses, step_ms=step_ms,
                 step_ms_median=med, tokens_per_s=tokens_per_s,
                 launches=dict(zip(COUNT_NAMES, launches)),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
                 peak_mem_mib=peak_mb, bitwise_repeatable=bitwise,
                 parity=dict(steps=PARITY_STEPS, **parity), host=host,
                 host_level0=host0,
                 step_ms_in_turns={"level 2": turn2, "level 0": turn0},
                 profile=prof, k4_ms=k4_ms, k6_ms=k6_ms,
-                adam_vector_entries=vector)
+                adam_vector_entries=vector, compiled=compiled)
 
 
 # --------------------------------------------------------------- phase 6b
 def _amp_step_fn(exe, main, loss):
-    """One step of an AMP program; its loss, and the values of ``fetch``
-    (as f32 numpy: an AMP grad is bf16) when asked."""
-    def step(sc, feed, fetch=()):
-        vals = exe.run(main, feed=feed, fetch_list=[loss, *fetch], scope=sc,
-                       return_numpy=False)
+    """One step of an AMP program (with ``eager``, the plan's eager
+    step); its loss, and the values of ``fetch`` (as f32 numpy: an AMP
+    grad is bf16) when asked."""
+    def step(sc, feed, fetch=(), eager=False):
+        vals = (exe._run_eager if eager else exe.run)(
+            main, feed=feed, fetch_list=[loss, *fetch], scope=sc,
+            return_numpy=False)
         torch.cuda.synchronize()
         val = float(vals[0].float().reshape(()))
         return ((val, [v.float().cpu().numpy() for v in vals[1:]])
@@ -1865,34 +2366,13 @@ def phase_train_amp(seed, f32):
     # ---- the main path: counts zeroed here, read after the last step
     for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
         os.environ.pop(k, None)
-    _zero_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_ms = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        before = _counts()
-        bf0 = ou.adam_group.bf16_grad_entries
-        t1 = time.perf_counter()
-        val = step(scope, batches[i % len(batches)])
-        if i >= WARMUP_STEPS:
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-        got = tuple(a - b for a, b in zip(_counts(), before))
-        if got != per_step:
-            raise AssertionError("AMP step %d launched %s = %s kernels, "
-                                 "expected %s" % (i, COUNT_NAMES, got,
-                                                  per_step))
-        if ou.adam_group.bf16_grad_entries - bf0 != sum(grad_bf16):
-            raise AssertionError("AMP step %d: K6 took %d bf16 grads, "
-                                 "expected %d" % (
-                                     i, ou.adam_group.bf16_grad_entries
-                                     - bf0, sum(grad_bf16)))
-        if not np.isfinite(val):
-            raise AssertionError("AMP step %d: loss %r is not finite"
-                                 % (i, val))
-        losses.append(val)
-    launches = _counts()
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    path = _metered_steps("AMP train", step, scope, batches,
+                          WARMUP_STEPS + TIMED_STEPS, per_step,
+                          lambda: ou.adam_group.bf16_grad_entries)
     # ---- end of the main path
+    losses, launches = path["losses"], path["launches"]
+    step_ms, peak_mb = path["step_ms"][WARMUP_STEPS:], path["peak_mb"]
+    _check_bf16_grads("AMP", exe, scope, path, sum(grad_bf16))
     not_f32 = _f32_masters(scope, params)
     if not_f32:
         raise AssertionError("AMP left params or moments that are not f32: "
@@ -1926,6 +2406,8 @@ def phase_train_amp(seed, f32):
         lambda: _synced_ms(lambda: step(scope, batches[2])), 3)
     prof = _profiled(lambda: step(scope, batches[1]))
     _log_breakdown("AMP train step", prof)
+    compiled = phase_compiled_train("AMP", exe, main, loss, snap, batches,
+                                    params, step, per_step)
     _log_breakdown("f32 train step (phase 6)", f32["profile"])
     med = float(np.median(step_ms))
     tokens_per_s = TRAIN_BATCH * SEQ / (med / 1e3)
@@ -1940,15 +2422,18 @@ def phase_train_amp(seed, f32):
             len(step_ms), tokens_per_s, f32["tokens_per_s"],
             float(np.median(turn2)), float(np.median(turn0)), COUNT_NAMES,
             launches, peak_mb, f32["peak_mem_mib"]))
+    log("train AMP: launch calls from the host %s = %s (the eager step "
+        "and the capture)" % (COUNT_NAMES, path["host_launches"]))
     return dict(tier=tier, losses=losses, first_loss_vs_f32=dict(
                     amp=losses[0], f32=f32["losses"][0], rel=first_rel),
                 step_ms=step_ms, step_ms_median=med,
                 tokens_per_s=tokens_per_s,
                 launches=dict(zip(COUNT_NAMES, launches)),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
                 bf16_grads=sum(grad_bf16), peak_mem_mib=peak_mb,
                 parity=dict(steps=PARITY_STEPS, **p),
                 step_ms_in_turns={"level 2": turn2, "level 0": turn0},
-                profile=prof)
+                profile=prof, compiled=compiled)
 
 
 # --------------------------------------------------------------- phase 4b
@@ -1985,46 +2470,26 @@ def phase_serve_amp(workdir, seed, pred_f32, reqs):
     # ---- the main path: counts zeroed here, read after the last request
     os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
     os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
-    _zero_counts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pred = fluid.inference.create_paddle_predictor(config)
+    lat_ms, diffs = [], []
+
+    def check(b, rep, out):
+        if rep == 0:
+            if out.shape != (b, SEQ, cfg["d_model"]) or \
+                    out.dtype != np.float32 or not np.isfinite(out).all():
+                raise AssertionError("AMP batch %d: bad output %s %s"
+                                     % (b, out.shape, out.dtype))
+            diffs.append(out)
+        elif not np.array_equal(out, diffs[-1]):
+            raise AssertionError("AMP batch %d: a repeated request gave "
+                                 "another answer" % b)
+
+    pred, _, path = _metered_serving(
+        "serve AMP", lambda: fluid.inference.create_paddle_predictor(config),
+        reqs, AMP_SERVE_REPEATS, per_dispatch, lat_ms, check)
+    launches, peak_mb = path["launches"], path["peak_mb"]
+    # ---- end of the main path
     if not pred.program.amp:
         raise AssertionError("the saved program lost its AMP flag")
-    want = tuple(c * len(BUCKETS) for c in per_dispatch)
-    if _counts() != want:
-        raise AssertionError("AMP warmup launched %s = %s, expected %s"
-                             % (COUNT_NAMES, _counts(), want))
-    lat_ms, diffs = [], []
-    for req in reqs:
-        b = req["src_ids"].shape[0]
-        lat_ms.append([])
-        for rep in range(AMP_SERVE_REPEATS):
-            before = _counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            (out,) = pred.run(req)
-            torch.cuda.synchronize()
-            lat_ms[-1].append((time.perf_counter() - t0) * 1e3)
-            got = tuple(a - c for a, c in zip(_counts(), before))
-            if got != per_dispatch:
-                raise AssertionError("AMP batch %d: launches %s = %s, "
-                                     "expected %s" % (b, COUNT_NAMES, got,
-                                                      per_dispatch))
-            if rep == 0:
-                first = out
-                if out.shape != (b, SEQ, cfg["d_model"]) or \
-                        out.dtype != np.float32 or \
-                        not np.isfinite(out).all():
-                    raise AssertionError("AMP batch %d: bad output %s %s"
-                                         % (b, out.shape, out.dtype))
-            elif not np.array_equal(out, first):
-                raise AssertionError("AMP batch %d: a repeated request "
-                                     "gave another answer" % b)
-        diffs.append(first)
-    launches = _counts()
-    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    # ---- end of the main path
     rows = []
     for req, amp_out, lat in zip(reqs, diffs, lat_ms):
         (ref,) = pred_f32.run(req)
@@ -2046,14 +2511,17 @@ def phase_serve_amp(workdir, seed, pred_f32, reqs):
         torch.cuda.synchronize()
         prof[b] = _profiled(lambda: pred.run(req))
         _log_breakdown("AMP batch %d" % b, prof[b])
-    log("serve AMP: launches %s = %s on the main path; peak device memory "
-        "%.1f MiB" % (COUNT_NAMES, launches, peak_mb))
+    log("serve AMP: launches %s = %s on the card on the main path (launch "
+        "calls from the host %s); peak device memory %.1f MiB" % (
+            COUNT_NAMES, launches, path["host_launches"], peak_mb))
     worst = max(r["l2_rel"] for r in rows)
     if worst > AMP_SERVE_L2:
         raise AssertionError("AMP answers differ from f32 by l2 rel %.3e > "
                              "%.0e" % (worst, AMP_SERVE_L2))
+    compiled = phase_compiled_serve("AMP", pred, reqs, per_dispatch)
     return dict(requests=rows, launches=dict(zip(COUNT_NAMES, launches)),
-                peak_mem_mib=peak_mb, profile=prof)
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+                peak_mem_mib=peak_mb, profile=prof, compiled=compiled)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2083,24 +2551,14 @@ def phase_train_sgd(seed):
     # ---- the main path: counts zeroed here, read after the last step
     for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
         os.environ.pop(k, None)
-    _zero_counts()
-    losses, step_ms, vector = [], [], []
-    for i in range(PARITY_STEPS):
-        before = _counts()
-        vec0 = ou.sgd_group.vector_entries
-        t1 = time.perf_counter()
-        losses.append(step(scope, batches[i % len(batches)]))
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        vector.append(ou.sgd_group.vector_entries - vec0)
-        got = tuple(a - b for a, b in zip(_counts(), before))
-        if got != per_step:
-            raise AssertionError("SGD step %d launched %s = %s kernels, "
-                                 "expected %s" % (i, COUNT_NAMES, got,
-                                                  per_step))
-    launches = _counts()
+    path = _metered_steps("SGD", step, scope, batches, PARITY_STEPS,
+                          per_step, lambda: ou.sgd_group.vector_entries)
     # ---- end of the main path
-    if not np.isfinite(losses).all():
-        raise AssertionError("SGD losses %s are not all finite" % losses)
+    losses, step_ms, launches = (path["losses"], path["step_ms"],
+                                 path["launches"])
+    vector = dict(eager=path["host_extra"][0],
+                  capture=path["host_extra"][1],
+                  replayed=_kept_table(exe, scope)[2])
     main_path = (losses, None, {n: scope.find_var(n) for n in params})
     ref = _run_paths(step, snap, batches, params, {}, {
         "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"}, (3, 4, 5))})["level 0"]
@@ -2121,6 +2579,7 @@ def phase_train_sgd(seed):
         raise AssertionError("SGD training at level 2 and level 0 disagree")
     return dict(tier=tier, losses=losses, step_ms=step_ms,
                 launches=dict(zip(COUNT_NAMES, launches)),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
                 sgd_vector_entries=vector,
                 parity=dict(steps=PARITY_STEPS, loss_rel=loss_rel,
                             param_max_abs=param_diff))
@@ -2140,25 +2599,14 @@ def phase_train_sgd_amp(seed):
     # ---- the main path: counts zeroed here, read after the last step
     for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
         os.environ.pop(k, None)
-    _zero_counts()
-    losses, bf16_entries = [], []
-    for i in range(AMP_SGD_STEPS):
-        before = _counts()
-        bf0 = ou.sgd_group.bf16_grad_entries
-        losses.append(step(scope, batches[i % len(batches)]))
-        bf16_entries.append(ou.sgd_group.bf16_grad_entries - bf0)
-        got = tuple(a - b for a, b in zip(_counts(), before))
-        if got != per_step:
-            raise AssertionError("AMP SGD step %d launched %s = %s kernels, "
-                                 "expected %s" % (i, COUNT_NAMES, got,
-                                                  per_step))
-    launches = _counts()
+    path = _metered_steps("AMP SGD", step, scope, batches, AMP_SGD_STEPS,
+                          per_step, lambda: ou.sgd_group.bf16_grad_entries)
     # ---- end of the main path
-    if not np.isfinite(losses).all():
-        raise AssertionError("AMP SGD losses %s are not all finite" % losses)
-    if bf16_entries != [sum(grad_bf16)] * AMP_SGD_STEPS:
-        raise AssertionError("AMP SGD: K7 took %s bf16 grads per step, "
-                             "expected %d" % (bf16_entries, sum(grad_bf16)))
+    losses, launches = path["losses"], path["launches"]
+    _check_bf16_grads("AMP SGD", exe, scope, path, sum(grad_bf16))
+    bf16_entries = dict(eager=path["host_extra"][0],
+                        capture=path["host_extra"][1],
+                        replayed=_kept_table(exe, scope)[3])
     not_f32 = _f32_masters(scope, params)
     if not_f32:
         raise AssertionError("AMP SGD left params that are not f32: %s"
@@ -2170,6 +2618,7 @@ def phase_train_sgd_amp(seed):
                      COUNT_NAMES, launches, bf16_entries))
     return dict(tier=tier, losses=losses,
                 launches=dict(zip(COUNT_NAMES, launches)),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
                 bf16_grad_entries=bf16_entries)
 
 
@@ -2210,28 +2659,41 @@ def main():
     # written to a cache outside the checkout
     os.environ["PADDLE_TPU_KERNEL_CACHE_DIR"] = "0"
     t_start = time.perf_counter()
-    smi = phase_card()
-    build_s = phase_build()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        """``fn(*a)``, its seconds kept in ``phase_s`` and logged."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        log("phase %s: %.1f s" % (name, phase_s[name]))
+        return out
+
+    smi = timed("1", phase_card)
+    build_s = timed("2", phase_build)
     fwd_occupancy = _fwd_occupancy()
-    rows = phase_kernels(args.seed)
-    bwd_rows, bwd_occupancy = phase_bwd_kernels(args.seed)
-    tier_rows, k5_launches = phase_tier_kernels(args.seed)
-    tuned = phase_tune()
+    rows = timed("3", phase_kernels, args.seed)
+    bwd_rows, bwd_occupancy = timed("3b", phase_bwd_kernels, args.seed)
+    tier_rows, k5_launches = timed("3c", phase_tier_kernels, args.seed)
+    tuned = timed("3d", phase_tune)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
-        serve, pred, reqs = phase_serve(workdir, args.seed)
-    profile = phase_profile(pred, reqs)
+        serve, pred, reqs = timed("4", phase_serve, workdir, args.seed)
+    serve["compiled"] = timed("4c f32", phase_compiled_serve, "f32", pred,
+                              reqs, serve["per_dispatch"])
+    profile = timed("5", phase_profile, pred, reqs)
     with tempfile.TemporaryDirectory() as workdir:
-        serve_amp = phase_serve_amp(workdir, args.seed, pred, reqs)
+        serve_amp = timed("4b + 4c AMP", phase_serve_amp, workdir,
+                          args.seed, pred, reqs)
     del pred
     torch.cuda.empty_cache()
-    train = phase_train(args.seed)
+    train = timed("6 + 6c f32", phase_train, args.seed)
     torch.cuda.empty_cache()
-    train_amp = phase_train_amp(args.seed, train)
+    train_amp = timed("6b + 6c AMP", phase_train_amp, args.seed, train)
     torch.cuda.empty_cache()
-    train_sgd = phase_train_sgd(args.seed)
+    train_sgd = timed("7", phase_train_sgd, args.seed)
     torch.cuda.empty_cache()
-    train_sgd_amp = phase_train_sgd_amp(args.seed)
+    train_sgd_amp = timed("7b", phase_train_sgd_amp, args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -2250,14 +2712,14 @@ def main():
     a_launch, as_launch = train_amp["launches"], train_sgd_amp["launches"]
     sa_launch = serve_amp["launches"]
     by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
-    k1 = by_path(serve=serve["launches"]["flash"],
+    k1 = by_path(serve=serve["launches"]["flash fwd"],
                  train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
                  train_amp=a_launch["flash fwd"],
                  train_sgd_amp=as_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
                       train_sgd_amp=as_launch[c])
               for c in ("flash dkv", "flash dq"))
-    k4 = by_path(serve=serve["launches"]["k4"], train=t_launch["K4"],
+    k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
                  train_amp=a_launch["K4 AMP"],
                  train_sgd_amp=as_launch["K4 AMP"])
@@ -2329,7 +2791,8 @@ def main():
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=smi, torch=torch.__version__,
-                           build_s=build_s, fwd_occupancy=fwd_occupancy,
+                           build_s=build_s, phase_s=phase_s,
+                           fwd_occupancy=fwd_occupancy,
                            kernel_cases=rows,
                            bwd_kernel_cases=bwd_rows,
                            bwd_occupancy=bwd_occupancy,

@@ -14,9 +14,11 @@ Import as ``import paddle_tpu_torch as fluid``.
 """
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
-from . import (clip, contrib, convert, core, inference,  # noqa: F401
-               initializer, io, layers, models, optimizer, regularizer)
+from . import (clip, contrib, convert, core, flags,  # noqa: F401
+               inference, initializer, io, layers, models, optimizer,
+               regularizer)
 from .core.executor import Executor  # noqa: F401
+from .flags import get_flag, set_flag  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.program import (  # noqa: F401
     Program,

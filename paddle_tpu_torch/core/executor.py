@@ -1,4 +1,5 @@
-"""Executor: run a Program block eagerly on one device.
+"""Executor: run a Program block on one device, on the card as a CUDA
+graph.
 
 The port's counterpart of paddle_tpu/core/executor.py. ``run`` prepares
 a plan once per (program, version, optimizer and kernel-tier config,
@@ -12,23 +13,31 @@ keeps it in an LRU cache (``PADDLE_TPU_EXECUTOR_CACHE_SIZE``, 32):
    ``exact_numerics`` and ``_pre_optimized`` programs;
 3. the block analysis of the optimized program (``analyze_block``:
    feeds, read-only state, read-write state, write-only persistables,
-   whether the block draws randomness).
-
-A run then executes each op's torch lowering in program order instead
-of tracing one XLA computation. There is no jit and no CUDA graph in
-this version.
+   whether the block draws randomness) and its eager step, which runs
+   each op's torch lowering in program order.
 
     inputs  = feed tensors + persistable state read from the Scope
     outputs = fetches (numpy, or tensors on the device under
               ``return_numpy=False``) + persistable state written back
               to the Scope
 
-A training Program (``optimizer.minimize``) runs the same way: params,
-optimizer moments, beta powers and a learning rate an op writes are
-read-write state, written back after the step; grad vars are
-temporaries, released after their last reader like any other. Ops
-return new tensors, so the scope's tensors are never updated in place.
-The RNG chain lives in the scope between runs.
+On the card, a plan of a program that is not ``exact_numerics`` runs
+its eager step once, then is captured as a CUDA graph
+(core/cuda_graph.py) and replayed by every later run: the counterpart
+of the reference's ``jax.jit(step, donate_argnums=(2,))``. A replay
+updates the scope's state tensors in place (the reference donates
+them), so the scope keeps its tensor objects across steps; fetches are
+copies. A plan that cannot be captured raises, naming the op; it never
+falls back to eager runs. ``exact_numerics`` programs run their eager
+step on the card, as the reference runs them unjitted, and the CPU
+runs the eager step. The eager step's ops return new tensors, written
+back to the scope. The RNG chain lives in the scope between runs. The
+graphs of one executor share one memory pool (core/cuda_graph.py).
+
+``run_repeated`` runs K steps per call (on the card, K replays with no
+host sync between them), identical to K ``run`` calls. With
+``FLAGS_check_nan_inf`` (flags.py) a fetched float value that is not
+finite raises ``FloatingPointError``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
                        release_schedule)
 from .place import Place, default_place, require_device
@@ -48,9 +58,37 @@ from .program import Program, Variable, default_main_program, op_effects
 from .registry import get_op, has_op
 from .scope import Scope, global_scope
 
-__all__ = ["Executor", "analyze_block", "feed_to_device", "to_numpy"]
+__all__ = ["Executor", "analyze_block", "feed_to_device", "to_numpy",
+           "unstack_singleton_feed", "validate_stacked_feeds"]
 
 RNG_VAR = "@RNG_STATE@"
+
+
+class _Plan:
+    """Prepared context for one (program, feed-signature) pair — the
+    analog of the reference's ExecutorPrepareContext (executor.cc:362)
+    and of the JAX package's ``_Plan``."""
+
+    def __init__(self, feed_names, fetch_names, const_state, mut_state,
+                 pure_written, needs_rng, step, exact):
+        self.feed_names = feed_names
+        self.fetch_names = fetch_names
+        self.const_state = const_state      # read-only scope vars
+        self.mut_state = mut_state          # read+written scope vars
+        self.pure_written = pure_written    # written-only persistables
+        self.needs_rng = needs_rng
+        self.step = step  # the eager step (``analyze_block``)
+        self.exact = exact  # exact_numerics: never captured
+        self.compiled_sigs = set()  # dispatch signatures already captured
+        self.trace = None  # the first eager run's StepTrace on the card:
+        #                    set once that run warmed the plan
+        self.graph: Optional[StepGraph] = None  # the captured step
+
+    def release(self) -> None:
+        """Free the captured graph and its memory pool."""
+        if self.graph is not None:
+            self.graph.release()
+            self.graph = None
 
 
 class Executor:
@@ -58,7 +96,10 @@ class Executor:
     ``CUDAPlace(0)``; pass ``CPUPlace()`` to run on the CPU. Resolving
     the place touches no device; ``run`` raises when the card is asked
     for and absent. ``cache_size`` caps the plan cache (LRU; default
-    ``PADDLE_TPU_EXECUTOR_CACHE_SIZE``, 32)."""
+    ``PADDLE_TPU_EXECUTOR_CACHE_SIZE``, 32): an evicted plan frees its
+    CUDA graph. The plans' graphs share one memory pool (captured on one
+    stream), which holds about the largest graph's temporaries, not
+    their sum."""
 
     def __init__(self, place: Optional[Place] = None,
                  cache_size: Optional[int] = None):
@@ -70,7 +111,10 @@ class Executor:
         if cache_size < 1:
             raise ValueError("cache_size must be >= 1, got %d" % cache_size)
         self._cache_size = cache_size
-        self._cache: "OrderedDict[Tuple, tuple]" = OrderedDict()
+        self._cache: "OrderedDict[Tuple, _Plan]" = OrderedDict()
+        self._pool = None  # the graphs' memory pool, made at the first
+        #                    capture
+        self._stream = None  # the side stream every capture runs on
 
     def run(
         self,
@@ -85,7 +129,90 @@ class Executor:
         which moves to the device without a numpy round trip. Fetches
         come back as numpy arrays, or with ``return_numpy=False`` as
         tensors on the executor's device (the reference's device
-        arrays)."""
+        arrays); on the card both are copies, which no later step
+        changes."""
+        program, scope, feeds, fetch_names = self._args(
+            program, feed, fetch_list, scope)
+        plan = self._plan(program, feeds, fetch_names, scope)
+        t0 = time.perf_counter()
+        fetches, captured = self._step(plan, program, feeds, scope)
+        _record_dispatch(plan, "run", "run", 1, time.perf_counter() - t0,
+                         captured)
+        return self._finish(plan, fetches, return_numpy, "")
+
+    def run_repeated(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+        steps: int = 1,
+        return_numpy: bool = True,
+        feed_stacked: bool = False,
+        reduce_fetches: str = "last",
+    ):
+        """Run ``steps`` train iterations in one call: ``steps`` of the
+        steps ``run`` takes, on the card replays of the plan's CUDA graph
+        with no host sync between them (the counterpart of the
+        reference's ``lax.scan`` over the step), with a stacked window's
+        slices copied into the graph's feeds on the device.
+
+        Semantics: identical to calling ``run`` ``steps`` times — state
+        (params, optimizer slots) and the RNG chain advance exactly as
+        in the unrolled sequence (dropout masks differ per iteration);
+        returned fetches are the LAST step's. With ``feed_stacked=False``
+        the same feed dict is re-used every step; with
+        ``feed_stacked=True`` every feed value carries a leading
+        ``steps`` axis and step i takes slice i. ``reduce_fetches=
+        "mean"|"sum"`` aggregates float fetches across the K steps
+        instead of returning the last step's values."""
+        _check_reduce(reduce_fetches)
+        if steps <= 1:
+            if feed_stacked:
+                feed = unstack_singleton_feed(feed)
+            return self.run(program, feed, fetch_list, scope,
+                            return_numpy=return_numpy)
+        if feed_stacked:
+            validate_stacked_feeds(sorted(feed or {}),
+                                   [feed[n] for n in sorted(feed or {})],
+                                   steps)
+        program, scope, feeds, fetch_names = self._args(
+            program, feed, fetch_list, scope)
+        step_feeds = ({n: t[0] for n, t in feeds.items()} if feed_stacked
+                      else feeds)
+        plan = self._plan(program, step_feeds, fetch_names, scope)
+        t0 = time.perf_counter()
+        fetches, captured = self._k_steps(plan, program, feeds, scope, steps,
+                                          feed_stacked, reduce_fetches)
+        _record_dispatch(plan, ("run_repeated", steps, feed_stacked,
+                                reduce_fetches), "run_repeated", steps,
+                         time.perf_counter() - t0, captured)
+        return self._finish(plan, fetches, return_numpy,
+                            " after %d scanned steps" % steps)
+
+    def _run_eager(self, program=None, feed=None, fetch_list=None,
+                   scope=None, return_numpy=True):
+        """``run`` through the plan's eager step, never its graph: what a
+        replay is held against (tests/test_torch_cuda.py,
+        chip_smoke.py)."""
+        program, scope, feeds, fetch_names = self._args(
+            program, feed, fetch_list, scope)
+        plan = self._plan(program, feeds, fetch_names, scope)
+        fetches, _ = self._step(plan, program, feeds, scope, eager=True)
+        return self._finish(plan, fetches, return_numpy, "")
+
+    def close(self):
+        """Drop every cached plan, freeing their CUDA graphs and the
+        graphs' memory pool."""
+        for plan in self._cache.values():
+            plan.release()
+        self._cache.clear()
+        self._pool = None
+
+    # ------------------------------------------------------------ steps
+    def _args(self, program, feed, fetch_list, scope):
+        """The run's program, scope, feeds on the device and fetch
+        names."""
         require_device(self.device)
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -94,34 +221,127 @@ class Executor:
         block = program.global_block()
         feeds = {n: feed_to_device(n, v, block.vars.get(n), self.device)
                  for n, v in (feed or {}).items()}
-        (_, fetch_names, const_state, mut_state, pure_written, needs_rng,
-         step) = self._plan(program, feeds, fetch_names, scope)
-        rng = None
-        if needs_rng:
-            # a copy: the scope's generator is never advanced in place, so
-            # a scope snapshot (a dict of its values) replays the same step
-            rng = torch.Generator()
-            saved = scope.find_var(RNG_VAR)
-            if saved is None:
-                seed = program.random_seed \
-                    if program.random_seed is not None else 0
-                rng.manual_seed(int(seed))
-            else:
-                rng.set_state(saved.get_state())
-        state = {n: _require(scope, n) for n in const_state + mut_state}
-        with torch.no_grad():
-            fetches, written = step(feeds, state, rng, self.device)
-        for n in mut_state + pure_written:
-            scope.set_var(n, written[n])
-        if needs_rng:
-            scope.set_var(RNG_VAR, rng)
-        if not return_numpy:
-            return list(fetches)
-        return [to_numpy(v) for v in fetches]
+        return program, scope, feeds, fetch_names
 
-    def close(self):
-        """Drop every cached plan."""
-        self._cache.clear()
+    def _graphed(self, plan) -> bool:
+        """Whether ``plan`` runs as a CUDA graph: on the card, unless its
+        program is ``exact_numerics``."""
+        return self.device.type == "cuda" and not plan.exact
+
+    def _step(self, plan, program, feeds, scope, eager=False):
+        """One step of ``plan`` with state and the RNG chain written back
+        to ``scope``: the eager step, or on the card from the plan's
+        second run on (unless ``eager``) a replay of its graph. Returns
+        (the fetched tensors, whether this step captured the graph); a
+        replay's fetches are its output tensors, valid until the next
+        replay of any graph of this executor."""
+        chain = _chain(scope, program) if plan.needs_rng else None
+        captured = False
+        if not eager and self._graphed(plan) and \
+                plan.trace is not None:
+            captured = self._ensure_graph(plan, feeds, scope)
+            graph = plan.graph
+            graph.replay(feeds, chain)
+            # the read-write state is the captured tensors the scope
+            # already holds, updated in place
+            for n in plan.pure_written:
+                scope.set_var(n, graph.written[n])
+            fetches = graph.fetches
+        else:
+            trace = StepTrace() if self._graphed(plan) else None
+            state = {n: _require(scope, n)
+                     for n in plan.const_state + plan.mut_state}
+            with torch.no_grad():
+                fetches, written = plan.step(feeds, state, chain,
+                                             self.device, trace)
+            for n in plan.mut_state + plan.pure_written:
+                scope.set_var(n, written[n])
+            if trace is not None:
+                trace.pure = {n: (tuple(written[n].shape), written[n].dtype)
+                              for n in plan.pure_written}
+                plan.trace = trace
+        if plan.needs_rng:
+            scope.set_var(RNG_VAR, chain)
+        return fetches, captured
+
+    def _ensure_graph(self, plan, feeds, scope) -> bool:
+        """Make ``plan.graph`` a capture of the scope's current state:
+        keep it where only vars of the captured shapes were replaced
+        (copied into the captured tensors), capture it anew on another
+        scope, where a var's shape, dtype or device changed, or where
+        the tuned table changed since the capture. Returns whether it
+        captured."""
+        from ..kernels import tune
+
+        state = {n: _require(scope, n)
+                 for n in plan.const_state + plan.mut_state}
+        graph = plan.graph
+        if graph is not None and graph.bound_to(scope) and \
+                graph.tuned_epoch == tune.epoch():
+            copy, recapture = state_changes(graph.state, state)
+            if not recapture:
+                graph.adopt(copy, state, scope)
+                return False
+        self._release(plan)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        try:
+            plan.graph = StepGraph(plan.step, feeds, state, plan.mut_state,
+                                   plan.trace, self.device, scope,
+                                   self._pool, self._stream)
+        finally:
+            self._forget_unheld_pool()
+        return True
+
+    def _release(self, plan) -> None:
+        plan.release()
+        self._forget_unheld_pool()
+
+    def _forget_unheld_pool(self) -> None:
+        """Drop the pool's handle once no graph holds the pool: the
+        allocator frees such a pool, and it cannot be captured into
+        again (the next capture makes a new one)."""
+        if not any(p.graph is not None for p in self._cache.values()):
+            self._pool = None
+
+    def _k_steps(self, plan, program, feeds, scope, steps, feed_stacked,
+                 reduce_fetches):
+        """K steps, each the step ``run`` takes (on the card the eager
+        first run of a new plan, then replays), step i on slice i of a
+        stacked window, float fetches summed on the device; nothing
+        waits for the card. Non-float fetches report the last step's."""
+        acc, captured = None, False
+        for i in range(steps):
+            sf = ({n: t[i] for n, t in feeds.items()} if feed_stacked
+                  else feeds)
+            fetches, cap = self._step(plan, program, sf, scope)
+            captured |= cap
+            if reduce_fetches == "last":
+                acc = fetches
+            elif acc is None:
+                # a replay overwrites its outputs: keep copies
+                acc = [f.clone() for f in fetches]
+            else:
+                acc = [o + n if n.is_floating_point() else n
+                       for o, n in zip(acc, fetches)]
+        if reduce_fetches == "mean":
+            acc = [f / steps if f.is_floating_point() else f for f in acc]
+        return acc, captured
+
+    def _finish(self, plan, fetches, return_numpy, nan_suffix):
+        """Shared run()/run_repeated() epilogue: numpy conversion and
+        FLAGS_check_nan_inf, or on the card copies of the fetched
+        tensors (a replay overwrites its outputs, and a state tensor is
+        updated in place by the next step)."""
+        if return_numpy:
+            out = [to_numpy(v) for v in fetches]
+            _check_fetches_finite(plan.fetch_names, out, nan_suffix)
+            return out
+        if self.device.type == "cuda":
+            return [v.clone() for v in fetches]
+        return list(fetches)
 
     def _plan(self, program, feeds, fetch_names, scope):
         """The cached plan for this run, prepared on a miss."""
@@ -142,9 +362,89 @@ class Executor:
         EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
         self._cache[key] = plan
         while len(self._cache) > self._cache_size:
-            self._cache.popitem(last=False)
+            _, old = self._cache.popitem(last=False)
+            self._release(old)
             EXECUTOR_CACHE_EVICTIONS.inc()
         return plan
+
+
+def _chain(scope, program) -> torch.Generator:
+    """A copy of the scope's RNG chain (seeded from the program's
+    ``random_seed`` on the first run): the scope's generator is never
+    advanced in place, so a scope snapshot (a dict of its values)
+    replays the same step."""
+    rng = torch.Generator()
+    saved = scope.find_var(RNG_VAR)
+    if saved is None:
+        seed = program.random_seed if program.random_seed is not None else 0
+        rng.manual_seed(int(seed))
+    else:
+        rng.set_state(saved.get_state())
+    return rng
+
+
+def _record_dispatch(plan, sig, site, steps, dt, captured):
+    """Telemetry shared by run()/run_repeated(): count the steps and
+    route the wall time — a call that captured the plan's graph lands
+    in the compile histogram (the reference's first dispatch of a
+    signature: jax trace + XLA compile), every other one in the run
+    histogram's ``dispatch`` phase."""
+    from ..observe.families import (EXECUTOR_COMPILE_SECONDS,
+                                    EXECUTOR_RUN_SECONDS, EXECUTOR_STEPS)
+
+    EXECUTOR_STEPS.inc(steps)
+    if captured:
+        plan.compiled_sigs.add(sig)
+        EXECUTOR_COMPILE_SECONDS.observe(dt)
+    else:
+        EXECUTOR_RUN_SECONDS.labels(site=site, phase="dispatch").observe(dt)
+
+
+def _check_fetches_finite(fetch_names, values, suffix=""):
+    """FLAGS_check_nan_inf guard of the fetches; no-op when the flag is
+    off."""
+    from ..flags import get_flag
+
+    if not get_flag("check_nan_inf"):
+        return
+    for name, v in zip(fetch_names, values):
+        if np.issubdtype(v.dtype, np.floating) and \
+                not np.isfinite(v).all():
+            raise FloatingPointError(
+                "NaN/Inf in fetched var %r%s "
+                "(FLAGS_check_nan_inf)" % (name, suffix))
+
+
+def validate_stacked_feeds(feed_names, feeds, steps):
+    """feed_stacked contract: every feed carries a leading ``steps`` axis."""
+    for n, f in zip(feed_names, feeds):
+        shape = tuple(np.shape(f))
+        if not shape or shape[0] != steps:
+            raise ValueError(
+                "feed_stacked=True: feed %r must carry a leading "
+                "steps axis of %d (got shape %s) — stack K "
+                "per-step batches with reader.stack_feed_window"
+                % (n, steps, (shape,)))
+
+
+def unstack_singleton_feed(feed):
+    """steps<=1 with feed_stacked: a window of length 1 still carries the
+    leading axis — validate it IS length 1 (a K>1 window with steps=1
+    must raise, never silently train on slice 0) and drop it."""
+    for n, v in (feed or {}).items():
+        shape = tuple(np.shape(v))
+        if not shape or shape[0] != 1:
+            raise ValueError(
+                "feed_stacked=True with steps=1: feed %r must carry a "
+                "leading axis of 1 (got shape %s)" % (n, (shape,)))
+    return {k: v[0] if hasattr(v, "ndim") else np.asarray(v)[0]
+            for k, v in (feed or {}).items()}
+
+
+def _check_reduce(reduce_fetches):
+    if reduce_fetches not in ("last", "mean", "sum"):
+        raise ValueError("reduce_fetches must be last|mean|sum; got %r"
+                         % (reduce_fetches,))
 
 
 def _cache_key(program, feeds, fetch_names):
@@ -172,10 +472,11 @@ def _prepare(program: Program, feed_names, fetch_names, scope):
         # provenance; once per plan
         verify_program(program, fetch_list=fetch_names, scope=scope,
                        raise_on_error=True, site="prepare")
-    if not getattr(program, "exact_numerics", False) and \
-            not getattr(program, "_pre_optimized", False):
+    exact = bool(getattr(program, "exact_numerics", False))
+    if not exact and not getattr(program, "_pre_optimized", False):
         program = optimize_for_execution(program, fetch_names, scope=scope)
-    return analyze_block(program, feed_names, fetch_names, scope)
+    return _Plan(*analyze_block(program, feed_names, fetch_names, scope),
+                 exact=exact)
 
 
 def analyze_block(program: Program, feed_names, fetch_names, scope):
@@ -185,8 +486,10 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
 
     Returns (feed_names, fetch_names, const_state, mut_state,
     pure_written, needs_rng, step) where
-    ``step(feeds, state, rng, device) -> (fetches, written)``; ``written``
-    maps every state name in mut_state + pure_written to its new value.
+    ``step(feeds, state, rng, device, graph=None) -> (fetches,
+    written)``; ``written`` maps every state name in mut_state +
+    pure_written to its new value; ``graph`` is the lowering context's
+    CUDA-graph hook (core/cuda_graph.py), None for a plain eager step.
     """
     block = program.global_block()
     feed_names = sorted(feed_names)
@@ -238,10 +541,10 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
         block.ops, set(fetch_names) | set(mut_state) | set(pure_written))
     amp = bool(getattr(program, "amp", False))
 
-    def step(feeds, state, rng, device):
+    def step(feeds, state, rng, device, graph=None):
         env: Dict[str, Any] = dict(state)
         env.update(feeds)
-        ctx = LowerContext(block, rng, device, amp=amp)
+        ctx = LowerContext(block, rng, device, amp=amp, graph=graph)
         lower_block(ctx, block, env, release)
         missing_f = [n for n in fetch_names if n not in env]
         if missing_f:

@@ -17,7 +17,22 @@ from .program import Block
 from .registry import get_op
 
 __all__ = ["LowerContext", "lower_op", "lower_ops", "lower_block",
-           "release_schedule", "as_torch_dtype"]
+           "release_schedule", "as_torch_dtype", "draw_seed",
+           "seeded_generator"]
+
+
+def draw_seed(chain: torch.Generator) -> int:
+    """One seed from the RNG chain (a CPU ``torch.Generator``): what each
+    random op's stream starts from. The eager step and a replayed graph
+    draw through this one function, in program order."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=chain))
+
+
+def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
 
 
 class LowerContext:
@@ -29,38 +44,57 @@ class LowerContext:
     ``next_rng()`` draws one and returns a fresh generator on the
     context's device, so every random op gets its own stream (the
     counterpart of splitting a JAX key). A pure context (``rng=None``)
-    refuses randomness, as in the JAX package."""
+    refuses randomness, as in the JAX package.
+
+    ``graph``, when set, is the executor's hook for a step being
+    recorded or captured as a CUDA graph (core/cuda_graph.py): random
+    ops take its generators (``next_rng`` / ``seeded_rng``), which a
+    replay re-seeds from the chain, and the fused optimizer update asks
+    it which state tensors it may update in place and where to keep its
+    pointer table. ``op`` is the op being lowered (set by
+    ``lower_op``)."""
 
     def __init__(self, block: Optional[Block] = None,
                  rng: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cpu"),
-                 is_test: bool = False, amp: bool = False):
+                 is_test: bool = False, amp: bool = False, graph=None):
         self.block = block
         self._rng = rng
         self.device = device
         self.is_test = is_test
         self.amp = amp
+        self.graph = graph
+        self.op = None
 
     def next_rng(self) -> torch.Generator:
+        """The next random op's generator, seeded from the chain."""
         if self._rng is None:
             raise RuntimeError(
                 "op requested RNG in a pure context; register a custom grad "
                 "lowering that reuses saved randomness (e.g. dropout mask)"
             )
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=self._rng))
-        g = torch.Generator(device=self.device)
-        g.manual_seed(seed)
-        return g
+        if self.graph is not None:
+            return self.graph.chain_generator(self._rng, self.device)
+        return seeded_generator(draw_seed(self._rng), self.device)
+
+    def seeded_rng(self, seed: int) -> torch.Generator:
+        """A generator with a fixed seed (``fix_seed`` dropout, a seeded
+        ``uniform_random``): the same stream at every run."""
+        if self.graph is not None:
+            return self.graph.fixed_generator(int(seed), self.device)
+        return seeded_generator(seed, self.device)
 
     def pure(self) -> "LowerContext":
         """Context for re-running a forward lowering inside a vjp: the
-        same block, device and modes, no RNG (as in the JAX package)."""
+        same block, device, modes and graph hook, no RNG (as in the JAX
+        package)."""
         return LowerContext(self.block, None, self.device, self.is_test,
-                            self.amp)
+                            self.amp, self.graph)
 
 
 def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
     opdef = get_op(op.type)
+    ctx.op = op
     ins: Dict[str, List[Any]] = {}
     for slot, names in op.inputs.items():
         ins[slot] = [env[n] if n else None for n in names]

@@ -91,7 +91,13 @@
 
 #include "flash_common.cuh"
 
+#include "launch_count.cuh"
+
 namespace {
+
+// launches of each kernel as the card ran them (count_launch): f32 dK/dV,
+// f32 dQ, bf16 dK/dV, bf16 dQ
+__device__ unsigned long long g_launches[4];
 
 constexpr int kOwn = 64;  // keys (dK/dV) or query rows (dQ) per CTA
 
@@ -144,6 +150,7 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, float* __restrict__ ds, int H,
                       int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[2]);
   using C = Bf<D>;
   constexpr int BM = C::kDkvSweep, LD = C::kLd, NT = C::kThreads;
   constexpr int NJ = BM / 8, LDB = kOwn + 4;
@@ -280,6 +287,7 @@ flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dq,
                      int H, int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[3]);
   using C = Bf<D>;
   constexpr int BN = C::kDqSweep, LD = C::kLd, NT = C::kThreads;
   constexpr int NJ = BN / 8, KD = D / 16, LDB = BN + 4;
@@ -419,6 +427,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ ds, int H,
                      int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[0]);
   using C = F32<D>;
   constexpr int BM = kOwn, LD = C::kLd, LDP = C::kLdP;
   constexpr int NT = C::kThreads, NC = C::kNC, DG = C::kDG;
@@ -537,6 +546,7 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[1]);
   using C = F32<D>;
   constexpr int BN = kOwn, LD = C::kLd, LDT = C::kLdP;
   constexpr int NT = C::kThreads, NC = C::kNC, DG = C::kDG;
@@ -743,6 +753,13 @@ int flash_attention_dq(const void* q, const void* k, const void* v,
                   &H,     &Sq,      &Sk,  &scale, &causal};
   return launch(1, D, dtype, bias_kind(bias, bias_sq), Sq, B * H, args,
                 static_cast<cudaStream_t>(stream));
+}
+
+// This library's kernel launches as the card ran them, per slot of
+// g_launches (f32 dK/dV, f32 dQ, bf16 dK/dV, bf16 dQ), into out[4].
+int flash_attention_bwd_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches)));
 }
 
 }  // extern "C"

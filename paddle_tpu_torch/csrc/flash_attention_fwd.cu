@@ -81,7 +81,13 @@
 
 #include "flash_common.cuh"
 
+#include "launch_count.cuh"
+
 namespace {
+
+// launches of each kernel as the card ran them (count_launch): f32
+// forward, bf16 forward
+__device__ unsigned long long g_launches[2];
 
 constexpr float kMask = -1e9f;  // the causal mask value of the TPU kernel
 
@@ -113,6 +119,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
                       bf16* __restrict__ o, float* __restrict__ lse, int H,
                       int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[1]);
   using C = Bf<D>;
   constexpr int BM = C::kRows, BN = C::kKeys, LD = C::kLd, LDB = C::kLdb;
   constexpr int NT = C::kThreads, NJ = BN / 8, KD = D / 16;
@@ -290,6 +297,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int64_t bias_sh, int64_t bias_sq, int64_t bias_sk,
                      float* __restrict__ o, float* __restrict__ lse, int H,
                      int Sq, int Sk, float scale, int causal) {
+  count_launch(&g_launches[0]);
   using C = F32<D>;
   constexpr int BM = C::kRows, BN = C::kKeys, LD = C::kLd, LDP = C::kLdp;
   constexpr int LDB = C::kLdb, NT = C::kThreads, NC = C::kNC;
@@ -509,6 +517,13 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                          (size_t)geo.smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// This library's kernel launches as the card ran them, per slot of
+// g_launches (f32 forward, bf16 forward), into out[2].
+int flash_attention_fwd_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches)));
 }
 
 }  // extern "C"

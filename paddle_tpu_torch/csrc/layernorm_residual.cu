@@ -72,7 +72,13 @@
 
 #include <cstdint>
 
+#include "launch_count.cuh"
+
 namespace {
+
+// launches of each kernel as the card ran them (count_launch): the
+// forward at f32 or bf16 (Plain), the forward under AMP (Amp)
+__device__ unsigned long long g_launches[2];
 
 constexpr int kWarp = 32;
 constexpr int kMaxD = 2048;       // the widest row a warp holds (forward)
@@ -222,6 +228,7 @@ __global__ void ln_res_fwd_kernel(const typename F::X* __restrict__ x,
                                   float* __restrict__ mean_out,
                                   float* __restrict__ var_out, int N, int D,
                                   float eps) {
+  count_launch(&g_launches[F::kAmp ? 1 : 0]);
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
       (int64_t)blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
@@ -288,6 +295,7 @@ __global__ void ln_res_fwd_wide_kernel(const typename F::X* __restrict__ x,
                                        float* __restrict__ mean_out,
                                        float* __restrict__ var_out, int D,
                                        float eps) {
+  count_launch(&g_launches[F::kAmp ? 1 : 0]);
   __shared__ float red[kWideThreads / kWarp];
   const int64_t row = blockIdx.x;
   const typename F::X* xr = x + row * D;
@@ -824,6 +832,14 @@ int layernorm_residual_bwd(const void* s, const void* mean, const void* var,
     return dispatch_bwd<__nv_bfloat16>(s, m, v, scale, gy, gres, dx, ps, pb,
                                        ds, db, N, D, eps, ctas, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// This library's kernel launches as the card ran them, per slot of
+// g_launches (the forward at f32 or bf16 (Plain), the forward under AMP
+// (Amp)), into out[2].
+int layernorm_residual_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches)));
 }
 
 }  // extern "C"

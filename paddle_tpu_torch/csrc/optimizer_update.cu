@@ -70,7 +70,12 @@
 
 #include <cstdint>
 
+#include "launch_count.cuh"
+
 namespace {
+
+// launches of each kernel as the card ran them (count_launch): Adam, SGD
+__device__ unsigned long long g_launches[2];
 
 constexpr int kThreads = 256;  // threads per CTA
 constexpr int kIlp = 2;        // 16-byte vectors per thread per stream
@@ -288,6 +293,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
                       int64_t tiles, float beta1, float beta2,
                       float one_minus_beta1, float one_minus_beta2,
                       float eps, float weight_decay) {
+  count_launch(&g_launches[0]);
   int64_t t, t1;
   cta_run(tiles, &t, &t1);
   if (t >= t1) return;
@@ -324,6 +330,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
 __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
     sgd_group_kernel(const SgdEntry* __restrict__ table, int count,
                      int64_t tiles) {
+  count_launch(&g_launches[1]);
   int64_t t, t1;
   cta_run(tiles, &t, &t1);
   if (t >= t1) return;
@@ -407,6 +414,13 @@ int sgd_group(const void* table, int count, int64_t tiles, int sms,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const SgdEntry*>(table), count, tiles);
   return (int)cudaGetLastError();
+}
+
+// This library's kernel launches as the card ran them, per slot of
+// g_launches (Adam, SGD), into out[2].
+int optimizer_update_device_launches(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_launches, sizeof(g_launches)));
 }
 
 }  // extern "C"

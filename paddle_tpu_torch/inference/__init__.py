@@ -5,8 +5,11 @@ The port's counterpart of paddle_tpu/inference/__init__.py:
 ``create_paddle_predictor`` and ``_rewrite_for_inference``. Requests
 run eagerly through the port's Executor on the card, unless the config
 says ``disable_gpu()`` (the reference name, paddle_analysis_config.h) or
-``from_program`` is given ``place=CPUPlace()``. The JAX package's AOT
-artifact path and its serving metrics are not ported yet.
+``from_program`` is given ``place=CPUPlace()``. On the card each
+warm-up bucket's plan is captured as a CUDA graph at load, and every
+request of a bucket is one replay (core/cuda_graph.py). The JAX
+package's AOT artifact path and its serving metrics are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -218,7 +221,9 @@ class Predictor:
     def _warmup(self, batch_size: int):
         """Run zero feeds at one bucket's batch size once, so the first
         request of that size pays no first-call cost (kernel build,
-        allocator growth)."""
+        allocator growth), and on the card twice: the second run
+        captures that bucket's CUDA graph, so the first request is a
+        replay."""
         feed = {}
         block = self.program.global_block()
         for n in self.feed_names:
@@ -226,8 +231,9 @@ class Predictor:
             shape = [batch_size if (s is None or s < 0) else s
                      for s in (var.shape or ())]
             feed[n] = np.zeros(shape, dtype=var.dtype)
-        self._exe.run(self.program, feed=feed, fetch_list=self.fetch_names,
-                      scope=self.scope)
+        for _ in range(2 if self._exe.device.type == "cuda" else 1):
+            self._exe.run(self.program, feed=feed,
+                          fetch_list=self.fetch_names, scope=self.scope)
 
 
 def _rewrite_for_inference(program: Program) -> Program:

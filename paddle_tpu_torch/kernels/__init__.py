@@ -18,9 +18,11 @@ static threshold).
   no tier op (core/passes/kernel_fuse.py) and the flash precedence
   ignores the tuned table.
 
-The port's lowerings run eagerly and consult the tuned table at every
-run, so a table change needs no re-prepare: ``config_key()`` holds only
-what changes the optimized program or outvotes the table.
+The port's lowerings consult the tuned table whenever they run (each
+eager step, each CUDA-graph capture; a captured graph is captured anew
+when the table's ``tune.epoch()`` moved), so a table change needs no
+re-prepare: ``config_key()`` holds only what changes the optimized
+program or outvotes the table.
 
 Also here: the nvcc build (``build.py``) and the launch checks every
 wrapper applies (``common.py``). The flash wrappers live beside their op

@@ -21,8 +21,8 @@ import threading
 import time
 from typing import Dict, List
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_all", "load",
-           "ptxas_report", "sources"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_all",
+           "device_launches", "load", "ptxas_report", "sources"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -121,6 +121,21 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, *_start(name))
         lib = _LOADED[name] = ctypes.CDLL(path)
         return lib
+
+
+def device_launches(name: str, slots: int) -> List[int]:
+    """The launches of ``csrc/<name>.cu``'s kernels the card has run, per
+    slot of its ``g_launches`` (the source says which kernel counts in
+    which): each kernel counts itself on the device
+    (``csrc/launch_count.cuh``), so the launches a CUDA graph's replay
+    makes, where no host code runs, count too. Read after the card has
+    finished the work to count."""
+    out = (ctypes.c_ulonglong * slots)()
+    err = getattr(load(name), name + "_device_launches")(out)
+    if err:
+        raise RuntimeError("reading %s's launch counters failed with "
+                           "cudaError %d" % (name, err))
+    return list(out)
 
 
 def ptxas_report(name: str) -> str:

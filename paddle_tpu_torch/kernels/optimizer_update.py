@@ -15,7 +15,9 @@ stream, broadcasts the per-param scalars into two more streams and
 splits the outputs back. The port does a multi-tensor apply instead: a
 table of per-param pointers, sizes, first tiles and alignment flags
 (``ADAM_FIELDS`` / ``SGD_FIELDS``) is uploaded from pinned memory with a
-stream-ordered copy; a persistent grid (as many CTAs of 256 threads per
+stream-ordered copy (under a CUDA graph the executor's plan builds it
+once, at capture, and keeps it on the device: ``upload``); a persistent
+grid (as many CTAs of 256 threads per
 SM as the card keeps resident) gives each CTA one contiguous run of
 2048-element tiles, streamed with 16-byte loads and stores (a scalar
 loop, in the same launch, for an entry whose streams are not all
@@ -23,8 +25,12 @@ loop, in the same launch, for an entry whose streams are not all
 by 4); the bias-corrected rate, the
 decay rate and the new beta powers are computed on the device from the
 param's own ``LearningRate`` / ``Beta1Pow`` / ``Beta2Pow`` tensors (no
-``.item()``, no host sync). Outputs are new tensors: the port's ops
-never update the scope in place. Each output slot is one new buffer,
+``.item()``, no host sync). Outputs are new tensors, except with
+``in_place=True``: the executor asks for that under a CUDA graph, where
+the scope's params and moments are donated (core/cuda_graph.py), and the
+kernel then writes each param and moment over its input (every element
+is read, then written, by one thread; the beta powers, which other CTAs
+read, still go to new tensors). Each new output slot is one new buffer,
 viewed per param at offsets padded to 32 elements (128 bytes,
 ``padded_offsets``), so the next step's inputs, which are these views,
 take the vector path. Each wrapper adds the entries that took it to
@@ -56,10 +62,10 @@ import torch
 from . import build
 from .common import check_launch, check_tensor, on_device, sm_count
 
-__all__ = ["ADAM_FIELDS", "OPT_IN_SLOTS", "OPT_OUT_SLOTS", "SGD_FIELDS",
-           "adam_group", "adam_group_reference", "padded_offsets",
-           "sgd_group", "sgd_group_reference", "table_rows",
-           "vector_entries"]
+__all__ = ["ADAM_FIELDS", "IN_PLACE_SLOTS", "OPT_IN_SLOTS", "OPT_OUT_SLOTS",
+           "SGD_FIELDS", "adam_group", "adam_group_reference",
+           "padded_offsets", "pinned_upload", "sgd_group",
+           "sgd_group_reference", "table_rows", "vector_entries"]
 
 # THE slot tables for fused_optimizer_update: the fusion pass
 # (core/passes/kernel_fuse.py) assembles the fused op's ins/outs from
@@ -75,6 +81,13 @@ OPT_OUT_SLOTS = {
     "adam": ("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
              "Beta2PowOut"),
     "sgd": ("ParamOut",),
+}
+
+# the (input, output) slots an in-place update writes over
+IN_PLACE_SLOTS = {
+    "adam": (("Param", "ParamOut"), ("Moment1", "Moment1Out"),
+             ("Moment2", "Moment2Out")),
+    "sgd": (("Param", "ParamOut"),),
 }
 
 # the columns of the kernels' per-param tables, in the order of the
@@ -247,12 +260,18 @@ def table_rows(kind, columns, sizes, grad_bf16=None):
     return arr, int(tiles.sum()), int(vec.sum())
 
 
-def _table(kind, columns, sizes, grad_bf16, dev):
-    """``table_rows`` on ``dev``, uploaded from pinned memory with a copy
+def pinned_upload(arr, dev):
+    """A host table on ``dev``, uploaded from pinned memory with a copy
     ordered on the current stream: the host does not wait for the
     card."""
+    return torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+
+
+def _table(kind, columns, sizes, grad_bf16, dev, upload):
+    """``table_rows`` on ``dev``, placed there by ``upload(arr, dev)``
+    (default ``pinned_upload``)."""
     arr, tiles, vec = table_rows(kind, columns, sizes, grad_bf16)
-    table = torch.from_numpy(arr).pin_memory().to(dev, non_blocking=True)
+    table = (upload or pinned_upload)(arr, dev)
     return table, tiles, vec
 
 
@@ -287,32 +306,41 @@ def _launch(what, table, count, tiles, *args):
                            "%d threads)" % (what, err, grid, _THREADS))
 
 
-def adam_group(ins, hyper):
+def adam_group(ins, hyper, in_place=False, upload=None):
     """K6: the Adam update of every param of a group (slot dict of
     per-param lists, as the fused op's inputs) in one launch; returns
     the output slot dict (``ParamOut``, ``Moment1Out``, ``Moment2Out``,
     ``Beta1PowOut``, ``Beta2PowOut``): new tensors, each output slot's
-    per-param views of one new buffer. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    per-param views of one new buffer, but with ``in_place`` the params
+    and moments are the input tensors, updated where they lie.
+    ``upload(arr, dev)`` places the pointer table on the card (default
+    ``pinned_upload``). CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     sizes = _check_group("adam_group", "adam", ins)
     ps = ins["Param"]
     if ps[0].device.type == "cpu":
         return adam_group_reference(ins, hyper)
     b1, b2, eps, wd = _hyper(hyper)
     dev, k = ps[0].device, len(ps)
-    flat = torch.empty((3, padded_offsets(sizes)[1]), dtype=torch.float32,
-                       device=dev)
     pows = torch.empty((2, k), dtype=torch.float32, device=dev)
-    p_out, m_out, v_out = _outputs(flat, ps, sizes)
     b1_out, b2_out = ([t.view(b.shape) for t, b in zip(row.split(1), ins[s])]
                       for row, s in zip(pows, ("Beta1Pow", "Beta2Pow")))
     columns = {s: _ptrs(ins[s]) for s in ADAM_FIELDS[:7]}
-    columns.update(zip(ADAM_FIELDS[7:10],
-                       (_flat_ptrs(row, sizes) for row in flat)))
+    if in_place:
+        p_out, m_out, v_out = (ins[s] for s in ("Param", "Moment1",
+                                                "Moment2"))
+        columns.update(zip(ADAM_FIELDS[7:10], (
+            columns[s] for s in ("Param", "Moment1", "Moment2"))))
+    else:
+        flat = torch.empty((3, padded_offsets(sizes)[1]),
+                           dtype=torch.float32, device=dev)
+        p_out, m_out, v_out = _outputs(flat, ps, sizes)
+        columns.update(zip(ADAM_FIELDS[7:10],
+                           (_flat_ptrs(row, sizes) for row in flat)))
     columns.update(zip(ADAM_FIELDS[10:12], (
         row.data_ptr() + 4 * np.arange(k, dtype=np.int64) for row in pows)))
     bf16 = _bf16_flags(ins["Grad"])
-    table, tiles, vec = _table("adam", columns, sizes, bf16, dev)
+    table, tiles, vec = _table("adam", columns, sizes, bf16, dev, upload)
     _launch("adam_group", table, k, tiles, b1, b2, 1 - b1, 1 - b2, eps,
             wd)
     adam_group.launches += 1
@@ -327,23 +355,28 @@ adam_group.vector_entries = 0
 adam_group.bf16_grad_entries = 0
 
 
-def sgd_group(ins):
+def sgd_group(ins, in_place=False, upload=None):
     """K7: ``p - lr * g`` for every param of a group in one launch;
-    returns ``{"ParamOut": [...]}`` (per-param views of one new buffer).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    returns ``{"ParamOut": [...]}`` (per-param views of one new buffer,
+    or with ``in_place`` the params themselves, updated where they lie).
+    ``upload`` as in ``adam_group``. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
     sizes = _check_group("sgd_group", "sgd", ins)
     ps = ins["Param"]
     if ps[0].device.type == "cpu":
         return sgd_group_reference(ins)
     dev = ps[0].device
-    flat = torch.empty((1, padded_offsets(sizes)[1]), dtype=torch.float32,
-                       device=dev)
-    (p_out,) = _outputs(flat, ps, sizes)
     columns = {s: _ptrs(ins[s]) for s in SGD_FIELDS[:3]}
-    columns["ParamOut"] = _flat_ptrs(flat[0], sizes)
+    if in_place:
+        p_out = ps
+        columns["ParamOut"] = columns["Param"]
+    else:
+        flat = torch.empty((1, padded_offsets(sizes)[1]),
+                           dtype=torch.float32, device=dev)
+        (p_out,) = _outputs(flat, ps, sizes)
+        columns["ParamOut"] = _flat_ptrs(flat[0], sizes)
     bf16 = _bf16_flags(ins["Grad"])
-    table, tiles, vec = _table("sgd", columns, sizes, bf16, dev)
+    table, tiles, vec = _table("sgd", columns, sizes, bf16, dev, upload)
     _launch("sgd_group", table, len(ps), tiles)
     sgd_group.launches += 1
     sgd_group.vector_entries += vec

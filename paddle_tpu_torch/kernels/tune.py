@@ -52,7 +52,7 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["CACHE_VERSION", "CHOICES", "cache_dir", "cache_path",
-           "deterministic_seed", "lookup", "tune", "set_entry",
+           "deterministic_seed", "epoch", "lookup", "tune", "set_entry",
            "load_disk_entries", "persist_entry", "reset", "sig_key"]
 
 CACHE_VERSION = 1
@@ -62,6 +62,7 @@ CHOICES = ("cuda", "composed")
 _MEM: Dict[str, Dict[str, Any]] = {}
 _LOCK = threading.RLock()
 _DISK_LOADED_FOR: Optional[str] = None  # the path entries were loaded from
+_EPOCH = 0  # bumped by every change of the in-memory table
 _TMP_SEQ = itertools.count(1)
 
 
@@ -133,12 +134,13 @@ def _ensure_disk_loaded() -> None:
     """One-shot promote of the disk winners into the in-memory table
     (per cache path — switching PADDLE_TPU_KERNEL_CACHE_DIR mid-process
     reloads)."""
-    global _DISK_LOADED_FOR
+    global _DISK_LOADED_FOR, _EPOCH
     path = cache_path()
     with _LOCK:
         if _DISK_LOADED_FOR == path:
             return
         _DISK_LOADED_FOR = path
+        _EPOCH += 1
         if path:
             for k, v in load_disk_entries(path).items():
                 _MEM.setdefault(k, dict(v, source="disk"))
@@ -192,9 +194,11 @@ def set_entry(op: str, sig: Tuple, decision: Dict[str, Any],
               persist: bool = False) -> None:
     """Install a decision directly (tests inject winners); the next
     dispatch reads it."""
+    global _EPOCH
     key = sig_key(op, sig)
     with _LOCK:
         _MEM[key] = dict(decision)
+        _EPOCH += 1
     if persist:
         persist_entry(key, decision)
 
@@ -202,10 +206,20 @@ def set_entry(op: str, sig: Tuple, decision: Dict[str, Any],
 def reset() -> None:
     """Forget every in-memory decision and the disk-loaded flag
     (tests)."""
-    global _DISK_LOADED_FOR
+    global _DISK_LOADED_FOR, _EPOCH
     with _LOCK:
         _MEM.clear()
         _DISK_LOADED_FOR = None
+        _EPOCH += 1
+
+
+def epoch() -> int:
+    """The table's epoch, bumped by ``set_entry``, ``reset`` and the
+    one-shot disk load (which this call forces): a CUDA graph captured
+    under one epoch read the table then, and is captured anew under
+    another (core/executor.py)."""
+    _ensure_disk_loaded()
+    return _EPOCH
 
 
 # ------------------------------------------------------------ measurement

@@ -55,8 +55,7 @@ def _uniform_random(ctx, ins, attrs):
     shape = tuple(attrs["shape"])
     seed = attrs.get("seed", 0)
     if seed:
-        gen = torch.Generator(device=ctx.device)
-        gen.manual_seed(int(seed))
+        gen = ctx.seeded_rng(int(seed))
     else:
         gen = ctx.next_rng()
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
@@ -74,7 +73,13 @@ def _assign(ctx, ins, attrs):
 def _assign_value(ctx, ins, attrs):
     # the constant-folding pass (core/passes/fold.py) bakes its results
     # into these
-    out = torch.tensor(attrs["values"], dtype=_dt(attrs), device=ctx.device)
+    out = torch.tensor(attrs["values"], dtype=_dt(attrs))
+    if ctx.graph is not None:
+        # on a CUDA graph's path: a constant the graph keeps on the card
+        # (a host copy cannot be captured)
+        out = ctx.graph.constant(out, ctx.device)
+    else:
+        out = out.to(ctx.device)
     return {"Out": [out.reshape(tuple(attrs["shape"]))]}
 
 

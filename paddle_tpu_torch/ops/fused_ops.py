@@ -158,6 +158,20 @@ def _fused_layernorm_residual(ctx, ins, attrs):
             "Variance": outs["Variance"]}
 
 
+def _donated(op, ins, kind, donated):
+    """Whether the group may update its params and moments in place:
+    under a CUDA graph, when each of them is the scope's own tensor of
+    a var the op writes back under the same name (``donated``: var name
+    -> the captured state tensor, core/cuda_graph.py)."""
+    if not donated or op is None:
+        return False
+    for src, dst in _ou.IN_PLACE_SLOTS[kind]:
+        for n_in, n_out, t in zip(op.input(src), op.output(dst), ins[src]):
+            if n_in != n_out or donated.get(n_out) is not t:
+                return False
+    return True
+
+
 @register_op("fused_optimizer_update", no_grad=True)
 def _fused_optimizer_update(ctx, ins, attrs):
     """A consecutive run of same-hyperparameter ``adam``/``sgd`` ops
@@ -166,7 +180,9 @@ def _fused_optimizer_update(ctx, ins, attrs):
     On the card: the whole group in one launch of K6 (Adam) or K7 (SGD)
     over a per-param pointer table (kernels/optimizer_update.py, atol
     2e-6 vs the replay): f32 params, moments and scalars, each grad f32
-    or bf16; another dtype raises. Under AMP the group takes its
+    or bf16; another dtype raises. Under a CUDA graph (``ctx.graph``)
+    the table is built once, at capture, and kept by the plan, and the
+    params and moments the scope donated are updated in place. Under AMP the group takes its
     constituents' cast (their uniform ``__amp__``, carried as
     ``amp_override``, or the table's f32) except for the grads, which
     the kernel widens in registers, bit for bit the cast. On the CPU:
@@ -192,9 +208,15 @@ def _fused_optimizer_update(ctx, ins, attrs):
                     else {})
             ins = dict(amp_cast(kind, cast_attrs, {
                 s: v for s, v in ins.items() if s not in keep}), **keep)
+        graph, kw = ctx.graph, {}
+        if graph is not None:
+            # on a CUDA graph's path: the plan keeps the table, donated
+            # state is updated in place
+            kw = dict(in_place=_donated(ctx.op, ins, kind, graph.donated),
+                      upload=graph.keep_table)
         if kind == "sgd":
-            return _ou.sgd_group(ins)
-        return _ou.adam_group(ins, hyper)
+            return _ou.sgd_group(ins, **kw)
+        return _ou.adam_group(ins, hyper, **kw)
     outs = {slot: [] for slot in _ou.OPT_OUT_SLOTS[kind]}
     lowering = get_op(kind).lowering
     for i in range(len(ins["Param"])):

@@ -78,8 +78,7 @@ def _dropout(ctx, ins, attrs):
         return {"Out": [x * weak_scalar(1.0 - p, x)],
                 "Mask": [torch.ones_like(x)]}
     if attrs.get("fix_seed", False):
-        gen = torch.Generator(device=x.device)
-        gen.manual_seed(int(attrs.get("seed", 0)))
+        gen = ctx.seeded_rng(int(attrs.get("seed", 0)))
     else:
         gen = ctx.next_rng()
     keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)

@@ -46,13 +46,30 @@ where only the port is installed:
   scalar loop; one level-2 AMP step of the BERT above launching only
   the bf16 flash kernels, K4's AMP instantiation and K6 / K7, with f32
   masters and level 0's loss within two bf16 ulps.
+- The compiled step (core/cuda_graph.py): steps 2-4 of a plan are
+  replays of its CUDA graph, bitwise the plan's eager step from the
+  same scope (losses, a dropout mask that changes from step to step,
+  final params; f32 and AMP, Adam and SGD), with the eager step's
+  launches on the card (the kernels' own counts); a replay updates
+  the scope's params in place and K6's table is built once, at
+  capture; a param replaced between replays is what the next replay
+  reads, and a var of another shape or dtype is captured anew; three
+  plans of one executor share one pool and alternate bitwise, copying
+  no state in; a ``return_numpy=False`` fetch is a copy
+  the next run leaves alone; an op that calls ``.item()`` makes the
+  capture raise, naming it; ``run_repeated(3)`` is bitwise 3 ``run``
+  calls; the Predictor's replayed answers are bitwise its eager step's,
+  f32 and AMP; a Program with no op replays its empty graph.
 """
+
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.kernels import build as tbuild
 from paddle_tpu_torch.kernels import layernorm as tln
 from paddle_tpu_torch.kernels import optimizer_update as topt
 from paddle_tpu_torch.kernels import tune
@@ -596,3 +613,405 @@ def test_cuda_amp_level2_step_launches_the_amp_kernels(cuda_device,
     (val0,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope0)
     np.testing.assert_allclose(np.asarray(val).reshape(()),
                                np.asarray(val0).reshape(()), rtol=2 ** -6)
+
+
+# ------------------------------------------------------- the compiled step
+def _train_program(opt, amp=False):
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M)
+        o = getattr(pt.optimizer, opt)(learning_rate=1e-3)
+        if amp:
+            o = pt.contrib.mixed_precision.decorate(o)
+        o.minimize(loss)
+    return main, startup, loss
+
+
+def _started(main, startup):
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    return exe, _clone_scope(scope)
+
+
+def _clone_scope(scope):
+    """A scope of copies of ``scope``'s values: under a CUDA graph the
+    executor updates state tensors in place."""
+    sc = pt.Scope()
+    for n in scope.local_var_names():
+        v = scope.find_var(n)
+        sc.set_var(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return sc
+
+
+def _dropout_mask(main):
+    """The Mask output of the program's first dropout op."""
+    op = next(op for op in main.global_block().ops if op.type == "dropout")
+    return op.output("Mask")[0]
+
+
+def _params(main, scope):
+    return {p.name: scope.find_var(p.name).clone()
+            for p in main.global_block().all_parameters()}
+
+
+def _device_launches(fn):
+    """``fn()``'s result and the launches of the port's kernels the card
+    ran in it, per library and slot, as the kernels count themselves on
+    the device (a CUDA graph's replay included)."""
+    libs = (("flash_attention_fwd", 2), ("flash_attention_bwd", 4),
+            ("layernorm_residual", 2), ("optimizer_update", 2))
+
+    def read():
+        torch.cuda.synchronize()
+        return [n for lib, k in libs
+                for n in tbuild.device_launches(lib, k)]
+
+    before = read()
+    out = fn()
+    return out, [b - a for a, b in zip(before, read())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["Adam", "SGD"])
+@pytest.mark.parametrize("amp", [False, True])
+def test_cuda_replayed_steps_equal_eager_steps(cuda_device, monkeypatch, opt,
+                                               amp):
+    """Steps 2-4 of a plan are replays of its CUDA graph (step 1 is its
+    eager run); with dropout 0.1 each replay's loss, dropout mask and
+    final params equal, bit for bit, the plan's eager step run from the
+    same scope, and the masks differ from step to step. The card runs
+    the same launches of the port's kernels in a replayed step as in an
+    eager one (as the kernels count themselves on the device), and each
+    wrapper counts its host launch calls in the eager run and the
+    capture only."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")  # flash at S = 40
+    main, startup, loss = _train_program(opt, amp)
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    mask = _dropout_mask(main)
+    feeds = [_feed(np.random.RandomState(i)) for i in range(4)]
+    group = topt.adam_group if opt == "Adam" else topt.sgd_group
+    replayed, eager = [], []
+    for i, f in enumerate(feeds):
+        host = group.launches
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=f, fetch_list=[loss, mask], scope=scope,
+            return_numpy=False))
+        replayed.append(r)
+        # the eager run and the capture (step 1) call the launch
+        assert group.launches - host == (1 if i < 2 else 0), i
+        e, on_card_e = _device_launches(lambda: exe._run_eager(
+            main, feed=f, fetch_list=[loss, mask], scope=eager_scope,
+            return_numpy=False))
+        eager.append(e)
+        assert on_card == on_card_e, (i, on_card, on_card_e)
+        n = CFG["n_layer"]
+        # per slot: flash fwd f32 / bf16, dK/dV and dQ f32, dK/dV and dQ
+        # bf16, K4 / K4-AMP, K6 / K7
+        assert on_card == ([0, 2 * n, 0, 0, n, n, 0, 2 * n + 1] if amp else
+                           [2 * n, 0, n, n, 0, 0, 2 * n + 1, 0]) + \
+            ([1, 0] if opt == "Adam" else [0, 1]), (i, on_card)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.compiled_sigs == {"run"}
+    for i, (r, e) in enumerate(zip(replayed, eager)):
+        assert torch.equal(r[0], e[0]), (i, r[0], e[0])
+        assert torch.equal(r[1], e[1]), i
+    assert not torch.equal(replayed[2][1], replayed[3][1])
+    assert not torch.equal(replayed[1][1], replayed[2][1])
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_replay_updates_the_scope_state_in_place(cuda_device,
+                                                      monkeypatch):
+    """From the capture on, the scope keeps its param tensors: a replay
+    writes the new values into them (K6 in place); the optimizer table
+    is built once, at capture, and kept by the plan."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    feed = _feed(np.random.RandomState(0))
+    built = []
+    orig = topt.table_rows
+    monkeypatch.setattr(topt, "table_rows", lambda *a, **kw: (
+        built.append(1), orig(*a, **kw))[1])
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # eager
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # capture
+    assert len(built) == 2
+    name = main.global_block().all_parameters()[0].name
+    held = scope.find_var(name)
+    before = held.clone()
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert len(built) == 2  # replays build no table
+    assert scope.find_var(name) is held
+    assert not torch.equal(held, before)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert len(plan.graph.tables) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_a_replaced_param_is_honoured(cuda_device, monkeypatch):
+    """A param the user replaces between replays with a tensor of its
+    shape and dtype is copied into the captured tensor: the next step
+    reads it, as the eager step would, and the graph is kept."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("SGD")
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    feed = _feed(np.random.RandomState(0))
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        exe._run_eager(main, feed=feed, fetch_list=[loss], scope=eager_scope)
+    name = main.global_block().all_parameters()[0].name
+    held = scope.find_var(name)
+    new = torch.full_like(held, 0.25)
+    scope.set_var(name, new.clone())
+    eager_scope.set_var(name, new.clone())
+    graph = next(p.graph for p in exe._cache.values()
+                 if p.graph is not None)
+    (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    (want,) = exe._run_eager(main, feed=feed, fetch_list=[loss],
+                             scope=eager_scope)
+    np.testing.assert_array_equal(got, want)
+    assert scope.find_var(name) is held  # the captured tensor, updated
+    assert torch.equal(held, eager_scope.find_var(name))
+    assert graph.adopted == 1
+    assert next(p.graph for p in exe._cache.values()
+                if p.graph is not None) is graph
+
+
+@pytest.mark.cuda
+def test_cuda_a_var_of_another_shape_or_dtype_recaptures(cuda_device):
+    """A state var replaced by a tensor of another shape, then of another
+    dtype, makes the next run capture the plan anew (a new graph, on the
+    new tensor), and its answer is the eager step's; a tensor of the new
+    shape and dtype is then copied in, with no capture."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [4])
+        block = main.global_block()
+        block.create_var(name="w", shape=[4], dtype="float32",
+                         persistable=True)
+        y = block.create_var(name="y", shape=[-1, 4], dtype="float32")
+        block.append_op(type="elementwise_mul",
+                        inputs={"X": [x], "Y": [block.var("w")]},
+                        outputs={"Out": [y]}, attrs={"axis": -1})
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope, eager_scope = pt.Scope(), pt.Scope()
+    dev = torch.device("cuda", 0)
+    feed = {"x": np.arange(8, dtype="float32").reshape(2, 4)}
+
+    def step():
+        (got,) = exe.run(main, feed=feed, fetch_list=["y"], scope=scope)
+        (want,) = exe._run_eager(main, feed=feed, fetch_list=["y"],
+                                 scope=eager_scope)
+        np.testing.assert_array_equal(got, want)
+        plan = next(iter(exe._cache.values()))
+        return plan.graph, got
+
+    def put(value):
+        for sc in (scope, eager_scope):
+            sc.set_var("w", value.clone())
+
+    put(torch.arange(4, dtype=torch.float32, device=dev))
+    step()  # eager
+    g1, _ = step()  # captured
+    put(torch.full((1,), 3.0, device=dev))  # another shape
+    g2, got = step()
+    assert g2 is not g1 and scope.find_var("w").shape == (1,)
+    np.testing.assert_array_equal(got, feed["x"] * 3.0)
+    put(torch.full((1,), 0.5, dtype=torch.float64, device=dev))
+    g3, got = step()  # another dtype: the step's own type promotion
+    assert g3 is not g2 and got.dtype == np.float64
+    np.testing.assert_array_equal(got, feed["x"] * 0.5)
+    put(torch.full((1,), 2.0, dtype=torch.float64, device=dev))
+    g4, got = step()  # the captured shape and dtype: copied in
+    assert g4 is g3 and g4.adopted == 1
+    np.testing.assert_array_equal(got, feed["x"] * 2.0)
+
+
+@pytest.mark.cuda
+def test_cuda_plans_share_one_pool_and_alternate_bitwise(cuda_device,
+                                                         monkeypatch):
+    """Three plans of one executor (two fetch lists and a smaller batch)
+    capture into one memory pool; run in turns on one scope they give,
+    bit for bit, the eager step's losses and params, and copy no state
+    when they switch (each reads the scope's tensors in place)."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    name = main.global_block().all_parameters()[0].name
+    feeds = [_feed(np.random.RandomState(i)) for i in range(3)]
+    runs = [(feeds[0], [loss]), (feeds[1], [loss, name]),
+            ({k: v[:2] for k, v in feeds[2].items()}, [loss])]
+    for _ in range(3):
+        for feed, fetch in runs:
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            want = exe._run_eager(main, feed=feed, fetch_list=fetch,
+                                  scope=eager_scope)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    graphs = [p.graph for p in exe._cache.values() if p.graph is not None]
+    assert len(graphs) == 3
+    assert len({tuple(g.graph.pool()) for g in graphs}) == 1
+    assert sum(g.adopted for g in graphs) == 0
+    got_p, want_p = _params(main, scope), _params(main, eager_scope)
+    for n in got_p:
+        assert torch.equal(got_p[n], want_p[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_device_fetches_are_copies(cuda_device, monkeypatch):
+    """A ``return_numpy=False`` fetch of a replay is unchanged by the
+    next run (the graph overwrites its outputs, and the scope's params
+    are updated in place)."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    name = main.global_block().all_parameters()[0].name
+    feeds = [_feed(np.random.RandomState(i)) for i in range(4)]
+    for f in feeds[:2]:
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+    got = exe.run(main, feed=feeds[2], fetch_list=[loss, name], scope=scope,
+                  return_numpy=False)
+    exe.run(main, feed=feeds[2], fetch_list=[loss, name], scope=scope)
+    kept = [t.clone() for t in got]
+    exe.run(main, feed=feeds[3], fetch_list=[loss, name], scope=scope)
+    for a, b in zip(got, kept):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_a_step_that_launches_nothing_replays(cuda_device):
+    """A Program with no op (a fetch of scope state) captures an empty
+    graph: its replays fetch the state, and no warning is raised."""
+    main, startup, _ = _train_program("SGD")
+    exe, scope = _started(main, startup)
+    name = main.global_block().all_parameters()[0].name
+    empty = pt.Program()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        outs = [exe.run(empty, fetch_list=[name], scope=scope)[0]
+                for _ in range(3)]
+    assert len([p for p in exe._cache.values() if p.graph is not None]) == 1
+    for out in outs:
+        np.testing.assert_array_equal(out, scope.find_var(name).cpu())
+
+
+_HOST_SYNC_OP = "test_host_sync_scale"
+
+
+def _register_host_sync_op():
+    from paddle_tpu_torch.core.registry import has_op, register_op
+
+    if not has_op(_HOST_SYNC_OP):
+        @register_op(_HOST_SYNC_OP)
+        def _host_sync(ctx, ins, attrs):
+            x = ins["X"][0]
+            return {"Out": [x * float(x.sum().item())]}
+
+
+@pytest.mark.cuda
+def test_cuda_capture_names_an_op_that_syncs_the_host(cuda_device):
+    """An op that reads a value on the host (``.item()``) runs eagerly,
+    and its plan's capture then raises, naming the op."""
+    _register_host_sync_op()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [4])
+        y = main.global_block().create_var(name="synced", shape=[-1, 4],
+                                           dtype="float32")
+        main.global_block().append_op(type=_HOST_SYNC_OP,
+                                      inputs={"X": [x]},
+                                      outputs={"Out": [y]})
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    feed = {"x": np.ones((2, 4), "float32")}
+    (first,) = exe.run(main, feed=feed, fetch_list=["synced"], scope=scope)
+    np.testing.assert_array_equal(first, np.full((2, 4), 8.0, "float32"))
+    with pytest.raises(RuntimeError, match=_HOST_SYNC_OP + ".*synced"):
+        exe.run(main, feed=feed, fetch_list=["synced"], scope=scope)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked,reduce", [(False, "last"), (True, "last"),
+                                            (True, "mean"), (False, "sum")])
+def test_cuda_run_repeated_equals_k_runs(cuda_device, monkeypatch, stacked,
+                                         reduce):
+    """``run_repeated(K=3)`` on the card (the eager first step, then
+    replays) is bitwise K ``run`` calls from the same scope, RNG chain
+    included; "mean" / "sum" reduce the K losses on the card."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    other = _clone_scope(scope)
+    feeds = [_feed(np.random.RandomState(i)) for i in range(3)]
+    losses = [exe.run(main, feed=feeds[i] if stacked else feeds[0],
+                      fetch_list=[loss], scope=scope, return_numpy=False)[0]
+              for i in range(3)]
+    window = ({k: np.stack([f[k] for f in feeds]) for k in feeds[0]}
+              if stacked else feeds[0])
+    exe2 = pt.Executor(pt.CUDAPlace(0))
+    (got,) = exe2.run_repeated(main, feed=window, fetch_list=[loss],
+                               scope=other, steps=3, feed_stacked=stacked,
+                               reduce_fetches=reduce, return_numpy=False)
+    want = {"last": losses[2], "sum": losses[0] + losses[1] + losses[2],
+            "mean": (losses[0] + losses[1] + losses[2]) / 3}[reduce]
+    assert torch.equal(got, want), (got, want)
+    got_p, want_p = _params(main, other), _params(main, scope)
+    for n in got_p:
+        assert torch.equal(got_p[n], want_p[n]), n
+    assert torch.equal(other.find_var("@RNG_STATE@").get_state(),
+                       scope.find_var("@RNG_STATE@").get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_cuda_predictor_replays_equal_eager_answers(cuda_device, monkeypatch,
+                                                    tmp_path, amp):
+    """The Predictor captures each warm-up bucket at load; its answers
+    (replays) equal, bit for bit, the plan's eager step on the same
+    padded feeds."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        tbert.build(CFG, seq_len=S, is_test=True)
+    if amp:
+        main.set_amp(True)
+    gather = next(op for op in main.global_block().ops
+                  if op.type == "gather")
+    out = next(op for op in main.global_block().ops
+               if op.type == "reshape2" and
+               gather.input("X")[0] in op.output("Out")).input("X")[0]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    names = ["src_ids", "sent_ids", "input_mask"]
+    with pt.scope_guard(scope):
+        exe.run(startup)
+        pt.io.save_inference_model(str(tmp_path), names,
+                                   [main.global_block().var(out)], exe,
+                                   main_program=main)
+    config = pt.inference.AnalysisConfig(str(tmp_path))
+    config.warmup_batch_sizes = [1, 4]
+    pred = pt.inference.create_paddle_predictor(config)
+    graphs = [p.graph for p in pred._exe._cache.values()]
+    assert len(graphs) == 2 and all(g is not None for g in graphs)
+    for b, bucket in ((1, 1), (3, 4)):
+        feed = {k: v[:b] for k, v in _feed(np.random.RandomState(b)).items()
+                if k in names}
+        (got,) = pred.run(feed)
+        padded = {k: np.concatenate([v, np.zeros((bucket - b,) + v.shape[1:],
+                                                  v.dtype)])
+                  for k, v in feed.items()}
+        (want,) = pred._exe._run_eager(pred.program, feed=padded,
+                                       fetch_list=pred.fetch_names,
+                                       scope=pred.scope)
+        np.testing.assert_array_equal(got, want[:b])

@@ -42,6 +42,11 @@ def register_shape_rule(*op_types: str):
 
 '''
 
+with open(os.path.join(ROOT, "paddle_tpu", "flags.py")) as _f:
+    _ORIGINAL_FLAGS_TAIL = _f.read()
+_ORIGINAL_FLAGS_TAIL = _ORIGINAL_FLAGS_TAIL[
+    _ORIGINAL_FLAGS_TAIL.index("\n\ndef enable_compile_cache("):]
+
 COPIES = {
     "analysis/dataflow.py": [],
     "analysis/infer.py": [],
@@ -79,6 +84,12 @@ COPIES = {
     "core/passes/quantize_pass.py": [],
     "core/program.py": [],
     "core/scope.py": [],
+    # the port has no JAX compilation cache to switch on, and its inert
+    # flags are subsumed by PyTorch's caching allocator, not XLA
+    "flags.py": [
+        ('_SUBSUMED = "inert under XLA (kept for API compatibility)"',
+         '_SUBSUMED = "inert in the port (kept for API compatibility)"'),
+        (_ORIGINAL_FLAGS_TAIL, "")],
     "core/registry.py": [],
     "kernels/registry.py": [],
     "observe/families.py": [],
