@@ -87,7 +87,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    counts are read);
 6. train: BERT-base masked-LM (S = 512, 80 masked slots, batch 8,
    dropout 0.1, f32) built with the port's layers, ``Adam.minimize``,
-   startup on the card, 2 warm-up and 10 timed steps on fixed synthetic
+   startup on the card, 2 warm-up and 6 timed steps on fixed synthetic
    batches, at level 2: 25 ``fused_layernorm_residual`` ops and one
    ``fused_optimizer_update`` over the 157 params. Every step launches
    the flash forward kernel 24 times, each flash backward kernel 12
@@ -98,8 +98,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    agree on the first step's param grads and on the losses and params
    of 3 steps within the stated tolerances; from the second step on,
    every entry of the Adam group takes K6's 16-byte path (counted); the
-   step time (10 pairs) and the host's time by op class (the median of 3
-   pairs) at level 2 and at level 0, in turns; one more step is
+   step time (4 pairs) and the host's time by op class (one pair) at
+   level 2 and at level 0, in turns; one more step is
    profiled, with K4's and K6's device time in it;
 6b. train AMP: the same model and batches with ``Adam`` wrapped in
    ``contrib.mixed_precision.decorate`` (bf16 AMP), level 2: every step
@@ -112,7 +112,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
 6c. compiled training (after phase 6, and after 6b under AMP): from
    phase 6's (6b's) snapshot, steps replayed from the plan's CUDA graph
    (the first one captures it anew, on its own scope) against the
-   plan's eager step on a second scope, in turns (6 pairs after that
+   plan's eager step on a second scope, in turns (4 pairs after that
    first pair): every loss and the final params bitwise equal, the step
    medians and tokens/s, the busy share of a profiled replayed and eager
    step, the launches the card runs in each (equal; launch meter), the capture
@@ -124,6 +124,35 @@ Phases, each of which passes or ends the script with a non-zero exit:
    scope for PLAN_ROUNDS rounds, each run bitwise equal to its eager
    step, no state copied in on switching, the three graphs' one pool
    against 6c's, a round's peak memory and the replayed steps' times;
+6e. the step loop (after 6d, f32): BERT-base under BERT pre-training's
+   learning-rate schedule (a linear warm-up around a polynomial decay
+   to 0, the rate computed inside the graph each step) from phase 6's
+   snapshot, trained by ``Executor.train_loop`` over a reader of host
+   numpy batches (a fresh copy each step) at K = 1 and K = 4 steps per
+   call, max_in_flight 2 and prefetch depth 2: losses, rates and params
+   bitwise those of ``run`` in a loop over the same batches (10 steps;
+   at K = 4 two windows and a ragged tail of 2), the launches the card
+   ran (24 / 12 / 12 / 25 / 1 a step), the rate of every step against
+   its closed form; then the steady-state step time, tokens/s and busy
+   share of the run loop, K = 1 and K = 4 on the device clock (between
+   the K6 launches ending the 2nd and the 8th step of a profiled window
+   of each), their times on the host clock over blocks of 4 steps in
+   turns, ``paddle_pipeline_overlap_ratio``, peak memory, and
+   the split of the host's work between two replays of ``run`` (feed
+   conversion and copies, re-seeding the generators, ``state_changes``,
+   the fetches' copy, the rest);
+6f. the same under bf16 AMP, from phase 6b's snapshot (the schedule's
+   scale and min ops run bf16, the JAX package's policy, so the rate is
+   held against its closed form at 2e-2);
+6g. recompute: BERT-base with ``RecomputeOptimizer`` (Adam, a checkpoint
+   per encoder layer) from phase 6's snapshot, 3 steps replayed (the
+   first eager, the second captures) against the plan's eager step on a
+   second scope, bitwise, with the launches each step ran on the card
+   (the flash kernels as in phase 6: each segment's forward runs again
+   in its grad; no K4, since level 2 fuses nothing inside a segment);
+   losses and params against phase 6's main path within its parity
+   tolerances; peak memory of an eager and a replayed step beside
+   phase 6c's;
 7. train with SGD: the same model with ``SGD.minimize``, 3 steps at
    level 2 (K4 25 times and K7 once per step, counted), losses finite,
    and 3 steps at level 0 from the same scope within phase 6's bounds;
@@ -180,16 +209,32 @@ BWD_TOL = {torch.float32: 5e-5, torch.bfloat16: 2e-2}
 TRAIN_BATCH = 8
 MAX_MASK = 80          # BERT phase-2 max_predictions_per_seq
 TRAIN_LR = 1e-4
-WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 10, 3
+WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS = 2, 6, 3
 # training steps at level 2 and at level 0, in turns: for the step time,
 # and for the host's time by op class (a timer around every op)
-TURN_PAIRS, HOST_PAIRS = 10, 3
+TURN_PAIRS, HOST_PAIRS = 4, 1
 # replayed against eager, in turns: requests per batch size (phase 4c)
 # and steps after the first pair (phase 6c)
-COMPILED_PAIRS, TRAIN_COMPILED_PAIRS = 10, 6
+COMPILED_PAIRS, TRAIN_COMPILED_PAIRS = 10, 4
 # three training plans of one executor in turns (phase 6d): rounds (the
 # first runs each eagerly, the second captures each)
-PLAN_ROUNDS = 4
+PLAN_ROUNDS = 3
+# the step loop (phases 6e / 6f): steps held bitwise against the run loop
+# (at K = 4 two windows and a ragged tail of 2), steps a block in the
+# timed turns, steps in a profiled window (two windows of 4 at K = 4),
+# replays the host's work is split over
+LOOP_STEPS, LOOP_TIMED, PROFILED_STEPS, HOST_GAP_REPLAYS = 10, 4, 8, 10
+# BERT pre-training's schedule, in the step counter's units (a warm-up
+# around a decay advances the counter twice a step, ``_scheduled_rate``):
+# linear warm-up to TRAIN_LR over SCHED_WARMUP, then a linear decay to 0
+# at SCHED_DECAY. The rate against its closed form: f32 ops at a relative
+# 1e-6; under AMP the schedule's scale and min ops run bf16 (the JAX
+# package's policy tables), each rounding to 8 bits, so 2e-2
+SCHED_WARMUP, SCHED_DECAY = 6, 60
+SCHED_RTOL = {False: 1e-6, True: 2e-2}
+# recompute (phase 6g): steps (the first eager, the second captures), as
+# many as phase 6's parity steps it is held against
+RECOMPUTE_STEPS = 3
 # flash vs composed training from one scope. The first step's param
 # grads: the l2 norm of each one's difference within PARITY_GRAD_L2 of
 # its own l2 norm. The two forwards differ by rounding, and where that
@@ -1459,6 +1504,29 @@ def _profiled(fn):
     return _device_breakdown(*device_events(fn))
 
 
+def _steady_profile(fn):
+    """``_profiled`` over a loop of training steps, with its steady
+    state on the device clock: ``step_ms``, the time from the K6 launch
+    that ends the loop's second step to the one that ends its last, over
+    the steps between, and ``steady_busy_share``, the device's busy
+    share in that interval (the loop's start and drain left out)."""
+    events, wall_us = device_events(fn)
+    out = _device_breakdown(events, wall_us)
+    marks = sorted(e.time_range.start for e in events
+                   if "adam_group" in e.name)
+    t0, t1 = marks[1], marks[-1]
+    busy, end = 0.0, t0
+    for s0, s1 in sorted((max(e.time_range.start, t0),
+                          min(e.time_range.end, t1)) for e in events):
+        if s1 <= end:
+            continue
+        busy += s1 - max(s0, end)
+        end = s1
+    out["step_ms"] = (t1 - t0) / (len(marks) - 2) / 1e3
+    out["steady_busy_share"] = busy / (t1 - t0)
+    return out
+
+
 def phase_profile(pred, reqs):
     """One profiled request per batch size: the device's busy share and
     its time by kernel class and by kernel."""
@@ -2234,6 +2302,9 @@ def phase_train(seed):
         "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"}, (3, 4, 5))})
     parity = {name: _parity(paths["main"], paths[name], params)
               for name in ("composed attention", "level 0")}
+    # phase 6g holds recompute's steps against the main path's
+    main_path = (paths["main"][0],
+                 {n: v.cpu() for n, v in paths["main"][2].items()})
     del paths
     for name, p in parity.items():
         _check_parity("main path vs %s" % name, p)
@@ -2283,7 +2354,9 @@ def phase_train(seed):
                 host_level0=host0,
                 step_ms_in_turns={"level 2": turn2, "level 0": turn0},
                 profile=prof, k4_ms=k4_ms, k6_ms=k6_ms,
-                adam_vector_entries=vector, compiled=compiled)
+                adam_vector_entries=vector, compiled=compiled,
+                per_step=per_step, snapshot=snap, main_path=main_path,
+                batches=batches)
 
 
 # --------------------------------------------------------------- phase 6b
@@ -2433,7 +2506,408 @@ def phase_train_amp(seed, f32):
                 bf16_grads=sum(grad_bf16), peak_mem_mib=peak_mb,
                 parity=dict(steps=PARITY_STEPS, **p),
                 step_ms_in_turns={"level 2": turn2, "level 0": turn0},
-                profile=prof, compiled=compiled)
+                profile=prof, compiled=compiled, per_step=per_step,
+                snapshot=snap)
+
+
+# ------------------------------------------------------------ phases 6e-6g
+def _scheduled_program(amp=False, recompute=False):
+    """BERT-base MLM with Adam under BERT pre-training's schedule (a
+    linear warm-up around a polynomial decay to 0; under bf16 AMP with
+    ``amp``), or with a constant rate and ``RecomputeOptimizer`` (a
+    checkpoint per encoder layer) with ``recompute``: (main, startup,
+    loss, the rate's var, params_grads)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ckpts = [] if recompute else None
+        loss, _ = bert.build(bert.base_config(), seq_len=SEQ,
+                             max_mask=MAX_MASK, checkpoints=ckpts)
+        lr = TRAIN_LR
+        if not recompute:
+            lr = fluid.layers.linear_lr_warmup(
+                fluid.layers.polynomial_decay(TRAIN_LR, SCHED_DECAY, 0.0,
+                                              1.0),
+                SCHED_WARMUP, 0.0, TRAIN_LR)
+        opt = fluid.optimizer.Adam(learning_rate=lr)
+        if amp:
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(ckpts)
+        _, params_grads = opt.minimize(loss)
+    return main, startup, loss, lr, params_grads
+
+
+def _scheduled_rate(step):
+    """The closed form of ``_scheduled_program``'s rate at ``step`` (0 the
+    first). Each of the JAX package's schedules appends its own
+    ``increment`` of the one step counter (the port's copy too), so a
+    warm-up around a decay advances it twice a step: the decay reads
+    2 * step + 1, the warm-up 2 * step + 2."""
+    warm = 2 * step + 2
+    if warm < SCHED_WARMUP:
+        return TRAIN_LR * warm / SCHED_WARMUP
+    return TRAIN_LR * (1.0 - min(2 * step + 1, SCHED_DECAY) / SCHED_DECAY)
+
+
+def _started_from(exe, startup, snap):
+    """A started scope of ``startup`` whose vars that ``snap`` names take
+    the snapshot's values (an earlier phase's weights, moments and RNG
+    chain): a snapshot of its own."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    taken = 0
+    for n in scope.local_var_names():
+        if n in snap:
+            scope.set_var(n, _copied(snap[n]))
+            taken += 1
+    return _snapshot(scope), taken
+
+
+def _fresh(batches, n):
+    """A reader of ``n`` host batches, each a fresh copy (as a data
+    loader hands them over: no array repeats, so no const-feed dedup)."""
+    return lambda: ({k: v.copy() for k, v in batches[i % len(batches)]
+                     .items()} for i in range(n))
+
+
+def _host_gap_split(exe, main, fetch_list, scope, batches):
+    """Phase 6e / 6f's split of the host's work between two replays of
+    ``Executor.run``, on ``scope`` (whose plan holds a graph): each part
+    timed on the host clock over HOST_GAP_REPLAYS replays, the card idle
+    at the start of each: the feeds' conversion and copy to the card
+    (``_args``) and into the graph's static buffers, re-seeding the
+    graph's generators, ``state_changes`` over the scope, and the
+    fetches' copy to the host once the card is done; "plan" is the plan
+    lookup (its cache key), and "launch" the graph's launch with the
+    scope's write-back."""
+    from paddle_tpu_torch.core.cuda_graph import slot_seeds, state_changes
+    from paddle_tpu_torch.core.executor import (RNG_VAR, _chain, _require,
+                                                to_numpy)
+
+    parts = {k: [] for k in ("feeds", "plan", "state", "seeds", "launch",
+                             "fetch")}
+    for i in range(HOST_GAP_REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program, sc, feeds, names = exe._args(
+            main, batches[i % len(batches)], fetch_list, scope)
+        t1 = time.perf_counter()
+        plan = exe._plan(program, feeds, names, sc)
+        graph = plan.graph
+        t2 = time.perf_counter()
+        state = {n: _require(sc, n)
+                 for n in plan.const_state + plan.mut_state}
+        copy, recapture = state_changes(graph.state, state)
+        t3 = time.perf_counter()
+        if copy or recapture:
+            raise AssertionError("host gap: the scope changed under the "
+                                 "graph: %s" % (copy + recapture)[:5])
+        for n, t in feeds.items():
+            graph.feeds[n].copy_(t)
+        t4 = time.perf_counter()
+        chain = _chain(sc, program) if plan.needs_rng else None
+        for g, seed in zip(graph.generators,
+                           slot_seeds(graph.slots, chain)):
+            g.manual_seed(seed)
+        t5 = time.perf_counter()
+        graph.graph.replay()
+        for n in plan.pure_written:
+            sc.set_var(n, graph.written[n])
+        if chain is not None:
+            sc.set_var(RNG_VAR, chain)
+        t6 = time.perf_counter()
+        torch.cuda.synchronize()
+        t7 = time.perf_counter()
+        [to_numpy(v) for v in graph.fetches]
+        t8 = time.perf_counter()
+        parts["feeds"].append((t1 - t0) + (t4 - t3))
+        parts["plan"].append(t2 - t1)
+        parts["state"].append(t3 - t2)
+        parts["seeds"].append(t5 - t4)
+        parts["launch"].append(t6 - t5)
+        parts["fetch"].append(t8 - t7)
+    med = {k: float(np.median(v)) * 1e3 for k, v in parts.items()}
+    med["total"] = sum(med.values())
+    med["generators"] = len(graph.generators)
+    med["state_vars"] = len(graph.state)
+    return med
+
+
+def _loop_values(exe, main, fetch_list, scope, reader, k):
+    """``train_loop`` at ``k`` steps per call (max_in_flight 2, prefetch
+    depth 2) over ``reader`` on ``scope``: {step index: fetched values}."""
+    seen = {}
+    exe.train_loop(main, reader, fetch_list=fetch_list, scope=scope,
+                   max_in_flight=2, prefetch_depth=2, steps_per_call=k,
+                   on_step=lambda i, v: seen.__setitem__(i, v))
+    return seen
+
+
+def phase_train_loop(what, seed, amp, snap, per_step):
+    """Phase 6e (f32) / 6f (AMP): BERT-base under the warm-up + decay
+    schedule, started from ``snap`` (phase 6's / 6b's weights), trained
+    through ``train_loop`` over a reader of host numpy batches at K = 1
+    and K = 4 (max_in_flight 2, prefetch depth 2): losses, rates and
+    params bitwise those of ``run`` in a loop over the same batches (a
+    ragged tail at K = 4), the rate per step against its closed form,
+    the launches the card ran (``per_step`` a step), then the step time
+    and tokens/s of each in turns, ``paddle_pipeline_overlap_ratio``,
+    the busy share of a profiled window of steps, the split of the
+    host's work between replays and peak memory."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import observe
+
+    main, startup, loss, lr, _ = _scheduled_program(amp)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    init, taken = _started_from(exe, startup, snap)
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [loss.name, lr.name], _restored(init))
+    if (tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            per_step[9 if amp else 3], [len(params)]):
+        raise AssertionError("%s: level 2 fused %d layer norms and "
+                             "optimizer groups %s" % (
+                                 what, tier["ln_residual_fused"],
+                                 tier["optimizer_groups"]))
+    fetch = [loss, lr]
+    rs = np.random.RandomState(seed + 6)
+    batches = [_train_batch(bert_cfg(), rs) for _ in range(4)]
+    n = LOOP_STEPS
+
+    # ---- the main path: counts zeroed here, read after the last step
+    _zero_counts()
+    scopes = {"run": _restored(init)}
+    with LaunchMeter() as meter:
+        meter.mark()
+        ref = {i: exe.run(main, feed=b, fetch_list=fetch,
+                          scope=scopes["run"])
+               for i, b in enumerate(_fresh(batches, n)())}
+        got = {}
+        for k in (1, 4):
+            scopes[k] = _restored(init)
+            meter.mark()
+            got[k] = _loop_values(exe, main, fetch, scopes[k],
+                                  _fresh(batches, n), k)
+    # ---- end of the main path
+    launches = meter.units
+    for unit in launches:
+        if unit != _times(per_step, n):
+            raise AssertionError("%s: the card ran %s = %s kernels in %d "
+                                 "steps, expected %s a step" % (
+                                     what, COUNT_NAMES, unit, n, per_step))
+    ends = {1: list(range(n)), 4: [3, 7] + list(range(8, n))}
+    for k in (1, 4):
+        if sorted(got[k]) != ends[k]:
+            raise AssertionError("%s K = %d resolved steps %s" % (
+                what, k, sorted(got[k])))
+        for i, vals in got[k].items():
+            if any(a.tobytes() != b.tobytes() for a, b in zip(vals, ref[i])):
+                raise AssertionError("%s K = %d step %d: %s against the run "
+                                     "loop's %s" % (what, k, i, vals,
+                                                    ref[i]))
+        if not all(torch.equal(scopes[k].find_var(p),
+                               scopes["run"].find_var(p)) for p in params):
+            raise AssertionError("%s K = %d: params differ from the run "
+                                 "loop's" % (what, k))
+    losses = [float(np.asarray(ref[i][0], "float32").reshape(()))
+              for i in range(n)]
+    rates = [float(np.asarray(ref[i][1], "float32").reshape(()))
+             for i in range(n)]
+    want = [_scheduled_rate(i) for i in range(n)]
+    rate_rel = max(abs(a - b) / b for a, b in zip(rates, want))
+    rate_tol = SCHED_RTOL[amp]
+    if rate_rel > rate_tol or not np.isfinite(losses).all():
+        raise AssertionError("%s: rates %s against the closed form %s "
+                             "(worst rel %.3e > %.0e) or losses %s" % (
+                                 what, rates, want, rate_rel, rate_tol,
+                                 losses))
+
+    # ---- step times on one scope (its graph captured above): blocks of
+    # LOOP_TIMED steps in turns on the host clock (each with its loop's
+    # start and drain), then a profiled window of PROFILED_STEPS steps of
+    # each, read on the device clock between the K6 launches that end
+    # its second and its last step (the steady state)
+    sc = scopes[4]
+
+    def run_loop(steps):
+        for b in _fresh(batches, steps)():
+            exe.run(main, feed=b, fetch_list=fetch, scope=sc)
+
+    def loop(k, steps):
+        exe.train_loop(main, _fresh(batches, steps), fetch_list=fetch,
+                       scope=sc, max_in_flight=2, prefetch_depth=2,
+                       steps_per_call=k)
+
+    def block(kind, steps):
+        return (run_loop(steps) if kind == "run" else loop(kind, steps))
+
+    times = {"run": [], 1: [], 4: []}
+    overlap = {1: [], 4: []}
+    for kind in ("run", 1, 4, 4, 1, "run"):
+        ms, _ = _timed(lambda: block(kind, LOOP_TIMED))
+        times[kind].append(ms / LOOP_TIMED)
+        if kind != "run":
+            overlap[kind].append(observe.get_metric(
+                "paddle_pipeline_overlap_ratio").value)
+    wall = {k: float(np.median(v)) for k, v in times.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop(1, LOOP_TIMED)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    prof = {kind: _steady_profile(lambda: block(kind, PROFILED_STEPS))
+            for kind in ("run", 1, 4)}
+    med = {k: r["step_ms"] for k, r in prof.items()}
+    split = _host_gap_split(exe, main, fetch, sc, batches)
+    tokens = {k: TRAIN_BATCH * SEQ / (v / 1e3) for k, v in med.items()}
+    for kind, r in prof.items():
+        _log_breakdown("%s %s, %d steps" % (
+            what, "run loop" if kind == "run" else "train_loop K = %d" % kind,
+            PROFILED_STEPS), r)
+    log("train %s: train_loop over a reader of host batches from phase "
+        "6's snapshot (%d vars taken), the warm-up + decay schedule: %d "
+        "steps at K = 1 and K = 4 (ragged tail %d) bitwise the run loop "
+        "(losses, rates, %d params); rates within %.2e of the closed form "
+        "(<= %.0e); launches %s = %s a step on the card"
+        % (what, taken, n, n % 4, len(params), rate_rel, rate_tol,
+           COUNT_NAMES, per_step))
+    log("train %s: the steady state on the device clock (steps 2 to %d of "
+        "a profiled window): run loop %.3f ms a step (%.1f tokens/s, busy "
+        "%.1f%%), train_loop K = 1 %.3f ms (%.1f, %.1f%%), K = 4 %.3f ms "
+        "(%.1f, %.1f%%); in turns over blocks of %d steps, each with its "
+        "loop's start and drain, on the host clock: %.3f / %.3f / %.3f ms "
+        "a step; overlap ratio K = 1 %s, K = 4 %s; the whole profiled "
+        "windows busy %.1f%% / %.1f%% / %.1f%%; peak memory %.1f MiB" % (
+            what, PROFILED_STEPS, med["run"], tokens["run"],
+            100 * prof["run"]["steady_busy_share"], med[1], tokens[1],
+            100 * prof[1]["steady_busy_share"], med[4], tokens[4],
+            100 * prof[4]["steady_busy_share"], LOOP_TIMED, wall["run"],
+            wall[1], wall[4], ["%.3f" % v for v in overlap[1]],
+            ["%.3f" % v for v in overlap[4]],
+            100 * prof["run"]["busy_share"], 100 * prof[1]["busy_share"],
+            100 * prof[4]["busy_share"], peak))
+    log("train %s: the host between two replays of run (median of %d, ms): "
+        "feeds %.3f, plan lookup %.3f, state_changes over %d vars %.3f, "
+        "re-seeding %d generators %.3f, the graph's launch %.3f, fetch copy "
+        "%.3f; total %.3f" % (
+            what, HOST_GAP_REPLAYS, split["feeds"], split["plan"],
+            split["state_vars"], split["state"], split["generators"],
+            split["seeds"], split["launch"], split["fetch"],
+            split["total"]))
+    out = dict(steps=n, losses=losses, rates=rates, rates_closed_form=want,
+               rate_max_rel=rate_rel,
+               launches=dict(zip(COUNT_NAMES, _times(per_step,
+                                                     n * len(launches)))),
+               step_ms={str(k): v for k, v in med.items()},
+               wall_ms_per_step={str(k): v for k, v in times.items()},
+               tokens_per_s={str(k): v for k, v in tokens.items()},
+               overlap_ratio={str(k): v for k, v in overlap.items()},
+               profile={str(k): v for k, v in prof.items()},
+               host_gap_ms=split, peak_mem_mib=peak)
+    del scopes, sc
+    exe.close()
+    return out
+
+
+def phase_recompute(seed, f32):
+    """Phase 6g: BERT-base with ``RecomputeOptimizer`` (Adam, a
+    checkpoint per encoder layer), level 2, from phase 6's snapshot:
+    RECOMPUTE_STEPS steps replayed (the first eager, the second
+    captures) against the plan's eager step on a second scope, losses
+    and params bitwise, the launches the card ran each step, the losses
+    and params against phase 6's main path within its parity
+    tolerances, and peak memory of an eager and a replayed step beside
+    phase 6c's."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss, _, _ = _scheduled_program(recompute=True)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    init, taken = _started_from(exe, startup, f32["snapshot"])
+    ops = [op.type for op in main.global_block().ops]
+    tier = _tier_stats(main, [loss.name], _restored(init))
+    cfg = bert_cfg()
+    per_step = (2 * cfg["n_layer"], cfg["n_layer"], cfg["n_layer"],
+                tier["ln_residual_fused"], len(tier["optimizer_groups"]),
+                0, 0, 0, 0, 0)
+    params = [p.name for p in main.global_block().all_parameters()]
+    batches = f32["batches"]
+
+    def step(sc, feed, eager=False):
+        vals = (exe._run_eager if eager else exe.run)(
+            main, feed=feed, fetch_list=[loss], scope=sc)
+        torch.cuda.synchronize()
+        return float(np.asarray(vals[0]).reshape(()))
+
+    # ---- the main path: counts zeroed here, read after the last step
+    _zero_counts()
+    scope_r, scope_e = _restored(init), _restored(init)
+    losses, launches, ms = [], [], []
+    for i in range(RECOMPUTE_STEPS):
+        b = batches[i % len(batches)]
+        t0 = time.perf_counter()
+        with LaunchMeter() as meter:
+            meter.mark()
+            l_r = step(scope_r, b)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(meter.units[0])
+        losses.append((l_r, step(scope_e, b, eager=True)))
+    # ---- end of the main path
+    for i, unit in enumerate(launches):
+        if unit != per_step:
+            raise AssertionError("recompute step %d ran %s = %s kernels on "
+                                 "the card, expected %s" % (
+                                     i, COUNT_NAMES, unit, per_step))
+    bitwise = all(a == b for a, b in losses) and all(
+        torch.equal(scope_r.find_var(p), scope_e.find_var(p))
+        for p in params)
+    if not bitwise:
+        raise AssertionError("recompute: replayed steps differ from the "
+                             "eager step: %s" % losses)
+    ref_losses, ref_params = f32["main_path"]
+    n = min(len(ref_losses), RECOMPUTE_STEPS)
+    loss_rel = max(abs(a - b) / abs(b) for (a, _), b in
+                   zip(losses[:n], ref_losses[:n]))
+    param_diff = max(float((scope_r.find_var(p).cpu()
+                            - ref_params[p]).abs().max()) for p in params)
+    if n != PARITY_STEPS or loss_rel > PARITY_LOSS_RTOL or \
+            param_diff > PARITY_PARAM_ATOL:
+        raise AssertionError("recompute against phase 6 over %d steps: "
+                             "loss rel %.3e, param max |diff| %.3e" % (
+                                 n, loss_rel, param_diff))
+    peaks = []
+    for eager in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(scope_e if eager else scope_r, batches[0], eager=eager)
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 20)
+    plain = f32["compiled"]["peak_mem_mib"]
+    log("train recompute (6g): %d recompute_block ops (%d vars from phase "
+        "6's snapshot); level 2 fused %d layer norms and optimizer groups "
+        "of %s params (params read inside a segment stay unfused); %d "
+        "steps (%s ms) bitwise the eager step; launches %s = %s a step on "
+        "the card; against phase 6 over %d steps loss rel %.3e (<= %.0e), "
+        "param max |diff| %.3e (<= %.0e); peak memory eager %.1f MiB "
+        "(phase 6c %.1f), replayed %.1f (6c %.1f)" % (
+            ops.count("recompute_block"), taken, tier["ln_residual_fused"],
+            tier["optimizer_groups"], RECOMPUTE_STEPS,
+            ["%.1f" % v for v in ms], COUNT_NAMES, per_step, n, loss_rel,
+            PARITY_LOSS_RTOL, param_diff, PARITY_PARAM_ATOL, peaks[0],
+            plain["eager"], peaks[1], plain["replay"]))
+    out = dict(recompute_blocks=ops.count("recompute_block"), tier=tier,
+               losses=losses, step_ms=ms,
+               launches=dict(zip(COUNT_NAMES, _times(per_step,
+                                                     RECOMPUTE_STEPS))),
+               per_step=dict(zip(COUNT_NAMES, per_step)),
+               loss_rel=loss_rel, param_max_abs=param_diff,
+               peak_mem_mib=dict(eager=peaks[0], replay=peaks[1]),
+               plain_peak_mem_mib=plain)
+    del scope_r, scope_e
+    exe.close()
+    return out
 
 
 # --------------------------------------------------------------- phase 4b
@@ -2691,6 +3165,17 @@ def main():
     torch.cuda.empty_cache()
     train_amp = timed("6b + 6c AMP", phase_train_amp, args.seed, train)
     torch.cuda.empty_cache()
+    train_loop = timed("6e", phase_train_loop, "f32 (6e)", args.seed, False,
+                       train["snapshot"], train.pop("per_step"))
+    torch.cuda.empty_cache()
+    train_loop_amp = timed("6f", phase_train_loop, "AMP (6f)", args.seed,
+                           True, train_amp.pop("snapshot"),
+                           train_amp.pop("per_step"))
+    torch.cuda.empty_cache()
+    recompute = timed("6g", phase_recompute, args.seed, train)
+    for k in ("snapshot", "main_path", "batches"):
+        train.pop(k)
+    torch.cuda.empty_cache()
     train_sgd = timed("7", phase_train_sgd, args.seed)
     torch.cuda.empty_cache()
     train_sgd_amp = timed("7b", phase_train_sgd_amp, args.seed)
@@ -2711,19 +3196,30 @@ def main():
     t_launch, s_launch = train["launches"], train_sgd["launches"]
     a_launch, as_launch = train_amp["launches"], train_sgd_amp["launches"]
     sa_launch = serve_amp["launches"]
+    l_launch, la_launch = train_loop["launches"], train_loop_amp["launches"]
+    r_launch = recompute["launches"]
     by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
     k1 = by_path(serve=serve["launches"]["flash fwd"],
                  train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
                  train_amp=a_launch["flash fwd"],
-                 train_sgd_amp=as_launch["flash fwd"])
+                 train_sgd_amp=as_launch["flash fwd"],
+                 train_loop=l_launch["flash fwd"],
+                 train_loop_amp=la_launch["flash fwd"],
+                 recompute=r_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
-                      train_sgd_amp=as_launch[c])
+                      train_sgd_amp=as_launch[c], train_loop=l_launch[c],
+                      train_loop_amp=la_launch[c], recompute=r_launch[c])
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
                  train_amp=a_launch["K4 AMP"],
-                 train_sgd_amp=as_launch["K4 AMP"])
-    k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"])
+                 train_sgd_amp=as_launch["K4 AMP"],
+                 train_loop=l_launch["K4"],
+                 train_loop_amp=la_launch["K4 AMP"],
+                 recompute=r_launch["K4"])
+    k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
+                 train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
+                 recompute=r_launch["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -2800,7 +3296,10 @@ def main():
                            serve=serve, profile=profile,
                            serve_amp=serve_amp, train=train,
                            train_amp=train_amp, train_sgd=train_sgd,
-                           train_sgd_amp=train_sgd_amp, kernels=kernels,
+                           train_sgd_amp=train_sgd_amp,
+                           train_loop=train_loop,
+                           train_loop_amp=train_loop_amp,
+                           recompute=recompute, kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ become hand-written CUDA kernels for Hopper (csrc/, built with nvcc at
 first use). ``optimizer.Adam(...).minimize(loss)`` appends the backward
 and the updates, and ``Executor.run`` trains; wrapped in
 ``contrib.mixed_precision.decorate``, it trains under bf16 AMP
-(core/amp.py). Entry points run on the card unless the caller passes
+(core/amp.py). ``Executor.train_loop`` / ``run_pipelined`` drive the
+steps over a reader with a ``DevicePrefetcher`` (core/pipeline.py).
+Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
 Import as ``import paddle_tpu_torch as fluid``.
@@ -15,9 +17,12 @@ Import as ``import paddle_tpu_torch as fluid``.
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
 from . import (clip, contrib, convert, core, flags,  # noqa: F401
-               inference, initializer, io, layers, models, optimizer,
-               regularizer)
+               inference, initializer, io, layers, learning_rate_decay,
+               models, optimizer, reader, regularizer)
 from .core.executor import Executor  # noqa: F401
+from .core.pipeline import (ConstFeedCache, DevicePrefetcher,  # noqa: F401
+                            FetchHandle, WindowFeed)
+from .reader import batch  # noqa: F401  (paddle.batch top-level parity)
 from .flags import get_flag, set_flag  # noqa: F401
 from .core.place import CPUPlace, CUDAPlace  # noqa: F401
 from .core.program import (  # noqa: F401

@@ -36,7 +36,11 @@ reads fixed addresses, which the port keeps so:
   registered with the graph before capture; before each replay every
   generator is re-seeded from the scope's chain (``draw_seed``, in
   program order, as the eager step draws) or with its op's fixed seed,
-  so a replay draws the eager step's masks.
+  so a replay draws the eager step's masks. A recompute segment's grad
+  re-runs its forward's random ops on generators of their own, each
+  re-seeded with the seed its forward slot took in the same replay
+  (slot kind ``("same", i)``), so the recomputed masks are the
+  forward's.
 - **K6/K7's pointer table** is built once, at capture, and kept on the
   card by the graph (``keep_table``), in a buffer made before the
   capture: a pinned host buffer would be freed while replays still read
@@ -75,9 +79,32 @@ import torch
 
 from .lowering import draw_seed, seeded_generator
 
-__all__ = ["StepGraph", "StepTrace", "state_changes"]
+__all__ = ["StepGraph", "StepTrace", "slot_seeds", "state_changes"]
 
-CHAIN = None  # a random op whose seed comes from the chain (else: its seed)
+CHAIN = None  # a random op whose seed comes from the chain (else: its
+#               seed, or ("same", i): the seed slot i took in this step)
+
+
+def _kind(slot) -> str:
+    if slot is CHAIN:
+        return "from the chain"
+    if isinstance(slot, tuple):
+        return "slot %d's seed again" % slot[1]
+    return "seed %d" % slot
+
+
+def slot_seeds(slots, chain) -> List[int]:
+    """Each slot's seed for one step, in program order: chain draws from
+    ``chain``, fixed seeds, and a ``("same", i)`` slot slot i's seed."""
+    seeds: List[int] = []
+    for slot in slots:
+        if slot is CHAIN:
+            seeds.append(draw_seed(chain))
+        elif isinstance(slot, tuple):
+            seeds.append(seeds[slot[1]])
+        else:
+            seeds.append(slot)
+    return seeds
 
 
 class StepTrace:
@@ -94,17 +121,30 @@ class StepTrace:
     donated: Dict[str, torch.Tensor] = {}  # nothing is updated in place
 
     def __init__(self):
-        self.slots: List[Optional[int]] = []
+        self.slots: List[Any] = []
+        self.seeds: List[int] = []  # each slot's seed in this eager run
         self.constants: List[Tuple[Tuple[int, ...], torch.dtype]] = []
         self.pure: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
 
+    def _generator(self, slot, seed, device):
+        self.slots.append(slot)
+        self.seeds.append(seed)
+        return seeded_generator(seed, device)
+
     def chain_generator(self, chain, device):
-        self.slots.append(CHAIN)
-        return seeded_generator(draw_seed(chain), device)
+        return self._generator(CHAIN, draw_seed(chain), device)
 
     def fixed_generator(self, seed, device):
-        self.slots.append(seed)
-        return seeded_generator(seed, device)
+        return self._generator(seed, seed, device)
+
+    def last_stream(self) -> int:
+        """The token of the generator handed out last: its slot."""
+        return len(self.slots) - 1
+
+    def same_generator(self, token, device):
+        """A generator seeded as slot ``token``'s (a recompute segment's
+        re-run of a random op its forward ran)."""
+        return self._generator(("same", token), self.seeds[token], device)
 
     def constant(self, host: torch.Tensor, device) -> torch.Tensor:
         self.constants.append((tuple(host.shape), host.dtype))
@@ -188,7 +228,10 @@ class StepGraph:
         torch.cuda.synchronize(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream), torch.no_grad():
-            self.graph.capture_begin(pool=pool)
+            # thread_local: a DevicePrefetcher's fill thread may allocate
+            # and copy on its own stream while this thread captures
+            self.graph.capture_begin(pool=pool,
+                                     capture_error_mode="thread_local")
             try:
                 # the chain is not drawn at capture: each replay draws
                 fetches, written = step(self.feeds, self.state,
@@ -233,11 +276,8 @@ class StepGraph:
         if i >= len(self.slots) or self.slots[i] != kind:
             raise RuntimeError(
                 "random op %d draws %s under capture, %s in the eager run"
-                % (i, "from the chain" if kind is CHAIN else
-                   "seed %d" % kind,
-                   "nothing" if i >= len(self.slots) else
-                   "from the chain" if self.slots[i] is CHAIN else
-                   "seed %d" % self.slots[i]))
+                % (i, _kind(kind), "nothing" if i >= len(self.slots)
+                   else _kind(self.slots[i])))
         self._next_slot += 1
         return self.generators[i]
 
@@ -246,6 +286,12 @@ class StepGraph:
 
     def fixed_generator(self, seed, device):
         return self._slot(seed)
+
+    def last_stream(self) -> int:
+        return self._next_slot - 1
+
+    def same_generator(self, token, device):
+        return self._slot(("same", token))
 
     def constant(self, host: torch.Tensor, device) -> torch.Tensor:
         """A host tensor's value on the card for the graph's life (an
@@ -315,12 +361,12 @@ class StepGraph:
     def replay(self, feeds: Dict[str, torch.Tensor],
                chain: Optional[torch.Generator]) -> None:
         """One step: the feeds into the static buffers, every generator
-        re-seeded (chain draws in program order), the graph launched on
-        the current stream."""
+        re-seeded (``slot_seeds``: chain draws in program order), the
+        graph launched on the current stream."""
         for n, t in feeds.items():
             self.feeds[n].copy_(t)
-        for g, slot in zip(self.generators, self.slots):
-            g.manual_seed(draw_seed(chain) if slot is CHAIN else slot)
+        for g, seed in zip(self.generators, slot_seeds(self.slots, chain)):
+            g.manual_seed(seed)
         self.graph.replay()
 
     def release(self) -> None:

@@ -38,18 +38,30 @@ graphs of one executor share one memory pool (core/cuda_graph.py).
 host sync between them), identical to K ``run`` calls. With
 ``FLAGS_check_nan_inf`` (flags.py) a fetched float value that is not
 finite raises ``FloatingPointError``.
+
+``run_pipelined`` and ``train_loop`` drive the same steps over a reader
+(core/pipeline.py): a ``DevicePrefetcher`` copies batches to the card
+on its own thread and stream, each step (or each window of K steps,
+``steps_per_call``, core/window_tune.py) is enqueued without waiting for
+the card, and its fetches come back as ``FetchHandle``s copied on the
+compute stream; nothing waits for the card but a handle's ``wait`` and
+the cap of ``max_in_flight`` unresolved handles. So the host's work for
+step N+1 runs under step N's graph, and the values are bitwise those of
+``run`` called once per batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..observe import trace as _tr
 from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
                        release_schedule)
@@ -58,8 +70,9 @@ from .program import Program, Variable, default_main_program, op_effects
 from .registry import get_op, has_op
 from .scope import Scope, global_scope
 
-__all__ = ["Executor", "analyze_block", "feed_to_device", "to_numpy",
-           "unstack_singleton_feed", "validate_stacked_feeds"]
+__all__ = ["Executor", "add_feed_observer", "analyze_block",
+           "feed_to_device", "feeds_to_device", "remove_feed_observer",
+           "to_numpy", "unstack_singleton_feed", "validate_stacked_feeds"]
 
 RNG_VAR = "@RNG_STATE@"
 
@@ -201,6 +214,367 @@ class Executor:
         fetches, _ = self._step(plan, program, feeds, scope, eager=True)
         return self._finish(plan, fetches, return_numpy, "")
 
+    # -------------------------------------------------------- pipelined
+    def run_pipelined(
+        self,
+        program: Optional[Program] = None,
+        reader=None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+        max_in_flight: int = 2,
+        prefetch_depth: Optional[int] = None,
+        return_numpy: bool = True,
+        const_feed_names: Sequence[str] = (),
+        const_dedup: Optional[bool] = None,
+        steps_per_call: Optional[int] = None,
+        reduce_fetches: str = "last",
+    ):
+        """Overlapped step loop: a generator of ``FetchHandle``s.
+
+        ``reader`` yields feed dicts (a zero-arg callable returning an
+        iterable, an iterable, or an already-constructed
+        ``DevicePrefetcher``). A background thread converts each batch
+        and copies it to this executor's device (``prefetch_depth``
+        batches ahead; on the card in pinned memory on its own stream),
+        so the loop receives feeds already on the device; each step is
+        enqueued without waiting for its results, so step N+1's host
+        work (and its batch's copy) runs under step N's CUDA graph. The
+        in-flight window (``max_in_flight``) bounds dispatched but
+        unresolved steps: before dispatching past the cap, the OLDEST
+        handle is waited on.
+
+        Semantics are identical to calling ``run`` once per batch —
+        state and the RNG chain advance the same way, fetch values are
+        bitwise the same. Feeds repeated across steps (same ndarray
+        object, or names in ``const_feed_names``) skip the copy through
+        the const-feed dedup cache (``ConstFeedCache``). Pass
+        ``const_dedup=False`` when the reader refills ONE preallocated
+        ndarray in place each step.
+
+        ``steps_per_call=K > 1``: the prefetch thread stacks K host
+        batches (``reader.stack_feed_window``'s layout) into one
+        ``WindowFeed`` with one copy per feed per window, and the loop
+        runs them as ``run_repeated``'s K steps — K replays with no host
+        sync between them (``prefetch_depth`` then counts windows). A
+        caller-constructed ``DevicePrefetcher`` hands over per-step
+        feeds, so the loop windows them with ``torch.stack``. Each
+        window yields ONE handle whose values follow ``reduce_fetches``
+        ("last" / "mean" / "sum" over the window's float fetches) and
+        whose ``step`` is the window's LAST step index. A ragged window
+        (reader ran dry, or a batch's shapes broke the window in
+        progress) runs through the per-step path. ``steps_per_call=None``
+        resolves automatically: ``PADDLE_TPU_STEPS_PER_CALL`` if set,
+        else the tuned ``train_window`` winner for this (program, batch
+        shape) when one exists (``core.window_tune``), else 1.
+
+        Abandoning the generator (break / close) stops the prefetch
+        thread and drains in-flight work.
+        """
+        from .pipeline import DevicePrefetcher
+
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        if reader is None:
+            raise ValueError("run_pipelined needs a reader of feed dicts")
+        if max_in_flight < 1:
+            raise ValueError("max_in_flight must be >= 1, got %d"
+                             % max_in_flight)
+        _check_reduce(reduce_fetches)
+        if steps_per_call is not None and int(steps_per_call) < 1:
+            raise ValueError("steps_per_call must be >= 1, got %r"
+                             % (steps_per_call,))
+        if steps_per_call is None:
+            # a malformed PADDLE_TPU_STEPS_PER_CALL raises HERE, with the
+            # other argument validation, not from the fill thread
+            from .window_tune import env_steps_per_call
+            env_steps_per_call()
+        require_device(self.device)
+        if isinstance(reader, DevicePrefetcher):
+            prefetcher = reader
+            if prefetcher._closed:
+                raise RuntimeError(
+                    "DevicePrefetcher is single-use: it was already closed "
+                    "or fully consumed; construct a new one per epoch")
+            if prefetch_depth is not None \
+                    and prefetch_depth != prefetcher._depth:
+                raise ValueError(
+                    "prefetch_depth=%d conflicts with the already-"
+                    "constructed DevicePrefetcher(depth=%d); set depth "
+                    "when constructing it" % (prefetch_depth,
+                                              prefetcher._depth))
+            if prefetcher._device != self.device:
+                raise ValueError(
+                    "DevicePrefetcher places feeds on %s but this "
+                    "executor's place is %s; construct the prefetcher "
+                    "with place=executor.place" % (prefetcher._device,
+                                                   self.device))
+            if const_dedup is not None \
+                    and const_dedup != prefetcher._dedup_unmarked:
+                raise ValueError(
+                    "const_dedup=%r conflicts with the already-"
+                    "constructed DevicePrefetcher(const_dedup=%r); set it "
+                    "when constructing it" % (const_dedup,
+                                              prefetcher._dedup_unmarked))
+            if const_feed_names:
+                prefetcher.const_cache.mark_constant(*const_feed_names)
+        else:
+            from .window_tune import resolve_steps_per_call
+
+            prefetcher = DevicePrefetcher(
+                reader, place=self.place, program=program,
+                depth=2 if prefetch_depth is None else prefetch_depth,
+                const_feed_names=const_feed_names,
+                const_dedup=True if const_dedup is None else const_dedup,
+                # the fill thread resolves K from the first host batch
+                # (arg > env > tuned winner > 1) and, for K > 1, stacks
+                # K batches into ONE WindowFeed
+                window_resolver=lambda feed: resolve_steps_per_call(
+                    program, feed, steps_per_call))
+        # validation and the prefetcher are eager; only the loop is a
+        # generator (iter() starts the fill thread, which must not run
+        # for a generator that is never iterated)
+        return self._pipelined_loop(program, prefetcher, fetch_list, scope,
+                                    max_in_flight, return_numpy,
+                                    steps_per_call, reduce_fetches)
+
+    def _pipelined_loop(self, program, prefetcher, fetch_list, scope,
+                        max_in_flight, return_numpy, steps_per_call=None,
+                        reduce_fetches="last"):
+        from ..observe import observe_feed_gap
+        from ..observe.families import (PIPELINE_IN_FLIGHT,
+                                        PIPELINE_OVERLAP_RATIO,
+                                        PIPELINE_WAIT_SECONDS,
+                                        PIPELINE_WINDOW_RAGGED,
+                                        PIPELINE_WINDOW_SECONDS,
+                                        PIPELINE_WINDOW_SIZE,
+                                        PIPELINE_WINDOW_STEPS)
+        from ..reader import stack_feed_window
+        from .pipeline import FetchHandle, WindowFeed
+        from .window_tune import WINDOW_OP, resolve_steps_per_call
+
+        fetch_names = _fetch_names(fetch_list)
+        window: deque = deque()
+        blocked = 0.0
+        step_i = 0
+        t_loop = time.perf_counter()
+        loop_ctx = None
+        if _tr.trace_enabled():
+            # ONE trace for the whole loop; the fill thread gets it by
+            # explicit hand-off (pinned before iter() starts the thread)
+            loop_ctx = _tr.current() or prefetcher.trace_ctx \
+                or _tr.new_trace()
+            if prefetcher.trace_ctx is None:
+                prefetcher.trace_ctx = loop_ctx
+        att = _tr.attach(loop_ctx)
+
+        def wait_oldest():
+            nonlocal blocked
+            tw = time.perf_counter()
+            with att, _wait_guard(step_i):
+                window.popleft().wait()
+            dt = time.perf_counter() - tw
+            blocked += dt
+            PIPELINE_WAIT_SECONDS.observe(dt)
+            PIPELINE_IN_FLIGHT.set(len(window))
+
+        def push(plan, fetches, steady, t0, steps, **kw):
+            nonlocal step_i
+            copies, events = self._handoff(fetches, return_numpy)
+            handle = FetchHandle(step_i + steps - 1, plan.fetch_names,
+                                 copies, return_numpy,
+                                 completion=(steady, "run_pipelined", t0),
+                                 block_on=events, steps=steps, **kw)
+            window.append(handle)
+            PIPELINE_IN_FLIGHT.set(len(window))
+            step_i += steps
+            return handle
+
+        def dispatch_step(feeds):
+            # ONE step, as run() takes it (also the ragged fallback)
+            with att:
+                _observe_feed(feeds)
+                plan = self._plan(program, feeds, fetch_names, scope)
+                t0 = time.perf_counter()
+                fetches, captured = self._step(plan, program, feeds, scope)
+                steady = _record_dispatch(plan, "run", "run_pipelined", 1,
+                                          time.perf_counter() - t0,
+                                          captured)
+                return push(plan, fetches, steady, t0, 1, window=k or 1)
+
+        def dispatch_window(stacked, kk, plan_feed):
+            # run_repeated's K steps over a stacked window; ``plan_feed``
+            # is a per-step-shaped feed keying the plan the per-step path
+            # uses
+            with att:
+                _observe_feed(plan_feed)
+                plan = self._plan(program, plan_feed, fetch_names, scope)
+                t0 = time.perf_counter()
+                fetches, captured = self._k_steps(
+                    plan, program, stacked, scope, kk, True,
+                    reduce_fetches)
+                dt = time.perf_counter() - t0
+                steady = _record_dispatch(
+                    plan, ("run_repeated", kk, True, reduce_fetches),
+                    "run_pipelined", kk, dt, captured)
+                if steady:
+                    PIPELINE_WINDOW_SECONDS.labels(
+                        phase="dispatch").observe(dt)
+                PIPELINE_WINDOW_STEPS.observe(kk)
+                obs = PIPELINE_WINDOW_SECONDS.labels(
+                    phase="complete").observe if steady else None
+                return push(plan, fetches, steady, t0, kk, window_obs=obs)
+
+        def note_k(kk, src):
+            nonlocal k
+            k = kk
+            PIPELINE_WINDOW_SIZE.set(kk)
+            if src == "tuned":
+                from ..observe.families import KERNEL_DISPATCHES
+
+                KERNEL_DISPATCHES.labels(
+                    op=WINDOW_OP,
+                    impl="cuda" if kk > 1 else "composed").inc()
+
+        def flush_ragged(fs):
+            # batches that never filled a window (reader dry, or a shape
+            # change broke the window in progress), one step each
+            for f in fs:
+                if len(window) >= max_in_flight:
+                    wait_oldest()
+                PIPELINE_WINDOW_RAGGED.inc()
+                yield dispatch_step(f)
+
+        k = None          # resolved from the FIRST hand-off
+        buf: list = []    # loop-side window (caller-supplied prefetcher)
+        buf_sig = None    # per-feed shape signature of the open window
+        feed_iter = iter(prefetcher)
+        try:
+            while True:
+                if len(window) >= max_in_flight:
+                    wait_oldest()
+                feeds = next(feed_iter, None)
+                if feeds is None:
+                    yield from flush_ragged(buf)
+                    buf = []
+                    break
+                observe_feed_gap()
+                if isinstance(feeds, WindowFeed):
+                    if k is None:
+                        note_k(*prefetcher.resolved_window)
+                    yield dispatch_window(
+                        feeds.feeds, feeds.steps,
+                        {n: v[0] for n, v in feeds.feeds.items()})
+                    continue
+                if k is None:
+                    note_k(*(prefetcher.resolved_window or
+                             resolve_steps_per_call(program, feeds,
+                                                    steps_per_call)))
+                if k == 1:
+                    yield dispatch_step(feeds)
+                    continue
+                if prefetcher.resolved_window is not None:
+                    # the prefetcher owns windowing: a per-step feed from
+                    # it IS a ragged step
+                    PIPELINE_WINDOW_RAGGED.inc()
+                    yield dispatch_step(feeds)
+                    continue
+                # caller-supplied (unwindowed) prefetcher: window its
+                # feeds, already on the device, loop-side
+                sig = {n: tuple(np.shape(v)) for n, v in feeds.items()}
+                if buf and sig != buf_sig:
+                    yield from flush_ragged(buf)
+                    buf = []
+                buf_sig = sig
+                buf.append(feeds)
+                if len(buf) == k:
+                    handle = dispatch_window(stack_feed_window(buf), k,
+                                             buf[0])
+                    buf = []
+                    yield handle
+        finally:
+            prefetcher.close()
+            # the drain waits count too: a loop with steps <=
+            # max_in_flight never stalls IN the loop
+            while window:
+                tw = time.perf_counter()
+                with att, _wait_guard(step_i):
+                    window.popleft().wait()
+                dt = time.perf_counter() - tw
+                blocked += dt
+                PIPELINE_WAIT_SECONDS.observe(dt)
+            PIPELINE_IN_FLIGHT.set(0)
+            wall = time.perf_counter() - t_loop
+            if step_i and wall > 0:
+                PIPELINE_OVERLAP_RATIO.set(max(0.0, 1.0 - blocked / wall))
+
+    def train_loop(
+        self,
+        program: Optional[Program] = None,
+        reader=None,
+        fetch_list: Optional[Sequence] = None,
+        scope: Optional[Scope] = None,
+        max_in_flight: int = 2,
+        prefetch_depth: Optional[int] = None,
+        return_numpy: bool = True,
+        const_feed_names: Sequence[str] = (),
+        const_dedup: Optional[bool] = None,
+        on_step=None,
+        steps_per_call: Optional[int] = None,
+        reduce_fetches: str = "last",
+    ):
+        """Drive ``run_pipelined`` over the whole reader; returns
+        ``(n_steps, last_fetch_values)``. ``on_step(step_i, values)`` is
+        called per resolved DISPATCH in order — one call per step in the
+        per-step loop, one call per window with ``steps_per_call=K > 1``
+        (``step_i`` is then the window's last step index and ``values``
+        follow ``reduce_fetches``). Resolution trails dispatch by the
+        in-flight window, so the callback never serializes the
+        pipeline; a var it replaces in the scope (``scope.set_var``) is
+        honoured from the next step it has not yet been enqueued for.
+        ``n_steps`` counts STEPS, not dispatches."""
+        pending: deque = deque()
+        last = None
+        n = 0
+
+        def _resolve(h):
+            vals = h.result()
+            if on_step is not None:
+                on_step(h.step, vals)
+            return vals
+
+        for h in self.run_pipelined(
+                program, reader, fetch_list, scope,
+                max_in_flight=max_in_flight, prefetch_depth=prefetch_depth,
+                return_numpy=return_numpy,
+                const_feed_names=const_feed_names, const_dedup=const_dedup,
+                steps_per_call=steps_per_call,
+                reduce_fetches=reduce_fetches):
+            n += h.steps
+            pending.append(h)
+            if len(pending) > max_in_flight:
+                last = _resolve(pending.popleft())
+        while pending:
+            last = _resolve(pending.popleft())
+        return n, last
+
+    def _handoff(self, fetches, return_numpy):
+        """A step's fetches as a ``FetchHandle`` holds them, and what it
+        waits on. On the card: copies made on the compute stream now,
+        before the next step is enqueued (a replay overwrites its
+        outputs, K6/K7 update state in place) — into pinned host memory
+        with ``return_numpy``, else device clones — and the event
+        recorded after them. On the CPU the step has run: its tensors."""
+        if self.device.type != "cuda":
+            return list(fetches), _completion_probe(self.device)
+        if return_numpy:
+            out = [torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+                   for f in fetches]
+            for o, f in zip(out, fetches):
+                o.copy_(f, non_blocking=True)
+        else:
+            out = [f.clone() for f in fetches]
+        return out, _completion_probe(self.device)
+
     def close(self):
         """Drop every cached plan, freeing their CUDA graphs and the
         graphs' memory pool."""
@@ -216,8 +590,8 @@ class Executor:
         require_device(self.device)
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
-        fetch_names = [v.name if isinstance(v, Variable) else str(v)
-                       for v in (fetch_list or [])]
+        _observe_feed(feed)
+        fetch_names = _fetch_names(fetch_list)
         block = program.global_block()
         feeds = {n: feed_to_device(n, v, block.vars.get(n), self.device)
                  for n, v in (feed or {}).items()}
@@ -388,7 +762,9 @@ def _record_dispatch(plan, sig, site, steps, dt, captured):
     route the wall time — a call that captured the plan's graph lands
     in the compile histogram (the reference's first dispatch of a
     signature: jax trace + XLA compile), every other one in the run
-    histogram's ``dispatch`` phase."""
+    histogram's ``dispatch`` phase. Returns True for such a steady-state
+    dispatch, whose ``complete`` observation belongs in the run
+    histogram too."""
     from ..observe.families import (EXECUTOR_COMPILE_SECONDS,
                                     EXECUTOR_RUN_SECONDS, EXECUTOR_STEPS)
 
@@ -396,8 +772,43 @@ def _record_dispatch(plan, sig, site, steps, dt, captured):
     if captured:
         plan.compiled_sigs.add(sig)
         EXECUTOR_COMPILE_SECONDS.observe(dt)
-    else:
-        EXECUTOR_RUN_SECONDS.labels(site=site, phase="dispatch").observe(dt)
+        return False
+    EXECUTOR_RUN_SECONDS.labels(site=site, phase="dispatch").observe(dt)
+    return True
+
+
+def _completion_probe(device):
+    """What a handle waits on: on the card an event recorded on the
+    compute stream after the step (and its fetches' copies), never a
+    state tensor, which K6/K7 update in place at the next step; on the
+    CPU nothing, the step having run by the time it returns."""
+    if device.type != "cuda":
+        return ()
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return (event,)
+
+
+@contextlib.contextmanager
+def _wait_guard(step=None):
+    """The ``executor.complete`` trace span around a host wait on a
+    step's results (the pipelined loop's window waits); nothing when
+    tracing is off."""
+    if not _tr.trace_enabled():
+        yield
+        return
+    with _tr.trace_span("executor.complete", step=step):
+        yield
+
+
+def _record_completion(steady, site, dt):
+    """The ``complete`` phase: dispatch start to results ready, observed
+    when the host waits on a steady-state dispatch."""
+    if not steady:
+        return
+    from ..observe.families import EXECUTOR_RUN_SECONDS
+
+    EXECUTOR_RUN_SECONDS.labels(site=site, phase="complete").observe(dt)
 
 
 def _check_fetches_finite(fetch_names, values, suffix=""):
@@ -500,7 +911,7 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
     for op in block.ops:
         if not has_op(op.type):
             raise KeyError("op %r has no registered lowering" % op.type)
-        if get_op(op.type).uses_rng:
+        if _op_uses_rng(program, op):
             needs_rng = True
         reads, writes = op_effects(program, op)
         for n in reads:
@@ -548,12 +959,27 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
         lower_block(ctx, block, env, release)
         missing_f = [n for n in fetch_names if n not in env]
         if missing_f:
-            raise KeyError("fetch vars %s were not produced" % missing_f)
+            raise KeyError(
+                "fetch vars %s were not produced at the top level — a "
+                "var internal to a recompute/control-flow sub-block "
+                "cannot be fetched; fetch a segment output or disable "
+                "recompute for this run" % missing_f)
         return ([env[n] for n in fetch_names],
                 {n: env[n] for n in mut_state + pure_written})
 
     return (feed_names, fetch_names, const_state, mut_state, pure_written,
             needs_rng, step)
+
+
+def _op_uses_rng(program, op) -> bool:
+    """Whether ``op`` draws randomness, recursing into its sub-block (a
+    recompute segment's dropout)."""
+    if get_op(op.type).uses_rng:
+        return True
+    if "sub_block" in op.attrs:
+        return any(_op_uses_rng(program, s)
+                   for s in program.block(op.attrs["sub_block"]).ops)
+    return False
 
 
 def _check_int32_range(name: str, lo: int, hi: int) -> None:
@@ -579,12 +1005,85 @@ def feed_to_device(name: str, val, var, device: torch.device) -> torch.Tensor:
             _check_int32_range(name, int(lo), int(hi))
             t = t.to(torch.int32)
         return t.to(device=device, dtype=want or t.dtype)
+    return host_tensor(name, val, var).to(device)
+
+
+def host_tensor(name: str, val, var) -> torch.Tensor:
+    """The host half of ``feed_to_device`` for a value that is not a
+    tensor: a CPU tensor at the feed's on-device dtype (int64 narrowed to
+    int32 with the range check), which may share memory with ``val``."""
+    want = as_torch_dtype(var.dtype) if var is not None else None
     arr = np.asarray(val)
     if arr.size and arr.dtype.kind in "iu" and arr.dtype.itemsize == 8:
         _check_int32_range(name, int(arr.min()), int(arr.max()))
         arr = arr.astype(np.int32)
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device, dtype=want or t.dtype)
+    return t if want is None or t.dtype == want else t.to(want)
+
+
+def feeds_to_device(feed: Dict[str, Any], var_lookup, device: torch.device,
+                    stream=None):
+    """A whole feed dict on ``device``, each value as ``feed_to_device``
+    converts it (``var_lookup(name)`` gives its var, or None), for the
+    ``DevicePrefetcher``'s thread. On the card a host value is converted
+    on the host, staged in pinned memory and copied ``non_blocking`` on
+    ``stream`` (the caller records an event after the copies and orders
+    the step after it); on the CPU it is copied, so a reader may refill
+    its buffer. Returns ``(dict, h2d_bytes)``: the bytes staged for the
+    copy (a tensor already on ``device`` costs nothing)."""
+    out: Dict[str, Any] = {}
+    nbytes = 0
+    with (torch.cuda.stream(stream) if stream is not None
+          else contextlib.nullcontext()):
+        for n, v in feed.items():
+            var = var_lookup(n)
+            if isinstance(v, torch.Tensor):
+                if v.device != device:
+                    nbytes += v.numel() * v.element_size()
+                out[n] = feed_to_device(n, v, var, device)
+                continue
+            host = host_tensor(n, v, var)
+            nbytes += host.numel() * host.element_size()
+            if device.type == "cuda":
+                out[n] = host.pin_memory().to(device, non_blocking=True)
+            else:
+                out[n] = host.clone()
+    return out, nbytes
+
+
+# feed-observer hook: callables invoked with every raw feed dict an
+# Executor converts (run, run_repeated, and each step of run_pipelined,
+# which sees the prefetcher's tensors). Process-wide, like the default
+# scope.
+_FEED_OBSERVERS: List[Any] = []
+
+
+def add_feed_observer(fn) -> None:
+    """Register ``fn(feed_dict)`` to be called with every raw feed an
+    executor in this process converts. Pair with
+    ``remove_feed_observer``."""
+    _FEED_OBSERVERS.append(fn)
+
+
+def remove_feed_observer(fn) -> None:
+    """Unregister a feed observer (no-op if not registered)."""
+    try:
+        _FEED_OBSERVERS.remove(fn)
+    except ValueError:
+        pass
+
+
+def _observe_feed(feed) -> None:
+    """Hand ``feed`` to the feed observers; an observer's exception
+    propagates (a broken observer fails loudly)."""
+    if feed and _FEED_OBSERVERS:
+        for obs in list(_FEED_OBSERVERS):
+            obs(feed)
+
+
+def _fetch_names(fetch_list) -> List[str]:
+    return [v.name if isinstance(v, Variable) else str(v)
+            for v in (fetch_list or [])]
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -52,7 +52,14 @@ class LowerContext:
     replay re-seeds from the chain, and the fused optimizer update asks
     it which state tensors it may update in place and where to keep its
     pointer table. ``op`` is the op being lowered (set by
-    ``lower_op``)."""
+    ``lower_op``).
+
+    A recompute segment (ops/recompute_ops.py) replays its forward's
+    random streams in its grad: its forward context records a token per
+    chain draw in ``streams`` (the seed, or with a graph hook the hook's
+    slot), and the grad's re-run context hands them back from
+    ``replay``, each a generator seeded like the one its token names, so
+    the recomputed dropout masks are the forward's."""
 
     def __init__(self, block: Optional[Block] = None,
                  rng: Optional[torch.Generator] = None,
@@ -65,17 +72,35 @@ class LowerContext:
         self.amp = amp
         self.graph = graph
         self.op = None
+        self.streams: Optional[List[Any]] = None
+        self.replay: Optional[List[Any]] = None
 
     def next_rng(self) -> torch.Generator:
-        """The next random op's generator, seeded from the chain."""
+        """The next random op's generator, seeded from the chain (in a
+        recompute segment's re-run: the next of the forward's streams)."""
         if self._rng is None:
             raise RuntimeError(
                 "op requested RNG in a pure context; register a custom grad "
                 "lowering that reuses saved randomness (e.g. dropout mask)"
             )
+        if self.replay is not None:
+            if not self.replay:
+                raise RuntimeError(
+                    "a recomputed segment draws more random streams than "
+                    "its forward drew")
+            token = self.replay.pop(0)
+            if self.graph is not None:
+                return self.graph.same_generator(token, self.device)
+            return seeded_generator(token, self.device)
         if self.graph is not None:
-            return self.graph.chain_generator(self._rng, self.device)
-        return seeded_generator(draw_seed(self._rng), self.device)
+            gen = self.graph.chain_generator(self._rng, self.device)
+            token = self.graph.last_stream()
+        else:
+            token = draw_seed(self._rng)
+            gen = seeded_generator(token, self.device)
+        if self.streams is not None:
+            self.streams.append(token)
+        return gen
 
     def seeded_rng(self, seed: int) -> torch.Generator:
         """A generator with a fixed seed (``fix_seed`` dropout, a seeded

@@ -190,6 +190,21 @@ def lookup(op: str, sig: Tuple) -> Optional[Dict[str, Any]]:
     return None
 
 
+def peek(op: str, sig: Tuple) -> Optional[Dict[str, Any]]:
+    """``lookup`` without the hit/miss counters: the resolution probe
+    for callers that consult the table on EVERY loop entry (the windowed
+    train loop's steps_per_call resolution, core/window_tune.py) — a
+    per-loop probe must not move the lookup counters the kernel tier's
+    tests pin."""
+    key = sig_key(op, sig)
+    with _LOCK:
+        dec = _MEM.get(key)
+        if dec is not None:
+            return dec
+        _ensure_disk_loaded()
+        return _MEM.get(key)
+
+
 def set_entry(op: str, sig: Tuple, decision: Dict[str, Any],
               persist: bool = False) -> None:
     """Install a decision directly (tests inject winners); the next

@@ -2,11 +2,12 @@
 spans).
 
 The port's counterpart of paddle_tpu/observe/, trimmed to what the pass
-pipeline, the kernel tier and the Executor move: the metric registry
-(``metrics.py``), the well-known families (``families.py``, the same
-names as the JAX package's) and the trace spans (``trace.py``). The
-exporter, fleet collector, SLO monitor and time series are not ported
-yet.
+pipeline, the kernel tier, the Executor and its step loop move: the
+metric registry (``metrics.py``), the well-known families
+(``families.py``, the same names as the JAX package's), the trace spans
+(``trace.py``) and the timed spans with the feed-to-run gap stamp
+(``spans.py``). The exporter, fleet collector, SLO monitor and time
+series are not ported yet.
 
     from paddle_tpu_torch import observe
 
@@ -21,6 +22,8 @@ from . import trace  # noqa: F401  (trace contexts + flight recorder)
 from .families import REGISTRY
 from .metrics import (Counter, DEFAULT_BUCKETS, Family, Gauge,  # noqa: F401
                       Histogram, Registry, quantile_from_buckets)
+from .spans import (Span, mark_batch_produced,  # noqa: F401
+                    observe_feed_gap, span)
 from .trace import (FlightRecorder, TraceContext, attach,  # noqa: F401
                     current, dump_flight_recorder, export_chrome_trace,
                     new_trace, record_span, trace_enabled, trace_event,
@@ -30,6 +33,7 @@ __all__ = ["REGISTRY", "counter", "gauge", "histogram", "get_metric",
            "snapshot", "render_prometheus", "dump", "reset",
            "Counter", "Gauge", "Histogram", "Family", "Registry",
            "DEFAULT_BUCKETS", "quantile_from_buckets",
+           "span", "Span", "mark_batch_produced", "observe_feed_gap",
            "TraceContext", "FlightRecorder", "trace_enabled", "new_trace",
            "current", "attach", "trace_span", "trace_event", "record_span",
            "dump_flight_recorder", "export_chrome_trace"]
@@ -45,8 +49,11 @@ dump = REGISTRY.dump
 
 
 def reset():
-    """Zero every metric and the trace state (the flight-recorder ring,
-    this thread's trace context): test isolation, not a runtime
-    operation."""
+    """Zero every metric and the span state (the pending feed-to-run
+    stamp, the flight-recorder ring, this thread's trace context): test
+    isolation, not a runtime operation."""
+    from . import spans as _spans
+
     REGISTRY.reset()
+    _spans._clear_batch_stamp()
     trace._reset()

@@ -1,5 +1,5 @@
 """Basic tensor ops: constants, random init, assign, assign_value, cast,
-scale, range,
+scale, increment (the learning-rate schedules' step counter), range,
 and the clipping / sign ops that gradient clipping and regularizers
 append.
 
@@ -96,6 +96,11 @@ def _scale(ctx, ins, attrs):
     if attrs.get("bias_after_scale", True):
         return {"Out": [x * s + b]}
     return {"Out": [(x + b) * s]}
+
+
+@register_op("increment", no_grad=True)
+def _increment(ctx, ins, attrs):
+    return {"Out": [ins["X"][0] + attrs.get("step", 1.0)]}
 
 
 @register_op("range", no_grad=True)

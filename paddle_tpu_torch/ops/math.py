@@ -1,5 +1,6 @@
 """Math ops: ``mul``, the broadcasted elementwise family, ``sum`` /
-``mean``, the reductions and ``squared_l2_norm``.
+``mean``, the reductions, ``squared_l2_norm`` and the six comparisons
+(bool outputs, Paddle's broadcast of Y).
 
 Counterparts of paddle_tpu/ops/math.py. The matrix product stays a plain
 ``torch.matmul``, as the JAX package leaves it to XLA. Integer sums and
@@ -152,3 +153,21 @@ _reduce("reduce_any", diff=False)
 def _squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.sum(x * x).reshape(())]}
+
+
+# ---------------------------------------------------------------- comparisons
+def _cmp(name, fn):
+    @register_op(name, no_grad=True)
+    def _op(ctx, ins, attrs, _fn=fn):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": [_fn(x, _bcast_y(x, y, attrs.get("axis", -1)))]}
+
+    return _op
+
+
+_cmp("less_than", operator.lt)
+_cmp("less_equal", operator.le)
+_cmp("greater_than", operator.gt)
+_cmp("greater_equal", operator.ge)
+_cmp("equal", operator.eq)
+_cmp("not_equal", operator.ne)

@@ -9,7 +9,9 @@ Grad lowerings of their own: dropout (reuses the saved mask, as in the
 JAX package), softmax_with_cross_entropy (the JAX package's closed
 form), and lookup_table, whose rows are summed per id in a fixed order
 (ops/tensor_ops.py ``scatter_add_rows``) so that a training step is
-bitwise repeatable on CUDA.
+bitwise repeatable on CUDA. Its forward gathers by advanced indexing,
+whose autograd backward (what a recompute segment's vjp takes) sums the
+rows the same way.
 """
 
 from __future__ import annotations
@@ -46,8 +48,8 @@ def _lookup_table(ctx, ins, attrs):
     w, ids = ins["W"][0], ins["Ids"][0]
     if ids.ndim >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    flat = ids.reshape(-1).to(torch.int32)
-    out = w.index_select(0, flat).reshape(tuple(ids.shape) + (w.shape[1],))
+    flat = ids.reshape(-1).to(torch.int64)
+    out = w[flat].reshape(tuple(ids.shape) + (w.shape[1],))
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out.masked_fill((ids == pad).unsqueeze(-1), 0.0)

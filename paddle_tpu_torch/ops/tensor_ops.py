@@ -1,5 +1,5 @@
 """Tensor-manipulation ops: reshape / transpose (and their *2 variants),
-unsqueeze2, gather.
+unsqueeze2, gather, where_op (its grad is the generic vjp).
 
 Counterparts of paddle_tpu/ops/tensor_ops.py. The *2 variants also emit
 an empty XShape output for the grad path, matching the reference's op
@@ -10,7 +10,9 @@ scatters with ``index_add_``, which on CUDA adds repeated indices with
 atomics in an order that changes from run to run. The grad lowering
 adds them with ``index_put_(accumulate=True)``, which sorts the indices
 and sums each one's rows in a fixed order, so a training step is
-bitwise repeatable.
+bitwise repeatable. Its forward gathers by advanced indexing, whose
+autograd backward (what a recompute segment's vjp takes) is that same
+``index_put_``.
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ def _gather_index(idx):
 @register_op("gather", diff_inputs=["X"])
 def _gather(ctx, ins, attrs):
     x, idx = ins["X"][0], _gather_index(ins["Index"][0])
-    return {"Out": [torch.index_select(x, attrs.get("axis", 0), idx)]}
+    axis = attrs.get("axis", 0)
+    return {"Out": [x.movedim(axis, 0)[idx].movedim(0, axis)]}
 
 
 def scatter_add_rows(shape, idx, rows, axis=0):
@@ -104,3 +107,9 @@ def _gather_grad(ctx, ins, attrs):
     g = ins["Out@GRAD"][0]
     return {"X@GRAD": [scatter_add_rows(x.shape, idx, g.to(x.dtype),
                                         attrs.get("axis", 0))]}
+
+
+@register_op("where_op", diff_inputs=["X", "Y"])
+def _where(ctx, ins, attrs):
+    cond, x, y = ins["Condition"][0], ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.where(cond, x, y)]}

@@ -60,6 +60,14 @@ where only the port is installed:
   capture raise, naming it; ``run_repeated(3)`` is bitwise 3 ``run``
   calls; the Predictor's replayed answers are bitwise its eager step's,
   f32 and AMP; a Program with no op replays its empty graph.
+- The step loop (core/pipeline.py): ``train_loop`` at K = 1 and K = 4
+  bitwise the ``run`` loop (losses, dropout masks, params, the RNG
+  chain) with its launches on the card; a plan captured while the
+  prefetch thread allocates and copies on its own stream; handles
+  resolved after later replays still hold their own step's values; the
+  warm-up + decay schedule under replay against the CPU and its closed
+  form; a RecomputeOptimizer program's replays bitwise its eager steps;
+  a param replaced in ``on_step`` honoured as in the run loop.
 """
 
 import warnings
@@ -1015,3 +1023,247 @@ def test_cuda_predictor_replays_equal_eager_answers(cuda_device, monkeypatch,
                                        fetch_list=pred.fetch_names,
                                        scope=pred.scope)
         np.testing.assert_array_equal(got, want[:b])
+
+
+# ------------------------------------------------------------ the step loop
+def _loop_values(exe, main, fetch, scope, feeds, k, **kw):
+    seen = {}
+    n, _ = exe.train_loop(main, iter(feeds), fetch_list=fetch, scope=scope,
+                          steps_per_call=k,
+                          on_step=lambda i, v: seen.__setitem__(i, v), **kw)
+    assert n == len(feeds)
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 4])
+def test_cuda_train_loop_is_bitwise_the_run_loop(cuda_device, monkeypatch,
+                                                 k):
+    """``train_loop`` on the card (the prefetch thread's stream, fetch
+    handles copied on the compute stream, nothing waiting for the card
+    but the in-flight cap) takes the run loop's steps bitwise: losses,
+    dropout masks, params and the RNG chain over 6 steps (at K = 4 a
+    window and a ragged tail of 2), with the run loop's launches on the
+    card."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    other = _clone_scope(scope)
+    mask = _dropout_mask(main)
+    feeds = [_feed(np.random.RandomState(i)) for i in range(6)]
+    want, on_card = _device_launches(lambda: [
+        exe.run(main, feed=f, fetch_list=[loss, mask], scope=scope)
+        for f in feeds])
+    exe2 = pt.Executor(pt.CUDAPlace(0))
+    got, on_card2 = _device_launches(lambda: _loop_values(
+        exe2, main, [loss, mask], other, feeds, k, max_in_flight=2,
+        prefetch_depth=2))
+    assert on_card2 == on_card
+    assert sorted(got) == (list(range(6)) if k == 1 else [3, 4, 5])
+    for i, vals in got.items():
+        for a, b in zip(vals, want[i]):
+            assert a.tobytes() == b.tobytes(), i
+    got_p, want_p = _params(main, other), _params(main, scope)
+    for n in got_p:
+        assert torch.equal(got_p[n], want_p[n]), n
+    assert torch.equal(other.find_var("@RNG_STATE@").get_state(),
+                       scope.find_var("@RNG_STATE@").get_state())
+
+
+@pytest.mark.cuda
+def test_cuda_capture_with_the_fill_thread_mid_copy(cuda_device,
+                                                    monkeypatch):
+    """The plan captures at its second step while the prefetch thread
+    allocates pinned and device memory and copies on its own stream (the
+    capture waits until it is copying, and the thread copies until the
+    capture ends): the capture's thread-local mode lets it, and the
+    steps are the run loop's, bitwise."""
+    import threading
+
+    from paddle_tpu_torch.core import cuda_graph
+    from paddle_tpu_torch.core.pipeline import DevicePrefetcher
+
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    other = _clone_scope(scope)
+    feeds = [_feed(np.random.RandomState(i)) for i in range(5)]
+    want = [exe.run(main, feed=f, fetch_list=[loss], scope=scope)[0]
+            for f in feeds]
+    copying, captured = threading.Event(), threading.Event()
+    batches, copies = [0], [0]
+    to_device = DevicePrefetcher._to_device
+
+    def busy_to_device(self, feed):
+        out = to_device(self, feed)
+        batches[0] += 1
+        if batches[0] > 2:  # converted while steps 0 and 1 run
+            with torch.cuda.stream(self._stream):
+                while not captured.is_set() and copies[0] < 20000:
+                    # fresh pinned and device blocks of changing sizes
+                    n = (1 << 16) + 4096 * (copies[0] % 64)
+                    torch.empty(n, pin_memory=True).to(self._device,
+                                                       non_blocking=True)
+                    copies[0] += 1
+                    copying.set()
+        return out
+
+    init = cuda_graph.StepGraph.__init__
+
+    def capture_mid_copy(self, *a, **kw):
+        assert copying.wait(30), "the fill thread never copied"
+        try:
+            init(self, *a, **kw)
+        finally:
+            captured.set()
+
+    monkeypatch.setattr(DevicePrefetcher, "_to_device", busy_to_device)
+    monkeypatch.setattr(cuda_graph.StepGraph, "__init__", capture_mid_copy)
+    exe2 = pt.Executor(pt.CUDAPlace(0))
+    got = _loop_values(exe2, main, [loss], other, feeds, 1, max_in_flight=2,
+                       prefetch_depth=2)
+    assert captured.is_set() and copies[0] > 0
+    for i in range(5):
+        assert got[i][0].tobytes() == want[i].tobytes(), i
+    got_p, want_p = _params(main, other), _params(main, scope)
+    for n in got_p:
+        assert torch.equal(got_p[n], want_p[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_handles_survive_later_replays(cuda_device, monkeypatch):
+    """Every handle of a pipelined run, resolved only after the last
+    step, holds its own step's loss and param value (a replay overwrites
+    its outputs and K6 writes params in place; the handle took copies on
+    the compute stream before the next step), device tensors and numpy
+    alike."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    other = _clone_scope(scope)
+    param = main.global_block().all_parameters()[0].name
+    feeds = [_feed(np.random.RandomState(i)) for i in range(5)]
+    want = [[v.copy() for v in exe.run(main, feed=f,
+                                       fetch_list=[loss, param],
+                                       scope=scope)]
+            for f in feeds]
+    exe2 = pt.Executor(pt.CUDAPlace(0))
+    for return_numpy in (False, True):
+        sc = _clone_scope(other)
+        handles = list(exe2.run_pipelined(
+            main, iter(feeds), fetch_list=[loss, param], scope=sc,
+            max_in_flight=len(feeds), return_numpy=return_numpy))
+        for i, h in enumerate(handles):
+            vals = h.result()
+            if not return_numpy:
+                assert all(v.device.type == "cuda" for v in vals)
+                vals = [v.cpu().numpy() for v in vals]
+            for a, b in zip(vals, want[i]):
+                assert a.tobytes() == b.tobytes(), (return_numpy, i)
+
+
+def _scheduled_program():
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M)
+        lr = pt.layers.linear_lr_warmup(
+            pt.layers.polynomial_decay(1e-3, 20, 0.0, 1.0), 4, 0.0, 1e-3)
+        pt.optimizer.Adam(learning_rate=lr).minimize(loss)
+    return main, startup, loss, lr
+
+
+@pytest.mark.cuda
+def test_cuda_schedule_under_replay(cuda_device, monkeypatch):
+    """The warm-up + decay rate of replayed steps is its closed form and
+    the CPU's (the same f32 ops, to a relative 1e-6); the step counter is
+    state the graph writes back each replay; and the replays are bitwise
+    the plan's eager steps, rates and params, so each replay's K6 read
+    that step's rate through its device pointer."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss, lr = _scheduled_program()
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    cpu_exe, cpu_scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    cpu_exe.run(startup, scope=cpu_scope)
+    feeds = [_feed(np.random.RandomState(i)) for i in range(6)]
+    rates = [exe.run(main, feed=f, fetch_list=[lr], scope=scope)[0]
+             for f in feeds]
+    eager = [exe._run_eager(main, feed=f, fetch_list=[lr],
+                            scope=eager_scope)[0] for f in feeds]
+    cpu = [cpu_exe.run(main, feed=f, fetch_list=[lr], scope=cpu_scope)[0]
+           for f in feeds]
+    assert any(p.graph is not None for p in exe._cache.values())
+    closed = [1e-3 * (2 * s + 2) / 4 if 2 * s + 2 < 4
+              else 1e-3 * (1 - (2 * s + 1) / 20) for s in range(6)]
+    for s, (a, b, c) in enumerate(zip(rates, eager, cpu)):
+        assert a.tobytes() == b.tobytes(), s
+        np.testing.assert_allclose(a, c, rtol=1e-6, atol=0)
+        np.testing.assert_allclose(float(a.reshape(())), closed[s],
+                                   rtol=1e-6)
+    assert float(scope.find_var("@LR_DECAY_COUNTER@").reshape(())) == 12.0
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_recompute_replays_equal_eager_steps(cuda_device, monkeypatch):
+    """A RecomputeOptimizer program (a checkpoint per encoder layer,
+    dropout 0.1): replayed steps are bitwise the plan's eager steps (the
+    grads' re-run draws the forward's dropout streams under replay too)
+    and each launches the flash kernels as the plain program does."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        ckpts = []
+        loss, _ = tbert.build(CFG, seq_len=S, max_mask=M, checkpoints=ckpts)
+        opt = pt.optimizer.RecomputeOptimizer(
+            pt.optimizer.Adam(learning_rate=1e-3))
+        opt._set_checkpoints(ckpts)
+        opt.minimize(loss)
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    n = CFG["n_layer"]
+    for i in range(4):
+        f = _feed(np.random.RandomState(i))
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=f, fetch_list=[loss], scope=scope))
+        e = exe._run_eager(main, feed=f, fetch_list=[loss],
+                           scope=eager_scope)
+        assert r[0].tobytes() == e[0].tobytes(), i
+        assert on_card[:6] == [2 * n, 0, n, n, 0, 0], (i, on_card)
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for p in got:
+        assert torch.equal(got[p], want[p]), p
+
+
+@pytest.mark.cuda
+def test_cuda_a_var_replaced_in_on_step_is_honoured(cuda_device,
+                                                    monkeypatch):
+    """A param the ``on_step`` callback replaces (a new tensor of its
+    shape) is copied into the graph's tensor before the next step that
+    was not yet enqueued: bitwise the run loop that replaces it at the
+    same point."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    other = _clone_scope(scope)
+    param = main.global_block().all_parameters()[0].name
+    feeds = [_feed(np.random.RandomState(i)) for i in range(6)]
+    for i, f in enumerate(feeds):
+        exe.run(main, feed=f, fetch_list=[loss], scope=scope)
+        if i == 2:  # step 1 resolves after step 2 is enqueued
+            scope.set_var(param, torch.zeros_like(scope.find_var(param)))
+
+    def on_step(i, vals):
+        if i == 1:
+            other.set_var(param, torch.zeros_like(other.find_var(param)))
+
+    exe2 = pt.Executor(pt.CUDAPlace(0))
+    exe2.train_loop(main, iter(feeds), fetch_list=[loss], scope=other,
+                    max_in_flight=1, on_step=on_step)
+    got, want = _params(main, other), _params(main, scope)
+    for p in got:
+        assert torch.equal(got[p], want[p]), p

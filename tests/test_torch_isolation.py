@@ -42,6 +42,25 @@ def register_shape_rule(*op_types: str):
 
 '''
 
+# the timed span opens a torch.profiler range where the JAX package's
+# opens its profiler's RecordEvent
+_SPAN_RECORD = (
+    "        from ..profiler import RecordEvent\n\n"
+    "        self._rec = RecordEvent(self.name)\n",
+    "        from torch.profiler import record_function\n\n"
+    "        self._rec = record_function(self.name)\n")
+# a window stacks tensors with torch.stack where the JAX package stacks
+# device arrays with jnp.stack
+_STACK_WINDOW = (
+    "    import jax\n    import jax.numpy as jnp\n\n"
+    "    def stack(vals):\n"
+    "        if all(isinstance(v, jax.Array) for v in vals):\n"
+    "            return jnp.stack(vals)\n",
+    "    import torch\n\n"
+    "    def stack(vals):\n"
+    "        if all(isinstance(v, torch.Tensor) for v in vals):\n"
+    "            return torch.stack(vals)\n")
+
 with open(os.path.join(ROOT, "paddle_tpu", "flags.py")) as _f:
     _ORIGINAL_FLAGS_TAIL = _f.read()
 _ORIGINAL_FLAGS_TAIL = _ORIGINAL_FLAGS_TAIL[
@@ -83,6 +102,7 @@ COPIES = {
     "core/passes/kernel_fuse.py": [],
     "core/passes/quantize_pass.py": [],
     "core/program.py": [],
+    "core/recompute.py": [],
     "core/scope.py": [],
     # the port has no JAX compilation cache to switch on, and its inert
     # flags are subsumed by PyTorch's caching allocator, not XLA
@@ -94,13 +114,17 @@ COPIES = {
     "kernels/registry.py": [],
     "observe/families.py": [],
     "observe/metrics.py": [],
+    "observe/spans.py": [_SPAN_RECORD],
     "observe/trace.py": [],
     "param_attr.py": [],
+    "reader/__init__.py": [_STACK_WINDOW],
     "initializer.py": [],
     "layer_helper.py": [],
+    "layers/learning_rate_scheduler.py": [],
     "layers/nn.py": [],
     "layers/ops.py": [],
     "layers/tensor.py": [],
+    "learning_rate_decay.py": [],
     "models/bert.py": [],
     "models/transformer.py": [],
     "optimizer.py": [],
@@ -238,6 +262,14 @@ def test_entry_points_default_to_the_card_without_touching_it():
     assert pt.inference.AnalysisConfig("d").disable_gpu().place() == \
         pt.CPUPlace()
     assert pt.Executor(pt.CPUPlace()).device == torch.device("cpu")
+    assert pt.DevicePrefetcher(iter([]))._device == torch.device("cuda", 0)
+    assert pt.DevicePrefetcher(iter([]), place=pt.CPUPlace())._device == \
+        torch.device("cpu")
+    # run_pipelined's prefetcher takes the executor's place: the card's
+    # by default, the CPU's when asked
+    gen = pt.Executor(pt.CPUPlace()).run_pipelined(
+        pt.Program(), iter([]), steps_per_call=1)
+    assert list(gen) == []
     assert not torch.cuda.is_initialized()
 
 
@@ -249,6 +281,10 @@ def test_card_runs_raise_without_a_card(monkeypatch, tmp_path):
         y = pt.layers.fc(x, 3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt.Executor().run(startup, scope=pt.Scope())
+    for loop in (pt.Executor().run_pipelined, pt.Executor().train_loop):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loop(main, iter([{"x": np.ones((2, 4), "float32")}]),
+                 fetch_list=[y])
     # a CPU run still works, and so does a CPU Predictor
     scope = pt.Scope()
     exe = pt.Executor(pt.CPUPlace())

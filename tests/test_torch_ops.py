@@ -391,6 +391,80 @@ def case_fused_optimizer_update(rs):
                                       "weight_decay": 0.01}}, 1e-6)
 
 
+# the learning-rate schedules' ops (layers/learning_rate_scheduler.py)
+def case_increment(rs):
+    _check("increment", {"X": [np.full(1, 3.0, "float32")]}, {"step": 1.0},
+           0)
+    _check("increment", {"X": [_arr(rs, (2, 3))]}, {"step": -2.5}, 0)
+
+
+def _cmp_case(op_type):
+    def case(rs):
+        x = np.round(_arr(rs, (2, 3, 4)))  # ties for the equalities
+        for y, axis in ((np.round(_arr(rs, (2, 3, 4))), -1),
+                        (np.round(_arr(rs, (3,))), 1),
+                        (np.round(_arr(rs, (4,))), -1),
+                        (np.zeros(1, "float32"), -1)):
+            _check(op_type, {"X": [x], "Y": [y]}, {"axis": axis}, 0)
+        ids = _arr(rs, (3, 4), "int32")
+        _check(op_type, {"X": [ids], "Y": [np.full(1, 5, "int32")]}, {}, 0)
+
+    return case
+
+
+for _op in ("less_than", "less_equal", "greater_than", "greater_equal",
+            "equal", "not_equal"):
+    globals()["case_" + _op] = _cmp_case(_op)
+
+
+def case_where_op(rs):
+    cond = rs.rand(3, 4) < 0.5
+    _check("where_op", {"Condition": [cond], "X": [_arr(rs, (3, 4))],
+                        "Y": [_arr(rs, (3, 4))]}, {}, 0)
+    _check("where_op", {"Condition": [np.array([True])],
+                        "X": [np.full(1, 2.0, "float32")],
+                        "Y": [np.full(1, 3.0, "float32")]}, {}, 0)
+
+
+def _recompute_segment(pkg):
+    """A program of [fc, tanh] moved into one recompute segment by each
+    package's core/recompute.py: (its global block, the recompute_block
+    op)."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        x = pkg.layers.data("x", [6])
+        h = pkg.layers.fc(x, 5, act="tanh")
+        pkg.layers.mean(pkg.layers.scale(h, 2.0))
+    from importlib import import_module
+
+    import_module(pkg.__name__ + ".core.recompute").apply_recompute(
+        main, [h])
+    block = main.global_block()
+    return block, next(op for op in block.ops
+                       if op.type == "recompute_block")
+
+
+def case_recompute_block(rs):
+    import jax.numpy as jnp
+
+    import paddle_tpu as jf
+    import paddle_tpu_torch as pt
+
+    jblock, jop = _recompute_segment(jf)
+    tblock, top = _recompute_segment(pt)
+    assert top.attrs == jop.attrs and top.inputs == jop.inputs
+    shapes = {"x": (3, 6), "fc_0.w_0": (6, 5), "fc_0.b_0": (5,)}
+    xs = [_arr(rs, shapes[n]) for n in jop.attrs["input_vars"]]
+    j = jax_op("recompute_block").lowering(
+        JaxContext(jblock, None), {"X": [jnp.asarray(v) for v in xs]},
+        dict(jop.attrs))
+    t = get_op("recompute_block").lowering(
+        LowerContext(tblock, None, CPU),
+        {"X": [torch.from_numpy(v) for v in xs]}, dict(top.attrs))
+    (a,), (b,) = j["Out"], t["Out"]
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6, rtol=0)
+
+
 # activations: (input maker, attrs); inputs keep clear of kinks and of
 # round()'s half-way points
 _ACT_INPUTS = {

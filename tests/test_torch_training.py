@@ -310,6 +310,55 @@ def _act(rs, op):
         _check_grad(op, {"X": [x]}, attrs, [("X", 0)], 1e-5, 1e-5)
 
 
+@grad_case("where_op")
+def _where(rs, op):
+    cond = rs.rand(4, 6) < 0.5
+    _check_grad(op, {"Condition": [cond], "X": [_arr(rs, (4, 6))],
+                     "Y": [_arr(rs, (4, 6))]}, {}, [("X", 0), ("Y", 0)],
+                1e-6)
+
+
+@grad_case("recompute_block")
+def _recompute_block(rs, op):
+    """One segment [fc, tanh] (core/recompute.py in each package): the
+    grad lowering re-runs it under each package's vjp, on the same
+    inputs and output cotangent."""
+    from importlib import import_module
+
+    def segment(pkg):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            x = pkg.layers.data("x", [6])
+            h = pkg.layers.fc(x, 5, act="tanh")
+            pkg.layers.mean(pkg.layers.scale(h, 2.0))
+        import_module(pkg.__name__ + ".core.recompute").apply_recompute(
+            main, [h])
+        block = main.global_block()
+        return block, next(o for o in block.ops
+                           if o.type == "recompute_block")
+
+    (jblock, jop), (tblock, top) = segment(jf), segment(pt)
+    shapes = {"x": (3, 6), "fc_0.w_0": (6, 5), "fc_0.b_0": (5,)}
+    xs = [_arr(rs, shapes[n]) for n in jop.attrs["input_vars"]]
+    out = np.tanh(xs[0] @ xs[1] + xs[2]).astype("float32")
+    ins = {"X": xs, "Out": [out], "Out@GRAD": [_arr(rs, (3, 5))]}
+    attrs = dict(jop.attrs, **{ATTR_FWD_IN: {"X": 3},
+                               ATTR_FWD_OUT: {"Out": 1},
+                               ATTR_DIFF: [["X", i] for i in range(3)]})
+    jg = jax_op(op + "_grad").lowering(
+        JaxContext(jblock, None),
+        {k: [jnp.asarray(v) for v in vs] for k, vs in ins.items()},
+        dict(attrs))
+    tg = get_op(op + "_grad").lowering(
+        LowerContext(tblock, None, CPU),
+        {k: [torch.from_numpy(v) for v in vs] for k, vs in ins.items()},
+        dict(attrs))
+    for i in range(3):
+        np.testing.assert_allclose(tg["X@GRAD"][i].numpy(),
+                                   np.asarray(jg["X@GRAD"][i]), atol=1e-5,
+                                   rtol=0, err_msg="X@GRAD %d" % i)
+
+
 def test_every_differentiable_port_op_has_a_grad_case():
     want = sorted(t for t in all_ops()
                   if not get_op(t).no_grad and not get_op(t).synthesized)
