@@ -18,8 +18,10 @@ Phases, each of which passes or ends the script with a non-zero exit:
    bf16), two launches on the same inputs bitwise equal, with its device
    time and call time, the plain version's, one PyTorch library call's
    (``scaled_dot_product_attention``, a yardstick the port never calls;
-   call and device time) and the least time the card could take (the
-   bound);
+   call and device time; on a causal case ``is_causal`` alone: sdpa
+   takes no pad bias beside it) and the least time the card could take
+   (the bound); the cases include GPT-2 small's causal [8, 12, 1024, 64]
+   with a trailing key-pad bias, f32 and bf16;
 3b. backward kernels: the CTAs per SM the card grants the flash dK/dV
    and dQ kernels (per dtype, head dim and bias kind); then both kernels
    against their plain versions on the phase-3 cases (a trainable-bias
@@ -158,7 +160,38 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and 3 steps at level 0 from the same scope within phase 6's bounds;
 7b. train SGD AMP: 3 steps under AMP at level 2, each launching K7
    once on the bf16 grads, the bf16 flash kernels and K4's AMP
-   instantiation (counted); losses finite, params f32.
+   instantiation (counted); losses finite, params f32;
+8. train GPT: GPT-2 small (``gpt.base_config()``: 12 layers, d_model
+   768, vocab 50304, 163,072,512 weights) built with ``gpt.build`` at
+   S = 1024, batch 8, random ids with 0-10% trailing padding, Adam at
+   level 2, f32: every step launches the causal flash forward 24 times
+   (the pad row rides as a bias), dK/dV and dQ 12 times each, K4 24
+   times and K6 once (counted), and no composed attention runs; then
+   6c's replayed steps against eager ones in turns (bitwise; medians,
+   tokens/s, busy share, peak memory, capture seconds), level 2 against
+   level 0 over 3 steps (phase 6's grad and loss bounds; each param by
+   its share of elements past 1e-4 and its update's l2 difference), and
+   ``train_loop`` at K = 1 over 6 steps bitwise the run loop;
+8c. generate (after 8, on its weights): ``gpt.generate`` with a
+   ``build_prefill_step`` program (prompt 128) and a
+   ``build_decode_step`` program (a KV cache of 1024 rows), greedy, 32
+   new tokens, at batch 1 and 8, three calls each on one executor: every
+   step after each plan's first two is a replay, K4 runs 24 times a
+   dispatch (counted), both graphs hold the scope's caches and write
+   them in place; the tokens equal an executor's that never replays,
+   and the logits at every position match the training graph's is_test
+   forward within 1e-3; the prefill and per-token latencies;
+8b. train GPT AMP: phase 8 under bf16 AMP (the bf16 flash kernels and
+   K4's AMP instantiation, the same counts, no f32 flash kernel; level
+   0 within the AMP bounds);
+9. train the transformer: ``transformer.base_config()`` at S = 256,
+   batch 8, label smoothing 0.1, Adam, level 2, f32: each step launches
+   the flash forward 36 times (encoder self, causal decoder self and
+   cross attention, and their grads' recomputes), dK/dV and dQ 18 times,
+   K4 30 times and K6 once (counted); 3 replayed steps bitwise their
+   eager steps; level 2 against level 0 over 3 steps within phase 8's
+   bounds. Phases 3 and 3c hold its attention and layer-norm shapes
+   against the plain versions.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -184,6 +217,7 @@ a result when no CUDA device is visible.
 """
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -248,6 +282,22 @@ RECOMPUTE_STEPS = 3
 PARITY_GRAD_L2 = 1e-2
 PARITY_PARAM_ATOL = 1e-4
 PARITY_LOSS_RTOL = 1e-3
+# GPT-2 small's and the transformer's level 2 against level 0 (phases 8
+# and 9, f32): the same grad and loss bounds, but some param elements
+# pass PARITY_PARAM_ATOL. Their steps train through relu FFNs, and a
+# rounding that flips a relu pre-activation near 0 moves its unit's grad
+# column by one token's term; an element whose grad is smaller than that
+# takes Adam's early step of about lr the other way. So each param is
+# held by the share of its elements past PARITY_PARAM_ATOL, at most
+# PARITY_FLIP_SHARE, and by its update's l2 difference (``_update_l2``),
+# at most PARITY_UPDATE_L2. tools/torch_flip_parity.py read them (NVIDIA
+# H100 80GB HBM3, 700 W): sound runs on 4 seeds of each model (and level
+# 0 against itself from params one ulp up) at most 4.9e-4 (one element
+# of a 2048 bias) and 2.2e-2; faults planted in K6 (one param's update
+# lost, its rate 1.5x, every rate 1.25x) at least 5.7e-2 and 0.34; a
+# gelu GPT 0 and 4e-5
+PARITY_FLIP_SHARE = 5e-3
+PARITY_UPDATE_L2 = 0.1
 
 # H100 SXM published peaks (dense): the bound's denominators
 PEAK_FLOPS = {torch.float32: 67e12,     # f32 outside the tensor cores
@@ -271,6 +321,12 @@ LN_CASES = [
     # rows wider than a warp holds (2048): the wide kernels
     ("wide_f32", (2048, 4096), torch.float32),
     ("wide_bf16", (2048, 4096), torch.bfloat16),
+    # the transformer's rows (phase 9: batch 8 x 256, d_model 512, the
+    # VPT = 16 instantiation) and GPT-2 small's decode token at batch 1
+    # (phase 8c: one row of 768)
+    ("transformer_f32", (2048, 512), torch.float32),
+    ("transformer_bf16", (2048, 512), torch.bfloat16),
+    ("gpt_decode_b1_f32", (1, 768), torch.float32),
 ]
 # K4's AMP instantiation (phase 3c): s = bf16(bf16(x) + bf16(r)) stored
 # bf16 and compared bitwise; y, mean and var f32 at K4's f32 tolerance.
@@ -279,6 +335,7 @@ LN_AMP_TOL = 1e-5
 LN_AMP_CASES = [
     ("bert_b8_amp", (4096, 768), torch.bfloat16),
     ("bert_b8_amp_rf32", (4096, 768), torch.float32),
+    ("transformer_amp", (2048, 512), torch.bfloat16),
 ]
 # bf16 AMP (phases 4b, 6b, 7b), level 2 against level 0 on the card.
 # The two differ only by K4's and K6's f32 rounding, but a difference
@@ -477,6 +534,16 @@ ATTN_CASES = [
     ("causal_bf16", (2, 12, 1024, 64), torch.bfloat16, None, True),
     ("ragged200_bf16", (2, 12, 200, 64), torch.bfloat16, "full", False),
     ("d128_bf16", (4, 8, 512, 128), torch.bfloat16, "keypad", False),
+    # GPT-2 small's attention (phases 8, 8b): causal with a trailing
+    # key-pad bias, the main path's shape
+    ("gpt_f32", (8, 12, 1024, 64), torch.float32, "trailpad", True),
+    ("gpt_bf16", (8, 12, 1024, 64), torch.bfloat16, "trailpad", True),
+    # the transformer's attention (phase 9), trailing pad as its batches
+    # carry: the encoder's self-attention and the cross-attention (Sq =
+    # Sk), and the decoder's causal self-attention
+    ("transformer_f32", (8, 8, 256, 64), torch.float32, "trailpad", False),
+    ("transformer_causal_f32", (8, 8, 256, 64), torch.float32, "trailpad",
+     True),
 ]
 
 
@@ -491,9 +558,21 @@ def _attn_inputs(shape, dtype, bias_kind, gen, dev):
                              device=dev)
         for b in range(B):
             bias[b, ..., S - int(pads[b]):] = -1e9
+    elif bias_kind == "trailpad":  # 0-10% padded keys per row, as GPT's
+        bias = torch.zeros(B, 1, 1, S, device=dev)
+        pads = torch.randint(0, S // 10 + 1, (B,), generator=gen, device=dev)
+        for b in range(B):
+            bias[b, ..., S - int(pads[b]):] = -1e9
     elif bias_kind == "full":
         bias = torch.randn(B, 1, S, S, generator=gen, device=dev)
     return q, k, v, bias
+
+
+def _library_mask(bias, causal, dtype):
+    """The mask ``scaled_dot_product_attention`` takes beside the kernel's
+    bias: none on a causal case (``is_causal`` takes no mask; the
+    yardstick then skips the pad bias the kernel adds)."""
+    return None if bias is None or causal else bias.to(dtype)
 
 
 def _attn_bound(shape, dtype, bias, causal):
@@ -584,7 +663,7 @@ def phase_kernels(seed):
         call_ms = time_ms(fn)
         plain_ms = time_ms(lambda: attn.composed_attention_with_lse(
             q, k, v, bias, scale, causal))
-        lib_mask = None if bias is None else bias.to(dtype)
+        lib_mask = _library_mask(bias, causal, dtype)
         lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=lib_mask, is_causal=causal, scale=scale)
         library_ms = time_ms(lib_fn)
@@ -750,7 +829,7 @@ def phase_bwd_kernels(seed):
         lq, lk, lv = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(
-            lq, lk, lv, attn_mask=None if bias is None else bias.to(dtype),
+            lq, lk, lv, attn_mask=_library_mask(bias, causal, dtype),
             is_causal=causal, scale=scale)
         lib_fn = lambda: torch.autograd.grad(  # noqa: E731
             lib_out, (lq, lk, lv), g, retain_graph=True)
@@ -1674,14 +1753,16 @@ def phase_compiled_serve(what, pred, reqs, per_dispatch):
 
 # --------------------------------------------------------------- phase 6c
 def phase_compiled_train(what, exe, main, loss, snap, batches, params,
-                         step, per_step):
+                         step, per_step, tokens=TRAIN_BATCH * SEQ,
+                         pairs=TRAIN_COMPILED_PAIRS):
     """Phase 6c: from ``snap``, replayed steps (the first captures the
     plan anew on its own scope) against the plan's eager step on a
     second scope, in turns: losses and final params bitwise equal, step
     medians, tokens/s, profiled busy shares, the launches the card ran
     in a replayed step equal to an eager step's (the launch meter) and to
     ``per_step``, capture seconds, the state copy's device time, peak
-    memory and the executor's graph pool."""
+    memory and the executor's graph pool. ``tokens`` a step, ``pairs``
+    after the first (BERT's by default)."""
     scope_r, scope_e = _restored(snap), _restored(snap)
     ms_first, first = _timed(lambda: step(scope_r, batches[0]))
     plan = next(p for p in _captured(exe) if p.graph.bound_to(scope_r))
@@ -1689,7 +1770,7 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
     _, first_e = _timed(lambda: step(scope_e, batches[0], eager=True))
     losses = [(first, first_e)]
     turns = ([], [])
-    for i in range(1, TRAIN_COMPILED_PAIRS + 1):
+    for i in range(1, pairs + 1):
         batch = batches[i % len(batches)]
         pair = {}
         for eager in ((False, True) if i % 2 else (True, False)):
@@ -1722,12 +1803,12 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
     pool, n_graphs = _pool_mib(plan), len(_captured(exe))
     med_r, med_e = (float(np.median(t)) for t in turns)
     out = dict(
-        pairs=TRAIN_COMPILED_PAIRS, capture_s=capture_s,
+        pairs=pairs, capture_s=capture_s,
         capture_step_ms=ms_first, losses=losses,
         replay_ms=turns[0], eager_ms=turns[1], replay_median_ms=med_r,
         eager_median_ms=med_e,
-        replay_tokens_per_s=TRAIN_BATCH * SEQ / (med_r / 1e3),
-        eager_tokens_per_s=TRAIN_BATCH * SEQ / (med_e / 1e3),
+        replay_tokens_per_s=tokens / (med_r / 1e3),
+        eager_tokens_per_s=tokens / (med_e / 1e3),
         replay_profile=prof_r, eager_profile=prof_e,
         state_copy_ms=prof_r["by_class_ms"].get("state copy", 0.0),
         peak_mem_mib=dict(replay=peaks[0], eager=peaks[1]), pool_mib=pool,
@@ -1740,7 +1821,7 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
         "eager; the executor's %d graphs (phase 6's other paths too) in one "
         "pool of %s MiB; %d losses and %d params bitwise equal; launches on "
         "the card equal the eager step's"
-        % (what, capture_s, ms_first, TRAIN_COMPILED_PAIRS, med_r,
+        % (what, capture_s, ms_first, pairs, med_r,
            out["replay_tokens_per_s"], med_e, out["eager_tokens_per_s"],
            100 * prof_r["busy_share"], 100 * prof_e["busy_share"],
            out["state_copy_ms"], peaks[0], peaks[1], n_graphs,
@@ -2190,13 +2271,28 @@ def _run_paths(step, snap, batches, params, grads, paths):
     return out
 
 
-def _parity(a, b, params):
-    """(grad l2, grad top, loss rel, param max |diff|) of path a vs b."""
+def _parity(a, b, params, before=None):
+    """Path a against path b (``_run_paths``' values): the grad l2 and
+    top readings, the losses' relative difference, the params' max
+    |diff|, the share of all param elements whose |diff| passes
+    PARITY_PARAM_ATOL and the worst param's share as (param, share),
+    and, given the params ``before`` the steps, the worst param's update
+    l2 difference (``_update_l2``)."""
     loss_rel = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
     grad_l2, grad_top = _grad_parity(a[1], b[1])
-    param_diff = max(float((a[2][n] - b[2][n]).abs().max()) for n in params)
-    return dict(grad_l2_rel=grad_l2, grad_max_rel=grad_top,
-                loss_rel=loss_rel, param_max_abs=param_diff)
+    over = {n: int(((a[2][n] - b[2][n]).abs() > PARITY_PARAM_ATOL).sum())
+            for n in params}
+    worst = max(params, key=lambda n: over[n] / a[2][n].numel())
+    out = dict(grad_l2_rel=grad_l2, grad_max_rel=grad_top,
+               loss_rel=loss_rel,
+               param_max_abs=max(float((a[2][n] - b[2][n]).abs().max())
+                                 for n in params),
+               param_share_over_atol=sum(over.values()) / sum(
+                   a[2][n].numel() for n in params),
+               param_worst_share=(worst, over[worst] / a[2][worst].numel()))
+    if before is not None:
+        out["update_l2_rel"] = _update_l2(a[2], b[2], before, params)
+    return out
 
 
 def _check_parity(what, p):
@@ -2211,6 +2307,27 @@ def _check_parity(what, p):
             p["loss_rel"] > PARITY_LOSS_RTOL or \
             p["param_max_abs"] > PARITY_PARAM_ATOL:
         raise AssertionError("training disagrees: %s" % what)
+
+
+def _check_flip_parity(what, p):
+    """Phases 8 and 9 (f32): phase 6's grad and loss bounds, each param's
+    share of elements past PARITY_PARAM_ATOL and its update's l2
+    difference."""
+    log("%s: main path vs level 0: param grads worst l2 rel diff %.3e (%s, "
+        "<= %.0e); over %d steps loss rel diff %.3e (<= %.0e), param max "
+        "|diff| %.3e, elements past %.0e: %.3e of all, worst %.3e (%s, <= "
+        "%.0e); param update worst l2 rel diff %.3e (%s, <= %.2g)" % (
+            what, p["grad_l2_rel"][1], p["grad_l2_rel"][0], PARITY_GRAD_L2,
+            PARITY_STEPS, p["loss_rel"], PARITY_LOSS_RTOL,
+            p["param_max_abs"], PARITY_PARAM_ATOL,
+            p["param_share_over_atol"], p["param_worst_share"][1],
+            p["param_worst_share"][0], PARITY_FLIP_SHARE,
+            p["update_l2_rel"][1], p["update_l2_rel"][0], PARITY_UPDATE_L2))
+    if p["grad_l2_rel"][1] > PARITY_GRAD_L2 or \
+            p["loss_rel"] > PARITY_LOSS_RTOL or \
+            p["param_worst_share"][1] > PARITY_FLIP_SHARE or \
+            p["update_l2_rel"][1] > PARITY_UPDATE_L2:
+        raise AssertionError("%s: level 2 and level 0 disagree" % what)
 
 
 def phase_train(seed):
@@ -2361,9 +2478,9 @@ def phase_train(seed):
 
 # --------------------------------------------------------------- phase 6b
 def _amp_step_fn(exe, main, loss):
-    """One step of an AMP program (with ``eager``, the plan's eager
-    step); its loss, and the values of ``fetch`` (as f32 numpy: an AMP
-    grad is bf16) when asked."""
+    """One step of an AMP program, or of an f32 one (with ``eager``, the
+    plan's eager step); its loss, and the values of ``fetch`` (as f32
+    numpy: an AMP grad is bf16) when asked."""
     def step(sc, feed, fetch=(), eager=False):
         vals = (exe._run_eager if eager else exe.run)(
             main, feed=feed, fetch_list=[loss, *fetch], scope=sc,
@@ -3096,6 +3213,534 @@ def phase_train_sgd_amp(seed):
                 bf16_grad_entries=bf16_entries)
 
 
+# ------------------------------------------------------------ phases 8-9
+# GPT-2 small (gpt.base_config(): 12 layers, d_model 768, 12 heads of 64,
+# d_ff 3072, vocab 50304, max_length 1024, dropout 0.1) trained at
+# S = 1024, batch 8 (phases 8 f32, 8b AMP): steps on the main path (the
+# first eager, the second captures, the rest replay) and the steps of
+# train_loop at K = 1 held against the run loop
+GPT_SEQ, GPT_BATCH, GPT_STEPS, GPT_LOOP_STEPS = 1024, 8, 5, 6
+# generate (phase 8c): a prompt of 128 tokens (one prefill dispatch),
+# then 32 new tokens, greedily, from a decode step over a cache of 1024
+# rows, at batch 1 and 8; each batch size's generate runs GPT_GEN_CALLS
+# times on one executor (the prefill plan runs once a call: eager, then
+# captured, then replayed)
+GPT_PROMPT, GPT_NEW, GPT_GEN_BATCHES, GPT_GEN_CALLS = 128, 32, (1, 8), 3
+# the decode step's logits at every position against the training
+# graph's is_test forward over the same ids (f32, TF32 off): the two
+# reduce in other orders through 12 layers, as the flash and the
+# composed serving paths do (SERVE_ATOL)
+GPT_DECODE_ATOL = SERVE_ATOL
+# the transformer (phase 9): transformer.base_config() at S = 256, batch
+# 8, label smoothing 0.1, dropout 0.1: steps on the main path, and
+# replayed steps against eager ones (the first capture and 2 pairs)
+TR_SEQ, TR_STEPS, TR_SMOOTH, TR_PAIRS = 256, 3, 0.1, 2
+
+
+def _gpt_batch(vocab, rs):
+    """One GPT batch: ids in [1, vocab), the last 0-10% of each row
+    padding (id 0, which the loss masks), as real batches carry."""
+    ids = rs.randint(1, vocab, (GPT_BATCH, GPT_SEQ)).astype("int64")
+    for i in range(GPT_BATCH):
+        ids[i, GPT_SEQ - rs.randint(0, GPT_SEQ // 10 + 1):] = 0
+    return {"ids": ids}
+
+
+class _ComposedAttention:
+    """Counts the host's calls of the composed attention (the flash
+    kernels' plain version) inside the window: none means that every
+    ``fused_attention`` of the eager steps and the captures, and so of
+    every replay, took the kernels."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention as attn
+
+        self.calls, self._orig = 0, attn.composed_attention_with_lse
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self._orig(*a, **kw)
+
+        attn.composed_attention_with_lse = counted
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import attention as attn
+
+        attn.composed_attention_with_lse = self._orig
+        return False
+
+
+def _loop_against_run(what, exe, main, loss, snap, batches, params, n):
+    """``train_loop`` at K = 1 over ``n`` fresh host batches against
+    ``run`` in a loop, each from ``snap`` on a scope of its own: every
+    loss and the final params bitwise equal."""
+    sc_run, sc_loop = _restored(snap), _restored(snap)
+    ref = [exe.run(main, feed=b, fetch_list=[loss], scope=sc_run)[0]
+           for b in _fresh(batches, n)()]
+    got = _loop_values(exe, main, [loss], sc_loop, _fresh(batches, n), 1)
+    same = sorted(got) == list(range(n)) and all(
+        got[i][0].tobytes() == ref[i].tobytes() for i in range(n))
+    if not same or not all(torch.equal(sc_run.find_var(p),
+                                       sc_loop.find_var(p)) for p in params):
+        raise AssertionError("%s: train_loop at K = 1 differs from the run "
+                             "loop (losses %s against %s)" % (
+                                 what, [got.get(i) for i in range(n)], ref))
+    return [float(np.asarray(r, "float32").reshape(())) for r in ref]
+
+
+def _gpt_setup(seed, amp=False, **knobs):
+    """GPT-2 small (``gpt.base_config()``, ``knobs`` over it) built for
+    training at S = GPT_SEQ with Adam at TRAIN_LR (in
+    ``contrib.mixed_precision.decorate`` with ``amp``), its weights
+    started on the card from ``seed``: (exe, scope, main, loss, params,
+    grad name -> param, 4 batches from ``seed``, cfg)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = dict(gpt.base_config(), **knobs)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = gpt.build(cfg, seq_len=GPT_SEQ)
+        optimizer = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+        if amp:
+            optimizer = fluid.contrib.mixed_precision.decorate(optimizer)
+        _, params_grads = optimizer.minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    grads = {g.name: p.name for p, g in params_grads}
+    rs = np.random.RandomState(seed + 8)
+    batches = [_gpt_batch(cfg["vocab"], rs) for _ in range(4)]
+    return exe, scope, main, loss, params, grads, batches, cfg
+
+
+def phase_gpt_train(seed, amp):
+    """Phases 8 (f32) and 8b (bf16 AMP): GPT-2 small trained through the
+    port's entry points (``gpt.build``, ``Adam.minimize``, under AMP in
+    ``contrib.mixed_precision.decorate``; ``Executor.run`` on the card)
+    at level 2, from random weights (``seed``). A step's launches on the
+    card, from the level-2 program: the flash forward 24 (12
+    ``fused_attention`` ops, causal with the pad-row bias, and the
+    forward each of their grads recomputes), dK/dV and dQ 12 each, K4 24
+    (the pass fuses each layer's two residual adds into the norm after
+    them, the last into the final norm; under AMP K4's AMP
+    instantiation), K6 once over the 149 params; under AMP every flash
+    launch is the bf16 instantiation's. No composed attention runs (the
+    host's calls over the eager step and the capture). Then 6c's
+    replayed steps against the plan's eager step in turns (bitwise, step
+    medians, tokens/s, busy shares, peak memory, capture seconds), level
+    2 against level 0 over PARITY_STEPS steps from one scope
+    (``_check_flip_parity``; AMP's bounds under AMP), and
+    ``train_loop`` at K = 1 over GPT_LOOP_STEPS
+    steps bitwise the run loop."""
+    what = "GPT AMP (8b)" if amp else "GPT f32 (8)"
+    t0 = time.perf_counter()
+    exe, scope, main, loss, params, grads, batches, cfg = _gpt_setup(
+        seed, amp)
+    n_weights = sum(int(np.prod(main.global_block().var(n).shape))
+                    for n in params)
+    tier = _tier_stats(main, [loss.name], scope)
+    n = cfg["n_layer"]
+    per_step = (_amp_per_step(cfg, "Adam")[:9] + (2 * n,) if amp else
+                (2 * n, n, n, 2 * n, 1, 0, 0, 0, 0, 0))
+    k4 = per_step[9 if amp else 3]
+    if (len(params), n_weights) != (149, 163072512) or (
+            tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            k4, [len(params)]):
+        raise AssertionError("%s: %d params, %d weights; level 2 fused %d "
+                             "layer norms and optimizer groups %s" % (
+                                 what, len(params), n_weights,
+                                 tier["ln_residual_fused"],
+                                 tier["optimizer_groups"]))
+    log("%s: GPT %s, S = %d, batch %d: %d params, %d weights; built and "
+        "started in %.1f s; level 2: %d ops of %d (%d fused layer norms, "
+        "an optimizer group of %s params)" % (
+            what, {k: cfg[k] for k in ("n_layer", "d_model", "n_head",
+                                        "d_ff", "vocab")},
+            GPT_SEQ, GPT_BATCH, len(params), n_weights,
+            time.perf_counter() - t0, tier["ops_after"],
+            tier["ops_before"], tier["ln_residual_fused"],
+            tier["optimizer_groups"]))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+
+    # ---- the main path: counts zeroed here, read after the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    with _ComposedAttention() as composed:
+        path = _metered_steps(what, step, scope, batches, GPT_STEPS,
+                              per_step)
+    # ---- end of the main path
+    if composed.calls:
+        raise AssertionError("%s: the composed attention ran %d times on "
+                             "the main path" % (what, composed.calls))
+    losses, step_ms = path["losses"], path["step_ms"][2:]
+    med = float(np.median(step_ms))
+    tokens = GPT_BATCH * GPT_SEQ
+
+    compiled = phase_compiled_train(what, exe, main, loss, snap, batches,
+                                    params, step, per_step, tokens=tokens)
+    # the graphs' pool (16 GiB f32) goes before the next paths' eager
+    # steps (24 GiB at their peak), which would otherwise hold both
+    exe.close()
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()),
+        "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"},
+                    (3, 4, 5, 9) if amp else (3, 4, 5))})
+    parity = _parity(paths["main"], paths["level 0"], params, before=snap)
+    parity["capture_attempts"] = [p.graph.attempts for p in _captured(exe)]
+    del paths
+    log("%s: the parity paths' captures took %s attempts (2 where the "
+        "first ran out of memory)" % (what, parity["capture_attempts"]))
+    if amp:
+        log("%s: main path vs level 0: param grads worst l2 rel diff %.3e "
+            "(%s, <= %.3g); over %d steps loss rel diff %.3e (<= %.3g), "
+            "param update worst l2 rel diff %.3e (%s, <= %.3g)" % (
+                what, parity["grad_l2_rel"][1], parity["grad_l2_rel"][0],
+                AMP_PARITY_GRAD_L2, PARITY_STEPS, parity["loss_rel"],
+                AMP_PARITY_LOSS_RTOL, parity["update_l2_rel"][1],
+                parity["update_l2_rel"][0], AMP_PARITY_UPDATE_L2))
+        if parity["grad_l2_rel"][1] > AMP_PARITY_GRAD_L2 or \
+                parity["loss_rel"] > AMP_PARITY_LOSS_RTOL or \
+                parity["update_l2_rel"][1] > AMP_PARITY_UPDATE_L2:
+            raise AssertionError("%s: level 2 and level 0 disagree" % what)
+        not_f32 = _f32_masters(scope, params)
+        if not_f32:
+            raise AssertionError("%s left params or moments that are not "
+                                 "f32: %s" % (what, not_f32[:5]))
+    else:
+        _check_flip_parity(what, parity)
+    exe.close()
+    loop_losses = _loop_against_run(what, exe, main, loss, snap, batches,
+                                    params, GPT_LOOP_STEPS)
+    prof = compiled["replay_profile"]
+    log("%s: losses %s; step median %.3f ms over %d steps of the main path "
+        "(replays), %.1f tokens/s; replayed in turns %.3f ms (%.1f "
+        "tokens/s), eager %.3f ms; a profiled replayed step %.1f%% busy "
+        "(%d kernels); capture %.3f s; peak memory %.1f MiB on the main "
+        "path, %.1f replayed, %.1f eager; launches %s = %s on the card "
+        "(host calls %s); train_loop K = 1 over %d steps bitwise the run "
+        "loop" % (
+            what, ["%.4f" % v for v in losses], med, len(step_ms),
+            tokens / (med / 1e3), compiled["replay_median_ms"],
+            compiled["replay_tokens_per_s"], compiled["eager_median_ms"],
+            100 * prof["busy_share"], prof["kernels"], compiled["capture_s"],
+            path["peak_mb"], compiled["peak_mem_mib"]["replay"],
+            compiled["peak_mem_mib"]["eager"], COUNT_NAMES, path["launches"],
+            path["host_launches"], GPT_LOOP_STEPS))
+    params_out = {n_: scope.find_var(n_).clone() for n_ in params} \
+        if not amp else None
+    return dict(n_params=len(params), n_weights=n_weights, tier=tier,
+                losses=losses, step_ms=step_ms, step_ms_median=med,
+                tokens_per_s=tokens / (med / 1e3),
+                launches=dict(zip(COUNT_NAMES, path["launches"])),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+                per_step=dict(zip(COUNT_NAMES, per_step)),
+                peak_mem_mib=path["peak_mb"], compiled=compiled,
+                parity=dict(steps=PARITY_STEPS, **parity),
+                loop_losses=loop_losses, params=params_out)
+
+
+class _Generating:
+    """The executor ``gpt.generate`` drives: each ``run`` goes to
+    ``run_fn`` (the executor's ``run``, or its ``_run_eager``, the plan's
+    eager step, never its graph), marks the launch meter first, and keeps
+    its host-clock ms (the fetched logits' copy to the host included)
+    and, with ``keep``, the fetched logits."""
+
+    def __init__(self, run_fn, meter=None, keep=False):
+        self.run_fn, self.meter, self.keep = run_fn, meter, keep
+        self.ms, self.logits = [], []
+
+    def run(self, program, feed=None, fetch_list=None, scope=None):
+        if self.meter is not None:
+            self.meter.mark()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.run_fn(program, feed=feed, fetch_list=fetch_list,
+                          scope=scope)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        if self.keep:
+            self.logits.append(out[0])
+        return out
+
+
+def _gpt_logits_name(program):
+    for op in program.global_block().ops:
+        if op.type == "mul" and "gpt_out_proj.w_0" in op.input("Y"):
+            return op.output("Out")[0]
+    raise AssertionError("no LM head in the program")
+
+
+def phase_gpt_generate(seed, params):
+    """Phase 8c: ``gpt.generate`` with a ``build_prefill_step`` program
+    (prompt 128) and a ``build_decode_step`` program (a cache of 1024
+    rows), greedy, 32 new tokens, at batch 1 and 8, on phase 8's weights
+    (``params``). Each batch size runs generate GPT_GEN_CALLS times on
+    one executor and scope: every step after each plan's first two is a
+    replay of its graph, and the decode graph, captured at its second
+    token, reads and writes the caches the prefill wrote, in place. The
+    launches on the card: K4 24 a prefill and 24 a token (the level-2
+    program fuses each residual add into the norm after it), counted per
+    dispatch, and the wrappers called for the eager step and the capture
+    of each plan only. The tokens of every call equal those of an
+    executor that never replays (``_run_eager``) on a second scope, and
+    the logits of the last call at every position (the prefill's 128
+    and each decode step's) match the training graph's is_test forward
+    over the same ids within GPT_DECODE_ATOL. Prints the prefill latency
+    and the median per-token latency of the last call."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config()
+    n = cfg["n_layer"]
+    per = (0, 0, 0, 2 * n, 0, 0, 0, 0, 0, 0)
+    rs = np.random.RandomState(seed + 9)
+    out = {}
+    for batch in GPT_GEN_BATCHES:
+        t0 = time.perf_counter()
+        dec, dstart = fluid.Program(), fluid.Program()
+        with fluid.program_guard(dec, dstart), fluid.unique_name.guard():
+            logits, caches = gpt.build_decode_step(cfg, batch=batch)
+        pre, pstart = fluid.Program(), fluid.Program()
+        with fluid.program_guard(pre, pstart), fluid.unique_name.guard():
+            plogits, _ = gpt.build_prefill_step(cfg, batch=batch,
+                                                prompt_len=GPT_PROMPT)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scopes = []
+        for _ in range(2):  # the replaying executor's, the eager one's
+            sc = fluid.Scope()
+            exe.run(dstart, scope=sc)
+            exe.run(pstart, scope=sc)
+            for name, v in params.items():
+                if sc.find_var(name) is not None:
+                    sc.set_var(name, v.clone())
+            scopes.append(sc)
+        tier_d = _tier_stats(dec, [logits.name], scopes[0])
+        tier_p = _tier_stats(pre, [plogits.name], scopes[0])
+        if (tier_d["ln_residual_fused"], tier_p["ln_residual_fused"]) != (
+                2 * n, 2 * n):
+            raise AssertionError("generate: level 2 fused %d / %d layer "
+                                 "norms in the decode / prefill step" % (
+                                     tier_d["ln_residual_fused"],
+                                     tier_p["ln_residual_fused"]))
+        prompt = rs.randint(1, cfg["vocab"], (batch, GPT_PROMPT)).astype(
+            "int64")
+        cache_objs = [scopes[0].find_var(c) for c in caches]
+        build_s = time.perf_counter() - t0
+
+        def generate(ex, sc):
+            return gpt.generate(ex, dec, logits, prompt, GPT_NEW, sc,
+                                prefill_prog=pre, prefill_logits=plogits)
+
+        # ---- the main path: counts zeroed here, read after the last call
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls = []
+        with LaunchMeter() as meter:
+            for i in range(GPT_GEN_CALLS):
+                g = _Generating(exe.run, meter, keep=i == GPT_GEN_CALLS - 1)
+                calls.append((generate(g, scopes[0]), g))
+        # ---- end of the main path
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        host = _counts()
+        bad = [u for u in meter.units if u != per]
+        if bad or host != _times(per, 4):
+            raise AssertionError("generate batch %d: dispatches ran %s = %s "
+                                 "on the card (expected %s each); the "
+                                 "wrappers called %s (the eager step and "
+                                 "the capture of 2 plans)" % (
+                                     batch, COUNT_NAMES, bad[:1], per, host))
+        plans = {p: next(q for q in _captured(exe)
+                         if q.graph.bound_to(scopes[0]) and any(
+                             c in q.graph.donated for c in caches)
+                         and q.fetch_names == [v.name])
+                 for p, v in (("prefill", plogits), ("decode", logits))}
+        shared = all(scopes[0].find_var(c) is o
+                     for c, o in zip(caches, cache_objs)) and all(
+            p.graph.state[c] is o for p in plans.values()
+            for c, o in zip(caches, cache_objs)) and all(
+            p.graph.adopted == 0 for p in plans.values())
+        if not shared:
+            raise AssertionError("generate batch %d: the plans' graphs do "
+                                 "not hold the scope's caches in place"
+                                 % batch)
+        eager = _Generating(exe._run_eager)
+        want = generate(eager, scopes[1])
+        for i, (got, _) in enumerate(calls):
+            if not np.array_equal(got, want):
+                raise AssertionError("generate batch %d call %d: tokens "
+                                     "differ from the eager executor's"
+                                     % (batch, i))
+        # the last call's logits at every position against the training
+        # graph's is_test forward (dropout off: the decode steps have
+        # none) over the same ids
+        last = calls[-1][1]
+        steps = np.concatenate(last.logits, axis=1)
+        full, fstart = fluid.Program(), fluid.Program()
+        with fluid.program_guard(full, fstart), fluid.unique_name.guard():
+            gpt.build(dict(cfg, dropout=0.0), seq_len=steps.shape[1],
+                      is_test=True)
+        fsc = fluid.Scope()
+        exe.run(fstart, scope=fsc)
+        for name, v in params.items():
+            fsc.set_var(name, v)
+        (ref,) = exe.run(full, feed={"ids": want[:, :steps.shape[1]]},
+                         fetch_list=[_gpt_logits_name(full)], scope=fsc)
+        err = float(np.abs(steps - ref).max())
+        if not np.isfinite(steps).all() or err > GPT_DECODE_ATOL:
+            raise AssertionError("generate batch %d: decode logits against "
+                                 "the full forward: max |diff| %.3e > %.0e"
+                                 % (batch, err, GPT_DECODE_ATOL))
+        prefill_ms, token_ms = last.ms[0], last.ms[1:]
+        row = dict(batch=batch, build_s=build_s, prefill_ms=prefill_ms,
+                   token_ms=token_ms,
+                   token_median_ms=float(np.median(token_ms)),
+                   eager_prefill_ms=eager.ms[0],
+                   eager_token_median_ms=float(np.median(eager.ms[1:])),
+                   first_call_ms=calls[0][1].ms,
+                   capture_s={p: q.graph.seconds for p, q in plans.items()},
+                   pool_mib=_pool_mib(plans["decode"]), peak_mem_mib=peak_mb,
+                   logits_max_abs_err=err,
+                   launches=dict(zip(COUNT_NAMES, meter.total())),
+                   host_launches=dict(zip(COUNT_NAMES, host)),
+                   dispatches=len(meter.units))
+        out[batch] = row
+        log("generate (8c): batch %d, prompt %d, %d new tokens, cache %d "
+            "rows: prefill %.3f ms, per token median %.3f ms (max %.3f), "
+            "replayed (the eager executor: prefill %.3f ms, per token "
+            "%.3f); tokens of %d replaying calls equal the eager "
+            "executor's; logits at %d positions within %.3e of the full "
+            "forward; capture prefill %.3f s, decode %.3f s; the caches "
+            "written in place by both graphs (one pool of %s MiB); peak "
+            "memory %.1f MiB; %d dispatches each ran %s = %s on the card" % (
+                batch, GPT_PROMPT, GPT_NEW, cfg["max_length"], prefill_ms,
+                row["token_median_ms"], max(token_ms), row["eager_prefill_ms"],
+                row["eager_token_median_ms"], GPT_GEN_CALLS, steps.shape[1],
+                err, row["capture_s"]["prefill"], row["capture_s"]["decode"],
+                "%.1f" % row["pool_mib"] if row["pool_mib"] is not None
+                else "not measured", peak_mb, len(meter.units), COUNT_NAMES,
+                per))
+        del exe, scopes, fsc, calls, last, steps, ref, cache_objs, plans
+        torch.cuda.empty_cache()
+    return out
+
+
+def _transformer_setup(seed):
+    """The transformer (``transformer.base_config()``) built for training
+    at S = TR_SEQ, label smoothing TR_SMOOTH, with Adam at TRAIN_LR, its
+    weights started on the card from ``seed``: (exe, scope, main, loss,
+    params, grad name -> param, 3 batches from ``seed`` with 0-10%
+    trailing padding in each row's source and target, cfg)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.base_config()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = transformer.build(cfg, seq_len=TR_SEQ,
+                                    label_smooth_eps=TR_SMOOTH)
+        _, params_grads = fluid.optimizer.Adam(
+            learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    grads = {g.name: p.name for p, g in params_grads}
+    rs = np.random.RandomState(seed + 10)
+    batches = []
+    for _ in range(3):
+        feed = {k: rs.randint(1, cfg[v], (TRAIN_BATCH, TR_SEQ)).astype(
+            "int64") for k, v in (("src_ids", "src_vocab"),
+                                  ("trg_ids", "trg_vocab"),
+                                  ("lbl_ids", "trg_vocab"))}
+        for i in range(TRAIN_BATCH):
+            src_pad, trg_pad = rs.randint(0, TR_SEQ // 10 + 1, 2)
+            feed["src_ids"][i, TR_SEQ - src_pad:] = 0
+            for k in ("trg_ids", "lbl_ids"):
+                feed[k][i, TR_SEQ - trg_pad:] = 0
+        batches.append(feed)
+    return exe, scope, main, loss, params, grads, batches, cfg
+
+
+def phase_transformer(seed):
+    """Phase 9: the transformer (``transformer.base_config()``: 6 + 6
+    layers, d_model 512, 8 heads of 64, vocabularies of 30000) trained
+    at S = 256, batch 8, label smoothing 0.1, dropout 0.1, Adam, level 2,
+    f32, from random weights. A step's launches on the card, from the
+    level-2 program: the flash forward 36 (encoder self-attention,
+    causal decoder self-attention and cross-attention, 6 each, and each
+    grad's recompute), dK/dV and dQ 18 each, K4 30 (five residual adds
+    a layer pair fused into the norm after them), K6 once over the 187
+    trained params (the two position tables are frozen); losses finite.
+    Then replayed steps against the plan's eager step in turns, bitwise
+    (6c's way: the first captures, then TR_PAIRS pairs), and level 2
+    against level 0 over PARITY_STEPS steps from one scope
+    (``_check_flip_parity``): K4 at VPT = 16 and K6 over the 187 params
+    against their plain versions on the path."""
+    t0 = time.perf_counter()
+    exe, scope, main, loss, params, grads, batches, cfg = \
+        _transformer_setup(seed)
+    n_weights = sum(int(np.prod(main.global_block().var(n).shape))
+                    for n in params)
+    tier = _tier_stats(main, [loss.name], scope)
+    n = cfg["n_layer"]
+    per_step = (6 * n, 3 * n, 3 * n, 5 * n, 1, 0, 0, 0, 0, 0)
+    if (len(params), n_weights) != (189, 90445824) or (
+            tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            5 * n, [len(params) - 2]):
+        raise AssertionError("transformer: %d params, %d weights; level 2 "
+                             "fused %d layer norms and optimizer groups %s"
+                             % (len(params), n_weights,
+                                tier["ln_residual_fused"],
+                                tier["optimizer_groups"]))
+    log("transformer (9): %s, S = %d, batch %d, label smoothing %.1f: %d "
+        "params, %d weights; built and started in %.1f s; level 2: %d ops "
+        "of %d (%d fused layer norms, an optimizer group of %s)" % (
+            {k: cfg[k] for k in ("n_layer", "d_model", "n_head", "d_ff",
+                                 "src_vocab", "trg_vocab")},
+            TR_SEQ, TRAIN_BATCH, TR_SMOOTH, len(params), n_weights,
+            time.perf_counter() - t0, tier["ops_after"], tier["ops_before"],
+            tier["ln_residual_fused"], tier["optimizer_groups"]))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+
+    # ---- the main path: counts zeroed here, read after the last step
+    with _ComposedAttention() as composed:
+        path = _metered_steps("transformer", step, scope, batches, TR_STEPS,
+                              per_step)
+    # ---- end of the main path
+    if composed.calls:
+        raise AssertionError("transformer: the composed attention ran %d "
+                             "times on the main path" % composed.calls)
+    compiled = phase_compiled_train("transformer (9)", exe, main, loss, snap,
+                                    batches, params, step, per_step,
+                                    tokens=TRAIN_BATCH * TR_SEQ,
+                                    pairs=TR_PAIRS)
+    exe.close()
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()), "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"},
+                                      (3, 4, 5))})
+    parity = _parity(paths["main"], paths["level 0"], params, before=snap)
+    del paths
+    _check_flip_parity("transformer (9)", parity)
+    log("transformer (9): losses %s; steps %s ms; launches %s = %s on the "
+        "card (host calls %s); peak memory %.1f MiB" % (
+            ["%.4f" % v for v in path["losses"]],
+            ["%.1f" % v for v in path["step_ms"]], COUNT_NAMES,
+            path["launches"], path["host_launches"], path["peak_mb"]))
+    return dict(n_params=len(params), n_weights=n_weights, tier=tier,
+                losses=path["losses"], step_ms=path["step_ms"],
+                launches=dict(zip(COUNT_NAMES, path["launches"])),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+                per_step=dict(zip(COUNT_NAMES, per_step)),
+                peak_mem_mib=path["peak_mb"], compiled=compiled,
+                parity=dict(steps=PARITY_STEPS, **parity))
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -3115,6 +3760,14 @@ def _kernel_row(name, source, replaces, launches, by_path, err, t,
             k: t_amp[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "library_call_ms")})
     return row
+
+
+def _free():
+    """Between phases: collect what a phase left in reference cycles (its
+    executors, whose graphs hold memory pools), then hand the caching
+    allocator's free blocks back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -3150,7 +3803,7 @@ def main():
     bwd_rows, bwd_occupancy = timed("3b", phase_bwd_kernels, args.seed)
     tier_rows, k5_launches = timed("3c", phase_tier_kernels, args.seed)
     tuned = timed("3d", phase_tune)
-    torch.cuda.empty_cache()
+    _free()
     with tempfile.TemporaryDirectory() as workdir:
         serve, pred, reqs = timed("4", phase_serve, workdir, args.seed)
     serve["compiled"] = timed("4c f32", phase_compiled_serve, "f32", pred,
@@ -3160,25 +3813,35 @@ def main():
         serve_amp = timed("4b + 4c AMP", phase_serve_amp, workdir,
                           args.seed, pred, reqs)
     del pred
-    torch.cuda.empty_cache()
+    _free()
     train = timed("6 + 6c f32", phase_train, args.seed)
-    torch.cuda.empty_cache()
+    _free()
     train_amp = timed("6b + 6c AMP", phase_train_amp, args.seed, train)
-    torch.cuda.empty_cache()
+    _free()
     train_loop = timed("6e", phase_train_loop, "f32 (6e)", args.seed, False,
                        train["snapshot"], train.pop("per_step"))
-    torch.cuda.empty_cache()
+    _free()
     train_loop_amp = timed("6f", phase_train_loop, "AMP (6f)", args.seed,
                            True, train_amp.pop("snapshot"),
                            train_amp.pop("per_step"))
-    torch.cuda.empty_cache()
+    _free()
     recompute = timed("6g", phase_recompute, args.seed, train)
     for k in ("snapshot", "main_path", "batches"):
         train.pop(k)
-    torch.cuda.empty_cache()
+    _free()
     train_sgd = timed("7", phase_train_sgd, args.seed)
-    torch.cuda.empty_cache()
+    _free()
     train_sgd_amp = timed("7b", phase_train_sgd_amp, args.seed)
+    _free()
+    gpt_train = timed("8", phase_gpt_train, args.seed, False)
+    _free()
+    gpt_generate = timed("8c", phase_gpt_generate, args.seed,
+                         gpt_train.pop("params"))
+    _free()
+    gpt_train_amp = timed("8b", phase_gpt_train, args.seed, True)
+    gpt_train_amp.pop("params")
+    _free()
+    trans = timed("9", phase_transformer, args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -3198,6 +3861,9 @@ def main():
     sa_launch = serve_amp["launches"]
     l_launch, la_launch = train_loop["launches"], train_loop_amp["launches"]
     r_launch = recompute["launches"]
+    g_launch, ga_launch = gpt_train["launches"], gpt_train_amp["launches"]
+    tr_launch = trans["launches"]
+    gen_k4 = sum(r["launches"]["K4"] for r in gpt_generate.values())
     by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
     k1 = by_path(serve=serve["launches"]["flash fwd"],
                  train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
@@ -3205,10 +3871,15 @@ def main():
                  train_sgd_amp=as_launch["flash fwd"],
                  train_loop=l_launch["flash fwd"],
                  train_loop_amp=la_launch["flash fwd"],
-                 recompute=r_launch["flash fwd"])
+                 recompute=r_launch["flash fwd"],
+                 gpt_train=g_launch["flash fwd"],
+                 gpt_train_amp=ga_launch["flash fwd"],
+                 transformer_train=tr_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
                       train_sgd_amp=as_launch[c], train_loop=l_launch[c],
-                      train_loop_amp=la_launch[c], recompute=r_launch[c])
+                      train_loop_amp=la_launch[c], recompute=r_launch[c],
+                      gpt_train=g_launch[c], gpt_train_amp=ga_launch[c],
+                      transformer_train=tr_launch[c])
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
@@ -3216,10 +3887,14 @@ def main():
                  train_sgd_amp=as_launch["K4 AMP"],
                  train_loop=l_launch["K4"],
                  train_loop_amp=la_launch["K4 AMP"],
-                 recompute=r_launch["K4"])
+                 recompute=r_launch["K4"], gpt_train=g_launch["K4"],
+                 gpt_train_amp=ga_launch["K4 AMP"], gpt_generate=gen_k4,
+                 transformer_train=tr_launch["K4"])
     k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
                  train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
-                 recompute=r_launch["K6"])
+                 recompute=r_launch["K6"], gpt_train=g_launch["K6"],
+                 gpt_train_amp=ga_launch["K6"],
+                 transformer_train=tr_launch["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -3277,6 +3952,27 @@ def main():
                     amp=(opt_amp["case"], opt_amp["max_abs_err"]["sgd"],
                          opt_amp["sgd"])),
     ]
+    # K1-K3 at GPT-2 small's causal shape, f32 and bf16 (phases 3, 3b)
+    fwd_g, bwd_g = ({c: next(r for r in rs_ if r["case"] == c)
+                     for c in ("gpt_f32", "gpt_bf16")}
+                    for rs_ in (rows, bwd_rows))
+    gpt_rows = (
+        {c: dict(max_abs_err=r["max_abs_err"], **{k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+            library_ms=r["library_device_ms"],
+            library_call_ms=r["library_ms"]) for c, r in fwd_g.items()},
+        {c: dict(max_abs_err=max(r["max_abs_err"][n] for n in ("dk", "dv")),
+                 library_ms=r["library_device_ms"],
+                 library_call_ms=r["library_ms"], **{k: r["dkv"][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by")})
+         for c, r in bwd_g.items()},
+        {c: dict(max_abs_err=r["max_abs_err"]["dq"],
+                 library_ms=r["library_device_ms"],
+                 library_call_ms=r["library_ms"], **{k: r["dq"][k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by")})
+         for c, r in bwd_g.items()})
+    for row, g in zip(kernels[:3], gpt_rows):
+        row["gpt"] = g
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
     # pl.pallas_call has its port; none is left out
     not_ported = []
@@ -3299,7 +3995,10 @@ def main():
                            train_sgd_amp=train_sgd_amp,
                            train_loop=train_loop,
                            train_loop_amp=train_loop_amp,
-                           recompute=recompute, kernels=kernels,
+                           recompute=recompute, gpt_train=gpt_train,
+                           gpt_train_amp=gpt_train_amp,
+                           gpt_generate=gpt_generate, transformer=trans,
+                           kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

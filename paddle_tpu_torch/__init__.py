@@ -18,7 +18,7 @@ Import as ``import paddle_tpu_torch as fluid``.
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
 from . import (clip, contrib, convert, core, flags,  # noqa: F401
                inference, initializer, io, layers, learning_rate_decay,
-               models, optimizer, reader, regularizer)
+               models, optimizer, profiler, reader, regularizer)
 from .core.executor import Executor  # noqa: F401
 from .core.pipeline import (ConstFeedCache, DevicePrefetcher,  # noqa: F401
                             FetchHandle, WindowFeed)

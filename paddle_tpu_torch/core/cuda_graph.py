@@ -54,7 +54,13 @@ reads fixed addresses, which the port keeps so:
   their sum. Nothing a later replay reads lives in the pool: feeds,
   constants and write-only persistables have buffers made before the
   capture, state is the scope's, and fetches are the pool's tensors
-  only until the executor has copied them.
+  only until the executor has copied them. A capture takes memory from
+  its pool alone: the eager steps before it (GPT-2 small's peaks at
+  24 GiB) may leave the card's memory in free blocks cached outside the
+  pool, where the capture cannot take them. A capture that runs out of
+  memory so hands the caching allocator's free blocks back to the card
+  and captures once more (``attempts``); the wrappers' launch counts then
+  hold the failed attempt's calls too.
 - **Launch counters.** A kernel wrapper counts the launch calls its
   host code makes, in the eager run and in the capture (which records
   the launch into the graph). A replay makes no launch call: the card
@@ -181,6 +187,16 @@ def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
 
 
+def _out_of_memory(e: BaseException) -> bool:
+    """Whether ``e`` or an error it was raised from is the caching
+    allocator's out of memory (a lowering wraps what its op raised)."""
+    while e is not None:
+        if isinstance(e, torch.cuda.OutOfMemoryError):
+            return True
+        e = e.__cause__ or e.__context__
+    return False
+
+
 class StepGraph:
     """One plan's step captured on one scope's state.
 
@@ -194,7 +210,8 @@ class StepGraph:
     ``written`` (every written var's value: for ``mut_state`` its captured
     tensor, for a write-only persistable its buffer) hold the graph's
     outputs after a replay. ``seconds`` is the capture's host time;
-    ``adopted`` counts the replaced vars copied in (``adopt``)."""
+    ``adopted`` counts the replaced vars copied in (``adopt``);
+    ``attempts`` the captures made (2 after one ran out of memory)."""
 
     def __init__(self, step, feeds: Dict[str, torch.Tensor],
                  state: Dict[str, Any], mut_state: Sequence[str],
@@ -218,14 +235,52 @@ class StepGraph:
             (n, torch.empty(shape, dtype=dtype, device=device))
             for n, (shape, dtype) in trace.pure.items())
         self.adopted = 0
-        self.tables: List[torch.Tensor] = []  # K6/K7's, kept
-        self._fills: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        self._next_slot = 0
         self._scope = weakref.ref(scope)
+        torch.cuda.synchronize(device)
+        # the failed attempt's graph lives on until the next capture has
+        # begun: the pool's only graph, it would take the pool with it
+        failed = None
+        for attempt in (1, 2):
+            self.attempts = attempt
+            try:
+                fetches = self._capture(step, device, pool, stream)
+                break
+            except Exception as e:
+                if attempt == 2 or not _out_of_memory(e):
+                    raise
+            # out of the except, so the failed attempt's frames and the
+            # tensors they held are gone
+            failed = self.graph
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+        del failed
+        torch.cuda.current_stream(device).wait_stream(stream)
+        if self._next_slot != len(self.slots) or \
+                len(self._fills) != len(self._constants):
+            raise RuntimeError(
+                "the step drew %d random streams and placed %d constants "
+                "under capture, %d and %d in its eager run"
+                % (self._next_slot, len(self._fills), len(self.slots),
+                   len(self._constants)))
+        from ..kernels import tune
+
+        self.tuned_epoch = tune.epoch()  # the table the capture read
+        self.fetches = fetches
+        for out, host in self._fills:
+            out.copy_(host)
+        self.seconds = time.perf_counter() - t0
+
+    def _capture(self, step, device, pool, stream):
+        """One attempt at the capture, from a new graph: the step's
+        fetches. Out of memory is raised as it came (``__init__``
+        retries it once), another failure as a RuntimeError that says
+        why."""
         self.graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             self.graph.register_generator_state(g)
-        torch.cuda.synchronize(device)
+        self.tables: List[torch.Tensor] = []  # K6/K7's, kept
+        self._fills: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._next_slot = 0
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream), torch.no_grad():
             # thread_local: a DevicePrefetcher's fill thread may allocate
@@ -242,7 +297,7 @@ class StepGraph:
                     self.graph.capture_end()
                 except RuntimeError:
                     pass  # the capture is invalid; e says why
-                if not isinstance(e, Exception):
+                if not isinstance(e, Exception) or _out_of_memory(e):
                     raise
                 raise RuntimeError(
                     "CUDA graph capture of the step failed (a host "
@@ -254,21 +309,7 @@ class StepGraph:
                 warnings.filterwarnings(
                     "ignore", message="The CUDA Graph is empty")
                 self.graph.capture_end()
-        torch.cuda.current_stream(device).wait_stream(stream)
-        if self._next_slot != len(self.slots) or \
-                len(self._fills) != len(self._constants):
-            raise RuntimeError(
-                "the step drew %d random streams and placed %d constants "
-                "under capture, %d and %d in its eager run"
-                % (self._next_slot, len(self._fills), len(self.slots),
-                   len(self._constants)))
-        from ..kernels import tune
-
-        self.tuned_epoch = tune.epoch()  # the table the capture read
-        self.fetches = fetches
-        for out, host in self._fills:
-            out.copy_(host)
-        self.seconds = time.perf_counter() - t0
+        return fetches
 
     # ---- the LowerContext.graph hook, at capture
     def _slot(self, kind):

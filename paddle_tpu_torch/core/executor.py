@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..observe import trace as _tr
+from ..profiler import RecordEvent
 from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
                        release_schedule)
@@ -148,7 +149,9 @@ class Executor:
             program, feed, fetch_list, scope)
         plan = self._plan(program, feeds, fetch_names, scope)
         t0 = time.perf_counter()
-        fetches, captured = self._step(plan, program, feeds, scope)
+        # the whole step under one profiler marker (the JAX package's)
+        with RecordEvent("executor_run"):
+            fetches, captured = self._step(plan, program, feeds, scope)
         _record_dispatch(plan, "run", "run", 1, time.perf_counter() - t0,
                          captured)
         return self._finish(plan, fetches, return_numpy, "")
@@ -195,8 +198,10 @@ class Executor:
                       else feeds)
         plan = self._plan(program, step_feeds, fetch_names, scope)
         t0 = time.perf_counter()
-        fetches, captured = self._k_steps(plan, program, feeds, scope, steps,
-                                          feed_stacked, reduce_fetches)
+        with RecordEvent("executor_run_repeated[%d]" % steps):
+            fetches, captured = self._k_steps(plan, program, feeds, scope,
+                                              steps, feed_stacked,
+                                              reduce_fetches)
         _record_dispatch(plan, ("run_repeated", steps, feed_stacked,
                                 reduce_fetches), "run_repeated", steps,
                          time.perf_counter() - t0, captured)

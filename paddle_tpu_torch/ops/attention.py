@@ -729,17 +729,29 @@ def _attention_cuda(cfg, q, k, v, *, scale=1.0, causal=False):
     return _fa_maskbias(q, k, v, None, scale, causal)
 
 
+def seg_mask(q_seg, k_seg):
+    """[B, Sq] and [B, Sk] packed segment ids -> the [B, 1, Sq, Sk]
+    additive block-diagonal mask: a key is visible iff it shares the
+    query's segment id and is a real token (id > 0; ``pack_sequences``
+    keeps 0 for padding). The port's copy of the JAX package's rule
+    (paddle_tpu/parallel/ring_attention.py ``_seg_mask``)."""
+    keep = (q_seg[:, :, None] == k_seg[:, None, :]) & (k_seg[:, None, :] > 0)
+    return torch.where(keep, 0.0, _MASK)[:, None].to(torch.float32)
+
+
 def _attention_inputs(ins):
-    if ins.get("SegmentIds"):
-        raise NotImplementedError(
-            "fused_attention with SegmentIds (packed sequences) is not "
-            "ported yet")
     # the heads come out of transpose2 as strided views; the kernels read
     # contiguous [B, H, S, D]
     q, k, v = (ins[s][0].contiguous() for s in ("Q", "K", "V"))
     bias = (ins.get("Bias") or [None])[0]
     if bias is not None:
         bias = bias.float()  # mask bias adds in f32 in-kernel
+    seg = (ins.get("SegmentIds") or [None])[0]
+    if seg is not None:
+        # one device: the packed rows' ids fold into a full [B, 1, S, S]
+        # mask, as the JAX package folds them off an sp mesh
+        sm = seg_mask(seg, seg)
+        bias = sm if bias is None else bias + sm
     return q, k, v, bias
 
 

@@ -1,7 +1,8 @@
-"""Basic tensor ops: constants, random init, assign, assign_value, cast,
-scale, increment (the learning-rate schedules' step counter), range,
-and the clipping / sign ops that gradient clipping and regularizers
-append.
+"""Basic tensor ops: constants (``fill_constant`` and
+``fill_constant_batch_size_like``), random init, assign, assign_value,
+cast, scale, increment (the learning-rate schedules' step counter),
+range, ``one_hot``, and the clipping / sign ops that gradient clipping
+and regularizers append.
 
 Counterparts of paddle_tpu/ops/basic.py. Random ops draw from torch
 generators (core/lowering.py LowerContext.next_rng), so their values
@@ -48,6 +49,30 @@ def _fill_constant(ctx, ins, attrs):
     val = attrs.get("value", 0.0)
     return {"Out": [torch.full(shape, val, dtype=_dt(attrs),
                                device=ctx.device)]}
+
+
+@register_op("fill_constant_batch_size_like", no_grad=True)
+def _fill_constant_bsl(ctx, ins, attrs):
+    ref = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ref.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": [torch.full(tuple(shape), attrs.get("value", 0.0),
+                               dtype=_dt(attrs), device=ctx.device)]}
+
+
+@register_op("one_hot", no_grad=True)
+def _one_hot(ctx, ins, attrs):
+    """f32 rows of ``depth``; an id outside [0, depth) gives an all-zero
+    row, as ``jax.nn.one_hot`` does (``F.one_hot`` would raise, and wants
+    int64 ids where the card holds int32). A trailing 1 of the ids is
+    squeezed."""
+    x = ins["X"][0]
+    depth = attrs["depth"]
+    if x.ndim >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    classes = torch.arange(depth, dtype=x.dtype, device=x.device)
+    return {"Out": [(x.unsqueeze(-1) == classes).to(torch.float32)]}
 
 
 @register_op("uniform_random", no_grad=True, uses_rng=True)

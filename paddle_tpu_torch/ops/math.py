@@ -1,4 +1,4 @@
-"""Math ops: ``mul``, the broadcasted elementwise family, ``sum`` /
+"""Math ops: ``mul``, ``matmul``, the broadcasted elementwise family, ``sum`` /
 ``mean``, the reductions, ``squared_l2_norm`` and the six comparisons
 (bool outputs, Paddle's broadcast of Y).
 
@@ -16,6 +16,7 @@ import operator
 import torch
 
 from ..core.registry import register_op
+from .basic import weak_scalar
 
 
 def _flatten2d(x, num_col_dims):
@@ -33,6 +34,26 @@ def _mul(ctx, ins, attrs):
     ync = attrs.get("y_num_col_dims", 1)
     out = torch.matmul(_flatten2d(x, xnc), _flatten2d(y, ync))
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
+
+
+@register_op("matmul", diff_inputs=["X", "Y"])
+def _matmul(ctx, ins, attrs):
+    """Fluid's matmul: ``transpose_X`` / ``transpose_Y`` on the last two
+    dims, a 1-D X taken as a row ([1, K], or [K, 1] transposed), a 1-D Y
+    as a vector (never transposed), batch dims broadcast, times
+    ``alpha`` (a weak scalar beside bf16, as in the JAX package)."""
+    x, y = ins["X"][0], ins["Y"][0]
+    alpha = attrs.get("alpha", 1.0)
+    if x.ndim == 1:
+        x = x[:, None] if attrs.get("transpose_X", False) else x[None, :]
+    if attrs.get("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    if alpha != 1.0:
+        out = out * weak_scalar(alpha, out)
+    return {"Out": [out]}
 
 
 # ---------------------------------------------------------------- elementwise

@@ -1,4 +1,5 @@
-"""NN ops: layer_norm, lookup_table, dropout, softmax_with_cross_entropy.
+"""NN ops: layer_norm, rms_norm, lookup_table, dropout, softmax,
+softmax_with_cross_entropy, label_smooth.
 
 Counterparts of paddle_tpu/ops/nn.py. Inference-mode dropout follows the
 reference's ``downgrade_in_infer`` rule: the output is scaled by
@@ -11,7 +12,9 @@ form), and lookup_table, whose rows are summed per id in a fixed order
 (ops/tensor_ops.py ``scatter_add_rows``) so that a training step is
 bitwise repeatable on CUDA. Its forward gathers by advanced indexing,
 whose autograd backward (what a recompute segment's vjp takes) sums the
-rows the same way.
+rows the same way. An id past the table's rows gives a NaN row and
+takes no grad, as ``jnp.take`` and JAX's scatter do (ops/tensor_ops.py
+``take_rows``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from ..core.registry import register_grad_lowering, register_op
 from .basic import weak_scalar
-from .tensor_ops import scatter_add_rows
+from .tensor_ops import scatter_add_rows, take_rows
 
 
 @register_op("layer_norm", diff_inputs=["X", "Scale", "Bias"])
@@ -43,13 +46,31 @@ def _layer_norm(ctx, ins, attrs):
             "Variance": [var.reshape(-1)]}
 
 
+@register_op("rms_norm", diff_inputs=["X", "Scale"])
+def _rms_norm(ctx, ins, attrs):
+    """Root-mean-square norm: statistics and rsqrt in f32, the result cast
+    back to x's dtype, then times Scale (bf16 x f32 promotes to f32 in
+    both packages). Its grad is the generic vjp."""
+    x = ins["X"][0]
+    scale = ins.get("Scale", [None])[0]
+    eps = attrs.get("epsilon", 1e-6)
+    begin = attrs.get("begin_norm_axis", 1)
+    axes = tuple(range(begin, x.ndim))
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=axes, keepdim=True)
+    y = (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+    if scale is not None:
+        y = y * scale.reshape((1,) * begin + tuple(x.shape[begin:]))
+    return {"Y": [y]}
+
+
 @register_op("lookup_table", diff_inputs=["W"])
 def _lookup_table(ctx, ins, attrs):
     w, ids = ins["W"][0], ins["Ids"][0]
     if ids.ndim >= 2 and ids.shape[-1] == 1:
         ids = ids.squeeze(-1)
-    flat = ids.reshape(-1).to(torch.int64)
-    out = w[flat].reshape(tuple(ids.shape) + (w.shape[1],))
+    out = take_rows(w, ids.reshape(-1)).reshape(tuple(ids.shape) +
+                                                (w.shape[1],))
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out.masked_fill((ids == pad).unsqueeze(-1), 0.0)
@@ -96,6 +117,25 @@ def _dropout_grad(ctx, ins, attrs):
 
 
 # ------------------------------------------------------------------- softmax
+@register_op("softmax", diff_inputs=["X"])
+def _softmax(ctx, ins, attrs):
+    return {"Out": [torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))]}
+
+
+@register_op("label_smooth", diff_inputs=["X"])
+def _label_smooth(ctx, ins, attrs):
+    """(1 - eps) * X + eps * PriorDist, or eps / K without a prior
+    (the reference's label_smooth_op.cc)."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    dist = (ins.get("PriorDist") or [None])[0]
+    keep = weak_scalar(1.0 - eps, x) * x
+    if dist is not None:
+        return {"Out": [keep + weak_scalar(eps, dist) * dist.reshape(
+            (1,) * (x.ndim - 1) + (-1,))]}
+    return {"Out": [keep + weak_scalar(eps / x.shape[-1], x)]}
+
+
 def _hard_label(label, ndim):
     if label.ndim == ndim and label.shape[-1] == 1:
         label = label.squeeze(-1)

@@ -68,6 +68,13 @@ where only the port is installed:
   warm-up + decay schedule under replay against the CPU and its closed
   form; a RecomputeOptimizer program's replays bitwise its eager steps;
   a param replaced in ``on_step`` honoured as in the run loop.
+- GPT: a 2-layer GPT's replayed training steps bitwise its eager steps
+  with their launches (causal flash kernels, K4 2 a layer, K6); at
+  S = 1024 the causal K1-K3 inside the graph, the loss within f32
+  rounding of the composed attention's; ``generate``'s prefill and
+  decode graphs holding the scope's KV caches and writing them in place,
+  the tokens an executor's that never replays; ids past a table's rows
+  giving NaN rows and no grad inside a captured step (C8).
 """
 
 import warnings
@@ -763,6 +770,43 @@ def test_cuda_replay_updates_the_scope_state_in_place(cuda_device,
 
 
 @pytest.mark.cuda
+def test_cuda_capture_out_of_memory_captures_once_more(cuda_device,
+                                                      monkeypatch):
+    """A capture whose step runs out of memory part way (inside an op's
+    lowering, which wraps the error) hands the cached free blocks back
+    and captures once more: the plan's graph took two attempts, holds
+    one optimizer table, and its replays are the eager steps, bitwise."""
+    from paddle_tpu_torch.core import registry
+
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _train_program("Adam")
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    mul, failed = registry.get_op("mul"), []
+    lowering = mul.lowering
+
+    def out_of_memory_once(ctx, ins, attrs):
+        if not failed and torch.cuda.is_current_stream_capturing():
+            failed.append(1)
+            raise torch.cuda.OutOfMemoryError("planted")
+        return lowering(ctx, ins, attrs)
+
+    monkeypatch.setattr(mul, "lowering", out_of_memory_once)
+    for i in range(4):
+        feed = _feed(np.random.RandomState(i))
+        (got,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        (want,) = exe._run_eager(main, feed=feed, fetch_list=[loss],
+                                 scope=eager_scope)
+        assert got.tobytes() == want.tobytes(), i
+    graph = next(p.graph for p in exe._cache.values()
+                 if p.graph is not None)
+    assert failed and graph.attempts == 2 and len(graph.tables) == 1
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
 def test_cuda_a_replaced_param_is_honoured(cuda_device, monkeypatch):
     """A param the user replaces between replays with a tensor of its
     shape and dtype is copied into the captured tensor: the next step
@@ -1267,3 +1311,160 @@ def test_cuda_a_var_replaced_in_on_step_is_honoured(cuda_device,
     got, want = _params(main, other), _params(main, scope)
     for p in got:
         assert torch.equal(got[p], want[p]), p
+
+
+# ------------------------------------------------ GPT and its decoding
+GPT_CFG = dict(d_model=128, d_ff=256, n_head=2, n_layer=2, vocab=100,
+               max_length=64, dropout=0.1)
+
+
+def _gpt_train_program(cfg, seq_len):
+    from paddle_tpu_torch.models import gpt
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _ = gpt.build(cfg, seq_len=seq_len)
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+def _gpt_ids(rs, batch, seq_len, vocab):
+    ids = rs.randint(1, vocab, (batch, seq_len)).astype("int64")
+    ids[0, seq_len - seq_len // 10:] = 0  # trailing padding
+    return {"ids": ids}
+
+
+@pytest.mark.cuda
+def test_cuda_gpt_replayed_steps_equal_eager_steps(cuda_device, monkeypatch):
+    """GPT's training steps 2-4 are replays of the plan's graph, bitwise
+    the plan's eager step from the same scope (dropout 0.1, causal flash
+    attention with the pad-row bias), with the eager step's launches on
+    the card: the flash forward 2 a layer, dK/dV and dQ 1, K4 2 a layer,
+    K6 once."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "0")
+    main, startup, loss = _gpt_train_program(GPT_CFG, 48)
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    n = GPT_CFG["n_layer"]
+    for i in range(4):
+        f = _gpt_ids(np.random.RandomState(i), 3, 48, GPT_CFG["vocab"])
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=f, fetch_list=[loss], scope=scope,
+            return_numpy=False)[0])
+        e, on_card_e = _device_launches(lambda: exe._run_eager(
+            main, feed=f, fetch_list=[loss], scope=eager_scope,
+            return_numpy=False)[0])
+        assert on_card == on_card_e == [2 * n, 0, n, n, 0, 0, 2 * n, 0, 1,
+                                        0], (i, on_card)
+        assert torch.equal(r, e), (i, r, e)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.compiled_sigs == {"run"}
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_cuda_causal_flash_kernels_at_1024_inside_the_graph(cuda_device,
+                                                           monkeypatch):
+    """At S = 1024 (the static threshold picks flash) a replayed GPT step
+    runs K1 twice, K2 and K3 once, causal, inside the graph; its loss is
+    the eager step's and, within f32 rounding, the composed attention's
+    (the causal mask folded into a dense bias)."""
+    cfg = dict(GPT_CFG, n_layer=1, max_length=1024, dropout=0.0)
+    main, startup, loss = _gpt_train_program(cfg, 1024)
+    exe, scope = _started(main, startup)
+    snap = _clone_scope(scope)
+    feed = _gpt_ids(np.random.RandomState(0), 2, 1024, cfg["vocab"])
+    losses = []
+    for _ in range(3):
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=_clone_scope(snap),
+            return_numpy=False)[0])
+        losses.append(r)
+        assert on_card[:4] == [2, 0, 1, 1], on_card
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.graph is not None
+    assert torch.equal(losses[1], losses[2])
+    monkeypatch.setenv("PADDLE_TPU_FLASH_MIN_SEQ", "100000")
+    composed, on_card = _device_launches(lambda: exe._run_eager(
+        main, feed=feed, fetch_list=[loss], scope=_clone_scope(snap),
+        return_numpy=False)[0])
+    assert on_card[:6] == [0] * 6
+    assert torch.equal(losses[0], losses[2])
+    torch.testing.assert_close(losses[2], composed, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_replays_write_the_cache_in_place(cuda_device):
+    """``generate`` with a prefill and a decode program on one scope:
+    from their second run on both plans replay their graphs, which hold
+    the scope's cache tensors and write them in place (no copy in, the
+    same objects), the decode graph reading what the prefill wrote; the
+    tokens equal an executor's that never replays (``_run_eager``)."""
+    from paddle_tpu_torch.models import gpt
+
+    cfg = dict(GPT_CFG, dropout=0.0)
+    dec, dstart = pt.Program(), pt.Program()
+    with pt.program_guard(dec, dstart), pt.unique_name.guard():
+        logits, caches = gpt.build_decode_step(cfg, batch=2, max_len=32)
+    pre, pstart = pt.Program(), pt.Program()
+    with pt.program_guard(pre, pstart), pt.unique_name.guard():
+        plogits, _ = gpt.build_prefill_step(cfg, batch=2, prompt_len=6,
+                                            max_len=32)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(dstart, scope=scope)
+    exe.run(pstart, scope=scope)
+    eager_scope = _clone_scope(scope)
+    held = [scope.find_var(c) for c in caches]
+    prompt = np.random.RandomState(1).randint(1, 100, (2, 6)).astype("int64")
+
+    class Eager:
+        run = staticmethod(exe._run_eager)
+
+    kw = dict(prefill_prog=pre, prefill_logits=plogits)
+    want = gpt.generate(Eager, dec, logits, prompt, 8, eager_scope, **kw)
+    for _ in range(3):
+        got = gpt.generate(exe, dec, logits, prompt, 8, scope, **kw)
+        np.testing.assert_array_equal(got, want)
+    plans = [p for p in exe._cache.values() if p.graph is not None]
+    assert len(plans) == 2
+    for p in plans:
+        assert p.graph.adopted == 0
+        for c, t in zip(caches, held):
+            assert p.graph.state[c] is t and scope.find_var(c) is t
+    rows = (held[0].abs().sum(dim=(0, 1, 3)) > 0).nonzero().flatten()
+    assert rows.tolist() == list(range(6 + 8 - 1))
+
+
+@pytest.mark.cuda
+def test_cuda_ids_past_the_table_give_nan_rows_in_a_captured_step(
+        cuda_device):
+    """C8 on the card: ids past the table's rows give NaN rows and take
+    no grad inside a captured step (no device assert), -1 wraps; the
+    replays give the eager step's values."""
+    from paddle_tpu_torch.core.backward import append_backward
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        ids = pt.layers.data("ids", [3], dtype="int64")
+        emb = pt.layers.embedding(ids, [6, 4],
+                                  param_attr=pt.ParamAttr(name="emb"))
+        append_backward(pt.layers.reduce_sum(emb))
+    exe, scope = _started(main, startup)
+    feed = {"ids": np.array([[1, 6, 2], [11, 1, -1]], "int64")}
+    outs = [exe.run(main, feed=feed, fetch_list=[emb, "emb@GRAD"],
+                    scope=scope) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, g in outs:
+        assert np.isnan(out[0, 1]).all() and np.isnan(out[1, 0]).all()
+        assert np.isfinite(out[0, [0, 2]]).all()
+        np.testing.assert_array_equal(out[1, 2],
+                                      scope.find_var("emb").cpu()[5].numpy())
+        want = np.zeros((6, 4), "float32")
+        for i in (1, 2, 1, 5):
+            want[i] += 1.0
+        np.testing.assert_array_equal(g, want)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.compiled_sigs == {"run"}

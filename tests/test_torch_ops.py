@@ -426,6 +426,88 @@ def case_where_op(rs):
                         "Y": [np.full(1, 3.0, "float32")]}, {}, 0)
 
 
+# the ops transformer and GPT add (the edge cases: test_torch_decode_ops.py)
+def case_concat(rs):
+    xs = [_arr(rs, (2, n, 3)) for n in (1, 4, 2)]
+    _check("concat", {"X": xs}, {"axis": 1}, 0)
+    _check("concat", {"X": [_arr(rs, (2, 3), "int32"),
+                            _arr(rs, (1, 3), "int32")]}, {}, 0)
+
+
+def case_stack(rs):
+    xs = [_arr(rs, (2, 3)) for _ in range(3)]
+    _check("stack", {"X": xs}, {"axis": 1}, 0)
+    _check("stack", {"X": xs}, {}, 0)
+
+
+def case_slice(rs):
+    x = _arr(rs, (3, 8, 4))
+    _check("slice", {"Input": [x]}, {"axes": [1], "starts": [1],
+                                     "ends": [8]}, 0)
+    _check("slice", {"Input": [x]}, {"axes": [0, 2], "starts": [-2, 1],
+                                     "ends": [100, -1]}, 0)
+
+
+def case_fill_constant_batch_size_like(rs):
+    ref = _arr(rs, (5, 3), "int32")
+    _check("fill_constant_batch_size_like", {"Input": [ref]},
+           {"shape": [-1, 1], "dtype": "int64", "value": 0}, 0)
+    _check("fill_constant_batch_size_like", {"Input": [ref]},
+           {"shape": [2, -1, 4], "dtype": "float32", "value": 1.5,
+            "input_dim_idx": 1, "output_dim_idx": 1}, 0)
+
+
+def case_matmul(rs):
+    x, y = _arr(rs, (2, 3, 5, 4)), _arr(rs, (2, 3, 6, 4))
+    _check("matmul", {"X": [x], "Y": [y]},
+           {"transpose_Y": True, "alpha": 0.125}, 1e-5)
+    _check("matmul", {"X": [_arr(rs, (4, 5))], "Y": [_arr(rs, (5, 3))]},
+           {}, 1e-5)
+
+
+def case_softmax(rs):
+    _check("softmax", {"X": [_arr(rs, (3, 4, 7)) * 3]}, {}, 1e-6)
+    _check("softmax", {"X": [_arr(rs, (3, 4, 7))]}, {"axis": 1}, 1e-6)
+
+
+def case_one_hot(rs):
+    _check("one_hot", {"X": [_arr(rs, (3, 5, 1), "int32")]}, {"depth": 10},
+           0)
+    _check("one_hot", {"X": [_arr(rs, (4,), "int32")]}, {"depth": 7}, 0)
+
+
+def case_label_smooth(rs):
+    x = np.eye(6, dtype="float32")[rs.randint(0, 6, (2, 3))]
+    _check("label_smooth", {"X": [x]}, {"epsilon": 0.1}, 1e-7)
+    prior = rs.rand(6).astype("float32")
+    _check("label_smooth", {"X": [x], "PriorDist": [prior / prior.sum()]},
+           {"epsilon": 0.2}, 1e-7)
+
+
+def case_rms_norm(rs):
+    x = _arr(rs, (2, 3, 8)) * 3
+    _check("rms_norm", {"X": [x], "Scale": [_arr(rs, (8,))]},
+           {"begin_norm_axis": 2, "epsilon": 1e-6}, 1e-5)
+    _check("rms_norm", {"X": [x]}, {"begin_norm_axis": 1}, 1e-5)
+
+
+def case_rope(rs):
+    x = _arr(rs, (2, 3, 6, 8))
+    _check("rope", {"X": [x], "Pos": [np.arange(6).astype("int32")]}, {},
+           1e-5)
+    _check("rope", {"X": [x], "Pos": [np.array([5], "int32")]},
+           {"base": 500.0}, 1e-5)
+
+
+def case_kv_cache_write(rs):
+    cache = _arr(rs, (2, 3, 8, 4))
+    _check("kv_cache_write", {"Cache": [cache], "Update": [
+        _arr(rs, (2, 3, 1, 4))], "Pos": [np.array([5], "int32")]}, {}, 0)
+    _check("kv_cache_write", {"Cache": [cache], "Update": [
+        _arr(rs, (2, 3, 3, 4))], "Pos": [np.array([[1], [4]], "int32")]},
+        {}, 0)
+
+
 def _recompute_segment(pkg):
     """A program of [fc, tanh] moved into one recompute segment by each
     package's core/recompute.py: (its global block, the recompute_block

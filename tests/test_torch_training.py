@@ -286,6 +286,68 @@ def _fused_attention(rs, op):
                 5e-5, cot_slots=["Out"])
 
 
+# the differentiable ops transformer and GPT add; their grads are the
+# generic vjp in both packages
+@grad_case("concat")
+def _concat(rs, op):
+    xs = [_arr(rs, (2, n, 3)) for n in (1, 4, 2)]
+    _check_grad(op, {"X": xs}, {"axis": 1}, [("X", 0), ("X", 1), ("X", 2)],
+                0)
+
+
+@grad_case("stack")
+def _stack(rs, op):
+    xs = [_arr(rs, (2, 3)) for _ in range(3)]
+    _check_grad(op, {"X": xs}, {"axis": 1}, [("X", 0), ("X", 1), ("X", 2)],
+                0)
+
+
+@grad_case("slice")
+def _slice(rs, op):
+    _check_grad(op, {"Input": [_arr(rs, (3, 8, 4))]},
+                {"axes": [1, 2], "starts": [2, -3], "ends": [100, 4]},
+                [("Input", 0)], 0)
+
+
+@grad_case("matmul")
+def _matmul(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 5, 4))],
+                     "Y": [_arr(rs, (2, 3, 6, 4))]},
+                {"transpose_Y": True, "alpha": 0.125},
+                [("X", 0), ("Y", 0)], 1e-5)
+    _check_grad(op, {"X": [_arr(rs, (4, 5))], "Y": [_arr(rs, (4, 3))]},
+                {"transpose_X": True}, [("X", 0), ("Y", 0)], 1e-5)
+
+
+@grad_case("softmax")
+def _softmax(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4, 7)) * 2]}, {}, [("X", 0)], 1e-6)
+
+
+@grad_case("label_smooth")
+def _label_smooth(rs, op):
+    x = np.eye(6, dtype="float32")[rs.randint(0, 6, (2, 3))]
+    _check_grad(op, {"X": [x]}, {"epsilon": 0.1}, [("X", 0)], 1e-7)
+
+
+@grad_case("rms_norm")
+def _rms_norm(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 8)) * 3],
+                     "Scale": [_arr(rs, (8,))]},
+                {"begin_norm_axis": 2, "epsilon": 1e-6},
+                [("X", 0), ("Scale", 0)], 1e-5)
+
+
+@grad_case("rope")
+def _rope(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 6, 8))],
+                     "Pos": [np.arange(6).astype("int32")]}, {},
+                [("X", 0)], 1e-5)
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 6, 8))],
+                     "Pos": [(np.arange(12) % 5).reshape(2, 6).astype(
+                         "int32")]}, {}, [("X", 0)], 1e-5)
+
+
 ACTIVATIONS = ["relu", "sigmoid", "tanh", "sqrt", "rsqrt", "abs", "exp",
                "log", "square", "reciprocal", "softplus", "softsign",
                "ceil", "floor", "round", "cos", "sin", "gelu", "relu6",
