@@ -191,7 +191,35 @@ Phases, each of which passes or ends the script with a non-zero exit:
    K4 30 times and K6 once (counted); 3 replayed steps bitwise their
    eager steps; level 2 against level 0 over 3 steps within phase 8's
    bounds. Phases 3 and 3c hold its attention and layer-norm shapes
-   against the plain versions.
+   against the plain versions;
+10. train ResNet-50: first a probe of whether a conv step repeats
+   bitwise (ResNet-50's stem and a 3x3 conv at batch 32, the forward and
+   both grads three times under PyTorch's default cuDNN flags and under
+   the port's deterministic ones, with their times); then
+   ``resnet.build(class_dim=1000, depth=50)`` at 224 x 224, batch 32,
+   Adam, level 2, f32: each step launches K6 once and no other kernel of
+   the port (the convolutions are cuDNN's, the batch norms composed),
+   counted; 6c's replayed steps against eager ones, bitwise, the batch
+   norms' 106 running stats included (images/s, busy share with the
+   device time class "conv", capture seconds, peak memory); level 2
+   against level 0 over 3 steps within phase 8's gates;
+10c. serve ResNet-50: the inference program saved with phase 10's
+   weights and running stats and served by the Predictor (batch norm in
+   test mode, buckets 1 and 8, every request a replay), the answers the
+   training program's is_test forward's; latency medians and max;
+10b. phase 10 under bf16 AMP (AMP's bounds for level 0);
+11. train ViT-B/16: ``vit.base_config()`` (S = 197, 86.5M weights,
+   dropout 0.1) at batch 32, Adam, level 2, f32: as configured (the
+   static threshold composes attention at S = 197) each step launches
+   K4 24 times and K6 once; the same steps with
+   PADDLE_TPU_FLASH_MIN_SEQ=0 for that run alone launch K1 24, K2 and
+   K3 12 times besides (counted), and the two runs' replays are timed
+   in turns; replays bitwise eager; the flash run against the composed
+   one within phase 6's loss and grad bounds, level 2 against level 0
+   within phase 8's gates; phases 3, 3b and 3c hold ViT's attention
+   [32, 12, 197, 64] and layer-norm rows [6304, 768] against the plain
+   versions;
+11b. phase 11 under bf16 AMP (AMP's bounds).
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -327,6 +355,9 @@ LN_CASES = [
     ("transformer_f32", (2048, 512), torch.float32),
     ("transformer_bf16", (2048, 512), torch.bfloat16),
     ("gpt_decode_b1_f32", (1, 768), torch.float32),
+    # ViT-B/16's rows (phases 11, 11b: batch 32 x 197 tokens, d_model 768)
+    ("vit_f32", (6304, 768), torch.float32),
+    ("vit_bf16", (6304, 768), torch.bfloat16),
 ]
 # K4's AMP instantiation (phase 3c): s = bf16(bf16(x) + bf16(r)) stored
 # bf16 and compared bitwise; y, mean and var f32 at K4's f32 tolerance.
@@ -336,6 +367,7 @@ LN_AMP_CASES = [
     ("bert_b8_amp", (4096, 768), torch.bfloat16),
     ("bert_b8_amp_rf32", (4096, 768), torch.float32),
     ("transformer_amp", (2048, 512), torch.bfloat16),
+    ("vit_amp", (6304, 768), torch.bfloat16),
 ]
 # bf16 AMP (phases 4b, 6b, 7b), level 2 against level 0 on the card.
 # The two differ only by K4's and K6's f32 rounding, but a difference
@@ -544,6 +576,11 @@ ATTN_CASES = [
     ("transformer_f32", (8, 8, 256, 64), torch.float32, "trailpad", False),
     ("transformer_causal_f32", (8, 8, 256, 64), torch.float32, "trailpad",
      True),
+    # ViT-B/16's attention (phases 11, 11b with the flash kernels forced):
+    # the ragged S = 197 (a CLS token and 14 x 14 patches), no bias, not
+    # causal
+    ("vit_f32", (32, 12, 197, 64), torch.float32, None, False),
+    ("vit_bf16", (32, 12, 197, 64), torch.bfloat16, None, False),
 ]
 
 
@@ -1534,6 +1571,13 @@ def _kernel_class(name):
         return "layer norm (K4/K5)"
     if "adam_group" in name or "sgd_group" in name:
         return "optimizer (K6/K7)"
+    # cuDNN's convolutions (forward, data and weight grads) before the
+    # products: their kernels' names hold gemm / xmma too (a convolution
+    # cuDNN hands to a cuBLAS product counts as matmul)
+    if any(t in name.lower() for t in ("convolve", "conv2d", "fprop",
+                                       "dgrad", "wgrad", "cudnn",
+                                       "implicit_gemm")):
+        return "conv"
     if any(t in name for t in ("gemm", "cutlass", "cublas", "xmma",
                                "nvjet")):
         return "matmul"
@@ -1754,15 +1798,16 @@ def phase_compiled_serve(what, pred, reqs, per_dispatch):
 # --------------------------------------------------------------- phase 6c
 def phase_compiled_train(what, exe, main, loss, snap, batches, params,
                          step, per_step, tokens=TRAIN_BATCH * SEQ,
-                         pairs=TRAIN_COMPILED_PAIRS):
+                         pairs=TRAIN_COMPILED_PAIRS, unit="tokens"):
     """Phase 6c: from ``snap``, replayed steps (the first captures the
     plan anew on its own scope) against the plan's eager step on a
     second scope, in turns: losses and final params bitwise equal, step
     medians, tokens/s, profiled busy shares, the launches the card ran
     in a replayed step equal to an eager step's (the launch meter) and to
     ``per_step``, capture seconds, the state copy's device time, peak
-    memory and the executor's graph pool. ``tokens`` a step, ``pairs``
-    after the first (BERT's by default)."""
+    memory and the executor's graph pool. ``tokens`` a step (``unit``:
+    tokens, or an image model's images), ``pairs`` after the first
+    (BERT's by default)."""
     scope_r, scope_e = _restored(snap), _restored(snap)
     ms_first, first = _timed(lambda: step(scope_r, batches[0]))
     plan = next(p for p in _captured(exe) if p.graph.bound_to(scope_r))
@@ -1812,17 +1857,18 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
         replay_profile=prof_r, eager_profile=prof_e,
         state_copy_ms=prof_r["by_class_ms"].get("state copy", 0.0),
         peak_mem_mib=dict(replay=peaks[0], eager=peaks[1]), pool_mib=pool,
-        graphs_in_pool=n_graphs)
+        graphs_in_pool=n_graphs, unit=unit)
     _log_breakdown("%s replayed train step (6c)" % what, prof_r)
     log("train %s (6c): capture %.3f s (its step %.1f ms); in turns over %d "
-        "pairs: replayed median %.3f ms (%.1f tokens/s), eager %.3f ms "
-        "(%.1f tokens/s); device busy %.1f%% replayed, %.1f%% eager; state "
+        "pairs: replayed median %.3f ms (%.1f %s/s), eager %.3f ms "
+        "(%.1f %s/s); device busy %.1f%% replayed, %.1f%% eager; state "
         "copy %.4f ms a replayed step; peak memory %.1f MiB replayed, %.1f "
         "eager; the executor's %d graphs (phase 6's other paths too) in one "
         "pool of %s MiB; %d losses and %d params bitwise equal; launches on "
         "the card equal the eager step's"
         % (what, capture_s, ms_first, pairs, med_r,
-           out["replay_tokens_per_s"], med_e, out["eager_tokens_per_s"],
+           out["replay_tokens_per_s"], unit, med_e,
+           out["eager_tokens_per_s"], unit,
            100 * prof_r["busy_share"], 100 * prof_e["busy_share"],
            out["state_copy_ms"], peaks[0], peaks[1], n_graphs,
            "%.1f" % pool if pool is not None else "not measured",
@@ -2123,16 +2169,17 @@ def _metered_steps(what, step, scope, batches, n_steps, per_step,
 
 
 def _metered_serving(what, make_pred, reqs, repeats, per_dispatch, lat_ms,
-                     check):
+                     check, buckets=BUCKETS, batch_feed="src_ids"):
     """A serving phase's main path under the launch meter, the wrappers'
     counts zeroed just before: the Predictor made by ``make_pred()``
-    warms each bucket up (an eager run, then a capture and its replay),
-    then answers each request ``repeats`` times (``check(batch, repeat,
-    answer)``, latencies into ``lat_ms``). The warm-up runs 2 dispatches'
-    launches per bucket on the card and calls as many from the host; each
-    request runs one dispatch's (``per_dispatch``) on the card and calls
-    none from the host: it is a replay. Returns the Predictor, its
-    seconds to start and the launches."""
+    warms each of ``buckets`` up (an eager run, then a capture and its
+    replay), then answers each request ``repeats`` times (``check(batch,
+    repeat, answer)``, latencies into ``lat_ms``; a request's batch is
+    its ``batch_feed``'s rows). The warm-up runs 2 dispatches' launches
+    per bucket on the card and calls as many from the host; each request
+    runs one dispatch's (``per_dispatch``) on the card and calls none
+    from the host: it is a replay. Returns the Predictor, its seconds to
+    start and the launches."""
     _zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2143,7 +2190,7 @@ def _metered_serving(what, make_pred, reqs, repeats, per_dispatch, lat_ms,
         init_s = time.perf_counter() - t0
         host_warm = _counts()
         for req in reqs:
-            b = int(req["src_ids"].shape[0])
+            b = int(req[batch_feed].shape[0])
             lat_ms.append([])
             for rep in range(repeats):
                 meter.mark()
@@ -2153,7 +2200,7 @@ def _metered_serving(what, make_pred, reqs, repeats, per_dispatch, lat_ms,
                 torch.cuda.synchronize()
                 lat_ms[-1].append((time.perf_counter() - t0) * 1e3)
                 check(b, rep, out)
-    warm = _times(per_dispatch, 2 * len(BUCKETS))
+    warm = _times(per_dispatch, 2 * len(buckets))
     if (meter.units[0], host_warm) != (warm, warm):
         raise AssertionError("%s: the warm-up ran %s = %s kernels on the "
                              "card and called %s from the host, expected %s"
@@ -2328,6 +2375,22 @@ def _check_flip_parity(what, p):
             p["param_worst_share"][1] > PARITY_FLIP_SHARE or \
             p["update_l2_rel"][1] > PARITY_UPDATE_L2:
         raise AssertionError("%s: level 2 and level 0 disagree" % what)
+
+
+def _check_amp_parity(what, p):
+    """Two paths under bf16 AMP: the first step's grads, the losses and
+    each param's update within the ``AMP_PARITY_*`` bounds."""
+    log("%s: param grads worst l2 rel diff %.3e (%s, <= %.3g); over %d "
+        "steps loss rel diff %.3e (<= %.3g), param update worst l2 rel "
+        "diff %.3e (%s, <= %.3g)" % (
+            what, p["grad_l2_rel"][1], p["grad_l2_rel"][0],
+            AMP_PARITY_GRAD_L2, PARITY_STEPS, p["loss_rel"],
+            AMP_PARITY_LOSS_RTOL, p["update_l2_rel"][1],
+            p["update_l2_rel"][0], AMP_PARITY_UPDATE_L2))
+    if p["grad_l2_rel"][1] > AMP_PARITY_GRAD_L2 or \
+            p["loss_rel"] > AMP_PARITY_LOSS_RTOL or \
+            p["update_l2_rel"][1] > AMP_PARITY_UPDATE_L2:
+        raise AssertionError("%s: the paths disagree" % what)
 
 
 def phase_train(seed):
@@ -3395,17 +3458,7 @@ def phase_gpt_train(seed, amp):
     log("%s: the parity paths' captures took %s attempts (2 where the "
         "first ran out of memory)" % (what, parity["capture_attempts"]))
     if amp:
-        log("%s: main path vs level 0: param grads worst l2 rel diff %.3e "
-            "(%s, <= %.3g); over %d steps loss rel diff %.3e (<= %.3g), "
-            "param update worst l2 rel diff %.3e (%s, <= %.3g)" % (
-                what, parity["grad_l2_rel"][1], parity["grad_l2_rel"][0],
-                AMP_PARITY_GRAD_L2, PARITY_STEPS, parity["loss_rel"],
-                AMP_PARITY_LOSS_RTOL, parity["update_l2_rel"][1],
-                parity["update_l2_rel"][0], AMP_PARITY_UPDATE_L2))
-        if parity["grad_l2_rel"][1] > AMP_PARITY_GRAD_L2 or \
-                parity["loss_rel"] > AMP_PARITY_LOSS_RTOL or \
-                parity["update_l2_rel"][1] > AMP_PARITY_UPDATE_L2:
-            raise AssertionError("%s: level 2 and level 0 disagree" % what)
+        _check_amp_parity("%s: main path vs level 0" % what, parity)
         not_f32 = _f32_masters(scope, params)
         if not_f32:
             raise AssertionError("%s left params or moments that are not "
@@ -3741,6 +3794,477 @@ def phase_transformer(seed):
                 parity=dict(steps=PARITY_STEPS, **parity))
 
 
+# ----------------------------------------------------- phases 10 and 11
+# image classification: ResNet-50 (``resnet.build(class_dim=1000,
+# depth=50)``, 224 x 224) and ViT-B/16 (``vit.base_config()``, S = 197)
+# at batch 32, Adam at TRAIN_LR: steps on the main path, and replayed
+# steps against eager ones (the first capture and IMG_PAIRS pairs)
+IMG_BATCH, IMG_STEPS, IMG_PAIRS, IMG_CLASSES = 32, 3, 2, 1000
+# ViT's replayed steps, composed and with the flash kernels, in turns
+VIT_FLASH_PAIRS = 4
+RN_PARAMS, RN_WEIGHTS, RN_BN = 161, 25557032, 53
+VIT_PARAMS, VIT_WEIGHTS, VIT_SEQ = 152, 86530792, 197
+# ResNet-50 served (phase 10c): buckets, requests, answers a request
+RN_SERVE_BUCKETS = [1, 8]
+RN_SERVE_REPEATS = 10
+# the Predictor's answers (softmax probabilities over 1000 classes)
+# against the training program's is_test forward on the same weights:
+# the same ops at the same batch, but a plan of its own (another pass
+# pipeline's program, cuDNN's algorithm picked per plan), so f32
+# rounding, not bits
+RN_SERVE_ATOL = 1e-5
+# the conv determinism probe (phase 10): ResNet-50's stem and a stage-1
+# 3x3 conv at batch IMG_BATCH, the backward of each this many times
+CONV_PROBE_RUNS = 3
+CONV_PROBE_CASES = [
+    # name, input [N, C, H, W], filter [O, I, kh, kw], stride, pad
+    ("stem_7x7s2", (IMG_BATCH, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+    ("stage1_3x3", (IMG_BATCH, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+]
+
+
+def _image_batches(seed, n):
+    """``n`` batches of IMG_BATCH N(0, 1) images [3, 224, 224] and labels
+    in [0, IMG_CLASSES), from ``seed``."""
+    rs = np.random.RandomState(seed)
+    return [{"img": rs.randn(IMG_BATCH, 3, 224, 224).astype("float32"),
+             "label": rs.randint(0, IMG_CLASSES, (IMG_BATCH, 1)).astype(
+                 "int64")} for _ in range(n)]
+
+
+def _bn_stats(main):
+    """The batch norms' running mean and variance (persistables the step
+    writes, not params)."""
+    return [n for op in main.global_block().ops if op.type == "batch_norm"
+            for n in op.input("Mean") + op.input("Variance")]
+
+
+def _image_setup(model, seed, amp):
+    """ResNet-50 or ViT-B/16 built for training with Adam at TRAIN_LR (in
+    ``contrib.mixed_precision.decorate`` with ``amp``), its weights
+    started on the card from ``seed``: (exe, scope, main, loss, acc,
+    params, grad name -> param, 4 batches, the level-2 stats)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet, vit
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if model == "resnet":
+            loss, acc, _ = resnet.build(class_dim=IMG_CLASSES, depth=50,
+                                        image_shape=(3, 224, 224))
+        else:
+            loss, acc = vit.build(vit.base_config())
+        optimizer = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+        if amp:
+            optimizer = fluid.contrib.mixed_precision.decorate(optimizer)
+        _, params_grads = optimizer.minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    grads = {g.name: p.name for p, g in params_grads}
+    batches = _image_batches(seed + (12 if model == "resnet" else 13), 4)
+    tier = _tier_stats(main, [loss.name], scope)
+    return exe, scope, main, loss, acc, params, grads, batches, tier
+
+
+def _conv_probe(seed):
+    """Is a conv step bitwise repeatable? On each of CONV_PROBE_CASES, the
+    forward and the backward (input and weight grads) run
+    CONV_PROBE_RUNS times on the same inputs under PyTorch's default
+    cuDNN flags (benchmark off, nondeterministic algorithms allowed; TF32
+    off) and under the port's (``ops.nn._conv_flags``: deterministic):
+    whether each set of runs is bitwise equal, and the median
+    milliseconds of one forward + backward under each."""
+    from paddle_tpu_torch.ops.nn import _conv_flags
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out = {}
+    for name, xs, ws, stride, pad in CONV_PROBE_CASES:
+        x = torch.randn(xs, generator=gen, device=dev).requires_grad_()
+        w = (torch.randn(ws, generator=gen, device=dev) * 0.05
+             ).requires_grad_()
+        g = torch.randn(F.conv2d(x, w, None, stride, pad).shape,
+                        generator=gen, device=dev)
+
+        def fwd_bwd():
+            y = F.conv2d(x, w, None, stride, pad)
+            return (y, *torch.autograd.grad(y, (x, w), g))
+
+        row = {}
+        for flags, ctx in (
+                ("default", lambda: torch.backends.cudnn.flags(
+                    enabled=True, benchmark=False, deterministic=False,
+                    allow_tf32=False)),
+                ("port", _conv_flags)):
+            with ctx():
+                runs = [fwd_bwd() for _ in range(CONV_PROBE_RUNS)]
+                torch.cuda.synchronize()
+                same = all(all(torch.equal(a, b) for a, b in zip(runs[0], r))
+                           for r in runs[1:])
+                del runs
+                ms = time_ms(fwd_bwd)
+            row[flags] = dict(bitwise=same, ms=ms)
+        out[name] = row
+        log("conv probe %s x %s stride %d: forward + backward %d times "
+            "bitwise equal under the default cuDNN flags %s (%.3f ms), under "
+            "the port's deterministic flags %s (%.3f ms)" % (
+                name, tuple(xs), stride, CONV_PROBE_RUNS,
+                row["default"]["bitwise"], row["default"]["ms"],
+                row["port"]["bitwise"], row["port"]["ms"]))
+        del x, w, g
+    bad = [n for n, r in out.items() if not r["port"]["bitwise"]]
+    if bad:
+        raise AssertionError("a conv step under the port's cuDNN flags is "
+                             "not bitwise repeatable: %s" % bad)
+    return out
+
+
+def _image_compiled(what, exe, main, loss, snap, batches, params, stats,
+                    step, per_step):
+    """Phase 6c's replayed steps against eager ones for an image model:
+    the params and the batch norms' running stats bitwise equal."""
+    return phase_compiled_train(what, exe, main, loss, snap, batches,
+                                params + stats, step, per_step,
+                                tokens=IMG_BATCH, pairs=IMG_PAIRS,
+                                unit="images")
+
+
+def _log_image_path(what, path, compiled, extra=""):
+    prof = compiled["replay_profile"]
+    log("%s: losses %s; replayed in turns %.3f ms a step (%.1f images/s), "
+        "eager %.3f ms; a profiled replayed step %.1f%% busy (%d kernels; "
+        "conv %.3f ms, matmul %.3f ms of %.3f ms busy); capture %.3f s; "
+        "peak memory %.1f MiB on the main path, %.1f replayed, %.1f eager; "
+        "launches %s = %s on the card (host calls %s)%s" % (
+            what, ["%.4f" % v for v in path["losses"]],
+            compiled["replay_median_ms"], compiled["replay_tokens_per_s"],
+            compiled["eager_median_ms"], 100 * prof["busy_share"],
+            prof["kernels"], prof["by_class_ms"].get("conv", 0.0),
+            prof["by_class_ms"].get("matmul", 0.0), prof["device_busy_ms"],
+            compiled["capture_s"], path["peak_mb"],
+            compiled["peak_mem_mib"]["replay"],
+            compiled["peak_mem_mib"]["eager"], COUNT_NAMES,
+            path["launches"], path["host_launches"], extra))
+
+
+def phase_resnet_train(seed, amp):
+    """Phases 10 (f32) and 10b (bf16 AMP): ResNet-50 (``resnet.build(
+    class_dim=1000, depth=50)``: 53 conv2d + batch_norm, 25,557,032
+    weights) trained at 224 x 224, batch 32, through the port's entry
+    points at level 2, Adam at TRAIN_LR, from random weights (``seed``).
+    A step runs no flash kernel and no K4 (no layer norm) and K6 once over
+    the 161 params (counted on the card). Then 6c's replayed steps
+    against the plan's eager step, bitwise, the 106 running stats
+    included; level 2 against level 0 over PARITY_STEPS steps (phase
+    8's gates; AMP's bounds under AMP), with the running stats' largest
+    relative difference reported. Phase 10 first probes whether a conv
+    step is bitwise repeatable (``_conv_probe``)."""
+    what = "ResNet-50 AMP (10b)" if amp else "ResNet-50 f32 (10)"
+    probe = None if amp else _conv_probe(seed)
+    t0 = time.perf_counter()
+    exe, scope, main, loss, acc, params, grads, batches, tier = \
+        _image_setup("resnet", seed, amp)
+    stats = _bn_stats(main)
+    n_weights = sum(int(np.prod(main.global_block().var(n).shape))
+                    for n in params)
+    per_step = (0, 0, 0, 0, 1, 0, 0, 0, 0, 0)
+    if (len(params), n_weights, len(stats)) != (
+            RN_PARAMS, RN_WEIGHTS, 2 * RN_BN) or (
+            tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            0, [RN_PARAMS]):
+        raise AssertionError("%s: %d params, %d weights, %d running stats; "
+                             "level 2 fused %d layer norms and optimizer "
+                             "groups %s" % (what, len(params), n_weights,
+                                            len(stats),
+                                            tier["ln_residual_fused"],
+                                            tier["optimizer_groups"]))
+    log("%s: batch %d: %d params, %d weights, %d running stats; built and "
+        "started in %.1f s; level 2: %d ops of %d (an optimizer group of %s "
+        "params)" % (what, IMG_BATCH, len(params), n_weights, len(stats),
+                     time.perf_counter() - t0, tier["ops_after"],
+                     tier["ops_before"], tier["optimizer_groups"]))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+
+    # ---- the main path: counts zeroed here, read after the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    path = _metered_steps(what, step, scope, batches, IMG_STEPS, per_step)
+    # ---- end of the main path
+    moved = [n for n in stats if torch.equal(scope.find_var(n), snap[n])]
+    if moved:
+        raise AssertionError("%s: the steps left %d running stats as they "
+                             "were (%s)" % (what, len(moved), moved[:3]))
+    compiled = _image_compiled(what, exe, main, loss, snap, batches, params,
+                               stats, step, per_step)
+    exe.close()
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()), "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"}, (4,))})
+    parity = _parity(paths["main"], paths["level 0"], params, before=snap)
+    del paths
+    if amp:
+        _check_amp_parity("%s: main path vs level 0" % what, parity)
+        not_f32 = _f32_masters(scope, params)
+        if not_f32:
+            raise AssertionError("%s left params or moments that are not "
+                                 "f32: %s" % (what, not_f32[:5]))
+    else:
+        _check_flip_parity(what, parity)
+    exe.close()
+    _log_image_path(what, path, compiled)
+    out = dict(n_params=len(params), n_weights=n_weights,
+               n_running_stats=len(stats), tier=tier,
+               losses=path["losses"], step_ms=path["step_ms"],
+               launches=dict(zip(COUNT_NAMES, path["launches"])),
+               host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+               per_step=dict(zip(COUNT_NAMES, per_step)),
+               peak_mem_mib=path["peak_mb"], compiled=compiled,
+               parity=dict(steps=PARITY_STEPS, **parity), conv_probe=probe)
+    if not amp:
+        out["state"] = {n: scope.find_var(n).clone() for n in params + stats}
+    return out
+
+
+def phase_resnet_serve(workdir, seed, state):
+    """Phase 10c: ResNet-50 served. The inference program (``resnet.build``
+    again, its probabilities fetched) is saved with
+    ``io.save_inference_model`` from a scope holding phase 10's trained
+    weights and running stats, and the port's Predictor (batch norm
+    rewritten to ``is_test``, buckets 1 and 8, each warmed up eagerly
+    and then captured) answers requests of batch 1 and 8, each
+    RN_SERVE_REPEATS times, every answer a replay (counted: a dispatch
+    runs none of the port's kernels) and the same every time. The
+    answers are held against the training program's is_test forward on
+    the same weights (RN_SERVE_ATOL), and are finite probabilities.
+    Latency medians and max."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, probs = _resnet_probs(resnet)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    for n, v in state.items():
+        scope.set_var(n, v)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(workdir, ["img"], [probs], exe,
+                                      main_program=main)
+    # the reference: the training program's forward in test mode
+    test_prog = main.clone(for_test=True)
+    for op in test_prog.global_block().ops:
+        if op.type in ("batch_norm", "dropout"):
+            op.attrs["is_test"] = True
+    test_prog._bump()
+    rs = np.random.RandomState(seed + 14)
+    reqs = [{"img": rs.randn(b, 3, 224, 224).astype("float32")}
+            for b in RN_SERVE_BUCKETS]
+    want = [exe._run_eager(test_prog, feed=r, fetch_list=[probs],
+                           scope=scope)[0] for r in reqs]
+    exe.close()
+    del exe, scope
+    _free()
+    log("serve ResNet-50 (10c): built, saved with phase 10's weights and "
+        "the reference answers taken in %.1f s" % (time.perf_counter() - t0))
+    config = fluid.inference.AnalysisConfig(workdir)
+    config.warmup_batch_sizes = list(RN_SERVE_BUCKETS)
+    per_dispatch = (0,) * len(COUNT_NAMES)  # cuDNN, no kernel of the port
+    answers, lat_ms = [], []
+
+    def check(b, rep, out):
+        if rep == 0:
+            if out.shape != (b, IMG_CLASSES) or not np.isfinite(out).all() \
+                    or np.abs(out.sum(-1) - 1).max() > 1e-4:
+                raise AssertionError("serve ResNet-50 (10c): batch %d: bad "
+                                     "answer %s" % (b, out.shape))
+            answers.append(out)
+        elif not np.array_equal(out, answers[-1]):
+            raise AssertionError("serve ResNet-50 (10c): batch %d: a "
+                                 "repeated request gave another answer" % b)
+
+    # ---- the main path: counts zeroed here, read after the last request
+    pred, init_s, path = _metered_serving(
+        "serve ResNet-50 (10c)",
+        lambda: fluid.inference.create_paddle_predictor(config), reqs,
+        RN_SERVE_REPEATS, per_dispatch, lat_ms, check,
+        buckets=RN_SERVE_BUCKETS, batch_feed="img")
+    # ---- end of the main path
+    bn_test = {op.attrs.get("is_test") for op in
+               pred.program.global_block().ops if op.type == "batch_norm"}
+    diffs = [float(np.abs(a - w).max()) for a, w in zip(answers, want)]
+    for b, lat, d in zip(RN_SERVE_BUCKETS, lat_ms, diffs):
+        log("serve ResNet-50 (10c): batch %d latency median %.3f ms, max "
+            "%.3f ms over %d replayed requests; max |answer - the training "
+            "program's is_test forward| %.3e (<= %.0e)" % (
+                b, float(np.median(lat)), max(lat), len(lat), d,
+                RN_SERVE_ATOL))
+    log("serve ResNet-50 (10c): predictor init %.2f s; batch norms in test "
+        "mode: %s; peak device memory %.1f MiB" % (init_s, bn_test,
+                                                   path["peak_mb"]))
+    if bn_test != {True} or max(diffs) > RN_SERVE_ATOL:
+        raise AssertionError("serve ResNet-50 (10c): batch norms is_test %s, "
+                             "answers off by %s" % (bn_test, diffs))
+    del pred
+    return dict(batches=RN_SERVE_BUCKETS, latency_ms=lat_ms,
+                latency_median_ms=[float(np.median(x)) for x in lat_ms],
+                latency_max_ms=[max(x) for x in lat_ms], max_abs_diff=diffs,
+                init_s=init_s, launches=dict(zip(COUNT_NAMES,
+                                                 path["launches"])),
+                peak_mem_mib=path["peak_mb"])
+
+
+def _resnet_probs(resnet):
+    """ResNet-50's inference graph at phase 10's names: (img, label,
+    probabilities)."""
+    import paddle_tpu_torch as fluid
+
+    img = fluid.layers.data("img", [3, 224, 224])
+    label = fluid.layers.data("label", [1], dtype="int64")
+    return img, label, resnet.resnet_imagenet(img, class_dim=IMG_CLASSES,
+                                              depth=50)
+
+
+def phase_vit_train(seed, amp):
+    """Phases 11 (f32) and 11b (bf16 AMP): ViT-B/16 (``vit.base_config()``:
+    224 / 16, S = 197, d_model 768, 12 layers, 86,530,792 weights, dropout
+    0.1) trained at batch 32 through the port's entry points at level 2,
+    Adam at TRAIN_LR, from random weights. At S = 197 the static
+    threshold composes attention: as configured a step launches K4 at
+    each of the 24 add -> layer-norm seams the pass fuses (its AMP
+    instantiation under AMP) and K6 once over the 152 params, and no
+    flash kernel. Then the same steps from the same scope with
+    PADDLE_TPU_FLASH_MIN_SEQ=0 set for that run alone: the flash forward
+    24 times a step, dK/dV and dQ 12 each, at ragged S = 197 (counted).
+    6c's replayed steps against eager ones, bitwise; the flash run
+    against the composed one over PARITY_STEPS steps within phase 6's
+    loss and grad bounds (AMP's under AMP); level 2 against level 0
+    within phase 8's gates (AMP's bounds under AMP)."""
+    what = "ViT-B/16 AMP (11b)" if amp else "ViT-B/16 f32 (11)"
+    t0 = time.perf_counter()
+    exe, scope, main, loss, acc, params, grads, batches, tier = \
+        _image_setup("vit", seed, amp)
+    n_weights = sum(int(np.prod(main.global_block().var(n).shape))
+                    for n in params)
+    n = 12
+    seams = 2 * n
+    flash = ((2 * n, n, n, 0, 0, 0, 2 * n, n, n, 0) if amp else
+             (2 * n, n, n, 0, 0, 0, 0, 0, 0, 0))
+    per_step = ((0, 0, 0, 0, 1, 0, 0, 0, 0, seams) if amp else
+                (0, 0, 0, seams, 1, 0, 0, 0, 0, 0))
+    per_step_flash = tuple(a + b for a, b in zip(per_step, flash))
+    if (len(params), n_weights) != (VIT_PARAMS, VIT_WEIGHTS) or (
+            tier["ln_residual_fused"], tier["optimizer_groups"]) != (
+            seams, [VIT_PARAMS]):
+        raise AssertionError("%s: %d params, %d weights; level 2 fused %d "
+                             "layer norms and optimizer groups %s" % (
+                                 what, len(params), n_weights,
+                                 tier["ln_residual_fused"],
+                                 tier["optimizer_groups"]))
+    log("%s: S = %d, batch %d: %d params, %d weights; built and started in "
+        "%.1f s; level 2: %d ops of %d (%d fused layer norms, an optimizer "
+        "group of %s params)" % (
+            what, VIT_SEQ, IMG_BATCH, len(params), n_weights,
+            time.perf_counter() - t0, tier["ops_after"], tier["ops_before"],
+            tier["ln_residual_fused"], tier["optimizer_groups"]))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+
+    # ---- the main path, as configured: counts zeroed here, read after
+    # the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    path = _metered_steps(what, step, scope, batches, IMG_STEPS, per_step)
+    # ---- end of the main path
+    # ---- the main path with the flash kernels: the same steps from the
+    # same scope, PADDLE_TPU_FLASH_MIN_SEQ=0 for this run alone
+    fscope = _restored(snap)
+    os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = "0"
+    try:
+        with _ComposedAttention() as composed:
+            fpath = _metered_steps(what + " flash", step, fscope, batches,
+                                   IMG_STEPS, per_step_flash)
+    finally:
+        os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+    # ---- end of the flash run
+    if composed.calls:
+        raise AssertionError("%s: the composed attention ran %d times with "
+                             "the flash kernels forced" % (what,
+                                                           composed.calls))
+    # each run's plan replayed, composed and flash in turns
+    turns = ([], [])
+    for i in range(VIT_FLASH_PAIRS):
+        for flash in ((False, True) if i % 2 == 0 else (True, False)):
+            if flash:
+                os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = "0"
+            try:
+                ms, _ = _timed(lambda: step(fscope if flash else scope,
+                                            batches[i % len(batches)]))
+            finally:
+                os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+            turns[flash].append(ms)
+    med_c, med_f = (float(np.median(t)) for t in turns)
+    del fscope
+    compiled = _image_compiled(what, exe, main, loss, snap, batches, params,
+                               [], step, per_step)
+    exe.close()
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()),
+        "flash": ({"PADDLE_TPU_FLASH_MIN_SEQ": "0"}, ()),
+        "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"},
+                    (3, 4, 5, 9) if amp else (3, 4, 5))})
+    flash_parity = _parity(paths["flash"], paths["main"], params,
+                           before=snap)
+    parity = _parity(paths["main"], paths["level 0"], params, before=snap)
+    del paths
+    if amp:
+        _check_amp_parity("%s: flash vs composed" % what, flash_parity)
+        _check_amp_parity("%s: main path vs level 0" % what, parity)
+        not_f32 = _f32_masters(scope, params)
+        if not_f32:
+            raise AssertionError("%s left params or moments that are not "
+                                 "f32: %s" % (what, not_f32[:5]))
+    else:
+        p = flash_parity
+        log("%s: flash vs composed: param grads worst l2 rel diff %.3e (%s, "
+            "<= %.0e); over %d steps loss rel diff %.3e (<= %.0e), param max "
+            "|diff| %.3e, elements past %.0e: %.3e of all" % (
+                what, p["grad_l2_rel"][1], p["grad_l2_rel"][0],
+                PARITY_GRAD_L2, PARITY_STEPS, p["loss_rel"],
+                PARITY_LOSS_RTOL, p["param_max_abs"], PARITY_PARAM_ATOL,
+                p["param_share_over_atol"]))
+        if p["grad_l2_rel"][1] > PARITY_GRAD_L2 or \
+                p["loss_rel"] > PARITY_LOSS_RTOL:
+            raise AssertionError("%s: flash and composed disagree" % what)
+        _check_flip_parity(what, parity)
+    exe.close()
+    _log_image_path(what, path, compiled, "; with the flash kernels forced: "
+                    "losses %s, launches %s on the card (host calls %s); "
+                    "replayed in turns over %d pairs: composed %.3f ms, "
+                    "flash %.3f ms a step" % (
+                        ["%.4f" % v for v in fpath["losses"]],
+                        fpath["launches"], fpath["host_launches"],
+                        VIT_FLASH_PAIRS, med_c, med_f))
+    return dict(n_params=len(params), n_weights=n_weights, tier=tier,
+                losses=path["losses"], step_ms=path["step_ms"],
+                launches=dict(zip(COUNT_NAMES, path["launches"])),
+                host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+                per_step=dict(zip(COUNT_NAMES, per_step)),
+                flash_losses=fpath["losses"], flash_step_ms=fpath["step_ms"],
+                replayed_in_turns_ms=dict(composed=turns[0],
+                                          flash=turns[1]),
+                replayed_in_turns_median_ms=dict(composed=med_c,
+                                                 flash=med_f),
+                flash_launches=dict(zip(COUNT_NAMES, fpath["launches"])),
+                flash_per_step=dict(zip(COUNT_NAMES, per_step_flash)),
+                peak_mem_mib=path["peak_mb"],
+                flash_peak_mem_mib=fpath["peak_mb"], compiled=compiled,
+                flash_parity=dict(steps=PARITY_STEPS, **flash_parity),
+                parity=dict(steps=PARITY_STEPS, **parity))
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -3842,6 +4366,18 @@ def main():
     gpt_train_amp.pop("params")
     _free()
     trans = timed("9", phase_transformer, args.seed)
+    _free()
+    resnet_train = timed("10", phase_resnet_train, args.seed, False)
+    _free()
+    with tempfile.TemporaryDirectory() as workdir:
+        resnet_serve = timed("10c", phase_resnet_serve, workdir, args.seed,
+                             resnet_train.pop("state"))
+    _free()
+    resnet_train_amp = timed("10b", phase_resnet_train, args.seed, True)
+    _free()
+    vit_train = timed("11", phase_vit_train, args.seed, False)
+    _free()
+    vit_train_amp = timed("11b", phase_vit_train, args.seed, True)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -3863,6 +4399,11 @@ def main():
     r_launch = recompute["launches"]
     g_launch, ga_launch = gpt_train["launches"], gpt_train_amp["launches"]
     tr_launch = trans["launches"]
+    rn_launch, rna_launch = (resnet_train["launches"],
+                             resnet_train_amp["launches"])
+    vt_launch, vta_launch = vit_train["launches"], vit_train_amp["launches"]
+    vf_launch, vfa_launch = (vit_train["flash_launches"],
+                             vit_train_amp["flash_launches"])
     gen_k4 = sum(r["launches"]["K4"] for r in gpt_generate.values())
     by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
     k1 = by_path(serve=serve["launches"]["flash fwd"],
@@ -3874,12 +4415,16 @@ def main():
                  recompute=r_launch["flash fwd"],
                  gpt_train=g_launch["flash fwd"],
                  gpt_train_amp=ga_launch["flash fwd"],
-                 transformer_train=tr_launch["flash fwd"])
+                 transformer_train=tr_launch["flash fwd"],
+                 vit_train_flash=vf_launch["flash fwd"],
+                 vit_train_amp_flash=vfa_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
                       train_sgd_amp=as_launch[c], train_loop=l_launch[c],
                       train_loop_amp=la_launch[c], recompute=r_launch[c],
                       gpt_train=g_launch[c], gpt_train_amp=ga_launch[c],
-                      transformer_train=tr_launch[c])
+                      transformer_train=tr_launch[c],
+                      vit_train_flash=vf_launch[c],
+                      vit_train_amp_flash=vfa_launch[c])
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
@@ -3889,12 +4434,20 @@ def main():
                  train_loop_amp=la_launch["K4 AMP"],
                  recompute=r_launch["K4"], gpt_train=g_launch["K4"],
                  gpt_train_amp=ga_launch["K4 AMP"], gpt_generate=gen_k4,
-                 transformer_train=tr_launch["K4"])
+                 transformer_train=tr_launch["K4"],
+                 vit_train=vt_launch["K4"], vit_train_flash=vf_launch["K4"],
+                 vit_train_amp=vta_launch["K4 AMP"],
+                 vit_train_amp_flash=vfa_launch["K4 AMP"])
     k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
                  train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
                  recompute=r_launch["K6"], gpt_train=g_launch["K6"],
                  gpt_train_amp=ga_launch["K6"],
-                 transformer_train=tr_launch["K6"])
+                 transformer_train=tr_launch["K6"],
+                 resnet_train=rn_launch["K6"],
+                 resnet_train_amp=rna_launch["K6"], vit_train=vt_launch["K6"],
+                 vit_train_flash=vf_launch["K6"],
+                 vit_train_amp=vta_launch["K6"],
+                 vit_train_amp_flash=vfa_launch["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -3952,27 +4505,32 @@ def main():
                     amp=(opt_amp["case"], opt_amp["max_abs_err"]["sgd"],
                          opt_amp["sgd"])),
     ]
-    # K1-K3 at GPT-2 small's causal shape, f32 and bf16 (phases 3, 3b)
-    fwd_g, bwd_g = ({c: next(r for r in rs_ if r["case"] == c)
-                     for c in ("gpt_f32", "gpt_bf16")}
-                    for rs_ in (rows, bwd_rows))
-    gpt_rows = (
-        {c: dict(max_abs_err=r["max_abs_err"], **{k: r[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by")},
-            library_ms=r["library_device_ms"],
-            library_call_ms=r["library_ms"]) for c, r in fwd_g.items()},
-        {c: dict(max_abs_err=max(r["max_abs_err"][n] for n in ("dk", "dv")),
-                 library_ms=r["library_device_ms"],
-                 library_call_ms=r["library_ms"], **{k: r["dkv"][k] for k in (
-                     "ms", "plain_ms", "bound_ms", "bound_by")})
-         for c, r in bwd_g.items()},
-        {c: dict(max_abs_err=r["max_abs_err"]["dq"],
-                 library_ms=r["library_device_ms"],
-                 library_call_ms=r["library_ms"], **{k: r["dq"][k] for k in (
-                     "ms", "plain_ms", "bound_ms", "bound_by")})
-         for c, r in bwd_g.items()})
-    for row, g in zip(kernels[:3], gpt_rows):
-        row["gpt"] = g
+    # K1-K3 at GPT-2 small's causal shape and at ViT-B/16's ragged S =
+    # 197, f32 and bf16 (phases 3, 3b)
+    for model in ("gpt", "vit"):
+        fwd_g, bwd_g = ({c: next(r for r in rs_ if r["case"] == c)
+                         for c in (model + "_f32", model + "_bf16")}
+                        for rs_ in (rows, bwd_rows))
+        model_rows = (
+            {c: dict(max_abs_err=r["max_abs_err"], **{k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")},
+                library_ms=r["library_device_ms"],
+                library_call_ms=r["library_ms"]) for c, r in fwd_g.items()},
+            {c: dict(max_abs_err=max(r["max_abs_err"][n]
+                                     for n in ("dk", "dv")),
+                     library_ms=r["library_device_ms"],
+                     library_call_ms=r["library_ms"],
+                     **{k: r["dkv"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by")})
+             for c, r in bwd_g.items()},
+            {c: dict(max_abs_err=r["max_abs_err"]["dq"],
+                     library_ms=r["library_device_ms"],
+                     library_call_ms=r["library_ms"],
+                     **{k: r["dq"][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by")})
+             for c, r in bwd_g.items()})
+        for row, g in zip(kernels[:3], model_rows):
+            row[model] = g
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
     # pl.pallas_call has its port; none is left out
     not_ported = []
@@ -3998,7 +4556,10 @@ def main():
                            recompute=recompute, gpt_train=gpt_train,
                            gpt_train_amp=gpt_train_amp,
                            gpt_generate=gpt_generate, transformer=trans,
-                           kernels=kernels,
+                           resnet_train=resnet_train,
+                           resnet_train_amp=resnet_train_amp,
+                           resnet_serve=resnet_serve, vit_train=vit_train,
+                           vit_train_amp=vit_train_amp, kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@ Import as ``import paddle_tpu_torch as fluid``.
 """
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
-from . import (clip, contrib, convert, core, flags,  # noqa: F401
-               inference, initializer, io, layers, learning_rate_decay,
-               models, optimizer, profiler, reader, regularizer)
+from . import (clip, contrib, convert, core, evaluator,  # noqa: F401
+               flags, inference, initializer, io, layers,
+               learning_rate_decay, metrics, models, nets, optimizer,
+               profiler, reader, regularizer)
 from .core.executor import Executor  # noqa: F401
 from .core.pipeline import (ConstFeedCache, DevicePrefetcher,  # noqa: F401
                             FetchHandle, WindowFeed)

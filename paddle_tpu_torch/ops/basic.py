@@ -1,5 +1,6 @@
 """Basic tensor ops: constants (``fill_constant`` and
-``fill_constant_batch_size_like``), random init, assign, assign_value,
+``fill_constant_batch_size_like``), random init (``uniform_random``,
+``gaussian_random``), assign, assign_value,
 cast, scale, increment (the learning-rate schedules' step counter),
 range, ``one_hot``, and the clipping / sign ops that gradient clipping
 and regularizers append.
@@ -87,6 +88,17 @@ def _uniform_random(ctx, ins, attrs):
     out = torch.rand(shape, generator=gen, dtype=_dt(attrs),
                      device=ctx.device)
     return {"Out": [out * (hi - lo) + lo]}
+
+
+@register_op("gaussian_random", no_grad=True, uses_rng=True)
+def _gaussian_random(ctx, ins, attrs):
+    """``mean + std * N(0, 1)`` of ``shape``; a nonzero ``seed`` attr
+    fixes the draw, as for ``uniform_random``."""
+    seed = attrs.get("seed", 0)
+    gen = ctx.seeded_rng(int(seed)) if seed else ctx.next_rng()
+    z = torch.randn(tuple(attrs["shape"]), generator=gen, dtype=_dt(attrs),
+                    device=ctx.device)
+    return {"Out": [attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z]}
 
 
 @register_op("assign")

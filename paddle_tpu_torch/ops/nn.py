@@ -1,5 +1,6 @@
-"""NN ops: layer_norm, rms_norm, lookup_table, dropout, softmax,
-softmax_with_cross_entropy, label_smooth.
+"""NN ops: conv2d, pool2d, batch_norm, layer_norm, rms_norm,
+lookup_table, dropout, softmax, cross_entropy,
+softmax_with_cross_entropy, label_smooth, top_k.
 
 Counterparts of paddle_tpu/ops/nn.py. Inference-mode dropout follows the
 reference's ``downgrade_in_infer`` rule: the output is scaled by
@@ -15,15 +16,153 @@ whose autograd backward (what a recompute segment's vjp takes) sums the
 rows the same way. An id past the table's rows gives a NaN row and
 takes no grad, as ``jnp.take`` and JAX's scatter do (ops/tensor_ops.py
 ``take_rows``).
+
+The image ops follow the JAX lowerings, which differ from Fluid's C++
+in places:
+
+- ``conv2d`` (NCHW / OIHW, symmetric pads, dilations, groups) is one
+  ``F.conv2d``: the JAX package's convolution is XLA's, outside any
+  Pallas kernel, so cuDNN's stays. cuDNN's weight-grad algorithms may
+  add with atomics, and ``benchmark`` mode picks algorithms per run,
+  so the forward and its grad (a grad lowering of its own, the vjp of
+  the same call) run under ``_conv_flags``: deterministic,
+  non-benchmarked cuDNN without TF32, scoped to the op and set nowhere
+  else, so a training step is bitwise repeatable and an f32 product
+  stays f32. On an H100 the default flags (benchmark off) gave
+  ResNet-50's 7 x 7 stem three different grads in three runs at batch
+  32; the deterministic algorithms repeat, at 1.7 times that conv's
+  time (chip_smoke.py phase 10's probe, PERF.md).
+- ``pool2d`` takes no ``ceil_mode`` (the JAX lowering ignores it). Max
+  pads with -inf (an integer input with its dtype's least value); avg
+  divides by the count of real elements only when ``exclusive`` is set
+  and a pad is non-zero, else by kh * kw, whatever the pads
+  (``F.avg_pool2d``'s ``count_include_pad`` is another rule: the sums
+  are taken over a padded copy with ``divisor_override=1``). The max
+  grad routes a tie within a window to its first element in both
+  packages.
+- ``batch_norm`` normalizes by the batch's biased variance (ddof 0),
+  updates the running stats as ``mean * momentum + batch * (1 -
+  momentum)`` (the biased variance too), and saves the batch mean and
+  variance (not Fluid's inverse std) in ``SavedMean`` /
+  ``SavedVariance``; ``is_test`` or ``use_global_stats`` normalize by
+  the running stats and pass them through. Its grad is the generic
+  vjp.
+- ``cross_entropy`` takes ``-log(p + 1e-8)``; a hard label in [-C, 0)
+  wraps and one outside [-C, C) picks NaN, as ``take_along_axis``
+  does; ``ignore_index`` gives 0.
+- ``top_k`` puts the lower index first among equal values, as
+  ``lax.top_k`` does (a stable descending sort, then the first k;
+  ``torch.topk`` on CUDA promises no order among ties).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.nn.functional as F
 
 from ..core.registry import register_grad_lowering, register_op
 from .basic import weak_scalar
-from .tensor_ops import scatter_add_rows, take_rows
+from .tensor_ops import bounded_index, scatter_add_rows, take_rows
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v), int(v))
+
+
+# ------------------------------------------------------------------- conv
+def _conv_flags():
+    """cuDNN as the conv ops run it: deterministic algorithms, no
+    benchmark search, no TF32; a no-op for CPU tensors."""
+    if not torch.backends.cudnn.is_available():
+        return contextlib.nullcontext()
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+def _conv(x, w, attrs):
+    return F.conv2d(x, w, None, _pair(attrs.get("strides", [1, 1])),
+                    _pair(attrs.get("paddings", [0, 0])),
+                    _pair(attrs.get("dilations", [1, 1])),
+                    attrs.get("groups", 1))
+
+
+@register_op("conv2d", diff_inputs=["Input", "Filter"])
+def _conv2d(ctx, ins, attrs):
+    with _conv_flags():
+        return {"Output": [_conv(ins["Input"][0], ins["Filter"][0], attrs)]}
+
+
+@register_grad_lowering("conv2d")
+def _conv2d_grad(ctx, ins, attrs):
+    """The vjp of the forward's ``F.conv2d``, taken under the same cuDNN
+    flags (the generic grad would run the backward outside them)."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    g = ins["Output@GRAD"][0]
+    with _conv_flags():
+        out, vjp = torch.func.vjp(lambda a, b: _conv(a, b, attrs), x, w)
+        dx, dw = vjp(g.to(out.dtype))
+    return {"Input@GRAD": [dx], "Filter@GRAD": [dw]}
+
+
+# ------------------------------------------------------------------- pool
+@register_op("pool2d", diff_inputs=["X"])
+def _pool2d(ctx, ins, attrs):
+    x = ins["X"][0]
+    ksize = _pair(attrs.get("ksize", [2, 2]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    if attrs.get("global_pooling", False):
+        ksize, strides, pads = (x.shape[2], x.shape[3]), (1, 1), (0, 0)
+    pad4 = (pads[1], pads[1], pads[0], pads[0])
+    if attrs.get("pooling_type", "max") == "max":
+        if x.is_floating_point():
+            xp = F.pad(x, pad4, value=float("-inf"))
+            return {"Out": [F.max_pool2d(xp, ksize, strides)]}
+        # integer pools: the dtype's least value pads (no grad)
+        xp = F.pad(x, pad4, value=torch.iinfo(x.dtype).min)
+        win = xp.unfold(2, ksize[0], strides[0]).unfold(3, ksize[1],
+                                                         strides[1])
+        return {"Out": [win.amax(dim=(-2, -1))]}
+
+    def window_sum(v):
+        return F.avg_pool2d(F.pad(v, pad4), ksize, strides,
+                            divisor_override=1)
+
+    s = window_sum(x)
+    if attrs.get("exclusive", True) and pads != (0, 0):
+        return {"Out": [s / window_sum(torch.ones_like(x))]}
+    return {"Out": [s / (ksize[0] * ksize[1])]}
+
+
+# ------------------------------------------------------------------- norms
+@register_op("batch_norm", diff_inputs=["X", "Scale", "Bias"])
+def _batch_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    caxis = 1 if attrs.get("data_layout", "NCHW") == "NCHW" else x.ndim - 1
+    axes = tuple(i for i in range(x.ndim) if i != caxis)
+    bshape = tuple(x.shape[caxis] if i == caxis else 1
+                   for i in range(x.ndim))
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        use_mean, use_var = mean, var
+        mean_out, var_out = mean, var
+    else:
+        use_mean = x.mean(dim=axes)
+        use_var = x.var(dim=axes, unbiased=False)
+        mean_out = mean * momentum + use_mean * (1 - momentum)
+        var_out = var * momentum + use_var * (1 - momentum)
+    inv = torch.rsqrt(use_var + eps)
+    y = (x - use_mean.reshape(bshape)) * inv.reshape(bshape) * \
+        scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [use_mean], "SavedVariance": [use_var]}
 
 
 @register_op("layer_norm", diff_inputs=["X", "Scale", "Bias"])
@@ -142,6 +281,24 @@ def _hard_label(label, ndim):
     return label.to(torch.int64)
 
 
+@register_op("cross_entropy", diff_inputs=["X"])
+def _cross_entropy(ctx, ins, attrs):
+    """-log(p + 1e-8) of the label's probability (soft labels: their
+    weighted sum), [N, 1] labels squeezed, ``ignore_index`` rows 0."""
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = weak_scalar(1e-8, x)
+    if attrs.get("soft_label", False):
+        return {"Y": [-torch.sum(label * torch.log(x + eps), dim=-1,
+                                 keepdim=True)]}
+    lbl = _hard_label(label, x.ndim)
+    safe, valid = bounded_index(lbl, x.shape[-1])
+    picked = torch.gather(x, -1, safe.unsqueeze(-1))
+    picked = torch.where(valid.unsqueeze(-1), picked, float("nan"))
+    loss = -torch.log(picked + eps)
+    ignore = (lbl == attrs.get("ignore_index", -100)).unsqueeze(-1)
+    return {"Y": [torch.where(ignore, torch.zeros_like(loss), loss)]}
+
+
 @register_op("softmax_with_cross_entropy", diff_inputs=["Logits"])
 def _softmax_with_cross_entropy(ctx, ins, attrs):
     logits, label = ins["Logits"][0], ins["Label"][0]
@@ -177,3 +334,15 @@ def _softmax_with_cross_entropy_grad(ctx, ins, attrs):
         -1, torch.where(inside, lbl, torch.zeros_like(lbl)).unsqueeze(-1),
         inside.unsqueeze(-1).to(sm.dtype))
     return {"Logits@GRAD": [(sm - onehot) * dloss]}
+
+
+# ------------------------------------------------------------------- top_k
+@register_op("top_k", no_grad=True)
+def _top_k(ctx, ins, attrs):
+    """The k largest along the last axis and their int32 indices, the
+    lower index first among equal values (a stable descending sort)."""
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True,
+                           stable=True)
+    k = attrs.get("k", 1)
+    return {"Out": [vals[..., :k]],
+            "Indices": [idx[..., :k].to(torch.int32)]}

@@ -83,6 +83,19 @@ CPU = torch.device("cpu")
 NO_FLASH = "100000"  # a PADDLE_TPU_FLASH_MIN_SEQ above every S here
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _defaults(monkeypatch):
     """No tuned winner and the pipeline's defaults."""

@@ -75,6 +75,15 @@ where only the port is installed:
   decode graphs holding the scope's KV caches and writing them in place,
   the tokens an executor's that never replays; ids past a table's rows
   giving NaN rows and no grad inside a captured step (C8).
+- Image classification: conv2d (strides, pads, dilations, groups; its
+  grads), pool2d, batch_norm (train, test, NHWC), cross_entropy, top_k,
+  accuracy, auc, precision_recall and gaussian_random on the card
+  against the CPU (f32 products without TF32 summed in another order:
+  1e-4 for the convs and the norms, 1e-6 elsewhere, the metrics exact);
+  top_k's ties on the card in the order ``lax.top_k`` gives; a conv
+  step under the port's cuDNN flags bitwise repeatable; a small
+  ResNet-50's replayed steps bitwise its eager steps, the batch norms'
+  running stats included, with K6 once a step on the card.
 """
 
 import warnings
@@ -1468,3 +1477,184 @@ def test_cuda_ids_past_the_table_give_nan_rows_in_a_captured_step(
         np.testing.assert_array_equal(g, want)
     plan = next(p for p in exe._cache.values() if p.graph is not None)
     assert plan.compiled_sigs == {"run"}
+
+
+# ------------------------------------------------- image classification
+def _lower(op_type, ins, attrs, dev, rng=None):
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    ctx = LowerContext(None, rng, dev)
+    return get_op(op_type).lowering(
+        ctx, {k: [v.to(dev) for v in vs] for k, vs in ins.items()},
+        dict(attrs))
+
+
+def _image_op_cases():
+    g = torch.Generator().manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = rnd(4, 8, 15, 14)
+    probs = torch.softmax(rnd(16, 10), -1)
+    label = torch.randint(0, 10, (16, 1), generator=g, dtype=torch.int32)
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :5]
+    bn = lambda c: {"Scale": [rnd(c)], "Bias": [rnd(c)],  # noqa: E731
+                    "Mean": [rnd(c)], "Variance": [rnd(c).abs() + 0.5]}
+    return [
+        ("conv2d", {"Input": [x], "Filter": [rnd(6, 8, 3, 3)]},
+         {"strides": [2, 1], "paddings": [1, 1]}, 1e-4),
+        ("conv2d", {"Input": [x], "Filter": [rnd(8, 2, 3, 3)]},
+         {"paddings": [2, 2], "dilations": [2, 2], "groups": 4}, 1e-4),
+        ("pool2d", {"X": [x]}, {"pooling_type": "max", "ksize": [3, 3],
+                                "strides": [2, 2], "paddings": [1, 1]}, 0),
+        ("pool2d", {"X": [x]}, {"pooling_type": "avg", "ksize": [3, 3],
+                                "strides": [2, 2], "paddings": [1, 1]},
+         1e-6),
+        ("pool2d", {"X": [x]}, {"pooling_type": "avg",
+                                "global_pooling": True}, 1e-6),
+        ("batch_norm", dict(bn(8), X=[x]), {}, 1e-4),
+        ("batch_norm", dict(bn(8), X=[x]), {"is_test": True}, 1e-6),
+        ("batch_norm", dict(bn(14), X=[x]), {"data_layout": "NHWC"}, 1e-4),
+        ("cross_entropy", {"X": [probs], "Label": [label]}, {}, 1e-6),
+        ("top_k", {"X": [probs]}, {"k": 5}, 0),
+        ("accuracy", {"Out": [probs[:, :5]], "Indices": [order.int()],
+                      "Label": [label]}, {}, 0),
+        ("auc", {"Predict": [probs[:, :2]], "Label": [label % 2],
+                 "StatPos": [torch.zeros(51, dtype=torch.int32)],
+                 "StatNeg": [torch.zeros(51, dtype=torch.int32)]},
+         {"num_thresholds": 50}, 1e-6),
+        ("precision_recall", {"Indices": [order[:, :1].int()],
+                              "Label": [label]}, {"class_number": 10}, 1e-6),
+    ]
+
+
+@pytest.mark.cuda
+def test_cuda_image_ops_match_the_cpu(cuda_device):
+    """Each image-classification lowering on the card against the same
+    lowering on the CPU, and conv2d's and batch_norm's grads too."""
+    from paddle_tpu_torch.core.autodiff import (ATTR_DIFF, ATTR_FWD_IN,
+                                                ATTR_FWD_OUT)
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    cpu = torch.device("cpu")
+    for op_type, ins, attrs, atol in _image_op_cases():
+        got = _lower(op_type, ins, attrs, cuda_device)
+        want = _lower(op_type, ins, attrs, cpu)
+        for slot, vals in want.items():
+            for a, b in zip(vals, got[slot]):
+                assert b.device.type == "cuda" and b.dtype == a.dtype
+                torch.testing.assert_close(b.cpu(), a, atol=atol, rtol=0,
+                                           msg=lambda m: "%s %s %s" % (
+                                               op_type, slot, m))
+        if op_type not in ("conv2d", "batch_norm"):
+            continue
+        diff = ([("Input", 0), ("Filter", 0)] if op_type == "conv2d" else
+                [("X", 0), ("Scale", 0), ("Bias", 0)])
+        out_slot = "Output" if op_type == "conv2d" else "Y"
+        gattrs = dict(attrs, **{ATTR_FWD_IN: {k: 1 for k in ins},
+                                ATTR_FWD_OUT: {k: 1 for k in want},
+                                ATTR_DIFF: [list(d) for d in diff]})
+        cot = torch.randn(want[out_slot][0].shape,
+                          generator=torch.Generator().manual_seed(4))
+        gins = dict(ins, **{k: v for k, v in want.items()},
+                    **{out_slot + "@GRAD": [cot]})
+        grads = [get_op(op_type + "_grad").lowering(
+            LowerContext(None, None, dev),
+            {k: [v.to(dev) for v in vs] for k, vs in gins.items()},
+            dict(gattrs)) for dev in (cpu, cuda_device)]
+        for slot, i in diff:
+            torch.testing.assert_close(grads[1][slot + "@GRAD"][i].cpu(),
+                                       grads[0][slot + "@GRAD"][i],
+                                       atol=1e-4, rtol=1e-4)
+    # gaussian_random on the card: its shape, moments and seed
+    rng = torch.Generator().manual_seed(5)
+    attrs = {"shape": [512, 256], "mean": 1.0, "std": 3.0, "seed": 0}
+    a = _lower("gaussian_random", {}, attrs, cuda_device, rng)["Out"][0]
+    assert a.device.type == "cuda" and tuple(a.shape) == (512, 256)
+    assert abs(float(a.mean()) - 1.0) < 0.05
+    assert abs(float(a.std()) - 3.0) < 0.05
+    seeded = [_lower("gaussian_random", {}, dict(attrs, seed=7),
+                     cuda_device, torch.Generator().manual_seed(i))["Out"][0]
+              for i in (1, 2)]
+    assert torch.equal(seeded[0], seeded[1])
+
+
+@pytest.mark.cuda
+def test_cuda_top_k_ties_put_the_lower_index_first(cuda_device):
+    """Rows of 1000 values from 4 levels (hundreds of ties each): the k
+    largest and their indices on the card, the lower index first among
+    equal values, as ``lax.top_k`` orders them (a stable sort on the
+    host is the reference)."""
+    x = torch.randint(0, 4, (32, 1000),
+                      generator=torch.Generator().manual_seed(6)).float()
+    out = _lower("top_k", {"X": [x]}, {"k": 5}, cuda_device)
+    want = np.argsort(-x.numpy(), axis=1, kind="stable")[:, :5]
+    np.testing.assert_array_equal(out["Indices"][0].cpu().numpy(), want)
+    assert out["Indices"][0].dtype == torch.int32
+
+
+@pytest.mark.cuda
+def test_cuda_conv_step_is_bitwise_repeatable(cuda_device):
+    """A conv's forward and its grads (the op's grad lowering, under the
+    port's cuDNN flags) twice on the same inputs: the same bits."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(16, 64, 28, 28, generator=g).to(cuda_device)
+    w = torch.randn(64, 64, 3, 3, generator=g).to(cuda_device) * 0.05
+    cot = torch.randn(16, 64, 28, 28, generator=g).to(cuda_device)
+    attrs = {"paddings": [1, 1]}
+    ctx = LowerContext(None, None, cuda_device)
+    runs = []
+    for _ in range(2):
+        y = get_op("conv2d").lowering(ctx, {"Input": [x], "Filter": [w]},
+                                      dict(attrs))["Output"][0]
+        gr = get_op("conv2d").grad_lowering(
+            ctx, {"Input": [x], "Filter": [w], "Output@GRAD": [cot]},
+            dict(attrs))
+        runs.append((y, gr["Input@GRAD"][0], gr["Filter@GRAD"][0]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_replayed_steps_equal_eager_steps(cuda_device):
+    """A ResNet-50 at 32 x 32 (batch 4, Adam): steps 2-4 are replays of
+    the plan's graph, bitwise the plan's eager step from the same scope,
+    params and the batch norms' running stats (written by batch_norm,
+    not by the optimizer) included; each step runs K6 once on the card
+    and no other kernel of the port."""
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 11
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss, _, _ = resnet.build(class_dim=10, depth=50,
+                                  image_shape=(3, 32, 32))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    stats = [n for op in main.global_block().ops if op.type == "batch_norm"
+             for n in op.input("Mean") + op.input("Variance")]
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    start = {n: scope.find_var(n).clone() for n in stats}
+    for i in range(4):
+        rs = np.random.RandomState(i)
+        f = {"img": rs.randn(4, 3, 32, 32).astype("float32"),
+             "label": rs.randint(0, 10, (4, 1)).astype("int64")}
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=f, fetch_list=[loss], scope=scope,
+            return_numpy=False)[0])
+        e, on_card_e = _device_launches(lambda: exe._run_eager(
+            main, feed=f, fetch_list=[loss], scope=eager_scope,
+            return_numpy=False)[0])
+        assert on_card == on_card_e == [0] * 8 + [1, 0], (i, on_card)
+        assert torch.equal(r, e), (i, r, e)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.compiled_sigs == {"run"}
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
+    for n in stats:
+        assert torch.equal(scope.find_var(n), eager_scope.find_var(n)), n
+        assert not torch.equal(scope.find_var(n), start[n]), n

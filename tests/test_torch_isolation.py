@@ -111,6 +111,7 @@ COPIES = {
          '_SUBSUMED = "inert in the port (kept for API compatibility)"'),
         (_ORIGINAL_FLAGS_TAIL, "")],
     "core/registry.py": [],
+    "evaluator.py": [],
     "kernels/registry.py": [],
     "observe/families.py": [],
     "observe/metrics.py": [],
@@ -122,13 +123,22 @@ COPIES = {
     "layer_helper.py": [],
     "layers/decode.py": [],
     "layers/learning_rate_scheduler.py": [],
+    "layers/metric_op.py": [],
     "layers/nn.py": [],
     "layers/ops.py": [],
     "layers/tensor.py": [],
     "learning_rate_decay.py": [],
+    "metrics.py": [],
     "models/bert.py": [],
+    "models/ctr.py": [],
     "models/gpt.py": [],
+    "models/mnist.py": [],
+    "models/resnet.py": [],
+    "models/se_resnext.py": [],
     "models/transformer.py": [],
+    "models/vgg.py": [],
+    "models/vit.py": [],
+    "nets.py": [],
     "optimizer.py": [],
     "regularizer.py": [],
 }

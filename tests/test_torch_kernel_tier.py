@@ -59,6 +59,19 @@ CFG = dict(d_model=64, d_ff=128, n_head=4, n_layer=2, vocab=100,
 S, M, B = 32, 6, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _clean_tuners(monkeypatch, tmp_path):
     """Both packages' tuners start empty, each with a winner cache of its

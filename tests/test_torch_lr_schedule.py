@@ -50,6 +50,19 @@ SCHEDULES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 def _rates(pkg, place, make, steps=STEPS):
     main, startup = pkg.Program(), pkg.Program()
     with pkg.program_guard(main, startup), pkg.unique_name.guard():

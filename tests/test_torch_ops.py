@@ -1,7 +1,8 @@
 """Each op lowering of the port against the JAX package's lowering of the
 same op type, on the same inputs (numpy, seeded), one case per op type.
 
-Tolerances: atol 1e-6 for elementwise and shape ops, 1e-5 for ``mul``,
+Tolerances: atol 1e-6 for elementwise, shape and pooling ops, 1e-5 for
+``mul``, ``conv2d``, ``batch_norm``, ``cross_entropy``,
 ``layer_norm``, the reductions, division, power and
 ``softmax_with_cross_entropy`` (f32 sums and transcendentals taken in
 another order or by another math library), atol 1e-5 plus rtol 1e-6 for
@@ -9,8 +10,10 @@ the activations (exp of inputs up to about 10 differs in the last
 place), exact for integer, shape and copy ops, 2e-5 for
 ``fused_attention`` (the flash kernel's tolerance; the JAX side runs its
 Pallas kernel in interpret mode, the port its plain version).
-``uniform_random`` draws from another generator in each package, so its
-case checks shape, range and seeding instead of values. A float64 output
+``uniform_random`` and ``gaussian_random`` draw from another generator in
+each package, so their cases check shape, range or moments and seeding
+instead of values; the metric ops (``top_k``, ``accuracy``, ``auc``,
+``precision_recall``) are exact, or 1e-6 where they divide. A float64 output
 is float64 in the port and float32 in the JAX package (x64 off), a
 documented difference: such outputs are compared in float32. The pass
 pipeline's fused ops take their composed replays in both packages (the
@@ -507,6 +510,158 @@ def case_kv_cache_write(rs):
         _arr(rs, (2, 3, 3, 4))], "Pos": [np.array([[1], [4]], "int32")]},
         {}, 0)
 
+
+# the image-classification slice's ops (conv, pool, norm, loss, metrics):
+# the cases of tests/test_torch_vision.py hold their edges, grads and
+# ties further
+def case_conv2d(rs):
+    x = _arr(rs, (2, 4, 9, 8))
+    for w_shape, attrs in (
+            ((6, 4, 3, 3), {"strides": [1, 1], "paddings": [1, 1]}),
+            ((6, 4, 3, 2), {"strides": [2, 1], "paddings": [0, 1],
+                            "dilations": [2, 1]}),
+            ((8, 2, 3, 3), {"strides": [2, 2], "paddings": [1, 1],
+                            "groups": 2}),
+            ((4, 1, 3, 3), {"paddings": [2, 2], "dilations": [2, 2],
+                            "groups": 4})):
+        _check("conv2d", {"Input": [x], "Filter": [_arr(rs, w_shape)]},
+               attrs, 1e-5)
+
+
+def case_pool2d(rs):
+    x = _arr(rs, (2, 3, 7, 6))
+    for attrs in (
+            {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+             "paddings": [1, 1]},
+            {"pooling_type": "max", "ksize": [2, 2], "strides": [2, 2],
+             "ceil_mode": True},
+            {"pooling_type": "avg", "ksize": [3, 3], "strides": [2, 2],
+             "paddings": [1, 1]},
+            {"pooling_type": "avg", "ksize": [3, 2], "strides": [1, 2],
+             "paddings": [1, 0], "exclusive": False},
+            {"pooling_type": "avg", "ksize": [2, 2], "strides": [2, 2],
+             "exclusive": True},
+            {"pooling_type": "avg", "global_pooling": True},
+            {"pooling_type": "max", "global_pooling": True,
+             "ksize": [2, 2]}):
+        _check("pool2d", {"X": [x]}, attrs, 1e-6)
+    _check("pool2d", {"X": [_arr(rs, (2, 3, 7, 6), "int32") - 5]},
+           {"pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+            "paddings": [1, 1]}, 0)
+
+
+def case_batch_norm(rs):
+    def ins(x, c):
+        return {"X": [x], "Scale": [_arr(rs, (c,))],
+                "Bias": [_arr(rs, (c,))], "Mean": [_arr(rs, (c,))],
+                "Variance": [np.abs(_arr(rs, (c,))) + 0.5]}
+
+    x = _arr(rs, (4, 3, 5, 6)) * 2 + 1
+    for attrs in ({}, {"momentum": 0.8, "epsilon": 1e-3},
+                  {"is_test": True}, {"use_global_stats": True}):
+        _check("batch_norm", ins(x, 3), attrs, 1e-5)
+    _check("batch_norm", ins(x.transpose(0, 2, 3, 1).copy(), 3),
+           {"data_layout": "NHWC"}, 1e-5)
+    _check("batch_norm", ins(_arr(rs, (6, 5)), 5), {}, 1e-5)
+
+
+def case_gaussian_random(rs):
+    attrs = {"shape": [256, 64], "mean": 0.5, "std": 2.0, "seed": 0,
+             "dtype": "float32"}
+
+    def draw(chain_seed, **over):
+        ctx = LowerContext(None, torch.Generator().manual_seed(chain_seed),
+                           CPU)
+        return get_op("gaussian_random").lowering(
+            ctx, {}, dict(attrs, **over))["Out"][0]
+
+    import jax
+
+    want = np.asarray(jax_op("gaussian_random").lowering(
+        JaxContext(None, jax.random.PRNGKey(0)), {}, dict(attrs))["Out"][0])
+    a = draw(3)
+    assert tuple(a.shape) == want.shape and a.dtype == torch.float32
+    assert want.dtype == np.float32
+    # 16384 draws: the moments within 5 standard errors of the JAX
+    # package's and of the attrs'
+    for got in (a.numpy(), want):
+        assert abs(got.mean() - 0.5) < 5 * 2.0 / 128
+        assert abs(got.std() - 2.0) < 5 * 2.0 / np.sqrt(2 * 16384)
+    torch.testing.assert_close(draw(3), a, rtol=0, atol=0)  # same seed
+    assert not torch.equal(draw(4), a)                      # other seed
+    # a nonzero seed attr fixes the draw whatever the context's chain
+    torch.testing.assert_close(draw(3, seed=9), draw(4, seed=9),
+                               rtol=0, atol=0)
+
+
+def case_cross_entropy(rs):
+    p = rs.rand(6, 7).astype("float32")
+    p /= p.sum(-1, keepdims=True)
+    p[0, 2] = 0.0  # log(0 + 1e-8)
+    hard = np.array([2, 3, 6, 0, 1, 3], "int32")
+    _check("cross_entropy", {"X": [p], "Label": [hard]}, {}, 1e-5)
+    _check("cross_entropy", {"X": [p], "Label": [hard[:, None]]}, {}, 1e-5)
+    # -100 (the default ignore_index) and 3 ignored; -1 wraps to the last
+    # class and 7 lies outside [-7, 7): NaN in both packages
+    odd = np.array([[-100], [3], [-1], [7], [1], [-8]], "int32")
+    _check("cross_entropy", {"X": [p], "Label": [odd]}, {}, 1e-5)
+    _check("cross_entropy", {"X": [p], "Label": [odd]},
+           {"ignore_index": 3}, 1e-5)
+    soft = rs.rand(6, 7).astype("float32")
+    _check("cross_entropy", {"X": [p], "Label": [soft / soft.sum(-1,
+                                                                 keepdims=True)]},
+           {"soft_label": True}, 1e-5)
+
+
+def case_top_k(rs):
+    x = rs.randint(0, 4, (5, 9)).astype("float32")  # many ties
+    for k in (1, 3, 9):
+        _check("top_k", {"X": [x]}, {"k": k}, 0)
+    _check("top_k", {"X": [_arr(rs, (2, 3, 8))]}, {"k": 4}, 0)
+
+
+def case_accuracy(rs):
+    x = rs.rand(8, 10).astype("float32")
+    label = rs.randint(0, 10, (8, 1)).astype("int32")
+    for k in (1, 5):
+        order = np.argsort(-x, axis=1, kind="stable")[:, :k]
+        _check("accuracy", {"Out": [np.take_along_axis(x, order, 1)],
+                            "Indices": [order.astype("int32")],
+                            "Label": [label]}, {}, 0)
+    _check("accuracy", {"Out": [x[:, :1]], "Indices": [np.zeros(
+        (8, 1), "int32")], "Label": [label[:, 0]]}, {}, 0)
+
+
+def case_auc(rs):
+    n_thresh = 50
+    for preds in (rs.rand(16, 2).astype("float32"),
+                  rs.rand(16, 1).astype("float32")):
+        preds[:3] = [[0.0], [1.0], [0.5]] if preds.shape[1] == 1 else \
+            [[1.0, 0.0], [0.0, 1.0], [0.5, 0.5]]
+        _check("auc", {"Predict": [preds],
+                       "Label": [rs.randint(0, 2, (16, 1)).astype("int32")],
+                       "StatPos": [rs.randint(0, 5, (n_thresh + 1,)).astype(
+                           "int32")],
+                       "StatNeg": [rs.randint(0, 5, (n_thresh + 1,)).astype(
+                           "int32")]},
+               {"curve": "ROC", "num_thresholds": n_thresh}, 1e-6)
+    zeros = np.zeros((n_thresh + 1,), "int32")
+    _check("auc", {"Predict": [rs.rand(4, 2).astype("float32")],
+                   "Label": [np.ones((4, 1), "int32")],
+                   "StatPos": [zeros], "StatNeg": [zeros]},
+           {"num_thresholds": n_thresh}, 0)
+
+
+def case_precision_recall(rs):
+    idx = rs.randint(0, 4, (12, 1)).astype("int32")
+    label = rs.randint(0, 4, (12, 1)).astype("int32")
+    _check("precision_recall", {"Indices": [idx], "Label": [label]},
+           {"class_number": 4}, 1e-6)
+    _check("precision_recall", {
+        "Indices": [idx], "Label": [label],
+        "Weights": [rs.rand(12, 1).astype("float32")],
+        "StatesInfo": [rs.randint(0, 6, (5, 4)).astype("float32")]},
+        {"class_number": 5}, 1e-6)
 
 def _recompute_segment(pkg):
     """A program of [fc, tanh] moved into one recompute segment by each

@@ -38,6 +38,19 @@ from paddle_tpu_torch.models import bert as tbert
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 def _value(name, **labels):
     for s in observe.snapshot()["metrics"][name]["samples"]:
         if all(s["labels"].get(k) == v for k, v in labels.items()):

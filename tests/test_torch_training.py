@@ -52,6 +52,19 @@ S, M, B = 40, 6, 3
 LR = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 def _arr(rs, shape, dtype="float32"):
     if np.dtype(dtype).kind in "iu":
         return rs.randint(0, 10, shape).astype(dtype)
@@ -347,6 +360,63 @@ def _rope(rs, op):
                      "Pos": [(np.arange(12) % 5).reshape(2, 6).astype(
                          "int32")]}, {}, [("X", 0)], 1e-5)
 
+
+# the image-classification slice: conv2d's grad is its own lowering in
+# the port (the vjp of the forward's F.conv2d under the op's cuDNN
+# flags), the others are the generic vjp in both packages
+@grad_case("conv2d")
+def _conv2d(rs, op):
+    x = _arr(rs, (2, 4, 9, 8))
+    for w_shape, attrs in (
+            ((6, 4, 3, 3), {"strides": [2, 2], "paddings": [1, 1]}),
+            ((6, 2, 3, 2), {"paddings": [2, 1], "dilations": [2, 1],
+                            "groups": 2})):
+        _check_grad(op, {"Input": [x], "Filter": [_arr(rs, w_shape)]},
+                    attrs, [("Input", 0), ("Filter", 0)], 1e-5, 1e-5)
+
+
+@grad_case("pool2d")
+def _pool2d(rs, op):
+    # distinct values: a tie's routing is held in test_torch_vision.py
+    x = rs.permutation(2 * 3 * 7 * 6).reshape(2, 3, 7, 6).astype(
+        "float32") / 50
+    for attrs in ({"pooling_type": "max", "ksize": [3, 3],
+                   "strides": [2, 2], "paddings": [1, 1]},
+                  {"pooling_type": "avg", "ksize": [3, 3],
+                   "strides": [2, 2], "paddings": [1, 1]},
+                  {"pooling_type": "avg", "ksize": [2, 3],
+                   "strides": [1, 2], "paddings": [1, 1],
+                   "exclusive": False},
+                  {"pooling_type": "avg", "global_pooling": True}):
+        _check_grad(op, {"X": [x]}, attrs, [("X", 0)], 1e-6)
+
+
+@grad_case("batch_norm")
+def _batch_norm(rs, op):
+    c = 3
+    for x, attrs in ((_arr(rs, (4, c, 5, 6)) * 2 + 1, {}),
+                     (_arr(rs, (4, 5, 6, c)), {"data_layout": "NHWC"}),
+                     (_arr(rs, (4, c, 5, 6)), {"is_test": True})):
+        _check_grad(op, {"X": [x], "Scale": [_arr(rs, (c,))],
+                         "Bias": [_arr(rs, (c,))], "Mean": [_arr(rs, (c,))],
+                         "Variance": [np.abs(_arr(rs, (c,))) + 0.5]},
+                    attrs, [("X", 0), ("Scale", 0), ("Bias", 0)], 1e-5,
+                    1e-5, cot_slots=["Y"])
+
+
+@grad_case("cross_entropy")
+def _cross_entropy(rs, op):
+    p = rs.rand(6, 7).astype("float32") + 0.05
+    p /= p.sum(-1, keepdims=True)
+    label = np.array([[0], [3], [6], [-100], [2], [3]], "int32")
+    _check_grad(op, {"X": [p], "Label": [label]}, {}, [("X", 0)], 1e-5,
+                1e-5)
+    _check_grad(op, {"X": [p], "Label": [label]}, {"ignore_index": 3},
+                [("X", 0)], 1e-5, 1e-5)
+    soft = rs.rand(6, 7).astype("float32")
+    _check_grad(op, {"X": [p], "Label": [soft / soft.sum(-1,
+                                                         keepdims=True)]},
+                {"soft_label": True}, [("X", 0)], 1e-5, 1e-5)
 
 ACTIVATIONS = ["relu", "sigmoid", "tanh", "sqrt", "rsqrt", "abs", "exp",
                "log", "square", "reciprocal", "softplus", "softsign",

@@ -27,6 +27,19 @@ CFG = dict(d_model=64, d_ff=128, n_head=4, n_layer=2, src_vocab=100,
 S, B, LR, STEPS = 32, 3, 1e-3, 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_global_gradient_clip():
+    """tests/test_grad_accum.py sets the JAX package's process-global
+    gradient clip (``clip.set_gradient_clip``) and leaves it set, so a
+    later ``minimize`` in the same process appends clip ops to the JAX
+    program alone. This module's fixtures and tests run with neither
+    package's global clip set."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jf.clip, "_global_clip", None)
+        mp.setattr(pt.clip, "_global_clip", None)
+        yield
+
+
 def _build(pkg, mod, fused, eps):
     main, startup = pkg.Program(), pkg.Program()
     main.random_seed = startup.random_seed = 17
