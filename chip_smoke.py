@@ -219,7 +219,63 @@ Phases, each of which passes or ends the script with a non-zero exit:
    within phase 8's gates; phases 3, 3b and 3c hold ViT's attention
    [32, 12, 197, 64] and layer-norm rows [6304, 768] against the plain
    versions;
-11b. phase 11 under bf16 AMP (AMP's bounds).
+11b. phase 11 under bf16 AMP (AMP's bounds);
+12e. the batcher (after phase 5, on phase 4's Predictor): a
+   ``MicroBatcher`` (max_rows 8) takes 64 requests of 1-3 rows from 4
+   threads; every answer against its rows run alone within 1e-4; each
+   dispatch runs K1 12 and K4 25 times on the card; rows a dispatch and
+   latency;
+12. serve GPT-2 small through ``serving.DecodeEngine`` (b_max 8, a cache
+   of 1024 rows, f32, random weights from the seed): 48 requests
+   submitted at once (prompts of 64-512 tokens, 16-128 new tokens, half
+   greedy, half sampled at temperature 0.8, top_k 40), after two
+   warm-up requests of each prompt length; every request's tokens equal
+   ``gpt.generate``'s for it alone at batch 1 (the same requests one
+   after another, also the sequential baseline); K4 counted on the
+   card, 24 a prefill and 25 a decode step; tokens/s, time to first
+   token, time between tokens, slot occupancy, captures, the byte
+   model's prediction against the peak, one decode step profiled;
+12b. prefix reuse: 16 requests sharing a 384-token system prompt with
+   their own suffixes, twice, through an engine with a prefix store and
+   one without: tokens bitwise equal, the store's 31 hits and 1 miss,
+   time to first token of each;
+12c. speculative decoding, k = 4, 16 greedy requests, with the target
+   as its own draft and with a 2-layer draft of random weights: tokens
+   bitwise the plain engine's, accepted drafts and tokens a dispatch;
+   a verify dispatch's logits bitwise 5 single decode steps (its
+   products per position, ops/math.py's ``slot_rows``), and what that
+   costs (the verify step's graph with and without it, replayed in
+   turns); slot 0's logits at b_max 8 against batch 1, and the decode
+   step's ops whose slot-0 output depends on the batch;
+12d. ``ReplicaRouter`` over two GPT-2 small replicas: 32 requests from
+   two tenants, one capped at 4 in flight; replica 0's scheduler stopped
+   by a fault injected at its third decode dispatch: its requests
+   readmitted, the replica rebuilt, every admitted request ended once
+   with ``generate``'s tokens;
+13. BERT-base MLM (S = 512, batch 8, dropout 0.1) with ``Lamb`` (the
+   BERT recipe's beta1 0.9, beta2 0.999, epsilon 1e-6, weight decay
+   0.01; lr 1e-4), level 2, f32: K1 24, K2 12, K3 12 and K4 25 a step,
+   no K6 (the 157 lamb ops run unfused); replays bitwise eager in turns,
+   level 2 against level 0 within phase 8's gates, ``train_loop`` at
+   K = 1 bitwise the run loop; step time, busy share, kernels, device
+   time by class and the 157 lamb updates' device time alone; then the
+   checkpoint: ``train_loop`` 10 steps uninterrupted, and on a second
+   scope 5 steps, ``save_persistables_async`` with the RNG chain while
+   the loop goes on, a fresh executor and scope restored from the file
+   running steps 6-10 bitwise the uninterrupted run (losses and every
+   persistable), the async file equal to ``save_persistables`` of the
+   same state, ``save_params`` / ``load_params`` round-tripping; the
+   caller's blocked ms, the write's seconds and the bytes;
+13b. phase 13 under bf16 AMP (AMP's bounds, no checkpoint);
+13c. BERT-base f32 (batch 2) with ``LarsMomentum``, ``Adamax``,
+   ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp`` (centered),
+   ``Ftrl`` and ``ModelAverage`` over Adam: 3 steps each (eager,
+   capture, replay) bitwise the plan's eager steps, the launches of
+   each step counted, and after every step the state each optimize op
+   wrote against the same lowerings run on the CPU from the state before
+   it and the step's grads (2e-6 relative, 1e-5 for LARS' norms, K6 at
+   2e-6); ModelAverage's ``apply()`` averages exact and ``restore()``
+   bitwise.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -358,6 +414,16 @@ LN_CASES = [
     # ViT-B/16's rows (phases 11, 11b: batch 32 x 197 tokens, d_model 768)
     ("vit_f32", (6304, 768), torch.float32),
     ("vit_bf16", (6304, 768), torch.bfloat16),
+    # the serving engine's rows (phases 12-12d, GPT-2 small at b_max 8): a
+    # decode step, a verify step (8 slots x 5 positions), a suffix prefill
+    # of 16 (and of 64, as the 64-token prefill) and the prefills of 128
+    # and 256 (512 is bert_b1's)
+    ("engine_decode_f32", (8, 768), torch.float32),
+    ("engine_verify_f32", (40, 768), torch.float32),
+    ("engine_suffix_f32", (16, 768), torch.float32),
+    ("engine_prefill64_f32", (64, 768), torch.float32),
+    ("engine_prefill128_f32", (128, 768), torch.float32),
+    ("engine_prefill256_f32", (256, 768), torch.float32),
 ]
 # K4's AMP instantiation (phase 3c): s = bf16(bf16(x) + bf16(r)) stored
 # bf16 and compared bitwise; y, mean and var f32 at K4's f32 tolerance.
@@ -4265,6 +4331,1251 @@ def phase_vit_train(seed, amp):
                 flash_parity=dict(steps=PARITY_STEPS, **flash_parity),
                 parity=dict(steps=PARITY_STEPS, **parity))
 
+
+# ------------------------------------------------------- phases 12-12e
+# the serving tier: GPT-2 small behind the continuous-batching engine
+ENGINE_B_MAX, ENGINE_MAX_LEN = 8, 1024
+ENGINE_REQUESTS, ENGINE_PROMPTS, ENGINE_NEW = 48, (64, 128, 256, 512), \
+    (16, 128)
+SAMPLED = dict(temperature=0.8, top_k=40)
+# prefix reuse (12b): a shared system prompt, suffixes of these lengths
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_SUFFIXES, PREFIX_NEW = \
+    384, 16, (16, 64), 32
+# speculative decoding (12c): k, greedy requests, the disagreeing draft's
+# depth, the replayed verify steps a round that time its products per
+# position against one product
+SPEC_K, SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPTS, DRAFT_LAYERS = \
+    4, 16, 64, (64, 128), 2
+ROUTE_STEPS, ROUTE_ROUNDS = 50, 3
+# the router (12d): requests from two tenants, tenant "b"'s in-flight
+# quota, replica 0's decode dispatch that raises (counted from the
+# warmed-up fleet's first request)
+ROUTER_REQUESTS, ROUTER_QUOTA, ROUTER_FAULT_AT, ROUTER_NEW = 32, 4, 3, 32
+# the batcher (12e): requests of 1-3 rows from 4 threads over phase 4's
+# Predictor. A coalesced answer against its rows run alone: the same f32
+# products at another row count, summed in another order through 12
+# layers (phase 4's flash-vs-composed bound is 1e-3)
+BATCHER_REQUESTS, BATCHER_THREADS, BATCHER_MAX_ROWS = 64, 4, 8
+BATCHER_ATOL = 1e-4
+
+
+def _engine_traffic(vocab, rs, n, prompts, new, sampled_every=2,
+                    seed0=0):
+    """``n`` requests from ``rs``: (prompt, n_new, sampling kwargs);
+    every ``sampled_every``-th one sampled (temperature 0.8, top_k 40,
+    its own seed), the rest greedy (``sampled_every`` 0: all greedy)."""
+    out = []
+    for i in range(n):
+        p = int(rs.choice(prompts))
+        n_new = int(rs.randint(new[0], new[1] + 1))
+        prompt = rs.randint(1, vocab, (p,)).astype("int64")
+        kw = dict(SAMPLED, seed=seed0 + i) if sampled_every and \
+            i % sampled_every == sampled_every - 1 else {}
+        out.append((prompt, n_new, kw))
+    return out
+
+
+class _Reference:
+    """GPT-2 small's weights from the seed on the card, and ``generate``
+    for one request alone (batch 1): a decode step with a cache of
+    ENGINE_MAX_LEN rows and a prefill program per prompt length, on one
+    executor and scope, each replayed from its second run."""
+
+    def __init__(self, cfg, seed):
+        import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.models import gpt
+
+        self.fluid, self.gpt, self.cfg = fluid, gpt, cfg
+        self.exe = fluid.Executor(fluid.CUDAPlace(0))
+        self.scope = fluid.Scope()
+        self.prog, start = fluid.Program(), fluid.Program()
+        self.prog.random_seed = start.random_seed = seed
+        with fluid.program_guard(self.prog, start):
+            self.logits, self.caches = gpt.build_decode_step(
+                cfg, batch=1, max_len=ENGINE_MAX_LEN)
+        self.exe.run(start, scope=self.scope)
+        self.params = {n: self.scope.find_var(n)
+                       for n in self.prog.global_block().vars
+                       if n.startswith("gpt_") and n not in self.caches}
+        self.prefill = {}
+
+    def _prefill(self, P):
+        fluid = self.fluid
+        if P not in self.prefill:
+            prog, start = fluid.Program(), fluid.Program()
+            with fluid.program_guard(prog, start):
+                logits, _ = self.gpt.build_prefill_step(
+                    self.cfg, batch=1, prompt_len=P,
+                    max_len=ENGINE_MAX_LEN)
+            tmp = fluid.Scope()
+            self.exe.run(start, scope=tmp)
+            for n in prog.global_block().vars:
+                if self.scope.find_var(n) is None and \
+                        tmp.find_var(n) is not None:
+                    self.scope.set_var(n, tmp.find_var(n))
+            self.prefill[P] = (prog, logits)
+        return self.prefill[P]
+
+    def generate(self, prompt, n_new, **kw):
+        prog, logits = self._prefill(len(prompt))
+        return self.gpt.generate(self.exe, self.prog, self.logits,
+                                 prompt[None], n_new, self.scope,
+                                 prefill_prog=prog, prefill_logits=logits,
+                                 **kw)[0]
+
+
+_FUSED = {}
+
+
+def _fused_norms(prog, fetch, scope):
+    """K4 launches one dispatch of ``prog`` runs: the level-2 pipeline's
+    fused layer norms (cached by the program's op types)."""
+    key = tuple(op.type for op in prog.global_block().ops)
+    if key not in _FUSED:
+        _FUSED[key] = _tier_stats(prog, fetch, scope)["ln_residual_fused"]
+    return _FUSED[key]
+
+
+class _EngineProbe:
+    """Host-clock marks of one engine's scheduler, by wrapping its target
+    lane and executor: when each prompt's prefill returned (its first
+    token is sampled right after), each decode dispatch's start and end,
+    the time in the per-slot sampler, and every dispatch (a run with a
+    fetch list: not a startup) of each program through its executor."""
+
+    def __init__(self, eng):
+        from paddle_tpu_torch.serving import engine as engine_mod
+
+        self.first, self.steps, self.sample_s = {}, [], [0.0]
+        self.runs = {}  # id(program) -> [program, fetch names, scope, n]
+        lane, exe = eng._lane, eng._exe
+        prefill, decode, run = lane.prefill_insert, lane.decode, exe.run
+        sample = engine_mod._Slot.sample
+
+        def prefill_insert(slot, prompt, **kw):
+            out = prefill(slot, prompt, **kw)
+            self.first[prompt.tobytes()] = time.perf_counter()
+            return out
+
+        def timed_decode(token, pos):
+            t0 = time.perf_counter()
+            out = decode(token, pos)
+            self.steps.append((t0, time.perf_counter()))
+            return out
+
+        def counted_run(program, feed=None, fetch_list=None, scope=None,
+                        **kw):
+            if fetch_list:
+                self.runs.setdefault(id(program), [
+                    program, [v.name for v in fetch_list], scope, 0])[3] += 1
+            return run(program, feed=feed, fetch_list=fetch_list,
+                       scope=scope, **kw)
+
+        def timed_sample(slot, row):
+            t0 = time.perf_counter()
+            out = sample(slot, row)
+            self.sample_s[0] += time.perf_counter() - t0
+            return out
+
+        lane.prefill_insert, lane.decode, exe.run = \
+            prefill_insert, timed_decode, counted_run
+        self._restore = lambda: setattr(engine_mod._Slot, "sample", sample)
+        engine_mod._Slot.sample = timed_sample
+
+    def dispatches(self):
+        return {k: v[3] for k, v in self.runs.items()}
+
+    def k4(self, since=None):
+        """The K4 launches of the dispatches since ``since`` (an earlier
+        ``dispatches()``), by each program's fused layer norms."""
+        since = since or {}
+        return sum((n - since.get(k, 0)) * _fused_norms(p, f, s)
+                   for k, (p, f, s, n) in self.runs.items())
+
+    def close(self):
+        self._restore()
+
+
+def _check_k4(what, units, want_k4):
+    """Each window of the launch meter ran K4 ``want_k4[i]`` times on the
+    card and no other kernel of the port."""
+    want = [tuple(k if i == 3 else 0 for i in range(len(COUNT_NAMES)))
+            for k in want_k4]
+    if list(units) != want:
+        raise AssertionError("%s: the card ran %s = %s kernels, expected %s"
+                             % (what, COUNT_NAMES, units, want))
+
+
+def _serve_all(submit, traffic, **extra):
+    """Every request of ``traffic`` submitted at once (a backlog) through
+    ``submit``, then every result: (tokens, submit times, the seconds
+    from the first submit to the last result)."""
+    t0 = time.perf_counter()
+    subs, reqs = [], []
+    for prompt, n_new, kw in traffic:
+        subs.append(time.perf_counter())
+        reqs.append(submit(prompt, n_new, **kw, **extra))
+    out = [r.result(timeout=600) for r in reqs]
+    return out, subs, time.perf_counter() - t0
+
+
+def _check_tokens(what, got, want):
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not np.array_equal(g, w)]
+    if bad:
+        i = bad[0]
+        pos = int(np.argmax(got[i] != want[i])) \
+            if got[i].shape == want[i].shape else -1
+        raise AssertionError("%s: %d of %d requests' tokens differ (request "
+                             "%d first at position %d)" % (
+                                 what, len(bad), len(got), i, pos))
+
+
+def _pct(v, q):
+    return float(np.percentile(np.asarray(v, dtype=np.float64), q))
+
+
+def _hist_now(name):
+    from paddle_tpu_torch import observe
+
+    s = observe.snapshot()["metrics"][name]["samples"][0]
+    return s["count"], s["sum"]
+
+
+def _metric(name, **labels):
+    from paddle_tpu_torch import observe
+
+    for s in observe.snapshot()["metrics"][name]["samples"]:
+        if all(s["labels"].get(k) == v for k, v in labels.items()):
+            return s.get("value", s.get("count"))
+    return 0.0
+
+
+def _warm(eng, prompts, n=2):
+    """Two requests of each prompt length, one after the other: each
+    plan's eager run, then its capture."""
+    for P in prompts:
+        for _ in range(n):
+            eng.submit(np.ones(P, "int64"), 2).result(timeout=600)
+
+
+def _engine(ref, **kw):
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    kw.setdefault("queue_capacity", 128)
+    return DecodeEngine(ref.cfg, params=ref.params, b_max=ENGINE_B_MAX,
+                        max_len=ENGINE_MAX_LEN, **kw)
+
+
+def phase_engine(seed):
+    """Phase 12: GPT-2 small served by ``DecodeEngine`` (b_max 8, a cache
+    of 1024 rows, f32, level 2): ENGINE_REQUESTS requests submitted at
+    once, prompts of 64-512 tokens, 16-128 new tokens, half greedy and
+    half sampled; every request's tokens equal ``generate()``'s for it
+    alone (batch 1), which also gives the sequential baseline's
+    tokens/s; K4 counted on the card, 24 a prefill and 25 a decode step
+    (the serving step's embedding seam fuses too)."""
+    from paddle_tpu_torch.models import gpt
+
+    cfg = gpt.base_config()
+    t0 = time.perf_counter()
+    ref = _Reference(cfg, seed)
+    n_weights = sum(int(v.numel()) for v in ref.params.values())
+    traffic = _engine_traffic(cfg["vocab"], np.random.RandomState(seed + 12),
+                              ENGINE_REQUESTS, ENGINE_PROMPTS, ENGINE_NEW)
+    # the reference warms each plan up (eager run, capture), then serves
+    # the requests one after another
+    for P in ENGINE_PROMPTS:
+        for _ in range(2):
+            ref.generate(np.ones(P, "int64"), 2)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    want = [ref.generate(p, k, **kw) for p, k, kw in traffic]
+    seq_s = time.perf_counter() - ts
+    new_tokens = sum(k for _, k, _ in traffic)
+    setup_s = time.perf_counter() - t0 - seq_s
+
+    torch.cuda.synchronize()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts zeroed here, read after the last request
+    _zero_counts()
+    with LaunchMeter() as meter:
+        meter.mark()
+        tb = time.perf_counter()
+        eng = _engine(ref)
+        build_s = time.perf_counter() - tb
+        probe = _EngineProbe(eng)
+        eng.start()
+        try:
+            _warm(eng, ENGINE_PROMPTS)
+            meter.mark()
+            warm, host_warm = probe.dispatches(), _counts()
+            occ0 = _hist_now("paddle_serving_slot_occupancy_ratio")
+            probe.steps.clear()
+            probe.sample_s[0] = 0.0
+            got, subs, eng_s = _serve_all(eng.submit, traffic)
+        finally:
+            probe.close()
+    # ---- end of the main path
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    _check_tokens("engine (12)", got, want)
+    _check_k4("engine (12) warm-up and requests", meter.units,
+              [probe.k4() - probe.k4(warm), probe.k4(warm)])
+    if _counts() != host_warm:
+        raise AssertionError("engine (12): the requests called kernel "
+                             "launches from the host: not every dispatch "
+                             "was a replay")
+    per_kind = {("decode" if p is eng._lane._decode_prog else "prefill"):
+                _fused_norms(p, f, s) for p, f, s, _ in probe.runs.values()}
+    ttft = [(probe.first[p.tobytes()] - s) * 1e3
+            for (p, _, _), s in zip(traffic, subs)]
+    steps = probe.steps
+    itl = np.diff([e for _, e in steps]) * 1e3
+    step_ms = [(e - s) * 1e3 for s, e in steps]
+    c1, s1 = _hist_now("paddle_serving_slot_occupancy_ratio")
+    occupancy = (s1 - occ0[1]) / max(c1 - occ0[0], 1)
+    graphs = _captured(eng._exe)
+    # where a decode step's time goes: one step profiled alone
+    token = np.ones((ENGINE_B_MAX, 1), "int64")
+    pos = np.full((ENGINE_B_MAX, 1), ENGINE_MAX_LEN - 2, "int64")
+    prof = _profiled(lambda: eng._lane.decode(token, pos))
+    mem = eng._mem
+    row = dict(
+        n_weights=n_weights, requests=len(traffic), new_tokens=new_tokens,
+        setup_s=setup_s, engine_build_s=build_s,
+        tokens_per_s=new_tokens / eng_s, wall_s=eng_s,
+        sequential_tokens_per_s=new_tokens / seq_s, sequential_s=seq_s,
+        ttft_ms=dict(median=float(np.median(ttft)), max=max(ttft)),
+        itl_ms=dict(median=float(np.median(itl)), p99=_pct(itl, 99)),
+        decode_dispatch_ms=dict(median=float(np.median(step_ms)),
+                                p99=_pct(step_ms, 99)),
+        decode_steps=len(steps),
+        sampling_ms_per_step=probe.sample_s[0] * 1e3 / max(len(steps), 1),
+        mean_occupancy=occupancy, captures=len(graphs),
+        capture_s=sorted(p.graph.seconds for p in graphs),
+        pool_mib=_pool_mib(graphs[0]) if graphs else None,
+        predicted_resident_mib=None if mem is None
+        else mem["resident"] / 2 ** 20,
+        predicted_at_512_mib=None if mem is None
+        else eng.predicted_bytes(512) / 2 ** 20,
+        allocated_before_mib=base_mib, peak_mib=peak_mib,
+        decode_step_profile=prof, k4_per_dispatch=per_kind,
+        dispatches=sum(probe.dispatches().values()),
+        launches=dict(zip(COUNT_NAMES, meter.total())),
+        host_launches=dict(zip(COUNT_NAMES, _counts())))
+    eng.stop()
+    log("engine (12): GPT-2 small (%d weights), b_max %d, cache %d rows: %d "
+        "requests (%d new tokens) at once: %.1f tokens/s (%.3f s); one "
+        "after another through generate at batch 1: %.1f tokens/s (%.3f "
+        "s); time to first token median %.1f ms, max %.1f ms; between "
+        "tokens median %.3f ms, p99 %.3f ms (a decode dispatch median %.3f "
+        "ms; sampling %.3f ms a step; one step alone: device busy %.3f ms "
+        "of %.3f ms); mean slot occupancy %.3f; %d captures (%s s), pool %s "
+        "MiB; memory predicted resident %s MiB, at P = 512 %s MiB; "
+        "allocated before %.1f MiB (the reference's weights, which the "
+        "engine shares), peak %.1f MiB; every request's tokens equal "
+        "generate()'s alone; K4 a dispatch %s on the card" % (
+            n_weights, ENGINE_B_MAX, ENGINE_MAX_LEN, len(traffic),
+            new_tokens, row["tokens_per_s"], eng_s,
+            row["sequential_tokens_per_s"], seq_s, row["ttft_ms"]["median"],
+            row["ttft_ms"]["max"], row["itl_ms"]["median"],
+            row["itl_ms"]["p99"], row["decode_dispatch_ms"]["median"],
+            row["sampling_ms_per_step"], prof["device_busy_ms"],
+            prof["wall_ms"], occupancy, len(graphs),
+            ["%.3f" % s for s in row["capture_s"]], row["pool_mib"],
+            row["predicted_resident_mib"], row["predicted_at_512_mib"],
+            base_mib, peak_mib, per_kind))
+    _log_breakdown("engine decode step (12)", prof)
+    return row, ref
+
+
+def phase_prefix(seed, ref):
+    """Phase 12b: PREFIX_REQUESTS requests sharing a PREFIX_LEN-token
+    system prompt, each with its own suffix, half sampled, through an
+    engine with a prefix store sized for the prefix and one without:
+    each twice (the second pass replays every plan); tokens bitwise
+    equal, the store's hits and misses, time to first token of each."""
+    cfg = ref.cfg
+    rs = np.random.RandomState(seed + 13)
+    system = rs.randint(1, cfg["vocab"], (PREFIX_LEN,)).astype("int64")
+    traffic = []
+    for i in range(PREFIX_REQUESTS):
+        suffix = rs.randint(1, cfg["vocab"], (int(rs.choice(
+            PREFIX_SUFFIXES)),)).astype("int64")
+        kw = dict(SAMPLED, seed=100 + i) if i % 2 else {}
+        traffic.append((np.concatenate([system, suffix]), PREFIX_NEW, kw))
+    d_head = cfg["d_model"] // cfg["n_head"]
+    entry = 2 * cfg["n_layer"] * cfg["n_head"] * PREFIX_LEN * d_head * 4
+    out, tokens = {}, {}
+    for name, kw in (("no store", {}),
+                     ("store", dict(prefix_cache_bytes=entry + (1 << 20)))):
+        eng = _engine(ref, **kw)
+        probe = _EngineProbe(eng)
+        eng.start()
+        h0, m0 = (_metric("paddle_serving_prefix_%s_total" % k)
+                  for k in ("hits", "misses"))
+        passes = []
+        try:
+            with LaunchMeter() as meter:
+                for _ in range(2):
+                    meter.mark()
+                    before = probe.dispatches()
+                    got, subs, wall = _serve_all(eng.submit, traffic,
+                                                 prefix_len=PREFIX_LEN)
+                    ttft = [(probe.first[p.tobytes()] - s) * 1e3
+                            for (p, _, _), s in zip(traffic, subs)]
+                    passes.append((got, ttft, wall, probe.k4(before)))
+        finally:
+            probe.close()
+            eng.stop()
+        _check_k4("prefix (12b) %s" % name, meter.units,
+                  [p[3] for p in passes])
+        hits = _metric("paddle_serving_prefix_hits_total") - h0
+        misses = _metric("paddle_serving_prefix_misses_total") - m0
+        tokens[name] = passes
+        out[name] = dict(
+            hits=hits, misses=misses,
+            ttft_ms=[dict(median=float(np.median(t)), max=max(t))
+                     for _, t, _, _ in passes],
+            wall_s=[w for _, _, w, _ in passes],
+            launches=dict(zip(COUNT_NAMES, meter.total())))
+    for i in range(2):
+        _check_tokens("prefix (12b) pass %d" % (i + 1),
+                      tokens["store"][i][0], tokens["no store"][0][0])
+    _check_tokens("prefix (12b) without a store, pass 2",
+                  tokens["no store"][1][0], tokens["no store"][0][0])
+    st = out["store"]
+    if (st["misses"], st["hits"]) != (1, 2 * PREFIX_REQUESTS - 1) or \
+            out["no store"]["hits"] or out["no store"]["misses"]:
+        raise AssertionError("prefix (12b): %d hits and %d misses with the "
+                             "store, %s without" % (
+                                 st["hits"], st["misses"],
+                                 out["no store"]))
+    out["entry_bytes"] = entry
+    log("prefix (12b): %d requests sharing a %d-token prefix (suffixes %s, "
+        "%d new tokens): with the store (%.1f MB) %d hits and %d miss; "
+        "time to first token median %.1f / %.1f ms (passes 1 / 2), without "
+        "%.1f / %.1f ms; tokens bitwise the engine's without a store" % (
+            PREFIX_REQUESTS, PREFIX_LEN, PREFIX_SUFFIXES, PREFIX_NEW,
+            entry / 1e6, st["hits"], st["misses"],
+            st["ttft_ms"][0]["median"], st["ttft_ms"][1]["median"],
+            out["no store"]["ttft_ms"][0]["median"],
+            out["no store"]["ttft_ms"][1]["median"]))
+    return out
+
+
+def _route_cost(ref):
+    """GPT-2 small's verify step (ENGINE_B_MAX slots x SPEC_K + 1
+    positions) with its products per position (the engine's
+    ``products_per_position``) and with one product each, as two
+    executors' captured graphs on one scope: the replays in turns
+    (ROUTE_ROUNDS rounds of ROUTE_STEPS, CUDA events: device-bound), and
+    one step of each on the same caches: (ms a replay per position, ms
+    with one product, the logits' max |diff|)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.serving.engine import products_per_position
+
+    plain, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(plain, start):
+        logits, _ = ref.gpt.build_multi_token_decode_step(
+            ref.cfg, batch=ENGINE_B_MAX, steps=SPEC_K + 1,
+            max_len=ENGINE_MAX_LEN)
+    routed = plain.clone()
+    products_per_position(routed, ENGINE_B_MAX)
+    scope = fluid.Scope()
+    exes = [fluid.Executor(fluid.CUDAPlace(0)) for _ in range(2)]
+    exes[0].run(start, scope=scope)
+    for n, v in ref.params.items():
+        scope.set_var(n, v)
+    feed = {"token": np.ones((ENGINE_B_MAX, SPEC_K + 1), "int64"),
+            "pos": np.stack([np.arange(SPEC_K + 1) + 300]
+                            * ENGINE_B_MAX).astype("int64")}
+    out = []
+    for exe, prog in zip(exes, (routed, plain)):
+        for _ in range(3):  # eager, capture, replay
+            (lv,) = exe.run(prog, feed=feed, fetch_list=[logits],
+                            scope=scope)
+        out.append(lv)
+    graphs = [_captured(exe)[0].graph.graph for exe in exes]
+    ms = ([], [])
+    for r in range(ROUTE_ROUNDS):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            start_ev, end_ev = torch.cuda.Event(True), torch.cuda.Event(True)
+            start_ev.record()
+            for _ in range(ROUTE_STEPS):
+                graphs[i].replay()
+            end_ev.record()
+            end_ev.synchronize()
+            ms[i].append(start_ev.elapsed_time(end_ev) / ROUTE_STEPS)
+    for exe in exes:
+        exe.close()
+    return (float(np.median(ms[0])), float(np.median(ms[1])),
+            float(np.abs(out[0] - out[1]).max()))
+
+
+def _batch_variant_ops(ref, batch):
+    """Where a slot's logits at ``batch`` part from generate()'s at batch
+    1: the level-2 serving decode step at ``batch`` (caches drawn from
+    the seed, every slot at position 300) lowered op by op on
+    ``ref``'s device, each op also run on slot 0's rows of its own
+    inputs alone. Returns ({op type: max |diff| of slot 0's output} over
+    the ops whose slot-0 output differs, the logits' max |diff| between
+    slot 0 and the same ops run on slot 0's caches and feeds alone)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import feed_to_device
+    from paddle_tpu_torch.core.lowering import LowerContext, lower_op
+    from paddle_tpu_torch.core.passes import optimize_for_execution
+
+    prog, start = fluid.Program(), fluid.Program()
+    with fluid.program_guard(prog, start):
+        logits, caches = ref.gpt.build_serving_decode_step(
+            ref.cfg, batch=batch, max_len=ENGINE_MAX_LEN)
+    device = ref.exe.device
+    scope = fluid.Scope()
+    ref.exe.run(start, scope=scope)
+    prog = optimize_for_execution(prog, [logits.name], level=2)
+    block = prog.global_block()
+    env = {n: scope.find_var(n) for n in block.vars
+           if scope.find_var(n) is not None}
+    env.update((n, v.to(device)) for n, v in ref.params.items()
+               if n in block.vars)
+    gen = torch.Generator(device=device).manual_seed(7)
+    for n in caches:
+        env[n] = 0.1 * torch.randn(block.var(n).shape, generator=gen,
+                                   device=device)
+    rs = np.random.RandomState(7)
+    feed = {"token": rs.randint(1, ref.cfg["vocab"], (batch, 1)),
+            "pos": np.full((batch, 1), 300)}
+    for n, v in feed.items():
+        env[n] = feed_to_device(n, v.astype("int64"), block.var(n), device)
+    one_env = {n: (v[:1].clone() if n in caches or n in feed else v)
+               for n, v in env.items()}
+    ctx = LowerContext(block, None, device, is_test=True)
+    diffs = {}
+    with torch.no_grad():
+        for op in block.ops:
+            solo = {}
+            for names in op.inputs.values():
+                for n in names:
+                    v = env[n]
+                    solo[n] = (v[:1].clone() if torch.is_tensor(v)
+                               and v.ndim and v.shape[0] == batch else v)
+            lower_op(ctx, op, solo)
+            lower_op(ctx, op, env)
+            lower_op(ctx, op, one_env)
+            for names in op.outputs.values():
+                for n in names:
+                    v, w = env.get(n), solo.get(n)
+                    if torch.is_tensor(v) and v.ndim and \
+                            v.shape[0] == batch and w.shape[0] == 1:
+                        d = float((v[:1].float() - w.float()).abs().max())
+                        if d:
+                            diffs[op.type] = max(diffs.get(op.type, 0.0), d)
+    whole = float((env[logits.name][:1] - one_env[logits.name])
+                  .abs().max())
+    return diffs, whole
+
+
+def phase_spec(seed, ref, plain_tps):
+    """Phase 12c: SPEC_REQUESTS greedy requests through the engine with
+    spec_k = SPEC_K and two drafts (the target's own config and weights,
+    and GPT-2 small's widths at DRAFT_LAYERS layers with random weights),
+    each against the plain engine on the same requests: tokens bitwise,
+    accepted tokens per verify dispatch, tokens/s against the plain
+    engine's; a verify dispatch's logits bitwise SPEC_K + 1 single decode
+    steps (its products per position) and what that costs; where a
+    slot's logits at b_max part from batch 1's."""
+    import paddle_tpu_torch as fluid
+
+    cfg = ref.cfg
+    traffic = _engine_traffic(cfg["vocab"], np.random.RandomState(seed + 14),
+                              SPEC_REQUESTS, SPEC_PROMPTS,
+                              (SPEC_NEW, SPEC_NEW), sampled_every=0)
+    draft_cfg = dict(cfg, n_layer=DRAFT_LAYERS)
+    dprog, dstart = fluid.Program(), fluid.Program()
+    dstart.random_seed = seed + 15
+    with fluid.program_guard(dprog, dstart):
+        _, dcaches = ref.gpt.build_decode_step(draft_cfg, batch=1,
+                                               max_len=ENGINE_MAX_LEN)
+    dscope = fluid.Scope()
+    ref.exe.run(dstart, scope=dscope)
+    draft_params = {n: dscope.find_var(n) for n in dprog.global_block().vars
+                    if n.startswith("gpt_") and n not in dcaches}
+    out, toks = {}, {}
+    for name, kw in (("plain", {}),
+                     ("agreeing draft", dict(draft_cfg=cfg,
+                                             draft_params=ref.params,
+                                             spec_k=SPEC_K)),
+                     ("disagreeing draft", dict(draft_cfg=draft_cfg,
+                                                draft_params=draft_params,
+                                                spec_k=SPEC_K))):
+        eng = _engine(ref, **kw)
+        probe = _EngineProbe(eng)
+        eng.start()
+        try:
+            _warm(eng, SPEC_PROMPTS)
+            names = ("spec_proposed_tokens", "spec_accepted_tokens",
+                     "spec_verify_steps", "decode_steps", "tokens")
+            c0 = [_metric("paddle_serving_%s_total" % k) for k in names]
+            before = probe.dispatches()
+            with LaunchMeter() as meter:
+                meter.mark()
+                got, _, wall = _serve_all(eng.submit, traffic)
+            c = dict(zip(names, (_metric("paddle_serving_%s_total" % k) - v
+                                 for k, v in zip(names, c0))))
+            _check_k4("spec (12c) %s" % name, meter.units,
+                      [probe.k4(before)])
+            if name == "agreeing draft":
+                # a verify dispatch against single steps, at full width:
+                # the same tokens written at the same positions
+                lane = eng._lane
+                vtok = np.random.RandomState(seed).randint(
+                    1, cfg["vocab"], (ENGINE_B_MAX, SPEC_K + 1))
+                vpos = np.stack([np.arange(SPEC_K + 1) + 200]
+                                * ENGINE_B_MAX).astype("int64")
+                multi = lane.multi_decode(vtok, vpos)
+                single = [lane.decode(vtok[:, s:s + 1], vpos[:, s:s + 1])
+                          for s in range(SPEC_K + 1)]
+                diff = max(float(np.abs(multi[:, s] - single[s][:, 0]).max())
+                           for s in range(SPEC_K + 1))
+                if diff != 0.0:
+                    raise AssertionError("spec (12c): a verify dispatch's "
+                                         "logits differ from single steps' "
+                                         "by %.3e" % diff)
+        finally:
+            probe.close()
+            eng.stop()
+        toks[name] = got
+        verifies = max(c["spec_verify_steps"], 1)
+        out[name] = dict(
+            tokens_per_s=sum(k for _, k, _ in traffic) / wall, wall_s=wall,
+            accepted=c["spec_accepted_tokens"],
+            proposed=c["spec_proposed_tokens"],
+            verify_dispatches=c["spec_verify_steps"],
+            plain_steps=c["decode_steps"],
+            accepted_per_verify=c["spec_accepted_tokens"] / verifies,
+            tokens_per_dispatch=(c["tokens"] - len(traffic)) / max(
+                c["spec_verify_steps"] + c["decode_steps"], 1),
+            launches=dict(zip(COUNT_NAMES, meter.total())))
+    for name in ("agreeing draft", "disagreeing draft"):
+        _check_tokens("spec (12c) %s" % name, toks[name], toks["plain"])
+    agree = out["agreeing draft"]
+    if not agree["accepted"]:
+        raise AssertionError("spec (12c): the agreeing draft had none of "
+                             "%d drafts accepted" % agree["proposed"])
+    per_position, one_product, route_diff = _route_cost(ref)
+    variant, batch_diff = _batch_variant_ops(ref, ENGINE_B_MAX)
+    out["route"] = dict(ms=per_position, one_product_ms=one_product,
+                        logits_max_abs_diff=route_diff)
+    out["batch1_vs_b_max"] = dict(logits_max_abs_diff=batch_diff,
+                                  ops=variant)
+    out["phase12_tokens_per_s"] = plain_tps
+    log("spec (12c): %d greedy requests, %d new tokens each, k = %d: plain "
+        "engine %.1f tokens/s; agreeing draft %d of %d accepted (%.2f a "
+        "verify dispatch), %.2f tokens a target dispatch, %.1f tokens/s; "
+        "disagreeing draft (%d layers) %d of %d accepted (%.2f a verify "
+        "dispatch), %.2f tokens a target dispatch, %.1f tokens/s (phase "
+        "12: %.1f); tokens bitwise the plain engine's; a "
+        "verify dispatch's logits bitwise %d single steps; a replayed "
+        "verify step with its products per position %.4f ms, with one "
+        "product %.4f ms (logits max |diff| %.3e); slot 0's logits at "
+        "b_max %d against the same step at batch 1: max |diff| %.3e, the "
+        "ops whose slot-0 output depends on the batch (on the same "
+        "inputs): %s" % (
+            SPEC_REQUESTS, SPEC_NEW, SPEC_K, out["plain"]["tokens_per_s"],
+            agree["accepted"], agree["proposed"],
+            agree["accepted_per_verify"], agree["tokens_per_dispatch"],
+            agree["tokens_per_s"], DRAFT_LAYERS,
+            out["disagreeing draft"]["accepted"],
+            out["disagreeing draft"]["proposed"],
+            out["disagreeing draft"]["accepted_per_verify"],
+            out["disagreeing draft"]["tokens_per_dispatch"],
+            out["disagreeing draft"]["tokens_per_s"], plain_tps,
+            SPEC_K + 1, per_position, one_product, route_diff,
+            ENGINE_B_MAX, batch_diff,
+            {k: "%.3e" % v for k, v in variant.items()}))
+    return out
+
+
+def phase_router(seed, ref):
+    """Phase 12d: two GPT-2 small replicas on the card behind
+    ``ReplicaRouter``; ROUTER_REQUESTS requests from tenants "a" and "b"
+    (tenant "b" capped at ROUTER_QUOTA in flight: the rest of its
+    submits are refused at admission); replica 0's scheduler stopped by
+    a fault injected at its ROUTER_FAULT_AT-th decode dispatch. Every
+    admitted request ends exactly once with the tokens of ``generate()``
+    alone; the stopped replica's requests are readmitted and the replica
+    restarted."""
+    from paddle_tpu_torch.serving import ReplicaRouter, TenantQuotaExceeded
+
+    cfg = ref.cfg
+    traffic = _engine_traffic(cfg["vocab"], np.random.RandomState(seed + 16),
+                              ROUTER_REQUESTS, SPEC_PROMPTS,
+                              (ROUTER_NEW, ROUTER_NEW))
+    built = []
+
+    def factory(idx):
+        eng = _engine(ref)
+        built.append(idx)
+        return eng
+
+    t0 = time.perf_counter()
+    router = ReplicaRouter(factory, n_replicas=2,
+                           tenant_quotas={"b": ROUTER_QUOTA}, poll_s=0.05,
+                           max_readmissions=3)
+    try:
+        for rep in router.replicas:
+            _warm(rep.engine, SPEC_PROMPTS)
+        start_s = time.perf_counter() - t0
+        eng0 = router.replicas[0].engine
+        decode, calls = eng0._lane.decode, [0]
+
+        def faulty(token, pos):
+            calls[0] += 1
+            if calls[0] == ROUTER_FAULT_AT:
+                raise RuntimeError("injected replica fault")
+            return decode(token, pos)
+
+        eng0._lane.decode = faulty
+        re0 = _metric("paddle_serving_router_readmitted_total")
+        rs0 = _metric("paddle_serving_router_replica_restarts_total",
+                      replica="0")
+        done, reqs, refused = [], [], []
+        t1 = time.perf_counter()
+        for i, (p, k, kw) in enumerate(traffic):
+            tenant = "b" if i % 2 else "a"
+            try:
+                r = router.submit(p, k, tenant=tenant, **kw)
+            except TenantQuotaExceeded:
+                refused.append(i)
+                continue
+            r.add_done_callback(done.append)
+            reqs.append((i, r))
+        got = [(i, r.result(timeout=600)) for i, r in reqs]
+        wall = time.perf_counter() - t1
+        readmitted = _metric("paddle_serving_router_readmitted_total") - re0
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and (
+                _metric("paddle_serving_router_replica_restarts_total",
+                        replica="0") <= rs0
+                or not all(r.engine.alive() for r in router.replicas)):
+            time.sleep(0.05)
+        restarted = _metric("paddle_serving_router_replica_restarts_total",
+                            replica="0") - rs0
+        alive = all(r.engine.alive() for r in router.replicas)
+    finally:
+        router.close()
+    want = [ref.generate(traffic[i][0], traffic[i][1], **traffic[i][2])
+            for i, _ in got]
+    _check_tokens("router (12d)", [g for _, g in got], want)
+    if len(done) != len(reqs) or {id(r) for r in done} != \
+            {id(r) for _, r in reqs}:
+        raise AssertionError("router (12d): %d of %d requests ended, some "
+                             "more than once" % (len(done), len(reqs)))
+    if calls[0] < ROUTER_FAULT_AT or not readmitted or not restarted or \
+            not alive or not refused:
+        raise AssertionError("router (12d): fault fired %s, %d readmitted, "
+                             "%d restarts, alive %s, %d refused by the "
+                             "quota" % (calls[0] >= ROUTER_FAULT_AT,
+                                        readmitted, restarted, alive,
+                                        len(refused)))
+    out = dict(admitted=len(reqs), refused_by_quota=len(refused),
+               readmitted=readmitted, restarts=restarted,
+               engines_built=len(built), start_s=start_s, wall_s=wall,
+               tokens_per_s=sum(len(g) - len(traffic[i][0])
+                                for i, g in got) / wall)
+    log("router (12d): 2 replicas (started and warmed in %.1f s); %d "
+        "requests from 2 tenants: %d admitted, %d refused by tenant b's "
+        "quota of %d; replica 0 stopped at its decode dispatch %d: %d "
+        "requests readmitted, the replica restarted (%d engines built); "
+        "every admitted request ended once, tokens equal generate()'s "
+        "alone; %.1f tokens/s through the fault" % (
+            start_s, len(traffic), len(reqs), len(refused), ROUTER_QUOTA,
+            ROUTER_FAULT_AT, readmitted, len(built), out["tokens_per_s"]))
+    return out
+
+
+def phase_batcher(pred, seed):
+    """Phase 12e: ``MicroBatcher`` (max_rows BATCHER_MAX_ROWS) over phase
+    4's BERT-base Predictor (buckets 1, 4, 8, each a captured graph):
+    BATCHER_REQUESTS requests of 1-3 rows from BATCHER_THREADS threads;
+    every answer against its rows run alone within BATCHER_ATOL; each
+    dispatch launches K1 12 and K4 25 times on the card."""
+    import threading
+
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.serving import MicroBatcher
+
+    cfg = bert.base_config()
+    rs = np.random.RandomState(seed + 17)
+    reqs = [_request(int(rs.randint(1, 4)), cfg, rs)
+            for _ in range(BATCHER_REQUESTS)]
+    solo = [pred.run(r)[0] for r in reqs]
+    b0 = _metric("paddle_serving_batches_total")
+    rows0 = _hist_now("paddle_serving_batch_rows")
+    results, lat = [None] * len(reqs), [None] * len(reqs)
+    errors = []
+    n = cfg["n_layer"]
+    per = (n, 0, 0, 2 * n + 1, 0, 0, 0, 0, 0, 0)
+    with MicroBatcher(pred, max_rows=BATCHER_MAX_ROWS,
+                      max_wait_s=0.002) as mb:
+
+        def client(k):
+            try:
+                for i in range(k, len(reqs), BATCHER_THREADS):
+                    t0 = time.perf_counter()
+                    results[i] = mb.submit(reqs[i]).result(timeout=600)[0]
+                    lat[i] = (time.perf_counter() - t0) * 1e3
+            except BaseException as e:  # noqa: BLE001 - fails the phase
+                errors.append(e)
+
+        with LaunchMeter() as meter:
+            meter.mark()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(BATCHER_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("batcher (12e): a client failed: %r"
+                             % (errors[:1],))
+    batches = _metric("paddle_serving_batches_total") - b0
+    rows1 = _hist_now("paddle_serving_batch_rows")
+    if meter.units != [_times(per, int(batches))]:
+        raise AssertionError("batcher (12e): the card ran %s = %s kernels "
+                             "in %d dispatches, expected %s each" % (
+                                 COUNT_NAMES, meter.units, batches, per))
+    err = max(float(np.abs(r - s).max()) for r, s in zip(results, solo))
+    if err > BATCHER_ATOL or not all(np.isfinite(r).all()
+                                     for r in results):
+        raise AssertionError("batcher (12e): coalesced answers differ from "
+                             "their rows run alone by %.3e > %.0e"
+                             % (err, BATCHER_ATOL))
+    rows = rows1[1] - rows0[1]
+    out = dict(requests=len(reqs), rows=rows, dispatches=batches,
+               rows_per_dispatch=rows / max(batches, 1),
+               latency_ms=dict(median=float(np.median(lat)),
+                               p99=_pct(lat, 99)),
+               wall_s=wall, max_abs_err=err,
+               launches=dict(zip(COUNT_NAMES, meter.total())))
+    log("batcher (12e): %d requests (%d rows) from %d threads: %d "
+        "dispatches, %.2f rows a dispatch; latency median %.3f ms, p99 "
+        "%.3f ms; answers within %.3e of their rows alone (<= %.0e); each "
+        "dispatch ran %s = %s on the card" % (
+            len(reqs), rows, BATCHER_THREADS, batches,
+            out["rows_per_dispatch"], out["latency_ms"]["median"],
+            out["latency_ms"]["p99"], err, BATCHER_ATOL, COUNT_NAMES, per))
+    return out
+
+
+# ------------------------------------------------------ phases 13-13c
+# LAMB at the BERT recipe's settings (You et al., 2020): the Lamb
+# optimizer's defaults, beta1 0.9, beta2 0.999, epsilon 1e-6, weight
+# decay 0.01, at TRAIN_LR; timed steps after WARMUP_STEPS; replayed
+# against eager pairs; steps of the checkpointed train_loop run and the
+# step after which it saves
+LAMB_STEPS, LAMB_PAIRS, CKPT_STEPS, CKPT_AT = 4, 2, 10, 5
+# phase 13c: each optimizer's steps (eager, capture, replay) and its
+# batch; the card against the CPU lowerings: elementwise updates at a
+# relative 2e-6 (FMA contraction on the card), the norms' reductions
+# (lars_momentum) at 1e-5, K6 (ModelAverage's Adam) at OPT_TOL absolute
+OTHER_STEPS, OTHER_BATCH = 3, 2
+OTHER_RTOL, OTHER_NORM_RTOL, OTHER_ATOL = 2e-6, 1e-5, 1e-7
+
+
+def _lamb_optimizer_ms(scope, params):
+    """Device ms of one LAMB update of every param, the unfused ``lamb``
+    lowering launched alone on the step's param shapes (random grads and
+    moments), profiled: the optimizer's share of a step."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    dev = torch.device("cuda", 0)
+    ctx = LowerContext(None, None, dev)
+    lamb = get_op("lamb").lowering
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ins = []
+    for n in params:
+        p = scope.find_var(n)
+        g = torch.randn(p.shape, generator=gen, device=dev) * 1e-3
+        ins.append({"Param": [p], "Grad": [g], "Moment1": [g * 0.1],
+                    "Moment2": [g * g], "Beta1Pow": [torch.full(
+                        (1,), 0.9, device=dev)], "Beta2Pow": [torch.full(
+                            (1,), 0.999, device=dev)],
+                    "LearningRate": [torch.full((1,), TRAIN_LR,
+                                                device=dev)]})
+    attrs = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, weight_decay=0.01)
+    prof = _profiled(lambda: [lamb(ctx, i, attrs) for i in ins])
+    return prof["device_busy_ms"], prof["kernels"]
+
+
+def phase_lamb(seed, amp):
+    """Phase 13 (f32) / 13b (AMP): BERT-base MLM (S = 512, batch 8,
+    dropout 0.1) with ``Lamb`` at level 2: each step launches K1 24, K2
+    12, K3 12 and K4 25 times and no K6 (level 2 fuses only adam and sgd
+    runs: the 157 lamb ops run unfused); replayed steps bitwise eager in
+    turns, level 2 against level 0 within phase 8's gates (AMP's under
+    AMP), ``train_loop`` at K = 1 bitwise the run loop."""
+    what = "LAMB AMP (13b)" if amp else "LAMB (13)"
+    t0 = time.perf_counter()
+    (exe, scope, main, loss, params, grads, batches,
+     tier) = _train_setup("Lamb", seed, amp)
+    cfg = bert_cfg()
+    n = cfg["n_layer"]
+    per_step = _amp_per_step(cfg, "Lamb") if amp else \
+        (2 * n, n, n, 2 * n + 1, 0, 0, 0, 0, 0, 0)
+    lamb_ops = sum(op.type == "lamb" for op in main.global_block().ops)
+    if (tier["ln_residual_fused"], tier["optimizer_groups"], lamb_ops) != (
+            2 * n + 1, [], len(params)):
+        raise AssertionError("%s: level 2 fused %d layer norms and "
+                             "optimizer groups %s over %d lamb ops" % (
+                                 what, tier["ln_residual_fused"],
+                                 tier["optimizer_groups"], lamb_ops))
+    build_s = time.perf_counter() - t0
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+    # ---- the main path: counts zeroed here, read after the last step
+    for k in ("PADDLE_TPU_FLASH_MIN_SEQ", "PADDLE_TPU_OPTIMIZE"):
+        os.environ.pop(k, None)
+    path = _metered_steps(what, step, scope, batches,
+                          WARMUP_STEPS + LAMB_STEPS, per_step)
+    # ---- end of the main path
+    if amp and _f32_masters(scope, params):
+        raise AssertionError("%s: params or moments left f32" % what)
+    paths = _run_paths(step, snap, batches, params, grads, {
+        "main": ({}, ()),
+        "level 0": ({"PADDLE_TPU_OPTIMIZE": "0"},
+                    (3, 9) if amp else (3,))})
+    parity = _parity(paths["main"], paths["level 0"], params, before=snap)
+    del paths
+    (_check_amp_parity if amp else _check_flip_parity)(what, parity)
+    compiled = phase_compiled_train(what, exe, main, loss, snap, batches,
+                                    params, step, per_step,
+                                    pairs=LAMB_PAIRS)
+    # train_loop at K = 1 against the run loop, from the snapshot
+    reader = _fresh(batches, 4)
+    sc_loop, sc_run = _restored(snap), _restored(snap)
+    seen = _loop_values(exe, main, [loss], sc_loop, reader, 1)
+    ran = [step(sc_run, b) for b in reader()]
+    looped = [float(np.asarray(seen[i][0]).reshape(()))
+              for i in range(len(ran))]
+    if looped != ran or not all(torch.equal(sc_loop.find_var(p),
+                                            sc_run.find_var(p))
+                                for p in params):
+        raise AssertionError("%s: train_loop differs from the run loop: "
+                             "%s / %s" % (what, looped, ran))
+    opt_ms, opt_kernels = _lamb_optimizer_ms(scope, params)
+    prof = compiled["replay_profile"]
+    med = float(np.median(path["step_ms"][WARMUP_STEPS:]))
+    out = dict(build_s=build_s, lamb_ops=lamb_ops, tier=tier,
+               losses=path["losses"], step_ms=path["step_ms"],
+               launches=dict(zip(COUNT_NAMES, path["launches"])),
+               host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+               per_step=dict(zip(COUNT_NAMES, per_step)),
+               parity=dict(steps=PARITY_STEPS, **parity),
+               compiled=compiled, loop_losses=looped,
+               optimizer_device_ms=opt_ms, optimizer_kernels=opt_kernels,
+               peak_mem_mib=path["peak_mb"], step_ms_median=med,
+               snapshot=snap, exe=exe, main=main, loss=loss,
+               params=params, batches=batches)
+    log("%s: %d lamb ops unfused, %d fused layer norms; replayed %.3f ms a "
+        "step (%.1f tokens/s), eager %.3f ms; busy %.1f%%, %d kernels a "
+        "replayed step, device ms by class %s; the %d lamb updates alone "
+        "%.3f ms on the device in %d kernels (the optimizer's share); "
+        "launches a step %s = %s; train_loop at K = 1 bitwise the run loop "
+        "over %d steps; peak memory %.1f MiB" % (
+            what, lamb_ops, tier["ln_residual_fused"],
+            compiled["replay_median_ms"], compiled["replay_tokens_per_s"],
+            compiled["eager_median_ms"], 100 * prof["busy_share"],
+            prof["kernels"], {k: round(v, 3) for k, v in
+                              prof["by_class_ms"].items()},
+            lamb_ops, opt_ms, opt_kernels, COUNT_NAMES, per_step, len(ran),
+            path["peak_mb"]))
+    return out
+
+
+def phase_checkpoint(lamb):
+    """Phase 13's checkpoint (f32, dropout 0.1): ``train_loop`` for
+    CKPT_STEPS steps uninterrupted; on a second scope CKPT_AT steps, then
+    ``save_persistables_async(extra_vars=[RNG_VAR])`` while the loop goes
+    on; a fresh executor and scope restored with ``load_persistables``
+    and the chain take the remaining steps. Those steps' losses and every
+    persistable bitwise the uninterrupted run's; the async file equals a
+    ``save_persistables`` of the same state; ``save_params`` /
+    ``load_params`` round-trip. The blocked ms, write seconds, bytes."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.executor import RNG_VAR
+    from paddle_tpu_torch.native import tensor_store
+
+    exe, main, loss, snap = (lamb[k] for k in ("exe", "main", "loss",
+                                               "snapshot"))
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    seq = [lamb["batches"][i % len(lamb["batches"])]
+           for i in range(CKPT_STEPS)]
+
+    def reader(lo, hi):
+        return lambda: ({k: v.copy() for k, v in b.items()}
+                        for b in seq[lo:hi])
+
+    def losses(seen):
+        return [float(np.asarray(seen[i][0]).reshape(()))
+                for i in sorted(seen)]
+
+    sc_a, sc_b = _restored(snap), _restored(snap)
+    whole = losses(_loop_values(exe, main, [loss], sc_a,
+                                reader(0, CKPT_STEPS), 1))
+    first = losses(_loop_values(exe, main, [loss], sc_b,
+                                reader(0, CKPT_AT), 1))
+    write_s = []
+    save = tensor_store.save_tensors
+
+    def timed_save(path, arrays):
+        t0 = time.perf_counter()
+        save(path, arrays)
+        write_s.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as d:
+        tensor_store.save_tensors = timed_save
+        try:
+            at_save = _snapshot(sc_b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = io.save_persistables_async(
+                exe, os.path.join(d, "async"), main, scope=sc_b,
+                extra_vars=[RNG_VAR])
+            blocked_ms = (time.perf_counter() - t0) * 1e3
+            rest = losses(_loop_values(exe, main, [loss], sc_b,
+                                       reader(CKPT_AT, CKPT_STEPS), 1))
+            ckpt.wait()
+        finally:
+            tensor_store.save_tensors = save
+        path = os.path.join(d, "async", "__model_combined__")
+        nbytes = os.path.getsize(path)
+        io.save_persistables(exe, os.path.join(d, "sync"), main,
+                             scope=_restored(at_save))
+        a = tensor_store.load_tensors(path)
+        s = tensor_store.load_tensors(os.path.join(d, "sync",
+                                                   "__model_combined__"))
+        same_file = sorted(s) == sorted(persist) and \
+            set(a) == set(s) | {RNG_VAR} and all(
+                np.array_equal(a[k], s[k]) for k in s)
+        exe2, fresh = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        io.load_persistables(exe2, os.path.join(d, "async"), main,
+                             scope=fresh)
+        io.load_vars(exe2, os.path.join(d, "async"), main, vars=[RNG_VAR],
+                     scope=fresh)
+        resumed = losses(_loop_values(exe2, main, [loss], fresh,
+                                      reader(CKPT_AT, CKPT_STEPS), 1))
+        io.save_params(exe, os.path.join(d, "params"), main, scope=sc_a)
+        params_back = fluid.Scope()
+        io.load_params(exe2, os.path.join(d, "params"), main,
+                       scope=params_back)
+        round_trip = all(torch.equal(params_back.find_var(p),
+                                     sc_a.find_var(p))
+                         for p in lamb["params"])
+    exe2.close()
+    bitwise = resumed == whole[CKPT_AT:] and \
+        first + rest == whole and all(
+            torch.equal(fresh.find_var(n), sc_a.find_var(n))
+            for n in persist)
+    if not (bitwise and same_file and round_trip):
+        raise AssertionError("checkpoint (13): resumed bitwise %s (losses "
+                             "%s / %s), async file = sync file %s, params "
+                             "round trip %s" % (
+                                 bitwise, resumed, whole[CKPT_AT:],
+                                 same_file, round_trip))
+    out = dict(steps=CKPT_STEPS, saved_after=CKPT_AT, blocked_ms=blocked_ms,
+               write_s=write_s[0], bytes=nbytes, losses=whole,
+               resumed=resumed, vars=len(a))
+    log("checkpoint (13): train_loop %d steps; after step %d "
+        "save_persistables_async blocked the caller %.1f ms (%d vars, %.1f "
+        "MB, every value copied off the card), the background write took "
+        "%.3f s while steps %d-%d ran; a fresh executor and scope restored "
+        "from the file ran steps %d-%d bitwise the uninterrupted run "
+        "(losses and %d persistables); the async file equals "
+        "save_persistables of the same state; save_params / load_params "
+        "round-trip" % (
+            CKPT_STEPS, CKPT_AT, blocked_ms, len(a), nbytes / 1e6,
+            write_s[0], CKPT_AT + 1, CKPT_STEPS, CKPT_AT + 1, CKPT_STEPS,
+            len(persist)))
+    return out
+
+
+def _other_optimizers():
+    """Phase 13c's optimizers (``fluid.optimizer`` classes), each a
+    factory of (optimizer, after-minimize hook)."""
+    import paddle_tpu_torch as fluid
+
+    o = fluid.optimizer
+    lr = TRAIN_LR
+    return {
+        "LarsMomentum": lambda: o.LarsMomentum(lr, momentum=0.9),
+        "Adamax": lambda: o.Adamax(lr),
+        "Adagrad": lambda: o.Adagrad(lr),
+        "DecayedAdagrad": lambda: o.DecayedAdagrad(lr),
+        "Adadelta": lambda: o.Adadelta(lr),
+        "RMSProp centered": lambda: o.RMSProp(lr, momentum=0.9,
+                                              centered=True),
+        "Ftrl": lambda: o.Ftrl(lr, l1=1e-4, l2=1e-4),
+        "ModelAverage (Adam)": lambda: o.Adam(lr),
+    }
+
+
+def _cpu_update(main, before, grads):
+    """The program's optimize ops lowered on the CPU, in program order,
+    from ``before`` (the state before a step) and the step's ``grads``:
+    {var: value after} of every var they write."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    ctx = LowerContext(None, None, torch.device("cpu"))
+    env = dict(before, **grads)
+    written = set()
+    for op in main.global_block().ops:
+        if op.attrs.get("__op_role__") != "optimize":
+            continue
+        ins = {s: [env[n] for n in names] for s, names in op.inputs.items()}
+        outs = get_op(op.type).lowering(ctx, ins, dict(op.attrs))
+        for s, names in op.outputs.items():
+            for name, v in zip(names, outs.get(s) or []):
+                env[name] = v
+                written.add(name)
+    return {n: env[n] for n in written}
+
+
+def phase_other_optimizers(seed):
+    """Phase 13c: BERT-base f32 (batch OTHER_BATCH) with each of
+    ``_other_optimizers``: OTHER_STEPS steps (eager, capture, replay)
+    bitwise the plan's eager steps on a second scope; after every step
+    the state each optimize op writes matches the same lowerings run on
+    the CPU from the state before it and the step's grads; ModelAverage's
+    ``apply()`` swaps in the averages and ``restore()`` brings the
+    params back bitwise."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert_cfg()
+    n = cfg["n_layer"]
+    rs = np.random.RandomState(seed + 18)
+    batches = [{k: v[:OTHER_BATCH] for k, v in _train_batch(cfg, rs).items()}
+               for _ in range(OTHER_STEPS)]
+    out = {}
+    for name, make in _other_optimizers().items():
+        t0 = time.perf_counter()
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = seed
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            loss, _ = bert.build(cfg, seq_len=SEQ, max_mask=MAX_MASK)
+            _, params_grads = make().minimize(loss)
+            ma = fluid.optimizer.ModelAverage(
+                0.5, min_average_window=2, max_average_window=3) \
+                if name.startswith("ModelAverage") else None
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p, _ in params_grads]
+        grad_names = [g.name for _, g in params_grads]
+        scope_e = _restored(_snapshot(scope))
+        adam = name.startswith("ModelAverage")
+        per = (2 * n, n, n, 2 * n + 1, int(adam), 0, 0, 0, 0, 0)
+        def host_state():
+            return {k: scope.find_var(k).cpu()
+                    for k in scope.local_var_names()
+                    if isinstance(scope.find_var(k), torch.Tensor)}
+
+        worst, losses, ran = ("", 0.0), [], (0,) * len(COUNT_NAMES)
+        before = host_state()
+        for i, feed in enumerate(batches):
+            with LaunchMeter() as meter:
+                meter.mark()
+                vals = exe.run(main, feed=feed,
+                               fetch_list=[loss] + grad_names, scope=scope,
+                               return_numpy=False)
+            eager = exe._run_eager(main, feed=feed,
+                                   fetch_list=[loss] + grad_names,
+                                   scope=scope_e, return_numpy=False)
+            if meter.units != [per]:
+                raise AssertionError("%s (13c) step %d ran %s = %s on the "
+                                     "card, expected %s" % (
+                                         name, i, COUNT_NAMES, meter.units,
+                                         per))
+            ran = tuple(a + b for a, b in zip(ran, meter.units[0]))
+            if not all(torch.equal(a, b) for a, b in zip(vals, eager)):
+                raise AssertionError("%s (13c) step %d: the replayed "
+                                     "step's loss or grads differ from the "
+                                     "eager step's" % (name, i))
+            losses.append(float(vals[0].reshape(())))
+            grads = {g: v.cpu() for g, v in zip(grad_names, vals[1:])}
+            want = _cpu_update(main, before, grads)
+            before = host_state()
+            for var, w in want.items():
+                g = before[var]
+                if not torch.equal(scope.find_var(var),
+                                   scope_e.find_var(var)):
+                    raise AssertionError("%s (13c) step %d: %s replayed "
+                                         "differs from eager" % (name, i,
+                                                                 var))
+                if g.dtype.is_floating_point:
+                    rtol = OTHER_NORM_RTOL if name == "LarsMomentum" \
+                        else OTHER_RTOL
+                    atol = OPT_TOL if adam else OTHER_ATOL
+                    # |card - CPU| over its bound atol + rtol |CPU|
+                    r = float(((g - w).abs() / (atol + rtol * w.abs()))
+                              .max())
+                    worst = max(worst, (var, r), key=lambda t: t[1])
+                    if r > 1.0:
+                        raise AssertionError(
+                            "%s (13c) step %d: %s on the card against the "
+                            "CPU lowering: %.3f of the bound (atol %.0e, "
+                            "rtol %.0e)" % (name, i, var, r, atol, rtol))
+                elif not torch.equal(g, w):
+                    raise AssertionError("%s (13c) step %d: %s (%s) differs "
+                                         "from the CPU lowering" % (
+                                             name, i, var, g.dtype))
+        plan = next(p for p in _captured(exe) if p.graph.bound_to(scope))
+        row = dict(steps=OTHER_STEPS, seconds=time.perf_counter() - t0,
+                   capture_s=plan.graph.seconds,
+                   losses=losses, worst_vs_cpu=worst,
+                   launches=dict(zip(COUNT_NAMES, ran)))
+        if ma is not None:
+            trained = {p: scope.find_var(p).clone() for p in params}
+            with ma.apply(exe, scope):
+                avg_ok = all(
+                    torch.equal(scope.find_var(p.name), (sum(
+                        scope.find_var(s.name).double() for s in sums)
+                        / torch.clamp(scope.find_var(na.name).double()
+                                      + scope.find_var(ona.name).double(),
+                                      min=1.0)).float())
+                    for p, sums, na, ona in ma._params)
+                moved = not all(torch.equal(scope.find_var(p), trained[p])
+                                for p in params)
+            restored = all(torch.equal(scope.find_var(p), trained[p])
+                           for p in params)
+            if not (avg_ok and moved and restored):
+                raise AssertionError("ModelAverage (13c): averages exact %s, "
+                                     "swapped in %s, restored %s" % (
+                                         avg_ok, moved, restored))
+            row["model_average"] = dict(averages_exact=avg_ok,
+                                        restored=restored)
+        exe.close()
+        out[name] = row
+        log("other optimizers (13c): %s: %d steps (eager, capture, replay) "
+            "bitwise eager; state after each step against the CPU "
+            "lowerings: worst |diff| %.3f of its bound (%s); %.1f s "
+            "(capture %.3f s)%s"
+            % (name, OTHER_STEPS, worst[1], worst[0], row["seconds"],
+               row["capture_s"], "; apply() averages exact, restore() "
+               "bitwise" if ma is not None else ""))
+        del exe, scope, scope_e
+        _free()
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -4333,6 +5644,7 @@ def main():
     serve["compiled"] = timed("4c f32", phase_compiled_serve, "f32", pred,
                               reqs, serve["per_dispatch"])
     profile = timed("5", phase_profile, pred, reqs)
+    batcher = timed("12e", phase_batcher, pred, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
         serve_amp = timed("4b + 4c AMP", phase_serve_amp, workdir,
                           args.seed, pred, reqs)
@@ -4378,6 +5690,24 @@ def main():
     vit_train = timed("11", phase_vit_train, args.seed, False)
     _free()
     vit_train_amp = timed("11b", phase_vit_train, args.seed, True)
+    _free()
+    engine, ref = timed("12", phase_engine, args.seed)
+    prefix = timed("12b", phase_prefix, args.seed, ref)
+    spec = timed("12c", phase_spec, args.seed, ref, engine["tokens_per_s"])
+    router = timed("12d", phase_router, args.seed, ref)
+    del ref
+    _free()
+    keep = ("snapshot", "exe", "main", "loss", "params", "batches")
+    lamb = timed("13", phase_lamb, args.seed, False)
+    checkpoint = timed("13 checkpoint", phase_checkpoint, lamb)
+    for k in keep:
+        lamb.pop(k)
+    _free()
+    lamb_amp = timed("13b", phase_lamb, args.seed, True)
+    for k in keep:
+        lamb_amp.pop(k)
+    _free()
+    others = timed("13c", phase_other_optimizers, args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -4405,6 +5735,15 @@ def main():
     vf_launch, vfa_launch = (vit_train["flash_launches"],
                              vit_train_amp["flash_launches"])
     gen_k4 = sum(r["launches"]["K4"] for r in gpt_generate.values())
+    lb_launch, lba_launch = lamb["launches"], lamb_amp["launches"]
+    bt_launch = batcher["launches"]
+    ot_launch = {c: sum(r["launches"][c] for r in others.values())
+                 for c in COUNT_NAMES}
+    serve_k4 = (engine["launches"]["K4"]
+                + sum(r["launches"]["K4"] for r in prefix.values()
+                      if isinstance(r, dict) and "launches" in r)
+                + sum(r["launches"]["K4"] for r in spec.values()
+                      if isinstance(r, dict) and "launches" in r))
     by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
     k1 = by_path(serve=serve["launches"]["flash fwd"],
                  train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
@@ -4417,14 +5756,20 @@ def main():
                  gpt_train_amp=ga_launch["flash fwd"],
                  transformer_train=tr_launch["flash fwd"],
                  vit_train_flash=vf_launch["flash fwd"],
-                 vit_train_amp_flash=vfa_launch["flash fwd"])
+                 vit_train_amp_flash=vfa_launch["flash fwd"],
+                 serve_batcher=bt_launch["flash fwd"],
+                 lamb_train=lb_launch["flash fwd"],
+                 lamb_train_amp=lba_launch["flash fwd"],
+                 other_optimizers=ot_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
                       train_sgd_amp=as_launch[c], train_loop=l_launch[c],
                       train_loop_amp=la_launch[c], recompute=r_launch[c],
                       gpt_train=g_launch[c], gpt_train_amp=ga_launch[c],
                       transformer_train=tr_launch[c],
                       vit_train_flash=vf_launch[c],
-                      vit_train_amp_flash=vfa_launch[c])
+                      vit_train_amp_flash=vfa_launch[c],
+                      lamb_train=lb_launch[c], lamb_train_amp=lba_launch[c],
+                      other_optimizers=ot_launch[c])
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
@@ -4437,7 +5782,11 @@ def main():
                  transformer_train=tr_launch["K4"],
                  vit_train=vt_launch["K4"], vit_train_flash=vf_launch["K4"],
                  vit_train_amp=vta_launch["K4 AMP"],
-                 vit_train_amp_flash=vfa_launch["K4 AMP"])
+                 vit_train_amp_flash=vfa_launch["K4 AMP"],
+                 gpt_engine=serve_k4, serve_batcher=bt_launch["K4"],
+                 lamb_train=lb_launch["K4"],
+                 lamb_train_amp=lba_launch["K4 AMP"],
+                 other_optimizers=ot_launch["K4"])
     k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
                  train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
                  recompute=r_launch["K6"], gpt_train=g_launch["K6"],
@@ -4447,7 +5796,8 @@ def main():
                  resnet_train_amp=rna_launch["K6"], vit_train=vt_launch["K6"],
                  vit_train_flash=vf_launch["K6"],
                  vit_train_amp=vta_launch["K6"],
-                 vit_train_amp_flash=vfa_launch["K6"])
+                 vit_train_amp_flash=vfa_launch["K6"],
+                 other_optimizers=ot_launch["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -4559,7 +5909,13 @@ def main():
                            resnet_train=resnet_train,
                            resnet_train_amp=resnet_train_amp,
                            resnet_serve=resnet_serve, vit_train=vit_train,
-                           vit_train_amp=vit_train_amp, kernels=kernels,
+                           vit_train_amp=vit_train_amp,
+                           serve_batcher=batcher, gpt_engine=engine,
+                           gpt_engine_prefix=prefix, gpt_engine_spec=spec,
+                           gpt_router=router, lamb_train=lamb,
+                           lamb_checkpoint=checkpoint,
+                           lamb_train_amp=lamb_amp,
+                           other_optimizers=others, kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ The port's counterpart of paddle_tpu/observe/, trimmed to what the pass
 pipeline, the kernel tier, the Executor and its step loop move: the
 metric registry (``metrics.py``), the well-known families
 (``families.py``, the same names as the JAX package's), the trace spans
-(``trace.py``) and the timed spans with the feed-to-run gap stamp
-(``spans.py``). The exporter, fleet collector, SLO monitor and time
-series are not ported yet.
+(``trace.py``), the timed spans with the feed-to-run gap stamp
+(``spans.py``) and the time-series rings whose ``Ewma`` the serving
+router smooths its token rate with (``timeseries.py``, not imported
+here, as in the JAX package). The exporter, fleet collector and SLO
+monitor are not ported yet.
 
     from paddle_tpu_torch import observe
 

@@ -3,9 +3,19 @@
 (bool outputs, Paddle's broadcast of Y).
 
 Counterparts of paddle_tpu/ops/math.py. The matrix product stays a plain
-``torch.matmul``, as the JAX package leaves it to XLA. Integer sums and
-products stay int32, as the JAX package's do with 64-bit types off
-(torch would widen them to int64).
+``torch.matmul``, as the JAX package leaves it to XLA, with one attr of
+the port's own: ``slot_rows`` on a ``mul`` (the serving engine sets it
+on its verify step's products, serving/engine.py) says that X's rows are
+``slot_rows`` slots by S positions, slot-major, and the product runs
+once per position over that position's ``slot_rows`` rows: the decode
+step's own shape. cuBLAS picks its algorithm by shape, and at another
+row count another algorithm sums in another order: with one product of
+8 x 5 rows GPT-2 small's verify step differs from 5 single decode steps
+by 1.1e-6 (NVIDIA H100 80GB HBM3, chip_smoke.py phase 12c), with the
+product per position it is the same bits, as the JAX package's
+multi-token step is on the CPU. Integer sums and products stay int32,
+as the JAX package's do with 64-bit types off (torch would widen them to
+int64).
 """
 
 from __future__ import annotations
@@ -19,6 +29,20 @@ from ..core.registry import register_op
 from .basic import weak_scalar
 
 
+def _product(a, b, slot_rows=0):
+    """``a @ b`` for 2-D ``a`` and ``b``; with ``slot_rows``, one
+    product per position of ``a``'s slot-major [slot_rows, S] rows."""
+    m = a.shape[0]
+    if not slot_rows or m <= slot_rows:
+        return torch.matmul(a, b)
+    if m % slot_rows:
+        raise ValueError("mul: %d rows are not slot_rows=%d slots by whole "
+                         "positions" % (m, slot_rows))
+    per = a.reshape(slot_rows, m // slot_rows, a.shape[1])
+    return torch.stack([torch.matmul(per[:, s].contiguous(), b)
+                        for s in range(per.shape[1])], 1).reshape(m, -1)
+
+
 def _flatten2d(x, num_col_dims):
     lead = functools.reduce(operator.mul, x.shape[:num_col_dims], 1)
     tail = functools.reduce(operator.mul, x.shape[num_col_dims:], 1)
@@ -28,11 +52,13 @@ def _flatten2d(x, num_col_dims):
 @register_op("mul", diff_inputs=["X", "Y"])
 def _mul(ctx, ins, attrs):
     """Flattening matmul (reference mul_op.cc): x -> 2D by x_num_col_dims,
-    y -> 2D by y_num_col_dims, result reshaped back."""
+    y -> 2D by y_num_col_dims, result reshaped back; ``slot_rows`` as in
+    the module's docstring."""
     x, y = ins["X"][0], ins["Y"][0]
     xnc = attrs.get("x_num_col_dims", 1)
     ync = attrs.get("y_num_col_dims", 1)
-    out = torch.matmul(_flatten2d(x, xnc), _flatten2d(y, ync))
+    out = _product(_flatten2d(x, xnc), _flatten2d(y, ync),
+                   attrs.get("slot_rows", 0))
     return {"Out": [out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))]}
 
 

@@ -542,17 +542,21 @@ class ModelAverage:
         default_main_program()._bump()
 
     def _swap(self, scope):
-        import numpy as np
+        import torch
 
         self._saved = {}
         for p, sums, na, ona in self._params:
-            self._saved[p.name] = scope.find_var(p.name)
-            cnt = float(np.asarray(scope.find_var(na.name))[0]
-                        + np.asarray(scope.find_var(ona.name))[0])
-            total = sum(np.asarray(scope.find_var(s.name), dtype=np.float64)
+            value = scope.find_var(p.name)
+            # a replayed step updates the scope's tensor in place, and a
+            # replaced one is copied into it: keep the values, not the
+            # tensor
+            self._saved[p.name] = value.clone()
+            cnt = (scope.find_var(na.name).to(torch.float64)
+                   + scope.find_var(ona.name).to(torch.float64))[0]
+            total = sum(scope.find_var(s.name).to(torch.float64)
                         for s in sums)
-            avg = total / max(cnt, 1.0)
-            scope.set_var(p.name, avg.astype(p.dtype))
+            avg = total / torch.clamp(cnt, min=1.0)
+            scope.set_var(p.name, avg.to(value.dtype))
 
     def restore(self, executor=None, scope=None):
         from .core.scope import global_scope

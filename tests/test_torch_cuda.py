@@ -84,6 +84,16 @@ where only the port is installed:
   step under the port's cuDNN flags bitwise repeatable; a small
   ResNet-50's replayed steps bitwise its eager steps, the batch norms'
   running stats included, with K6 once a step on the card.
+- Optimizers, checkpoints and serving: the nine new optimizer
+  lowerings on the card against the CPU (elementwise at rtol 2e-6, the
+  norms' reductions at 1e-5, average_accumulates bitwise); Lamb,
+  LarsMomentum and RMSProp steps replayed bitwise eager (no host sync
+  in their updates); ``save_persistables_async`` not torn by the
+  replayed steps right after it, and the RNG chain saved with it
+  resuming the dropout masks bitwise; a small GPT engine whose splices
+  write the caches its captured graphs hold, its tokens ``generate()``'s
+  for each request alone; a verify step's products per position
+  bitwise the decode step's (ops/math.py's ``slot_rows``).
 """
 
 import warnings
@@ -1658,3 +1668,240 @@ def test_cuda_resnet_replayed_steps_equal_eager_steps(cuda_device):
     for n in stats:
         assert torch.equal(scope.find_var(n), eager_scope.find_var(n)), n
         assert not torch.equal(scope.find_var(n), start[n]), n
+
+
+# ------------------------------------- optimizers, checkpoints and serving
+def _opt_case(op_type, dev, rs):
+    """Seeded inputs of one update of ``op_type`` on ``dev`` and its
+    attrs (the variants of tests/test_torch_optimizer_ops.py)."""
+    shape = (300, 257)
+
+    def t(positive=False, scale=1.0):
+        a = rs.randn(*shape).astype("float32") * scale
+        return torch.from_numpy(np.abs(a) + 0.1 if positive else a).to(dev)
+
+    lr = torch.tensor([0.05], device=dev)
+    pw = lambda v: torch.tensor([v], device=dev)  # noqa: E731
+    cases = {
+        "lars_momentum": ({"Param": t(), "Grad": t(), "Velocity": t(),
+                           "LearningRate": lr}, dict(mu=0.9)),
+        "adamax": ({"Param": t(), "Grad": t(), "Moment": t(),
+                    "InfNorm": t(True), "Beta1Pow": pw(0.729),
+                    "LearningRate": lr}, {}),
+        "adagrad": ({"Param": t(), "Grad": t(), "Moment": t(True),
+                     "LearningRate": lr}, {}),
+        "decayed_adagrad": ({"Param": t(), "Grad": t(), "Moment": t(True),
+                             "LearningRate": lr}, {}),
+        "adadelta": ({"Param": t(), "Grad": t(), "AvgSquaredGrad": t(True),
+                      "AvgSquaredUpdate": t(True)}, {}),
+        # centered needs MeanSquare - MeanGrad^2 + eps > 0
+        "rmsprop": ({"Param": t(), "Grad": t(), "MeanSquare": t(True),
+                     "Moment": t(), "MeanGrad": t(scale=0.01),
+                     "LearningRate": lr}, dict(centered=True, momentum=0.5)),
+        "ftrl": ({"Param": t(), "Grad": t(), "SquaredAccumulator": t(True),
+                  "LinearAccumulator": t(), "LearningRate": lr},
+                 dict(l1=0.5, l2=0.1, lr_power=-0.6)),
+        "lamb": ({"Param": t(), "Grad": t(), "Moment1": t(),
+                  "Moment2": t(True), "Beta1Pow": pw(0.81),
+                  "Beta2Pow": pw(0.998), "LearningRate": lr}, {}),
+    }
+    if op_type == "average_accumulates":
+        zeros = torch.zeros(shape, device=dev)
+        i32 = lambda v: torch.tensor([v], dtype=torch.int32,  # noqa: E731
+                                     device=dev)
+        return ({"param": t(), "in_sum_1": t(), "in_sum_2": zeros,
+                 "in_sum_3": zeros, "in_num_accumulates": i32(2),
+                 "in_old_num_accumulates": i32(0),
+                 "in_num_updates": i32(16383)},
+                dict(average_window=0.5, min_average_window=2,
+                     max_average_window=3))
+    return cases[op_type]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_type", [
+    "lars_momentum", "adamax", "adagrad", "decayed_adagrad", "adadelta",
+    "rmsprop", "ftrl", "lamb", "average_accumulates"])
+def test_cuda_optimizer_lowering_matches_the_cpu(cuda_device, op_type):
+    """Each of the nine lowerings on the card against the CPU on the same
+    inputs (N(0, 1) params and grads, lr 0.05): each float output within
+    2e-6 of its largest magnitude (a param minus its update can cancel,
+    so an operand's one-ulp difference shows against a small result),
+    1e-5 for the norms' reductions (lars_momentum, lamb);
+    average_accumulates bitwise."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    ins, attrs = _opt_case(op_type, cuda_device, np.random.RandomState(0))
+    lower = get_op(op_type).lowering
+    got = lower(LowerContext(None, None, cuda_device),
+                {k: [v] for k, v in ins.items()}, dict(attrs))
+    want = lower(LowerContext(None, None, torch.device("cpu")),
+                 {k: [v.cpu()] for k, v in ins.items()}, dict(attrs))
+    assert sorted(got) == sorted(want)
+    share = 1e-5 if op_type in ("lars_momentum", "lamb") else 2e-6
+    for slot in want:
+        g, w = got[slot][0].cpu(), want[slot][0]
+        if op_type == "average_accumulates":
+            assert torch.equal(g, w), slot
+        else:
+            assert bool(torch.isfinite(w).all()), slot
+            scale = float(w.abs().max())
+            diff = float((g - w).abs().max())
+            assert diff <= share * scale, (slot, diff, scale)
+
+
+def _mlp_program(opt):
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.layers.data("x", [64], dtype="float32")
+        y = pt.layers.data("y", [1], dtype="float32")
+        h = pt.layers.dropout(pt.layers.fc(x, 128, act="relu"),
+                              dropout_prob=0.1)
+        loss = pt.layers.mean(pt.layers.square(pt.layers.fc(h, 1) - y))
+        opt.minimize(loss)
+    return main, startup, loss
+
+
+def _mlp_feed(i):
+    rs = np.random.RandomState(i)
+    return {"x": rs.randn(32, 64).astype("float32"),
+            "y": rs.randn(32, 1).astype("float32")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["Lamb", "LarsMomentum", "RMSProp"])
+def test_cuda_new_optimizers_replay_bitwise_eager(cuda_device, opt):
+    """Their updates take no host sync: steps 2-4 are replays of the
+    plan's graph, bitwise the eager step's from the same scope."""
+    kw = dict(momentum=0.9) if opt == "LarsMomentum" else {}
+    main, startup, loss = _mlp_program(
+        getattr(pt.optimizer, opt)(learning_rate=1e-3, **kw))
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    for i in range(4):
+        r = exe.run(main, feed=_mlp_feed(i), fetch_list=[loss], scope=scope)
+        e = exe._run_eager(main, feed=_mlp_feed(i), fetch_list=[loss],
+                           scope=eager_scope)
+        np.testing.assert_array_equal(r[0], e[0])
+    assert any(p.graph is not None for p in exe._cache.values())
+    for v in main.list_vars():
+        if v.persistable:
+            assert torch.equal(scope.find_var(v.name),
+                               eager_scope.find_var(v.name)), v.name
+
+
+@pytest.mark.cuda
+def test_cuda_async_snapshot_is_not_torn_by_the_next_replay(cuda_device,
+                                                            tmp_path):
+    """``save_persistables_async`` copies every value off the card
+    before it returns: replayed steps that overwrite the scope's tensors
+    in place right after it leave the file at the call's state, and the
+    RNG chain saved beside it resumes the dropout masks bitwise."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core.executor import RNG_VAR
+    from paddle_tpu_torch.native.tensor_store import load_tensors
+
+    main, startup, loss = _mlp_program(pt.optimizer.Adam(1e-3))
+    exe, scope = _started(main, startup)
+    for i in range(3):  # eager, capture, replay
+        exe.run(main, feed=_mlp_feed(i), fetch_list=[loss], scope=scope)
+    snap = {v.name: scope.find_var(v.name).clone()
+            for v in main.list_vars() if v.persistable}
+    ckpt = io.save_persistables_async(exe, str(tmp_path / "ck"), main,
+                                      scope=scope, extra_vars=[RNG_VAR])
+    later = [exe.run(main, feed=_mlp_feed(3 + i), fetch_list=[loss],
+                     scope=scope)[0] for i in range(3)]
+    ckpt.wait()
+    saved = load_tensors(str(tmp_path / "ck" / "__model_combined__"))
+    for n, v in snap.items():
+        np.testing.assert_array_equal(saved[n], v.cpu().numpy(), err_msg=n)
+    params = [p.name for p in main.global_block().all_parameters()]
+    assert all(not torch.equal(scope.find_var(n), snap[n]) for n in params)
+    exe2, fresh = _started(main, startup)
+    io.load_persistables(exe2, str(tmp_path / "ck"), main, scope=fresh)
+    io.load_vars(exe2, str(tmp_path / "ck"), main, vars=[RNG_VAR],
+                 scope=fresh)
+    resumed = [exe2.run(main, feed=_mlp_feed(3 + i), fetch_list=[loss],
+                        scope=fresh)[0] for i in range(3)]
+    np.testing.assert_array_equal(np.stack(resumed), np.stack(later))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_replays_with_its_splices_in_place(cuda_device):
+    """A small GPT engine on the card: requests of one prompt length
+    admitted over time, so the prefill and decode plans are replays of
+    their graphs; the splices write the very cache tensors the graphs
+    hold (no state copied in), and every request's tokens equal
+    ``generate()``'s for it alone on the card."""
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import DecodeEngine
+
+    cfg = dict(d_model=64, d_ff=128, n_head=2, n_layer=2, vocab=97,
+               max_length=64, dropout=0.0)
+    prog, start = pt.Program(), pt.Program()
+    with pt.program_guard(prog, start):
+        logits, caches = gpt.build_decode_step(cfg, batch=1, max_len=64)
+    pre, pstart = pt.Program(), pt.Program()
+    with pt.program_guard(pre, pstart):
+        plogits, _ = gpt.build_prefill_step(cfg, batch=1, prompt_len=6,
+                                            max_len=64)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    exe.run(start, scope=scope)
+    exe.run(pstart, scope=scope)
+    params = {n: scope.find_var(n).clone() for n in prog.global_block().vars
+              if n.startswith("gpt_") and n not in caches}
+    for n, v in params.items():
+        scope.set_var(n, v.clone())
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(1, 97, (6,)).astype("int64") for _ in range(6)]
+    want = [gpt.generate(exe, prog, logits, p[None], 10, scope,
+                         prefill_prog=pre, prefill_logits=plogits)[0]
+            for p in prompts]
+    eng = DecodeEngine(cfg, params=params, b_max=2, max_len=64).start()
+    try:
+        lane = eng._lane
+        held = [lane.scope.find_var(c) for c in lane.cache_names]
+        got = [eng.submit(p, 10).result(timeout=300) for p in prompts[:2]]
+        got += [r.result(timeout=300) for r in
+                [eng.submit(p, 10) for p in prompts[2:]]]
+    finally:
+        eng.stop()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    graphs = [p.graph for p in eng._exe._cache.values()
+              if p.graph is not None]
+    assert len(graphs) == 2  # the prefill at P = 6 and the decode step
+    for c, t in zip(lane.cache_names, held):
+        assert lane.scope.find_var(c) is t
+    decode = next(g for g in graphs if g.bound_to(lane.scope))
+    assert all(decode.state[c] is t
+               for c, t in zip(lane.cache_names, held))
+    assert all(g.adopted == 0 for g in graphs)
+
+
+@pytest.mark.cuda
+def test_cuda_verify_products_are_the_decode_steps(cuda_device):
+    """ops/math.py's ``slot_rows``: a verify step's ``mul`` over 8 slots
+    x 5 positions runs one product per position, each the bits of the
+    decode step's product over the 8 slots at that position; without the
+    attr, one product over the 40 rows, within f32 rounding of it."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 5, 768, generator=g).to(cuda_device)
+    w = (torch.randn(768, 2304, generator=g) * 0.02).to(cuda_device)
+    ctx = LowerContext(None, None, cuda_device)
+
+    def mul(a, **attrs):
+        return get_op("mul").lowering(
+            ctx, {"X": [a], "Y": [w]}, dict(x_num_col_dims=2, **attrs)
+        )["Out"][0]
+
+    verify = mul(x, slot_rows=8)
+    for s in range(5):
+        step = mul(x[:, s:s + 1].contiguous())
+        assert torch.equal(verify[:, s], step[:, 0]), s
+    torch.testing.assert_close(mul(x), verify, rtol=1e-5, atol=1e-5)

@@ -66,6 +66,57 @@ with open(os.path.join(ROOT, "paddle_tpu", "flags.py")) as _f:
 _ORIGINAL_FLAGS_TAIL = _ORIGINAL_FLAGS_TAIL[
     _ORIGINAL_FLAGS_TAIL.index("\n\ndef enable_compile_cache("):]
 
+# ModelAverage.apply swaps averaged tensors into the scope: the port's
+# scope holds tensors (a CUDA one has no numpy view), and a replayed
+# step updates a param's tensor in place, so restore() keeps a copy
+_MODEL_AVERAGE_SWAP = (
+    """    def _swap(self, scope):
+        import numpy as np
+
+        self._saved = {}
+        for p, sums, na, ona in self._params:
+            self._saved[p.name] = scope.find_var(p.name)
+            cnt = float(np.asarray(scope.find_var(na.name))[0]
+                        + np.asarray(scope.find_var(ona.name))[0])
+            total = sum(np.asarray(scope.find_var(s.name), dtype=np.float64)
+                        for s in sums)
+            avg = total / max(cnt, 1.0)
+            scope.set_var(p.name, avg.astype(p.dtype))
+""",
+    """    def _swap(self, scope):
+        import torch
+
+        self._saved = {}
+        for p, sums, na, ona in self._params:
+            value = scope.find_var(p.name)
+            self._saved[p.name] = value.clone()
+            cnt = (scope.find_var(na.name).to(torch.float64)
+                   + scope.find_var(ona.name).to(torch.float64))[0]
+            total = sum(scope.find_var(s.name).to(torch.float64)
+                        for s in sums)
+            avg = total / torch.clamp(cnt, min=1.0)
+            scope.set_var(p.name, avg.to(value.dtype))
+""")
+# the port has no deployable artifacts yet (ROADMAP A10, export/):
+# ReplicaRouter.roll needs the caller's engine factory
+_ROLL_FACTORY = (
+    """        if engine_factory is None:
+            from ..export import LoadedArtifact, load_artifact
+            from .engine import DecodeEngine
+
+            art = (artifact if isinstance(artifact, LoadedArtifact)
+                   else load_artifact(artifact))
+
+            def engine_factory(idx, _art=art, _kw=dict(engine_kwargs)):
+                return DecodeEngine.from_artifact(_art, **_kw)
+""",
+    """        if engine_factory is None:
+            raise NotImplementedError(
+                "ReplicaRouter.roll needs an engine_factory: the port "
+                "has no deployable artifacts yet (ROADMAP A10, export/), "
+                "so DecodeEngine.from_artifact is not available")
+""")
+
 COPIES = {
     "analysis/dataflow.py": [],
     "analysis/infer.py": [],
@@ -116,6 +167,8 @@ COPIES = {
     "observe/families.py": [],
     "observe/metrics.py": [],
     "observe/spans.py": [_SPAN_RECORD],
+    # the router's Ewma
+    "observe/timeseries.py": [],
     "observe/trace.py": [],
     "param_attr.py": [],
     "reader/__init__.py": [_STACK_WINDOW],
@@ -139,8 +192,13 @@ COPIES = {
     "models/vgg.py": [],
     "models/vit.py": [],
     "nets.py": [],
-    "optimizer.py": [],
+    "optimizer.py": [_MODEL_AVERAGE_SWAP],
     "regularizer.py": [],
+    "serving/__init__.py": [],
+    "serving/batcher.py": [],
+    "serving/prefix.py": [],
+    "serving/queue.py": [],
+    "serving/router.py": [_ROLL_FACTORY],
 }
 
 

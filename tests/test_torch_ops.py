@@ -348,6 +348,78 @@ def case_adam(rs):
                          "weight_decay": 0.01}, 1e-6)
 
 
+# the other nine optimizer ops (tests/test_torch_optimizer_ops.py
+# holds their attr variants and classes)
+def _pos(rs, shape=(4, 3)):
+    return np.abs(_arr(rs, shape)) + 0.1
+
+
+def case_lars_momentum(rs):
+    _check("lars_momentum", dict(_opt_ins(rs), Velocity=[_arr(rs, (4, 3))]),
+           {"mu": 0.9, "lars_coeff": 1e-3, "lars_weight_decay": 5e-4}, 1e-6)
+
+
+def case_adamax(rs):
+    _check("adamax", dict(_opt_ins(rs), Moment=[_arr(rs, (4, 3))],
+                          InfNorm=[_pos(rs)],
+                          Beta1Pow=[np.full(1, 0.9 ** 3, "float32")]),
+           {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}, 1e-6)
+
+
+def case_adagrad(rs):
+    _check("adagrad", dict(_opt_ins(rs), Moment=[_pos(rs)]),
+           {"epsilon": 1e-6}, 1e-6)
+
+
+def case_decayed_adagrad(rs):
+    _check("decayed_adagrad", dict(_opt_ins(rs), Moment=[_pos(rs)]),
+           {"decay": 0.95, "epsilon": 1e-6}, 1e-6)
+
+
+def case_adadelta(rs):
+    _check("adadelta", {"Param": [_arr(rs, (4, 3))], "Grad": [_arr(rs, (4, 3))],
+                        "AvgSquaredGrad": [_pos(rs)],
+                        "AvgSquaredUpdate": [_pos(rs)]},
+           {"rho": 0.95, "epsilon": 1e-6}, 1e-6)
+
+
+def case_rmsprop(rs):
+    ins = dict(_opt_ins(rs), MeanSquare=[_pos(rs)], Moment=[_arr(rs, (4, 3))],
+               MeanGrad=[_arr(rs, (4, 3)) * 0.01])
+    for centered in (False, True):
+        _check("rmsprop", ins, {"decay": 0.9, "epsilon": 1e-6,
+                                "momentum": 0.5, "centered": centered}, 1e-6)
+
+
+def case_ftrl(rs):
+    ins = dict(_opt_ins(rs), SquaredAccumulator=[_pos(rs)],
+               LinearAccumulator=[_arr(rs, (4, 3))])
+    for power, l1 in ((-0.5, 0.0), (-0.6, 0.5)):
+        _check("ftrl", ins, {"l1": l1, "l2": 0.1, "lr_power": power}, 1e-6,
+               rtol=1e-6)
+
+
+def case_lamb(rs):
+    ins = dict(_opt_ins(rs), Moment1=[_arr(rs, (4, 3)) * 0.1],
+               Moment2=[np.abs(_arr(rs, (4, 3))) * 0.01],
+               Beta1Pow=[np.full(1, 0.81, "float32")],
+               Beta2Pow=[np.full(1, 0.998, "float32")])
+    _check("lamb", ins, {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+                         "weight_decay": 0.01}, 1e-6)
+
+
+def case_average_accumulates(rs):
+    zeros = np.zeros((4, 3), "float32")
+    _check("average_accumulates",
+           {"param": [_arr(rs, (4, 3))], "in_sum_1": [_arr(rs, (4, 3))],
+            "in_sum_2": [zeros], "in_sum_3": [zeros],
+            "in_num_accumulates": [np.array([2], "int32")],
+            "in_old_num_accumulates": [np.array([0], "int32")],
+            "in_num_updates": [np.array([16383], "int32")]},
+           {"average_window": 0.5, "min_average_window": 2,
+            "max_average_window": 3}, 0)
+
+
 def case_assign_value(rs):
     _check("assign_value", {}, {"values": [0.5, -1.25, 3.0, 7.0],
                                 "shape": [2, 2], "dtype": "float32"}, 0)

@@ -42,7 +42,7 @@ from paddle_tpu_torch.convert import params_from_jax
 from paddle_tpu_torch.core.autodiff import ATTR_DIFF, ATTR_FWD_IN, \
     ATTR_FWD_OUT
 from paddle_tpu_torch.core.lowering import LowerContext
-from paddle_tpu_torch.core.registry import all_ops, get_op
+from paddle_tpu_torch.core.registry import OPS, all_ops, get_op
 from paddle_tpu_torch.models import bert as tbert
 
 CPU = torch.device("cpu")
@@ -748,17 +748,29 @@ def test_other_optimizers_build_and_sgd_momentum_run():
         ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
               for _ in range(3)]
         assert np.isfinite(ls).all()
-    # an optimizer whose update op is not ported builds, and its run says
-    # so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1 under the
-    # tests) or, without it, the block analysis
+    # the other optimizers' update ops are ported
+    # (tests/test_torch_optimizer_ops.py holds them against the JAX
+    # package): Adagrad's program runs
     main, startup, loss = _build_train(pt, tbert, opt=pt.optimizer.Adagrad)
     assert "adagrad" in {op.type for op in main.global_block().ops}
     exe = pt.Executor(pt.CPUPlace())
     scope = pt.Scope()
     exe.run(startup, scope=scope)
+    ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
+          for _ in range(3)]
+    assert np.isfinite(ls).all()
+    # an op the port does not lower yet builds, and its run says so: the
+    # prepare-time verifier (PADDLE_TPU_VALIDATE=1 under the tests) or,
+    # without it, the block analysis
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = pt.layers.data("x", [4], dtype="float32")
+        y = pt.layers.expand(x, [1, 2])
+    assert "expand" not in OPS
     with pytest.raises((KeyError, ProgramVerifyError),
-                       match="'adagrad' has no registered lowering"):
-        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+                       match="'expand' has no registered lowering"):
+        exe.run(main, feed={"x": np.ones((2, 4), "float32")},
+                fetch_list=[y], scope=scope)
 
 
 def test_global_norm_clip_and_l2_decay_train():
