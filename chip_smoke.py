@@ -276,6 +276,40 @@ Phases, each of which passes or ends the script with a non-zero exit:
    it and the step's grads (2e-6 relative, 1e-5 for LARS' norms, K6 at
    2e-6); ModelAverage's ``apply()`` averages exact and ``restore()``
    bitwise.
+14b. the fleet from an artifact (after 12d): GPT-2 small's weights saved
+   twice as serving-only artifacts (v1, v2: the same weights under two
+   names); ``ReplicaRouter`` over two replicas built by
+   ``DecodeEngine.from_artifact`` from v1; phase 12's 48 requests
+   submitted at once and the fleet rolled to v2 (``roll``, the default
+   factory) under them: every request ends exactly once with
+   ``generate``'s tokens, both replicas end on v2, one roll counted;
+   tokens/s through the roll and the seconds a replica swap;
+14. a deployable artifact (after 13c): BERT-base's serving program
+   (S = 512, f32, level 2) frozen by ``export.save_artifact`` with AOT
+   buckets 1, 4 and 8 (``torch.export``, K1 and K4 as operators) and
+   saved as an inference model; ``load_artifact`` +
+   ``LoadedArtifact.predictor()`` serve 10 requests per bucket through
+   the AOT section (a bucket's first request runs its program, captures
+   it as a CUDA graph and replays it; the rest replay): the load and
+   the requests move no plan-cache miss, pipeline run or tuner miss,
+   3 plans seeded and 30 AOT calls counted, nothing degraded; K1 12 and
+   K4 25 a request on the card; the answers bitwise the seeded plan
+   path's and a Predictor's from ``create_predictor_from_dir``; the
+   artifact's bytes, save and load seconds, first and steady latency of
+   the three paths, the AOT capture seconds;
+15. dygraph at BERT-base width (after 14): an encoder written against
+   ``imperative`` (embeddings, 12 post-norm layers of FCs,
+   ``fused_attention`` with a key-pad bias and dropout 0.1, gelu, the
+   MLM loss over 80 masked positions a row; S = 512, batch 8) trained
+   by ``imperative.optimizer.Adam``: 3 eager steps, then the same 3
+   from the same state through ``imperative.jit`` with
+   ``exact_numerics=True`` (bitwise the eager steps: losses, params and
+   the generator chain) and ``exact_numerics=False`` (level 2 and the
+   CUDA graph: K4 25 and K6 once a step; within the flip-parity gates
+   of the exact capture); K1-K3 24 / 12 / 12 a step on the card in
+   every run; an inference capture's ``as_predictor()`` bitwise the
+   eager forward; step times, the graph's capture seconds and a
+   profiled replayed step.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -4594,6 +4628,7 @@ def phase_engine(seed):
     seq_s = time.perf_counter() - ts
     new_tokens = sum(k for _, k, _ in traffic)
     setup_s = time.perf_counter() - t0 - seq_s
+    ref.traffic, ref.want = traffic, want  # phase 14b serves them again
 
     torch.cuda.synchronize()
     base_mib = torch.cuda.memory_allocated() / 2 ** 20
@@ -5576,6 +5611,624 @@ def phase_other_optimizers(seed):
     return out
 
 
+# ------------------------------------------------------- phases 14-15
+# the frozen BERT-base's buckets and requests (14): each request of a
+# bucket's exact batch, so every one takes the AOT section
+ART_BUCKETS = (1, 4, 8)
+ART_REPEATS = 10
+# the dygraph encoder (15): BERT-base widths, S = 512, batch 8, 3 steps
+DY_BATCH, DY_STEPS, DY_MASK, DY_LR = 8, 3, 80, 1e-4
+DY_REPLAYS = 3  # the level-2 capture's replays timed after the gated steps
+
+
+def _freeze_bert(workdir, seed):
+    """BERT-base's serving program (S = 512, random weights from the
+    seed) started on the card: frozen to an artifact with AOT buckets
+    ``ART_BUCKETS`` and saved as an inference model beside it. Returns
+    (cfg, artifact path, model dir, save seconds, artifact bytes,
+    the fused layer norms, the encoder output's name)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import export
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.base_config()
+    feeds = ["src_ids", "sent_ids", "input_mask"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        bert.build(cfg, seq_len=SEQ, is_test=True)
+    enc = _encoder_output(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    model_dir = os.path.join(workdir, "model")
+    path = os.path.join(workdir, "bert_base.pdz")
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(model_dir, feeds, [enc], exe,
+                                      main_program=main)
+        t0 = time.perf_counter()
+        export.save_artifact(main, path, feed_names=feeds,
+                             fetch_names=[enc.name], scope=scope,
+                             batch_sizes=ART_BUCKETS, name="bert-base")
+        save_s = time.perf_counter() - t0
+    fused = _tier_stats(main, [enc.name], scope)["ln_residual_fused"]
+    del scope, exe
+    _free()
+    return cfg, path, model_dir, save_s, os.path.getsize(path), fused, \
+        enc.name
+
+
+def _cold_counters():
+    """The counters a cold start may (seeded plans, AOT calls) and may
+    not (plan-cache misses, pipeline runs, tuner misses) move."""
+    from paddle_tpu_torch.observe import families as fam
+
+    return dict(plan_misses=fam.EXECUTOR_CACHE_MISSES.value,
+                optimizer_runs=sum(fam.OPTIMIZER_PROGRAMS.labels(
+                    level=lv).value for lv in ("1", "2")),
+                tuner_misses=fam.KERNEL_TUNER_MISSES.value,
+                plans_seeded=fam.ARTIFACT_PLANS_SEEDED.value,
+                aot_calls=fam.ARTIFACT_AOT_CALLS.value)
+
+
+def _serve_requests(run, reqs, repeats):
+    """Each request ``repeats`` times through ``run``: (answers of the
+    first time, host-clock ms of every call per request); a repeat that
+    answers otherwise fails."""
+    answers, lat = [], []
+    for req in reqs:
+        lat.append([])
+        for rep in range(repeats):
+            ms, (out,) = _timed(lambda: run(req))
+            lat[-1].append(ms)
+            if rep == 0:
+                answers.append(out)
+            elif not np.array_equal(out, answers[-1]):
+                raise AssertionError("a repeated request gave another "
+                                     "answer")
+    return answers, lat
+
+
+def _lat_row(lat):
+    return dict(first_ms=lat[0], steady_median_ms=float(np.median(lat[1:])),
+                steady_max_ms=max(lat[1:]))
+
+
+def phase_artifact(workdir, seed):
+    """Phase 14: BERT-base (S = 512, f32, level 2) frozen by
+    ``save_artifact`` with the AOT section at buckets 1, 4, 8, loaded by
+    ``load_artifact`` and served through ``LoadedArtifact.predictor()``:
+    ART_REPEATS requests per bucket, each through the bucket's
+    ``torch.export`` program (its first request runs it, captures it as
+    a CUDA graph and replays it; every later one replays). The cold start
+    moves no plan-cache miss, no pipeline run and no tuner miss; plans
+    are seeded and AOT calls counted; nothing degraded. Every request
+    launches K1 12 and K4 25 times on the card (the launch meter); the
+    answers are bitwise the seeded plan path's and those of a Predictor
+    built from scratch (``create_predictor_from_dir``) at level 2."""
+    from paddle_tpu_torch import export, inference
+
+    os.environ.pop("PADDLE_TPU_FLASH_MIN_SEQ", None)
+    os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
+    t0 = time.perf_counter()
+    cfg, path, model_dir, save_s, nbytes, fused, out_name = _freeze_bert(
+        workdir, seed)
+    build_s = time.perf_counter() - t0 - save_s
+    rs = np.random.RandomState(seed + 14)
+    reqs = [_request(b, cfg, rs) for b in ART_BUCKETS]
+    per_request = (cfg["n_layer"], 0, 0, fused, 0, 0, 0, 0, 0, 0)
+    if fused != 2 * cfg["n_layer"] + 1:
+        raise AssertionError("artifact (14): the pipeline fused %d layer "
+                             "norms, expected %d" % (fused,
+                                                     2 * cfg["n_layer"] + 1))
+
+    # ---- the main path: counts zeroed here, read after the last request
+    _zero_counts()
+    c0 = _cold_counters()
+    with LaunchMeter() as meter:
+        meter.mark()
+        tl = time.perf_counter()
+        art = export.load_artifact(path)
+        pred = art.predictor()
+        load_s = time.perf_counter() - tl
+        marks = []
+
+        def aot_run(req):
+            meter.mark()
+            marks.append(_counts())
+            return pred.run(req)
+
+        aot_answers, aot_lat = _serve_requests(aot_run, reqs, ART_REPEATS)
+    host_after = _counts()
+    # ---- end of the main path
+    c1 = _cold_counters()
+    moved = {k: c1[k] - c0[k] for k in c0}
+    if art.degraded or sorted(art.aot) != list(ART_BUCKETS):
+        raise AssertionError("artifact (14): degraded %s, AOT buckets %s"
+                             % (art.degraded, sorted(art.aot)))
+    if (moved["plan_misses"], moved["optimizer_runs"],
+            moved["tuner_misses"]) != (0, 0, 0) or \
+            moved["plans_seeded"] != len(ART_BUCKETS) or \
+            moved["aot_calls"] != len(ART_BUCKETS) * ART_REPEATS:
+        raise AssertionError("artifact (14): the cold start moved %s" % moved)
+    if any(u != (0,) * len(COUNT_NAMES) for u in meter.units[:1]):
+        raise AssertionError("artifact (14): the load launched kernels: %s"
+                             % (meter.units[0],))
+    for i, u in enumerate(meter.units[1:]):
+        first = i % ART_REPEATS == 0
+        if u != _times(per_request, 2 if first else 1):
+            raise AssertionError(
+                "artifact (14): request %d ran %s = %s kernels on the card, "
+                "expected %s (its bucket's %s)" % (
+                    i, COUNT_NAMES, u, _times(per_request, 1 + first),
+                    "run, capture and replay" if first else "replay"))
+    host_calls = [tuple(b - a for a, b in zip(m0, m1)) for m0, m1 in
+                  zip(marks, marks[1:] + [host_after])]
+    want_host = [_times(per_request, 2 if i % ART_REPEATS == 0 else 0)
+                 for i in range(len(host_calls))]
+    if host_calls != want_host:
+        raise AssertionError("artifact (14): the wrappers counted %s launch "
+                             "calls per request, expected %s" % (
+                                 host_calls[:ART_REPEATS + 1],
+                                 want_host[:ART_REPEATS + 1]))
+    for req, out in zip(reqs, aot_answers):
+        b = req["src_ids"].shape[0]
+        if out.shape != (b, SEQ, cfg["d_model"]) or \
+                not np.isfinite(out).all():
+            raise AssertionError("artifact (14): bad output %s" % (out.shape,))
+    capture_s = {bs: r.capture_seconds for bs, r in pred._aot.items()}
+
+    # the seeded plan path of the same Predictor (its first run per
+    # bucket is eager, the second captures), then a Predictor built from
+    # the saved model (load, optimize, per bucket an eager run and a
+    # capture), each against the AOT answers bitwise
+    aot = pred._aot
+    pred._aot = {}
+    plan_answers, plan_lat = _serve_requests(pred.run, reqs, ART_REPEATS)
+    pred._aot = aot
+    cfg_dir = inference.AnalysisConfig(model_dir)
+    tf = time.perf_counter()
+    scratch = inference.create_predictor_from_dir(model_dir)
+    scratch._buckets = list(ART_BUCKETS)
+    for bs in ART_BUCKETS:
+        scratch._warmup(bs)
+    scratch_init_s = time.perf_counter() - tf
+    del cfg_dir
+    scratch_answers, scratch_lat = _serve_requests(scratch.run, reqs,
+                                                   ART_REPEATS)
+    for what, got in (("the seeded plan path", plan_answers),
+                      ("a Predictor from scratch", scratch_answers)):
+        for b, a, g in zip(ART_BUCKETS, aot_answers, got):
+            if not np.array_equal(a, g):
+                raise AssertionError(
+                    "artifact (14): batch %d through the AOT section differs "
+                    "from %s by %.3e" % (b, what, float(np.abs(a - g).max())))
+    rows = {b: dict(aot=_lat_row(a), seeded_plan=_lat_row(p),
+                    from_scratch=_lat_row(s))
+            for b, a, p, s in zip(ART_BUCKETS, aot_lat, plan_lat,
+                                  scratch_lat)}
+    out = dict(artifact_bytes=nbytes, save_s=save_s, build_s=build_s,
+               load_and_seed_s=load_s, scratch_init_s=scratch_init_s,
+               aot_capture_s=capture_s, cold_start=moved,
+               latency_ms=rows, per_request=per_request,
+               launches=dict(zip(COUNT_NAMES, meter.total())),
+               host_launches=dict(zip(COUNT_NAMES, host_after)),
+               degraded=art.degraded, aot_platform=art.aot_meta)
+    for b in ART_BUCKETS:
+        r = rows[b]
+        log("artifact (14): batch %d: AOT first %.3f ms, steady median %.3f "
+            "max %.3f ms; seeded plan first %.3f, steady %.3f / %.3f ms; "
+            "from scratch steady %.3f / %.3f ms; AOT capture %s s" % (
+                b, r["aot"]["first_ms"], r["aot"]["steady_median_ms"],
+                r["aot"]["steady_max_ms"], r["seeded_plan"]["first_ms"],
+                r["seeded_plan"]["steady_median_ms"],
+                r["seeded_plan"]["steady_max_ms"],
+                r["from_scratch"]["steady_median_ms"],
+                r["from_scratch"]["steady_max_ms"], capture_s[b]))
+    log("artifact (14): BERT-base frozen in %.1f s (%d bytes; built and "
+        "started in %.1f s), loaded and seeded in %.2f s; cold start moved "
+        "%s; a Predictor from scratch started in %.2f s; answers bitwise "
+        "across AOT, the seeded plans and the scratch Predictor; launches "
+        "%s = %s on the card (a request %s), %s from the host" % (
+            save_s, nbytes, build_s, load_s, moved, scratch_init_s,
+            COUNT_NAMES, meter.total(), per_request, host_after))
+    del pred, scratch, art
+    _free()
+    return out
+
+
+def phase_fleet_artifact(seed, ref, engine):
+    """Phase 14b: GPT-2 small served from a serving-only artifact
+    (``save_artifact(None, params=, serving={cfg, b_max 8, max_len
+    1024})``): ``ReplicaRouter`` over two replicas built by
+    ``DecodeEngine.from_artifact`` from v1; phase 12's 48 requests
+    submitted at once and the fleet rolled to v2 (the same weights saved
+    again under another name) while they run. Every request ends exactly
+    once with ``generate()``'s tokens, both replicas end on v2, and the
+    roll is counted once."""
+    from paddle_tpu_torch import export
+    from paddle_tpu_torch.core.executor import to_numpy
+    from paddle_tpu_torch.serving import DecodeEngine, ReplicaRouter
+
+    params = {n: to_numpy(v) for n, v in ref.params.items()}
+    serving = dict(cfg=ref.cfg, b_max=ENGINE_B_MAX, max_len=ENGINE_MAX_LEN)
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for v in ("v1", "v2"):
+            paths[v] = os.path.join(d, "gpt2_%s.pdz" % v)
+            ts = time.perf_counter()
+            export.save_artifact(None, paths[v], params=params,
+                                 serving=serving, name="gpt2-small-" + v)
+            save_s = time.perf_counter() - ts
+        art_v1 = export.load_artifact(paths["v1"])
+        v1_engines = []
+
+        def v1_factory(idx):
+            eng = DecodeEngine.from_artifact(art_v1, queue_capacity=128)
+            v1_engines.append(eng)
+            return eng
+
+        t0 = time.perf_counter()
+        router = ReplicaRouter(v1_factory, n_replicas=2, poll_s=0.05,
+                               max_readmissions=3)
+        try:
+            for rep in router.replicas:
+                _warm(rep.engine, ENGINE_PROMPTS)
+            start_s = time.perf_counter() - t0
+            ok0 = _metric("paddle_export_rolls_total", outcome="ok")
+            done, reqs = [], []
+            t1 = time.perf_counter()
+            for p, k, kw in ref.traffic:
+                r = router.submit(p, k, **kw)
+                r.add_done_callback(done.append)
+                reqs.append(r)
+            tr = time.perf_counter()
+            rolled = router.roll(paths["v2"], queue_capacity=128)
+            roll_s = time.perf_counter() - tr
+            got = [r.result(timeout=600) for r in reqs]
+            wall = time.perf_counter() - t1
+            on_v2 = [rep.engine not in v1_engines and rep.engine.alive()
+                     for rep in router.replicas]
+            rolls = _metric("paddle_export_rolls_total", outcome="ok") - ok0
+        finally:
+            router.close()
+    _check_tokens("fleet roll (14b)", got, ref.want)
+    if len(done) != len(reqs) or {id(r) for r in done} != \
+            {id(r) for r in reqs}:
+        raise AssertionError("fleet roll (14b): %d of %d requests ended, "
+                             "some more than once" % (len(done), len(reqs)))
+    if rolled != 2 or not all(on_v2) or rolls != 1:
+        raise AssertionError("fleet roll (14b): %d replicas rolled, on v2 %s, "
+                             "rolls counted %s" % (rolled, on_v2, rolls))
+    new_tokens = sum(k for _, k, _ in ref.traffic)
+    out = dict(artifact_save_s=save_s, start_s=start_s, roll_s=roll_s,
+               swap_s_per_replica=roll_s / 2, wall_s=wall,
+               tokens_per_s=new_tokens / wall,
+               phase_12_tokens_per_s=engine["tokens_per_s"])
+    log("fleet roll (14b): serving-only artifact saved in %.2f s; 2 replicas "
+        "from v1 started and warmed in %.1f s; %d requests at once, the "
+        "fleet rolled to v2 under them in %.2f s (%.2f s a replica swap); "
+        "%.1f tokens/s through the roll against phase 12's %.1f; every "
+        "request ended once with generate()'s tokens; both replicas on v2" % (
+            save_s, start_s, len(reqs), roll_s, roll_s / 2,
+            out["tokens_per_s"], engine["tokens_per_s"]))
+    return out
+
+
+def _dygraph_model(seed):
+    """A BERT-base-width encoder written against ``imperative``: word and
+    position embeddings, 12 post-norm layers (q / k / v / out FCs,
+    ``fused_attention`` with a key-pad bias and dropout 0.1, gelu FFN,
+    dropout 0.1), an MLM head over the masked positions; made under the
+    current guard from numpy's global RNG seeded with ``seed``. Returns
+    (layers' parameters, the train-step function, its Adam)."""
+    from paddle_tpu_torch import imperative
+    from paddle_tpu_torch.imperative import nn as inn
+    from paddle_tpu_torch.imperative import optimizer as iopt
+    from paddle_tpu_torch.models import bert
+
+    trace_op = imperative.trace_op
+    cfg = bert.base_config()
+    d, h, n_layer = cfg["d_model"], cfg["n_head"], cfg["n_layer"]
+    dh = d // h
+    np.random.seed(seed)
+
+    class Encoder(imperative.Layer):
+        def __init__(self):
+            super().__init__("encoder")
+            self.p_drop = cfg["dropout"]  # 0: the inference forward
+            self.word = inn.Embedding("word", [cfg["vocab"], d])
+            self.pos = inn.Embedding("pos", [SEQ, d])
+            self.ln0 = self._ln("ln0")
+            self.layers = []
+            for i in range(n_layer):
+                lay = {k: inn.FC("l%d_%s" % (i, k), n, num_flatten_dims=2)
+                       for k, n in (("q", d), ("k", d), ("v", d), ("o", d),
+                                    ("f1", cfg["d_ff"]), ("f2", d))}
+                for k, v in lay.items():
+                    self.add_sublayer("l%d_%s" % (i, k), v)
+                lay["ln1"] = self._ln("l%d_ln1" % i)
+                lay["ln2"] = self._ln("l%d_ln2" % i)
+                self.layers.append(lay)
+            self.head = inn.FC("mlm_out", cfg["vocab"])
+            # the FCs' weights made now, in the order their first forward
+            # would make them, so a fresh model's parameters exist before
+            # its first step
+            for fc, n_in in [(lay[k], cfg["d_ff"] if k == "f2" else d)
+                             for lay in self.layers
+                             for k in ("q", "k", "v", "o", "f1", "f2")] \
+                    + [(self.head, d)]:
+                fc._w = fc.create_parameter("w", (n_in, fc._size))
+                fc._b = fc.create_parameter("b", (fc._size,),
+                                            initializer=0.0)
+
+        def _ln(self, name):
+            return (self.create_parameter(name + "_s", (d,), initializer=1.0),
+                    self.create_parameter(name + "_b", (d,), initializer=0.0))
+
+        def norm(self, x, sb):
+            return trace_op("layer_norm", {"X": [x], "Scale": [sb[0]],
+                                           "Bias": [sb[1]]},
+                            {"begin_norm_axis": 2, "epsilon": 1e-12})["Y"][0]
+
+        def drop(self, x):
+            if not self.p_drop:
+                return x
+            return trace_op("dropout", {"X": [x]},
+                            {"dropout_prob": self.p_drop,
+                             "is_test": False,
+                             "dropout_implementation": "upscale_in_train"}
+                            )["Out"][0]
+
+        def heads(self, x):
+            x = trace_op("reshape2", {"X": [x]},
+                         {"shape": [DY_BATCH, SEQ, h, dh]})["Out"][0]
+            return trace_op("transpose2", {"X": [x]},
+                            {"axis": [0, 2, 1, 3]})["Out"][0]
+
+        def forward(self, ids, pos, bias, mask_pos, labels):
+            x = self.word(ids) + self.pos(pos)
+            x = self.drop(self.norm(x, self.ln0))
+            for lay in self.layers:
+                q, k, v = (self.heads(lay[n](x)) for n in ("q", "k", "v"))
+                a = trace_op("fused_attention",
+                             {"Q": [q], "K": [k], "V": [v], "Bias": [bias]},
+                             {"scale": dh ** -0.5,
+                              "dropout": self.p_drop})["Out"][0]
+                a = trace_op("transpose2", {"X": [a]},
+                             {"axis": [0, 2, 1, 3]})["Out"][0]
+                a = trace_op("reshape2", {"X": [a]},
+                             {"shape": [DY_BATCH, SEQ, d]})["Out"][0]
+                x = self.norm(x + self.drop(lay["o"](a)), lay["ln1"])
+                f = trace_op("gelu", {"X": [lay["f1"](x)]}, {})["Out"][0]
+                x = self.norm(x + self.drop(lay["f2"](f)), lay["ln2"])
+            flat = trace_op("reshape2", {"X": [x]},
+                            {"shape": [DY_BATCH * SEQ, d]})["Out"][0]
+            picked = trace_op("gather", {"X": [flat], "Index": [mask_pos]},
+                              {})["Out"][0]
+            loss = trace_op("softmax_with_cross_entropy",
+                            {"Logits": [self.head(picked)],
+                             "Label": [labels]}, {})["Loss"][0]
+            return trace_op("mean", {"X": [loss]}, {})["Out"][0]
+
+    model = Encoder()
+    adam = iopt.Adam(learning_rate=DY_LR)
+
+    def step(ids, pos, bias, mask_pos, labels):
+        loss = model(ids, pos, bias, mask_pos, labels)
+        loss.backward()
+        adam.step(model.parameters())
+        return loss
+
+    return model, step, adam
+
+
+def _dygraph_batches(cfg, seed):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(DY_STEPS):
+        mask = np.ones((DY_BATCH, SEQ), "float32")
+        for i in range(DY_BATCH):
+            mask[i, SEQ - rs.randint(SEQ // 10, 2 * SEQ // 5 + 1):] = 0.0
+        bias = ((mask - 1.0) * 1e9)[:, None, None, :].astype("float32")
+        out.append((
+            rs.randint(0, cfg["vocab"], (DY_BATCH, SEQ)).astype("int64"),
+            np.tile(np.arange(SEQ, dtype="int64"), (DY_BATCH, 1)), bias,
+            (rs.randint(0, SEQ, (DY_BATCH, DY_MASK))
+             + SEQ * np.arange(DY_BATCH)[:, None]).reshape(-1)
+            .astype("int64"),
+            rs.randint(0, cfg["vocab"], (DY_BATCH * DY_MASK, 1))
+            .astype("int64")))
+    return out
+
+
+def _dygraph_run(seed, batches, mode):
+    """DY_STEPS train steps of a fresh model from ``seed`` under a guard
+    seeded with ``seed``: eagerly (``mode`` None) or through
+    ``imperative.jit(exact_numerics=mode)``, each step under the launch
+    meter. Returns the losses, the params after (host), the chain's
+    state, step ms, each step's device launches and the capture."""
+    from paddle_tpu_torch import imperative
+
+    with imperative.guard(seed=seed):
+        model, step, _ = _dygraph_model(seed)
+        fn = step if mode is None else imperative.jit(
+            step, exact_numerics=mode)
+        losses, ms = [], []
+        with LaunchMeter() as meter:
+            for b in batches:
+                args = [imperative.to_variable(a) for a in b]
+                for a in args:
+                    a.stop_gradient = True
+                meter.mark()
+                t, loss = _timed(lambda: fn(*args))
+                ms.append(t)
+                losses.append(float(loss.numpy()))
+        params = {p.name + "#%d" % i: p.value.detach().cpu().clone()
+                  for i, p in enumerate(model.parameters())}
+        chain = imperative.get_tracer()._rng.get_state().clone()
+        prof, replay_ms, graph_s = None, [], []
+        if mode is False:
+            # steady replays of the captured graph (they go on training)
+            args = [imperative.to_variable(a) for a in batches[-1]]
+            for a in args:
+                a.stop_gradient = True
+            replay_ms = [_timed(lambda: fn(*args))[0]
+                         for _ in range(DY_REPLAYS)]
+            prof = _profiled(lambda: fn(*args))
+            graph_s = [p.graph.seconds for p in fn._exe._cache.values()
+                       if p.graph is not None]
+    return dict(losses=losses, params=params, chain=chain, step_ms=ms,
+                units=meter.units, captured=None if mode is None else fn,
+                profile=prof, replay_ms=replay_ms, graph_capture_s=graph_s)
+
+
+def phase_dygraph(seed):
+    """Phase 15: a dygraph encoder at BERT-base width (hidden 768, FFN
+    3072, 12 layers, 12 heads of 64, S = 512, batch 8, dropout 0.1)
+    written against ``imperative`` and trained by
+    ``imperative.optimizer.Adam``: DY_STEPS eager steps, then the same
+    steps from the same state through ``imperative.jit`` with
+    ``exact_numerics=True`` (bitwise the eager steps: losses, params and
+    the generator chain) and with ``exact_numerics=False`` (level 2, the
+    plan's CUDA graph, K4 and K6; within the flip-parity gates of the
+    exact capture). K1-K3 launches counted on the card in every step; an
+    inference capture's ``as_predictor()`` bitwise the eager forward."""
+    from paddle_tpu_torch import imperative
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.base_config()
+    batches = _dygraph_batches(cfg, seed + 15)
+    _zero_counts()
+    eager = _dygraph_run(seed, batches, None)
+    _free()
+    exact = _dygraph_run(seed, batches, True)
+    _free()
+    fast = _dygraph_run(seed, batches, False)
+    _free()
+    per_step = (2 * cfg["n_layer"], cfg["n_layer"], cfg["n_layer"])
+    for what, run in (("eager", eager), ("exact capture", exact),
+                      ("level-2 capture", fast)):
+        for i, u in enumerate(run["units"]):
+            if u[:3] != per_step:
+                raise AssertionError(
+                    "dygraph (15) %s step %d ran flash %s on the card, "
+                    "expected %s" % (what, i, u[:3], per_step))
+        if not np.isfinite(run["losses"]).all():
+            raise AssertionError("dygraph (15) %s: losses %s"
+                                 % (what, run["losses"]))
+    for what, run in (("eager", eager), ("exact capture", exact)):
+        if any(u[3] or u[4] for u in run["units"]):
+            raise AssertionError("dygraph (15) %s launched K4 or K6" % what)
+    fast_k46 = [(u[3], u[4]) for u in fast["units"][1:]]
+    if any(k4 == 0 or k6 != 1 for k4, k6 in fast_k46):
+        raise AssertionError("dygraph (15) level-2 replays ran K4 / K6 %s"
+                             % fast_k46)
+    same = (eager["losses"] == exact["losses"]
+            and all(torch.equal(eager["params"][n], exact["params"][n])
+                    for n in eager["params"])
+            and torch.equal(eager["chain"], exact["chain"]))
+    if not same:
+        raise AssertionError("dygraph (15): the exact capture is not bitwise "
+                             "the eager steps (losses %s / %s)"
+                             % (eager["losses"], exact["losses"]))
+    if not torch.equal(exact["chain"], fast["chain"]):
+        raise AssertionError("dygraph (15): the level-2 capture advanced the "
+                             "generator chain otherwise")
+    with imperative.guard(seed=seed):
+        model = _dygraph_model(seed)[0]
+        keyed = list(enumerate(model.parameters()))
+        before = {p.name + "#%d" % i: p.value.detach().cpu().clone()
+                  for i, p in keyed}
+        # the key projections' biases take a gradient that is zero in
+        # exact arithmetic (softmax is invariant to a shift of a row's
+        # scores): their Adam updates are rounding noise in both paths
+        key_bias = {id(lay["k"]._b) for lay in model.layers}
+        names = [p.name + "#%d" % i for i, p in keyed
+                 if id(p) not in key_bias]
+        del model
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fast["losses"],
+                                                       exact["losses"]))
+    share = max(((n, float(((fast["params"][n] - exact["params"][n]).abs()
+                            > PARITY_PARAM_ATOL).float().mean()))
+                 for n in names), key=lambda t: t[1])
+    upd = _update_l2(fast["params"], exact["params"], before, names)
+    log("dygraph (15): level-2 capture against the exact one over %d steps: "
+        "loss rel diff %.3e (<= %.0e), worst share past %.0e %.3e (%s, <= "
+        "%.0e), update worst l2 rel %.3e (%s, <= %.2g)" % (
+            DY_STEPS, loss_rel, PARITY_LOSS_RTOL, PARITY_PARAM_ATOL,
+            share[1], share[0], PARITY_FLIP_SHARE, upd[1], upd[0],
+            PARITY_UPDATE_L2))
+    if loss_rel > PARITY_LOSS_RTOL or share[1] > PARITY_FLIP_SHARE or \
+            upd[1] > PARITY_UPDATE_L2:
+        raise AssertionError("dygraph (15): the level-2 capture and the "
+                             "exact one disagree")
+
+    # an inference capture (the forward alone, no dropout) served by its
+    # Predictor against the eager forward
+    with imperative.guard(seed=seed):
+        model, _, _ = _dygraph_model(seed)
+        model.p_drop = 0.0
+        args = [imperative.to_variable(a) for a in batches[0]]
+        for a in args:
+            a.stop_gradient = True
+        fwd = imperative.jit(lambda *a: model(*a))
+        want = fwd(*args).numpy()
+        imperative.get_tracer().tape.clear()
+        pred = fwd.as_predictor()
+        (got,) = pred.run({n: a.value for n, a in zip(
+            fwd._last_entry.feed_order, args)})
+        eager_again = model(*args).numpy()
+        imperative.get_tracer().tape.clear()
+    if not (np.array_equal(got.reshape(want.shape), want)):
+        raise AssertionError("dygraph (15): as_predictor() differs from the "
+                             "eager forward by %.3e"
+                             % float(np.abs(got - want).max()))
+    del pred, model
+    _free()
+    exact_cap = exact["captured"]
+    fast_cap = fast["captured"]
+    out = dict(
+        eager_step_ms=eager["step_ms"], exact_step_ms=exact["step_ms"],
+        graph_step_ms=fast["step_ms"],
+        eager_median_ms=float(np.median(eager["step_ms"][1:])),
+        exact_replay_median_ms=float(np.median(exact["step_ms"][1:])),
+        graph_replay_ms=fast["replay_ms"],
+        graph_replay_median_ms=float(np.median(fast["replay_ms"])),
+        graph_capture_s=fast["graph_capture_s"],
+        capture_first_call_ms=dict(exact=exact["step_ms"][0],
+                                   graph=fast["step_ms"][0]),
+        losses=eager["losses"], level2_loss_rel=loss_rel,
+        level2_worst_share=share, level2_update_l2=upd,
+        launches=dict(zip(COUNT_NAMES, np.sum(
+            eager["units"] + exact["units"] + fast["units"], axis=0)
+            .tolist())),
+        launches_by_run={k: [dict(zip(COUNT_NAMES, u)) for u in r["units"]]
+                         for k, r in (("eager", eager), ("exact", exact),
+                                      ("graph", fast))},
+        graph_replay_profile=fast["profile"],
+        captures=dict(exact=exact_cap.stats["captures"],
+                      graph=fast_cap.stats["captures"]),
+        eager_forward_rerun_equal=bool(np.array_equal(eager_again, want)))
+    log("dygraph (15): BERT-base-width encoder, %d steps each: eager %s ms, "
+        "exact capture %s ms (first call traces), level-2 capture %s ms "
+        "(first call traces, second runs the plan, third captures the CUDA "
+        "graph in %s s), then replays %s ms; the exact capture bitwise "
+        "eager (losses %s, params, chain), as_predictor() bitwise the eager "
+        "forward; flash launches per step %s, K4 / K6 per level-2 step %s; "
+        "a profiled replayed step: wall %.3f ms, device busy %.3f ms "
+        "(%.1f%%)" % (
+            DY_STEPS, ["%.1f" % t for t in eager["step_ms"]],
+            ["%.1f" % t for t in exact["step_ms"]],
+            ["%.1f" % t for t in fast["step_ms"]],
+            ["%.3f" % t for t in fast["graph_capture_s"]],
+            ["%.1f" % t for t in fast["replay_ms"]], eager["losses"],
+            per_step, fast_k46, fast["profile"]["wall_ms"],
+            fast["profile"]["device_busy_ms"],
+            100 * fast["profile"]["busy_share"]))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -5695,6 +6348,8 @@ def main():
     prefix = timed("12b", phase_prefix, args.seed, ref)
     spec = timed("12c", phase_spec, args.seed, ref, engine["tokens_per_s"])
     router = timed("12d", phase_router, args.seed, ref)
+    _free()
+    fleet = timed("14b", phase_fleet_artifact, args.seed, ref, engine)
     del ref
     _free()
     keep = ("snapshot", "exe", "main", "loss", "params", "batches")
@@ -5708,6 +6363,10 @@ def main():
         lamb_amp.pop(k)
     _free()
     others = timed("13c", phase_other_optimizers, args.seed)
+    _free()
+    with tempfile.TemporaryDirectory() as workdir:
+        artifact = timed("14", phase_artifact, workdir, args.seed)
+    dygraph = timed("15", phase_dygraph, args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -5739,6 +6398,7 @@ def main():
     bt_launch = batcher["launches"]
     ot_launch = {c: sum(r["launches"][c] for r in others.values())
                  for c in COUNT_NAMES}
+    ar_launch, dy_launch = artifact["launches"], dygraph["launches"]
     serve_k4 = (engine["launches"]["K4"]
                 + sum(r["launches"]["K4"] for r in prefix.values()
                       if isinstance(r, dict) and "launches" in r)
@@ -5760,7 +6420,9 @@ def main():
                  serve_batcher=bt_launch["flash fwd"],
                  lamb_train=lb_launch["flash fwd"],
                  lamb_train_amp=lba_launch["flash fwd"],
-                 other_optimizers=ot_launch["flash fwd"])
+                 other_optimizers=ot_launch["flash fwd"],
+                 artifact_aot=ar_launch["flash fwd"],
+                 dygraph=dy_launch["flash fwd"])
     k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
                       train_sgd_amp=as_launch[c], train_loop=l_launch[c],
                       train_loop_amp=la_launch[c], recompute=r_launch[c],
@@ -5769,7 +6431,7 @@ def main():
                       vit_train_flash=vf_launch[c],
                       vit_train_amp_flash=vfa_launch[c],
                       lamb_train=lb_launch[c], lamb_train_amp=lba_launch[c],
-                      other_optimizers=ot_launch[c])
+                      other_optimizers=ot_launch[c], dygraph=dy_launch[c])
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
                  train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
@@ -5786,7 +6448,8 @@ def main():
                  gpt_engine=serve_k4, serve_batcher=bt_launch["K4"],
                  lamb_train=lb_launch["K4"],
                  lamb_train_amp=lba_launch["K4 AMP"],
-                 other_optimizers=ot_launch["K4"])
+                 other_optimizers=ot_launch["K4"],
+                 artifact_aot=ar_launch["K4"], dygraph=dy_launch["K4"])
     k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
                  train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
                  recompute=r_launch["K6"], gpt_train=g_launch["K6"],
@@ -5797,7 +6460,7 @@ def main():
                  vit_train_flash=vf_launch["K6"],
                  vit_train_amp=vta_launch["K6"],
                  vit_train_amp_flash=vfa_launch["K6"],
-                 other_optimizers=ot_launch["K6"])
+                 other_optimizers=ot_launch["K6"], dygraph=dy_launch["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -5915,7 +6578,9 @@ def main():
                            gpt_router=router, lamb_train=lamb,
                            lamb_checkpoint=checkpoint,
                            lamb_train_amp=lamb_amp,
-                           other_optimizers=others, kernels=kernels,
+                           other_optimizers=others, artifact=artifact,
+                           fleet_artifact=fleet, dygraph=dygraph,
+                           kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
     log(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ Import as ``import paddle_tpu_torch as fluid``.
 
 from . import ops as _ops  # registers all op lowerings  # noqa: F401
 from . import (clip, contrib, convert, core, evaluator,  # noqa: F401
-               flags, inference, initializer, io, layers,
+               flags, imperative, inference, initializer, io, layers,
                learning_rate_decay, metrics, models, nets, optimizer,
                profiler, reader, regularizer)
 from .core.executor import Executor  # noqa: F401

@@ -747,6 +747,39 @@ class Executor:
         return plan
 
 
+    def seed_plan(self, program: Program, feed, fetch_list,
+                  scope: Optional[Scope] = None) -> bool:
+        """Install a prepared plan for (program, feed signature, fetches)
+        WITHOUT counting a plan-cache miss: the artifact cold-start path
+        (paddle_tpu_torch/export). A loaded artifact seeds every covered
+        signature, so its first real run is a cache HIT, and loading
+        moves zero ``paddle_executor_cache_misses_total``. The CUDA graph
+        stays lazy: the plan is captured at its second run, as every
+        plan is. Seeding costs one analysis per signature. Returns True
+        when a plan was installed, False when the signature was already
+        cached."""
+        from ..observe.families import (EXECUTOR_CACHE_EVICTIONS,
+                                        EXECUTOR_PREPARE_SECONDS)
+
+        require_device(self.device)
+        scope = scope if scope is not None else global_scope()
+        fetch_names = _fetch_names(fetch_list)
+        block = program.global_block()
+        feeds = {n: feed_to_device(n, v, block.vars.get(n), self.device)
+                 for n, v in (feed or {}).items()}
+        key = _cache_key(program, feeds, fetch_names)
+        if key in self._cache:
+            return False
+        t0 = time.perf_counter()
+        plan = _prepare(program, sorted(feeds), fetch_names, scope)
+        EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
+        self._cache[key] = plan
+        while len(self._cache) > self._cache_size:
+            _, old = self._cache.popitem(last=False)
+            self._release(old)
+            EXECUTOR_CACHE_EVICTIONS.inc()
+        return True
+
 def _chain(scope, program) -> torch.Generator:
     """A copy of the scope's RNG chain (seeded from the program's
     ``random_seed`` on the first run): the scope's generator is never

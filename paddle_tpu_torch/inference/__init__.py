@@ -7,9 +7,12 @@ run eagerly through the port's Executor on the card, unless the config
 says ``disable_gpu()`` (the reference name, paddle_analysis_config.h) or
 ``from_program`` is given ``place=CPUPlace()``. On the card each
 warm-up bucket's plan is captured as a CUDA graph at load, and every
-request of a bucket is one replay (core/cuda_graph.py). The JAX
-package's AOT artifact path and its serving metrics are not ported
-yet.
+request of a bucket is one replay (core/cuda_graph.py). A Predictor
+from a deployable artifact (``export.load_artifact(...).predictor()``)
+serves a bucket through the artifact's AOT section when it has one
+(``_run_aot``, counted in ``paddle_export_artifact_aot_calls_total``).
+The JAX package's serving metrics (bucket hits and padding) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from ..core.program import Program
 from ..core.scope import Scope
 
 __all__ = ["AnalysisConfig", "Predictor", "create_paddle_predictor",
-           "PaddleTensor"]
+           "create_predictor_from_dir", "PaddleTensor"]
 
 
 def batch_major(var) -> bool:
@@ -99,10 +102,23 @@ class Predictor:
     def from_program(cls, program: Program, feed_names: Sequence[str],
                      fetch_names: Sequence[str], params: Dict[str, object],
                      warmup_batch_sizes: Sequence[int] = (),
-                     place: Optional[Place] = None):
+                     place: Optional[Place] = None,
+                     batch_major_fetches: Sequence[str] = (),
+                     pre_optimized: bool = False):
         """Build a Predictor from an in-memory Program and its parameters
-        (for example ``convert.params_from_jax``'s output), with no
-        save/load round trip. ``place=None`` serves on the card."""
+        (for example ``convert.params_from_jax``'s output, or a dygraph
+        capture's state: ``CapturedFunction.as_predictor``), with no
+        save/load round trip. ``place=None`` serves on the card.
+        ``batch_major_fetches`` names fetch vars whose lead dim is the
+        batch axis (a capture records them with the trace's concrete
+        batch; the bucket router needs the dynamic -1 marker to slice
+        pad rows back off).
+
+        ``pre_optimized`` is the artifact path (``export.load_artifact``):
+        the program was ALREADY inference-rewritten + pipeline-optimized
+        at save time, so the rewrite and the batch-major marking are
+        skipped and the program serves as-is (its ``_pre_optimized``
+        flag makes the executor skip the pass pipeline too)."""
         from ..core.executor import Executor
 
         self = cls.__new__(cls)
@@ -113,8 +129,14 @@ class Predictor:
         self._exe = Executor(place)
         for n, v in params.items():
             self.scope.set_var(n, v)
-        self.program = _rewrite_for_inference(program)
+        self.program = (program if pre_optimized
+                        else _rewrite_for_inference(program))
         block = self.program.global_block()
+        if not pre_optimized:
+            for n in batch_major_fetches:
+                var = block.vars.get(n)
+                if var is not None and var.shape:
+                    var.shape = (-1,) + tuple(var.shape[1:])
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
         self.fetch_vars = [block.var(n) for n in fetch_names]
@@ -137,14 +159,48 @@ class Predictor:
         Batch sizes route through the ``warmup_batch_sizes`` buckets: an
         unseen size pads up to the nearest bucket and the pad rows are
         sliced back off the results; a batch larger than every bucket
-        runs at its own size."""
+        runs at its own size.
+
+        Artifact-loaded predictors carry ``torch.export`` programs per
+        bucket (``export.load_artifact``): a run whose routed batch
+        matches an AOT bucket calls the frozen program (on the card a
+        replay of its CUDA graph), counted in
+        ``paddle_export_artifact_aot_calls_total``; anything else falls
+        through to the executor plan path."""
         feed = self._as_feed(inputs)
         feed, n_rows = self._route_bucket(feed)
-        outs = self._exe.run(self.program, feed=feed,
-                             fetch_list=self.fetch_names, scope=self.scope)
+        outs = self._run_aot(feed)
+        if outs is None:
+            outs = self._exe.run(self.program, feed=feed,
+                                 fetch_list=self.fetch_names,
+                                 scope=self.scope)
         if n_rows is not None:
             outs = [o[:n_rows] if batch_major(v) else o
                     for v, o in zip(self.fetch_vars, outs)]
+        return outs
+
+    def _run_aot(self, feed):
+        """Serve one routed feed from the artifact's AOT section, or
+        None when no frozen program covers it (no ``_aot`` map, batch
+        not a frozen bucket, or feed names diverged)."""
+        aot = getattr(self, "_aot", None)
+        if not aot:
+            return None
+        block = self.program.global_block()
+        sizes = {np.shape(feed[n])[0] for n in feed
+                 if batch_major(block.vars.get(n))}
+        if len(sizes) != 1:
+            return None
+        runner = aot.get(next(iter(sizes)))
+        if runner is None or set(runner.feed_names) != set(feed):
+            return None
+        from ..observe.families import ARTIFACT_AOT_CALLS
+
+        outs = runner(feed)
+        ARTIFACT_AOT_CALLS.inc()
+        if list(runner.out_names) != list(self.fetch_names):
+            order = {n: i for i, n in enumerate(runner.out_names)}
+            outs = [outs[order[n]] for n in self.fetch_names]
         return outs
 
     __call__ = run
@@ -251,3 +307,10 @@ def _rewrite_for_inference(program: Program) -> Program:
 def create_paddle_predictor(config: AnalysisConfig) -> Predictor:
     """CreatePaddlePredictor (api/paddle_api.h:335) analog."""
     return Predictor(config)
+
+
+def create_predictor_from_dir(model_dir: str) -> Predictor:
+    """A Predictor from a ``save_inference_model`` directory with the
+    defaults (on the card): the JAX package's entry for its native
+    serving shim."""
+    return Predictor(AnalysisConfig(model_dir=model_dir))

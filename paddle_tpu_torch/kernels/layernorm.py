@@ -34,7 +34,12 @@ replacing a Pallas TPU kernel of the JAX package:
 On CPU tensors each wrapper computes its plain version
 (``composed_layernorm_residual``, ``layernorm_residual_bwd_reference``);
 on CUDA tensors it launches its kernel or raises. Each counts its
-launches in ``<wrapper>.launches``. ``layernorm_residual`` (what the
+launches in ``<wrapper>.launches``. K4 and its AMP instantiation are one
+operator, ``paddle_tpu_torch::layernorm_residual_fwd``
+(``torch.library.custom_op``, dispatched by device, with a fake
+implementation that gives the outputs' shapes and dtypes), so
+``torch.export`` records one node per launch where it cannot trace a
+``data_ptr``. ``layernorm_residual`` (what the
 fused op launches on the card) is differentiable through ``_LnRes``, a
 ``torch.autograd.Function`` whose backward is K5 plus the mean /
 variance cotangent terms, as ``_ln_res_bwd`` in the JAX package. The
@@ -50,6 +55,7 @@ the AMP forward's s bitwise and y, mean and var 1e-5.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -172,49 +178,16 @@ def _fwd_launch(n, d):
     return grid, block
 
 
-def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
-    """K4: (y, s, mean [N, 1] f32, var [N, 1] f32) for rows x, r [N, D]
-    (f32 or bf16, contiguous) and scale, bias [D] of the same dtype. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (one
-    warp per row and 8 warps per CTA up to D = 2048, one CTA per row
-    above) or raise."""
-    _check_rows("layernorm_residual_fwd", [("x", x), ("r", r)],
-                [("scale", scale), ("bias", bias)])
-    if x.device.type == "cpu":
-        return composed_layernorm_residual(x, r, scale, bias, eps=eps)
+def _fwd_outputs(x, dtype_y, dtype_s):
+    """Empty (y, s, mean [N, 1] f32, var [N, 1] f32) on x's device."""
     n, d = x.shape
-    grid, block = _fwd_launch(n, d)
-    y, s = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty((n, d), dtype=dtype_y, device=x.device)
+    s = torch.empty((n, d), dtype=dtype_s, device=x.device)
     mean = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    var = torch.empty_like(mean)
-    if n == 0:
-        return y, s, mean, var
-    lib = _lib()
-    with on_device(x.device):
-        err = lib.layernorm_residual_fwd(
-            x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), s.data_ptr(), mean.data_ptr(), var.data_ptr(), n,
-            d, _DTYPES[x.dtype], float(eps), _ROWS,
-            _stream(x.device))
-    if err:
-        raise RuntimeError("layernorm_residual_fwd launch failed with "
-                           "cudaError %d (grid %s, block %s)"
-                           % (err, grid, block))
-    layernorm_residual_fwd.launches += 1
-    return y, s, mean, var
+    return y, s, mean, torch.empty_like(mean)
 
 
-layernorm_residual_fwd.launches = 0
-
-
-def layernorm_residual_fwd_amp(x, r, scale, bias, eps=1e-5):
-    """K4's AMP instantiation: (y f32, s bf16, mean [N, 1] f32, var
-    [N, 1] f32) for rows x, r [N, D] (each f32 or bf16, contiguous) and
-    scale, bias [D] f32: s = bf16(bf16(x) + bf16(r)), y the f32 layer
-    norm of s. CPU tensors take the plain version
-    (``composed_layernorm_residual(..., amp=True)``); CUDA tensors launch
-    the kernel, with K4's launch configuration, or raise."""
-    what = "layernorm_residual_fwd_amp"
+def _check_amp_rows(what, x, r, scale, bias):
     dev = x.device
     for name, t in (("x", x), ("r", r)):
         check_tensor("%s %s" % (what, name), t, _DTYPES, 2, dev)
@@ -226,29 +199,98 @@ def layernorm_residual_fwd_amp(x, r, scale, bias, eps=1e-5):
         if t.shape[0] != x.shape[1]:
             raise ValueError("%s: %s has %d elements, rows have %d"
                              % (what, name, t.shape[0], x.shape[1]))
-    if dev.type == "cpu":
+
+
+@torch.library.custom_op("paddle_tpu_torch::layernorm_residual_fwd",
+                         mutates_args=())
+def _fwd_op(x: torch.Tensor, r: torch.Tensor, scale: torch.Tensor,
+            bias: torch.Tensor, eps: float, amp: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                       torch.Tensor]:
+    """K4 (``amp=False``) or its AMP instantiation as one operator, so
+    that ``torch.export`` records a node for it (a fake tensor has no
+    ``data_ptr``). Dispatched by device: the kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    if amp:
+        _check_amp_rows("layernorm_residual_fwd_amp", x, r, scale, bias)
         return composed_layernorm_residual(x, r, scale, bias, eps=eps,
                                            amp=True)
+    _check_rows("layernorm_residual_fwd", [("x", x), ("r", r)],
+                [("scale", scale), ("bias", bias)])
+    return composed_layernorm_residual(x, r, scale, bias, eps=eps)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(x, r, scale, bias, eps, amp):
+    if amp:
+        _check_amp_rows("layernorm_residual_fwd_amp", x, r, scale, bias)
+        return _fwd_outputs(x, torch.float32, torch.bfloat16)
+    _check_rows("layernorm_residual_fwd", [("x", x), ("r", r)],
+                [("scale", scale), ("bias", bias)])
+    return _fwd_outputs(x, x.dtype, x.dtype)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(x, r, scale, bias, eps, amp):
+    what = ("layernorm_residual_fwd_amp" if amp
+            else "layernorm_residual_fwd")
+    if amp:
+        _check_amp_rows(what, x, r, scale, bias)
+        out = _fwd_outputs(x, torch.float32, torch.bfloat16)
+    else:
+        _check_rows(what, [("x", x), ("r", r)],
+                    [("scale", scale), ("bias", bias)])
+        out = _fwd_outputs(x, x.dtype, x.dtype)
     n, d = x.shape
     grid, block = _fwd_launch(n, d)
-    y = torch.empty((n, d), dtype=torch.float32, device=dev)
-    s = torch.empty((n, d), dtype=torch.bfloat16, device=dev)
-    mean = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    var = torch.empty_like(mean)
     if n == 0:
-        return y, s, mean, var
+        return out
+    y, s, mean, var = out
     lib = _lib()
-    with on_device(dev):
-        err = lib.layernorm_residual_fwd_amp(
-            x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+    ptrs = (x.data_ptr(), r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             y.data_ptr(), s.data_ptr(), mean.data_ptr(), var.data_ptr(), n,
-            d, _DTYPES[x.dtype], _DTYPES[r.dtype], float(eps), _ROWS,
-            _stream(dev))
+            d)
+    with on_device(x.device):
+        if amp:
+            err = lib.layernorm_residual_fwd_amp(
+                *ptrs, _DTYPES[x.dtype], _DTYPES[r.dtype], float(eps),
+                _ROWS, _stream(x.device))
+        else:
+            err = lib.layernorm_residual_fwd(
+                *ptrs, _DTYPES[x.dtype], float(eps), _ROWS,
+                _stream(x.device))
     if err:
         raise RuntimeError("%s launch failed with cudaError %d (grid %s, "
                            "block %s)" % (what, err, grid, block))
-    layernorm_residual_fwd_amp.launches += 1
-    return y, s, mean, var
+    if amp:
+        layernorm_residual_fwd_amp.launches += 1
+    else:
+        layernorm_residual_fwd.launches += 1
+    return out
+
+
+def layernorm_residual_fwd(x, r, scale, bias, eps=1e-5):
+    """K4: (y, s, mean [N, 1] f32, var [N, 1] f32) for rows x, r [N, D]
+    (f32 or bf16, contiguous) and scale, bias [D] of the same dtype. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (one
+    warp per row and 8 warps per CTA up to D = 2048, one CTA per row
+    above) or raise. The operator ``paddle_tpu_torch::
+    layernorm_residual_fwd``."""
+    return _fwd_op(x, r, scale, bias, float(eps), False)
+
+
+layernorm_residual_fwd.launches = 0
+
+
+def layernorm_residual_fwd_amp(x, r, scale, bias, eps=1e-5):
+    """K4's AMP instantiation: (y f32, s bf16, mean [N, 1] f32, var
+    [N, 1] f32) for rows x, r [N, D] (each f32 or bf16, contiguous) and
+    scale, bias [D] f32: s = bf16(bf16(x) + bf16(r)), y the f32 layer
+    norm of s. CPU tensors take the plain version
+    (``composed_layernorm_residual(..., amp=True)``); CUDA tensors launch
+    the kernel, with K4's launch configuration, or raise. The operator
+    ``paddle_tpu_torch::layernorm_residual_fwd`` with ``amp``."""
+    return _fwd_op(x, r, scale, bias, float(eps), True)
 
 
 layernorm_residual_fwd_amp.launches = 0

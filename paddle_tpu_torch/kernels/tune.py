@@ -52,7 +52,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["CACHE_VERSION", "CHOICES", "cache_dir", "cache_path",
-           "deterministic_seed", "epoch", "lookup", "tune", "set_entry",
+           "deterministic_seed", "epoch", "export_entries",
+           "import_entries", "lookup", "tune", "set_entry",
            "load_disk_entries", "persist_entry", "reset", "sig_key"]
 
 CACHE_VERSION = 1
@@ -216,6 +217,51 @@ def set_entry(op: str, sig: Tuple, decision: Dict[str, Any],
         _EPOCH += 1
     if persist:
         persist_entry(key, decision)
+
+
+def export_entries(keys=None) -> Dict[str, Dict[str, Any]]:
+    """Portable slice of the decision table for a deployable artifact
+    (``paddle_tpu_torch.export``): entries stripped of process-local
+    fields (``source``) and measurement noise (``timings``/``errors``) so
+    the slice is stable across hosts. ``keys`` filters to the given
+    sig_keys or, for strings ending in ``|``, to every entry under that
+    op prefix (``"attention|"`` takes all attention signatures); None
+    exports the whole table (memory + the one-shot disk load)."""
+    with _LOCK:
+        _ensure_disk_loaded()
+        out: Dict[str, Dict[str, Any]] = {}
+        for k, v in _MEM.items():
+            if keys is not None:
+                if not any(k == f or (f.endswith("|") and k.startswith(f))
+                           for f in keys):
+                    continue
+            out[k] = {f: x for f, x in v.items()
+                      if f in ("choice", "cfg", "seconds")}
+        return out
+
+
+def import_entries(entries: Dict[str, Dict[str, Any]]) -> int:
+    """Install an exported slice into the in-memory table (artifact
+    load). Checked against the port's grammar (``CHOICES``): a bad entry,
+    or one of the JAX package's (``"pallas"``), is skipped, never
+    installed and never a crash; existing in-memory winners are NOT
+    overwritten — a live tuned decision beats a frozen one. One epoch
+    bump for the whole batch, so a graph captured under the old table is
+    captured anew once. Returns the number installed."""
+    global _EPOCH
+    n = 0
+    with _LOCK:
+        for k, v in (entries or {}).items():
+            if not isinstance(k, str) or not isinstance(v, dict):
+                continue
+            if v.get("choice") not in CHOICES:
+                continue
+            if k not in _MEM:
+                _MEM[k] = dict(v, source="artifact")
+                n += 1
+        if n:
+            _EPOCH += 1
+    return n
 
 
 def reset() -> None:

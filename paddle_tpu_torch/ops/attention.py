@@ -38,6 +38,11 @@ On CPU tensors each wrapper computes its plain version
 (``composed_attention_with_lse``, ``flash_attention_dkv_reference``,
 ``flash_attention_dq_reference``); on CUDA tensors it launches its
 kernel or raises. Each counts its launches in ``<wrapper>.launches``.
+The forward is the operator ``paddle_tpu_torch::flash_attention_fwd``
+(``torch.library.custom_op``, dispatched by device, with a fake
+implementation for the outputs' shapes), so ``torch.export`` records one
+node per launch where it cannot trace a ``data_ptr``; the backward
+kernels run only in training, which no artifact freezes.
 
 ``flash_attention`` and ``flash_attention_with_lse`` go through
 ``torch.autograd.Function``s (``_fa_maskbias``, ``_fa_trainbias``,
@@ -55,6 +60,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import Optional, Tuple
 
 import torch
 
@@ -266,14 +272,27 @@ def _bias_strides(bias):
                  for n, st in zip(bias.shape, bias.stride()))
 
 
-def flash_attention_fwd(q, k, v, bias=None, scale=1.0, causal=False):
-    """Flash attention forward: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq]
-    f32). q, k, v contiguous f32 or bf16; bias f32, broadcastable to
-    [B, H, Sq, Sk], any strides. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (head dim 64 or 128) or raise."""
-    if q.device.type == "cpu":
-        _check_inputs(q, k, v, bias, causal)
-        return composed_attention_with_lse(q, k, v, bias, scale, causal)
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: Optional[torch.Tensor], scale: float, causal: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as one operator, so that ``torch.export`` records a node for it
+    (a fake tensor has no ``data_ptr``). Dispatched by device: the plain
+    version on CPU tensors, the kernel on CUDA tensors."""
+    _check_inputs(q, k, v, bias, causal)
+    return composed_attention_with_lse(q, k, v, bias, scale, causal)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, bias, scale, causal):
+    _check_inputs(q, k, v, bias, causal)
+    return torch.empty_like(q), q.new_empty(q.shape[:3],
+                                            dtype=torch.float32)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(q, k, v, bias, scale, causal):
     grid, block, smem = check_kernel_launch(q, k, v, bias, causal)
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -298,6 +317,15 @@ def flash_attention_fwd(q, k, v, bias=None, scale=1.0, causal=False):
     flash_attention_fwd.launches += 1
     flash_attention_fwd.bf16_launches += q.dtype == torch.bfloat16
     return out, lse
+
+
+def flash_attention_fwd(q, k, v, bias=None, scale=1.0, causal=False):
+    """Flash attention forward: (out [B,H,Sq,D] in q's dtype, lse [B,H,Sq]
+    f32). q, k, v contiguous f32 or bf16; bias f32, broadcastable to
+    [B, H, Sq, Sk], any strides. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (head dim 64 or 128) or raise. The operator
+    ``paddle_tpu_torch::flash_attention_fwd``."""
+    return _fwd_op(q, k, v, bias, float(scale), bool(causal))
 
 
 flash_attention_fwd.launches = 0

@@ -110,13 +110,16 @@ def _assign(ctx, ins, attrs):
 def _assign_value(ctx, ins, attrs):
     # the constant-folding pass (core/passes/fold.py) bakes its results
     # into these
-    out = torch.tensor(attrs["values"], dtype=_dt(attrs))
     if ctx.graph is not None:
         # on a CUDA graph's path: a constant the graph keeps on the card
         # (a host copy cannot be captured)
-        out = ctx.graph.constant(out, ctx.device)
+        out = ctx.graph.constant(
+            torch.tensor(attrs["values"], dtype=_dt(attrs)), ctx.device)
     else:
-        out = out.to(ctx.device)
+        # made on the device: an exported program (export/artifact.py)
+        # then holds it there, with no host copy in its graph
+        out = torch.tensor(attrs["values"], dtype=_dt(attrs),
+                           device=ctx.device)
     return {"Out": [out.reshape(tuple(attrs["shape"]))]}
 
 

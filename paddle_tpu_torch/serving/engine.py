@@ -88,8 +88,9 @@ The port of paddle_tpu/serving/engine.py. What differs:
   phase 12 gate them equal on their traffic (ROADMAP §C).
 * **``_cold``** marks a program's first two dispatches: on the card the
   eager first run and the capture at the second.
-* ``DecodeEngine.from_artifact`` is not ported: the port has no
-  deployable artifacts yet (ROADMAP A10, ``export/``).
+* ``DecodeEngine.from_artifact`` builds an engine from a deployable
+  artifact's serving record and params (``export.save_artifact(None,
+  params=..., serving={...})``), the router's default ``roll`` factory.
 """
 
 from __future__ import annotations
@@ -567,6 +568,40 @@ class DecodeEngine:
         # declares this engine wedged when it holds active slots and
         # the stamp goes stale (serving/router.py)
         self.last_progress = time.monotonic()
+
+    @classmethod
+    def from_artifact(cls, artifact, **overrides) -> "DecodeEngine":
+        """Build an engine from a deployable artifact
+        (``export.save_artifact(..., serving={"cfg": ..., ...})``):
+        the artifact's serving record supplies ``cfg``/``b_max``/
+        ``max_len``/``eos_id``, its params section supplies the
+        weights (already per-var checksummed at load), and its
+        tuned-winner slice is already installed — a replica built this
+        way re-tunes nothing. ``artifact`` is a path or a
+        ``LoadedArtifact``; ``overrides`` pass through to the
+        constructor (``queue_capacity``, ``prefix_store``, ``place``,
+        ...). The engine is built but NOT started, matching the
+        router's ``engine_factory`` contract."""
+        from ..export import ArtifactError, LoadedArtifact, load_artifact
+        from ..observe.families import ARTIFACT_DEGRADED
+
+        art = (artifact if isinstance(artifact, LoadedArtifact)
+               else load_artifact(artifact))
+        if art.serving is None:
+            ARTIFACT_DEGRADED.labels(section="serving",
+                                     reason="absent").inc()
+            raise ArtifactError(
+                "artifact %r carries no serving section — export it "
+                "with serving={'cfg': ...} to build engines from it"
+                % art.path)
+        kw = dict(cfg=art.serving.get("cfg"),
+                  params={n: np.asarray(v)
+                          for n, v in art.params.items()} or None)
+        for k in ("b_max", "max_len", "eos_id", "spec_k"):
+            if art.serving.get(k) is not None:
+                kw[k] = art.serving[k]
+        kw.update(overrides)
+        return cls(**kw)
 
     # ------------------------------------------------------------ caller
     def submit(self, prompt_ids, n_new: int, eos_id: Optional[int] = None,

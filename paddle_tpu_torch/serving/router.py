@@ -36,10 +36,6 @@ its factory calls when given one).
 Telemetry: ``paddle_serving_router_*`` (docs/SERVING.md has the table);
 trace events ``serving.router.route`` / ``drain`` / ``readmit`` ride
 each request's one trace across the hop.
-
-A copy of paddle_tpu/serving/router.py (tests/test_torch_isolation.py
-pins it). One divergence: the port has no deployable artifacts yet
-(``export/``), so ``roll`` needs the caller's ``engine_factory``.
 """
 
 from __future__ import annotations
@@ -255,22 +251,25 @@ class ReplicaRouter:
     # ------------------------------------------------------------- roll
     def roll(self, artifact, engine_factory=None, **engine_kwargs) -> int:
         """Rolling fleet upgrade: replace every replica, one at a time
-        with drain, with engines from ``engine_factory`` (the engines of
-        the new version, ``artifact`` naming it) — the fleet moves from
-        v(N) to v(N+1) with zero stranded requests. The router's engine
-        factory is swapped to the new version BEFORE the first drain, so
-        a replica that crashes mid-roll is rebuilt by the ordinary
-        monitor path already at the new version. Each replica drains
-        through the same ``_recover`` machinery a died/wedged replica
-        uses — in-flight requests re-admit onto the other replicas and
-        keep their exactly-once terminal outcome.
+        with drain, with engines built from ``artifact`` (a path or a
+        ``LoadedArtifact``) — the fleet moves from artifact v(N) to
+        v(N+1) with zero stranded requests.
 
-        The port has no deployable artifacts yet, so there is no
-        default factory (the JAX package builds
-        ``DecodeEngine.from_artifact`` engines): without
-        ``engine_factory`` this raises ``NotImplementedError``. Returns
-        the number of replicas rolled; counted in
-        ``paddle_export_roll_replicas_total`` and
+        The artifact is loaded + VALIDATED first: a skewed or corrupt
+        artifact raises ``ArtifactSkewError`` before any replica is
+        touched and the fleet keeps serving the old version. The
+        router's engine factory is swapped to the new version BEFORE
+        the first drain, so a replica that crashes mid-roll is rebuilt
+        by the ordinary monitor path already at the new version (the
+        chaos test pins this). Each replica then drains through the
+        same ``_recover`` machinery a died/wedged replica uses —
+        in-flight requests re-admit onto the other replicas and keep
+        their exactly-once terminal outcome.
+
+        ``engine_factory`` overrides the default
+        ``DecodeEngine.from_artifact`` builder (``engine_kwargs`` pass
+        through to it). Returns the number of replicas rolled; counted
+        in ``paddle_export_roll_replicas_total`` and
         ``paddle_export_rolls_total{outcome=ok|partial}``."""
         from ..observe.families import (ARTIFACT_ROLL_REPLICAS,
                                         ARTIFACT_ROLLS)
@@ -278,10 +277,14 @@ class ReplicaRouter:
         if self._closed:
             raise RuntimeError("ReplicaRouter is closed")
         if engine_factory is None:
-            raise NotImplementedError(
-                "ReplicaRouter.roll needs an engine_factory: the port "
-                "has no deployable artifacts yet (ROADMAP A10, export/), "
-                "so DecodeEngine.from_artifact is not available")
+            from ..export import LoadedArtifact, load_artifact
+            from .engine import DecodeEngine
+
+            art = (artifact if isinstance(artifact, LoadedArtifact)
+                   else load_artifact(artifact))
+
+            def engine_factory(idx, _art=art, _kw=dict(engine_kwargs)):
+                return DecodeEngine.from_artifact(_art, **_kw)
 
         self._factory = engine_factory
         rolled = 0

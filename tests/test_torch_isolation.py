@@ -97,25 +97,36 @@ _MODEL_AVERAGE_SWAP = (
             avg = total / torch.clamp(cnt, min=1.0)
             scope.set_var(p.name, avg.to(value.dtype))
 """)
-# the port has no deployable artifacts yet (ROADMAP A10, export/):
-# ReplicaRouter.roll needs the caller's engine factory
-_ROLL_FACTORY = (
-    """        if engine_factory is None:
-            from ..export import LoadedArtifact, load_artifact
-            from .engine import DecodeEngine
+# the dygraph optimizers: the learning rate is read and replaced as a
+# tensor (a CUDA tensor has no numpy view; JAX's .at[0].set has no torch
+# twin), and Adam's moments start as torch.zeros_like of the param
+_IMPERATIVE_LR = (
+    """    @property
+    def learning_rate(self) -> float:
+        return float(np.asarray(self._lr.value)[0])
 
-            art = (artifact if isinstance(artifact, LoadedArtifact)
-                   else load_artifact(artifact))
-
-            def engine_factory(idx, _art=art, _kw=dict(engine_kwargs)):
-                return DecodeEngine.from_artifact(_art, **_kw)
+    @learning_rate.setter
+    def learning_rate(self, value: float):
+        self._lr.value = self._lr.value.at[0].set(float(value)) \\
+            if hasattr(self._lr.value, "at") \\
+            else np.full((1,), float(value), np.float32)
 """,
-    """        if engine_factory is None:
-            raise NotImplementedError(
-                "ReplicaRouter.roll needs an engine_factory: the port "
-                "has no deployable artifacts yet (ROADMAP A10, export/), "
-                "so DecodeEngine.from_artifact is not available")
+    """    @property
+    def learning_rate(self) -> float:
+        return float(self._lr.value[0])
+
+    @learning_rate.setter
+    def learning_rate(self, value: float):
+        import torch
+
+        self._lr.value = torch.full_like(self._lr.value, float(value))
 """)
+_IMPERATIVE_ZEROS = (
+    "        import jax.numpy as jnp\n",
+    "        import torch\n")
+_IMPERATIVE_ZEROS_LIKE = (
+    "VarBase(jnp.zeros_like(p.value))",
+    "VarBase(torch.zeros_like(p.value))")
 
 COPIES = {
     "analysis/dataflow.py": [],
@@ -163,6 +174,12 @@ COPIES = {
         (_ORIGINAL_FLAGS_TAIL, "")],
     "core/registry.py": [],
     "evaluator.py": [],
+    "export/__init__.py": [],
+    "export/format.py": [],
+    "imperative/capture.py": [],
+    "imperative/nn.py": [],
+    "imperative/optimizer.py": [_IMPERATIVE_LR, _IMPERATIVE_ZEROS,
+                                _IMPERATIVE_ZEROS_LIKE],
     "kernels/registry.py": [],
     "observe/families.py": [],
     "observe/metrics.py": [],
@@ -198,12 +215,13 @@ COPIES = {
     "serving/batcher.py": [],
     "serving/prefix.py": [],
     "serving/queue.py": [],
-    "serving/router.py": [_ROLL_FACTORY],
+    "serving/router.py": [],
 }
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tools", "torch_export_artifact.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]

@@ -222,6 +222,22 @@ for _op in ("sub", "mul", "div", "max", "min", "pow", "mod", "floordiv"):
     globals()["case_elementwise_" + _op] = _ew_case("elementwise_" + _op)
 
 
+def _py_forward(x, y):
+    return 2 * x + y, x * y
+
+
+def _py_backward(da, db):
+    return 2 * da + db, da + db
+
+
+def case_py_layer(rs):
+    # the dygraph PyLayer's host callback (imperative/__init__.py): the
+    # user's numpy forward on both packages' inputs
+    xs = [_arr(rs, (3, 4)) for _ in range(2)]
+    _check("py_layer", {"X": xs}, {"__forward__": _py_forward,
+                                   "__backward__": _py_backward}, 0)
+
+
 def case_sum(rs):
     xs = [_arr(rs, (3, 4)) for _ in range(3)]
     _check("sum", {"X": xs}, {}, 1e-6)

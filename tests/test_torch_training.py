@@ -491,6 +491,23 @@ def _recompute_block(rs, op):
                                    rtol=0, err_msg="X@GRAD %d" % i)
 
 
+
+def _py_forward(x, y):
+    return 2 * x + y, x * y
+
+
+def _py_backward(da, db):
+    return 2 * da + db, da + db
+
+
+@grad_case("py_layer")
+def _g_py_layer(rs, op):
+    # the dygraph PyLayer: the user's numpy backward in both packages
+    xs = [_arr(rs, (3, 4)) for _ in range(2)]
+    _check_grad(op, {"X": xs}, {"__forward__": _py_forward,
+                                "__backward__": _py_backward},
+                [("X", 0), ("X", 1)], 0)
+
 def test_every_differentiable_port_op_has_a_grad_case():
     want = sorted(t for t in all_ops()
                   if not get_op(t).no_grad and not get_op(t).synthesized)
