@@ -309,7 +309,32 @@ Phases, each of which passes or ends the script with a non-zero exit:
    of the exact capture); K1-K3 24 / 12 / 12 a step on the card in
    every run; an inference capture's ``as_predictor()`` bitwise the
    eager forward; step times, the graph's capture seconds and a
-   profiled replayed step.
+   profiled replayed step;
+16. seq2seq decoding served (after 15): ``machine_translation``'s
+   encoder at its config (vocab 10000, embedding 256, hidden 512, a
+   bidirectional ``dynamic_gru``, T = 50, lengths 20-50) and a
+   ``StateCell`` over ``layers.gru_unit`` at 512, decoded by
+   ``BeamSearchDecoder`` (beam 4, 50 steps), saved with
+   ``save_inference_model`` and served by the Predictor at buckets 1 and
+   16 (each captured at load), 10 requests a bucket: the answers the
+   same every time, bitwise the eager step and level 0's ids; replayed
+   and eager requests in turns, the busy share and kernels of a
+   request;
+16b. ``stacked_lstm`` trained at its config (vocab 5000, embedding 128,
+   hidden 128, 3 layers, T = 80), batch 64, lengths 16-80, Adam: 3
+   steps (eager, capture) then 10 replayed on the main path, K6 once a
+   step on the card; replayed steps bitwise eager in turns; step ms,
+   busy share, device ms by class, capture seconds, peak memory;
+16c. ``machine_translation`` trained at its config, batch 32, Adam: the
+   readings of 16b, and ``train_loop`` at K = 1 bitwise the run loop,
+   with steady steps timed through each;
+16d. control flow on the card at width 512: a ``While`` over a count
+   fed as data runs uncaptured, counted in
+   ``paddle_executor_uncaptured_plans_total``, with the right sums; a
+   training step holding ``cond`` / ``Switch`` / ``IfElse`` and
+   StaticRNN / DynamicRNN steps with dropout, each captured and its
+   replays bitwise its eager steps; ``beam_search``'s ties on the card
+   the CPU's.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -6229,6 +6254,614 @@ def phase_dygraph(seed):
     return out
 
 
+# -------------------------------------------------- phases 16 - 16d (A9)
+S2S_BEAM = 4
+S2S_MAX_LEN = 50
+S2S_BUCKETS = [1, 16]
+S2S_REPEATS = 10
+S2S_SCORE_ATOL = 1e-3  # level 0 against level 2: 50 steps of summed
+#                        f32 log-probs (about -460); the ids exactly
+LSTM_BATCH = 64
+MT_BATCH = 32
+SEQ_EAGER_STEPS = 3    # a training phase's main path: the eager first
+SEQ_REPLAY_STEPS = 10  # steps (eager, capture) and then replays
+SEQ_PAIRS = 3          # replayed against eager steps, in turns (6c)
+CF_WIDTH = 512
+CF_STEPS = 3
+LOOP_STEPS = 8         # train_loop against run: steady steps timed
+
+
+def _s2s_decoder(cfg):
+    """Phase 16's program: ``machine_translation``'s encoder (embedding,
+    a bidirectional ``dynamic_gru`` of ``hidden`` over T, the last valid
+    step, an fc to the decoder state) and a ``StateCell`` whose updater
+    is ``layers.gru_unit`` at ``hidden``, decoded by
+    ``BeamSearchDecoder`` (beam S2S_BEAM, S2S_MAX_LEN steps, the target
+    vocabulary): (translation ids [B, beam, max_len], scores [B, beam])."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.contrib.decoder import (BeamSearchDecoder,
+                                                  InitState, StateCell)
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    H, T = cfg["hidden"], cfg["seq_len"]
+    src = layers.data("src_ids", [T], dtype="int64")
+    src_len = layers.data("src_len", [], dtype="int64")
+    init_ids = layers.data("init_ids", [1], dtype="int64")
+    init_scores = layers.data("init_scores", [1], dtype="float32")
+    enc_out = mt._encoder(src, src_len, cfg)
+    enc_last = layers.sequence_last_step(enc_out, length=src_len)
+    dec_init = layers.fc(enc_last, size=H, act="tanh")
+    cell = StateCell(inputs={"x": None},
+                     states={"h": InitState(init=dec_init)}, out_state="h")
+
+    @cell.state_updater
+    def _update(c):
+        xp = layers.fc(c.get_input("x"), size=3 * H,
+                       param_attr=fluid.ParamAttr(name="dec_in.w_0"),
+                       bias_attr=fluid.ParamAttr(name="dec_in.b_0"))
+        nh, _, _ = layers.gru_unit(
+            xp, c.get_state("h"), size=3 * H,
+            param_attr=fluid.ParamAttr(name="dec_gru.w_0"),
+            bias_attr=fluid.ParamAttr(name="dec_gru.b_0"))
+        c.set_state("h", nh)
+
+    bsd = BeamSearchDecoder(
+        cell, init_ids, init_scores, target_dict_dim=cfg["trg_vocab"],
+        word_dim=cfg["emb_dim"], max_len=S2S_MAX_LEN, beam_size=S2S_BEAM,
+        end_id=cfg["eos_id"], word_emb_param_name="trg_emb",
+        score_fc_param_name="dec_score")
+    bsd.decode()
+    return bsd()
+
+
+def _s2s_requests(cfg, rs):
+    T = cfg["seq_len"]
+    return [{"src_ids": rs.randint(2, cfg["src_vocab"], (b, T))
+             .astype("int64"),
+             "src_len": rs.randint(20, T + 1, (b,)).astype("int64"),
+             "init_ids": np.full((b, 1), cfg["bos_id"], "int64"),
+             "init_scores": np.zeros((b, 1), "float32")}
+            for b in S2S_BUCKETS]
+
+
+def phase_seq2seq_serve(workdir, seed):
+    """Phase 16: seq2seq decoding served. ``_s2s_decoder`` at
+    ``machine_translation.config()`` (vocab 10000, embedding 256, hidden
+    512, T = 50), random weights from ``seed``, saved with
+    ``io.save_inference_model`` and served by the Predictor at buckets 1
+    and 16 (each warmed up eagerly, then captured at load), each request
+    answered S2S_REPEATS times, every answer a replay and the same every
+    time; the answers against the plan's eager step (bitwise) and a
+    level-0 Predictor (the ids exactly, the scores within
+    S2S_SCORE_ATOL); replayed and eager requests timed in turns, one
+    profiled request of each bucket (busy share, kernels a request)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import machine_translation as mt
+
+    what = "serve seq2seq (16)"
+    cfg = mt.config()
+    t0 = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids, scores = _s2s_decoder(cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    feeds = ["src_ids", "src_len", "init_ids", "init_scores"]
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(workdir, feeds, [ids, scores], exe,
+                                      main_program=main)
+    n_weights = sum(int(np.prod(p.shape))
+                    for p in main.global_block().all_parameters())
+    n_ops = len(main.global_block().ops)
+    exe.close()
+    del exe, scope
+    _free()
+    reqs = _s2s_requests(cfg, np.random.RandomState(seed + 16))
+    log("%s: %d ops, %d weights; built, started and saved in %.1f s" % (
+        what, n_ops, n_weights, time.perf_counter() - t0))
+    config = fluid.inference.AnalysisConfig(workdir)
+    config.warmup_batch_sizes = list(S2S_BUCKETS)
+    per_dispatch = (0,) * len(COUNT_NAMES)  # none of K1-K7 on this path
+    answers, lat_ms = [], []
+
+    # ---- the main path: counts zeroed here, read after the last request
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchMeter() as meter:
+        meter.mark()
+        t0 = time.perf_counter()
+        pred = fluid.inference.create_paddle_predictor(config)
+        init_s = time.perf_counter() - t0
+        for req in reqs:
+            b = req["src_ids"].shape[0]
+            lat_ms.append([])
+            for rep in range(S2S_REPEATS):
+                meter.mark()
+                ms, out = _timed(lambda: pred.run(req))
+                lat_ms[-1].append(ms)
+                if rep == 0:
+                    if out[0].shape != (b, S2S_BEAM, S2S_MAX_LEN) or \
+                            out[1].shape != (b, S2S_BEAM) or \
+                            not np.isfinite(out[1]).all() or \
+                            out[0].min() < 0 or \
+                            out[0].max() >= cfg["trg_vocab"]:
+                        raise AssertionError("%s: batch %d: bad answer %s" %
+                                             (what, b, [o.shape for o in
+                                                        out]))
+                    answers.append(out)
+                elif not all(np.array_equal(o, a)
+                             for o, a in zip(out, answers[-1])):
+                    raise AssertionError("%s: batch %d: a repeated request "
+                                         "gave another answer" % (what, b))
+    # ---- end of the main path
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    if any(u != per_dispatch for u in meter.units) or \
+            _counts() != per_dispatch:
+        raise AssertionError("%s: the path ran %s kernels of the port"
+                             % (what, meter.units))
+    plans = _captured(pred._exe)
+    if len(plans) != len(S2S_BUCKETS):
+        raise AssertionError("%s: %d captured bucket plans, expected %d" % (
+            what, len(plans), len(S2S_BUCKETS)))
+    rows = []
+    for req, ans, lat in zip(reqs, answers, lat_ms):
+        b = req["src_ids"].shape[0]
+        eager = _pred_eager(pred, req)
+        if not all(np.array_equal(e, a) for e, a in zip(eager, ans)):
+            raise AssertionError("%s: batch %d: the replayed answer differs "
+                                 "from the plan's eager step" % (what, b))
+        turns = ([], [])
+        for i in range(4):
+            for e in ((False, True) if i % 2 else (True, False)):
+                ms, _ = _timed(lambda e=e: _pred_eager(pred, req) if e
+                               else pred.run(req))
+                turns[e].append(ms)
+        prof_r = _profiled(lambda: pred.run(req))
+        prof_e = _profiled(lambda: _pred_eager(pred, req))
+        plan = _request_plan(pred, req)
+        rows.append(dict(
+            batch=b, latency_ms=lat, latency_median_ms=float(np.median(lat)),
+            replay_ms=turns[0], eager_ms=turns[1],
+            replay_median_ms=float(np.median(turns[0])),
+            eager_median_ms=float(np.median(turns[1])),
+            capture_s=plan.graph.seconds, replay_profile=prof_r,
+            eager_profile=prof_e, kernels_per_request=prof_r["kernels"],
+            best_ids=ans[0][:2, 0, :8].tolist()))
+        _log_breakdown("%s batch %d replayed request" % (what, b), prof_r)
+    del pred
+    _free()
+    os.environ["PADDLE_TPU_OPTIMIZE"] = "0"
+    try:
+        pred0 = fluid.inference.create_paddle_predictor(config)
+        level0 = [pred0.run(r) for r in reqs]
+    finally:
+        os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
+    del pred0
+    _free()
+    for row, ans, l0 in zip(rows, answers, level0):
+        row["level0_ids_equal"] = bool(np.array_equal(ans[0], l0[0]))
+        row["level0_bitwise"] = bool(row["level0_ids_equal"] and
+                                     np.array_equal(ans[1], l0[1]))
+        row["level0_max_score_diff"] = float(np.abs(ans[1] - l0[1]).max())
+        log("%s: batch %d: replayed request median %.3f ms (over %d "
+            "repeats, max %.3f), in turns replayed %.3f ms against eager "
+            "%.3f ms; a replayed request %.1f%% busy, %d kernels (eager "
+            "%.1f%% busy); capture %.3f s; level 0: ids equal %s, bitwise "
+            "%s, max score diff %.3e" % (
+                what, row["batch"], row["latency_median_ms"], S2S_REPEATS,
+                max(row["latency_ms"]), row["replay_median_ms"],
+                row["eager_median_ms"],
+                100 * row["replay_profile"]["busy_share"],
+                row["kernels_per_request"],
+                100 * row["eager_profile"]["busy_share"], row["capture_s"],
+                row["level0_ids_equal"], row["level0_bitwise"],
+                row["level0_max_score_diff"]))
+        if not row["level0_ids_equal"] or \
+                row["level0_max_score_diff"] > S2S_SCORE_ATOL:
+            raise AssertionError("%s: batch %d: level 2 against level 0: "
+                                 "ids equal %s, scores off by %.3e" % (
+                                     what, row["batch"],
+                                     row["level0_ids_equal"],
+                                     row["level0_max_score_diff"]))
+    log("%s: predictor init %.2f s (each bucket eager, then captured); "
+        "peak memory %.1f MiB" % (what, init_s, peak_mb))
+    return dict(cfg=cfg, beam=S2S_BEAM, max_len=S2S_MAX_LEN,
+                n_weights=n_weights, n_ops=n_ops, init_s=init_s,
+                peak_mem_mib=peak_mb, rows=rows,
+                launches=dict(zip(COUNT_NAMES, meter.total())))
+
+
+def _seq_batches(model, cfg, seed, n=4):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        if model == "stacked_lstm":
+            T = cfg["seq_len"]
+            out.append({
+                "words": rs.randint(0, cfg["vocab"], (LSTM_BATCH, T))
+                .astype("int64"),
+                "label": rs.randint(0, cfg["num_classes"], (LSTM_BATCH, 1))
+                .astype("int64"),
+                "length": rs.randint(16, T + 1, (LSTM_BATCH,))
+                .astype("int64")})
+        else:
+            T = cfg["seq_len"]
+            ids = lambda v: rs.randint(2, v, (MT_BATCH, T)).astype(  # noqa
+                "int64")
+            out.append({"src_ids": ids(cfg["src_vocab"]),
+                        "trg_ids": ids(cfg["trg_vocab"]),
+                        "lbl_ids": ids(cfg["trg_vocab"]),
+                        "src_len": rs.randint(20, T + 1, (MT_BATCH,))
+                        .astype("int64"),
+                        "trg_len": rs.randint(20, T + 1, (MT_BATCH,))
+                        .astype("int64")})
+    return out
+
+
+def _seq_setup(model, seed):
+    """``stacked_lstm`` or ``machine_translation`` at its config's widths
+    with Adam at TRAIN_LR, started on the card from ``seed``."""
+    import importlib
+
+    import paddle_tpu_torch as fluid
+
+    mod = importlib.import_module("paddle_tpu_torch.models." + model)
+    cfg = mod.config()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss = mod.build(cfg)[0]
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [loss.name], scope)
+    return exe, scope, main, loss, cfg, params, tier
+
+
+def _seq_train(what, exe, scope, main, loss, params, tier, batches, tokens,
+               unit):
+    """A sequence training phase's main path and 6c's readings: K6 once a
+    step (counted on the card) over SEQ_EAGER_STEPS + SEQ_REPLAY_STEPS
+    steps (the first eager, the second captures), then SEQ_PAIRS
+    replayed steps against eager ones in turns, bitwise."""
+    per_step = (0, 0, 0, 0, 1, 0, 0, 0, 0, 0)
+    if tier["optimizer_groups"] != [len(params)]:
+        raise AssertionError("%s: level 2 made optimizer groups %s of %d "
+                             "params" % (what, tier["optimizer_groups"],
+                                         len(params)))
+    step = _amp_step_fn(exe, main, loss)
+    snap = _snapshot(scope)
+    os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
+    # ---- the main path: counts zeroed here, read after the last step
+    path = _metered_steps(what, step, scope, batches,
+                          SEQ_EAGER_STEPS + SEQ_REPLAY_STEPS, per_step)
+    # ---- end of the main path
+    compiled = phase_compiled_train(what, exe, main, loss, snap, batches,
+                                    params, step, per_step, tokens=tokens,
+                                    pairs=SEQ_PAIRS, unit=unit)
+    prof = compiled["replay_profile"]
+    log("%s: losses %s; replayed in turns %.3f ms a step (%.1f %s/s), "
+        "eager %.3f ms; a profiled replayed step %.1f%% busy, %d kernels, "
+        "device ms by class %s; capture %.3f s; peak memory %.1f MiB on "
+        "the main path, %.1f replayed, %.1f eager; launches %s = %s on the "
+        "card (host calls %s)" % (
+            what, ["%.4f" % v for v in path["losses"]],
+            compiled["replay_median_ms"], compiled["replay_tokens_per_s"],
+            unit, compiled["eager_median_ms"], 100 * prof["busy_share"],
+            prof["kernels"], {k: round(v, 3) for k, v in
+                              prof["by_class_ms"].items()},
+            compiled["capture_s"], path["peak_mb"],
+            compiled["peak_mem_mib"]["replay"],
+            compiled["peak_mem_mib"]["eager"], COUNT_NAMES,
+            path["launches"], path["host_launches"]))
+    return snap, step, dict(
+        n_params=len(params), n_weights=sum(
+            int(np.prod(main.global_block().var(n).shape)) for n in params),
+        tier=tier, losses=path["losses"], step_ms=path["step_ms"],
+        launches=dict(zip(COUNT_NAMES, path["launches"])),
+        host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
+        per_step=dict(zip(COUNT_NAMES, per_step)),
+        peak_mem_mib=path["peak_mb"], compiled=compiled)
+
+
+def phase_stacked_lstm(seed):
+    """Phase 16b: ``stacked_lstm`` at its config (vocab 5000, embedding
+    128, hidden 128, 3 ``dynamic_lstm`` layers, T = 80) trained at batch
+    LSTM_BATCH with lengths 16-80, Adam, f32, level 2: the main path
+    (``_seq_train``), K6 once a step on the card, replays bitwise the
+    eager steps."""
+    what = "stacked_lstm (16b)"
+    t0 = time.perf_counter()
+    exe, scope, main, loss, cfg, params, tier = _seq_setup("stacked_lstm",
+                                                           seed)
+    batches = _seq_batches("stacked_lstm", cfg, seed + 17)
+    log("%s: batch %d, T %d: %d params; built and started in %.1f s; "
+        "level 2: %d ops of %d" % (what, LSTM_BATCH, cfg["seq_len"],
+                                   len(params), time.perf_counter() - t0,
+                                   tier["ops_after"], tier["ops_before"]))
+    _, _, out = _seq_train(what, exe, scope, main, loss, params, tier,
+                           batches, LSTM_BATCH, "sequences")
+    exe.close()
+    return dict(cfg=cfg, batch=LSTM_BATCH, **out)
+
+
+def phase_mt_train(seed):
+    """Phase 16c: ``machine_translation`` at its config (vocab 10000,
+    embedding 256, hidden 512, T = 50: a bidirectional ``dynamic_gru``
+    encoder, attention, a ``dynamic_gru`` decoder) trained at batch
+    MT_BATCH with lengths 20-50, Adam, f32, level 2: ``_seq_train``'s
+    readings, then ``train_loop`` at K = 1 bitwise the run loop, and
+    LOOP_STEPS steady steps of each timed."""
+    what = "machine_translation (16c)"
+    t0 = time.perf_counter()
+    exe, scope, main, loss, cfg, params, tier = _seq_setup(
+        "machine_translation", seed)
+    batches = _seq_batches("machine_translation", cfg, seed + 18)
+    log("%s: batch %d, T %d: %d params; built and started in %.1f s; "
+        "level 2: %d ops of %d" % (what, MT_BATCH, cfg["seq_len"],
+                                   len(params), time.perf_counter() - t0,
+                                   tier["ops_after"], tier["ops_before"]))
+    snap, step, out = _seq_train(what, exe, scope, main, loss, params, tier,
+                                 batches, MT_BATCH, "sentence pairs")
+    _loop_against_run(what, exe, main, loss, snap, batches, params, 3)
+    # the plan keeps one graph, bound to one scope: each loop is timed
+    # right after two steps on its own scope (a capture on it), so no
+    # timed step captures
+    sc_run, sc_loop = _restored(snap), _restored(snap)
+    for b in batches[:2]:
+        exe.run(main, feed=b, fetch_list=[loss], scope=sc_run)
+    run_ms, _ = _timed(lambda: [exe.run(main, feed=b, fetch_list=[loss],
+                                        scope=sc_run)
+                                for b in _fresh(batches, LOOP_STEPS)()])
+    _loop_values(exe, main, [loss], sc_loop, _fresh(batches, 2), 1)
+    loop_ms, _ = _timed(lambda: _loop_values(
+        exe, main, [loss], sc_loop, _fresh(batches, LOOP_STEPS), 1))
+    out["run_steady_ms"] = run_ms / LOOP_STEPS
+    out["train_loop_steady_ms"] = loop_ms / LOOP_STEPS
+    log("%s: train_loop at K = 1 bitwise the run loop; over %d steady "
+        "steps %.3f ms a step through train_loop, %.3f ms through run" % (
+            what, LOOP_STEPS, out["train_loop_steady_ms"],
+            out["run_steady_ms"]))
+    exe.close()
+    return dict(cfg=cfg, batch=MT_BATCH, **out)
+
+
+def _cf_train_program(kind, seed):
+    """Phase 16d's training programs at width CF_WIDTH, Adam: ``cond``:
+    a ``cond``, a ``Switch`` and an ``IfElse`` (one branch with
+    dropout) in the step; ``static`` / ``dynamic``: a StaticRNN /
+    DynamicRNN of an fc step with dropout 0.3 over 16 steps."""
+    import paddle_tpu_torch as fluid
+
+    L = fluid.layers
+    W, T, B = CF_WIDTH, 16, 16
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        if kind == "cond":
+            x = L.data("x", [W])
+            lab = L.data("lab", [1], dtype="int64")
+            gate = L.data("gate", [1], append_batch_size=False)
+            scale = L.fill_constant([1], "float32", 1.0)
+            L.cond(L.greater_than(gate, L.fill_constant([1], "float32",
+                                                        0.0)),
+                   true_fn=lambda: L.assign(
+                       L.fill_constant([1], "float32", 2.0), output=scale),
+                   false_fn=lambda: L.assign(
+                       L.fill_constant([1], "float32", 0.5), output=scale))
+            sw = L.fill_constant([1], "float32", 0.0)
+            s = L.Switch()
+            with s.case(L.less_than(gate, L.fill_constant([1], "float32",
+                                                          -0.5))):
+                L.assign(L.fill_constant([1], "float32", 1.0), output=sw)
+            with s.default():
+                L.assign(L.fill_constant([1], "float32", 3.0), output=sw)
+            ie = L.IfElse(L.less_than(lab, L.fill_constant([1], "int64", 1)))
+            with ie.true_block():
+                ie.output(L.fc(ie.input(x), size=W, act="tanh"))
+            with ie.false_block():
+                ie.output(L.dropout(L.fc(ie.input(x), size=W, act="relu"),
+                                    dropout_prob=0.2))
+            h = L.elementwise_mul(ie()[0], L.elementwise_add(scale, sw))
+        elif kind == "static":
+            x = L.data("x", [T, B, W], append_batch_size=False)
+            rnn = L.StaticRNN()
+            with rnn.step():
+                word = rnn.step_input(x)
+                prev = rnn.memory(shape=[-1, W], batch_ref=word,
+                                  ref_batch_dim_idx=1)
+                hid = L.dropout(L.fc([word, prev], size=W, act="tanh"),
+                                dropout_prob=0.3)
+                rnn.update_memory(prev, hid)
+                rnn.step_output(hid)
+            h = rnn()
+        else:
+            x = L.data("x", [B, T, W], append_batch_size=False)
+            ln = L.data("ln", [B], dtype="int64", append_batch_size=False)
+            rnn = L.DynamicRNN()
+            with rnn.block():
+                word = rnn.step_input(x, length=ln)
+                prev = rnn.memory(shape=[W], value=0.0, dtype="float32")
+                hid = L.dropout(L.fc([word, prev], size=W, act="tanh"),
+                                dropout_prob=0.3)
+                rnn.update_memory(prev, hid)
+                rnn.output(hid)
+            h = rnn()
+        loss = L.mean(L.square(h))
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    rs = np.random.RandomState(seed)
+    batches = []
+    for i in range(4):
+        if kind == "cond":
+            batches.append({"x": rs.randn(B, W).astype("float32"),
+                            "lab": rs.randint(0, 2, (B, 1)).astype("int64"),
+                            "gate": np.array([(-1.0, 0.3, -0.2, 1.0)[i]],
+                                             "float32")})
+        else:
+            shape = (T, B, W) if kind == "static" else (B, T, W)
+            b = {"x": rs.randn(*shape).astype("float32")}
+            if kind == "dynamic":
+                b["ln"] = rs.randint(1, T + 1, (B,)).astype("int64")
+            batches.append(b)
+    return main, startup, loss, batches
+
+
+def _cf_while(seed):
+    """A ``While`` accumulating a [CF_WIDTH] row over a count fed as
+    data: the plan is never captured (its condition is read on the host
+    each iteration), counted once in
+    ``paddle_executor_uncaptured_plans_total{op="while"}``, and the sums
+    are right at every count."""
+    import warnings
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        n = L.data("n", [1], append_batch_size=False)
+        x = L.data("x", [CF_WIDTH], append_batch_size=False)
+        i = L.fill_constant([1], "float32", 0.0)
+        acc = L.fill_constant([CF_WIDTH], "float32", 0.0)
+        cond = L.less_than(i, n)
+        w = L.While(cond)
+        with w.block():
+            L.assign(L.elementwise_add(acc, x), output=acc)
+            L.increment(i, 1.0)
+            L.assign(L.less_than(i, n), output=cond)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    xv = np.random.RandomState(seed).randint(-8, 8, CF_WIDTH).astype(
+        "float32")
+    before = UNCAPTURED_PLANS.labels(op="while").value
+    counts, wrong = [3, 7, 0, 12, 5], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ms = []
+        for k in counts:
+            t, (got,) = _timed(lambda: exe.run(
+                main, feed={"n": np.array([k], "float32"), "x": xv},
+                fetch_list=[acc], scope=scope))
+            ms.append(t)
+            if not np.array_equal(got, k * xv):
+                wrong.append(k)
+    (plan,) = exe._cache.values()
+    counted = UNCAPTURED_PLANS.labels(op="while").value - before
+    warned = [str(w_.message) for w_ in caught
+              if issubclass(w_.category, RuntimeWarning)]
+    exe.close()
+    if wrong or plan.graph is not None or counted != 1 or \
+            plan.host_sync != ["while"]:
+        raise AssertionError("control flow (16d): while: wrong sums at %s, "
+                             "captured %s, counted %s, host-sync ops %s" % (
+                                 wrong, plan.graph is not None, counted,
+                                 plan.host_sync))
+    log("control flow (16d): while over counts %s: sums right, the plan "
+        "uncaptured (host-sync ops %s), counted %d; %s; run ms %s" % (
+            counts, plan.host_sync, counted,
+            "warned: %s" % warned[0] if warned else
+            "warned earlier in the process", ["%.2f" % v for v in ms]))
+    return dict(counts=counts, run_ms=ms, counted=counted,
+                host_sync=plan.host_sync)
+
+
+def _cf_beam_ties(seed):
+    """``beam_search`` on the card against the CPU on tied candidates:
+    dead beams and a uniform step, and rounded log-probs, at beam
+    S2S_BEAM and a vocabulary of 10000: parents, ids and scores equal."""
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    B, K, V = 16, S2S_BEAM, 10000
+    rs = np.random.RandomState(seed)
+    cases = [
+        (np.ones((B, K), "int32"),
+         np.array([[0.0] + [-1e9] * (K - 1)] * B, "float32"),
+         np.log(np.full((B, K, V), 1.0 / V, "float32"))),
+        (np.array([[1, 0, 2, 0]] * B, "int32"), np.zeros((B, K), "float32"),
+         np.round(np.log(rs.dirichlet(np.ones(V), (B, K))), 1)
+         .astype("float32"))]
+    dev = torch.device("cuda", 0)
+    for pre_ids, pre_sc, sc in cases:
+        outs = []
+        for d in (torch.device("cpu"), dev):
+            o = get_op("beam_search").lowering(
+                LowerContext(None, None, d),
+                {"pre_ids": [torch.from_numpy(pre_ids).to(d)],
+                 "pre_scores": [torch.from_numpy(pre_sc).to(d)],
+                 "scores": [torch.from_numpy(sc).to(d)]},
+                {"beam_size": K, "end_id": 0})
+            outs.append({k: v[0].cpu() for k, v in o.items()})
+        bad = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+        if bad:
+            raise AssertionError("control flow (16d): beam_search on the "
+                                 "card differs from the CPU on ties: %s"
+                                 % bad)
+    log("control flow (16d): beam_search ties (dead beams, a uniform step, "
+        "rounded log-probs; beam %d, V %d): the card's parents, ids and "
+        "scores are the CPU's" % (K, V))
+    return dict(cases=len(cases), equal=True)
+
+
+def phase_control_flow(seed):
+    """Phase 16d: control flow on the card at width CF_WIDTH: a While
+    over a data-dependent count (``_cf_while``); a training step
+    holding ``cond`` / ``Switch`` / ``IfElse`` and a StaticRNN and a
+    DynamicRNN with dropout, each trained CF_STEPS steps on the main path
+    (K6 once a step on the card where level 2 groups the Adam updates:
+    the cond step's), captured, and its replays bitwise its eager steps (losses and params: the replays' dropout masks, the
+    recurrent grad's replayed ones included, are the eager steps');
+    ``beam_search``'s ties on the card (``_cf_beam_ties``)."""
+    import paddle_tpu_torch as fluid
+
+    out = dict(while_loop=_cf_while(seed))
+    launches = np.zeros(len(COUNT_NAMES), dtype=np.int64)
+    for kind in ("cond", "static", "dynamic"):
+        what = "control flow %s (16d)" % kind
+        main, startup, loss, batches = _cf_train_program(kind, seed)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.global_block().all_parameters()]
+        # K6 once a step where level 2 groups the Adam updates: the
+        # pipeline (the JAX package's) leaves a param that a sub-block
+        # reads unfused, so the RNN steps run their 3 ``adam`` ops
+        tier = _tier_stats(main, [loss.name], scope)
+        per_step = (0, 0, 0, 0, len(tier["optimizer_groups"]), 0, 0, 0, 0,
+                    0)
+        if per_step[4] != int(kind == "cond"):
+            raise AssertionError("%s: level 2 made optimizer groups %s"
+                                 % (what, tier["optimizer_groups"]))
+        step = _amp_step_fn(exe, main, loss)
+        snap = _snapshot(scope)
+        # ---- the main path: counts zeroed here, read after the last step
+        path = _metered_steps(what, step, scope, batches, CF_STEPS, per_step)
+        # ---- end of the main path
+        if not _captured(exe):
+            raise AssertionError("%s: the plan was not captured" % what)
+        compiled = phase_compiled_train(what, exe, main, loss, snap,
+                                        batches, params, step, per_step,
+                                        tokens=16, pairs=2, unit="rows")
+        exe.close()
+        launches += np.asarray(path["launches"])
+        out[kind] = dict(losses=path["losses"], step_ms=path["step_ms"],
+                         optimizer_groups=tier["optimizer_groups"],
+                         launches=dict(zip(COUNT_NAMES, path["launches"])),
+                         peak_mem_mib=path["peak_mb"], compiled=compiled)
+        log("%s: %d steps, losses %s, launches %s = %s on the card; "
+            "captured, replays bitwise eager; replayed %.3f ms a step, "
+            "eager %.3f ms, capture %.3f s" % (
+                what, CF_STEPS, ["%.5f" % v for v in path["losses"]],
+                COUNT_NAMES, path["launches"], compiled["replay_median_ms"],
+                compiled["eager_median_ms"], compiled["capture_s"]))
+    out["beam_ties"] = _cf_beam_ties(seed)
+    out["launches"] = dict(zip(COUNT_NAMES, (int(v) for v in launches)))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -6367,6 +7000,15 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         artifact = timed("14", phase_artifact, workdir, args.seed)
     dygraph = timed("15", phase_dygraph, args.seed)
+    _free()
+    with tempfile.TemporaryDirectory() as workdir:
+        seq2seq = timed("16", phase_seq2seq_serve, workdir, args.seed)
+    _free()
+    lstm = timed("16b", phase_stacked_lstm, args.seed)
+    _free()
+    mt_train = timed("16c", phase_mt_train, args.seed)
+    _free()
+    control = timed("16d", phase_control_flow, args.seed)
 
     # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
     # f32 layer norm rows, BERT-base's 157 params
@@ -6460,7 +7102,10 @@ def main():
                  vit_train_flash=vf_launch["K6"],
                  vit_train_amp=vta_launch["K6"],
                  vit_train_amp_flash=vfa_launch["K6"],
-                 other_optimizers=ot_launch["K6"], dygraph=dy_launch["K6"])
+                 other_optimizers=ot_launch["K6"], dygraph=dy_launch["K6"],
+                 stacked_lstm_train=lstm["launches"]["K6"],
+                 mt_train=mt_train["launches"]["K6"],
+                 control_flow_train=control["launches"]["K6"])
     k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
     kernels = [
         _kernel_row("flash_attention_fwd",
@@ -6580,6 +7225,8 @@ def main():
                            lamb_train_amp=lamb_amp,
                            other_optimizers=others, artifact=artifact,
                            fleet_artifact=fleet, dygraph=dygraph,
+                           seq2seq_serve=seq2seq, stacked_lstm=lstm,
+                           mt_train=mt_train, control_flow=control,
                            kernels=kernels,
                            not_ported=not_ported), f, indent=1)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported}))

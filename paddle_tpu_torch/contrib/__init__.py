@@ -1,8 +1,9 @@
 """Contrib: the port's share of paddle_tpu/contrib.
 
-Only ``mixed_precision`` (bf16 AMP: ``decorate(optimizer)``) is ported
-so far; the JAX package's other contrib modules (the inferencer,
+``mixed_precision`` (bf16 AMP: ``decorate(optimizer)``) and ``decoder``
+(``StateCell``, ``TrainingDecoder``, ``BeamSearchDecoder``; a copy) are
+ported; the JAX package's other contrib modules (the inferencer,
 trainer, quantization and slim tools, readers) are not.
 """
 
-from . import mixed_precision  # noqa: F401
+from . import decoder, mixed_precision  # noqa: F401

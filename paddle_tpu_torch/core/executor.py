@@ -30,7 +30,12 @@ them), so the scope keeps its tensor objects across steps; fetches are
 copies. A plan that cannot be captured raises, naming the op; it never
 falls back to eager runs. ``exact_numerics`` programs run their eager
 step on the card, as the reference runs them unjitted, and the CPU
-runs the eager step. The eager step's ops return new tensors, written
+runs the eager step. So does a plan that holds, at any depth, an op
+that reads a value on the host (the registry's ``host_sync``: a
+``while`` loop's condition, ``py_func``, ``print_op``): such a step
+cannot be captured, so it runs eagerly at every run, and on the card
+``paddle_executor_uncaptured_plans_total{op}`` counts each such plan
+and a warning names the op once per process. The eager step's ops return new tensors, written
 back to the scope. The RNG chain lives in the scope between runs. The
 graphs of one executor share one memory pool (core/cuda_graph.py).
 
@@ -62,6 +67,7 @@ import numpy as np
 import torch
 
 from ..observe import trace as _tr
+from ..observe.families import REGISTRY as _METRICS
 from ..profiler import RecordEvent
 from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
@@ -77,6 +83,14 @@ __all__ = ["Executor", "add_feed_observer", "analyze_block",
 
 RNG_VAR = "@RNG_STATE@"
 
+UNCAPTURED_PLANS = _METRICS.counter(
+    "paddle_executor_uncaptured_plans_total",
+    "Plans on the card that run eagerly at every run because they hold "
+    "an op that reads a value on the host (a while loop's condition, "
+    "py_func, print_op), by op type",
+    labels=("op",))
+_WARNED_UNCAPTURED: set = set()
+
 
 class _Plan:
     """Prepared context for one (program, feed-signature) pair — the
@@ -84,7 +98,7 @@ class _Plan:
     and of the JAX package's ``_Plan``."""
 
     def __init__(self, feed_names, fetch_names, const_state, mut_state,
-                 pure_written, needs_rng, step, exact):
+                 pure_written, needs_rng, step, exact, host_sync=()):
         self.feed_names = feed_names
         self.fetch_names = fetch_names
         self.const_state = const_state      # read-only scope vars
@@ -93,6 +107,8 @@ class _Plan:
         self.needs_rng = needs_rng
         self.step = step  # the eager step (``analyze_block``)
         self.exact = exact  # exact_numerics: never captured
+        # op types that read on the host, at any depth: never captured
+        self.host_sync = list(host_sync)
         self.compiled_sigs = set()  # dispatch signatures already captured
         self.trace = None  # the first eager run's StepTrace on the card:
         #                    set once that run warmed the plan
@@ -604,8 +620,26 @@ class Executor:
 
     def _graphed(self, plan) -> bool:
         """Whether ``plan`` runs as a CUDA graph: on the card, unless its
-        program is ``exact_numerics``."""
-        return self.device.type == "cuda" and not plan.exact
+        program is ``exact_numerics`` or holds a host-sync op."""
+        return self.device.type == "cuda" and not plan.exact and \
+            not plan.host_sync
+
+    def _note_uncaptured(self, plan) -> None:
+        """Count a new plan that a host-sync op keeps from being
+        captured on the card, and name the op once per process."""
+        if self.device.type != "cuda" or plan.exact or not plan.host_sync:
+            return
+        for op in plan.host_sync:
+            UNCAPTURED_PLANS.labels(op=op).inc()
+        new = [op for op in plan.host_sync if op not in _WARNED_UNCAPTURED]
+        if new:
+            import warnings
+
+            _WARNED_UNCAPTURED.update(new)
+            warnings.warn(
+                "a plan holds %s, which read values on the host: it runs "
+                "eagerly at every run and is never captured as a CUDA "
+                "graph" % new, RuntimeWarning, stacklevel=3)
 
     def _step(self, plan, program, feeds, scope, eager=False):
         """One step of ``plan`` with state and the RNG chain written back
@@ -739,6 +773,7 @@ class Executor:
         t0 = time.perf_counter()
         plan = _prepare(program, sorted(feeds), fetch_names, scope)
         EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
+        self._note_uncaptured(plan)
         self._cache[key] = plan
         while len(self._cache) > self._cache_size:
             _, old = self._cache.popitem(last=False)
@@ -773,6 +808,7 @@ class Executor:
         t0 = time.perf_counter()
         plan = _prepare(program, sorted(feeds), fetch_names, scope)
         EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
+        self._note_uncaptured(plan)
         self._cache[key] = plan
         while len(self._cache) > self._cache_size:
             _, old = self._cache.popitem(last=False)
@@ -925,7 +961,22 @@ def _prepare(program: Program, feed_names, fetch_names, scope):
     if not exact and not getattr(program, "_pre_optimized", False):
         program = optimize_for_execution(program, fetch_names, scope=scope)
     return _Plan(*analyze_block(program, feed_names, fetch_names, scope),
-                 exact=exact)
+                 exact=exact, host_sync=host_sync_ops(program))
+
+
+def host_sync_ops(program: Program, block=None) -> List[str]:
+    """The sorted op types of ``block`` (the global block by default)
+    and its sub-blocks, at any depth, that read a value on the host
+    (the registry's ``host_sync``)."""
+    block = program.global_block() if block is None else block
+    found = set()
+    for op in block.ops:
+        if has_op(op.type) and get_op(op.type).host_sync:
+            found.add(op.type)
+        if "sub_block" in op.attrs:
+            found.update(host_sync_ops(
+                program, program.block(op.attrs["sub_block"])))
+    return sorted(found)
 
 
 def analyze_block(program: Program, feed_names, fetch_names, scope):

@@ -13,7 +13,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .amp import amp_cast
-from .program import Block
+from .program import Block, op_effects
 from .registry import get_op
 
 __all__ = ["LowerContext", "lower_op", "lower_ops", "lower_block",
@@ -116,6 +116,21 @@ class LowerContext:
         return LowerContext(self.block, None, self.device, self.is_test,
                             self.amp, self.graph)
 
+    def final_rng(self):
+        """The chain after this context's draws (the JAX package's key
+        after a body's splits). The port's chain is one generator that
+        every draw advances in place, so it is the chain itself."""
+        return self._rng
+
+    def sub(self, block: Block) -> "LowerContext":
+        """Context for a control-flow op's sub-block: the same chain,
+        device, modes and graph hook, and the same recorded or replayed
+        streams (a recurrent op's body records into its op's list)."""
+        c = LowerContext(block, self._rng, self.device, self.is_test,
+                         self.amp, self.graph)
+        c.streams, c.replay = self.streams, self.replay
+        return c
+
 
 def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
     opdef = get_op(op.type)
@@ -127,7 +142,15 @@ def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
         # the __amp__ attr stamped by core/passes/amp_pass.py (or set per
         # op by the user) overrides the table policy
         ins = amp_cast(op.type, op.attrs, ins)
-    outs = opdef.lowering(ctx, ins, op.attrs)
+    attrs = op.attrs
+    if opdef.needs_env:
+        # a control-flow op reads and rebinds the live env
+        attrs = dict(op.attrs)
+        attrs["__env__"] = env
+    outs = opdef.lowering(ctx, ins, attrs)
+    upd = outs.pop("__env_update__", None) if isinstance(outs, dict) else None
+    if upd:
+        env.update(upd)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
         if vals is None:
@@ -168,10 +191,14 @@ def lower_block(ctx: LowerContext, block: Block, env: Dict[str, Any],
 def release_schedule(ops, keep) -> List[List[str]]:
     """For each op, the names it reads or writes for the last time in
     ``ops``, except those in ``keep`` (fetches and state): what
-    ``lower_ops`` may drop after that op."""
+    ``lower_ops`` may drop after that op. A control-flow op reads and
+    writes what its sub-block does (``op_effects``), so a var that only
+    a ``while`` or ``conditional_block`` body reads lives until that op
+    has run."""
     last: Dict[str, int] = {}
     for i, op in enumerate(ops):
-        for n in op.input_names() + op.output_names():
+        reads, writes = op_effects(op.block.program, op)
+        for n in reads + writes:
             last[n] = i
     out: List[List[str]] = [[] for _ in ops]
     for n, i in last.items():

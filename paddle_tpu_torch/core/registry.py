@@ -36,6 +36,7 @@ class OpDef:
         infer_shape: Optional[Callable] = None,
         needs_env: bool = False,
         synthesized: bool = False,
+        host_sync: bool = False,
     ):
         self.type = type
         self.lowering = lowering
@@ -55,6 +56,10 @@ class OpDef:
         # control-flow ops get the live lowering env injected as
         # attrs["__env__"] and may return {"__env_update__": {...}}
         self.needs_env = needs_env
+        # the lowering reads a value on the host (a loop's condition, a
+        # Python callback's inputs): a step that holds such an op at any
+        # depth cannot be captured as a CUDA graph (core/executor.py)
+        self.host_sync = host_sync
 
 
 OPS: Dict[str, OpDef] = {}
@@ -70,6 +75,7 @@ def register_op(
     uses_rng: bool = False,
     infer_shape=None,
     needs_env: bool = False,
+    host_sync: bool = False,
 ):
     """Decorator: @register_op("softmax") def _softmax(ctx, ins, attrs): ..."""
 
@@ -86,6 +92,7 @@ def register_op(
             uses_rng=uses_rng,
             infer_shape=infer_shape,
             needs_env=needs_env,
+            host_sync=host_sync,
         )
         return fn
 

@@ -1,15 +1,21 @@
 """layers: user-facing op-builder API, the layer modules of
-paddle_tpu/layers that the serving, training, decoding and
-image-classification slices need (nn.py, tensor.py, ops.py, decode.py,
-metric_op.py and learning_rate_scheduler.py are copies; io.py holds
-``data``)."""
+paddle_tpu/layers that the serving, training, decoding,
+image-classification and sequence slices need (control_flow.py,
+rnn_blocks.py, decode.py, nn.py, tensor.py, ops.py, sequence.py,
+scan_ext.py, metric_op.py and learning_rate_scheduler.py are copies;
+io.py holds ``data``), imported in the JAX package's order."""
 
-from . import (decode, io, learning_rate_scheduler, metric_op,  # noqa: F401
-               nn, ops, tensor)
+from . import (control_flow, decode, io,  # noqa: F401
+               learning_rate_scheduler, metric_op, nn, ops, rnn_blocks,
+               scan_ext, sequence, tensor)
+from .control_flow import *  # noqa: F401,F403
+from .rnn_blocks import *  # noqa: F401,F403
 from .decode import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from .scan_ext import *  # noqa: F401,F403

@@ -1,8 +1,8 @@
-"""Model zoo: the paddle_tpu models this package serves so far (copies;
-each is a pure program-builder over the layer API)."""
+"""Model zoo: the paddle_tpu models (copies; each is a pure
+program-builder over the layer API), all eleven of the JAX package's."""
 
-from . import (bert, ctr, gpt, mnist, resnet, se_resnext,  # noqa: F401
-               transformer, vgg, vit)
+from . import (bert, ctr, gpt, machine_translation, mnist,  # noqa: F401
+               resnet, se_resnext, stacked_lstm, transformer, vgg, vit)
 
-__all__ = ["bert", "ctr", "gpt", "mnist", "resnet", "se_resnext",
-           "transformer", "vgg", "vit"]
+__all__ = ["bert", "ctr", "gpt", "machine_translation", "mnist", "resnet",
+           "se_resnext", "stacked_lstm", "transformer", "vgg", "vit"]

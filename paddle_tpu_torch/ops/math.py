@@ -218,3 +218,20 @@ _cmp("greater_than", operator.gt)
 _cmp("greater_equal", operator.ge)
 _cmp("equal", operator.eq)
 _cmp("not_equal", operator.ne)
+
+
+# ------------------------------------------------------------ logical ops
+def _logical(name, fn, unary=False):
+    @register_op(name, no_grad=True)
+    def _op(ctx, ins, attrs, _fn=fn, _u=unary):
+        if _u:
+            return {"Out": [_fn(ins["X"][0])]}
+        return {"Out": [_fn(ins["X"][0], ins["Y"][0])]}
+
+    return _op
+
+
+_logical("logical_and", torch.logical_and)
+_logical("logical_or", torch.logical_or)
+_logical("logical_xor", torch.logical_xor)
+_logical("logical_not", torch.logical_not, unary=True)

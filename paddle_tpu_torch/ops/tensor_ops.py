@@ -1,6 +1,7 @@
 """Tensor-manipulation ops: reshape / transpose (and their *2 variants),
-unsqueeze2, concat, stack, slice, gather, where_op (its grad is the
-generic vjp), and the decoder's ``rope`` and ``kv_cache_write``.
+unsqueeze2, squeeze2, expand, concat, stack, slice, gather, where_op
+(its grad is the generic vjp), and the decoder's ``rope`` and
+``kv_cache_write``.
 
 Counterparts of paddle_tpu/ops/tensor_ops.py. The *2 variants also emit
 an empty XShape output for the grad path, matching the reference's op
@@ -85,6 +86,25 @@ def _unsqueeze2(ctx, ins, attrs):
     for a in sorted(attrs["axes"]):
         out = out.unsqueeze(a)
     return {"Out": [out], "XShape": [_xshape(x)]}
+
+
+@register_op("squeeze2", diff_inputs=["X"])
+def _squeeze2(ctx, ins, attrs):
+    """Drop the listed axes of size 1 (every size-1 axis when none are
+    listed); a listed axis of another size stays, as in the JAX
+    package."""
+    x = ins["X"][0]
+    axes = [a % x.ndim for a in attrs.get("axes", [])] or \
+        [i for i, s in enumerate(x.shape) if s == 1]
+    keep = [s for i, s in enumerate(x.shape)
+            if not (i in axes and s == 1)]
+    return {"Out": [x.reshape(keep)], "XShape": [_xshape(x)]}
+
+
+@register_op("expand", diff_inputs=["X"])
+def _expand(ctx, ins, attrs):
+    """``expand_times`` copies along each axis (``jnp.tile``)."""
+    return {"Out": [ins["X"][0].repeat(*attrs["expand_times"])]}
 
 
 def _gather_index(idx):

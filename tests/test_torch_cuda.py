@@ -94,6 +94,15 @@ where only the port is installed:
   write the caches its captured graphs hold, its tokens ``generate()``'s
   for each request alone; a verify step's products per position
   bitwise the decode step's (ops/math.py's ``slot_rows``).
+- Sequences and control flow: a ``while`` plan is never captured (it
+  reads its condition on the host), runs eagerly at every run with the
+  right values, and the executor's uncaptured-plans counter
+  (``core.executor.UNCAPTURED_PLANS``, by op) counts it once; a training step holding ``cond`` / ``Switch`` /
+  ``IfElse`` is captured and its replays are bitwise its eager steps; a
+  StaticRNN / DynamicRNN step with dropout replays bitwise eager (the
+  recurrent grad's masks included); ``beam_search`` on the card gives
+  the CPU's parents and ids on tied candidates (dead beams, a uniform
+  step) at a vocabulary of 10000.
 """
 
 import warnings
@@ -2072,3 +2081,180 @@ def test_captured_replay_2x_faster_than_eager(cuda_device):
     assert captured_rate >= 2.0 * eager_rate, \
         "captured %.1f steps/s vs eager %.1f steps/s" % (captured_rate,
                                                          eager_rate)
+
+
+
+# ------------------------------------------------ sequences, control flow
+def _uncaptured(op):
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+
+    return UNCAPTURED_PLANS.labels(op=op).value
+
+
+@pytest.mark.cuda
+def test_cuda_while_plan_is_never_captured_and_counted(cuda_device):
+    from paddle_tpu_torch.core import executor as texe
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        L = pt.layers
+        n = L.data("n", [1], append_batch_size=False)
+        x = L.data("x", [512], append_batch_size=False)
+        i = L.fill_constant([1], "float32", 0.0)
+        acc = L.fill_constant([512], "float32", 0.0)
+        cond = L.less_than(i, n)
+        w = L.While(cond)
+        with w.block():
+            L.assign(L.elementwise_add(acc, x), output=acc)
+            L.increment(i, 1.0)
+            L.assign(L.less_than(i, n), output=cond)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    texe._WARNED_UNCAPTURED.discard("while")
+    before = _uncaptured("while")
+    xv = np.arange(512, dtype=np.float32)
+    with pytest.warns(RuntimeWarning, match="while"):
+        exe.run(main, feed={"n": np.array([1.0], "float32"), "x": xv},
+                fetch_list=[acc], scope=scope)
+    for k in (3.0, 7.0, 0.0):
+        (got,) = exe.run(main, feed={"n": np.array([k], "float32"),
+                                     "x": xv}, fetch_list=[acc],
+                         scope=scope)
+        np.testing.assert_array_equal(got, k * xv)
+    (plan,) = exe._cache.values()
+    assert plan.graph is None and plan.host_sync == ["while"]
+    assert _uncaptured("while") - before == 1
+
+
+def _cond_program():
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        L = pt.layers
+        x = L.data("x", [64])
+        lab = L.data("lab", [1], dtype="int64")
+        gate = L.data("gate", [1], append_batch_size=False)
+        scale = L.fill_constant([1], "float32", 1.0)
+        L.cond(L.greater_than(gate, L.fill_constant([1], "float32", 0.0)),
+               true_fn=lambda: L.assign(L.fill_constant([1], "float32", 2.0),
+                                        output=scale),
+               false_fn=lambda: L.assign(
+                   L.fill_constant([1], "float32", 0.5), output=scale))
+        sw = L.fill_constant([1], "float32", 0.0)
+        s = L.Switch()
+        with s.case(L.less_than(gate, L.fill_constant([1], "float32",
+                                                      -0.5))):
+            L.assign(L.fill_constant([1], "float32", 1.0), output=sw)
+        with s.default():
+            L.assign(L.fill_constant([1], "float32", 3.0), output=sw)
+        cnd = L.less_than(lab, L.fill_constant([1], "int64", 1))
+        ie = L.IfElse(cnd)
+        with ie.true_block():
+            ie.output(L.fc(ie.input(x), size=32, act="tanh"))
+        with ie.false_block():
+            ie.output(L.dropout(L.fc(ie.input(x), size=32, act="relu"),
+                                dropout_prob=0.2))
+        merged, = ie()
+        h = L.elementwise_mul(merged, L.elementwise_add(scale, sw))
+        loss = L.mean(L.square(h))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss
+
+
+@pytest.mark.cuda
+def test_cuda_cond_switch_ifelse_step_replays_equal_eager_steps(cuda_device):
+    main, startup, loss = _cond_program()
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    rs = np.random.RandomState(0)
+    for i in range(4):
+        feed = {"x": rs.randn(16, 64).astype("float32"),
+                "lab": rs.randint(0, 2, (16, 1)).astype("int64"),
+                "gate": np.array([(-1.0, 0.3, -0.2, 1.0)[i]], "float32")}
+        (r,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        (e,) = exe._run_eager(main, feed=feed, fetch_list=[loss],
+                              scope=eager_scope, return_numpy=False)
+        assert torch.equal(r, e), (i, r, e)
+    plan = next(p for p in exe._cache.values() if p.graph is not None)
+    assert plan.host_sync == []
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["static", "dynamic"])
+def test_cuda_rnn_dropout_step_replays_equal_eager_steps(cuda_device, kind):
+    T, B, D, H = 6, 8, 16, 32
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 7
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        L = pt.layers
+        if kind == "static":
+            x = L.data("x", [T, B, D], append_batch_size=False)
+            rnn = L.StaticRNN()
+            with rnn.step():
+                word = rnn.step_input(x)
+                prev = rnn.memory(shape=[-1, H], batch_ref=word,
+                                  ref_batch_dim_idx=1)
+                h = L.dropout(L.fc([word, prev], size=H, act="tanh"),
+                              dropout_prob=0.3)
+                rnn.update_memory(prev, h)
+                rnn.step_output(h)
+        else:
+            x = L.data("x", [B, T, D], append_batch_size=False)
+            ln = L.data("ln", [B], dtype="int64", append_batch_size=False)
+            rnn = L.DynamicRNN()
+            with rnn.block():
+                word = rnn.step_input(x, length=ln)
+                prev = rnn.memory(shape=[H], value=0.0, dtype="float32")
+                h = L.dropout(L.fc([word, prev], size=H, act="tanh"),
+                              dropout_prob=0.3)
+                rnn.update_memory(prev, h)
+                rnn.output(h)
+        loss = L.mean(L.square(rnn()))
+        pt.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    rs = np.random.RandomState(1)
+    for i in range(4):
+        feed = {"x": rs.randn(*x.shape).astype("float32")}
+        if kind == "dynamic":
+            feed["ln"] = rs.randint(1, T + 1, (B,)).astype("int64")
+        (r,) = exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        (e,) = exe._run_eager(main, feed=feed, fetch_list=[loss],
+                              scope=eager_scope, return_numpy=False)
+        assert torch.equal(r, e), (i, r, e)
+    assert any(p.graph is not None for p in exe._cache.values())
+    got, want = _params(main, scope), _params(main, eager_scope)
+    for n in got:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+def test_cuda_beam_search_ties_match_the_cpu(cuda_device):
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    B, K, V = 4, 4, 10000
+    rs = np.random.RandomState(3)
+    cases = [
+        (np.ones((B, K), "int32"),
+         np.array([[0.0] + [-1e9] * (K - 1)] * B, "float32"),
+         np.log(np.full((B, K, V), 1.0 / V, "float32"))),
+        (np.array([[1, 0, 2, 0]] * B, "int32"), np.zeros((B, K), "float32"),
+         np.round(np.log(rs.dirichlet(np.ones(V), (B, K))), 1)
+         .astype("float32"))]
+    for pre_ids, pre_sc, sc in cases:
+        outs = []
+        for dev in (torch.device("cpu"), cuda_device):
+            ins = {"pre_ids": [torch.from_numpy(pre_ids).to(dev)],
+                   "pre_scores": [torch.from_numpy(pre_sc).to(dev)],
+                   "scores": [torch.from_numpy(sc).to(dev)]}
+            o = get_op("beam_search").lowering(
+                LowerContext(None, None, dev), ins,
+                {"beam_size": K, "end_id": 0})
+            outs.append({k: v[0].cpu() for k, v in o.items()})
+        for k in outs[0]:
+            assert torch.equal(outs[0][k], outs[1][k]), k

@@ -1,10 +1,9 @@
 """Deployable artifacts in the port (``paddle_tpu_torch.export``), held to
 the contracts of tests/test_export_artifact.py on the CPU:
 
-* Round trip: a port-frozen mnist, ctr and small serving BERT round-trip
-  bitwise against the from-scratch executor, with the AOT section
-  (``torch.export``) serving (stacked_lstm waits for the sequence ops,
-  ROADMAP A9).
+* Round trip: a port-frozen mnist, ctr, stacked_lstm and small serving
+  BERT round-trip bitwise against the from-scratch executor, with the AOT
+  section (``torch.export``) serving.
 * Cold start: load + the first covered batch move no plan-cache miss, no
   pass-pipeline run and no tuner miss; ``seed_plan`` installs without a
   miss.
@@ -121,7 +120,7 @@ def flash_path(monkeypatch):
 
 
 # --------------------------------------------------------- round trip
-@pytest.mark.parametrize("model", ["mnist", "ctr", "bert"])
+@pytest.mark.parametrize("model", ["mnist", "ctr", "bert", "stacked_lstm"])
 def test_roundtrip_bitwise_parity_zoo(model, tmp_path, flash_path):
     ref, feed, path = _freeze_zoo(model, str(tmp_path / "m.pdz"))
     art = export.load_artifact(path, place=CPU)

@@ -172,7 +172,22 @@ COPIES = {
         ('_SUBSUMED = "inert under XLA (kept for API compatibility)"',
          '_SUBSUMED = "inert in the port (kept for API compatibility)"'),
         (_ORIGINAL_FLAGS_TAIL, "")],
-    "core/registry.py": [],
+    # the host_sync flag: an op that reads a value on the host keeps its
+    # plan from being captured as a CUDA graph (core/executor.py)
+    "core/registry.py": [
+        ("        needs_env: bool = False,\n"
+         "        synthesized: bool = False,\n    ):",
+         "        needs_env: bool = False,\n"
+         "        synthesized: bool = False,\n"
+         "        host_sync: bool = False,\n    ):"),
+        ("        self.needs_env = needs_env\n",
+         "        self.needs_env = needs_env\n"
+         "        self.host_sync = host_sync\n"),
+        ("    needs_env: bool = False,\n):",
+         "    needs_env: bool = False,\n    host_sync: bool = False,\n):"),
+        ("            needs_env=needs_env,\n        )",
+         "            needs_env=needs_env,\n"
+         "            host_sync=host_sync,\n        )")],
     "evaluator.py": [],
     "export/__init__.py": [],
     "export/format.py": [],
@@ -191,20 +206,30 @@ COPIES = {
     "reader/__init__.py": [_STACK_WINDOW],
     "initializer.py": [],
     "layer_helper.py": [],
+    "contrib/decoder/__init__.py": [],
+    "contrib/decoder/beam_search_decoder.py": [],
+    # control_flow.py's absolute ``import paddle_tpu.layers as L`` (three
+    # of them) is rewritten by _rewrite_imports like every other import
+    "layers/control_flow.py": [],
     "layers/decode.py": [],
     "layers/learning_rate_scheduler.py": [],
     "layers/metric_op.py": [],
     "layers/nn.py": [],
     "layers/ops.py": [],
+    "layers/rnn_blocks.py": [],
+    "layers/scan_ext.py": [],
+    "layers/sequence.py": [],
     "layers/tensor.py": [],
     "learning_rate_decay.py": [],
     "metrics.py": [],
     "models/bert.py": [],
     "models/ctr.py": [],
     "models/gpt.py": [],
+    "models/machine_translation.py": [],
     "models/mnist.py": [],
     "models/resnet.py": [],
     "models/se_resnext.py": [],
+    "models/stacked_lstm.py": [],
     "models/transformer.py": [],
     "models/vgg.py": [],
     "models/vit.py": [],
@@ -251,6 +276,35 @@ def test_no_module_imports_jax_or_the_jax_package():
                 bad.append("%s imports %s" % (os.path.relpath(path, ROOT),
                                               mod))
     assert bad == []
+
+
+def test_control_flow_copy_rewrites_its_absolute_layer_imports():
+    """control_flow.py imports the layers package by its absolute name
+    inside cond / Switch: the copy names the port's package, and the
+    isolation rewrite (not an allow-list entry) is what makes it equal
+    to the original."""
+    with open(os.path.join(ROOT, "paddle_tpu", "layers",
+                           "control_flow.py")) as f:
+        original = f.read()
+    with open(os.path.join(PORT, "layers", "control_flow.py")) as f:
+        port = f.read()
+    assert original.count("import paddle_tpu.layers as L") == 3
+    assert port.count("import paddle_tpu_torch.layers as L") == 3
+    assert "paddle_tpu.layers" not in port.replace("paddle_tpu_torch", "")
+    assert COPIES["layers/control_flow.py"] == []
+    assert _rewrite_imports(original) == port
+
+
+@pytest.mark.parametrize("rel", [
+    "ops/sequence.py", "ops/rnn.py", "ops/control_flow_ops.py",
+    "ops/beam_search_ops.py", "ops/scan_ops.py", "ops/misc_ops.py",
+    "layers/sequence.py", "layers/control_flow.py", "layers/rnn_blocks.py",
+    "layers/scan_ext.py", "contrib/decoder/beam_search_decoder.py",
+    "models/stacked_lstm.py", "models/machine_translation.py"])
+def test_sequence_slice_modules_import_no_jax(rel):
+    path = os.path.join(PORT, rel)
+    tops = {mod.split(".")[0] for mod in _absolute_imports(path)}
+    assert not tops & {"jax", "jaxlib", "paddle_tpu"}, (rel, tops)
 
 
 def test_card_tests_import_no_jax():

@@ -790,6 +790,292 @@ def case_recompute_block(rs):
     np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-6, rtol=0)
 
 
+# ---- the sequence, recurrent, control-flow and beam-search slice. The
+# sequence ops run on ragged lengths holding 1 and T (atol 1e-6 for the
+# masked copies and pools, 1e-5 for sequence_conv's and row_conv's sums
+# and sequence_softmax's exp); tests/test_torch_sequence.py holds each
+# pool type and every grad. The recurrent ops' loops take 1e-5 (f32
+# products summed in another order at each step).
+_LENS = np.array([1, 5, 3, 5], "int32")  # T = 5
+
+
+def case_sequence_mask(rs):
+    _check("sequence_mask", {"X": [_LENS]}, {"maxlen": 5}, 0)
+    _check("sequence_mask", {"X": [_LENS]},
+           {"maxlen": 6, "out_dtype": "int64"}, 0)
+
+
+def case_sequence_pool(rs):
+    for ptype in ("average", "sum", "sqrt", "max", "last", "first"):
+        _check("sequence_pool", {"X": [_arr(rs, (4, 5, 3))],
+                                 "Length": [_LENS]},
+               {"pool_type": ptype}, 1e-6)
+
+
+def case_sequence_softmax(rs):
+    _check("sequence_softmax", {"X": [_arr(rs, (4, 5))], "Length": [_LENS]},
+           {}, 1e-6, rtol=1e-6)
+
+
+def case_sequence_reverse(rs):
+    _check("sequence_reverse", {"X": [_arr(rs, (4, 5, 2))],
+                                "Length": [_LENS]}, {}, 0)
+
+
+def case_sequence_expand(rs):
+    _check("sequence_expand", {"X": [_arr(rs, (3, 4))],
+                               "Y": [_arr(rs, (3, 2, 4))]}, {}, 0)
+
+
+def case_sequence_expand_as(rs):
+    _check("sequence_expand_as", {"X": [_arr(rs, (2, 4))],
+                                  "Y": [_arr(rs, (6, 4))]}, {}, 0)
+
+
+def case_sequence_conv(rs):
+    for ctx_len, start in ((3, -1), (2, 0), (4, -3)):
+        _check("sequence_conv", {"X": [_arr(rs, (4, 5, 3))],
+                                 "Filter": [_arr(rs, (ctx_len * 3, 6))],
+                                 "Length": [_LENS]},
+               {"context_length": ctx_len, "context_start": start}, 1e-5)
+
+
+def case_sequence_pad(rs):
+    x = _arr(rs, (4, 5, 2))
+    _check("sequence_pad", {"X": [x], "Length": [_LENS]}, {}, 0)
+    _check("sequence_pad", {"X": [x], "Length": [_LENS],
+                            "PadValue": [np.array([2.5], "float32")]}, {}, 0)
+
+
+def case_sequence_unpad(rs):
+    _check("sequence_unpad", {"X": [_arr(rs, (4, 5, 2))],
+                              "Length": [_LENS]}, {}, 0)
+
+
+def case_sequence_concat(rs):
+    _check("sequence_concat", {"X": [_arr(rs, (4, 5, 2)),
+                                     _arr(rs, (4, 3, 2))],
+                               "Length": [_LENS,
+                                          np.array([3, 1, 2, 3], "int32")]},
+           {}, 0)
+
+
+def case_sequence_slice(rs):
+    _check("sequence_slice", {"X": [_arr(rs, (4, 5, 2))],
+                              "Offset": [np.array([[0], [1], [4], [2]],
+                                                  "int32")],
+                              "SliceLength": [np.array([[1], [4], [1],
+                                                        [3]], "int32")]},
+           {}, 0)
+
+
+def case_sequence_enumerate(rs):
+    x = rs.randint(1, 9, (4, 5)).astype("int32")
+    _check("sequence_enumerate", {"X": [x], "Length": [_LENS]},
+           {"win_size": 3, "pad_value": 0}, 0)
+    _check("sequence_enumerate", {"X": [x]}, {"win_size": 2,
+                                               "pad_value": 7}, 0)
+
+
+def case_sequence_erase(rs):
+    x = rs.randint(0, 5, (4, 5)).astype("int32")
+    _check("sequence_erase", {"X": [x], "Length": [_LENS]},
+           {"tokens": [2, 3]}, 0)
+    _check("sequence_erase", {"X": [x], "Length": [_LENS]},
+           {"tokens": []}, 0)
+
+
+def case_row_conv(rs):
+    _check("row_conv", {"X": [_arr(rs, (2, 5, 3))],
+                        "Filter": [_arr(rs, (3, 3))]}, {}, 1e-5)
+
+
+def case_lstm(rs):
+    D = 4
+    ins = {"Input": [_arr(rs, (4, 5, 4 * D))], "Weight": [_arr(rs, (D, 4 * D))],
+           "Bias": [_arr(rs, (1, 4 * D))], "Length": [_LENS]}
+    for attrs in ({}, {"is_reverse": True},
+                  {"gate_activation": "sigmoid", "cell_activation": "relu",
+                   "candidate_activation": "identity"}):
+        _check("lstm", ins, attrs, 1e-5)
+    _check("lstm", dict(ins, H0=[_arr(rs, (4, D))], C0=[_arr(rs, (4, D))],
+                        Length=[]), {}, 1e-5)
+
+
+def case_gru(rs):
+    D = 4
+    ins = {"Input": [_arr(rs, (4, 5, 3 * D))], "Weight": [_arr(rs, (D, 3 * D))],
+           "Bias": [_arr(rs, (1, 3 * D))], "Length": [_LENS]}
+    for attrs in ({}, {"is_reverse": True}, {"origin_mode": True}):
+        _check("gru", ins, attrs, 1e-5)
+    _check("gru", dict(ins, H0=[_arr(rs, (4, D))], Length=[]),
+           {"is_reverse": True, "origin_mode": True}, 1e-5)
+
+
+def case_lstmp(rs):
+    D, P = 4, 3
+    _check("lstmp", {"Input": [_arr(rs, (4, 5, 4 * D))],
+                     "Weight": [_arr(rs, (P, 4 * D))],
+                     "ProjWeight": [_arr(rs, (D, P))],
+                     "Bias": [_arr(rs, (1, 4 * D))], "Length": [_LENS]},
+           {}, 1e-5)
+
+
+def case_gru_unit(rs):
+    D = 4
+    ins = {"Input": [_arr(rs, (3, 3 * D))], "HiddenPrev": [_arr(rs, (3, D))],
+           "Weight": [_arr(rs, (D, 3 * D))], "Bias": [_arr(rs, (1, 3 * D))]}
+    for attrs in ({}, {"origin_mode": True}):
+        _check("gru_unit", ins, attrs, 1e-5)
+
+
+def case_lstm_unit(rs):
+    _check("lstm_unit", {"X": [_arr(rs, (3, 16))], "C_prev": [_arr(rs, (3, 4))]},
+           {"forget_bias": 1.0}, 1e-6)
+
+
+def case_is_empty(rs):
+    _check("is_empty", {"X": [_arr(rs, (2, 3))]}, {}, 0)
+    _check("is_empty", {"X": [np.zeros((0, 3), "float32")]}, {}, 0)
+
+
+def case_print_op(rs):
+    _check("print_op", {"X": [_arr(rs, (2, 3))]},
+           {"message": "value", "name": "x"}, 0)
+
+
+def case_logical_and(rs):
+    x, y = rs.rand(3, 4) < 0.5, rs.rand(3, 4) < 0.5
+    for op in ("logical_and", "logical_or", "logical_xor"):
+        _check(op, {"X": [x], "Y": [y]}, {}, 0)
+
+
+def case_logical_or(rs):
+    _check("logical_or", {"X": [rs.rand(5) < 0.5], "Y": [rs.rand(5) < 0.5]},
+           {}, 0)
+
+
+def case_logical_xor(rs):
+    _check("logical_xor", {"X": [rs.rand(5) < 0.5], "Y": [rs.rand(5) < 0.5]},
+           {}, 0)
+
+
+def case_logical_not(rs):
+    _check("logical_not", {"X": [rs.rand(3, 4) < 0.5]}, {}, 0)
+
+
+def case_expand(rs):
+    _check("expand", {"X": [_arr(rs, (2, 1, 3))]},
+           {"expand_times": [1, 4, 2]}, 0)
+
+
+def case_squeeze2(rs):
+    x = _arr(rs, (2, 1, 3, 1))
+    for axes in ([1], [3], [], [0, 1]):
+        _check("squeeze2", {"X": [x]}, {"axes": axes}, 0, slots=["Out"])
+
+
+def case_beam_search(rs):
+    # dead beams at NEG and a uniform step: ties everywhere; lax.top_k
+    # keeps the lower flat index, and so must the port
+    B, K, V = 3, 3, 5
+    pre_ids = np.array([[1, 1, 1], [0, 2, 0], [4, 0, 3]], "int32")
+    pre_scores = np.array([[0.0, -1e9, -1e9], [-0.5, -0.7, -0.5],
+                           [-1.0, -1.0, -1.0]], "float32")
+    scores = np.log(np.full((B, K, V), 1.0 / V, "float32"))
+    for s in (scores, _arr(rs, (B, K, V))):
+        _check("beam_search", {"pre_ids": [pre_ids],
+                               "pre_scores": [pre_scores], "scores": [s]},
+               {"beam_size": K, "end_id": 0}, 0)
+
+
+def case_beam_search_decode(rs):
+    T, B, K = 4, 2, 3
+    _check("beam_search_decode",
+           {"Ids": [rs.randint(0, 9, (T, B, K)).astype("int32")],
+            "ParentIdx": [rs.randint(0, K, (T, B, K)).astype("int32")],
+            "Scores": [_arr(rs, (T, B, K))]}, {}, 0)
+
+
+def case_beam_gather(rs):
+    _check("beam_gather", {"X": [_arr(rs, (6, 4))],
+                           "Index": [np.array([[2, 0, 0], [1, 2, 1]],
+                                              "int32")]}, {}, 0)
+
+
+def case_py_func(rs):
+    _check("py_func", {"X": [_arr(rs, (2, 3)), _arr(rs, (2, 3))]},
+           {"forward_func": lambda a, b: (a * b + 1.0, a.sum(1)),
+            "out_shapes": [[2, 3], [2]],
+            "out_dtypes": ["float32", "float32"]}, 1e-6)
+
+
+def _control_flow_case(build, feeds, atol):
+    from torch_parity import assert_runs_close, run_both
+
+    jres, tres, _, _ = run_both(build, feeds)
+    assert_runs_close(jres, tres, atol)
+
+
+def case_while(rs):
+    def build(pkg):
+        L = pkg.layers
+        n = L.data("n", [1], append_batch_size=False)
+        i = L.fill_constant([1], "float32", 0.0)
+        s = L.fill_constant([1], "float32", 0.0)
+        cond = L.less_than(i, n)
+        w = L.While(cond)
+        with w.block():
+            L.assign(L.elementwise_add(s, L.elementwise_mul(i, i)), output=s)
+            L.increment(i, 1.0)
+            L.assign(L.less_than(i, n), output=cond)
+        return [s, i]
+
+    _control_flow_case(build, [{"n": np.array([v], "float32")}
+                               for v in (0.0, 1.0, 7.0)], 0)
+
+
+def case_conditional_block(rs):
+    def build(pkg):
+        L = pkg.layers
+        x = L.data("x", [1], append_batch_size=False)
+        out = L.fill_constant([1], "float32", 0.0)
+        pred = L.greater_than(x, L.fill_constant([1], "float32", 0.5))
+        L.cond(pred,
+               true_fn=lambda: L.assign(L.scale(x, 2.0), output=out),
+               false_fn=lambda: L.assign(L.scale(x, -3.0), output=out))
+        return [out]
+
+    _control_flow_case(build, [{"x": np.array([v], "float32")}
+                               for v in (0.9, 0.1)], 0)
+
+
+def case_recurrent(rs):
+    def build(pkg):
+        L = pkg.layers
+        x = L.data("x", [4, 3, 2], append_batch_size=False)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            word = rnn.step_input(x)
+            prev = rnn.memory(shape=[-1, 5], batch_ref=word,
+                              ref_batch_dim_idx=1)
+            h = L.fc([word, prev], size=5, act="tanh")
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        return [rnn()]
+
+    _control_flow_case(build, [{"x": _arr(rs, (4, 3, 2))}], 1e-5)
+
+
+def case_scan_layers(rs):
+    def build(pkg):
+        L = pkg.layers
+        x = L.data("x", [4])
+        return [L.scan_layers(x, 3, lambda h: L.fc(h, size=4, act="tanh"))]
+
+    _control_flow_case(build, [{"x": _arr(rs, (2, 4))}], 1e-5)
+
+
 # activations: (input maker, attrs); inputs keep clear of kinks and of
 # round()'s half-way points
 _ACT_INPUTS = {

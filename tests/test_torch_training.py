@@ -492,6 +492,206 @@ def _recompute_block(rs, op):
 
 
 
+# the sequence, recurrent and control-flow slice: the generic vjp in
+# both packages (recurrent and scan_layers: their custom grads, held on
+# whole programs); lengths hold 1 and T (= 5). The recurrent ops' grads
+# sum f32 products over every step, in another order in each package:
+# atol 1e-5 plus rtol 1e-6
+_SEQ_LENS = np.array([1, 5, 3, 5], "int32")
+
+
+@grad_case("sequence_pool")
+def _sequence_pool(rs, op):
+    for ptype in ("average", "sum", "sqrt", "max", "last", "first"):
+        _check_grad(op, {"X": [_arr(rs, (4, 5, 3))], "Length": [_SEQ_LENS]},
+                    {"pool_type": ptype}, [("X", 0)], 1e-6)
+
+
+@grad_case("sequence_softmax", "sequence_reverse", "sequence_unpad",
+           "sequence_pad")
+def _sequence_masked(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (4, 5))], "Length": [_SEQ_LENS]}, {},
+                [("X", 0)], 1e-6, cot_slots=["Out", "Y"])
+
+
+@grad_case("sequence_expand")
+def _sequence_expand(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 4))], "Y": [_arr(rs, (3, 2, 4))]},
+                {}, [("X", 0)], 1e-6)
+
+
+@grad_case("sequence_expand_as")
+def _sequence_expand_as(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 4))], "Y": [_arr(rs, (6, 4))]}, {},
+                [("X", 0)], 1e-6)
+
+
+@grad_case("sequence_conv")
+def _sequence_conv(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (4, 5, 3))],
+                     "Filter": [_arr(rs, (9, 6))], "Length": [_SEQ_LENS]},
+                {"context_length": 3, "context_start": -1},
+                [("X", 0), ("Filter", 0)], 1e-5)
+
+
+@grad_case("sequence_concat")
+def _sequence_concat(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (4, 5, 2)), _arr(rs, (4, 3, 2))],
+                     "Length": [_SEQ_LENS, np.array([3, 1, 2, 3], "int32")]},
+                {}, [("X", 0), ("X", 1)], 1e-6, cot_slots=["Out"])
+
+
+@grad_case("sequence_slice")
+def _sequence_slice(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (4, 5, 2))],
+                     "Offset": [np.array([[0], [1], [4], [2]], "int32")],
+                     "SliceLength": [np.array([[1], [4], [1], [3]],
+                                              "int32")]},
+                {}, [("X", 0)], 1e-6, cot_slots=["Out"])
+
+
+@grad_case("row_conv")
+def _row_conv(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 5, 3))], "Filter": [_arr(rs, (3, 3))]},
+                {}, [("X", 0), ("Filter", 0)], 1e-5)
+
+
+@grad_case("lstm")
+def _lstm(rs, op):
+    D = 4
+    ins = {"Input": [_arr(rs, (4, 5, 4 * D))], "Weight": [_arr(rs, (D, 4 * D))],
+           "Bias": [_arr(rs, (1, 4 * D))], "H0": [_arr(rs, (4, D))],
+           "C0": [_arr(rs, (4, D))], "Length": [_SEQ_LENS]}
+    diff = [("Input", 0), ("Weight", 0), ("Bias", 0), ("H0", 0), ("C0", 0)]
+    for attrs in ({}, {"is_reverse": True}):
+        _check_grad(op, ins, attrs, diff, 1e-5, rtol=1e-6)
+
+
+@grad_case("gru")
+def _gru(rs, op):
+    D = 4
+    ins = {"Input": [_arr(rs, (4, 5, 3 * D))], "Weight": [_arr(rs, (D, 3 * D))],
+           "Bias": [_arr(rs, (1, 3 * D))], "H0": [_arr(rs, (4, D))],
+           "Length": [_SEQ_LENS]}
+    diff = [("Input", 0), ("Weight", 0), ("Bias", 0), ("H0", 0)]
+    for attrs in ({}, {"is_reverse": True, "origin_mode": True}):
+        _check_grad(op, ins, attrs, diff, 1e-5, rtol=1e-6)
+
+
+@grad_case("lstmp")
+def _lstmp(rs, op):
+    D, P = 4, 3
+    _check_grad(op, {"Input": [_arr(rs, (4, 5, 4 * D))],
+                     "Weight": [_arr(rs, (P, 4 * D))],
+                     "ProjWeight": [_arr(rs, (D, P))],
+                     "Bias": [_arr(rs, (1, 4 * D))], "Length": [_SEQ_LENS]},
+                {}, [("Input", 0), ("Weight", 0), ("ProjWeight", 0),
+                     ("Bias", 0)], 1e-5, rtol=1e-6)
+
+
+@grad_case("gru_unit")
+def _gru_unit(rs, op):
+    D = 4
+    _check_grad(op, {"Input": [_arr(rs, (3, 3 * D))],
+                     "HiddenPrev": [_arr(rs, (3, D))],
+                     "Weight": [_arr(rs, (D, 3 * D))],
+                     "Bias": [_arr(rs, (1, 3 * D))]}, {"origin_mode": True},
+                [("Input", 0), ("HiddenPrev", 0), ("Weight", 0),
+                 ("Bias", 0)], 1e-5)
+
+
+@grad_case("lstm_unit")
+def _lstm_unit(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (3, 16))], "C_prev": [_arr(rs, (3, 4))]},
+                {"forget_bias": 0.5}, [("X", 0), ("C_prev", 0)], 1e-6)
+
+
+@grad_case("print_op", "squeeze2")
+def _print_squeeze(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 1, 3))]},
+                {"message": "g", "name": "x", "axes": [1]}, [("X", 0)], 0,
+                cot_slots=["Out"])
+
+
+@grad_case("expand")
+def _expand(rs, op):
+    _check_grad(op, {"X": [_arr(rs, (2, 1, 3))]},
+                {"expand_times": [2, 3, 1]}, [("X", 0)], 1e-6)
+
+
+def _program_grads(build, feed):
+    """Both packages' grads of every parameter of ``build``'s program
+    (``append_backward`` of its loss), on the JAX startup's weights."""
+    from importlib import import_module
+
+    from torch_parity import run_both
+
+    def with_grads(pkg):
+        loss = build(pkg)
+        params = pkg.default_main_program().global_block().all_parameters()
+        import_module(pkg.__name__ + ".core.backward").append_backward(loss)
+        return [loss] + [pkg.default_main_program().global_block().var(
+            p.name + "@GRAD") for p in params]
+
+    jres, tres, _, _ = run_both(with_grads, [feed])
+    assert len(jres[0]) > 1
+    for a, b in zip(jres[0], tres[0]):
+        np.testing.assert_allclose(b, a, atol=1e-5, rtol=1e-6)
+
+
+@grad_case("recurrent")
+def _recurrent(rs, op):
+    """StaticRNN and DynamicRNN (with lengths 1 and T) over an fc step:
+    the grad re-runs the loop in each package."""
+    xs = _arr(rs, (4, 3, 2))
+    ds = _arr(rs, (3, 5, 2))
+    w = _arr(rs, (3, 5, 6))
+
+    def build(pkg):
+        L = pkg.layers
+        x = L.data("x", [4, 3, 2], append_batch_size=False)
+        rnn = L.StaticRNN()
+        with rnn.step():
+            word = rnn.step_input(x)
+            prev = rnn.memory(shape=[-1, 6], batch_ref=word,
+                              ref_batch_dim_idx=1)
+            h = L.fc([word, prev], size=6, act="tanh")
+            rnn.update_memory(prev, h)
+            rnn.step_output(h)
+        d = L.data("d", [3, 5, 2], append_batch_size=False)
+        ln = L.data("ln", [3], dtype="int64", append_batch_size=False)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            word = drnn.step_input(d, length=ln)
+            prev = drnn.memory(shape=[6], value=0.0, dtype="float32")
+            h = L.fc([word, prev], size=6, act="tanh")
+            drnn.update_memory(prev, h)
+            drnn.output(h)
+        wv = L.assign(w)
+        return L.elementwise_add(
+            L.mean(rnn()), L.mean(L.elementwise_mul(drnn(), wv)))
+
+    _program_grads(build, {"x": xs, "d": ds,
+                           "ln": np.array([1, 5, 3], "int64")})
+
+
+@grad_case("scan_layers")
+def _scan_layers(rs, op):
+    """Three fc layers with a captured tensor, plain and remat."""
+    x = _arr(rs, (3, 4))
+    for remat in (False, True):
+        def build(pkg, _remat=remat):
+            L = pkg.layers
+            xv = L.data("x", [4])
+            cap = L.scale(xv, 0.5)
+            y = L.scan_layers(
+                xv, 3, lambda h: L.elementwise_add(
+                    L.fc(h, size=4, act="tanh"), cap), remat=_remat)
+            return L.mean(L.square(y))
+
+        _program_grads(build, {"x": x})
+
+
 def _py_forward(x, y):
     return 2 * x + y, x * y
 
@@ -782,10 +982,10 @@ def test_other_optimizers_build_and_sgd_momentum_run():
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         x = pt.layers.data("x", [4], dtype="float32")
-        y = pt.layers.expand(x, [1, 2])
-    assert "expand" not in OPS
+        y = pt.layers.pad(x, [0, 0, 1, 1])
+    assert "pad" not in OPS
     with pytest.raises((KeyError, ProgramVerifyError),
-                       match="'expand' has no registered lowering"):
+                       match="'pad' has no registered lowering"):
         exe.run(main, feed={"x": np.ones((2, 4), "float32")},
                 fetch_list=[y], scope=scope)
 

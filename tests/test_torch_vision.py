@@ -123,6 +123,44 @@ def test_every_op_of_the_image_and_ctr_models_lowers_in_the_port():
         assert t in OPS, t
 
 
+def test_every_op_of_every_zoo_model_lowers_in_the_port():
+    """All eleven of tools/lint_program.py's ``build_example`` models
+    (with Adam): every op type of every block of the training and
+    startup programs has a lowering in the port (sub-blocks included:
+    a DynamicRNN step, a While body). The sequence models build the same
+    Program in the port as in the JAX package."""
+    import os
+    import sys
+    from importlib import import_module
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    from lint_program import EXAMPLE_BUILDERS, build_example
+
+    assert len(EXAMPLE_BUILDERS) == 11
+    for name in sorted(EXAMPLE_BUILDERS):
+        main, startup, _ = build_example(name)
+        types = {op.type for p in (main, startup) for b in p.blocks
+                 for op in b.ops}
+        missing = sorted(t for t in types if t not in OPS and not (
+            t.endswith("_grad") and t[:-len("_grad")] in OPS))
+        assert missing == [], (name, missing)
+    cfgs = {"stacked_lstm": dict(vocab=60, emb_dim=16, hidden=16,
+                                 num_layers=2, num_classes=2, seq_len=10),
+            "machine_translation": dict(src_vocab=50, trg_vocab=50,
+                                        emb_dim=16, hidden=16, seq_len=8)}
+    for name, cfg in cfgs.items():
+        progs = []
+        for pkg in (jf, pt):
+            main, startup = pkg.Program(), pkg.Program()
+            with pkg.program_guard(main, startup), pkg.unique_name.guard():
+                loss = import_module(pkg.__name__ + ".models." + name).build(
+                    cfg)[0]
+                pkg.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+            progs.append((main.to_dict(), startup.to_dict()))
+        assert progs[0] == progs[1], name
+
+
 def _bn_stats(program):
     """The batch norms' running mean and variance var names."""
     return sorted(n for op in program.global_block().ops

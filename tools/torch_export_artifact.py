@@ -123,6 +123,23 @@ def _build_vit():
     return vit.build(cfg)[0]
 
 
+@_example("stacked_lstm")
+def _build_stacked_lstm():
+    from paddle_tpu_torch.models import stacked_lstm
+
+    cfg = dict(vocab=60, emb_dim=16, hidden=16, num_layers=2,
+               num_classes=2, seq_len=10)
+    return stacked_lstm.build(cfg)[0]
+
+
+@_example("machine_translation")
+def _build_mt():
+    from paddle_tpu_torch.models import machine_translation
+
+    cfg = dict(src_vocab=50, trg_vocab=50, emb_dim=16, hidden=16, seq_len=8)
+    return machine_translation.build(cfg)[0]
+
+
 def build_example(name, optimizer=True):
     """Build example ``name``'s (main, startup, loss) under fresh
     programs. ``optimizer=False`` skips the Adam step (forward-only
