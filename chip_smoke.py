@@ -2,7 +2,14 @@
 """Chip smoke test of the PyTorch/CUDA port (paddle_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--out DIR] [--seed N]
+    python3 chip_smoke.py [--out DIR] [--seed N] [--phases LIST]
+
+``--phases 17,17b,17c`` runs those phases alone (with the phases they
+take results from, ``PHASES``: 4c, 5, 12e and 4b need 4, 6b, 6e and 6g
+need 6, 6f needs 6b, 8c needs 8, 10c needs 10, 12b-12d and 14b need 12,
+13checkpoint needs 13; 1 and 2 always run); the result line then holds
+the rows and launch counts of the phases that ran and names the ones
+left out. With no ``--phases`` every phase runs.
 
 Phases, each of which passes or ends the script with a non-zero exit:
 
@@ -334,7 +341,28 @@ Phases, each of which passes or ends the script with a non-zero exit:
    training step holding ``cond`` / ``Switch`` / ``IfElse`` and
    StaticRNN / DynamicRNN steps with dropout, each captured and its
    replays bitwise its eager steps; ``beam_search``'s ties on the card
-   the CPU's.
+   the CPU's;
+17. the Fluid book (tests/test_book.py's seven trainings at its sizes,
+   built by tools/book_programs.py): each started on the card, its
+   whole training replayed at level 2 with K6 (Adam) or K7
+   (fit_a_line's SGD) once a step on the card, the chapter's end
+   assertion met (fit_a_line's missed as in the JAX package, its 60
+   losses the CPU's), the first 3 losses the port's on the CPU from the
+   same startup, replays bitwise eager; then six chapters' networks at
+   their widths (``book_programs.CHAPTER``; label_semantic_roles' is
+   17b), each trained on the card as 16b trains (K6 or K7 once a step,
+   replays bitwise eager), its first 3 losses the CPU's: the replayed
+   and eager ms a step, kernels, busy share and peak memory;
+17b. label_semantic_roles' ``db_lstm`` at the chapter's widths (hidden
+   512, 8 stacked LSTMs, CRF), batch 32 at T = 24, Adam: trains as 16b
+   trains (K6 once a step, replays bitwise eager), its first 3 losses
+   and its CRF transition after them the CPU's, and decodes; replayed
+   and eager ms, kernels, busy share, peak memory;
+17c. the 64 op types of the op tail and the loss ops on the card
+   against the CPU (forward, and grads where differentiable; the
+   random ops by their properties), ``scatter`` over repeated ids
+   repeatable, a ``linspace`` plan uncaptured and counted, and CRF and
+   CTC training plans captured, replays bitwise eager.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -1921,22 +1949,19 @@ def phase_compiled_serve(what, pred, reqs, per_dispatch):
 
 
 # --------------------------------------------------------------- phase 6c
-def phase_compiled_train(what, exe, main, loss, snap, batches, params,
-                         step, per_step, tokens=TRAIN_BATCH * SEQ,
-                         pairs=TRAIN_COMPILED_PAIRS, unit="tokens"):
-    """Phase 6c: from ``snap``, replayed steps (the first captures the
-    plan anew on its own scope) against the plan's eager step on a
-    second scope, in turns: losses and final params bitwise equal, step
-    medians, tokens/s, profiled busy shares, the launches the card ran
-    in a replayed step equal to an eager step's (the launch meter) and to
-    ``per_step``, capture seconds, the state copy's device time, peak
-    memory and the executor's graph pool. ``tokens`` a step (``unit``:
-    tokens, or an image model's images), ``pairs`` after the first
-    (BERT's by default)."""
+def _replay_turns(what, exe, snap, batches, params, step, pairs):
+    """From ``snap``, replayed steps (the first captures the plan anew on
+    its own scope) against the plan's eager step on a second scope, in
+    turns over ``pairs`` steps after the first: what ``step`` returns
+    and the final params bitwise equal. Returns both scopes, the plan,
+    its capture seconds, the first step's ms, the (replayed, eager)
+    results and each side's step ms."""
     scope_r, scope_e = _restored(snap), _restored(snap)
     ms_first, first = _timed(lambda: step(scope_r, batches[0]))
-    plan = next(p for p in _captured(exe) if p.graph.bound_to(scope_r))
-    capture_s = plan.graph.seconds
+    plan = next((p for p in _captured(exe) if p.graph.bound_to(scope_r)),
+                None)
+    if plan is None:
+        raise AssertionError("%s: the plan was not captured" % what)
     _, first_e = _timed(lambda: step(scope_e, batches[0], eager=True))
     losses = [(first, first_e)]
     turns = ([], [])
@@ -1952,20 +1977,47 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
     same_params = all(torch.equal(scope_r.find_var(n), scope_e.find_var(n))
                       for n in params)
     if not (same_loss and same_params):
-        raise AssertionError("train %s (6c): replayed steps differ from the "
-                             "eager step: losses %s, params equal %s" % (
+        raise AssertionError("%s: replayed steps differ from the eager "
+                             "step: losses %s, params equal %s" % (
                                  what, losses, same_params))
+    return dict(scope_r=scope_r, scope_e=scope_e, plan=plan,
+                capture_s=plan.graph.seconds, ms_first=ms_first,
+                losses=losses, turns=turns)
+
+
+def phase_compiled_train(what, exe, main, loss, snap, batches, params,
+                         step, per_step, tokens=TRAIN_BATCH * SEQ,
+                         pairs=TRAIN_COMPILED_PAIRS, unit="tokens",
+                         eager_readings=True):
+    """Phase 6c: from ``snap``, replayed steps (the first captures the
+    plan anew on its own scope) against the plan's eager step on a
+    second scope, in turns: losses and final params bitwise equal, step
+    medians, tokens/s, profiled busy shares, the launches the card ran
+    in a replayed step equal to an eager step's (the launch meter) and to
+    ``per_step``, capture seconds, the state copy's device time, peak
+    memory and the executor's graph pool. ``tokens`` a step (``unit``:
+    tokens, or an image model's images), ``pairs`` after the first
+    (BERT's by default). Without ``eager_readings`` the eager step is
+    neither profiled, metered nor measured for its peak (the main path
+    has metered an eager step already)."""
+    t = _replay_turns("train %s (6c)" % what, exe, snap, batches, params,
+                      step, pairs)
+    scope_r, scope_e, plan = t["scope_r"], t["scope_e"], t["plan"]
+    capture_s, ms_first, losses, turns = (t[k] for k in (
+        "capture_s", "ms_first", "losses", "turns"))
     prof_r = _profiled(lambda: step(scope_r, batches[1]))
-    prof_e = _profiled(lambda: step(scope_e, batches[1], eager=True))
+    prof_e = (_profiled(lambda: step(scope_e, batches[1], eager=True))
+              if eager_readings else None)
     got = (_metered_launches(lambda: step(scope_r, batches[1])),
-           _metered_launches(lambda: step(scope_e, batches[1], eager=True)))
+           _metered_launches(lambda: step(scope_e, batches[1], eager=True))
+           if eager_readings else per_step)
     if not got[0] == got[1] == per_step:
         raise AssertionError("train %s (6c): the card ran %s = %s kernels "
                              "in a replayed step, %s in the eager step, "
                              "expected %s" % (what, COUNT_NAMES, got[0],
                                               got[1], per_step))
     peaks = []
-    for eager in (False, True):
+    for eager in (False, True)[:1 + eager_readings]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         step(scope_e if eager else scope_r, batches[2], eager=eager)
@@ -1981,21 +2033,24 @@ def phase_compiled_train(what, exe, main, loss, snap, batches, params,
         eager_tokens_per_s=tokens / (med_e / 1e3),
         replay_profile=prof_r, eager_profile=prof_e,
         state_copy_ms=prof_r["by_class_ms"].get("state copy", 0.0),
-        peak_mem_mib=dict(replay=peaks[0], eager=peaks[1]), pool_mib=pool,
+        peak_mem_mib=dict(zip(("replay", "eager"), peaks)), pool_mib=pool,
         graphs_in_pool=n_graphs, unit=unit)
     _log_breakdown("%s replayed train step (6c)" % what, prof_r)
     log("train %s (6c): capture %.3f s (its step %.1f ms); in turns over %d "
         "pairs: replayed median %.3f ms (%.1f %s/s), eager %.3f ms "
-        "(%.1f %s/s); device busy %.1f%% replayed, %.1f%% eager; state "
-        "copy %.4f ms a replayed step; peak memory %.1f MiB replayed, %.1f "
+        "(%.1f %s/s); device busy %.1f%% replayed, %s eager; state "
+        "copy %.4f ms a replayed step; peak memory %.1f MiB replayed, %s "
         "eager; the executor's %d graphs (phase 6's other paths too) in one "
         "pool of %s MiB; %d losses and %d params bitwise equal; launches on "
         "the card equal the eager step's"
         % (what, capture_s, ms_first, pairs, med_r,
            out["replay_tokens_per_s"], unit, med_e,
            out["eager_tokens_per_s"], unit,
-           100 * prof_r["busy_share"], 100 * prof_e["busy_share"],
-           out["state_copy_ms"], peaks[0], peaks[1], n_graphs,
+           100 * prof_r["busy_share"],
+           "%.1f%%" % (100 * prof_e["busy_share"]) if eager_readings
+           else "not read", out["state_copy_ms"], peaks[0],
+           "%.1f MiB" % peaks[1] if eager_readings else "not read",
+           n_graphs,
            "%.1f" % pool if pool is not None else "not measured",
            len(losses), len(params)))
     return out
@@ -2252,18 +2307,23 @@ def _metered_launches(fn):
 
 
 def _metered_steps(what, step, scope, batches, n_steps, per_step,
-                   host_extra=lambda: 0):
+                   host_extra=lambda: 0, after=None):
     """A training phase's main path: ``n_steps`` steps on ``scope``
-    under the launch meter, the wrappers' counts zeroed just before.
-    Every step runs ``per_step`` launches on the card (the first eagerly,
-    the second captures the plan and replays it, the rest replay); the
+    under the launch meter, the wrappers' counts zeroed just before, and
+    then ``after()`` where given (its launches in the totals). Every
+    step runs ``per_step`` launches on the card (the first eagerly, the
+    second captures the plan and replays it, the rest replay); the
     wrappers count the launch calls of the eager step and of the capture
     and no other. Returns the losses, step times, each step's device
     launches, the device and host totals, the per-step deltas of
-    ``host_extra()`` and the peak memory."""
+    ``host_extra()``, what ``after()`` returned, and the peak memory
+    (the most allocated; ``base_mb``, what was allocated when the path
+    began: its weights and whatever earlier phases still hold;
+    ``rise_mb``, the peak above it)."""
     _zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
     losses, step_ms, host, extra = [], [], [], []
     with LaunchMeter() as meter:
         for i in range(n_steps):
@@ -2274,6 +2334,9 @@ def _metered_steps(what, step, scope, batches, n_steps, per_step,
             step_ms.append((time.perf_counter() - t1) * 1e3)
             host.append(tuple(a - b for a, b in zip(_counts(), before)))
             extra.append(host_extra() - x0)
+        if after is not None:
+            meter.mark()
+            after_out = after()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for i, (dev, h) in enumerate(zip(meter.units, host)):
         if dev != per_step:
@@ -2290,7 +2353,9 @@ def _metered_steps(what, step, scope, batches, n_steps, per_step,
                              % (what, losses))
     return dict(losses=losses, step_ms=step_ms, device_by_step=meter.units,
                 launches=meter.total(), host_launches=_counts(),
-                host_extra=extra, peak_mb=peak_mb)
+                host_extra=extra, peak_mb=peak_mb, base_mb=base_mb,
+                rise_mb=peak_mb - base_mb,
+                after=after_out if after is not None else None)
 
 
 def _metered_serving(what, make_pred, reqs, repeats, per_dispatch, lat_ms,
@@ -6522,41 +6587,55 @@ def _seq_setup(model, seed):
     return exe, scope, main, loss, cfg, params, tier
 
 
+def _per_step(opt, groups):
+    """A step's launches (``COUNT_NAMES``): K6 (Adam) or K7 (SGD) once
+    per optimizer group level 2 made."""
+    return (0, 0, 0, 0, groups * (opt == "Adam"), groups * (opt == "SGD"),
+            0, 0, 0, 0)
+
+
 def _seq_train(what, exe, scope, main, loss, params, tier, batches, tokens,
-               unit):
-    """A sequence training phase's main path and 6c's readings: K6 once a
-    step (counted on the card) over SEQ_EAGER_STEPS + SEQ_REPLAY_STEPS
-    steps (the first eager, the second captures), then SEQ_PAIRS
-    replayed steps against eager ones in turns, bitwise."""
-    per_step = (0, 0, 0, 0, 1, 0, 0, 0, 0, 0)
-    if tier["optimizer_groups"] != [len(params)]:
+               unit, opt="Adam", steps=SEQ_EAGER_STEPS + SEQ_REPLAY_STEPS,
+               eager_readings=True):
+    """A sequence training phase's main path and 6c's readings: K6 (or,
+    with ``opt`` SGD, K7) once a step (counted on the card) over
+    ``steps`` steps (the first eager, the second captures), then
+    SEQ_PAIRS replayed steps against eager ones in turns, bitwise
+    (``eager_readings``: phase_compiled_train's)."""
+    per_step = _per_step(opt, 1)
+    trainable = [p for p in main.global_block().all_parameters()
+                 if p.trainable]
+    if tier["optimizer_groups"] != [len(trainable)]:
         raise AssertionError("%s: level 2 made optimizer groups %s of %d "
-                             "params" % (what, tier["optimizer_groups"],
-                                         len(params)))
+                             "trainable params" % (
+                                 what, tier["optimizer_groups"],
+                                 len(trainable)))
     step = _amp_step_fn(exe, main, loss)
     snap = _snapshot(scope)
     os.environ.pop("PADDLE_TPU_OPTIMIZE", None)
     # ---- the main path: counts zeroed here, read after the last step
-    path = _metered_steps(what, step, scope, batches,
-                          SEQ_EAGER_STEPS + SEQ_REPLAY_STEPS, per_step)
+    path = _metered_steps(what, step, scope, batches, steps, per_step)
     # ---- end of the main path
     compiled = phase_compiled_train(what, exe, main, loss, snap, batches,
                                     params, step, per_step, tokens=tokens,
-                                    pairs=SEQ_PAIRS, unit=unit)
+                                    pairs=SEQ_PAIRS, unit=unit,
+                                    eager_readings=eager_readings)
     prof = compiled["replay_profile"]
     log("%s: losses %s; replayed in turns %.3f ms a step (%.1f %s/s), "
         "eager %.3f ms; a profiled replayed step %.1f%% busy, %d kernels, "
         "device ms by class %s; capture %.3f s; peak memory %.1f MiB on "
-        "the main path, %.1f replayed, %.1f eager; launches %s = %s on the "
-        "card (host calls %s)" % (
+        "the main path (%.1f allocated as it began, %.1f above), %.1f "
+        "replayed, %s eager; launches %s = %s on the card (host calls "
+        "%s)" % (
             what, ["%.4f" % v for v in path["losses"]],
             compiled["replay_median_ms"], compiled["replay_tokens_per_s"],
             unit, compiled["eager_median_ms"], 100 * prof["busy_share"],
             prof["kernels"], {k: round(v, 3) for k, v in
                               prof["by_class_ms"].items()},
-            compiled["capture_s"], path["peak_mb"],
-            compiled["peak_mem_mib"]["replay"],
-            compiled["peak_mem_mib"]["eager"], COUNT_NAMES,
+            compiled["capture_s"], path["peak_mb"], path["base_mb"],
+            path["rise_mb"], compiled["peak_mem_mib"]["replay"],
+            "%.1f" % compiled["peak_mem_mib"]["eager"]
+            if eager_readings else "not read", COUNT_NAMES,
             path["launches"], path["host_launches"]))
     return snap, step, dict(
         n_params=len(params), n_weights=sum(
@@ -6565,7 +6644,8 @@ def _seq_train(what, exe, scope, main, loss, params, tier, batches, tokens,
         launches=dict(zip(COUNT_NAMES, path["launches"])),
         host_launches=dict(zip(COUNT_NAMES, path["host_launches"])),
         per_step=dict(zip(COUNT_NAMES, per_step)),
-        peak_mem_mib=path["peak_mb"], compiled=compiled)
+        peak_mem_mib=path["peak_mb"], base_mem_mib=path["base_mb"],
+        rise_mem_mib=path["rise_mb"], compiled=compiled)
 
 
 def phase_stacked_lstm(seed):
@@ -6862,6 +6942,782 @@ def phase_control_flow(seed):
     return out
 
 
+# --------------------------------------------------------- phases 17-17c
+# the book (phase 17) at tests/test_book.py's sizes: a replayed step's
+# fetches and the final params bitwise its eager step's, in turns over
+# 1 + BOOK_PAIRS steps from the startup's snapshot; the first
+# BOOK_PARITY_STEPS losses on the card against the port on the CPU from
+# the same snapshot (f32, TF32 off: sums, convs and the recurrences'
+# loops in another order, no difference amplified in 3 steps but
+# resnet_cifar10's, below) within BOOK_CPU_TOL * max(1, |loss|). The chapters at their widths (17, and
+# db_lstm in 17b): _seq_train's steps, pairs and readings, the first
+# BOOK_PARITY_STEPS losses (and db_lstm's CRF transition after them)
+# against the CPU's at the same tolerance
+BOOK_PARITY_STEPS, BOOK_PAIRS = 3, 3
+BOOK_CPU_TOL = 1e-4
+CHAPTER_STEPS = 4  # a chapter's main path: eager, capture, 2 replays
+# resnet_cifar10 at batch 128 is ill-conditioned in f32 from its
+# startup: its first grads come out of f32 only roughly on either
+# device (the CPU's f32 step against the same step run by a float64
+# copy of the program), so after the first step its f32 losses drift
+# from exact, on the CPU as on the card. They are held
+# against the CPU's float64 losses instead, within F64_FACTOR times the
+# CPU's own f32 distance from them (_cpu_parity; the log prints both)
+CHAPTER_F64, F64_FACTOR = ("image_classification_cifar_conv_bn",), 4.0
+# the op tail on the card against the CPU (phase 17c): f32 without TF32
+# summed in another order, 1e-5 plus a relative 1e-5 (the convs and
+# products 1e-4); integers and bools exactly
+OP_TAIL_TOL, OP_TAIL_PRODUCT_TOL = 1e-5, 1e-4
+OP_TAIL_STEPS = 4  # the CRF and CTC plans' steps: eager, capture, replays
+
+
+def _book_programs():
+    """tools/book_programs.py: the Fluid book's seven programs, their data
+    and their assertions (numpy and the port's layers only)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import book_programs
+
+    return book_programs
+
+
+def _on_cpu(snap):
+    """A CPU scope of copies of a card snapshot's values."""
+    import paddle_tpu_torch as fluid
+
+    scope = fluid.Scope()
+    for n, v in snap.items():
+        scope.set_var(n, v.cpu().clone() if isinstance(v, torch.Tensor)
+                      else v)
+    return scope
+
+
+def _fetched(vals):
+    return [v.cpu().numpy() for v in vals]
+
+
+def _cpu_losses(main, loss, snap, feeds, dtype=torch.float32):
+    """The losses of ``len(feeds)`` steps of ``main`` in the port on the
+    CPU from the snapshot ``snap``, and its scope after them; at
+    ``dtype`` float64, a copy of the program whose float32 vars are
+    float64, run on float64 copies of the snapshot and the feeds."""
+    import paddle_tpu_torch as fluid
+
+    prog, scope = main, _on_cpu(snap)
+    if dtype == torch.float64:
+        prog = main.clone()
+        for v in prog.global_block().vars.values():
+            if getattr(v, "dtype", None) == "float32":
+                v.dtype = "float64"
+        for n in scope.local_var_names():
+            v = scope.find_var(n)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                scope.set_var(n, v.double())
+        feeds = [{k: v.astype(np.float64) if v.dtype == np.float32 else v
+                  for k, v in f.items()} for f in feeds]
+    exe = fluid.Executor(fluid.CPUPlace())
+    return [float(np.asarray(exe.run(prog, feed=f, fetch_list=[loss.name],
+                                     scope=scope)[0]).reshape(-1)[0])
+            for f in feeds], scope
+
+
+def _cpu_parity(what, exe, main, loss, snap, feeds, card, param=None,
+                f64=False):
+    """The losses ``card`` of the first ``len(card)`` steps on the card
+    (over ``feeds`` in turn) against the port's on the CPU from the same
+    snapshot ``snap`` (and, with ``param``, that param after those
+    steps, eager on the card), each within BOOK_CPU_TOL * max(1, |CPU
+    value|). With ``f64``, for a network whose f32 steps f32 itself
+    computes only roughly (``CHAPTER_F64``), the card's losses are held
+    against the CPU's in float64 instead, within F64_FACTOR times the
+    CPU's f32 losses' distance from those (or BOOK_CPU_TOL): the card's
+    f32 as near exact as the CPU's. Returns the CPU's f32 losses, the
+    largest gap and the tolerance it was held to."""
+    feeds = [feeds[i % len(feeds)] for i in range(len(card))]
+    rel = lambda a, b: abs(a - b) / max(1.0, abs(b))  # noqa: E731
+    cpu, cpu_scope = _cpu_losses(main, loss, snap, feeds)
+    tol, ref = BOOK_CPU_TOL, cpu
+    if f64:
+        ref = _cpu_losses(main, loss, snap, feeds, torch.float64)[0]
+        tol = max(tol, F64_FACTOR * max(rel(a, b) for a, b in zip(cpu, ref)))
+    gaps = [rel(a, b) for a, b in zip(card, ref)]
+    if param is not None:
+        sc = _restored(snap)
+        for f in feeds:
+            exe._run_eager(main, feed=f, fetch_list=[loss], scope=sc)
+        a = sc.find_var(param).detach().cpu().double()
+        b = cpu_scope.find_var(param).detach().double()
+        gaps.append(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()))
+    gap = max(gaps)
+    if gap > tol:
+        raise AssertionError("%s: the card's first losses %s, the CPU's %s%s "
+                             "(%s after them): a gap of %.3e over %.3e" % (
+                                 what, card, cpu, ", in float64 %s" % ref
+                                 if f64 else "", param, gap, tol))
+    return cpu, gap, tol
+
+
+def _book_functional(fluid, bp, name, seed):
+    """Book ``name`` at tests/test_book.py's sizes: started on the card,
+    its whole training at level 2 as its chapter runs it (every step
+    ``exe.run``; then its final fetch and its post step) on the main
+    path, K6 or K7 once a step; the chapter's assertion; the first
+    losses the CPU's (fit_a_line's 60, a book the JAX package misses);
+    replays bitwise eager."""
+    what = "book %s (17)" % name
+    t0 = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        book = bp.build(fluid, name)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [v.name for v in book.fetch], scope)
+    if not tier["optimizer_groups"]:
+        raise AssertionError("%s: level 2 grouped no optimizer update"
+                             % what)
+    per_step = _per_step(book.optimizer, len(tier["optimizer_groups"]))
+    snap = _snapshot(scope)
+    step, extra = _amp_step_fn(exe, main, book.fetch[0]), book.fetch[1:]
+
+    def fetch_step(sc, feed, eager=False):
+        """A step's fetches, each as its first value."""
+        if not extra:
+            return (step(sc, feed, eager=eager),)
+        loss, rest = step(sc, feed, fetch=extra, eager=eager)
+        return (loss,) + tuple(float(r.reshape(-1)[0]) for r in rest)
+
+    steps = []
+
+    def main_step(sc, feed):
+        steps.append(fetch_step(sc, feed))
+        return steps[-1][0]
+
+    def after():
+        final = (_fetched(exe.run(main, feed=book.final_feed,
+                                  fetch_list=book.final_fetch, scope=scope,
+                                  return_numpy=False))
+                 if book.final_feed is not None else [])
+        if book.post is not None:
+            book.post(fluid, exe, scope)
+        return final
+
+    # ---- the main path: counts zeroed here, read after the last step
+    path = _metered_steps(what, main_step, scope, book.feeds,
+                          len(book.feeds), per_step, after=after)
+    # ---- end of the main path
+    n_cpu = len(book.feeds) if book.reference_fault else BOOK_PARITY_STEPS
+    cpu, gap, _ = _cpu_parity(what, exe, main, book.fetch[0], snap,
+                              book.feeds, path["losses"][:n_cpu])
+    value, bar, ok = book.check(steps, path["after"])
+    if not ok and not book.reference_fault:
+        raise AssertionError("%s: the book's assertion fails on the card: "
+                             "%s against %s" % (what, value, bar))
+    if not ok:
+        log("%s: the book's assertion missed, %s against %s, as on the CPU "
+            "(its %d losses within %.2e) and in the JAX package: %s"
+            % (what, value, bar, n_cpu, gap, book.reference_fault))
+    _replay_turns(what, exe, snap, book.feeds, params, fetch_step,
+                  BOOK_PAIRS)
+    exe.close()
+    out = dict(
+        steps=len(book.feeds), optimizer=book.optimizer,
+        optimizer_groups=tier["optimizer_groups"],
+        ops=(tier["ops_before"], tier["ops_after"]),
+        assertion=dict(value=value, bar=bar, met=ok,
+                       reference_fault=book.reference_fault),
+        losses_first=path["losses"][:BOOK_PARITY_STEPS],
+        cpu_losses_first=cpu[:BOOK_PARITY_STEPS], cpu_gap=gap,
+        loss_last=path["losses"][-1],
+        launches=dict(zip(COUNT_NAMES, path["launches"])),
+        seconds=time.perf_counter() - t0)
+    log("%s: %d steps (%s, %d optimizer group(s), level 2: %d ops of %d); "
+        "the book's assertion %s against %s; first losses %s, the CPU's "
+        "(%d) within %.2e; replays bitwise eager; launches %s = %s on the "
+        "card; %.1f s" % (what, len(book.feeds), book.optimizer,
+                          len(tier["optimizer_groups"]), tier["ops_after"],
+                          tier["ops_before"], value, bar,
+                          ["%.5f" % v for v in out["losses_first"]], n_cpu,
+                          gap, COUNT_NAMES, path["launches"], out["seconds"]))
+    return out
+
+
+def _chapter_at_widths(fluid, bp, name, seed):
+    """Book ``name``'s chapter network at its widths
+    (``book_programs.CHAPTER``): started on the card, trained by
+    ``_seq_train`` (the main path, K6 or K7 once a step; pairs in turns
+    bitwise; replayed and eager ms, a profiled replayed step, peak
+    memory), its first losses the CPU's."""
+    what = "chapter %s at its widths (17)" % name
+    t0 = time.perf_counter()
+    cfg = bp.CHAPTER[name]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        feeds, loss, opt = bp.chapter(fluid, name)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [loss.name], scope)
+    snap, _, res = _seq_train(what, exe, scope, main, loss, params, tier,
+                              feeds, cfg["batch"], "examples", opt=opt,
+                              steps=CHAPTER_STEPS, eager_readings=False)
+    cpu, gap, tol = _cpu_parity(what, exe, main, loss, snap, feeds,
+                                res["losses"][:BOOK_PARITY_STEPS],
+                                f64=name in CHAPTER_F64)
+    exe.close()
+    c = res["compiled"]
+    prof = c["replay_profile"]
+    out = dict(cfg=cfg, optimizer=opt, n_params=res["n_params"],
+               n_weights=res["n_weights"],
+               ops=(tier["ops_before"], tier["ops_after"]),
+               losses=res["losses"], cpu_losses_first=cpu, cpu_gap=gap,
+               cpu_tol=tol,
+               replay_ms=c["replay_median_ms"], eager_ms=c["eager_median_ms"],
+               capture_s=c["capture_s"], kernels=prof["kernels"],
+               busy_share=prof["busy_share"],
+               busy_ms=prof["device_busy_ms"],
+               by_class_ms=prof["by_class_ms"],
+               peak_mem_mib=res["peak_mem_mib"],
+               base_mem_mib=res["base_mem_mib"],
+               rise_mem_mib=res["rise_mem_mib"], launches=res["launches"],
+               seconds=time.perf_counter() - t0)
+    log("%s: %d params (%d weights), batch %d; first losses the CPU's "
+        "within %.2e%s; %.1f s" % (what, res["n_params"], res["n_weights"],
+                                 cfg["batch"], gap,
+                                 " of float64's (the CPU's f32 within "
+                                 "%.2e of them, held to %.2e)" % (
+                                     tol / F64_FACTOR, tol)
+                                 if name in CHAPTER_F64 else "",
+                                 out["seconds"]))
+    return out
+
+
+def phase_book(seed):
+    """Phase 17: the Fluid book's seven trainings at tests/test_book.py's
+    sizes (built by tools/book_programs.py with the port's layers), each
+    started on the card, its whole training at level 2 (replayed from
+    the plan's CUDA graph from the second step on) with K6 (Adam) or K7
+    (fit_a_line's SGD) once a step on the card, and the chapter's end
+    assertion met; the first 3 losses against the port on the CPU from
+    the same startup; replayed steps bitwise the eager steps. Then the
+    six chapters' networks but label_semantic_roles' (17b) at their
+    widths: trained on the card, their first losses the CPU's, replays
+    bitwise eager, the replayed and eager ms a step, the kernels and
+    busy share of a replayed step and the peak memory."""
+    import paddle_tpu_torch as fluid
+
+    bp = _book_programs()
+    out = {}
+    launches = np.zeros(len(COUNT_NAMES), dtype=np.int64)
+    for name in bp.BOOK:
+        out[name] = _book_functional(fluid, bp, name, seed)
+        launches += [out[name]["launches"][c] for c in COUNT_NAMES]
+    for name in bp.CHAPTER:
+        key = "chapter " + name
+        out[key] = _chapter_at_widths(fluid, bp, name, seed)
+        launches += [out[key]["launches"][c] for c in COUNT_NAMES]
+        _free()
+    out["launches"] = dict(zip(COUNT_NAMES, (int(v) for v in launches)))
+    return out
+
+
+def phase_srl(seed):
+    """Phase 17b: label_semantic_roles' ``db_lstm`` at the chapter's
+    widths (word embedding 32, mark embedding 5, hidden 512, 8 stacked
+    ``dynamic_lstm``s alternating direction, ``linear_chain_crf`` and
+    ``crf_decoding``; conll05's 512 words, 64 verbs and 6 labels), batch
+    32 padded to T = 24, the pretrained embedding loaded, Adam at level
+    2: ``_seq_train``'s main path with K6 once a step on the card, the
+    loss falling, its pairs and readings; the first 3 losses and the CRF
+    transition after them the port's on the CPU from the same snapshot;
+    then a decode."""
+    import paddle_tpu_torch as fluid
+
+    bp = _book_programs()
+    what = "srl db_lstm (17b)"
+    t0 = time.perf_counter()
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
+    cfg = bp.SRL
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, loss, decode = bp.srl_db_lstm(fluid, cfg)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    scope.find_var("emb").copy_(torch.from_numpy(bp.conll05_embedding()))
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [loss.name], scope)
+    batches = bp.srl_batches(cfg)
+    snap, _, res = _seq_train(what, exe, scope, main, loss, params, tier,
+                              batches, cfg["batch"], "sentences",
+                              eager_readings=False)
+    losses = res["losses"]
+    first, last = (float(np.mean(losses[k])) for k in (slice(0, 4),
+                                                       slice(-4, None)))
+    if not last < first:
+        raise AssertionError("%s: the loss does not fall: %s"
+                             % (what, losses))
+    cpu, gap, _ = _cpu_parity(what, exe, main, loss, snap, batches,
+                              losses[:BOOK_PARITY_STEPS], param="crfw")
+    b = batches[0]
+    (path_ids,) = exe.run(main, feed=b, fetch_list=[decode], scope=scope)
+    lengths, target = b["length"], b["target"]
+    valid = np.arange(cfg["max_len"])[None, :] < lengths[:, None]
+    if path_ids.shape != target.shape or path_ids[~valid].any() or \
+            path_ids.min() < 0 or path_ids.max() >= bp.CONLL05["labels"]:
+        raise AssertionError("%s: the decode is not a tag path: shape %s, "
+                             "range [%s, %s]" % (what, path_ids.shape,
+                                                 path_ids.min(),
+                                                 path_ids.max()))
+    acc = float((path_ids == target)[valid].mean())
+    exe.close()
+    c = res["compiled"]
+    prof = c["replay_profile"]
+    out = dict(cfg=cfg, n_params=res["n_params"], n_weights=res["n_weights"],
+               ops=(tier["ops_before"], tier["ops_after"]), losses=losses,
+               cpu_losses_first=cpu, cpu_gap=gap,
+               replay_ms=c["replay_median_ms"], eager_ms=c["eager_median_ms"],
+               capture_s=c["capture_s"], kernels=prof["kernels"],
+               busy_share=prof["busy_share"], busy_ms=prof["device_busy_ms"],
+               by_class_ms=prof["by_class_ms"],
+               peak_mem_mib=res["peak_mem_mib"],
+               base_mem_mib=res["base_mem_mib"],
+               rise_mem_mib=res["rise_mem_mib"], held_mem_mib=held_mb,
+               decode_accuracy=acc, launches=res["launches"],
+               seconds=time.perf_counter() - t0)
+    log("%s: %d params (%d weights); the loss %.3f -> %.3f; first losses "
+        "and the CRF transition after them the CPU's within %.2e; %.1f MiB "
+        "held by earlier phases as it began; decode accuracy %.3f; %.1f s"
+        % (what, res["n_params"], res["n_weights"], first, last, gap,
+           held_mb, acc, out["seconds"]))
+    return out
+
+
+def _op_tail_cases(rs):
+    """(op, inputs as numpy, attrs, differentiable input slots, tolerance)
+    for one small case of each of phase 17c's op types, shaped like
+    tests/test_torch_ops.py's cases (ties, repeated ids, lengths 0 and
+    1, ids past a table); the random ops and nce are checked apart
+    (``_op_tail_random``), as is im2sequence, which raises."""
+    f = lambda *s: rs.randn(*s).astype("float32")  # noqa: E731
+    i32 = lambda hi, *s: rs.randint(0, hi, s).astype("int32")  # noqa
+    T, P = OP_TAIL_TOL, OP_TAIL_PRODUCT_TOL
+    x3, x4 = f(2, 3, 4), f(2, 3, 4, 5)
+    lens = np.array([0, 1, 6, 3], "int32")
+    return [
+        ("split", {"X": [x3]}, {"axis": 2, "sections": [1, 3]}, ["X"], T),
+        ("squeeze", {"X": [f(2, 1, 4)]}, {}, ["X"], T),
+        ("unsqueeze", {"X": [x3]}, {"axes": [0, 3]}, ["X"], T),
+        ("flatten", {"X": [x3]}, {"axis": 2}, ["X"], T),
+        ("flatten2", {"X": [x3]}, {"axis": 1}, ["X"], T),
+        ("unstack", {"X": [x3]}, {"axis": 1}, ["X"], T),
+        ("strided_slice", {"Input": [f(7, 6, 5)]},
+         {"axes": [0, 1], "starts": [-1, 0], "ends": [-8, 6],
+          "strides": [-3, 2]}, ["Input"], T),
+        ("gather_nd", {"X": [f(4, 5, 3)], "Index": [np.array(
+            [[0, 1], [3, 4], [9, -1]], "int32")]}, {}, ["X"], T),
+        ("scatter", {"X": [f(6, 3)], "Ids": [np.array([4, 0, 2], "int32")],
+                     "Updates": [f(3, 3)]}, {"overwrite": True},
+         ["X", "Updates"], T),
+        ("expand_as", {"X": [f(2, 1, 4)], "target_tensor": [x3]}, {},
+         ["X"], T),
+        ("tile", {"X": [f(2, 3)]}, {"repeat_times": [2, 1, 2]}, ["X"], T),
+        ("pad", {"X": [x3]}, {"paddings": [1, 0, 0, 2, 1, 1],
+                              "pad_value": 0.5}, ["X"], T),
+        ("pad2d", {"X": [x4]}, {"paddings": [1, 0, 2, 1],
+                                "mode": "reflect"}, ["X"], T),
+        ("crop", {"X": [x3]}, {"offsets": [0, 1, 1], "shape": [2, 2, 2]},
+         ["X"], T),
+        ("reverse", {"X": [x3]}, {"axis": [0, 2]}, ["X"], T),
+        ("shard_index", {"X": [np.array([[0], [7], [12], [19]], "int32")]},
+         {"index_num": 20, "nshards": 3, "shard_id": 1}, [], T),
+        ("roll", {"X": [x3]}, {"shifts": [1, -1], "axis": [1, 2]}, ["X"], T),
+        ("meshgrid", {"X": [f(3), f(4)]}, {}, ["X"], T),
+        ("matmul_v2", {"X": [f(2, 4, 3)], "Y": [f(2, 4, 5)]},
+         {"trans_x": True}, ["X", "Y"], P),
+        ("bmm", {"X": [f(3, 2, 4)], "Y": [f(3, 4, 5)]}, {}, ["X", "Y"], P),
+        ("arg_max", {"X": [i32(3, 4, 6).astype("float32")]}, {}, [], T),
+        ("arg_min", {"X": [i32(3, 4, 6).astype("float32")]}, {"axis": 0},
+         [], T),
+        ("argsort", {"X": [i32(3, 4, 6).astype("float32")]}, {}, [], T),
+        ("cumsum", {"X": [f(3, 5)]}, {"exclusive": True, "reverse": True},
+         ["X"], T),
+        ("cumsum", {"X": [i32(9, 3, 5)]}, {"axis": 0}, [], T),
+        ("norm", {"X": [x3]}, {"axis": 1}, ["X"], T),
+        ("dot", {"X": [f(3, 5)], "Y": [f(3, 5)]}, {}, ["X", "Y"], T),
+        ("maximum_with_index", {"X": [i32(3, 4, 6).astype("float32")]}, {},
+         [], T),
+        ("fill_any_like", {"X": [f(2, 3)]}, {"value": 3, "dtype": "int32"},
+         [], T),
+        ("share_data", {"X": [f(2, 3)]}, {}, ["X"], T),
+        ("shape", {"Input": [x3]}, {}, [], T),
+        ("isfinite", {"X": [np.array([1.0, np.inf], "float32")]}, {}, [],
+         T),
+        ("linspace", {"Start": [np.full(1, -3.5, "float32")],
+                      "Stop": [np.full(1, 2.25, "float32")],
+                      "Num": [np.full(1, 11, "int32")]}, {}, [], T),
+        ("prelu", {"X": [x4], "Alpha": [f(3)]}, {"mode": "channel"},
+         ["X", "Alpha"], T),
+        ("depthwise_conv2d", {"Input": [f(2, 4, 7, 6)],
+                              "Filter": [f(8, 1, 3, 3)]},
+         {"strides": [2, 1], "paddings": [1, 1], "groups": 4},
+         ["Input", "Filter"], P),
+        ("conv2d_transpose", {"Input": [f(2, 4, 5, 6)],
+                              "Filter": [f(4, 3, 3, 2)]},
+         {"strides": [2, 1], "paddings": [1, 0], "dilations": [1, 2]},
+         ["Input", "Filter"], P),
+        ("conv3d", {"Input": [f(2, 4, 4, 5, 4)],
+                    "Filter": [f(4, 2, 2, 3, 2)]},
+         {"strides": [1, 2, 1], "paddings": [1, 0, 1], "groups": 2},
+         ["Input", "Filter"], P),
+        ("pool2d_with_index", {"X": [i32(3, 2, 6, 5, 4).astype(
+            "float32")]}, {"ksize": [3, 2], "strides": [2, 2],
+                           "paddings": [1, 0]}, [], T),
+        ("pool2d_with_index", {"X": [f(2, 6, 5, 4)]},
+         {"ksize": [3, 2], "strides": [2, 2], "paddings": [1, 0]}, ["X"],
+         T),
+        ("group_norm", {"X": [f(2, 6, 3, 4)], "Scale": [f(6)],
+                        "Bias": [f(6)]}, {"groups": 3},
+         ["X", "Scale", "Bias"], T),
+        ("lrn", {"X": [f(2, 6, 3, 4)]}, {"n": 3, "alpha": 0.1}, ["X"], T),
+        ("log_softmax", {"X": [x3]}, {"axis": 1}, ["X"], T),
+        ("sigmoid_cross_entropy_with_logits",
+         {"X": [f(5, 3)], "Label": [rs.rand(5, 3).astype("float32")]},
+         {"normalize": True}, ["X"], T),
+        ("square_error_cost", {"X": [f(5, 3)], "Y": [f(5, 3)]}, {},
+         ["X", "Y"], T),
+        ("smooth_l1_loss", {"X": [f(5, 3)], "Y": [f(5, 3)]},
+         {"sigma": 2.0}, ["X"], T),
+        ("huber_loss", {"X": [f(5, 1)], "Y": [f(5, 1)]}, {"delta": 0.7},
+         ["X", "Y"], T),
+        ("log_loss", {"Predicted": [rs.rand(5, 1).astype("float32")],
+                      "Labels": [i32(2, 5, 1).astype("float32")]}, {},
+         ["Predicted"], T),
+        ("lookup_table_v2", {"W": [f(10, 4)], "Ids": [np.array(
+            [[1, 2, 2], [7, 1, 12]], "int32")]}, {"padding_idx": 2},
+         ["W"], T),
+        ("maxout", {"X": [f(2, 6, 3, 4)]}, {"groups": 3}, ["X"], T),
+        ("cos_sim", {"X": [f(5, 3)], "Y": [f(1, 3)]}, {}, ["X", "Y"], T),
+        ("rank_loss", {"Label": [i32(2, 5, 1).astype("float32")],
+                       "Left": [f(5, 1)], "Right": [f(5, 1)]}, {},
+         ["Left", "Right"], T),
+        ("margin_rank_loss", {"Label": [np.sign(f(5, 1))],
+                              "X1": [f(5, 1)], "X2": [f(5, 1)]},
+         {"margin": 0.1}, ["X1", "X2"], T),
+        ("bpr_loss", {"X": [f(5, 3)], "Label": [np.array(
+            [[0], [2], [1], [1], [0]], "int32")]}, {}, ["X"], T),
+        ("hierarchical_sigmoid", {"X": [f(6, 5)], "W": [f(6, 5)],
+                                  "Bias": [f(6)],
+                                  "Label": [i32(7, 6, 1)]},
+         {"num_classes": 7}, ["X", "W", "Bias"], T),
+        ("warpctc", {"Logits": [f(4, 6, 5)], "Label": [rs.randint(
+            1, 5, (4, 3)).astype("int32")],
+            "LogitsLength": [np.array([1, 2, 6, 4], "int32")],
+            "LabelLength": [np.array([0, 1, 3, 2], "int32")]},
+         {"blank": 0}, ["Logits"], T),
+        ("linear_chain_crf", {"Emission": [f(4, 6, 4)],
+                              "Transition": [f(6, 4)],
+                              "Label": [i32(4, 4, 6)], "Length": [lens]},
+         {}, ["Emission", "Transition"], T),
+        ("crf_decoding", {"Emission": [np.round(f(4, 6, 4))],
+                          "Transition": [np.round(f(6, 4))],
+                          "Length": [lens]}, {}, [], T),
+        ("edit_distance", {"Hyps": [i32(3, 4, 5)], "Refs": [i32(3, 4, 6)],
+                           "HypsLength": [np.array([5, 0, 3, 1], "int32")],
+                           "RefsLength": [np.array([6, 2, 0, 4], "int32")]},
+         {"normalized": True}, [], T),
+        ("bilinear_interp", {"X": [x4]}, {"out_h": 6, "out_w": 9,
+                                          "align_corners": False}, ["X"], T),
+        ("nearest_interp", {"X": [x4]}, {"out_h": 7, "out_w": 3}, ["X"], T),
+        ("affine_channel", {"X": [x4], "Scale": [f(3)], "Bias": [f(3)]},
+         {}, ["X", "Scale", "Bias"], T),
+    ]
+
+
+def _op_on(dev, op_type, ins, attrs, chain=None):
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    return get_op(op_type).lowering(
+        LowerContext(None, chain, dev),
+        {k: [torch.from_numpy(np.array(v)).to(dev) for v in vs]
+         for k, vs in ins.items()}, dict(attrs))
+
+
+def _op_grad_on(dev, op_type, ins, outs, cots, attrs, diff):
+    """``<op>_grad`` on ``dev``: numpy forward inputs, outputs (None kept)
+    and output cotangents; the grads of the slots ``diff``."""
+    from paddle_tpu_torch.core.autodiff import (ATTR_DIFF, ATTR_FWD_IN,
+                                                ATTR_FWD_OUT)
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    gattrs = dict(attrs)
+    gattrs[ATTR_FWD_IN] = {k: len(v) for k, v in ins.items()}
+    gattrs[ATTR_FWD_OUT] = {k: len(v) for k, v in outs.items()}
+    gattrs[ATTR_DIFF] = [[s, i] for s in diff for i in range(len(ins[s]))]
+    gins = dict(ins, **outs, **cots)
+    got = get_op(op_type + "_grad").lowering(
+        LowerContext(None, None, dev),
+        {k: [None if v is None else torch.from_numpy(np.array(v)).to(dev)
+             for v in vs] for k, vs in gins.items()}, gattrs)
+    return {s: [g.cpu() for g in got[s + "@GRAD"]] for s in diff}
+
+
+def _same(a, b, tol):
+    """``a`` (the card's) against ``b`` (the CPU's): floats within tol +
+    a relative tol, NaN where NaN; others exactly; the same dtype."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(torch.allclose(a, b, rtol=tol, atol=tol, equal_nan=True))
+
+
+def _op_tail_random(dev):
+    """The random ops on the card: shapes, ranges, moments, a nonzero
+    ``seed`` attr's fixed draw; nce's negatives in range with the label
+    first, its cost and grads the CPU's on those negatives."""
+    from paddle_tpu_torch.ops.loss_ops import nce_loss
+
+    chain = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    tg = lambda s, **a: _op_on(  # noqa: E731
+        dev, "truncated_gaussian_random", {}, dict(
+            {"shape": [256, 256], "mean": 0.5, "std": 2.0}, **a),
+        chain(s))["Out"][0].cpu()
+    z = tg(1)
+    if not (z.min() >= -3.5 and z.max() <= 4.5 and abs(z.mean() - 0.5) <
+            0.03 and abs(z.std() - 2 * 0.8796) < 0.03):
+        raise AssertionError("op tail (17c): truncated_gaussian_random on "
+                             "the card: range [%s, %s], mean %s, std %s" % (
+                                 z.min(), z.max(), z.mean(), z.std()))
+    if not torch.equal(tg(1, seed=9), tg(2, seed=9)) or torch.equal(tg(2),
+                                                                    z):
+        raise AssertionError("op tail (17c): truncated_gaussian_random's "
+                             "seeds on the card")
+    u = _op_on(dev, "uniform_random_batch_size_like",
+               {"Input": [np.zeros((3, 7), "float32")]},
+               {"shape": [-1, 500], "input_dim_idx": 1, "min": -0.5,
+                "max": 2.0}, chain(1))["Out"][0].cpu()
+    if tuple(u.shape) != (7, 500) or u.min() < -0.5 or u.max() >= 2.0:
+        raise AssertionError("op tail (17c): uniform_random_batch_size_like "
+                             "on the card: %s in [%s, %s]" % (
+                                 tuple(u.shape), u.min(), u.max()))
+    p = np.tile(np.array([[0.2, 0.0, 0.8]], "float32"), (4000, 1))
+    ids = _op_on(dev, "sampling_id", {"X": [p]}, {}, chain(1))["Out"][0]
+    share = torch.bincount(ids.long().cpu(), minlength=3) / 4000.0
+    if ids.dtype != torch.int32 or share[1] != 0 or \
+            abs(float(share[2]) - 0.8) > 0.05:
+        raise AssertionError("op tail (17c): sampling_id on the card: %s"
+                             % share.tolist())
+    rs = np.random.RandomState(3)
+    x, w, b = (rs.randn(5, 6).astype("float32"),
+               rs.randn(20, 6).astype("float32"),
+               rs.randn(20).astype("float32"))
+    ins = {"Input": [x], "Weight": [w], "Bias": [b],
+           "Label": [np.array([[3], [0], [19], [3], [7]], "int32")]}
+    attrs = {"num_neg_samples": 8, "num_total_classes": 20}
+    got = _op_on(dev, "nce", ins, attrs, chain(1))
+    sl = got["SampleLabels"][0].cpu()
+    want = nce_loss(torch.from_numpy(x), torch.from_numpy(w),
+                    torch.from_numpy(b), sl, 8, 20)[0]
+    if sl.dtype != torch.int32 or not torch.equal(
+            sl[:, 0], torch.tensor([3, 0, 19, 3, 7], dtype=torch.int32)) \
+            or sl.min() < 0 or sl.max() >= 20 or \
+            not _same(got["Cost"][0].cpu(), want, OP_TAIL_TOL):
+        raise AssertionError("op tail (17c): nce on the card")
+    outs = {k: [v[0].cpu().numpy()] for k, v in got.items()}
+    cots = {"Cost@GRAD": [rs.randn(5, 1).astype("float32")]}
+    g = [_op_grad_on(d, "nce", ins, outs, cots, attrs,
+                     ["Input", "Weight", "Bias"])
+         for d in (dev, torch.device("cpu"))]
+    bad = [s for s in g[0] if not _same(g[0][s][0], g[1][s][0],
+                                        OP_TAIL_TOL)]
+    if bad:
+        raise AssertionError("op tail (17c): nce's grads on the card: %s"
+                             % bad)
+    with_raise = False
+    try:
+        _op_on(dev, "im2sequence", {"X": [np.zeros((1, 1, 4, 4),
+                                                   "float32")]}, {})
+    except NotImplementedError:
+        with_raise = True
+    if not with_raise:
+        raise AssertionError("op tail (17c): im2sequence did not raise")
+    return ["truncated_gaussian_random", "uniform_random_batch_size_like",
+            "sampling_id", "nce", "im2sequence"]
+
+
+def _op_tail_scatter(dev):
+    """``scatter`` over 20000 repeated ids in 100 rows (some past the
+    rows): two runs on the card bitwise equal; overwrite the CPU's
+    (the last write wins), adds within 1e-4 of the CPU's."""
+    rs = np.random.RandomState(4)
+    ins = {"X": [rs.randn(100, 8).astype("float32")],
+           "Ids": [rs.randint(-100, 110, 20000).astype("int32")],
+           "Updates": [rs.randn(20000, 8).astype("float32")]}
+    for overwrite in (True, False):
+        a, b, c = (_op_on(d, "scatter", ins, {"overwrite": overwrite})[
+            "Out"][0].cpu() for d in (dev, dev, torch.device("cpu")))
+        if not torch.equal(a, b) or not (
+                torch.equal(a, c) if overwrite else
+                torch.allclose(a, c, rtol=1e-5, atol=1e-4)):
+            raise AssertionError("op tail (17c): scatter overwrite=%s over "
+                                 "repeated ids on the card" % overwrite)
+
+
+def _op_tail_linspace(seed):
+    """A ``linspace`` plan on the card: never captured (it reads its
+    bounds on the host), right at every run, counted once in
+    ``paddle_executor_uncaptured_plans_total{op="linspace"}``."""
+    import warnings
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        start = fluid.layers.data("start", [1], append_batch_size=False)
+        out = fluid.layers.linspace(start, 4.0, 9)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    before = UNCAPTURED_PLANS.labels(op="linspace").value
+    wrong = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for k in (0.0, 2.0, -4.0, 1.0):
+            (got,) = exe.run(main, feed={"start": np.array([k], "float32")},
+                             fetch_list=[out], scope=scope)
+            if not np.allclose(got, np.linspace(k, 4.0, 9), atol=1e-6):
+                wrong.append(k)
+    (plan,) = exe._cache.values()
+    counted = UNCAPTURED_PLANS.labels(op="linspace").value - before
+    exe.close()
+    if wrong or plan.graph is not None or counted != 1 or \
+            plan.host_sync != ["linspace"]:
+        raise AssertionError("op tail (17c): linspace: wrong at %s, "
+                             "captured %s, counted %s, host-sync ops %s" % (
+                                 wrong, plan.graph is not None, counted,
+                                 plan.host_sync))
+    return dict(counted=counted, host_sync=plan.host_sync)
+
+
+def _op_tail_scan_plans(seed):
+    """Training plans of a CRF and a CTC loss (an fc over a padded [B, T,
+    D] batch, Adam) on the card: OP_TAIL_STEPS steps under the launch
+    meter (K6 once a step), captured, and replays bitwise the eager
+    steps."""
+    import paddle_tpu_torch as fluid
+
+    L = fluid.layers
+    rs = np.random.RandomState(seed)
+    B, T, D, C = 16, 20, 32, 6
+    out, launches = {}, np.zeros(len(COUNT_NAMES), dtype=np.int64)
+    for kind in ("crf", "ctc"):
+        what = "op tail %s plan (17c)" % kind
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = seed
+        with fluid.program_guard(main, startup), fluid.unique_name.guard():
+            x = L.data("x", [T, D])
+            ln = L.data("len", [], dtype="int64")
+            emit = L.fc(x, size=C, num_flatten_dims=2)
+            if kind == "crf":
+                tags = L.data("tags", [T], dtype="int64")
+                cost = L.scale(L.linear_chain_crf(emit, tags, length=ln),
+                               scale=-1.0)
+            else:
+                lab = L.data("lab", [5], dtype="int64")
+                lab_len = L.data("lab_len", [], dtype="int64")
+                cost = L.warpctc(emit, lab, ln, lab_len)
+            loss = L.mean(cost)
+            fluid.optimizer.Adam(learning_rate=1e-2).minimize(loss)
+        feeds = []
+        for _ in range(OP_TAIL_STEPS):
+            f = {"x": rs.randn(B, T, D).astype("float32"),
+                 "len": rs.randint(1, T + 1, B).astype("int64")}
+            if kind == "crf":
+                f["tags"] = rs.randint(0, C, (B, T)).astype("int64")
+            else:
+                f["lab"] = rs.randint(1, C, (B, 5)).astype("int64")
+                f["lab_len"] = rs.randint(0, 6, B).astype("int64")
+                f["len"] = np.maximum(f["len"], 11)
+            feeds.append(f)
+        exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+        exe.run(startup, scope=scope)
+        params = [p.name for p in main.global_block().all_parameters()]
+        per_step = _per_step("Adam", len(_tier_stats(
+            main, [loss.name], scope)["optimizer_groups"]))
+        snap = _snapshot(scope)
+        path = _metered_steps(what, _amp_step_fn(exe, main, loss), scope,
+                              feeds, OP_TAIL_STEPS, per_step)
+        _replay_turns(what, exe, snap, feeds, params,
+                      _amp_step_fn(exe, main, loss), len(feeds) - 1)
+        exe.close()
+        launches += np.asarray(path["launches"])
+        out[kind] = dict(losses=path["losses"],
+                         launches=dict(zip(COUNT_NAMES, path["launches"])))
+    return out, launches
+
+
+def phase_op_tail(seed):
+    """Phase 17c: each of the 64 op types of this slice on the card
+    against the same op on the CPU (one small case, and its grad where it
+    is differentiable; the random ops by their properties), scatter over
+    repeated ids repeatable, a linspace plan uncaptured and counted, and
+    the CRF and CTC training plans captured with replays bitwise
+    eager."""
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    done, bad = set(), []
+    for op_type, ins, attrs, diff, tol in _op_tail_cases(rs):
+        outs = [_op_on(d, op_type, ins, attrs) for d in (dev, cpu)]
+        for slot, vals in outs[1].items():
+            for a, b in zip(outs[0][slot], vals):
+                if b is not None and not _same(a.cpu(), b, tol):
+                    bad.append("%s.%s" % (op_type, slot))
+        if diff:
+            fwd = {k: [None if v is None else v.cpu().numpy() for v in vs]
+                   for k, vs in outs[1].items()}
+            cots = {k + "@GRAD": [rs.randn(*v.shape).astype(v.dtype)
+                                  for v in vs]
+                    for k, vs in fwd.items()
+                    if all(v is not None and v.dtype.kind == "f"
+                           for v in vs)}
+            g = [_op_grad_on(d, op_type, ins, fwd, cots, attrs, diff)
+                 for d in (dev, cpu)]
+            for s in diff:
+                for a, b in zip(g[0][s], g[1][s]):
+                    if not _same(a, b, tol):
+                        bad.append("%s %s@GRAD" % (op_type, s))
+        done.add(op_type)
+    done.update(_op_tail_random(dev))
+    if bad:
+        raise AssertionError("op tail (17c): the card differs from the CPU: "
+                             "%s" % bad)
+    if len(done) != 64:
+        raise AssertionError("op tail (17c): %d op types checked, not 64"
+                             % len(done))
+    _op_tail_scatter(dev)
+    lin = _op_tail_linspace(seed)
+    plans, launches = _op_tail_scan_plans(seed)
+    secs = time.perf_counter() - t0
+    log("op tail (17c): %d op types on the card against the CPU (forward, "
+        "and the grads of the differentiable ones), the random ones by "
+        "their properties; scatter over repeated ids repeatable; a linspace "
+        "plan uncaptured, counted %d; the CRF and CTC plans captured, "
+        "replays bitwise eager, losses %s / %s; launches %s = %s; %.1f s" % (
+            len(done), lin["counted"],
+            ["%.4f" % v for v in plans["crf"]["losses"]],
+            ["%.4f" % v for v in plans["ctc"]["losses"]], COUNT_NAMES,
+            tuple(int(v) for v in launches), secs))
+    return dict(op_types=sorted(done), linspace=lin, plans=plans,
+                launches=dict(zip(COUNT_NAMES, (int(v) for v in launches))),
+                seconds=secs)
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -6891,6 +7747,47 @@ def _free():
     torch.cuda.empty_cache()
 
 
+# the phases ``--phases`` selects from, in run order, each with the
+# phases whose results it takes (1, the card, and 2, the build, always
+# run)
+PHASES = (
+    ("3", ()), ("3b", ()), ("3c", ()), ("3d", ()),
+    ("4", ()), ("4c", ("4",)), ("5", ("4",)), ("12e", ("4",)),
+    ("4b", ("4",)),
+    ("6", ()), ("6b", ("6",)), ("6e", ("6",)), ("6f", ("6b",)),
+    ("6g", ("6",)), ("7", ()), ("7b", ()),
+    ("8", ()), ("8c", ("8",)), ("8b", ()), ("9", ()),
+    ("10", ()), ("10c", ("10",)), ("10b", ()), ("11", ()), ("11b", ()),
+    ("12", ()), ("12b", ("12",)), ("12c", ("12",)), ("12d", ("12",)),
+    ("14b", ("12",)),
+    ("13", ()), ("13checkpoint", ("13",)), ("13b", ()), ("13c", ()),
+    ("14", ()), ("15", ()),
+    ("16", ()), ("16b", ()), ("16c", ()), ("16d", ()),
+    ("17", ()), ("17b", ()), ("17c", ()))
+
+
+def selected_phases(spec):
+    """The phases ``--phases SPEC`` runs, in run order: the comma list's
+    and, in turn, the phases they need; every phase without SPEC."""
+    names = [n for n, _ in PHASES]
+    if not spec:
+        return names
+    needs = dict(PHASES)
+    todo = [p.strip() for p in spec.split(",") if p.strip()]
+    unknown = [p for p in todo if p not in needs]
+    if unknown:
+        raise SystemExit("chip_smoke: unknown phase(s) %s; the phases are "
+                         "%s (1 and 2 always run)" % (unknown,
+                                                     ",".join(names)))
+    want = set()
+    while todo:
+        p = todo.pop()
+        if p not in want:
+            want.add(p)
+            todo.extend(needs[p])
+    return [n for n in names if n in want]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to "
@@ -6898,7 +7795,12 @@ def main():
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the weights and the synthetic batches "
                     "(default %(default)s)")
+    ap.add_argument("--phases", help="a comma list of the phases to run "
+                    "(with the phases they need; 1 and 2 always run), "
+                    "e.g. 17,17b,17c; every phase by default")
     args = ap.parse_args()
+    run = selected_phases(args.phases)
+    left_out = [n for n, _ in PHASES if n not in run]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
@@ -6908,6 +7810,7 @@ def main():
     os.environ["PADDLE_TPU_KERNEL_CACHE_DIR"] = "0"
     t_start = time.perf_counter()
     phase_s = {}
+    R = {}  # each phase's results, by phase name
 
     def timed(name, fn, *a):
         """``fn(*a)``, its seconds kept in ``phase_s`` and logged."""
@@ -6917,255 +7820,355 @@ def main():
         log("phase %s: %.1f s" % (name, phase_s[name]))
         return out
 
+    def want(name):
+        return name in run
+
+    if left_out:
+        log("phases: %s (left out: %s)" % (",".join(run), ",".join(left_out)))
     smi = timed("1", phase_card)
     build_s = timed("2", phase_build)
-    fwd_occupancy = _fwd_occupancy()
-    rows = timed("3", phase_kernels, args.seed)
-    bwd_rows, bwd_occupancy = timed("3b", phase_bwd_kernels, args.seed)
-    tier_rows, k5_launches = timed("3c", phase_tier_kernels, args.seed)
-    tuned = timed("3d", phase_tune)
+    if want("3"):
+        R["3 occupancy"] = _fwd_occupancy()
+        R["3"] = timed("3", phase_kernels, args.seed)
+    if want("3b"):
+        R["3b"], R["3b occupancy"] = timed("3b", phase_bwd_kernels,
+                                           args.seed)
+    if want("3c"):
+        R["3c"], R["3c K5 launches"] = timed("3c", phase_tier_kernels,
+                                             args.seed)
+    if want("3d"):
+        R["3d"] = timed("3d", phase_tune)
     _free()
-    with tempfile.TemporaryDirectory() as workdir:
-        serve, pred, reqs = timed("4", phase_serve, workdir, args.seed)
-    serve["compiled"] = timed("4c f32", phase_compiled_serve, "f32", pred,
-                              reqs, serve["per_dispatch"])
-    profile = timed("5", phase_profile, pred, reqs)
-    batcher = timed("12e", phase_batcher, pred, args.seed)
-    with tempfile.TemporaryDirectory() as workdir:
-        serve_amp = timed("4b + 4c AMP", phase_serve_amp, workdir,
-                          args.seed, pred, reqs)
-    del pred
-    _free()
-    train = timed("6 + 6c f32", phase_train, args.seed)
-    _free()
-    train_amp = timed("6b + 6c AMP", phase_train_amp, args.seed, train)
-    _free()
-    train_loop = timed("6e", phase_train_loop, "f32 (6e)", args.seed, False,
-                       train["snapshot"], train.pop("per_step"))
-    _free()
-    train_loop_amp = timed("6f", phase_train_loop, "AMP (6f)", args.seed,
-                           True, train_amp.pop("snapshot"),
-                           train_amp.pop("per_step"))
-    _free()
-    recompute = timed("6g", phase_recompute, args.seed, train)
-    for k in ("snapshot", "main_path", "batches"):
-        train.pop(k)
-    _free()
-    train_sgd = timed("7", phase_train_sgd, args.seed)
-    _free()
-    train_sgd_amp = timed("7b", phase_train_sgd_amp, args.seed)
-    _free()
-    gpt_train = timed("8", phase_gpt_train, args.seed, False)
-    _free()
-    gpt_generate = timed("8c", phase_gpt_generate, args.seed,
-                         gpt_train.pop("params"))
-    _free()
-    gpt_train_amp = timed("8b", phase_gpt_train, args.seed, True)
-    gpt_train_amp.pop("params")
-    _free()
-    trans = timed("9", phase_transformer, args.seed)
-    _free()
-    resnet_train = timed("10", phase_resnet_train, args.seed, False)
-    _free()
-    with tempfile.TemporaryDirectory() as workdir:
-        resnet_serve = timed("10c", phase_resnet_serve, workdir, args.seed,
-                             resnet_train.pop("state"))
-    _free()
-    resnet_train_amp = timed("10b", phase_resnet_train, args.seed, True)
-    _free()
-    vit_train = timed("11", phase_vit_train, args.seed, False)
-    _free()
-    vit_train_amp = timed("11b", phase_vit_train, args.seed, True)
-    _free()
-    engine, ref = timed("12", phase_engine, args.seed)
-    prefix = timed("12b", phase_prefix, args.seed, ref)
-    spec = timed("12c", phase_spec, args.seed, ref, engine["tokens_per_s"])
-    router = timed("12d", phase_router, args.seed, ref)
-    _free()
-    fleet = timed("14b", phase_fleet_artifact, args.seed, ref, engine)
-    del ref
-    _free()
+    if want("4"):
+        with tempfile.TemporaryDirectory() as workdir:
+            serve, pred, reqs = timed("4", phase_serve, workdir, args.seed)
+        R["4"] = serve
+        if want("4c"):
+            serve["compiled"] = timed("4c f32", phase_compiled_serve, "f32",
+                                      pred, reqs, serve["per_dispatch"])
+        if want("5"):
+            R["5"] = timed("5", phase_profile, pred, reqs)
+        if want("12e"):
+            R["12e"] = timed("12e", phase_batcher, pred, args.seed)
+        if want("4b"):
+            with tempfile.TemporaryDirectory() as workdir:
+                R["4b"] = timed("4b + 4c AMP", phase_serve_amp, workdir,
+                                args.seed, pred, reqs)
+        del pred
+        _free()
+    if want("6"):
+        train = R["6"] = timed("6 + 6c f32", phase_train, args.seed)
+        _free()
+        if want("6b"):
+            R["6b"] = timed("6b + 6c AMP", phase_train_amp, args.seed, train)
+            _free()
+        if want("6e"):
+            R["6e"] = timed("6e", phase_train_loop, "f32 (6e)", args.seed,
+                            False, train["snapshot"], train["per_step"])
+            _free()
+        if want("6f"):
+            R["6f"] = timed("6f", phase_train_loop, "AMP (6f)", args.seed,
+                            True, R["6b"]["snapshot"], R["6b"]["per_step"])
+            _free()
+        if want("6g"):
+            R["6g"] = timed("6g", phase_recompute, args.seed, train)
+        for k in ("snapshot", "main_path", "batches", "per_step"):
+            train.pop(k, None)
+            R.get("6b", {}).pop(k, None)
+        _free()
+    if want("7"):
+        R["7"] = timed("7", phase_train_sgd, args.seed)
+        _free()
+    if want("7b"):
+        R["7b"] = timed("7b", phase_train_sgd_amp, args.seed)
+        _free()
+    if want("8"):
+        R["8"] = timed("8", phase_gpt_train, args.seed, False)
+        _free()
+        params = R["8"].pop("params")
+        if want("8c"):
+            R["8c"] = timed("8c", phase_gpt_generate, args.seed, params)
+        del params
+        _free()
+    if want("8b"):
+        R["8b"] = timed("8b", phase_gpt_train, args.seed, True)
+        R["8b"].pop("params")
+        _free()
+    if want("9"):
+        R["9"] = timed("9", phase_transformer, args.seed)
+        _free()
+    if want("10"):
+        R["10"] = timed("10", phase_resnet_train, args.seed, False)
+        _free()
+        state = R["10"].pop("state")
+        if want("10c"):
+            with tempfile.TemporaryDirectory() as workdir:
+                R["10c"] = timed("10c", phase_resnet_serve, workdir,
+                                 args.seed, state)
+        del state
+        _free()
+    if want("10b"):
+        R["10b"] = timed("10b", phase_resnet_train, args.seed, True)
+        _free()
+    if want("11"):
+        R["11"] = timed("11", phase_vit_train, args.seed, False)
+        _free()
+    if want("11b"):
+        R["11b"] = timed("11b", phase_vit_train, args.seed, True)
+        _free()
+    if want("12"):
+        engine, ref = timed("12", phase_engine, args.seed)
+        R["12"] = engine
+        if want("12b"):
+            R["12b"] = timed("12b", phase_prefix, args.seed, ref)
+        if want("12c"):
+            R["12c"] = timed("12c", phase_spec, args.seed, ref,
+                             engine["tokens_per_s"])
+        if want("12d"):
+            R["12d"] = timed("12d", phase_router, args.seed, ref)
+        _free()
+        if want("14b"):
+            R["14b"] = timed("14b", phase_fleet_artifact, args.seed, ref,
+                             engine)
+        del ref
+        _free()
     keep = ("snapshot", "exe", "main", "loss", "params", "batches")
-    lamb = timed("13", phase_lamb, args.seed, False)
-    checkpoint = timed("13 checkpoint", phase_checkpoint, lamb)
-    for k in keep:
-        lamb.pop(k)
-    _free()
-    lamb_amp = timed("13b", phase_lamb, args.seed, True)
-    for k in keep:
-        lamb_amp.pop(k)
-    _free()
-    others = timed("13c", phase_other_optimizers, args.seed)
-    _free()
-    with tempfile.TemporaryDirectory() as workdir:
-        artifact = timed("14", phase_artifact, workdir, args.seed)
-    dygraph = timed("15", phase_dygraph, args.seed)
-    _free()
-    with tempfile.TemporaryDirectory() as workdir:
-        seq2seq = timed("16", phase_seq2seq_serve, workdir, args.seed)
-    _free()
-    lstm = timed("16b", phase_stacked_lstm, args.seed)
-    _free()
-    mt_train = timed("16c", phase_mt_train, args.seed)
-    _free()
-    control = timed("16d", phase_control_flow, args.seed)
+    if want("13"):
+        R["13"] = timed("13", phase_lamb, args.seed, False)
+        if want("13checkpoint"):
+            R["13checkpoint"] = timed("13 checkpoint", phase_checkpoint,
+                                      R["13"])
+        for k in keep:
+            R["13"].pop(k)
+        _free()
+    if want("13b"):
+        R["13b"] = timed("13b", phase_lamb, args.seed, True)
+        for k in keep:
+            R["13b"].pop(k)
+        _free()
+    if want("13c"):
+        R["13c"] = timed("13c", phase_other_optimizers, args.seed)
+        _free()
+    if want("14"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["14"] = timed("14", phase_artifact, workdir, args.seed)
+    if want("15"):
+        R["15"] = timed("15", phase_dygraph, args.seed)
+        _free()
+    if want("16"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["16"] = timed("16", phase_seq2seq_serve, workdir, args.seed)
+        _free()
+    if want("16b"):
+        R["16b"] = timed("16b", phase_stacked_lstm, args.seed)
+        _free()
+    if want("16c"):
+        R["16c"] = timed("16c", phase_mt_train, args.seed)
+        _free()
+    if want("16d"):
+        R["16d"] = timed("16d", phase_control_flow, args.seed)
+        _free()
+    if want("17"):
+        R["17"] = timed("17", phase_book, args.seed)
+        _free()
+    if want("17b"):
+        R["17b"] = timed("17b", phase_srl, args.seed)
+        _free()
+    if want("17c"):
+        R["17c"] = timed("17c", phase_op_tail, args.seed)
+        _free()
 
-    # the main paths' shapes: [8, 12, 512, 64] f32 attention, [4096, 768]
-    # f32 layer norm rows, BERT-base's 157 params
-    fwd, bwd = rows[0], bwd_rows[0]
-    # the AMP path's flash shapes: the same at bf16
-    fwd_b = next(r for r in rows if r["case"] == "bert_bf16")
-    bwd_b = next(r for r in bwd_rows if r["case"] == "bert_bf16")
+    kernels = _kernel_rows(R)
+    # every TPU kernel of the JAX package (paddle_tpu) that reaches
+    # pl.pallas_call has its port; none is left out
+    not_ported = []
+    log("chip_smoke: all phases passed in %.1f s"
+        % (time.perf_counter() - t_start))
+
+    if args.out is not None:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+            json.dump(dict(card=smi, torch=torch.__version__,
+                           build_s=build_s, phase_s=phase_s, phases=run,
+                           phases_left_out=left_out, results=R,
+                           kernels=kernels, not_ported=not_ported), f,
+                      indent=1, default=str)
+    log(json.dumps({"kernels": kernels, "not_ported": not_ported,
+                    "phases_left_out": left_out}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _launches(R, phase, name, field="launches"):
+    """Phase ``phase``'s count ``name`` from its results' ``field``; 0
+    where the phase did not run."""
+    r = R.get(phase)
+    return int(r[field][name]) if r is not None else 0
+
+
+def _kernel_rows(R):
+    """The result line's kernel rows from the phases that ran: each
+    kernel's launches on the main paths by path (``_launches``) and its
+    measurements from phases 3, 3b and 3c (None where that phase did not
+    run)."""
+    L = lambda p, c, f="launches": _launches(R, p, c, f)  # noqa: E731
+    by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
+    none_t = dict(ms=None, plain_ms=None, bound_ms=None, bound_by=None)
+    rows, bwd_rows, tier_rows = R.get("3"), R.get("3b"), R.get("3c")
+    fwd = fwd_b = bwd = bwd_b = ln_row = opt_row = ln_amp = opt_amp = None
+    if rows:
+        # the main paths' shapes: [8, 12, 512, 64] f32 attention; the AMP
+        # path's flash shapes: the same at bf16
+        fwd = rows[0]
+        fwd_b = next(r for r in rows if r["case"] == "bert_bf16")
+    if bwd_rows:
+        bwd = bwd_rows[0]
+        bwd_b = next(r for r in bwd_rows if r["case"] == "bert_bf16")
+    if tier_rows:
+        # [4096, 768] f32 layer norm rows, BERT-base's 157 params
+        ln_row = tier_rows[0]
+        opt_row = next(r for r in tier_rows if r["case"] == "bert_base")
+        ln_amp = next(r for r in tier_rows if r["case"] == "bert_b8_amp")
+        opt_amp = next(r for r in tier_rows
+                       if r["case"] == "bert_base_amp")
     flash_amp = lambda row, t, err: (row["case"], err, dict(  # noqa: E731
         t, library_ms=row["library_device_ms"],
         library_call_ms=row["library_ms"]))
-    ln_row = tier_rows[0]
-    opt_row = next(r for r in tier_rows if r["case"] == "bert_base")
-    ln_amp = next(r for r in tier_rows if r["case"] == "bert_b8_amp")
-    opt_amp = next(r for r in tier_rows if r["case"] == "bert_base_amp")
-    t_launch, s_launch = train["launches"], train_sgd["launches"]
-    a_launch, as_launch = train_amp["launches"], train_sgd_amp["launches"]
-    sa_launch = serve_amp["launches"]
-    l_launch, la_launch = train_loop["launches"], train_loop_amp["launches"]
-    r_launch = recompute["launches"]
-    g_launch, ga_launch = gpt_train["launches"], gpt_train_amp["launches"]
-    tr_launch = trans["launches"]
-    rn_launch, rna_launch = (resnet_train["launches"],
-                             resnet_train_amp["launches"])
-    vt_launch, vta_launch = vit_train["launches"], vit_train_amp["launches"]
-    vf_launch, vfa_launch = (vit_train["flash_launches"],
-                             vit_train_amp["flash_launches"])
-    gen_k4 = sum(r["launches"]["K4"] for r in gpt_generate.values())
-    lb_launch, lba_launch = lamb["launches"], lamb_amp["launches"]
-    bt_launch = batcher["launches"]
-    ot_launch = {c: sum(r["launches"][c] for r in others.values())
-                 for c in COUNT_NAMES}
-    ar_launch, dy_launch = artifact["launches"], dygraph["launches"]
-    serve_k4 = (engine["launches"]["K4"]
-                + sum(r["launches"]["K4"] for r in prefix.values()
-                      if isinstance(r, dict) and "launches" in r)
-                + sum(r["launches"]["K4"] for r in spec.values()
-                      if isinstance(r, dict) and "launches" in r))
-    by_path = lambda **kw: {k: v for k, v in kw.items() if v}  # noqa
-    k1 = by_path(serve=serve["launches"]["flash fwd"],
-                 train=t_launch["flash fwd"], serve_amp=sa_launch["flash fwd"],
-                 train_amp=a_launch["flash fwd"],
-                 train_sgd_amp=as_launch["flash fwd"],
-                 train_loop=l_launch["flash fwd"],
-                 train_loop_amp=la_launch["flash fwd"],
-                 recompute=r_launch["flash fwd"],
-                 gpt_train=g_launch["flash fwd"],
-                 gpt_train_amp=ga_launch["flash fwd"],
-                 transformer_train=tr_launch["flash fwd"],
-                 vit_train_flash=vf_launch["flash fwd"],
-                 vit_train_amp_flash=vfa_launch["flash fwd"],
-                 serve_batcher=bt_launch["flash fwd"],
-                 lamb_train=lb_launch["flash fwd"],
-                 lamb_train_amp=lba_launch["flash fwd"],
-                 other_optimizers=ot_launch["flash fwd"],
-                 artifact_aot=ar_launch["flash fwd"],
-                 dygraph=dy_launch["flash fwd"])
-    k2, k3 = (by_path(train=t_launch[c], train_amp=a_launch[c],
-                      train_sgd_amp=as_launch[c], train_loop=l_launch[c],
-                      train_loop_amp=la_launch[c], recompute=r_launch[c],
-                      gpt_train=g_launch[c], gpt_train_amp=ga_launch[c],
-                      transformer_train=tr_launch[c],
-                      vit_train_flash=vf_launch[c],
-                      vit_train_amp_flash=vfa_launch[c],
-                      lamb_train=lb_launch[c], lamb_train_amp=lba_launch[c],
-                      other_optimizers=ot_launch[c], dygraph=dy_launch[c])
+    others = R.get("13c", {})
+    ot = {c: sum(r["launches"][c] for r in others.values())
+          for c in COUNT_NAMES}
+    gen_k4 = sum(r["launches"]["K4"] for r in R.get("8c", {}).values())
+    serve_k4 = L("12", "K4") + sum(
+        r["launches"]["K4"] for k in ("12b", "12c")
+        for r in R.get(k, {}).values()
+        if isinstance(r, dict) and "launches" in r)
+    k1 = by_path(serve=L("4", "flash fwd"), train=L("6", "flash fwd"),
+                 serve_amp=L("4b", "flash fwd"),
+                 train_amp=L("6b", "flash fwd"),
+                 train_sgd_amp=L("7b", "flash fwd"),
+                 train_loop=L("6e", "flash fwd"),
+                 train_loop_amp=L("6f", "flash fwd"),
+                 recompute=L("6g", "flash fwd"),
+                 gpt_train=L("8", "flash fwd"),
+                 gpt_train_amp=L("8b", "flash fwd"),
+                 transformer_train=L("9", "flash fwd"),
+                 vit_train_flash=L("11", "flash fwd", "flash_launches"),
+                 vit_train_amp_flash=L("11b", "flash fwd",
+                                       "flash_launches"),
+                 serve_batcher=L("12e", "flash fwd"),
+                 lamb_train=L("13", "flash fwd"),
+                 lamb_train_amp=L("13b", "flash fwd"),
+                 other_optimizers=ot["flash fwd"],
+                 artifact_aot=L("14", "flash fwd"),
+                 dygraph=L("15", "flash fwd"))
+    k2, k3 = (by_path(train=L("6", c), train_amp=L("6b", c),
+                      train_sgd_amp=L("7b", c), train_loop=L("6e", c),
+                      train_loop_amp=L("6f", c), recompute=L("6g", c),
+                      gpt_train=L("8", c), gpt_train_amp=L("8b", c),
+                      transformer_train=L("9", c),
+                      vit_train_flash=L("11", c, "flash_launches"),
+                      vit_train_amp_flash=L("11b", c, "flash_launches"),
+                      lamb_train=L("13", c), lamb_train_amp=L("13b", c),
+                      other_optimizers=ot[c], dygraph=L("15", c))
               for c in ("flash dkv", "flash dq"))
-    k4 = by_path(serve=serve["launches"]["K4"], train=t_launch["K4"],
-                 train_sgd=s_launch["K4"], serve_amp=sa_launch["K4 AMP"],
-                 train_amp=a_launch["K4 AMP"],
-                 train_sgd_amp=as_launch["K4 AMP"],
-                 train_loop=l_launch["K4"],
-                 train_loop_amp=la_launch["K4 AMP"],
-                 recompute=r_launch["K4"], gpt_train=g_launch["K4"],
-                 gpt_train_amp=ga_launch["K4 AMP"], gpt_generate=gen_k4,
-                 transformer_train=tr_launch["K4"],
-                 vit_train=vt_launch["K4"], vit_train_flash=vf_launch["K4"],
-                 vit_train_amp=vta_launch["K4 AMP"],
-                 vit_train_amp_flash=vfa_launch["K4 AMP"],
-                 gpt_engine=serve_k4, serve_batcher=bt_launch["K4"],
-                 lamb_train=lb_launch["K4"],
-                 lamb_train_amp=lba_launch["K4 AMP"],
-                 other_optimizers=ot_launch["K4"],
-                 artifact_aot=ar_launch["K4"], dygraph=dy_launch["K4"])
-    k6 = by_path(train=t_launch["K6"], train_amp=a_launch["K6"],
-                 train_loop=l_launch["K6"], train_loop_amp=la_launch["K6"],
-                 recompute=r_launch["K6"], gpt_train=g_launch["K6"],
-                 gpt_train_amp=ga_launch["K6"],
-                 transformer_train=tr_launch["K6"],
-                 resnet_train=rn_launch["K6"],
-                 resnet_train_amp=rna_launch["K6"], vit_train=vt_launch["K6"],
-                 vit_train_flash=vf_launch["K6"],
-                 vit_train_amp=vta_launch["K6"],
-                 vit_train_amp_flash=vfa_launch["K6"],
-                 other_optimizers=ot_launch["K6"], dygraph=dy_launch["K6"],
-                 stacked_lstm_train=lstm["launches"]["K6"],
-                 mt_train=mt_train["launches"]["K6"],
-                 control_flow_train=control["launches"]["K6"])
-    k7 = by_path(train_sgd=s_launch["K7"], train_sgd_amp=as_launch["K7"])
+    k4 = by_path(serve=L("4", "K4"), train=L("6", "K4"),
+                 train_sgd=L("7", "K4"), serve_amp=L("4b", "K4 AMP"),
+                 train_amp=L("6b", "K4 AMP"),
+                 train_sgd_amp=L("7b", "K4 AMP"),
+                 train_loop=L("6e", "K4"), train_loop_amp=L("6f", "K4 AMP"),
+                 recompute=L("6g", "K4"), gpt_train=L("8", "K4"),
+                 gpt_train_amp=L("8b", "K4 AMP"), gpt_generate=gen_k4,
+                 transformer_train=L("9", "K4"), vit_train=L("11", "K4"),
+                 vit_train_flash=L("11", "K4", "flash_launches"),
+                 vit_train_amp=L("11b", "K4 AMP"),
+                 vit_train_amp_flash=L("11b", "K4 AMP", "flash_launches"),
+                 gpt_engine=serve_k4, serve_batcher=L("12e", "K4"),
+                 lamb_train=L("13", "K4"), lamb_train_amp=L("13b", "K4 AMP"),
+                 other_optimizers=ot["K4"], artifact_aot=L("14", "K4"),
+                 dygraph=L("15", "K4"))
+    k6 = by_path(train=L("6", "K6"), train_amp=L("6b", "K6"),
+                 train_loop=L("6e", "K6"), train_loop_amp=L("6f", "K6"),
+                 recompute=L("6g", "K6"), gpt_train=L("8", "K6"),
+                 gpt_train_amp=L("8b", "K6"),
+                 transformer_train=L("9", "K6"),
+                 resnet_train=L("10", "K6"), resnet_train_amp=L("10b", "K6"),
+                 vit_train=L("11", "K6"),
+                 vit_train_flash=L("11", "K6", "flash_launches"),
+                 vit_train_amp=L("11b", "K6"),
+                 vit_train_amp_flash=L("11b", "K6", "flash_launches"),
+                 other_optimizers=ot["K6"], dygraph=L("15", "K6"),
+                 stacked_lstm_train=L("16b", "K6"),
+                 mt_train=L("16c", "K6"),
+                 control_flow_train=L("16d", "K6"),
+                 book_train=L("17", "K6"), srl_train=L("17b", "K6"),
+                 op_tail_train=L("17c", "K6"))
+    k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
+                 book_train=L("17", "K7"))
+    k5 = R.get("3c K5 launches", 0)
+
+    def row(name, source, replaces, by, err, t, lib, lib_call, amp=None):
+        return _kernel_row(name, source, replaces, sum(by.values()), by,
+                           err, t if t is not None else none_t, lib,
+                           lib_call, amp=amp)
+
     kernels = [
-        _kernel_row("flash_attention_fwd",
-                    "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                    "paddle_tpu/ops/attention.py:281", sum(k1.values()), k1,
-                    fwd["max_abs_err"], fwd, fwd["library_device_ms"],
-                    fwd["library_ms"],
-                    amp=flash_amp(fwd_b, fwd_b, fwd_b["max_abs_err"])),
-        _kernel_row("flash_attention_dkv",
-                    "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "paddle_tpu/ops/attention.py:383", sum(k2.values()), k2,
-                    max(bwd["max_abs_err"][n] for n in ("dk", "dv")),
-                    bwd["dkv"], bwd["library_device_ms"],
-                    bwd["library_ms"],
-                    amp=flash_amp(bwd_b, bwd_b["dkv"], max(
-                        bwd_b["max_abs_err"][n] for n in ("dk", "dv")))),
-        _kernel_row("flash_attention_dq",
-                    "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "paddle_tpu/ops/attention.py:432", sum(k3.values()), k3,
-                    bwd["max_abs_err"]["dq"], bwd["dq"],
-                    bwd["library_device_ms"], bwd["library_ms"],
-                    amp=flash_amp(bwd_b, bwd_b["dq"],
+        row("flash_attention_fwd",
+            "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+            "paddle_tpu/ops/attention.py:281", k1,
+            fwd and fwd["max_abs_err"], fwd,
+            fwd and fwd["library_device_ms"], fwd and fwd["library_ms"],
+            amp=fwd and flash_amp(fwd_b, fwd_b, fwd_b["max_abs_err"])),
+        row("flash_attention_dkv",
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/ops/attention.py:383", k2,
+            bwd and max(bwd["max_abs_err"][n] for n in ("dk", "dv")),
+            bwd and bwd["dkv"], bwd and bwd["library_device_ms"],
+            bwd and bwd["library_ms"],
+            amp=bwd and flash_amp(bwd_b, bwd_b["dkv"], max(
+                bwd_b["max_abs_err"][n] for n in ("dk", "dv")))),
+        row("flash_attention_dq",
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/ops/attention.py:432", k3,
+            bwd and bwd["max_abs_err"]["dq"], bwd and bwd["dq"],
+            bwd and bwd["library_device_ms"], bwd and bwd["library_ms"],
+            amp=bwd and flash_amp(bwd_b, bwd_b["dq"],
                                   bwd_b["max_abs_err"]["dq"])),
-        _kernel_row("layernorm_residual_fwd",
-                    "paddle_tpu_torch/csrc/layernorm_residual.cu",
-                    "paddle_tpu/kernels/layernorm.py:98", sum(k4.values()),
-                    k4, ln_row["max_abs_err"]["fwd"], ln_row["fwd"],
-                    ln_row["fwd"]["library_ms"],
-                    ln_row["fwd"]["library_call_ms"],
-                    amp=(ln_amp["case"], ln_amp["max_abs_err"]["fwd"],
-                         ln_amp["fwd"])),
-        _kernel_row("layernorm_residual_bwd",
-                    "paddle_tpu_torch/csrc/layernorm_residual.cu",
-                    "paddle_tpu/kernels/layernorm.py:143", k5_launches,
-                    dict(autograd=k5_launches),
-                    ln_row["max_abs_err"]["bwd"], ln_row["bwd"],
-                    ln_row["bwd"]["library_ms"],
-                    ln_row["bwd"]["library_call_ms"]),
-        _kernel_row("adam_group",
-                    "paddle_tpu_torch/csrc/optimizer_update.cu",
-                    "paddle_tpu/kernels/optimizer_update.py:149",
-                    sum(k6.values()), k6,
-                    opt_row["max_abs_err"]["adam"], opt_row["adam"],
-                    opt_row["adam"]["library_ms"],
-                    opt_row["adam"]["library_call_ms"],
-                    amp=(opt_amp["case"], opt_amp["max_abs_err"]["adam"],
-                         opt_amp["adam"])),
-        _kernel_row("sgd_group",
-                    "paddle_tpu_torch/csrc/optimizer_update.cu",
-                    "paddle_tpu/kernels/optimizer_update.py:233",
-                    sum(k7.values()), k7,
-                    opt_row["max_abs_err"]["sgd"], opt_row["sgd"],
-                    opt_row["sgd"]["library_ms"],
-                    opt_row["sgd"]["library_call_ms"],
-                    amp=(opt_amp["case"], opt_amp["max_abs_err"]["sgd"],
-                         opt_amp["sgd"])),
+        row("layernorm_residual_fwd",
+            "paddle_tpu_torch/csrc/layernorm_residual.cu",
+            "paddle_tpu/kernels/layernorm.py:98", k4,
+            ln_row and ln_row["max_abs_err"]["fwd"], ln_row and ln_row["fwd"],
+            ln_row and ln_row["fwd"]["library_ms"],
+            ln_row and ln_row["fwd"]["library_call_ms"],
+            amp=ln_amp and (ln_amp["case"], ln_amp["max_abs_err"]["fwd"],
+                            ln_amp["fwd"])),
+        row("layernorm_residual_bwd",
+            "paddle_tpu_torch/csrc/layernorm_residual.cu",
+            "paddle_tpu/kernels/layernorm.py:143", by_path(autograd=k5),
+            ln_row and ln_row["max_abs_err"]["bwd"], ln_row and ln_row["bwd"],
+            ln_row and ln_row["bwd"]["library_ms"],
+            ln_row and ln_row["bwd"]["library_call_ms"]),
+        row("adam_group", "paddle_tpu_torch/csrc/optimizer_update.cu",
+            "paddle_tpu/kernels/optimizer_update.py:149", k6,
+            opt_row and opt_row["max_abs_err"]["adam"],
+            opt_row and opt_row["adam"],
+            opt_row and opt_row["adam"]["library_ms"],
+            opt_row and opt_row["adam"]["library_call_ms"],
+            amp=opt_amp and (opt_amp["case"], opt_amp["max_abs_err"]["adam"],
+                             opt_amp["adam"])),
+        row("sgd_group", "paddle_tpu_torch/csrc/optimizer_update.cu",
+            "paddle_tpu/kernels/optimizer_update.py:233", k7,
+            opt_row and opt_row["max_abs_err"]["sgd"],
+            opt_row and opt_row["sgd"],
+            opt_row and opt_row["sgd"]["library_ms"],
+            opt_row and opt_row["sgd"]["library_call_ms"],
+            amp=opt_amp and (opt_amp["case"], opt_amp["max_abs_err"]["sgd"],
+                             opt_amp["sgd"])),
     ]
     # K1-K3 at GPT-2 small's causal shape and at ViT-B/16's ragged S =
     # 197, f32 and bf16 (phases 3, 3b)
-    for model in ("gpt", "vit"):
+    for model in ("gpt", "vit") if rows and bwd_rows else ():
         fwd_g, bwd_g = ({c: next(r for r in rs_ if r["case"] == c)
                          for c in (model + "_f32", model + "_bf16")}
                         for rs_ in (rows, bwd_rows))
@@ -7187,53 +8190,9 @@ def main():
                      **{k: r["dq"][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by")})
              for c, r in bwd_g.items()})
-        for row, g in zip(kernels[:3], model_rows):
-            row[model] = g
-    # every TPU kernel of the JAX package (paddle_tpu) that reaches
-    # pl.pallas_call has its port; none is left out
-    not_ported = []
-    log("chip_smoke: all phases passed in %.1f s"
-        % (time.perf_counter() - t_start))
-
-    if args.out is not None:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(card=smi, torch=torch.__version__,
-                           build_s=build_s, phase_s=phase_s,
-                           fwd_occupancy=fwd_occupancy,
-                           kernel_cases=rows,
-                           bwd_kernel_cases=bwd_rows,
-                           bwd_occupancy=bwd_occupancy,
-                           tier_kernel_cases=tier_rows, tune=tuned,
-                           serve=serve, profile=profile,
-                           serve_amp=serve_amp, train=train,
-                           train_amp=train_amp, train_sgd=train_sgd,
-                           train_sgd_amp=train_sgd_amp,
-                           train_loop=train_loop,
-                           train_loop_amp=train_loop_amp,
-                           recompute=recompute, gpt_train=gpt_train,
-                           gpt_train_amp=gpt_train_amp,
-                           gpt_generate=gpt_generate, transformer=trans,
-                           resnet_train=resnet_train,
-                           resnet_train_amp=resnet_train_amp,
-                           resnet_serve=resnet_serve, vit_train=vit_train,
-                           vit_train_amp=vit_train_amp,
-                           serve_batcher=batcher, gpt_engine=engine,
-                           gpt_engine_prefix=prefix, gpt_engine_spec=spec,
-                           gpt_router=router, lamb_train=lamb,
-                           lamb_checkpoint=checkpoint,
-                           lamb_train_amp=lamb_amp,
-                           other_optimizers=others, artifact=artifact,
-                           fleet_artifact=fleet, dygraph=dygraph,
-                           seq2seq_serve=seq2seq, stacked_lstm=lstm,
-                           mt_train=mt_train, control_flow=control,
-                           kernels=kernels,
-                           not_ported=not_ported), f, indent=1)
-    log(json.dumps({"kernels": kernels, "not_ported": not_ported}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        for r_, g in zip(kernels[:3], model_rows):
+            r_[model] = g
+    return kernels
 
 
 if __name__ == "__main__":

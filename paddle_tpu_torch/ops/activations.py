@@ -1,6 +1,6 @@
 """Activation ops: counterparts of paddle_tpu/ops/activations.py (one
 registration per activation; each is a one-line torch expression of
-the JAX package's formula)."""
+the JAX package's formula), and ``prelu`` with its learned slope."""
 
 from __future__ import annotations
 
@@ -66,3 +66,14 @@ _act("hard_shrink", lambda x, a: torch.where(
     torch.abs(x) > a.get("threshold", 0.5), x, torch.zeros_like(x)))
 _act("mish", lambda x, a: x * torch.tanh(_softplus(x)))
 _act("silu", lambda x, a: F.silu(x))
+
+
+@register_op("prelu", diff_inputs=["X", "Alpha"])
+def _prelu(ctx, ins, attrs):
+    """x where x >= 0, else alpha * x. Alpha broadcasts against x: [1]
+    (mode ``all``), [C] or [1, C, 1, 1] (``channel``; a [C] alpha is
+    laid along axis 1), x's shape but the batch (``element``)."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel" and alpha.ndim == 1:
+        alpha = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}

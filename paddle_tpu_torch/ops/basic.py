@@ -1,13 +1,26 @@
-"""Basic tensor ops: constants (``fill_constant`` and
-``fill_constant_batch_size_like``), random init (``uniform_random``,
-``gaussian_random``), assign, assign_value,
-cast, scale, increment (the learning-rate schedules' step counter),
-range, ``one_hot``, and the clipping / sign ops that gradient clipping
-and regularizers append.
+"""Basic tensor ops: constants (``fill_constant``,
+``fill_constant_batch_size_like``, ``fill_any_like``), random init
+(``uniform_random``, ``uniform_random_batch_size_like``,
+``gaussian_random``, ``truncated_gaussian_random``), ``sampling_id``,
+assign, assign_value, share_data, cast, scale, increment (the
+learning-rate schedules' step counter), range, linspace, shape,
+isfinite, ``one_hot``, and the clipping / sign ops that gradient
+clipping and regularizers append.
 
 Counterparts of paddle_tpu/ops/basic.py. Random ops draw from torch
 generators (core/lowering.py LowerContext.next_rng), so their values
 differ from the JAX package's; shape, dtype and range agree.
+``truncated_gaussian_random`` draws by the inverse of the normal CDF
+over [-2, 2] std; ``sampling_id`` takes the Gumbel-max of log(p +
+1e-20), as ``jax.random.categorical`` does. A nonzero ``seed`` attr
+fixes the draw (``uniform_random_batch_size_like`` has none, as in the
+JAX package).
+
+``linspace`` reads Start, Stop and Num on the host, as the JAX package
+does: it carries ``host_sync``, so a plan that holds it is never
+captured as a CUDA graph. ``shape`` makes its int32 vector from the
+static shape, a graph constant under a capture (no host copy inside
+it).
 
 ``weak_scalar`` gives a Python scalar the JAX package's weak typing
 beside a bf16 (AMP) tensor: ``x * s`` is then the bf16 product of x and
@@ -17,6 +30,7 @@ bf16(s), as there, where torch would multiply by the f32 value of s.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -42,6 +56,13 @@ def weak_scalar(v, like: torch.Tensor):
 
 def _dt(attrs, default="float32"):
     return as_torch_dtype(attrs.get("dtype", default) or default)
+
+
+def _rng(ctx, attrs):
+    """A random op's generator: fixed by a nonzero ``seed`` attr, else
+    the chain's next."""
+    seed = attrs.get("seed", 0)
+    return ctx.seeded_rng(int(seed)) if seed else ctx.next_rng()
 
 
 @register_op("fill_constant", no_grad=True)
@@ -78,15 +99,9 @@ def _one_hot(ctx, ins, attrs):
 
 @register_op("uniform_random", no_grad=True, uses_rng=True)
 def _uniform_random(ctx, ins, attrs):
-    shape = tuple(attrs["shape"])
-    seed = attrs.get("seed", 0)
-    if seed:
-        gen = ctx.seeded_rng(int(seed))
-    else:
-        gen = ctx.next_rng()
     lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
-    out = torch.rand(shape, generator=gen, dtype=_dt(attrs),
-                     device=ctx.device)
+    out = torch.rand(tuple(attrs["shape"]), generator=_rng(ctx, attrs),
+                     dtype=_dt(attrs), device=ctx.device)
     return {"Out": [out * (hi - lo) + lo]}
 
 
@@ -94,10 +109,8 @@ def _uniform_random(ctx, ins, attrs):
 def _gaussian_random(ctx, ins, attrs):
     """``mean + std * N(0, 1)`` of ``shape``; a nonzero ``seed`` attr
     fixes the draw, as for ``uniform_random``."""
-    seed = attrs.get("seed", 0)
-    gen = ctx.seeded_rng(int(seed)) if seed else ctx.next_rng()
-    z = torch.randn(tuple(attrs["shape"]), generator=gen, dtype=_dt(attrs),
-                    device=ctx.device)
+    z = torch.randn(tuple(attrs["shape"]), generator=_rng(ctx, attrs),
+                    dtype=_dt(attrs), device=ctx.device)
     return {"Out": [attrs.get("mean", 0.0) + attrs.get("std", 1.0) * z]}
 
 
@@ -185,3 +198,84 @@ def _clip_by_norm(ctx, ins, attrs):
 @register_op("sign", no_grad=True)
 def _sign(ctx, ins, attrs):
     return {"Out": [torch.sign(ins["X"][0])]}
+
+
+@register_op("fill_any_like", no_grad=True)
+def _fill_any_like(ctx, ins, attrs):
+    x = ins["X"][0]
+    dtype = attrs.get("dtype")
+    dt = as_torch_dtype(dtype) if dtype else x.dtype
+    return {"Out": [torch.full(tuple(x.shape), attrs.get("value", 0.0),
+                               dtype=dt, device=x.device)]}
+
+
+@register_op("truncated_gaussian_random", no_grad=True, uses_rng=True)
+def _trunc_gaussian(ctx, ins, attrs):
+    """``mean + std * z`` with z normal truncated to [-2, 2], drawn by
+    the inverse CDF of a uniform over [Phi(-2), Phi(2)]."""
+    dt = _dt(attrs)
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(tuple(attrs["shape"]), generator=_rng(ctx, attrs),
+                   dtype=torch.float32, device=ctx.device)
+    u = lo + u * (1.0 - 2.0 * lo)  # Phi(2) = 1 - Phi(-2)
+    z = (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(-2.0, 2.0)
+    return {"Out": [(attrs.get("mean", 0.0)
+                     + attrs.get("std", 1.0) * z).to(dt)]}
+
+
+@register_op("uniform_random_batch_size_like", no_grad=True, uses_rng=True)
+def _uniform_random_bsl(ctx, ins, attrs):
+    """U[min, max) of ``shape`` with its ``output_dim_idx`` axis taken
+    from Input's ``input_dim_idx`` axis; from the chain (the JAX package
+    reads no seed attr here)."""
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        ins["Input"][0].shape[attrs.get("input_dim_idx", 0)]
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    out = torch.rand(tuple(shape), generator=ctx.next_rng(),
+                     dtype=_dt(attrs), device=ctx.device)
+    return {"Out": [out * (hi - lo) + lo]}
+
+
+@register_op("share_data")
+def _share_data(ctx, ins, attrs):
+    return {"Out": [ins["X"][0]]}
+
+
+@register_op("shape", no_grad=True)
+def _shape(ctx, ins, attrs):
+    host = torch.tensor(tuple(ins["Input"][0].shape), dtype=torch.int32)
+    if ctx.graph is not None:
+        # a host copy cannot be captured: a constant the graph keeps
+        return {"Out": [ctx.graph.constant(host, ctx.device)]}
+    return {"Out": [host.to(ctx.device)]}
+
+
+@register_op("isfinite", no_grad=True)
+def _isfinite(ctx, ins, attrs):
+    """[1] bool: every element finite."""
+    return {"Out": [torch.isfinite(ins["X"][0]).all().reshape(1)]}
+
+
+@register_op("linspace", no_grad=True, host_sync=True)
+def _linspace(ctx, ins, attrs):
+    """Num f32 points from Start to Stop, both ends included; the three
+    [1] inputs are read on the host."""
+    start, stop, num = (ins[k][0].reshape(()).item()
+                        for k in ("Start", "Stop", "Num"))
+    return {"Out": [torch.linspace(float(start), float(stop), int(num),
+                                   dtype=torch.float32, device=ctx.device)]}
+
+
+@register_op("sampling_id", no_grad=True, uses_rng=True)
+def _sampling_id(ctx, ins, attrs):
+    """One id per row of the [N, C] probabilities X, drawn as
+    ``jax.random.categorical(log(X + 1e-20))``: the argmax of the logits
+    plus Gumbel noise."""
+    x = ins["X"][0]
+    u = torch.rand(tuple(x.shape), generator=_rng(ctx, attrs),
+                   dtype=torch.float32, device=x.device)
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    logits = torch.log(x.to(torch.float32) + 1e-20)
+    return {"Out": [torch.argmax(logits + gumbel, dim=-1).to(torch.int32)]}

@@ -1,6 +1,9 @@
-"""Math ops: ``mul``, ``matmul``, the broadcasted elementwise family, ``sum`` /
-``mean``, the reductions, ``squared_l2_norm`` and the six comparisons
-(bool outputs, Paddle's broadcast of Y).
+"""Math ops: ``mul``, ``matmul``, ``matmul_v2``, ``bmm``, the broadcasted
+elementwise family, ``sum`` / ``mean``, the reductions, ``squared_l2_norm``,
+``norm``, ``dot``, ``cumsum``, the six comparisons (bool outputs,
+Paddle's broadcast of Y), and the index ops ``arg_max`` / ``arg_min``
+(the first index among ties, int32), ``argsort`` (stable, as
+``jnp.argsort``) and ``maximum_with_index``.
 
 Counterparts of paddle_tpu/ops/math.py. The matrix product stays a plain
 ``torch.matmul``, as the JAX package leaves it to XLA, with one attr of
@@ -80,6 +83,21 @@ def _matmul(ctx, ins, attrs):
     if alpha != 1.0:
         out = out * weak_scalar(alpha, out)
     return {"Out": [out]}
+
+
+@register_op("matmul_v2", diff_inputs=["X", "Y"])
+def _matmul_v2(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    if attrs.get("trans_x", False):
+        x = x.transpose(-1, -2)
+    if attrs.get("trans_y", False):
+        y = y.transpose(-1, -2)
+    return {"Out": [torch.matmul(x, y)]}
+
+
+@register_op("bmm", diff_inputs=["X", "Y"])
+def _bmm(ctx, ins, attrs):
+    return {"Out": [torch.matmul(ins["X"][0], ins["Y"][0])]}
 
 
 # ---------------------------------------------------------------- elementwise
@@ -235,3 +253,69 @@ _logical("logical_and", torch.logical_and)
 _logical("logical_or", torch.logical_or)
 _logical("logical_xor", torch.logical_xor)
 _logical("logical_not", torch.logical_not, unary=True)
+
+
+# ------------------------------------------------------------ index ops
+@register_op("arg_max", no_grad=True)
+def _arg_max(ctx, ins, attrs):
+    return {"Out": [torch.argmax(ins["X"][0], dim=attrs.get("axis", -1))
+                    .to(torch.int32)]}
+
+
+@register_op("arg_min", no_grad=True)
+def _arg_min(ctx, ins, attrs):
+    return {"Out": [torch.argmin(ins["X"][0], dim=attrs.get("axis", -1))
+                    .to(torch.int32)]}
+
+
+@register_op("argsort", no_grad=True)
+def _argsort(ctx, ins, attrs):
+    vals, idx = torch.sort(ins["X"][0], dim=attrs.get("axis", -1),
+                           stable=True)
+    return {"Out": [vals], "Indices": [idx.to(torch.int32)]}
+
+
+@register_op("maximum_with_index", no_grad=True)
+def _max_with_index(ctx, ins, attrs):
+    """The largest element and its flat index (the first among ties)."""
+    x = ins["X"][0]
+    return {"Out": [torch.amax(x)],
+            "Index": [torch.argmax(x).to(torch.int32)]}
+
+
+@register_op("cumsum")
+def _cumsum(ctx, ins, attrs):
+    """Inclusive sums along ``axis`` (of the flattened x with
+    ``flatten``); ``exclusive`` subtracts x from them (the JAX package's
+    formula, so the rounding is its), ``reverse`` sums from the end.
+    An integer x keeps its dtype (torch would widen int32 to int64)."""
+    x = ins["X"][0]
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+
+    def csum(v):
+        return torch.cumsum(v, dim=axis).to(x.dtype)
+
+    if attrs.get("reverse", False):
+        out = torch.flip(csum(torch.flip(x, [axis])), [axis])
+    else:
+        out = csum(x)
+    if attrs.get("exclusive", False):
+        out = out - x
+    return {"Out": [out]}
+
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    """x / sqrt(sum(x * x, axis) + epsilon), and that root as Norm."""
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(x * x, dim=attrs.get("axis", -1),
+                                keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm], "Norm": [norm]}
+
+
+@register_op("dot", diff_inputs=["X", "Y"])
+def _dot(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": [torch.sum(x * y, dim=-1, keepdim=True)]}

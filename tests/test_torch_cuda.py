@@ -103,6 +103,13 @@ where only the port is installed:
   recurrent grad's masks included); ``beam_search`` on the card gives
   the CPU's parents and ids on tied candidates (dead beams, a uniform
   step) at a vocabulary of 10000.
+- The op tail and the loss ops: ``scatter`` over repeated ids gives
+  the same bits run after run on the card, the last write of an id
+  winning as on the CPU (adds within 1e-5 of the CPU's); a
+  ``linspace`` plan (it reads its bounds on the host) is never
+  captured, right at every run and counted once; the book's CRF step
+  (label_semantic_roles, Adam: K6 once a step) and fit_a_line's SGD
+  step (K7 once a step) replay bitwise their eager steps.
 """
 
 import warnings
@@ -2258,3 +2265,92 @@ def test_cuda_beam_search_ties_match_the_cpu(cuda_device):
             outs.append({k: v[0].cpu() for k, v in o.items()})
         for k in outs[0]:
             assert torch.equal(outs[0][k], outs[1][k]), k
+
+
+# ------------------------------------------------ the op tail and the book
+def _book(name):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import book_programs
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 5
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        book = book_programs.build(pt, name)
+    return main, startup, book
+
+
+@pytest.mark.cuda
+def test_cuda_scatter_repeated_ids_are_repeatable(cuda_device):
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    rs = np.random.RandomState(4)
+    x = rs.randn(100, 8).astype("float32")
+    ids = rs.randint(-100, 110, 20000).astype("int32")  # past 100: dropped
+    upd = rs.randn(20000, 8).astype("float32")
+
+    def run(dev, overwrite):
+        return get_op("scatter").lowering(
+            LowerContext(None, None, dev),
+            {"X": [torch.from_numpy(x).to(dev)],
+             "Ids": [torch.from_numpy(ids).to(dev)],
+             "Updates": [torch.from_numpy(upd).to(dev)]},
+            {"overwrite": overwrite})["Out"][0].cpu()
+
+    for overwrite in (True, False):
+        a, b = run(cuda_device, overwrite), run(cuda_device, overwrite)
+        assert torch.equal(a, b), overwrite
+        cpu = run(torch.device("cpu"), overwrite)
+        if overwrite:
+            assert torch.equal(a, cpu)
+        else:
+            torch.testing.assert_close(a, cpu, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_linspace_plan_is_never_captured_and_counted(cuda_device):
+    from paddle_tpu_torch.core import executor as texe
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        start = pt.layers.data("start", [1], append_batch_size=False)
+        out = pt.layers.linspace(start, 4.0, 9)
+    exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+    texe._WARNED_UNCAPTURED.discard("linspace")
+    before = _uncaptured("linspace")
+    for k in (0.0, 2.0, -4.0, 1.0):
+        (got,) = exe.run(main, feed={"start": np.array([k], "float32")},
+                         fetch_list=[out], scope=scope)
+        np.testing.assert_allclose(got, np.linspace(k, 4.0, 9), atol=1e-6)
+    (plan,) = exe._cache.values()
+    assert plan.graph is None and plan.host_sync == ["linspace"]
+    assert _uncaptured("linspace") - before == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,slot", [("label_semantic_roles_crf", 0),
+                                       ("fit_a_line", 1)])
+def test_cuda_book_step_replays_bitwise_eager(cuda_device, name, slot):
+    """Steps 2-4 replay the plan's graph, bitwise the eager step from the
+    same scope (the CRF's loop and its grad, Adam; fit_a_line's SGD),
+    with K6 (Adam) or K7 (SGD) once a step on the card."""
+    main, startup, book = _book(name)
+    exe, scope = _started(main, startup)
+    eager_scope = _clone_scope(scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    for i, f in enumerate(book.feeds[:4]):
+        r, on_card = _device_launches(lambda: exe.run(
+            main, feed=f, fetch_list=book.fetch, scope=scope))
+        e = exe._run_eager(main, feed=f, fetch_list=book.fetch,
+                           scope=eager_scope)
+        for a, b in zip(r, e):
+            np.testing.assert_array_equal(a, b)
+        assert on_card[-2:][slot] == 1 and on_card[-2:][1 - slot] == 0, (
+            i, on_card)
+    assert any(p.graph is not None for p in exe._cache.values())
+    for n in params:
+        assert torch.equal(scope.find_var(n), eager_scope.find_var(n)), n

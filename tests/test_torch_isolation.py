@@ -213,6 +213,7 @@ COPIES = {
     "layers/control_flow.py": [],
     "layers/decode.py": [],
     "layers/learning_rate_scheduler.py": [],
+    "layers/loss.py": [],
     "layers/metric_op.py": [],
     "layers/nn.py": [],
     "layers/ops.py": [],
@@ -246,7 +247,8 @@ COPIES = {
 
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "tools", "torch_export_artifact.py")]
+           os.path.join(ROOT, "tools", "torch_export_artifact.py"),
+           os.path.join(ROOT, "tools", "book_programs.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -431,6 +433,52 @@ def test_copied_module_equals_its_original(rel):
     with open(os.path.join(PORT, rel)) as f:
         got = f.read()
     assert _code(got) == _code(want)
+
+
+# top-level helpers of the port's op modules that are the JAX package's
+# own (framework-neutral index and size arithmetic): each must stay its
+# original's, docstrings aside, beyond the listed (original, port)
+# replacements
+HELPERS = {
+    ("ops/detection_ops.py", "_interp_sizes"): [],
+    ("ops/loss_ops.py", "NEG"): [],
+    ("ops/nn.py", "_pair"): [],
+    ("ops/math.py", "_flatten2d"): [],
+    # a torch tensor counts its elements with numel(), not size
+    ("ops/tensor_ops.py", "_infer_reshape"): [("x.size //", "x.numel() //")],
+}
+
+
+def _top_level(src, name):
+    """The source of module ``src``'s top-level def or assignment of
+    ``name``."""
+    for node in ast.parse(src).body:
+        names = ([node.name] if isinstance(node, ast.FunctionDef) else
+                 [t.id for t in getattr(node, "targets", [])
+                  if isinstance(t, ast.Name)])
+        if name in names:
+            return ast.get_source_segment(src, node)
+    raise AssertionError("%s not found" % name)
+
+
+@pytest.mark.parametrize("rel,name", sorted(HELPERS))
+def test_shared_op_helpers_equal_their_originals(rel, name):
+    with open(os.path.join(ROOT, "paddle_tpu", rel)) as f:
+        want = _top_level(f.read(), name)
+    for old, new in HELPERS[(rel, name)]:
+        assert old in want, "stale allow-list entry for %s" % name
+        want = want.replace(old, new)
+    with open(os.path.join(PORT, rel)) as f:
+        got = _top_level(f.read(), name)
+    assert _code(got) == _code(want)
+
+
+@pytest.mark.parametrize("rel", [
+    "ops/loss_ops.py", "ops/detection_ops.py", "layers/loss.py"])
+def test_loss_slice_modules_import_no_jax(rel):
+    tops = {mod.split(".")[0] for mod in _absolute_imports(
+        os.path.join(PORT, rel))}
+    assert not tops & {"jax", "jaxlib", "paddle_tpu"}, (rel, tops)
 
 
 def test_entry_points_default_to_the_card_without_touching_it():

@@ -50,7 +50,8 @@ def _run_both(op_type, ins, attrs):
     t = get_op(op_type).lowering(LowerContext(None, None, CPU), t_ins,
                                  dict(attrs))
     to_np = lambda d: {k: [np.asarray(x) for x in v] for k, v in d.items()}  # noqa: E731
-    return to_np(j), {k: [x.numpy() for x in v] for k, v in t.items()}
+    return to_np(j), {k: [None if x is None else x.numpy() for x in v]
+                      for k, v in t.items()}
 
 
 # documented differences of dtype (ROADMAP §C, C3): the port computes
@@ -1111,6 +1112,632 @@ def _act_case(op_type):
 
 for _op in ACTIVATIONS:
     globals()["case_" + _op] = _act_case(_op)
+
+
+# the op tail the port's layers build (tensor, math, basic, nn ops) and
+# the loss ops with their interpolation and affine ops: tolerances as in
+# the module docstring; the scans (warpctc, linear_chain_crf) atol 1e-5
+# plus rtol 1e-6, as the recurrent ops' cases; tests/test_torch_loss.py
+# holds their lengths, ties and the random ops further
+def case_split(rs):
+    x = _arr(rs, (4, 6, 3))
+    _check("split", {"X": [x]}, {"axis": 1, "num": 3}, 0)
+    _check("split", {"X": [x]}, {"axis": 1, "sections": [1, 2, 3]}, 0)
+    _check("split", {"X": [x]}, {"axis": 0, "sections": [3, -1]}, 0)
+
+
+def case_squeeze(rs):
+    _check("squeeze", {"X": [_arr(rs, (2, 1, 3, 1))]}, {"axes": [1]}, 0)
+    _check("squeeze", {"X": [_arr(rs, (2, 1, 3, 1))]}, {}, 0)
+    _check("squeeze", {"X": [_arr(rs, (2, 1, 3, 1))]}, {"axes": [0, -1]}, 0)
+
+
+def case_unsqueeze(rs):
+    _check("unsqueeze", {"X": [_arr(rs, (2, 3))]}, {"axes": [2, 0]}, 0)
+
+
+def case_flatten(rs):
+    for axis in (0, 1, 2, 3):
+        _check("flatten", {"X": [_arr(rs, (2, 3, 4))]}, {"axis": axis}, 0)
+
+
+def case_flatten2(rs):
+    _check("flatten2", {"X": [_arr(rs, (2, 3, 4))]}, {"axis": 2}, 0)
+
+
+def case_unstack(rs):
+    _check("unstack", {"X": [_arr(rs, (2, 3, 4))]}, {"axis": 1}, 0)
+    _check("unstack", {"X": [_arr(rs, (2, 3, 4))]}, {}, 0)
+
+
+def case_strided_slice(rs):
+    x = _arr(rs, (7, 6, 5))
+    for attrs in ({"axes": [0, 2], "starts": [1, 0], "ends": [6, 5],
+                   "strides": [2, 3]},
+                  {"axes": [1], "starts": [5], "ends": [0],
+                   "strides": [-2]},
+                  {"axes": [0, 1], "starts": [-1, -8], "ends": [-8, 9],
+                   "strides": [-3, 1]},
+                  {"axes": [2], "starts": [4], "ends": [4],
+                   "strides": [1]}):
+        _check("strided_slice", {"Input": [x]}, attrs, 0)
+
+
+def case_gather_nd(rs):
+    x = _arr(rs, (4, 5, 3))
+    _check("gather_nd", {"X": [x], "Index": [np.array(
+        [[0, 1], [3, 4], [-1, 2]], "int32")]}, {}, 0)
+    _check("gather_nd", {"X": [x], "Index": [np.array(
+        [[[1], [2]], [[0], [3]]], "int32")]}, {}, 0)
+    # past the end: clamped (JAX's indexing)
+    _check("gather_nd", {"X": [x], "Index": [np.array(
+        [[9, 1, 7], [-9, 0, 0]], "int32")]}, {}, 0)
+
+
+def case_scatter(rs):
+    x = _arr(rs, (6, 3))
+    upd = _arr(rs, (3, 3))
+    ids = np.array([4, 0, 2], "int32")  # unique: the winner is defined
+    for overwrite in (True, False):
+        _check("scatter", {"X": [x], "Ids": [ids], "Updates": [upd]},
+               {"overwrite": overwrite}, 1e-6)
+        _check("scatter", {"X": [x], "Ids": [ids[:, None]],
+                           "Updates": [upd]}, {"overwrite": overwrite}, 1e-6)
+    # repeated ids added, an id past the rows dropped, a negative wrapping
+    _check("scatter", {"X": [x], "Ids": [np.array([1, 1, 9], "int32")],
+                       "Updates": [upd]}, {"overwrite": False}, 1e-6)
+    _check("scatter", {"X": [x], "Ids": [np.array([-1, 7, 0], "int32")],
+                       "Updates": [upd]}, {"overwrite": True}, 0)
+
+
+def case_expand_as(rs):
+    _check("expand_as", {"X": [_arr(rs, (2, 1, 3))],
+                         "target_tensor": [_arr(rs, (4, 5, 3))]}, {}, 0)
+
+
+def case_tile(rs):
+    x = _arr(rs, (2, 3))
+    for reps in ([2, 3], [3], [2, 1, 2]):
+        _check("tile", {"X": [x]}, {"repeat_times": reps}, 0)
+
+
+def case_pad(rs):
+    _check("pad", {"X": [_arr(rs, (2, 3, 4))]},
+           {"paddings": [0, 1, 2, 0, 1, 3], "pad_value": 1.5}, 0)
+    _check("pad", {"X": [_arr(rs, (2, 3), "int32")]},
+           {"paddings": [1, 1, 0, 2]}, 0)
+
+
+def case_pad2d(rs):
+    x = _arr(rs, (2, 3, 4, 5))
+    for mode in ("constant", "reflect", "edge"):
+        _check("pad2d", {"X": [x]}, {"paddings": [1, 2, 3, 0], "mode": mode,
+                                     "pad_value": -2.0}, 0)
+
+
+def case_crop(rs):
+    _check("crop", {"X": [_arr(rs, (4, 5, 6))]},
+           {"offsets": [1, 0, 2], "shape": [2, 5, 3]}, 0)
+
+
+def case_reverse(rs):
+    _check("reverse", {"X": [_arr(rs, (3, 4, 5))]}, {"axis": [0, 2]}, 0)
+    _check("reverse", {"X": [_arr(rs, (3, 4, 5))]}, {"axis": [-2]}, 0)
+
+
+def case_shard_index(rs):
+    x = np.array([[0], [7], [12], [19], [5]], "int32")
+    for shard in (0, 1, 2):
+        _check("shard_index", {"X": [x]},
+               {"index_num": 20, "nshards": 3, "shard_id": shard,
+                "ignore_value": -1}, 0)
+
+
+def case_roll(rs):
+    x = _arr(rs, (3, 4, 5))
+    _check("roll", {"X": [x]}, {"shifts": [1, -2], "axis": [0, 2]}, 0)
+    _check("roll", {"X": [x]}, {"shifts": 7}, 0)
+
+
+def case_meshgrid(rs):
+    _check("meshgrid", {"X": [_arr(rs, (3,)), _arr(rs, (4,)),
+                              _arr(rs, (2,))]}, {}, 0)
+
+
+def case_matmul_v2(rs):
+    for xs, ys, attrs in (((2, 3, 4), (4, 5), {}),
+                          ((2, 4, 3), (2, 5, 4), {"trans_x": True,
+                                                  "trans_y": True}),
+                          ((3, 4), (2, 4, 5), {}),
+                          ((4,), (4, 5), {})):
+        _check("matmul_v2", {"X": [_arr(rs, xs)], "Y": [_arr(rs, ys)]},
+               attrs, 1e-5)
+
+
+def case_bmm(rs):
+    _check("bmm", {"X": [_arr(rs, (3, 2, 4))], "Y": [_arr(rs, (3, 4, 5))]},
+           {}, 1e-5)
+
+
+def _tied(rs):
+    return rs.randint(0, 3, (4, 6)).astype("float32")  # many ties
+
+
+def case_arg_max(rs):
+    for axis in (-1, 0):
+        _check("arg_max", {"X": [_tied(rs)]}, {"axis": axis}, 0)
+
+
+def case_arg_min(rs):
+    for axis in (-1, 0):
+        _check("arg_min", {"X": [_tied(rs)]}, {"axis": axis}, 0)
+
+
+def case_argsort(rs):
+    for axis in (-1, 0):
+        _check("argsort", {"X": [_tied(rs)]}, {"axis": axis}, 0)
+    _check("argsort", {"X": [_arr(rs, (3, 7))]}, {}, 0)
+
+
+def case_cumsum(rs):
+    x = _arr(rs, (3, 5))
+    for attrs in ({}, {"axis": 0}, {"exclusive": True}, {"reverse": True},
+                  {"exclusive": True, "reverse": True, "axis": 0},
+                  {"flatten": True}):
+        _check("cumsum", {"X": [x]}, attrs, 1e-6)
+    _check("cumsum", {"X": [_arr(rs, (3, 5), "int32")]}, {"axis": 1}, 0)
+
+
+def case_norm(rs):
+    _check("norm", {"X": [_arr(rs, (3, 4, 5))]}, {"axis": 1}, 1e-6)
+    _check("norm", {"X": [_arr(rs, (3, 4))]}, {"epsilon": 1e-3}, 1e-6)
+
+
+def case_dot(rs):
+    _check("dot", {"X": [_arr(rs, (3, 5))], "Y": [_arr(rs, (3, 5))]}, {},
+           1e-5)
+
+
+def case_maximum_with_index(rs):
+    _check("maximum_with_index", {"X": [_tied(rs)]}, {}, 0)
+
+
+def case_fill_any_like(rs):
+    x = _arr(rs, (2, 3))
+    _check("fill_any_like", {"X": [x]}, {"value": 2.5}, 0)
+    _check("fill_any_like", {"X": [x]}, {"value": 3, "dtype": "int32"}, 0)
+
+
+def _draws(op_type, attrs, chain_seed, ins=None):
+    ctx = LowerContext(None, torch.Generator().manual_seed(chain_seed), CPU)
+    return get_op(op_type).lowering(ctx, ins or {}, dict(attrs))["Out"][0]
+
+
+def _jax_draw(op_type, attrs, ins=None):
+    import jax
+    import jax.numpy as jnp
+
+    return np.asarray(jax_op(op_type).lowering(
+        JaxContext(None, jax.random.PRNGKey(0)),
+        {k: [jnp.asarray(v) for v in vs] for k, vs in (ins or {}).items()},
+        dict(attrs))["Out"][0])
+
+
+def case_truncated_gaussian_random(rs):
+    """Another generator than the JAX package's: shape, dtype, the
+    truncation and the moments of both, the seeds within the port."""
+    attrs = {"shape": [128, 128], "mean": 0.5, "std": 2.0, "seed": 0,
+             "dtype": "float32"}
+    want = _jax_draw("truncated_gaussian_random", attrs)
+    a = _draws("truncated_gaussian_random", attrs, 3)
+    assert tuple(a.shape) == want.shape and a.dtype == torch.float32
+    # N(0, 1) truncated to [-2, 2] has std 0.8796; 16384 draws: within
+    # 5 standard errors
+    for got in (a.numpy(), want):
+        assert got.min() >= 0.5 - 4.0 and got.max() <= 0.5 + 4.0
+        assert abs(got.mean() - 0.5) < 5 * 2 * 0.8796 / 128
+        assert abs(got.std() - 2 * 0.8796) < 5 * 2.0 / np.sqrt(2 * 16384)
+    torch.testing.assert_close(
+        _draws("truncated_gaussian_random", attrs, 3), a, rtol=0, atol=0)
+    assert not torch.equal(_draws("truncated_gaussian_random", attrs, 4), a)
+    fixed = dict(attrs, seed=9)
+    torch.testing.assert_close(
+        _draws("truncated_gaussian_random", fixed, 3),
+        _draws("truncated_gaussian_random", fixed, 4), rtol=0, atol=0)
+
+
+def case_uniform_random_batch_size_like(rs):
+    ins = {"Input": [_arr(rs, (3, 7))]}
+    attrs = {"shape": [-1, 200], "input_dim_idx": 1, "output_dim_idx": 0,
+             "min": -0.5, "max": 2.0, "dtype": "float32"}
+    want = _jax_draw("uniform_random_batch_size_like", attrs, ins)
+    t_ins = {"Input": [torch.from_numpy(ins["Input"][0])]}
+    a = _draws("uniform_random_batch_size_like", attrs, 3, t_ins)
+    assert tuple(a.shape) == want.shape == (7, 200)
+    for got in (a.numpy(), want):
+        assert got.min() >= -0.5 and got.max() < 2.0
+        assert got.max() - got.min() > 2.3
+    torch.testing.assert_close(
+        _draws("uniform_random_batch_size_like", attrs, 3, t_ins), a,
+        rtol=0, atol=0)
+    assert not torch.equal(
+        _draws("uniform_random_batch_size_like", attrs, 4, t_ins), a)
+
+
+def case_share_data(rs):
+    _check("share_data", {"X": [_arr(rs, (2, 3))]}, {}, 0)
+
+
+def case_shape(rs):
+    _check("shape", {"Input": [_arr(rs, (2, 3, 5))]}, {}, 0)
+
+
+def case_isfinite(rs):
+    x = _arr(rs, (3, 4))
+    _check("isfinite", {"X": [x]}, {}, 0)
+    for bad in (np.nan, np.inf, -np.inf):
+        y = x.copy()
+        y[1, 2] = bad
+        _check("isfinite", {"X": [y]}, {}, 0)
+
+
+def case_linspace(rs):
+    """0-d bounds: the JAX package's ``float(start)`` refuses the [1]
+    tensors the layer builds (this JAX raises on a 1-d array), which the
+    port reads as well (tests/test_torch_loss.py runs the layer)."""
+    for start, stop, num in ((0.0, 1.0, 5), (-3.5, 2.25, 11), (2.0, 2.0, 1),
+                             (1.0, -1.0, 4)):
+        _check("linspace", {"Start": [np.array(start, "float32")],
+                            "Stop": [np.array(stop, "float32")],
+                            "Num": [np.array(num, "int32")]}, {}, 1e-6)
+
+
+def case_sampling_id(rs):
+    p = rs.rand(4000, 3).astype("float32") * [1.0, 0.0, 3.0]
+    p = (p / p.sum(1, keepdims=True)).astype("float32")
+    ins = {"X": [p]}
+    want = _jax_draw("sampling_id", {"seed": 0}, ins)
+    t_ins = {"X": [torch.from_numpy(p)]}
+    a = _draws("sampling_id", {"seed": 0}, 3, t_ins)
+    assert a.dtype == torch.int32 and tuple(a.shape) == want.shape
+    # a zero-probability id is never drawn; each row's expected share
+    # within 5 standard errors, in both packages
+    expect = p.mean(0)
+    for got in (a.numpy(), want):
+        assert not (got == 1).any()
+        share = np.bincount(got, minlength=3) / len(got)
+        assert np.all(np.abs(share - expect) < 5 * np.sqrt(0.25 / 4000))
+    torch.testing.assert_close(_draws("sampling_id", {}, 3, t_ins), a,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(_draws("sampling_id", {"seed": 7}, 3, t_ins),
+                               _draws("sampling_id", {"seed": 7}, 4, t_ins),
+                               rtol=0, atol=0)
+
+
+def case_prelu(rs):
+    x = _arr(rs, (2, 3, 4, 5))
+    _check("prelu", {"X": [x], "Alpha": [np.array([0.25], "float32")]},
+           {"mode": "all"}, 1e-6)
+    _check("prelu", {"X": [x], "Alpha": [_arr(rs, (3,))]},
+           {"mode": "channel"}, 1e-6)
+    _check("prelu", {"X": [x], "Alpha": [_arr(rs, (1, 3, 1, 1))]},
+           {"mode": "channel"}, 1e-6)
+    _check("prelu", {"X": [x], "Alpha": [_arr(rs, (1, 3, 4, 5))]},
+           {"mode": "element"}, 1e-6)
+
+
+def case_depthwise_conv2d(rs):
+    x = _arr(rs, (2, 4, 9, 8))
+    _check("depthwise_conv2d", {"Input": [x], "Filter": [_arr(rs, (4, 1, 3,
+                                                                   3))]},
+           {"strides": [1, 2], "paddings": [1, 1]}, 1e-5)
+    _check("depthwise_conv2d", {"Input": [x], "Filter": [_arr(rs, (8, 1, 3,
+                                                                   2))]},
+           {"strides": [2, 1], "paddings": [0, 1], "dilations": [2, 1],
+            "groups": 4}, 1e-5)
+
+
+def case_conv2d_transpose(rs):
+    x = _arr(rs, (2, 4, 5, 6))
+    for w_shape, attrs in (((4, 3, 3, 3), {}),
+                           ((4, 2, 3, 2), {"strides": [2, 1],
+                                           "paddings": [1, 0]}),
+                           ((4, 3, 2, 3), {"strides": [2, 3],
+                                           "paddings": [0, 1],
+                                           "dilations": [2, 1]})):
+        _check("conv2d_transpose", {"Input": [x], "Filter": [_arr(rs,
+                                                                  w_shape)]},
+               attrs, 1e-5)
+
+
+def case_conv3d(rs):
+    x = _arr(rs, (2, 4, 5, 6, 5))
+    _check("conv3d", {"Input": [x], "Filter": [_arr(rs, (3, 4, 3, 3, 2))]},
+           {"strides": [1, 2, 1], "paddings": [1, 0, 1]}, 1e-5)
+    _check("conv3d", {"Input": [x], "Filter": [_arr(rs, (4, 2, 2, 3, 3))]},
+           {"dilations": [2, 1, 1], "groups": 2}, 1e-5)
+
+
+def _pool_mask(x, k, s, p):
+    """Fluid's max-pool mask: the flat H * W index of each window's
+    first max (numpy loops)."""
+    n, c, H, W = x.shape
+    oh = (H + 2 * p[0] - k[0]) // s[0] + 1
+    ow = (W + 2 * p[1] - k[1]) // s[1] + 1
+    out = np.zeros((n, c, oh, ow), "int32")
+    for i in range(oh):
+        for j in range(ow):
+            best, at = -np.inf, -1
+            for a in range(i * s[0] - p[0], i * s[0] - p[0] + k[0]):
+                for b in range(j * s[1] - p[1], j * s[1] - p[1] + k[1]):
+                    if 0 <= a < H and 0 <= b < W:
+                        v = x[:, :, a, b]
+                        upd = v > best
+                        at = np.where(upd, a * W + b, at)
+                        best = np.where(upd, v, best)
+            out[:, :, i, j] = at
+    return out
+
+
+def case_pool2d_with_index(rs):
+    """Out against the JAX package; Mask (which the JAX package leaves
+    at 0) against Fluid's rule, ties included."""
+    x = rs.randint(0, 3, (2, 3, 7, 6)).astype("float32")
+    for k, s, p in (((3, 3), (2, 2), (1, 1)), ((2, 2), (2, 2), (0, 0)),
+                    ((3, 2), (1, 2), (1, 0))):
+        attrs = {"ksize": list(k), "strides": list(s), "paddings": list(p)}
+        _check("pool2d_with_index", {"X": [x]}, attrs, 0, slots=["Out"])
+        _, t = _run_both("pool2d_with_index", {"X": [x]}, attrs)
+        np.testing.assert_array_equal(t["Mask"][0], _pool_mask(x, k, s, p))
+
+
+def case_group_norm(rs):
+    x = _arr(rs, (2, 6, 3, 4)) * 2 + 1
+    _check("group_norm", {"X": [x], "Scale": [_arr(rs, (6,))],
+                          "Bias": [_arr(rs, (6,))]},
+           {"groups": 3, "epsilon": 1e-5}, 1e-5)
+    _check("group_norm", {"X": [x]}, {"groups": 2}, 1e-5)
+
+
+def case_lrn(rs):
+    _check("lrn", {"X": [_arr(rs, (2, 7, 3, 4))]}, {}, 1e-5)
+    _check("lrn", {"X": [_arr(rs, (2, 4, 3, 3))]},
+           {"n": 3, "k": 1.0, "alpha": 0.1, "beta": 0.5}, 1e-5)
+
+
+def case_log_softmax(rs):
+    _check("log_softmax", {"X": [_arr(rs, (3, 4, 5)) * 3]}, {}, 1e-5)
+    _check("log_softmax", {"X": [_arr(rs, (3, 4, 5)) * 3]}, {"axis": 1},
+           1e-5)
+
+
+def case_sigmoid_cross_entropy_with_logits(rs):
+    x = _arr(rs, (4, 5)) * 4
+    label = rs.rand(4, 5).astype("float32")
+    label[0, 1] = label[2, 3] = -100.0
+    for attrs in ({}, {"normalize": True}, {"ignore_index": -1}):
+        _check("sigmoid_cross_entropy_with_logits",
+               {"X": [x], "Label": [label]}, attrs, 1e-5, rtol=1e-6)
+
+
+def case_square_error_cost(rs):
+    _check("square_error_cost", {"X": [_arr(rs, (4, 3))],
+                                 "Y": [_arr(rs, (4, 3))]}, {}, 1e-6)
+
+
+def case_smooth_l1_loss(rs):
+    """The JAX package reads no InsideWeight / OutsideWeight (no layer
+    passes them); with them the port's Out follows Fluid's formula."""
+    x, y = _arr(rs, (4, 3, 2)), _arr(rs, (4, 3, 2))
+    for sigma in (1.0, 3.0):
+        _check("smooth_l1_loss", {"X": [x], "Y": [y]}, {"sigma": sigma},
+               1e-5)
+    inside, outside = rs.rand(4, 3, 2).astype("float32"), \
+        rs.rand(4, 3, 2).astype("float32")
+    t = get_op("smooth_l1_loss").lowering(
+        LowerContext(None, None, CPU),
+        {k: [torch.from_numpy(v)] for k, v in (
+            ("X", x), ("Y", y), ("InsideWeight", inside),
+            ("OutsideWeight", outside))}, {"sigma": 2.0})
+    d = (x - y) * inside
+    ad = np.abs(d)
+    want = (np.where(ad < 0.25, 2.0 * d * d, ad - 0.125) * outside).sum(
+        (1, 2)).reshape(-1, 1)
+    np.testing.assert_allclose(t["Diff"][0].numpy(), d, atol=1e-6)
+    np.testing.assert_allclose(t["Out"][0].numpy(), want, atol=1e-5)
+
+
+def case_huber_loss(rs):
+    for delta in (1.0, 0.3):
+        _check("huber_loss", {"X": [_arr(rs, (5, 1))],
+                              "Y": [_arr(rs, (5, 1))]}, {"delta": delta},
+               1e-6)
+
+
+def case_log_loss(rs):
+    p = rs.rand(6, 1).astype("float32")
+    label = rs.randint(0, 2, (6, 1)).astype("float32")
+    _check("log_loss", {"Predicted": [p], "Labels": [label]},
+           {"epsilon": 1e-4}, 1e-5)
+
+
+def case_lookup_table_v2(rs):
+    w = _arr(rs, (10, 4))
+    _check("lookup_table_v2", {"W": [w], "Ids": [_arr(rs, (2, 3),
+                                                      "int32")]},
+           {"padding_idx": -1}, 0)
+    _check("lookup_table_v2", {"W": [w], "Ids": [np.array(
+        [[1], [2], [12]], "int32")]}, {"padding_idx": 2}, 0)
+
+
+def case_maxout(rs):
+    _check("maxout", {"X": [_arr(rs, (2, 6, 3, 4))]}, {"groups": 3}, 0)
+    _check("maxout", {"X": [_tied(rs).reshape(2, 4, 3)]}, {"groups": 2}, 0)
+
+
+def case_im2sequence(rs):
+    """Unsupported in both packages: the same error."""
+    for lowering, ctx, x in (
+            (jax_op("im2sequence").lowering, JaxContext(None, None),
+             np.zeros((1, 1, 4, 4), "float32")),
+            (get_op("im2sequence").lowering, LowerContext(None, None, CPU),
+             torch.zeros(1, 1, 4, 4))):
+        with pytest.raises(NotImplementedError,
+                           match="im2sequence is not supported"):
+            lowering(ctx, {"X": [x]}, {"kernels": [2, 2]})
+
+
+def case_cos_sim(rs):
+    x = _arr(rs, (4, 6))
+    _check("cos_sim", {"X": [x], "Y": [_arr(rs, (4, 6))]}, {}, 1e-6)
+    _check("cos_sim", {"X": [x], "Y": [_arr(rs, (1, 6))]}, {}, 1e-6)
+    _check("cos_sim", {"X": [x], "Y": [np.zeros((1, 6), "float32")]}, {},
+           1e-6)
+
+
+def case_rank_loss(rs):
+    _check("rank_loss", {"Label": [rs.randint(0, 2, (5, 1)).astype(
+        "float32")], "Left": [_arr(rs, (5, 1)) * 3],
+        "Right": [_arr(rs, (5, 1))]}, {}, 1e-6)
+
+
+def case_margin_rank_loss(rs):
+    _check("margin_rank_loss", {
+        "Label": [np.array([[1], [-1], [1], [-1]], "float32")],
+        "X1": [_arr(rs, (4, 1))], "X2": [_arr(rs, (4, 1))]},
+        {"margin": 0.3}, 1e-6)
+
+
+def case_bpr_loss(rs):
+    _check("bpr_loss", {"X": [_arr(rs, (5, 7)) * 2],
+                        "Label": [np.array([[0], [6], [3], [3], [1]],
+                                           "int32")]}, {}, 1e-5)
+
+
+def case_nce(rs):
+    """The negatives are drawn by another generator than the JAX
+    package's: the JAX package's loss (``_nce_loss``) of the port's
+    SampleLabels."""
+    from paddle_tpu.ops.loss_ops import _nce_loss
+
+    x, w, b = _arr(rs, (4, 6)), _arr(rs, (12, 6)), _arr(rs, (12,))
+    label = np.array([[3], [0], [11], [3]], "int32")
+    for bias in (True, False):
+        ins = {"Input": [x], "Weight": [w], "Label": [label]}
+        if bias:
+            ins["Bias"] = [b]
+        attrs = {"num_neg_samples": 5, "num_total_classes": 12}
+        t = _draws_all("nce", attrs, 3, ins)
+        ids = t["SampleLabels"][0].numpy()
+        assert ids.dtype == np.int32 and ids.shape == (4, 6)
+        np.testing.assert_array_equal(ids[:, 0], label[:, 0])
+        assert ((ids >= 0) & (ids < 12)).all()
+        cost, logits = _nce_loss(x, w, b if bias else None, ids, 5, 12)
+        np.testing.assert_allclose(t["Cost"][0].numpy(), np.asarray(cost),
+                                   atol=1e-5, rtol=1e-6)
+        np.testing.assert_allclose(t["SampleLogits"][0].numpy(),
+                                   np.asarray(logits), atol=1e-5, rtol=1e-6)
+
+
+def _draws_all(op_type, attrs, chain_seed, ins):
+    ctx = LowerContext(None, torch.Generator().manual_seed(chain_seed), CPU)
+    return get_op(op_type).lowering(
+        ctx, {k: [torch.from_numpy(np.array(v)) for v in vs]
+              for k, vs in ins.items()}, dict(attrs))
+
+
+def case_hierarchical_sigmoid(rs):
+    x = _arr(rs, (6, 5))
+    label = np.array([[0], [1], [6], [3], [2], [5]], "int32")
+    for C in (7, 8, 2):
+        ins = {"X": [x], "W": [_arr(rs, (C - 1, 5))],
+               "Label": [label % C]}
+        _check("hierarchical_sigmoid", ins, {"num_classes": C}, 1e-5,
+               slots=["Out"])
+        ins["Bias"] = [_arr(rs, (C - 1,))]
+        _check("hierarchical_sigmoid", ins, {"num_classes": C}, 1e-5,
+               slots=["Out"])
+
+
+LOSS_LENGTHS = np.array([0, 1, 6, 3], "int32")
+
+
+def case_warpctc(rs):
+    logits = _arr(rs, (4, 6, 5)) * 2
+    label = rs.randint(1, 5, (4, 3)).astype("int32")
+    label[2] = [2, 2, 3]  # a repeat needs a blank between
+    for blank, lab_len, log_len in (
+            (0, [0, 1, 3, 2], [1, 2, 6, 4]),
+            (4, [2, 3, 3, 1], [6, 6, 6, 1])):
+        lab = np.where(label == blank, 1, label).astype("int32")
+        _check("warpctc", {"Logits": [logits], "Label": [lab],
+                           "LogitsLength": [np.array(log_len, "int32")],
+                           "LabelLength": [np.array(lab_len, "int32")]},
+               {"blank": blank, "norm_by_times": False}, 1e-5, rtol=1e-6)
+
+
+def _crf_ins(rs, C=4):
+    emission = _arr(rs, (4, 6, C))
+    transition = _arr(rs, (C + 2, C)) * 0.5
+    label = rs.randint(0, C, (4, 6)).astype("int32")
+    return emission, transition, label
+
+
+def case_linear_chain_crf(rs):
+    emission, transition, label = _crf_ins(rs)
+    _check("linear_chain_crf", {"Emission": [emission],
+                                "Transition": [transition],
+                                "Label": [label],
+                                "Length": [LOSS_LENGTHS]}, {}, 1e-5,
+           rtol=1e-6, slots=["LogLikelihood"])
+
+
+def case_crf_decoding(rs):
+    emission, transition, _ = _crf_ins(rs)
+    _check("crf_decoding", {"Emission": [emission],
+                            "Transition": [transition],
+                            "Length": [LOSS_LENGTHS]}, {}, 0)
+    # integer scores: ties at every step, the first index wins
+    _check("crf_decoding", {"Emission": [np.round(emission)],
+                            "Transition": [np.round(transition)],
+                            "Length": [LOSS_LENGTHS]}, {}, 0)
+
+
+def case_edit_distance(rs):
+    hyp = rs.randint(0, 4, (4, 5)).astype("int32")
+    ref = rs.randint(0, 4, (4, 6)).astype("int32")
+    for normalized in (False, True):
+        _check("edit_distance", {
+            "Hyps": [hyp], "Refs": [ref],
+            "HypsLength": [np.array([5, 0, 3, 1], "int32")],
+            "RefsLength": [np.array([6, 2, 0, 4], "int32")]},
+            {"normalized": normalized}, 1e-6)
+
+
+def case_bilinear_interp(rs):
+    x = _arr(rs, (2, 3, 4, 5))
+    for attrs in ({"out_h": 7, "out_w": 3}, {"out_h": 1, "out_w": 8},
+                  {"out_h": 6, "out_w": 9, "align_corners": False},
+                  {"scale": 1.5}, {"scale": 0.5, "align_corners": False}):
+        _check("bilinear_interp", {"X": [x]}, attrs, 1e-6)
+
+
+def case_nearest_interp(rs):
+    x = _arr(rs, (2, 3, 4, 5))
+    for attrs in ({"out_h": 7, "out_w": 3}, {"out_h": 1, "out_w": 8},
+                  {"out_h": 6, "out_w": 9, "align_corners": False},
+                  {"scale": 2.0}, {"out_h": 3, "out_w": 4,
+                                   "align_corners": False}):
+        _check("nearest_interp", {"X": [x]}, attrs, 0)
+
+
+def case_affine_channel(rs):
+    _check("affine_channel", {"X": [_arr(rs, (2, 3, 4, 5))],
+                              "Scale": [_arr(rs, (3,))],
+                              "Bias": [_arr(rs, (3,))]}, {}, 1e-6)
+    _check("affine_channel", {"X": [_arr(rs, (2, 3))],
+                              "Scale": [_arr(rs, (3,))],
+                              "Bias": [_arr(rs, (3,))]}, {}, 1e-6)
 
 
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
