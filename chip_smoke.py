@@ -7,7 +7,8 @@ NVIDIA GPU.
 ``--phases 17,17b,17c`` runs those phases alone (with the phases they
 take results from, ``PHASES``: 4c, 5, 12e and 4b need 4, 6b, 6e and 6g
 need 6, 6f needs 6b, 8c needs 8, 10c needs 10, 12b-12d and 14b need 12,
-13checkpoint needs 13; 1 and 2 always run); the result line then holds
+13checkpoint needs 13; 18 reads 6, 6b, 8 and 10's step times where they
+ran; 1 and 2 always run); the result line then holds
 the rows and launch counts of the phases that ran and names the ones
 left out. With no ``--phases`` every phase runs.
 
@@ -362,7 +363,39 @@ Phases, each of which passes or ends the script with a non-zero exit:
    against the CPU (forward, and grads where differentiable; the
    random ops by their properties), ``scatter`` over repeated ids
    repeatable, a ``linspace`` plan uncaptured and counted, and CRF and
-   CTC training plans captured, replays bitwise eager.
+   CTC training plans captured, replays bitwise eager;
+18. the roofline cost model (analysis/cost.py) on the card: the device
+   model (the H100's datasheet peaks by dtype, the per-op and per-call
+   overheads probed through the port's executor; never ``default``);
+   the JAX package's zoo gate: the eleven zoo train programs
+   (tools/torch_cost_report.py) at batch 8 priced, the predicted step
+   within 4x of the measured replayed step on at least 9 of 11, every
+   ratio printed; predicted against measured at full width for BERT-base
+   MLM (f32, AMP), GPT-2 small and ResNet-50 (phases 6, 6b, 8 and 10's
+   replayed medians, or measured here when those phases did not run);
+18b. the unified autotuner (kernels/autotune.py) on BERT-base training
+   (phase 6's program), window candidates 1, 2, 4, 8: measured
+   exhaustively (``PADDLE_TPU_COST_MODEL=0``), then pruned by the
+   roofline; each search's timings, what was pruned with its
+   prediction, the winners and whether the pruned search kept the
+   exhaustive one; the kernel axis's K1 launches (flash against
+   composed at (512, 512)); then ``train_loop`` at the tuned window
+   (``resolve_steps_per_call``), bitwise the same steps run one at a
+   time;
+18c. ``imperative.jit(autotune=True)`` on phase 15's encoder: captured,
+   tuned in a scratch scope, replayed bitwise an untuned capture's
+   replays (the flash threshold pinned for both);
+18d. int8: BERT-base served by the Predictor with
+   ``PADDLE_TPU_OPTIMIZE_QUANT=1`` at batch 1 and 8 within
+   ``QUANT_TOLERANCE`` of the f32 Predictor, both latencies in turns
+   beside ``quantize_outlook``'s predicted speedup; BERT-base MLM
+   through ``QuantizeTranspiler.training_transpile``: 5 replayed steps
+   with the fake-quant ops' state updated on the card, bitwise eager
+   steps, the first loss within ``QUANT_TOLERANCE`` of the plain
+   program's;
+18e. the 37 op types of this slice (misc_ops' other 31, the six
+   quantization ops) on the card against their CPU lowerings, grads
+   included; the random ones twice bitwise from one seed.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -6132,18 +6165,20 @@ def _dygraph_batches(cfg, seed):
     return out
 
 
-def _dygraph_run(seed, batches, mode):
+def _dygraph_run(seed, batches, mode, autotune=None, extras=True):
     """DY_STEPS train steps of a fresh model from ``seed`` under a guard
     seeded with ``seed``: eagerly (``mode`` None) or through
-    ``imperative.jit(exact_numerics=mode)``, each step under the launch
-    meter. Returns the losses, the params after (host), the chain's
-    state, step ms, each step's device launches and the capture."""
+    ``imperative.jit(exact_numerics=mode, autotune=autotune)``, each step
+    under the launch meter. Returns the losses, the params after (host),
+    the chain's state, step ms, each step's device launches and the
+    capture; with ``extras`` and ``mode`` False also steady replays'
+    times, a profiled replay and the graphs' capture seconds."""
     from paddle_tpu_torch import imperative
 
     with imperative.guard(seed=seed):
         model, step, _ = _dygraph_model(seed)
         fn = step if mode is None else imperative.jit(
-            step, exact_numerics=mode)
+            step, exact_numerics=mode, autotune=autotune)
         losses, ms = [], []
         with LaunchMeter() as meter:
             for b in batches:
@@ -6158,7 +6193,7 @@ def _dygraph_run(seed, batches, mode):
                   for i, p in enumerate(model.parameters())}
         chain = imperative.get_tracer()._rng.get_state().clone()
         prof, replay_ms, graph_s = None, [], []
-        if mode is False:
+        if mode is False and extras:
             # steady replays of the captured graph (they go on training)
             args = [imperative.to_variable(a) for a in batches[-1]]
             for a in args:
@@ -7718,6 +7753,839 @@ def phase_op_tail(seed):
                 seconds=secs)
 
 
+# --------------------------------------------------------------- phase 18
+ZOO_BATCH = 8      # the JAX package's zoo gate's batch
+ZOO_REPLAYS = 5    # replayed steps timed per zoo program (after 3 warm-up)
+ZOO_MIN_WITHIN = 9  # of 11 within ZOO_COST_GATE_FACTOR
+FULL_REPLAYS = 5   # replayed steps timed for a full-width model under
+                   # --phases when its phase did not run
+
+
+def _zoo_feed(main, batch):
+    """The JAX package's zoo gate's feeds: zeros of each data var's shape
+    (the batch dim at ``batch``)."""
+    feed = {}
+    for v in main.global_block().vars.values():
+        if not v.is_data:
+            continue
+        shape = [batch if (d is None or d < 0) else int(d)
+                 for d in (v.shape or [])]
+        dt = str(v.dtype or "float32")
+        feed[v.name] = np.zeros(
+            shape, dtype="int64" if "int" in dt else "float32")
+    return feed
+
+
+def _replayed_median_ms(exe, main, loss, feed, scope, n):
+    """The median host-clock ms of ``n`` replayed ``Executor.run`` steps
+    (their fetch included), after three warm-up runs: the eager step,
+    the capture, a first replay."""
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _gpt_program(amp=False):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = gpt.build(gpt.base_config(), seq_len=GPT_SEQ)
+        optimizer = fluid.optimizer.Adam(learning_rate=TRAIN_LR)
+        if amp:
+            optimizer = fluid.contrib.mixed_precision.decorate(optimizer)
+        optimizer.minimize(loss)
+    return main, startup, loss
+
+
+def _resnet_program():
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = resnet.build(class_dim=IMG_CLASSES, depth=50,
+                                  image_shape=(3, 224, 224))
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _full_width_cases(seed):
+    """(what, phase, build() -> (main, startup, loss), batch, feed())
+    of the full-width models whose predicted step phase 18 prints."""
+    bert_prog = lambda amp: lambda: _bert_train_program(  # noqa: E731
+        "Adam", amp)[:3]
+    rs = np.random.RandomState(seed)
+    return [
+        ("BERT-base MLM f32", "6", bert_prog(False), TRAIN_BATCH,
+         lambda: _train_batch(bert_cfg(), rs)),
+        ("BERT-base MLM AMP", "6b", bert_prog(True), TRAIN_BATCH,
+         lambda: _train_batch(bert_cfg(), rs)),
+        ("GPT-2 small f32", "8", _gpt_program, GPT_BATCH,
+         lambda: _gpt_batch(50304, rs)),
+        ("ResNet-50 f32", "10", _resnet_program, IMG_BATCH,
+         lambda: _image_batches(seed + 12, 1)[0]),
+    ]
+
+
+def phase_cost_model(seed, R):
+    """Phase 18: the roofline cost model on the card. The device model
+    (the H100's peaks by dtype from its datasheet table, the overheads
+    probed through the port's executor; not ``default``); the JAX
+    package's zoo gate held on the card: all eleven zoo train programs
+    (tools/torch_cost_report.py's builders, batch 8) price, and the
+    predicted step is within ``ZOO_COST_GATE_FACTOR`` of the measured
+    replayed step on at least 9 of 11; then predicted against measured
+    at full width for BERT-base MLM (f32 and AMP), GPT-2 small and
+    ResNet-50, the replayed medians of phases 6, 6b, 8 and 10 where they
+    ran (measured here otherwise)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.analysis.cost import (CostAnalysis, DeviceModel,
+                                                ZOO_COST_GATE_FACTOR)
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_cost_report
+
+    t0 = time.perf_counter()
+    dev = DeviceModel.current()
+    model = dev.to_dict()
+    log("cost model (18): %s: f32 %.4g FLOP/s, %.4g B/s, op overhead %.3f "
+        "us, call overhead %.3f us; peaks by dtype %s; conv %.4g; source %s "
+        "(probed in %.1f s)" % (
+            dev.kind, dev.peak_flops, dev.peak_bandwidth,
+            dev.op_overhead * 1e6, dev.call_overhead * 1e6,
+            {k: "%.4g" % v for k, v in sorted(dev.dtype_peaks.items())},
+            dev.conv_peak_flops, dev.source, time.perf_counter() - t0))
+    if dev.source == "default" or not dev.kind.startswith("cuda:"):
+        raise AssertionError("cost model (18): the device model resolved "
+                             "to %r on %s" % (dev.source, dev.kind))
+
+    zoo, within = {}, 0
+    for name in sorted(torch_cost_report.EXAMPLE_BUILDERS):
+        main, startup, loss = torch_cost_report.build_example(name)
+        scope = fluid.Scope()
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        ca = CostAnalysis(main, fetch_names=[loss.name], scope=scope)
+        pred_ms = ca.predicted_seconds(ZOO_BATCH) * 1e3
+        meas_ms = _replayed_median_ms(exe, main, loss,
+                                      _zoo_feed(main, ZOO_BATCH), scope,
+                                      ZOO_REPLAYS)
+        ratio = pred_ms / meas_ms
+        ok = 1.0 / ZOO_COST_GATE_FACTOR <= ratio <= ZOO_COST_GATE_FACTOR
+        within += ok
+        zoo[name] = dict(predicted_ms=pred_ms, measured_ms=meas_ms,
+                         ratio=ratio, within=ok, ops=len(ca.op_costs),
+                         flops=ca.flops(ZOO_BATCH),
+                         bytes=ca.bytes_moved(ZOO_BATCH),
+                         uncaptured=bool(exe._cache and all(
+                             p.graph is None for p in exe._cache.values())))
+        log("cost model (18): zoo %-19s batch %d: predicted %.3f ms, "
+            "measured %.3f ms replayed (median of %d), ratio %.3f%s; %d ops"
+            % (name, ZOO_BATCH, pred_ms, meas_ms, ZOO_REPLAYS, ratio,
+               "" if ok else " (outside %gx)" % ZOO_COST_GATE_FACTOR,
+               len(ca.op_costs)))
+        exe.close()
+        del exe, scope
+    _free()
+    if within < ZOO_MIN_WITHIN:
+        raise AssertionError("cost model (18): %d of 11 zoo programs within "
+                             "%gx of the measured step, want >= %d: %s" % (
+                                 within, ZOO_COST_GATE_FACTOR,
+                                 ZOO_MIN_WITHIN,
+                                 {k: round(v["ratio"], 3)
+                                  for k, v in zoo.items()}))
+
+    full = {}
+    for what, phase, build, batch, feed_fn in _full_width_cases(seed):
+        main, startup, loss = build()
+        ca = CostAnalysis(main, fetch_names=[loss.name])
+        pred_ms = ca.predicted_seconds(batch) * 1e3
+        done = R.get(phase)
+        if done is not None:
+            meas_ms, where = done["compiled"]["replay_median_ms"], \
+                "phase %s" % phase
+        else:
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            exe.run(startup, scope=scope)
+            meas_ms = _replayed_median_ms(exe, main, loss, feed_fn(), scope,
+                                          FULL_REPLAYS)
+            where = "measured here"
+            exe.close()
+            del exe, scope
+            _free()
+        top = ca.by_op_type(batch)[:3]
+        full[what] = dict(predicted_ms=pred_ms, measured_ms=meas_ms,
+                          ratio=pred_ms / meas_ms, batch=batch,
+                          predicted_mfu=ca.predicted_mfu(batch),
+                          program_peak=ca.program_peak(),
+                          flops=ca.flops(batch), bytes=ca.bytes_moved(batch),
+                          ops=len(ca.op_costs), source=where,
+                          top=[(r["op_type"], r["count"], r["seconds"] * 1e3)
+                               for r in top])
+        log("cost model (18): %s at batch %d: predicted %.3f ms (MFU %.1f%% "
+            "of %.4g FLOP/s; %.4g FLOP, %.4g B, %d ops; most: %s), measured "
+            "%.3f ms replayed (%s), ratio %.3f" % (
+                what, batch, pred_ms, 100 * ca.predicted_mfu(batch),
+                ca.program_peak(), ca.flops(batch), ca.bytes_moved(batch),
+                len(ca.op_costs), ", ".join("%s x%d %.3f ms" % t
+                                            for t in full[what]["top"]),
+                meas_ms, where, pred_ms / meas_ms))
+    secs = time.perf_counter() - t0
+    log("cost model (18): %d of 11 zoo programs within %gx; %.1f s" % (
+        within, ZOO_COST_GATE_FACTOR, secs))
+    return dict(device=model, zoo=zoo, zoo_within=within, full_width=full,
+                seconds=secs)
+
+
+# -------------------------------------------------------------- phase 18b
+AUTOTUNE_WINDOWS = "1,2,4,8"
+
+
+class _Env:
+    """Environment variables set inside a ``with`` block, restored
+    after."""
+
+    def __init__(self, **kw):
+        self.kw = kw
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.kw}
+        os.environ.update(self.kw)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+def _log_search(what, report):
+    """One line per axis of an ``autotune_program`` report."""
+    for axis in report["axes"]:
+        if axis["axis"] == "quantize":
+            log("autotune (18b) %s: quantize outlook %s" % (
+                what, axis["outlook"]))
+            continue
+        dec = axis["decision"]
+        parts = []
+        for t in dec["timings"]:
+            if t.get("pruned"):
+                parts.append("%s pruned (predicted %.3f ms)" % (
+                    t["label"], t["predicted_seconds"] * 1e3))
+            else:
+                parts.append("%s %.3f ms" % (t["label"],
+                                             t["seconds"] * 1e3))
+        for p in dec.get("pruned", ()):
+            parts.append("%s pruned (predicted %.3f ms)" % (
+                p["label"], p["predicted_seconds"] * 1e3))
+        log("autotune (18b) %s: %s%s: %s -> %s %s" % (
+            what, axis["axis"],
+            " %s %s" % (axis.get("op"), axis.get("sig")) if axis["axis"]
+            == "kernel" else "", "; ".join(parts), dec["choice"],
+            dec["cfg"]))
+
+
+def phase_autotune(seed):
+    """Phase 18b: the unified autotuner on BERT-base training at full
+    width (phase 6's program: batch 8, S = 512, Adam, level 2), window
+    candidates 1, 2, 4, 8: once with the cost model off (measures every
+    candidate), once with it on (prunes by the roofline); each search's
+    timings, what was pruned with the prediction that pruned it, the
+    winners, whether the pruned search kept the exhaustive winner, and
+    the kernel axis's launches (K1 against the composed attention at
+    (512, 512)). Then the steps a ``train_loop`` takes at the tuned
+    window (``resolve_steps_per_call``), losses and params bitwise the
+    same steps run one at a time, its launches counted."""
+    from paddle_tpu_torch.core import window_tune as wt
+    from paddle_tpu_torch.kernels import autotune as at
+    from paddle_tpu_torch.kernels import tune
+
+    t0 = time.perf_counter()
+    (exe, scope, main, loss, params, grads, batches,
+     tier) = _train_setup("Adam", seed)
+    feed = batches[0]
+    snap = _snapshot(scope)
+    orig_kernel = at.autotune_kernel
+    searches = {}
+    for what, cost in (("exhaustive", "0"), ("pruned", "1")):
+        tune.reset()
+        with _Env(PADDLE_TPU_WINDOW_CANDIDATES=AUTOTUNE_WINDOWS,
+                  PADDLE_TPU_COST_MODEL=cost), LaunchMeter() as meter:
+            def marked(*a, **kw):
+                meter.mark()
+                out = orig_kernel(*a, **kw)
+                meter.mark()
+                return out
+
+            # the kernel axis's launches: the meter's units between the
+            # marks around autotune_kernel
+            at.autotune_kernel = marked
+            try:
+                meter.mark()
+                s0 = time.perf_counter()
+                report = at.autotune_program(exe, main, feed, [loss], scope,
+                                             persist=False)
+                secs = time.perf_counter() - s0
+            finally:
+                at.autotune_kernel = orig_kernel
+        _log_search(what, report)
+        window = next(a["decision"] for a in report["axes"]
+                      if a["axis"] == "window")
+        kernel = [a for a in report["axes"] if a["axis"] == "kernel"]
+        searches[what] = dict(
+            report=report, seconds=secs,
+            window_pick=window["cfg"][0] if window["cfg"] else 1,
+            kernel_picks={str(a["sig"]): a["decision"]["choice"]
+                          for a in kernel},
+            kernel_launches=dict(zip(COUNT_NAMES, (
+                int(v) for v in meter.units[1]))),
+            measured=[t["label"] for t in window["timings"]
+                      if not t.get("pruned")])
+        log("autotune (18b) %s: %.1f s, window K = %d measured %s; kernel "
+            "axis launches %s" % (
+                what, secs, searches[what]["window_pick"],
+                searches[what]["measured"],
+                {k: v for k, v in searches[what]["kernel_launches"].items()
+                 if v}))
+    kept = searches["pruned"]["window_pick"] == \
+        searches["exhaustive"]["window_pick"]
+    launches = searches["pruned"]["kernel_launches"]
+    if launches["flash fwd"] < 1 or searches["pruned"]["kernel_picks"] \
+            .keys() != {str([SEQ, SEQ])}:
+        raise AssertionError("autotune (18b): the kernel axis at %s ran %s"
+                             % (searches["pruned"]["kernel_picks"], launches))
+    if not set(searches["pruned"]["measured"]) < set(
+            searches["exhaustive"]["measured"]):
+        raise AssertionError("autotune (18b): the pruned search measured %s, "
+                             "the exhaustive one %s" % (
+                                 searches["pruned"]["measured"],
+                                 searches["exhaustive"]["measured"]))
+    log("autotune (18b): the pruned search %s the exhaustive winner (K = %d "
+        "against %d); attention picks %s / %s" % (
+            "kept" if kept else "did not keep",
+            searches["pruned"]["window_pick"],
+            searches["exhaustive"]["window_pick"],
+            searches["pruned"]["kernel_picks"],
+            searches["exhaustive"]["kernel_picks"]))
+
+    # the tuned window at work: the winner of the pruned search stays in
+    # the tuner's table, and resolve_steps_per_call reads it
+    k, source = wt.resolve_steps_per_call(main, feed)
+    if (k, source) != (searches["pruned"]["window_pick"], "tuned"):
+        raise AssertionError("autotune (18b): resolve_steps_per_call gave "
+                             "%d (%s), the tuner picked %d" % (
+                                 k, source,
+                                 searches["pruned"]["window_pick"]))
+    n = max(2 * k, 4)
+    n -= n % k
+    fetch = [loss]
+    one = _restored(snap)
+    ref = [float(np.asarray(exe.run(main, feed=b, fetch_list=fetch,
+                                    scope=one)[0]).reshape(()))
+           for b in _fresh(batches, n)()]
+    looped = _restored(snap)
+    _zero_counts()
+    with LaunchMeter() as meter:
+        meter.mark()
+        seen = _loop_values(exe, main, fetch, looped, _fresh(batches, n), None)
+    torch.cuda.synchronize()
+    launches_loop = dict(zip(COUNT_NAMES, (int(v) for v in meter.total())))
+    got = {i: float(np.asarray(v[0]).reshape(())) for i, v in seen.items()}
+    bad = [i for i, v in got.items() if v != ref[i]] + [
+        p for p in params if not torch.equal(looped.find_var(p),
+                                             one.find_var(p))]
+    if bad or len(got) != n // k:
+        raise AssertionError("autotune (18b): train_loop at the tuned K = %d "
+                             "against %d single steps: %s differ (%d "
+                             "windows)" % (k, n, bad[:5], len(got)))
+    tune.reset()
+    # the loop runs the tuned attention: the flash kernels where the
+    # pruned search picked them, the composed attention (none) otherwise
+    flash = searches["pruned"]["kernel_picks"][str([SEQ, SEQ])] == "cuda"
+    for c in ("flash fwd", "flash dkv", "flash dq", "K4", "K6"):
+        if (launches_loop[c] < n) if (flash or c[0] == "K") else \
+                launches_loop[c]:
+            raise AssertionError("autotune (18b): the tuned loop ran %s %d "
+                                 "times in %d steps (the tuner picked %s)" % (
+                                     c, launches_loop[c], n,
+                                     searches["pruned"]["kernel_picks"]))
+    secs = time.perf_counter() - t0
+    log("autotune (18b): train_loop at the tuned K = %d over %d steps: "
+        "losses %s bitwise the single steps', params bitwise; launches %s; "
+        "%.1f s" % (k, n, ["%.4f" % v for v in ref], {
+            c: v for c, v in launches_loop.items() if v}, secs))
+    exe.close()
+    return dict(searches={w: {x: v for x, v in s.items() if x != "report"}
+                          for w, s in searches.items()},
+                timings={w: [a for a in s["report"]["axes"]]
+                         for w, s in searches.items()},
+                kept_exhaustive_winner=kept, tuned_k=k, loop_steps=n,
+                losses=ref, launches=launches_loop,
+                tune_launches=searches["pruned"]["kernel_launches"],
+                seconds=secs)
+
+
+# -------------------------------------------------------------- phase 18c
+JIT_TUNE_WINDOWS = "1,2"  # the capture's window search, kept short
+
+
+def phase_jit_autotune(seed):
+    """Phase 18c: ``imperative.jit(autotune=True)`` on phase 15's dygraph
+    encoder at BERT-base width (level 2, the CUDA graph): the first call
+    captures, the unified autotuner tunes the capture in a scratch scope
+    (window 1 or 2, flash against composed at (512, 512)), and the
+    replays are bitwise an untuned capture's from the same state:
+    losses, params and the generator chain (the flash threshold pinned
+    for both, so the tuner's pick moves no dispatch)."""
+    from paddle_tpu_torch.kernels import tune
+
+    t0 = time.perf_counter()
+    batches = _dygraph_batches(bert_cfg(), seed)
+    with _Env(PADDLE_TPU_WINDOW_CANDIDATES=JIT_TUNE_WINDOWS,
+              PADDLE_TPU_FLASH_MIN_SEQ="256"):
+        tune.reset()
+        tuned = _dygraph_run(seed, batches, False, autotune=True,
+                             extras=False)
+        picks = tune.export_entries()
+        _free()
+        untuned = _dygraph_run(seed, batches, False, extras=False)
+        tune.reset()
+    same = (tuned["losses"] == untuned["losses"]
+            and all(torch.equal(tuned["params"][n], untuned["params"][n])
+                    for n in tuned["params"])
+            and torch.equal(tuned["chain"], untuned["chain"]))
+    if not same:
+        raise AssertionError("jit autotune (18c): the tuned replays differ "
+                             "from the untuned ones: losses %s / %s" % (
+                                 tuned["losses"], untuned["losses"]))
+    if "attention|%d,%d" % (SEQ, SEQ) not in picks or \
+            not any(k.startswith("train_window|") for k in picks):
+        raise AssertionError("jit autotune (18c): the tuner left %s" % picks)
+    launches = dict(zip(COUNT_NAMES, (int(v) for v in np.sum(
+        tuned["units"], axis=0))))
+    secs = time.perf_counter() - t0
+    log("jit autotune (18c): captured, tuned (%s), replayed: losses %s "
+        "bitwise the untuned capture's, params and chain bitwise; step ms "
+        "%s tuned, %s untuned; launches %s; %.1f s" % (
+            {k: (v["choice"], v["cfg"]) for k, v in picks.items()},
+            ["%.4f" % v for v in tuned["losses"]],
+            ["%.1f" % v for v in tuned["step_ms"]],
+            ["%.1f" % v for v in untuned["step_ms"]],
+            {k: v for k, v in launches.items() if v}, secs))
+    return dict(picks=picks, losses=tuned["losses"],
+                step_ms=dict(tuned=tuned["step_ms"],
+                             untuned=untuned["step_ms"]),
+                launches=launches, seconds=secs)
+
+
+# -------------------------------------------------------------- phase 18d
+QUANT_SERVE_REPEATS = 5
+QAT_STEPS = 5
+
+
+def _bert_qat_program(transpile):
+    """BERT-base MLM with Adam; with ``transpile``, its fake-quant rewrite
+    (``QuantizeTranspiler.training_transpile``) before ``minimize``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = bert.build(bert.base_config(), seq_len=SEQ,
+                             max_mask=MAX_MASK)
+        if transpile:
+            fluid.contrib.quantize.QuantizeTranspiler().training_transpile(
+                main, startup)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    return main, startup, loss
+
+
+def phase_quantize(workdir, seed):
+    """Phase 18d: int8. BERT-base (S = 512) saved and served by the
+    Predictor with ``PADDLE_TPU_OPTIMIZE_QUANT=1`` at batch 1 and 8: the
+    level-2 clone's int8 weights (quantize / dequantize_channel_abs_max)
+    within the pass's QUANT_TOLERANCE of the f32 Predictor's answers,
+    both latencies in turns beside ``quantize_outlook``'s predicted
+    speedup. Then ``QuantizeTranspiler.training_transpile`` on BERT-base
+    MLM: 5 replayed steps with every fake-quant op on the card (its
+    scale state updated there), the first loss within QUANT_TOLERANCE of
+    the untransposed program's from the same startup and RNG chain, the
+    replays bitwise eager steps."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import _HostView
+    from paddle_tpu_torch.core.passes import optimize_program
+    from paddle_tpu_torch.core.passes.quantize_pass import QUANT_TOLERANCE
+    from paddle_tpu_torch.kernels.autotune import quantize_outlook
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    cfg = bert.base_config()
+    feeds = ["src_ids", "sent_ids", "input_mask"]
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        bert.build(cfg, seq_len=SEQ, is_test=True)
+    enc = _encoder_output(main)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(workdir, feeds, [enc], exe,
+                                      main_program=main)
+    del scope, exe
+    _free()
+    rs = np.random.RandomState(seed + 18)
+    reqs = {b: _request(b, cfg, rs) for b in (1, 8)}
+    quant = _Env(PADDLE_TPU_OPTIMIZE_QUANT="1")
+
+    def predictor():
+        config = fluid.inference.AnalysisConfig(workdir)
+        config.warmup_batch_sizes = [1, 8]
+        return fluid.inference.create_paddle_predictor(config)
+
+    p32 = predictor()
+    with quant:
+        pq = predictor()
+        opt, _ = optimize_program(pq.program, fetch_list=pq.fetch_names,
+                                  scope=_HostView(pq.scope), level=2)
+        n_q = [op.type for op in opt.global_block().ops].count(
+            "quantize_channel_abs_max")
+        outlook = quantize_outlook(pq.program, reqs[8], pq.fetch_names)
+    if n_q < 6 * cfg["n_layer"]:  # q, k, v, out and two FFN a layer
+        raise AssertionError("quantize (18d): the level-2 clone quantized "
+                             "%d weights" % n_q)
+    serve = {}
+    for b, req in reqs.items():
+        want = p32.run(req)[0]
+        with quant:
+            got = pq.run(req)[0]
+        err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, **QUANT_TOLERANCE) or \
+                got.tobytes() == want.tobytes():
+            raise AssertionError("quantize (18d): batch %d: int8 answers "
+                                 "%.4g from f32's (QUANT_TOLERANCE %s)" % (
+                                     b, err, QUANT_TOLERANCE))
+        lat = ([], [])
+        for i in range(QUANT_SERVE_REPEATS):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                if j:
+                    with quant:
+                        lat[1].append(_synced_ms(lambda: pq.run(req)))
+                else:
+                    lat[0].append(_synced_ms(lambda: p32.run(req)))
+        serve[b] = dict(max_abs_err=err, f32_ms=lat[0], int8_ms=lat[1],
+                        f32_median_ms=float(np.median(lat[0])),
+                        int8_median_ms=float(np.median(lat[1])))
+        log("quantize (18d): BERT-base served at batch %d: int8 within %.4g "
+            "of f32 (QUANT_TOLERANCE rtol / atol 0.05); median %.3f ms int8, "
+            "%.3f ms f32 in turns (%d each)" % (
+                b, err, serve[b]["int8_median_ms"], serve[b]["f32_median_ms"],
+                QUANT_SERVE_REPEATS))
+    log("quantize (18d): %d weights int8 in the level-2 clone; "
+        "quantize_outlook at batch 8: %d eligible, predicted %.3f ms -> %.3f "
+        "ms, speedup %.3f, recommended %s" % (
+            n_q, outlook["weights"], outlook["predicted_seconds"] * 1e3,
+            outlook["predicted_seconds_quantized"] * 1e3,
+            outlook["predicted_speedup"], outlook["recommended"]))
+    del p32, pq
+    _free()
+
+    # quantization-aware training: the transposed program from the plain
+    # one's startup and chain
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    progs = {}
+    for name, tr in (("plain", False), ("qat", True)):
+        m, s, lo = _bert_qat_program(tr)
+        m.random_seed = s.random_seed = seed
+        progs[name] = (m, s, lo)
+    plain_scope = fluid.Scope()
+    exe.run(progs["plain"][1], scope=plain_scope)
+    base = _snapshot(plain_scope)
+    qscope = fluid.Scope()
+    exe.run(progs["qat"][1], scope=qscope)
+    for n, v in base.items():
+        qscope.set_var(n, _copied(v))
+    snap = _snapshot(qscope)
+    types = [op.type for op in progs["qat"][0].global_block().ops]
+    fq = {t: types.count(t) for t in set(types)
+          if t.startswith("fake_quantize")}
+    rs = np.random.RandomState(seed + 19)
+    batches = [_train_batch(cfg, rs) for _ in range(QAT_STEPS)]
+    m, _, lo = progs["plain"]
+    loss_of = lambda vals: float(np.asarray(vals[0]).reshape(()))  # noqa
+    plain_first = loss_of(exe.run(m, feed=batches[0], fetch_list=[lo],
+                                  scope=_restored(base)))
+    m, _, lo = progs["qat"]
+    written = {n for op in m.global_block().ops
+               if op.type.startswith("fake_quantize")
+               for names in op.outputs.values() for n in names}
+    state = sorted(v.name for v in m.list_vars()
+                   if v.persistable and v.name in written)
+    replayed, eager = _restored(snap), _restored(snap)
+    _zero_counts()
+    with LaunchMeter() as meter:
+        meter.mark()
+        lq = [loss_of(exe.run(m, feed=b, fetch_list=[lo], scope=replayed))
+              for b in batches]
+    launches = dict(zip(COUNT_NAMES, (int(v) for v in meter.total())))
+    le = [loss_of(exe._run_eager(m, feed=b, fetch_list=[lo], scope=eager))
+          for b in batches]
+    params = [p.name for p in m.global_block().all_parameters()]
+    differ = [n for n in params + state
+              if not torch.equal(replayed.find_var(n), eager.find_var(n))]
+    moved = [n for n in state if replayed.find_var(n).is_cuda and
+             not torch.equal(replayed.find_var(n).cpu(),
+                             snap[n].cpu())]
+    if lq != le or differ:
+        raise AssertionError("quantize (18d): QAT replays differ from eager "
+                             "steps: losses %s / %s, vars %s" % (
+                                 lq, le, differ[:5]))
+    if not np.allclose(lq[0], plain_first, **QUANT_TOLERANCE):
+        raise AssertionError("quantize (18d): QAT first loss %.5f, the plain "
+                             "program's %.5f" % (lq[0], plain_first))
+    if not state or len(moved) != len(state) or \
+            launches["flash fwd"] < QAT_STEPS * 24:
+        raise AssertionError("quantize (18d): fake-quant state on the card "
+                             "%d of %d moved; launches %s" % (
+                                 len(moved), len(state), launches))
+    secs = time.perf_counter() - t0
+    log("quantize (18d): QuantizeTranspiler on BERT-base MLM: %s fake-quant "
+        "ops, %d scale / state vars on the card, all updated by the steps; "
+        "%d steps (eager, capture, replays) bitwise eager: losses %s; first "
+        "loss %.5f against the plain program's %.5f; launches %s; %.1f s" % (
+            fq, len(state), QAT_STEPS, ["%.4f" % v for v in lq], lq[0],
+            plain_first, {k: v for k, v in launches.items() if v}, secs))
+    exe.close()
+    return dict(serve=serve, quantized_weights=n_q, outlook=outlook,
+                qat=dict(fake_quant_ops=fq, state_vars=len(state),
+                         losses=lq, plain_first_loss=plain_first),
+                launches=launches, seconds=secs)
+
+
+# -------------------------------------------------------------- phase 18e
+def _misc_quant_cases(rs):
+    """(op, inputs as numpy, attrs, differentiable input slots, tolerance)
+    for the misc and quantization ops of this slice, shaped like
+    tests/test_torch_ops.py's cases; the random ones are checked apart
+    (``_misc_quant_random``)."""
+    f = lambda *s: rs.randn(*s).astype("float32")  # noqa: E731
+    i32 = lambda hi, *s: rs.randint(0, hi, s).astype("int32")  # noqa
+    T, P = OP_TAIL_TOL, OP_TAIL_PRODUCT_TOL
+    x5 = f(2, 3, 5, 6, 4)
+    grid = (rs.rand(2, 3, 6, 2) * 2.4 - 1.2).astype("float32")
+    edges = np.array([[[1, 2], [1, 3], [2, 4], [0, 0]],
+                      [[0, 1], [0, 2], [0, 3], [3, 4]]], "int32")
+    rois = np.array([[0.5, 1.0, 5.0, 4.5], [2.0, 0.0, 6.5, 5.5]], "float32")
+    quads = np.array([[1, 1, 6, 1.5, 6.5, 6, 0.5, 5.5],
+                      [2, 3, 4, 2, 5, 5, 2.5, 6]], "float32")
+    return [
+        ("selu", {"X": [f(3, 5)]}, {}, ["X"], T),
+        ("multiplex", {"X": [f(4, 3), f(4, 3)],
+                       "Ids": [np.array([[1], [0], [1], [1]], "int32")]},
+         {}, ["X"], T),
+        ("space_to_depth", {"X": [f(2, 3, 4, 6)]}, {"blocksize": 2}, ["X"],
+         T),
+        ("shuffle_channel", {"X": [f(2, 6, 3, 2)]}, {"group": 3}, ["X"], T),
+        ("pad_constant_like", {"X": [f(4, 5)], "Y": [f(2, 3)]},
+         {"pad_value": 0.5}, ["Y"], T),
+        ("dice_loss_op", {"X": [np.abs(f(4, 5, 3))],
+                          "Label": [i32(3, 4, 5, 1)]}, {}, ["X"], T),
+        ("mean_iou", {"Predictions": [i32(5, 6, 7)],
+                      "Labels": [i32(5, 6, 7)]}, {"num_classes": 6}, [], T),
+        ("add_position_encoding", {"X": [f(2, 7, 8)]},
+         {"alpha": 0.5, "beta": 2.0}, ["X"], T),
+        ("bilinear_tensor_product", {"X": [f(3, 4)], "Y": [f(3, 5)],
+                                     "Weight": [f(6, 4, 5)],
+                                     "Bias": [f(1, 6)]}, {},
+         ["X", "Y", "Weight", "Bias"], P),
+        ("teacher_student_sigmoid_loss",
+         {"X": [f(4, 1)], "Label": [np.array([[-2.0], [-1.0], [0.3], [1.6]],
+                                             "float32")]}, {}, ["X"], T),
+        ("npair_loss_op", {"Anchor": [f(5, 4)], "Positive": [f(5, 4)],
+                           "Labels": [np.array([1, 2, 1, 3, 2], "int32")]},
+         {}, ["Anchor", "Positive"], P),
+        ("increment_counter", {"X": [np.array([5], "int32")]}, {"step": 3},
+         [], T),
+        ("pool3d", {"X": [x5]}, {"pooling_type": "avg", "ksize": [3, 3, 3],
+                                 "strides": [1, 1, 1],
+                                 "paddings": [1, 1, 1]}, ["X"], T),
+        ("adaptive_pool3d", {"X": [f(2, 2, 4, 4, 6)]},
+         {"ksize": [2, 2, 3], "pooling_type": "max"}, ["X"], T),
+        ("conv3d_transpose", {"Input": [f(2, 3, 3, 4, 3)],
+                              "Filter": [f(3, 2, 2, 3, 2)]},
+         {"strides": [2, 1, 1], "paddings": [0, 1, 0]},
+         ["Input", "Filter"], P),
+        ("ctc_greedy_decoder", {"Input": [rs.rand(3, 7, 4).astype(
+            "float32")], "Length": [np.array([7, 4, 0], "int32")]},
+         {"blank": 0}, [], T),
+        ("spectral_norm", {"Weight": [f(4, 3, 2)], "U": [f(4)]},
+         {"dim": 0, "power_iters": 2}, ["Weight"], P),
+        ("affine_grid", {"Theta": [f(2, 2, 3)]},
+         {"output_shape": [2, 3, 4, 5]}, ["Theta"], T),
+        ("grid_sampler", {"X": [f(2, 3, 5, 4)], "Grid": [grid]}, {},
+         ["X", "Grid"], T),
+        ("sequence_scatter", {"X": [f(2, 6)], "Ids": [np.array(
+            [[0, 2, 2, 5], [1, 1, 3, 1]], "int32")], "Updates": [f(2, 4)],
+            "Length": [np.array([3, 4], "int32")]}, {}, ["X", "Updates"], T),
+        ("data_norm", {"X": [f(4, 3)], "BatchSize": [np.full(
+            (3,), 10.0, "float32")], "BatchSum": [f(3)],
+            "BatchSquareSum": [np.abs(f(3)) * 20 + 10]}, {}, ["X"], T),
+        ("hash_op", {"X": [rs.randint(-2 ** 31, 2 ** 31 - 1, (5, 4))
+                           .astype("int32")]},
+         {"num_hash": 2, "mod_by": 100000}, [], T),
+        ("psroi_pool", {"X": [f(2, 2 * 2 * 3, 6, 7)], "ROIs": [rois],
+                        "RoisBatch": [np.array([1, 0], "int32")]},
+         {"pooled_height": 2, "pooled_width": 3, "output_channels": 2,
+          "spatial_scale": 0.9}, ["X"], T),
+        ("take_along_axis1", {"X": [f(2, 5, 3)], "Index": [np.array(
+            [[0, 4, 4, -1], [2, 1, 0, 3]], "int32")]}, {}, [], T),
+        ("similarity_focus", {"X": [f(2, 3, 4, 5)]},
+         {"axis": 1, "indexes": [0, 2]}, [], T),
+        ("roi_perspective_transform", {"X": [f(2, 3, 8, 9)],
+                                       "ROIs": [quads],
+                                       "RoisBatch": [np.array(
+                                           [0, 1], "int32")]},
+         {"transformed_height": 3, "transformed_width": 4}, [], P),
+        ("generate_mask_labels", {
+            "Rois": [np.array([[[0, 0, 8, 8], [2, 2, 6, 7]],
+                               [[4, 4, 9, 9], [0, 5, 4, 9]]], "float32")],
+            "LabelsInt32": [np.array([[1, 0], [3, 1]], "int32")],
+            "GtBoxes": [np.array([[[0, 0, 7, 7], [2, 2, 6, 8]],
+                                  [[5, 5, 9, 9], [0, 0, 0, 0]]], "float32")],
+            "GtSegms": [(rs.rand(2, 2, 10, 10) > 0.5).astype("float32")]},
+         {"resolution": 4}, [], T),
+        ("tree_conv", {"NodesVector": [f(2, 5, 3)], "EdgeSet": [edges],
+                       "Filter": [f(3, 3, 2, 4)]}, {},
+         ["NodesVector", "Filter"], P),
+        ("fake_quantize_abs_max", {"X": [f(4, 6)]}, {"bit_length": 8},
+         ["X"], T),
+        ("fake_quantize_moving_average_abs_max",
+         {"X": [f(3, 5)], "InScale": [np.array([1.2], "float32")],
+          "InAccum": [np.array([2.0], "float32")],
+          "InState": [np.array([1.5], "float32")]},
+         {"moving_rate": 0.8}, ["X"], T),
+        ("fake_quantize_range_abs_max",
+         {"X": [f(3, 5)], "InScale": [np.array([0.5], "float32")]}, {},
+         ["X"], T),
+        ("fake_dequantize_max_abs", {"X": [np.round(f(3, 4) * 40)],
+                                     "Scale": [np.array([2.5], "float32")]},
+         {"max_range": 127.0}, ["X"], T),
+        ("quantize_channel_abs_max", {"X": [f(4, 6)],
+                                      "InScale": [np.abs(f(6)) + 0.5]},
+         {"axis": 1}, [], T),
+        ("dequantize_channel_abs_max", {
+            "X": [rs.randint(-127, 128, (4, 6)).astype("int8")],
+            "Scales": [np.abs(f(4)) + 0.5]}, {"axis": 0}, [], T),
+    ]
+
+
+def _misc_quant_random(dev):
+    """The random ops on the card: twice from one chain seed bitwise,
+    another seed another draw, and their properties: the batch-size-like
+    gaussian's shape and moments, random_crop's window of the input,
+    sampled softmax's loss bounds."""
+    chain = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    x = np.arange(2 * 3 * 9 * 8, dtype="float32").reshape(2, 3, 9, 8)
+    draws = {
+        "gaussian_random_batch_size_like": (
+            {"Input": [np.zeros((3, 700), "float32")]},
+            {"shape": [-1, 40], "input_dim_idx": 1, "mean": 0.5,
+             "std": 2.0}, "Out"),
+        "random_crop": ({"X": [x]}, {"shape": [4, 5]}, "Out"),
+        "sampled_softmax_with_cross_entropy": (
+            {"Logits": [np.zeros((64, 50), "float32")],
+             "Label": [np.random.RandomState(2).randint(
+                 0, 50, (64, 1)).astype("int32")]},
+            {"num_samples": 10}, "Loss"),
+    }
+    out = {}
+    for op, (ins, attrs, slot) in draws.items():
+        a, b, c = (_op_on(dev, op, ins, attrs, chain(s))[slot][0].cpu()
+                   for s in (3, 3, 4))
+        if not torch.equal(a, b) or torch.equal(a, c):
+            raise AssertionError("misc ops (18e): %s's draws on the card: "
+                                 "seed 3 twice %s, seed 4 the same %s" % (
+                                     op, torch.equal(a, b),
+                                     torch.equal(a, c)))
+        out[op] = a
+    g = out["gaussian_random_batch_size_like"]
+    if tuple(g.shape) != (700, 40) or abs(float(g.mean()) - 0.5) > 0.05 \
+            or abs(float(g.std()) - 2.0) > 0.05:
+        raise AssertionError("misc ops (18e): gaussian_random_batch_size_"
+                             "like on the card: %s, mean %s, std %s" % (
+                                 tuple(g.shape), g.mean(), g.std()))
+    crop = out["random_crop"].numpy()
+    h0, w0 = divmod(int(crop[0, 0, 0, 0]), 8)
+    if crop.shape != (2, 3, 4, 5) or not (crop == x[:, :, h0:h0 + 4,
+                                                     w0:w0 + 5]).all():
+        raise AssertionError("misc ops (18e): random_crop on the card")
+    loss = out["sampled_softmax_with_cross_entropy"]
+    if tuple(loss.shape) != (64, 1) or loss.min() < -1e-6 or \
+            loss.max() > np.log1p(50.0) + 1e-5:
+        raise AssertionError("misc ops (18e): sampled softmax on the card: "
+                             "%s in [%s, %s]" % (tuple(loss.shape),
+                                                 loss.min(), loss.max()))
+    return sorted(draws)
+
+
+def phase_misc_ops(seed):
+    """Phase 18e: the 37 op types of this slice (misc_ops' other 31, the
+    six quantization ops) on the card against their CPU lowerings,
+    forward and the grads of the differentiable ones, within 1e-5 (1e-4
+    for products); the random ones twice bitwise from one seed and by
+    their properties."""
+    dev = torch.device("cuda", 0)
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    done, bad = set(), []
+    for op_type, ins, attrs, diff, tol in _misc_quant_cases(rs):
+        outs = [_op_on(d, op_type, ins, attrs) for d in (dev, cpu)]
+        for slot, vals in outs[1].items():
+            for a, b in zip(outs[0][slot], vals):
+                if b is not None and not _same(a.cpu(), b, tol):
+                    bad.append("%s.%s" % (op_type, slot))
+        if diff:
+            fwd = {k: [None if v is None else v.cpu().numpy() for v in vs]
+                   for k, vs in outs[1].items()}
+            cots = {k + "@GRAD": [np.asarray(rs.randn(*v.shape))
+                                  .astype(v.dtype) for v in vs]
+                    for k, vs in fwd.items()
+                    if all(v is not None and v.dtype.kind == "f"
+                           for v in vs)}
+            g = [_op_grad_on(d, op_type, ins, fwd, cots, attrs, diff)
+                 for d in (dev, cpu)]
+            for s in diff:
+                for a, b in zip(g[0][s], g[1][s]):
+                    if not _same(a, b, tol):
+                        bad.append("%s %s@GRAD" % (op_type, s))
+        done.add(op_type)
+    done.update(_misc_quant_random(dev))
+    if bad:
+        raise AssertionError("misc ops (18e): the card differs from the CPU: "
+                             "%s" % bad)
+    if len(done) != 37:
+        raise AssertionError("misc ops (18e): %d op types checked, not 37"
+                             % len(done))
+    secs = time.perf_counter() - t0
+    log("misc ops (18e): %d op types on the card against the CPU (forward, "
+        "and the grads of the differentiable ones), the random ones twice "
+        "bitwise from one seed and by their properties; %.1f s" % (
+            len(done), secs))
+    return dict(op_types=sorted(done), seconds=secs)
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -7763,7 +8631,8 @@ PHASES = (
     ("13", ()), ("13checkpoint", ("13",)), ("13b", ()), ("13c", ()),
     ("14", ()), ("15", ()),
     ("16", ()), ("16b", ()), ("16c", ()), ("16d", ()),
-    ("17", ()), ("17b", ()), ("17c", ()))
+    ("17", ()), ("17b", ()), ("17c", ()),
+    ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()))
 
 
 def selected_phases(spec):
@@ -7977,6 +8846,22 @@ def main():
     if want("17c"):
         R["17c"] = timed("17c", phase_op_tail, args.seed)
         _free()
+    if want("18"):
+        R["18"] = timed("18", phase_cost_model, args.seed, R)
+        _free()
+    if want("18b"):
+        R["18b"] = timed("18b", phase_autotune, args.seed)
+        _free()
+    if want("18c"):
+        R["18c"] = timed("18c", phase_jit_autotune, args.seed)
+        _free()
+    if want("18d"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["18d"] = timed("18d", phase_quantize, workdir, args.seed)
+        _free()
+    if want("18e"):
+        R["18e"] = timed("18e", phase_misc_ops, args.seed)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -8062,7 +8947,11 @@ def _kernel_rows(R):
                  lamb_train_amp=L("13b", "flash fwd"),
                  other_optimizers=ot["flash fwd"],
                  artifact_aot=L("14", "flash fwd"),
-                 dygraph=L("15", "flash fwd"))
+                 dygraph=L("15", "flash fwd"),
+                 autotune_kernel_axis=L("18b", "flash fwd", "tune_launches"),
+                 autotune_tuned_loop=L("18b", "flash fwd"),
+                 dygraph_autotune=L("18c", "flash fwd"),
+                 quantize_aware_train=L("18d", "flash fwd"))
     k2, k3 = (by_path(train=L("6", c), train_amp=L("6b", c),
                       train_sgd_amp=L("7b", c), train_loop=L("6e", c),
                       train_loop_amp=L("6f", c), recompute=L("6g", c),
@@ -8071,7 +8960,10 @@ def _kernel_rows(R):
                       vit_train_flash=L("11", c, "flash_launches"),
                       vit_train_amp_flash=L("11b", c, "flash_launches"),
                       lamb_train=L("13", c), lamb_train_amp=L("13b", c),
-                      other_optimizers=ot[c], dygraph=L("15", c))
+                      other_optimizers=ot[c], dygraph=L("15", c),
+                      autotune_tuned_loop=L("18b", c),
+                      dygraph_autotune=L("18c", c),
+                      quantize_aware_train=L("18d", c))
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=L("4", "K4"), train=L("6", "K4"),
                  train_sgd=L("7", "K4"), serve_amp=L("4b", "K4 AMP"),
@@ -8087,7 +8979,9 @@ def _kernel_rows(R):
                  gpt_engine=serve_k4, serve_batcher=L("12e", "K4"),
                  lamb_train=L("13", "K4"), lamb_train_amp=L("13b", "K4 AMP"),
                  other_optimizers=ot["K4"], artifact_aot=L("14", "K4"),
-                 dygraph=L("15", "K4"))
+                 dygraph=L("15", "K4"), autotune_tuned_loop=L("18b", "K4"),
+                 dygraph_autotune=L("18c", "K4"),
+                 quantize_aware_train=L("18d", "K4"))
     k6 = by_path(train=L("6", "K6"), train_amp=L("6b", "K6"),
                  train_loop=L("6e", "K6"), train_loop_amp=L("6f", "K6"),
                  recompute=L("6g", "K6"), gpt_train=L("8", "K6"),
@@ -8103,7 +8997,10 @@ def _kernel_rows(R):
                  mt_train=L("16c", "K6"),
                  control_flow_train=L("16d", "K6"),
                  book_train=L("17", "K6"), srl_train=L("17b", "K6"),
-                 op_tail_train=L("17c", "K6"))
+                 op_tail_train=L("17c", "K6"),
+                 autotune_tuned_loop=L("18b", "K6"),
+                 dygraph_autotune=L("18c", "K6"),
+                 quantize_aware_train=L("18d", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"))
     k5 = R.get("3c K5 launches", 0)

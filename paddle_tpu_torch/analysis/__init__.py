@@ -1,5 +1,6 @@
 """Static program verifier: shape/dtype inference, the IR lint suite,
-the shared dataflow engine and translation validation.
+the shared dataflow engine, translation validation and the roofline
+cost model.
 
 The port's counterpart of paddle_tpu/analysis/, trimmed to the engines
 the pass pipeline and the Executor use: importing this package attaches
@@ -12,13 +13,21 @@ names the others), and
 * the pass manager (core/passes/) re-verifies after every structural
   pass and checks each pass's rewrite log with ``validate_rewrite``.
 
+* ``CostAnalysis`` prices a Program's ops in FLOPs and bytes (the
+  copied ``cost_rules`` table) against ``DeviceModel.current()`` (the
+  H100's peaks by dtype, probed overheads) for the unified autotuner
+  (kernels/autotune.py); ``predict_step_seconds`` is its one-call form
+  and ``register_cost_rule`` adds a rule.
+
 The numerics and memory lint rules build ``ranges.RangeAnalysis`` and
-``memory.MemoryAnalysis`` lazily, as in the JAX package. The cost model
-(paddle_tpu/analysis/cost.py) and the distributed verifier are not
-ported yet.
+``memory.MemoryAnalysis`` lazily, as in the JAX package. The
+distributed verifier is not ported yet.
 """
 
 from . import shape_rules  # noqa: F401  (attaches the core rule set)
+from .cost import (CostAnalysis, DeviceModel,  # noqa: F401
+                   cost_model_enabled, predict_step_seconds)
+from .cost_rules import register_cost_rule  # noqa: F401 (attaches rules)
 from .dataflow import Dataflow  # noqa: F401
 from .infer import (Finding, InferContext, InferError,  # noqa: F401
                     ProgramVerifyError, infer_program_shapes,
@@ -28,7 +37,9 @@ from .tv import (ProgramSnapshot, RewriteViolation,  # noqa: F401
                  describe_rewrites, tv_enabled, validate_rewrite)
 
 __all__ = [
+    "CostAnalysis",
     "Dataflow",
+    "DeviceModel",
     "Finding",
     "InferContext",
     "InferError",
@@ -37,8 +48,11 @@ __all__ = [
     "ProgramVerifyError",
     "RewriteViolation",
     "describe_rewrites",
+    "cost_model_enabled",
     "infer_program_shapes",
     "lint_program",
+    "predict_step_seconds",
+    "register_cost_rule",
     "tv_enabled",
     "validate_rewrite",
     "validation_enabled",

@@ -952,16 +952,43 @@ def _prepare(program: Program, feed_names, fetch_names, scope):
     from ..analysis import validation_enabled, verify_program
     from .passes import optimize_for_execution
 
+    view = None if scope is None else _HostView(scope)
     if validation_enabled():
         # on the USER program, so findings carry its build-site
         # provenance; once per plan
-        verify_program(program, fetch_list=fetch_names, scope=scope,
+        verify_program(program, fetch_list=fetch_names, scope=view,
                        raise_on_error=True, site="prepare")
     exact = bool(getattr(program, "exact_numerics", False))
     if not exact and not getattr(program, "_pre_optimized", False):
-        program = optimize_for_execution(program, fetch_names, scope=scope)
+        program = optimize_for_execution(program, fetch_names, scope=view)
     return _Plan(*analyze_block(program, feed_names, fetch_names, scope),
                  exact=exact, host_sync=host_sync_ops(program))
+
+
+class _HostView:
+    """The scope as the pass pipeline reads it: the same names, each
+    tensor value handed out as a host copy (made once, on first read).
+    The copied passes and analyses read scope values with
+    ``np.asarray`` (the quantize pass's weights and scales, the range
+    engine, translation validation), which a CUDA tensor refuses."""
+
+    def __init__(self, scope):
+        self._scope = scope
+        self._host: Dict[str, Any] = {}
+
+    def has_var(self, name: str) -> bool:
+        return self._scope.has_var(name)
+
+    def find_var(self, name: str):
+        if name not in self._host:
+            v = self._scope.find_var(name)
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu()
+            self._host[name] = v
+        return self._host[name]
+
+    def __getattr__(self, name):
+        return getattr(self._scope, name)
 
 
 def host_sync_ops(program: Program, block=None) -> List[str]:

@@ -250,8 +250,11 @@ def _restore_state(snap: Dict[str, Any], scope) -> None:
 def _stack_feed(feed: Dict[str, Any], k: int) -> Dict[str, Any]:
     """K copies of one real batch, stacked on the leading axis — the
     ``stack_feed_window`` layout with identical slices (measurement
-    only cares about shapes/dispatch count, not data variety)."""
-    return {n: np.stack([np.asarray(v)] * k) for n, v in feed.items()}
+    only cares about shapes/dispatch count, not data variety). A
+    tensor feed (a captured function's, on its device) stacks where it
+    lies."""
+    return {n: torch.stack([v] * k) if isinstance(v, torch.Tensor)
+            else np.stack([np.asarray(v)] * k) for n, v in feed.items()}
 
 
 def _feed_batch_size(feed: Dict[str, Any]) -> int:

@@ -15,10 +15,11 @@ for op, so a replay is bitwise the eager call (losses, params and the
 generator chain). With ``exact_numerics=False`` it runs at level 2 and,
 on the card, as the plan's CUDA graph (core/cuda_graph.py): the fused
 layer norm (K4) and the grouped optimizer update (K6) launch, and the
-numbers agree with the eager ones to float tolerance. The JAX package's
-``autotune=True`` (``PADDLE_TPU_CAPTURE_AUTOTUNE=1``) needs its
-``kernels/autotune.py``, which the port has not (ROADMAP A7): asking for
-it raises ``NotImplementedError``.
+numbers agree with the eager ones to float tolerance. With
+``autotune=True`` (``PADDLE_TPU_CAPTURE_AUTOTUNE=1``) each fresh capture
+goes through the unified autotuner (``kernels/autotune.py``: the window
+length, flash against composed attention per signature, the quantize
+outlook) in a scratch scope, before its first replay.
 
 Cache discipline (the executor plan cache's rules, applied one level
 up):
@@ -236,8 +237,6 @@ class CapturedFunction:
             raise CaptureError(
                 "capturing %r needs an active imperative.guard() (the trace "
                 "IS an eager execution)" % self.__name__)
-        if self._want_autotune():
-            self._tune()
         if reason != "initial":
             IMPERATIVE_RETRACES.labels(reason=reason).inc()
             self.stats["retraces"][reason] += 1
@@ -313,6 +312,8 @@ class CapturedFunction:
             tuple_result=isinstance(result, (list, tuple)),
             trainable=bool(ctx.param_grads), lead=lead,
             predicted_bytes=predicted, pass_stats=pass_stats)
+        if self._want_autotune():
+            self._tune(entry)
         self._insert(key, entry)
         self._last_entry = entry
         return self._slice_result(result, tensors, entry)
@@ -354,15 +355,22 @@ class CapturedFunction:
             return bool(self._autotune)
         return os.environ.get("PADDLE_TPU_CAPTURE_AUTOTUNE", "") == "1"
 
-    def _tune(self) -> None:
-        """The JAX package runs its unified predict-prune-measure
-        autotuner (``kernels/autotune.py``) over the fresh capture; the
-        port has no such tuner (ROADMAP A7), so this raises rather than
-        ignore the request."""
-        raise NotImplementedError(
-            "imperative.jit(autotune=True) / PADDLE_TPU_CAPTURE_AUTOTUNE=1 "
-            "needs the unified autotuner (kernels/autotune.py), which the "
-            "port has not yet (ROADMAP A7)")
+    def _tune(self, entry) -> None:
+        """Run the unified predict-prune-measure autotuner
+        (``kernels/autotune.py``) over the fresh capture, in a scratch
+        scope holding copies (``clone()``, on the tensor's device) of the
+        CURRENT state and the RNG chain (which the executor never
+        advances in place), so the measurement runs neither race nor
+        move the live state."""
+        from ..kernels.autotune import autotune_program
+
+        scope = Scope()
+        for name, v in entry.state.items():
+            scope.set_var(name, v.value.clone())
+        scope.set_var(RNG_VAR, self._chain_key())
+        autotune_program(self._executor(), entry.program,
+                         dict(entry.feed_values), entry.fetch_names,
+                         scope=scope)
 
     # ---------------------------------------------------------- replay
     def _match(self, entries, tensors) -> Optional[_Entry]:
@@ -516,9 +524,8 @@ def jit(fn=None, *, buckets=None, autotune: Optional[bool] = None,
 
     ``buckets``: lead-dim bucketing — a sorted int list or ``"pow2"``
     (default: ``PADDLE_TPU_CAPTURE_BUCKETS``; unset = exact shapes).
-    ``autotune``: the JAX package runs its unified autotuner on each
-    fresh capture (default: ``PADDLE_TPU_CAPTURE_AUTOTUNE=1``); the port
-    has none and raises ``NotImplementedError`` when asked.
+    ``autotune``: run the unified autotuner (kernels/autotune.py) on
+    each fresh capture (default: ``PADDLE_TPU_CAPTURE_AUTOTUNE=1``).
     ``cache_size``: total cached entries (default
     ``PADDLE_TPU_CAPTURE_CACHE_SIZE``, 16).
     ``exact_numerics`` (default True): replays run the eager dispatch

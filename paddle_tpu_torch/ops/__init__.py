@@ -6,11 +6,13 @@ the MNIST CNN), CTR and sequence (stacked LSTM, GRU machine
 translation) training programs (forward, grads, Adam, metrics), their
 startup programs, the learning-rate schedules, recompute segments,
 control flow, the recurrent ops, beam search, the loss and
-structured-prediction ops and the Fluid book's models, module by module
+structured-prediction ops, the Fluid book's models, the quantization ops
+and the rest of the layers' op tail, module by module
 beside their paddle_tpu/ops counterparts.
 """
 
 from . import (activations, attention, basic,  # noqa: F401
                beam_search_ops, control_flow_ops, detection_ops, fused_ops,
                loss_ops, math, metrics, misc_ops, nn, optimizer_ops,
-               recompute_ops, rnn, scan_ops, sequence, tensor_ops)
+               quant_ops, recompute_ops, rnn, scan_ops, sequence,
+               tensor_ops)

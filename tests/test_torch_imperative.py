@@ -522,18 +522,36 @@ def test_config_key_flip_retraces(monkeypatch):
         assert fwd.stats["retraces"]["config"] == 1
 
 
-def test_autotune_raises_naming_the_missing_tuner(monkeypatch):
-    with imperative.guard(place=CPU):
-        fwd = imperative.jit(
-            lambda x: trace_op("square", {"X": [x]}, {})["Out"][0],
-            autotune=True)
-        with pytest.raises(NotImplementedError, match="A7"):
-            fwd(_leaf(np.ones((2, 2), np.float32)))
-        monkeypatch.setenv("PADDLE_TPU_CAPTURE_AUTOTUNE", "1")
-        fwd = imperative.jit(
-            lambda x: trace_op("square", {"X": [x]}, {})["Out"][0])
-        with pytest.raises(NotImplementedError, match="autotune"):
-            fwd(_leaf(np.ones((2, 2), np.float32)))
+def test_autotune_raises_naming_the_missing_tuner(monkeypatch, tmp_path):
+    """``autotune=True`` (or ``PADDLE_TPU_CAPTURE_AUTOTUNE=1``) no longer
+    raises: the capture goes through the unified autotuner (its window
+    decision lands in the tuner's table) and replays as before."""
+    from paddle_tpu_torch.kernels import tune
+
+    monkeypatch.setenv("PADDLE_TPU_KERNEL_CACHE_DIR", str(tmp_path))
+    monkeypatch.setenv("PADDLE_TPU_KERNEL_TUNE_DETERMINISTIC", "1")
+    tune.reset()
+    x = np.arange(4, dtype=np.float32).reshape(2, 2)
+    try:
+        with imperative.guard(place=CPU):
+            fwd = imperative.jit(
+                lambda x: trace_op("square", {"X": [x]}, {})["Out"][0],
+                autotune=True)
+            first = fwd(_leaf(x)).numpy()
+            again = fwd(_leaf(x)).numpy()
+            assert fwd.stats["captures"] == 1 and fwd.stats["hits"] == 1
+            assert first.tobytes() == again.tobytes() == (x * x).tobytes()
+            assert any(k.startswith("train_window|")
+                       for k in tune.export_entries())
+            tune.reset()
+            monkeypatch.setenv("PADDLE_TPU_CAPTURE_AUTOTUNE", "1")
+            fwd = imperative.jit(
+                lambda x: trace_op("square", {"X": [x]}, {})["Out"][0])
+            assert fwd(_leaf(x)).numpy().tobytes() == first.tobytes()
+            assert any(k.startswith("train_window|")
+                       for k in tune.export_entries())
+    finally:
+        tune.reset()
 
 
 def test_captured_inference_serves_through_predictor_bitwise():

@@ -129,6 +129,7 @@ _IMPERATIVE_ZEROS_LIKE = (
     "VarBase(torch.zeros_like(p.value))")
 
 COPIES = {
+    "analysis/cost_rules.py": [],
     "analysis/dataflow.py": [],
     "analysis/infer.py": [],
     "analysis/lint.py": [],
@@ -144,6 +145,7 @@ COPIES = {
     "analysis/tv.py": [],
     "clip.py": [],
     "contrib/mixed_precision/__init__.py": [],
+    "contrib/quantize/__init__.py": [],
     "core/backward.py": [],
     # graph_viz_pass writes into the temporary directory (TMPDIR), not
     # into a fixed /tmp path
@@ -248,7 +250,8 @@ COPIES = {
 def _port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "tools", "torch_export_artifact.py"),
-           os.path.join(ROOT, "tools", "book_programs.py")]
+           os.path.join(ROOT, "tools", "book_programs.py"),
+           os.path.join(ROOT, "tools", "torch_cost_report.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
                                                         "_build")]
@@ -478,6 +481,16 @@ def test_shared_op_helpers_equal_their_originals(rel, name):
 def test_loss_slice_modules_import_no_jax(rel):
     tops = {mod.split(".")[0] for mod in _absolute_imports(
         os.path.join(PORT, rel))}
+    assert not tops & {"jax", "jaxlib", "paddle_tpu"}, (rel, tops)
+
+
+@pytest.mark.parametrize("rel", [
+    "analysis/cost.py", "analysis/cost_rules.py", "kernels/autotune.py",
+    "imperative/jit.py", "ops/quant_ops.py", "ops/misc_ops.py",
+    "contrib/quantize/__init__.py", "../tools/torch_cost_report.py"])
+def test_cost_and_quant_slice_modules_import_no_jax(rel):
+    tops = {mod.split(".")[0] for mod in _absolute_imports(
+        os.path.normpath(os.path.join(PORT, rel)))}
     assert not tops & {"jax", "jaxlib", "paddle_tpu"}, (rel, tops)
 
 

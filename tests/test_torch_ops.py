@@ -1740,6 +1740,360 @@ def case_affine_channel(rs):
                               "Bias": [_arr(rs, (3,))]}, {}, 1e-6)
 
 
+# ------------------------------------------- misc_ops' tail and quant_ops
+def case_selu(rs):
+    _check("selu", {"X": [_arr(rs, (3, 5)) * 3]}, {}, 1e-5, rtol=1e-6)
+    _check("selu", {"X": [_arr(rs, (4,))]}, {"scale": 1.5, "alpha": 0.5},
+           1e-5, rtol=1e-6)
+
+
+def case_multiplex(rs):
+    xs = [_arr(rs, (4, 3)) for _ in range(3)]
+    _check("multiplex", {"X": xs,
+                         "Ids": [np.array([[2], [0], [1], [2]], "int32")]},
+           {}, 0)
+
+
+def case_space_to_depth(rs):
+    _check("space_to_depth", {"X": [_arr(rs, (2, 3, 4, 6))]},
+           {"blocksize": 2}, 0)
+
+
+def case_shuffle_channel(rs):
+    _check("shuffle_channel", {"X": [_arr(rs, (2, 6, 3, 2))]}, {"group": 3},
+           0)
+
+
+def case_pad_constant_like(rs):
+    _check("pad_constant_like", {"X": [_arr(rs, (4, 5, 3))],
+                                 "Y": [_arr(rs, (2, 5, 1))]},
+           {"pad_value": 1.5}, 0)
+
+
+def case_dice_loss_op(rs):
+    x = np.abs(_arr(rs, (4, 6, 3)))
+    label = rs.randint(0, 3, (4, 6, 1)).astype("int32")
+    _check("dice_loss_op", {"X": [x], "Label": [label]}, {"epsilon": 1e-5},
+           1e-6)
+
+
+def case_mean_iou(rs):
+    pred = rs.randint(0, 5, (6, 7)).astype("int32")
+    label = rs.randint(0, 5, (6, 7)).astype("int32")
+    _check("mean_iou", {"Predictions": [pred], "Labels": [label]},
+           {"num_classes": 6}, 1e-6)
+
+
+def case_add_position_encoding(rs):
+    _check("add_position_encoding", {"X": [_arr(rs, (2, 7, 8))]},
+           {"alpha": 0.5, "beta": 2.0}, 1e-5)
+
+
+def case_bilinear_tensor_product(rs):
+    ins = {"X": [_arr(rs, (3, 4))], "Y": [_arr(rs, (3, 5))],
+           "Weight": [_arr(rs, (6, 4, 5))], "Bias": [_arr(rs, (1, 6))]}
+    _check("bilinear_tensor_product", ins, {}, 1e-5)
+    del ins["Bias"]
+    _check("bilinear_tensor_product", ins, {}, 1e-5)
+
+
+def case_teacher_student_sigmoid_loss(rs):
+    label = np.array([[-2.0], [-1.0], [0.3], [0.0], [1.0], [1.7]],
+                     "float32")
+    _check("teacher_student_sigmoid_loss",
+           {"X": [_arr(rs, (6, 1)) * 3], "Label": [label]}, {}, 1e-6)
+
+
+def case_npair_loss_op(rs):
+    _check("npair_loss_op", {"Anchor": [_arr(rs, (5, 4))],
+                             "Positive": [_arr(rs, (5, 4))],
+                             "Labels": [np.array([1, 2, 1, 3, 2], "int32")]},
+           {"l2_reg": 0.002}, 1e-5)
+
+
+def case_gaussian_random_batch_size_like(rs):
+    """Another generator than the JAX package's: shape, dtype and the
+    moments of both, the seeds within the port."""
+    ins = {"Input": [_arr(rs, (3, 7))]}
+    attrs = {"shape": [-1, 400], "input_dim_idx": 1, "output_dim_idx": 0,
+             "mean": 0.5, "std": 2.0, "dtype": "float32"}
+    want = _jax_draw("gaussian_random_batch_size_like", attrs, ins)
+    t_ins = {"Input": [torch.from_numpy(ins["Input"][0])]}
+    a = _draws("gaussian_random_batch_size_like", attrs, 3, t_ins)
+    assert tuple(a.shape) == want.shape == (7, 400)
+    assert a.dtype == torch.float32 and want.dtype == np.float32
+    for got in (a.numpy(), want):  # 2800 draws: within 5 standard errors
+        assert abs(got.mean() - 0.5) < 5 * 2.0 / np.sqrt(2800)
+        assert abs(got.std() - 2.0) < 5 * 2.0 / np.sqrt(2 * 2800)
+    torch.testing.assert_close(
+        _draws("gaussian_random_batch_size_like", attrs, 3, t_ins), a,
+        rtol=0, atol=0)
+    assert not torch.equal(
+        _draws("gaussian_random_batch_size_like", attrs, 4, t_ins), a)
+
+
+def case_random_crop(rs):
+    """The crop is a window of the input at offsets within its slack, the
+    same window for every example (as the JAX lowering crops); the same
+    chain seed crops the same window, the offsets vary with the seed."""
+    x = np.arange(2 * 3 * 9 * 8, dtype="float32").reshape(2, 3, 9, 8)
+    attrs = {"shape": [4, 5]}
+    want = _jax_draw("random_crop", attrs, {"X": [x]})
+    assert want.shape == (2, 3, 4, 5)
+    offsets = set()
+    for seed in range(12):
+        got = _draws("random_crop", attrs, seed,
+                     {"X": [torch.from_numpy(x)]}).numpy()
+        assert got.shape == want.shape
+        h0, w0 = divmod(int(got[0, 0, 0, 0]), 8)
+        assert 0 <= h0 <= 5 and 0 <= w0 <= 3
+        np.testing.assert_array_equal(got, x[:, :, h0:h0 + 4, w0:w0 + 5])
+        offsets.add((h0, w0))
+        np.testing.assert_array_equal(
+            _draws("random_crop", attrs, seed,
+                   {"X": [torch.from_numpy(x)]}).numpy(), got)
+    assert len(offsets) > 3
+
+
+def case_increment_counter(rs):
+    _check("increment_counter", {"X": [np.array([5], "int32")]},
+           {"step": 3}, 0)
+    _check("increment_counter", {"X": [np.array([2.5], "float32")]}, {}, 0)
+
+
+def case_pool3d(rs):
+    x = _arr(rs, (2, 3, 5, 6, 4))
+    for attrs in ({"pooling_type": "max", "ksize": [2, 3, 2],
+                   "strides": [1, 2, 1], "paddings": [1, 1, 0]},
+                  {"pooling_type": "avg", "ksize": [2, 2, 2],
+                   "strides": [2, 2, 2], "paddings": [0, 0, 0]},
+                  {"pooling_type": "avg", "ksize": [3, 3, 3],
+                   "strides": [1, 1, 1], "paddings": [1, 1, 1]},
+                  {"pooling_type": "avg", "ksize": [3, 3, 3],
+                   "strides": [1, 1, 1], "paddings": [1, 1, 1],
+                   "exclusive": False},
+                  {"pooling_type": "max", "global_pooling": True}):
+        _check("pool3d", {"X": [x]}, attrs, 1e-6)
+
+
+def case_adaptive_pool3d(rs):
+    x = _arr(rs, (2, 3, 4, 6, 4))
+    for ptype in ("max", "avg"):
+        _check("adaptive_pool3d", {"X": [x]},
+               {"ksize": [2, 3, 2], "pooling_type": ptype}, 1e-6)
+
+
+def case_conv3d_transpose(rs):
+    x = _arr(rs, (2, 3, 4, 5, 3))
+    w = _arr(rs, (3, 4, 3, 2, 3))
+    for attrs in ({"strides": [1, 1, 1], "paddings": [0, 0, 0]},
+                  {"strides": [2, 1, 2], "paddings": [1, 0, 1]}):
+        _check("conv3d_transpose", {"Input": [x], "Filter": [w]}, attrs,
+               1e-5)
+
+
+def case_ctc_greedy_decoder(rs):
+    probs = rs.rand(3, 7, 4).astype("float32")
+    probs[0, 1:3] = probs[0, 0]           # repeats collapse
+    length = np.array([7, 4, 0], "int32")
+    _check("ctc_greedy_decoder", {"Input": [probs], "Length": [length]},
+           {"blank": 0}, 0)
+    _check("ctc_greedy_decoder", {"Input": [probs]}, {"blank": 2}, 0)
+
+
+def case_spectral_norm(rs):
+    w = _arr(rs, (4, 3, 2))
+    for ins, attrs in (({"Weight": [w]}, {"dim": 0, "power_iters": 3}),
+                       ({"Weight": [w], "U": [_arr(rs, (3,))]},
+                        {"dim": 1, "power_iters": 1})):
+        _check("spectral_norm", ins, attrs, 1e-5)
+
+
+def case_affine_grid(rs):
+    _check("affine_grid", {"Theta": [_arr(rs, (2, 2, 3))]},
+           {"output_shape": [2, 3, 4, 5]}, 1e-6)
+
+
+def case_grid_sampler(rs):
+    x = _arr(rs, (2, 3, 5, 4))
+    grid = (rs.rand(2, 3, 6, 2) * 2.4 - 1.2).astype("float32")
+    _check("grid_sampler", {"X": [x], "Grid": [grid]}, {}, 1e-5)
+
+
+def case_sequence_scatter(rs):
+    x = _arr(rs, (3, 6))
+    ids = np.array([[0, 2, 2, 5], [1, 1, 1, 1], [5, 4, 0, 3]], "int32")
+    upd = _arr(rs, (3, 4))
+    _check("sequence_scatter", {"X": [x], "Ids": [ids], "Updates": [upd],
+                                "Length": [np.array([4, 2, 0], "int32")]},
+           {}, 1e-6)
+    _check("sequence_scatter", {"X": [x], "Ids": [ids], "Updates": [upd]},
+           {}, 1e-6)
+
+
+def case_data_norm(rs):
+    ins = {"X": [_arr(rs, (4, 3))],
+           "BatchSize": [np.full((3,), 10.0, "float32")],
+           "BatchSum": [_arr(rs, (3,))],
+           "BatchSquareSum": [np.abs(_arr(rs, (3,))) * 20 + 10]}
+    _check("data_norm", ins, {"epsilon": 1e-4}, 1e-5)
+
+
+def case_sampled_softmax_with_cross_entropy(rs):
+    """The negatives come from another generator than the JAX package's:
+    the loss's shape and dtype, and a property: with every logit equal
+    the loss is log(1 + S * (S / V)^-1 ... ) over the classes not hit,
+    here checked as the softmax CE of the corrected row; the same chain
+    seed draws the same loss."""
+    logits = np.zeros((4, 50), "float32")
+    label = np.array([[1], [7], [0], [49]], "int32")
+    attrs = {"num_samples": 10}
+    ins = {"Logits": [logits], "Label": [label]}
+    import jax
+    import jax.numpy as jnp
+
+    want = np.asarray(jax_op("sampled_softmax_with_cross_entropy").lowering(
+        JaxContext(None, jax.random.PRNGKey(0)),
+        {k: [jnp.asarray(v) for v in vs] for k, vs in ins.items()},
+        dict(attrs))["Loss"][0])
+    got = _draws_all("sampled_softmax_with_cross_entropy", attrs, 3,
+                     ins)["Loss"][0].numpy()
+    assert got.shape == want.shape == (4, 1) and got.dtype == want.dtype
+    # equal logits: the true class scores 0, each kept negative
+    # -log(S / V); a hit negative drops out. So the loss lies between
+    # log(1 + S * V / S) (no hits) and 0 (all hits)
+    top = np.log1p(50.0)
+    for v in (got, want):
+        assert (v >= -1e-6).all() and (v <= top + 1e-5).all()
+    again = _draws_all("sampled_softmax_with_cross_entropy", attrs, 3,
+                       ins)["Loss"][0].numpy()
+    assert again.tobytes() == got.tobytes()
+
+
+def case_hash_op(rs):
+    """Bitwise the JAX package's mixer (its uint32 arithmetic, here in
+    int64 masked to 32 bits), negative ids and ids past int32's range
+    included."""
+    ids = rs.randint(-2 ** 31, 2 ** 31 - 1, (5, 4)).astype("int32")
+    ids[0, :3] = [0, -1, 2 ** 31 - 1]
+    for num_hash, mod_by in ((1, 100000), (2, 7), (2, 2 ** 31 - 1)):
+        _check("hash_op", {"X": [ids]},
+               {"num_hash": num_hash, "mod_by": mod_by}, 0)
+
+
+def case_psroi_pool(rs):
+    x = _arr(rs, (2, 2 * 2 * 3, 6, 7))
+    rois = np.array([[0.5, 1.0, 5.0, 4.5], [2.0, 0.0, 6.5, 5.5],
+                     [1.0, 1.0, 1.2, 1.1]], "float32")
+    for batch in (None, np.array([1, 0, 1], "int32")):
+        ins = {"X": [x], "ROIs": [rois]}
+        if batch is not None:
+            ins["RoisBatch"] = [batch]
+        _check("psroi_pool", ins, {"pooled_height": 2, "pooled_width": 3,
+                                   "output_channels": 2,
+                                   "spatial_scale": 0.9}, 1e-5)
+
+
+def case_take_along_axis1(rs):
+    x = _arr(rs, (2, 5, 3))
+    idx = np.array([[0, 4, 4, -1], [2, 1, 0, 3]], "int32")
+    _check("take_along_axis1", {"X": [x], "Index": [idx]}, {}, 0)
+    _check("take_along_axis1", {"X": [_arr(rs, (3, 6))],
+                                "Index": [np.array([[5], [0], [2]],
+                                                   "int32")]}, {}, 0)
+
+
+def case_similarity_focus(rs):
+    x = _arr(rs, (2, 3, 4, 5))
+    _check("similarity_focus", {"X": [x]}, {"axis": 1, "indexes": [0, 2]},
+           0)
+
+
+def case_roi_perspective_transform(rs):
+    x = _arr(rs, (2, 3, 8, 9))
+    rois = np.array([[1, 1, 6, 1.5, 6.5, 6, 0.5, 5.5],
+                     [0, 0, 8, 0, 8, 7, 0, 7],
+                     [2, 3, 4, 2, 5, 5, 2.5, 6]], "float32")
+    _check("roi_perspective_transform",
+           {"X": [x], "ROIs": [rois],
+            "RoisBatch": [np.array([0, 1, 1], "int32")]},
+           {"transformed_height": 3, "transformed_width": 4,
+            "spatial_scale": 1.0}, 1e-4)
+
+
+def case_generate_mask_labels(rs):
+    rois = np.array([[[0, 0, 8, 8], [2, 2, 6, 7], [1, 0, 3, 9]],
+                     [[4, 4, 9, 9], [0, 5, 4, 9], [0, 0, 1, 1]]], "float32")
+    labels = np.array([[1, 0, 2], [3, 1, 0]], "int32")
+    gt = np.array([[[0, 0, 7, 7], [2, 2, 6, 8]],
+                   [[5, 5, 9, 9], [0, 0, 0, 0]]], "float32")
+    segms = (rs.rand(2, 2, 10, 10) > 0.5).astype("float32")
+    _check("generate_mask_labels",
+           {"Rois": [rois], "LabelsInt32": [labels], "GtBoxes": [gt],
+            "GtSegms": [segms]}, {"resolution": 4}, 0)
+
+
+def case_tree_conv(rs):
+    nodes = _arr(rs, (2, 5, 3))
+    edges = np.array([[[1, 2], [1, 3], [2, 4], [0, 0]],
+                      [[0, 1], [0, 2], [0, 3], [3, 4]]], "int32")
+    _check("tree_conv", {"NodesVector": [nodes], "EdgeSet": [edges],
+                         "Filter": [_arr(rs, (3, 3, 2, 4))]}, {}, 1e-5)
+
+
+def case_fake_quantize_abs_max(rs):
+    x = _arr(rs, (4, 6))
+    _check("fake_quantize_abs_max", {"X": [x]}, {"bit_length": 8}, 1e-6)
+    _check("fake_quantize_abs_max",
+           {"X": [x], "InScale": [np.array([1.5], "float32")]},
+           {"bit_length": 4, "is_test": True}, 1e-6)
+
+
+def case_fake_quantize_moving_average_abs_max(rs):
+    x = _arr(rs, (3, 5))
+    scale = np.array([1.2], "float32")
+    _check("fake_quantize_moving_average_abs_max",
+           {"X": [x], "InScale": [scale]}, {"moving_rate": 0.9}, 1e-6)
+    _check("fake_quantize_moving_average_abs_max",
+           {"X": [x], "InScale": [scale],
+            "InAccum": [np.array([2.0], "float32")],
+            "InState": [np.array([1.5], "float32")]},
+           {"moving_rate": 0.8}, 1e-6)
+    _check("fake_quantize_moving_average_abs_max",
+           {"X": [x], "InScale": [scale]}, {"is_test": True}, 1e-6)
+
+
+def case_fake_quantize_range_abs_max(rs):
+    x = _arr(rs, (3, 5))
+    for scale, test in ((0.5, False), (9.0, False), (0.7, True)):
+        _check("fake_quantize_range_abs_max",
+               {"X": [x], "InScale": [np.array([scale], "float32")]},
+               {"is_test": test}, 1e-6)
+
+
+def case_fake_dequantize_max_abs(rs):
+    _check("fake_dequantize_max_abs",
+           {"X": [np.round(_arr(rs, (3, 4)) * 40)],
+            "Scale": [np.array([2.5], "float32")]}, {"max_range": 127.0},
+           1e-6)
+
+
+def case_quantize_channel_abs_max(rs):
+    x = _arr(rs, (4, 6))
+    for axis, n in ((0, 4), (1, 6)):
+        _check("quantize_channel_abs_max",
+               {"X": [x], "InScale": [np.abs(_arr(rs, (n,))) + 0.5]},
+               {"axis": axis, "bit_length": 8}, 0)
+
+
+def case_dequantize_channel_abs_max(rs):
+    q = rs.randint(-127, 128, (4, 6)).astype("int8")
+    for axis, n in ((0, 4), (1, 6)):
+        _check("dequantize_channel_abs_max",
+               {"X": [q], "Scales": [np.abs(_arr(rs, (n,))) + 0.5]},
+               {"axis": axis, "bit_length": 8}, 1e-6)
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 

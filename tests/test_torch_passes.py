@@ -246,7 +246,10 @@ def test_bypasses_run_the_users_program(how, monkeypatch):
 
 
 def test_shape_rules_skip_only_unported_op_types():
-    assert shape_rules.SKIPPED
+    # every op type the JAX package gives a shape rule is lowered in the
+    # port since the misc and quantization ops (the 27 it lacks have
+    # none), so no rule is skipped
+    assert shape_rules.SKIPPED == []
     assert not set(shape_rules.SKIPPED) & set(OPS)
     # every op type both packages lower carries the JAX package's rule
     both = [t for t in OPS if t in JAX_OPS and JAX_OPS[t].infer_shape]
