@@ -275,9 +275,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
    same state, ``save_params`` / ``load_params`` round-tripping; the
    caller's blocked ms, the write's seconds and the bytes;
 13b. phase 13 under bf16 AMP (AMP's bounds, no checkpoint);
-13c. BERT-base f32 (batch 2) with ``LarsMomentum``, ``Adamax``,
-   ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp`` (centered),
-   ``Ftrl`` and ``ModelAverage`` over Adam: 3 steps each (eager,
+13c. BERT-base f32 at depth 4 (batch 2) with ``LarsMomentum``,
+   ``Adamax``, ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``
+   (centered), ``Ftrl`` and ``ModelAverage`` over Adam: 3 steps each (eager,
    capture, replay) bitwise the plan's eager steps, the launches of
    each step counted, and after every step the state each optimize op
    wrote against the same lowerings run on the CPU from the state before
@@ -395,7 +395,23 @@ Phases, each of which passes or ends the script with a non-zero exit:
    program's;
 18e. the 37 op types of this slice (misc_ops' other 31, the six
    quantization ops) on the card against their CPU lowerings, grads
-   included; the random ones twice bitwise from one seed.
+   included; the random ones twice bitwise from one seed;
+19. SSD300 (tools/ssd_programs.py: VGG-16 base, 300 x 300, 21 classes,
+   8732 priors), f32, level 2, batch 8: its first loss within 1e-4 of
+   the port's forward on the CPU; 6 Adam steps on the main path (K6
+   once a step on the card), replayed against eager in turns bitwise,
+   with ms, kernels, busy share, device ms by class, capture s and
+   peak; no plan left uncaptured; then saved per bucket (1 and 8) with
+   ``io.save_inference_model`` and served by the Predictor, 10 replayed
+   requests each, the [B, 200, 6] detections bitwise the Predictor's
+   eager run and the CPU's (classes exactly, 1e-4; rows of scores
+   within 1e-5 may change places, and the phase counts them);
+19b. the 19 detection op types on the card against their CPU
+   lowerings (the gathers, IoU, NMS and matchings bitwise), the four
+   grads twice bitwise on the card; the two samplers by their
+   properties and twice bitwise from one seed; ``multiclass_nms`` over
+   ties at SSD300's shape bitwise the CPU's, and its kernels and device
+   ms a call there.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -609,16 +625,22 @@ def time_ms(fn, budget_ms=150.0, max_iters=200):
 # the profiler loses the device events of a window's start (H100, torch
 # 2.11: up to 43 kernels of a step, a whole short step, or the first
 # kernel of a window opened right after another; none in 300 windows
-# that waited 20 to 50 ms and then ran a few kernels first)
+# that waited 20 to 50 ms and then ran a few kernels first; late in the
+# whole script, the first 63 to 66 device records of each window even
+# so). So a window waits, then opens with PROFILER_LEAD_SPINS one-cycle
+# spin kernels, which absorb such a loss; a window that kept none of
+# them may have lost its own work's first records, and is run again.
 PROFILER_SETTLE_S = 0.05
+PROFILER_LEAD_SPINS = 256
+PROFILER_LOSSES = []   # (lead records lost, kept) of each window that lost
 
 
 def _settle():
     """Before a profiler window's own work: wait PROFILER_SETTLE_S, then
-    run four one-cycle spin kernels (which ``device_events`` drops by
-    name) and synchronize."""
+    run PROFILER_LEAD_SPINS one-cycle spin kernels (which
+    ``device_events`` counts apart and drops) and synchronize."""
     time.sleep(PROFILER_SETTLE_S)
-    for _ in range(4):
+    for _ in range(PROFILER_LEAD_SPINS):
         torch.cuda._sleep(1)
     torch.cuda.synchronize()
 
@@ -626,9 +648,11 @@ def _settle():
 def device_events(fn, match=lambda name: True, attempts=3):
     """torch.profiler (CPU + CUDA, CUPTI) around ``fn()`` and a
     synchronize: the device events whose names ``match``, and the
-    window's wall-clock microseconds. Now and then the profiler delivers
-    no device event for a window; such a window is run again, at most
-    ``attempts`` times in all, and then the measurement fails."""
+    window's wall-clock microseconds. A window whose lead spins
+    (``_settle``) all went missing, or that holds no device event of its
+    own, is run again, at most ``attempts`` times in all, and then the
+    measurement fails; lead spins lost are logged and kept in
+    PROFILER_LOSSES."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(attempts):
@@ -639,13 +663,19 @@ def device_events(fn, match=lambda name: True, attempts=3):
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name and match(e.name)]
-        if events:
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum("spin_kernel" in e.name for e in device)
+        events = [e for e in device
+                  if "spin_kernel" not in e.name and match(e.name)]
+        if spins < PROFILER_LEAD_SPINS:
+            PROFILER_LOSSES.append((PROFILER_LEAD_SPINS - spins, spins))
+            log("profiler: the window lost %d of its %d lead spins" % (
+                PROFILER_LEAD_SPINS - spins, PROFILER_LEAD_SPINS))
+        if events and spins:
             return events, wall_us
-    raise AssertionError("the profiler saw no matching device event in %d "
-                         "windows" % attempts)
+    raise AssertionError("the profiler lost every lead spin or saw no "
+                         "matching device event in %d windows" % attempts)
 
 
 def device_ms(fn, names, calls=20):
@@ -5340,8 +5370,10 @@ LAMB_STEPS, LAMB_PAIRS, CKPT_STEPS, CKPT_AT = 4, 2, 10, 5
 # phase 13c: each optimizer's steps (eager, capture, replay) and its
 # batch; the card against the CPU lowerings: elementwise updates at a
 # relative 2e-6 (FMA contraction on the card), the norms' reductions
-# (lars_momentum) at 1e-5, K6 (ModelAverage's Adam) at OPT_TOL absolute
-OTHER_STEPS, OTHER_BATCH = 3, 2
+# (lars_momentum) at 1e-5, K6 (ModelAverage's Adam) at OPT_TOL absolute;
+# BERT-base's widths at OTHER_LAYERS of its 12 layers (every param shape
+# of the 12 is there; the depth cut keeps the whole script in its time)
+OTHER_STEPS, OTHER_BATCH, OTHER_LAYERS = 3, 2, 4
 OTHER_RTOL, OTHER_NORM_RTOL, OTHER_ATOL = 2e-6, 1e-5, 1e-7
 
 
@@ -5607,9 +5639,10 @@ def _cpu_update(main, before, grads):
 
 
 def phase_other_optimizers(seed):
-    """Phase 13c: BERT-base f32 (batch OTHER_BATCH) with each of
-    ``_other_optimizers``: OTHER_STEPS steps (eager, capture, replay)
-    bitwise the plan's eager steps on a second scope; after every step
+    """Phase 13c: BERT-base f32 at depth OTHER_LAYERS (batch
+    OTHER_BATCH) with each of ``_other_optimizers``: OTHER_STEPS steps
+    (eager, capture, replay) bitwise the plan's eager steps on a second
+    scope; after every step
     the state each optimize op writes matches the same lowerings run on
     the CPU from the state before it and the step's grads; ModelAverage's
     ``apply()`` swaps in the averages and ``restore()`` brings the
@@ -5617,7 +5650,7 @@ def phase_other_optimizers(seed):
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
 
-    cfg = bert_cfg()
+    cfg = dict(bert_cfg(), n_layer=OTHER_LAYERS)
     n = cfg["n_layer"]
     rs = np.random.RandomState(seed + 18)
     batches = [{k: v[:OTHER_BATCH] for k, v in _train_batch(cfg, rs).items()}
@@ -7511,6 +7544,39 @@ def _same(a, b, tol):
     return bool(torch.allclose(a, b, rtol=tol, atol=tol, equal_nan=True))
 
 
+def _ops_against_cpu(cases, rs, dev, repeat=False):
+    """Each case (op, numpy inputs, attrs, differentiable slots,
+    tolerance) on ``dev`` against the same op on the CPU: every output
+    within its tolerance (``_same``), and the grads of its
+    differentiable slots on random cotangents from ``rs`` (with
+    ``repeat``, taken twice on the card and bitwise equal). Returns the
+    op types checked and what differed."""
+    cpu = torch.device("cpu")
+    done, bad = set(), []
+    for op_type, ins, attrs, diff, tol in cases:
+        outs = [_op_on(d, op_type, ins, attrs) for d in (dev, cpu)]
+        for slot, vals in outs[1].items():
+            for a, b in zip(outs[0][slot], vals):
+                if b is not None and not _same(a.cpu(), b, tol):
+                    bad.append("%s.%s" % (op_type, slot))
+        if diff:
+            fwd = {k: [None if v is None else v.cpu().numpy() for v in vs]
+                   for k, vs in outs[1].items()}
+            cots = {k + "@GRAD": [np.asarray(rs.randn(*v.shape))
+                                  .astype(v.dtype) for v in vs]
+                    for k, vs in fwd.items()
+                    if all(v is not None and v.dtype.kind == "f"
+                           for v in vs)}
+            g = [_op_grad_on(d, op_type, ins, fwd, cots, attrs, diff)
+                 for d in ((dev, dev, cpu) if repeat else (dev, cpu))]
+            for s in diff:
+                for a, a2, b in zip(g[0][s], g[-2][s], g[-1][s]):
+                    if not (_same(a, b, tol) and torch.equal(a, a2)):
+                        bad.append("%s %s@GRAD" % (op_type, s))
+        done.add(op_type)
+    return done, bad
+
+
 def _op_tail_random(dev):
     """The random ops on the card: shapes, ranges, moments, a nonzero
     ``seed`` attr's fixed draw; nce's negatives in range with the label
@@ -7703,31 +7769,9 @@ def phase_op_tail(seed):
     the CRF and CTC training plans captured with replays bitwise
     eager."""
     dev = torch.device("cuda", 0)
-    cpu = torch.device("cpu")
     t0 = time.perf_counter()
     rs = np.random.RandomState(seed)
-    done, bad = set(), []
-    for op_type, ins, attrs, diff, tol in _op_tail_cases(rs):
-        outs = [_op_on(d, op_type, ins, attrs) for d in (dev, cpu)]
-        for slot, vals in outs[1].items():
-            for a, b in zip(outs[0][slot], vals):
-                if b is not None and not _same(a.cpu(), b, tol):
-                    bad.append("%s.%s" % (op_type, slot))
-        if diff:
-            fwd = {k: [None if v is None else v.cpu().numpy() for v in vs]
-                   for k, vs in outs[1].items()}
-            cots = {k + "@GRAD": [rs.randn(*v.shape).astype(v.dtype)
-                                  for v in vs]
-                    for k, vs in fwd.items()
-                    if all(v is not None and v.dtype.kind == "f"
-                           for v in vs)}
-            g = [_op_grad_on(d, op_type, ins, fwd, cots, attrs, diff)
-                 for d in (dev, cpu)]
-            for s in diff:
-                for a, b in zip(g[0][s], g[1][s]):
-                    if not _same(a, b, tol):
-                        bad.append("%s %s@GRAD" % (op_type, s))
-        done.add(op_type)
+    done, bad = _ops_against_cpu(_op_tail_cases(rs), rs, dev)
     done.update(_op_tail_random(dev))
     if bad:
         raise AssertionError("op tail (17c): the card differs from the CPU: "
@@ -8546,31 +8590,9 @@ def phase_misc_ops(seed):
     for products); the random ones twice bitwise from one seed and by
     their properties."""
     dev = torch.device("cuda", 0)
-    cpu = torch.device("cpu")
     t0 = time.perf_counter()
     rs = np.random.RandomState(seed)
-    done, bad = set(), []
-    for op_type, ins, attrs, diff, tol in _misc_quant_cases(rs):
-        outs = [_op_on(d, op_type, ins, attrs) for d in (dev, cpu)]
-        for slot, vals in outs[1].items():
-            for a, b in zip(outs[0][slot], vals):
-                if b is not None and not _same(a.cpu(), b, tol):
-                    bad.append("%s.%s" % (op_type, slot))
-        if diff:
-            fwd = {k: [None if v is None else v.cpu().numpy() for v in vs]
-                   for k, vs in outs[1].items()}
-            cots = {k + "@GRAD": [np.asarray(rs.randn(*v.shape))
-                                  .astype(v.dtype) for v in vs]
-                    for k, vs in fwd.items()
-                    if all(v is not None and v.dtype.kind == "f"
-                           for v in vs)}
-            g = [_op_grad_on(d, op_type, ins, fwd, cots, attrs, diff)
-                 for d in (dev, cpu)]
-            for s in diff:
-                for a, b in zip(g[0][s], g[1][s]):
-                    if not _same(a, b, tol):
-                        bad.append("%s %s@GRAD" % (op_type, s))
-        done.add(op_type)
+    done, bad = _ops_against_cpu(_misc_quant_cases(rs), rs, dev)
     done.update(_misc_quant_random(dev))
     if bad:
         raise AssertionError("misc ops (18e): the card differs from the CPU: "
@@ -8584,6 +8606,676 @@ def phase_misc_ops(seed):
         "bitwise from one seed and by their properties; %.1f s" % (
             len(done), secs))
     return dict(op_types=sorted(done), seconds=secs)
+
+
+# --------------------------------------------------------------- phase 19
+SSD_BATCH = 8
+SSD_STEPS = 6          # the main path: eager, capture, 4 replays
+SSD_SERVE_BUCKETS = (1, 8)
+SSD_SERVE_REPEATS = 10
+SSD_CPU_TOL = 1e-4     # the first loss against the CPU's, relative
+# the detections against the CPU's: classes exactly, scores and boxes
+# within SSD_DET_TOL; rows whose scores lie within SSD_SWAP_TOL of each
+# other may change places (the card's convolutions round apart from the
+# CPU's in the last places, and the rows sort by score)
+SSD_DET_TOL, SSD_SWAP_TOL = 1e-4, 1e-5
+# phase 19b: the 19 ops on the card against the CPU: exp / log / sums
+# within 1e-5 plus a relative 1e-5; the rest (the prior tables, built
+# on the host, gathers, IoU, NMS, the matchings) exactly
+DET_OP_TOL = 1e-5
+
+
+def _ssd_programs():
+    """tools/ssd_programs.py: SSD300 (numpy and the port's layers)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import ssd_programs
+
+    return ssd_programs
+
+
+def _uncaptured_total():
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+
+    return sum(c.value for c in UNCAPTURED_PLANS._children.values())
+
+
+def _det_groups(scores):
+    """[(start, end)] runs of consecutive rows whose scores lie within
+    SSD_SWAP_TOL of their neighbour's."""
+    out, start = [], 0
+    for i in range(1, len(scores) + 1):
+        if i == len(scores) or abs(scores[i] - scores[i - 1]) > SSD_SWAP_TOL:
+            out.append((start, i))
+            start = i
+    return out
+
+
+def _det_rows(card, cpu, used, b, s, e):
+    """Match each card row of ``card`` to an unused CPU row of ``cpu``
+    (rows s to e of image b) of its class, its score and box within
+    SSD_DET_TOL, the CPU's row at its own place first; returns (the
+    largest difference, the rows that changed places); a card row with
+    no match raises."""
+    worst, moved = 0.0, 0
+    for i, row in enumerate(card):
+        diff = np.abs(cpu - row).max(1)
+        diff[(cpu[:, 0] != row[0]) | used] = np.inf
+        k = i if i < len(diff) and diff[i] <= SSD_DET_TOL else int(
+            diff.argmin())
+        if diff[k] > SSD_DET_TOL:
+            raise AssertionError(
+                "image %d row %d: no CPU row of rows %d-%d within %.0e: "
+                "card %s, CPU %s" % (b, s + i, s, e, SSD_DET_TOL, row,
+                                     cpu[:8]))
+        moved += int(k != i)
+        used[k] = True
+        worst = max(worst, float(diff[k]))
+    return worst, moved
+
+
+def _det_against_cpu(card, cpu, flipped):
+    """Card detections [B, K, 6] against the CPU's, ``cpu`` [B, K', 6]
+    with K' >= K: the CPU's ``multiclass_nms`` rows past the K it keeps
+    (the same stable order, so its first K rows are the CPU's answer).
+    In an image whose NMS made the CPU's decisions (none in ``flipped``,
+    image -> {class: score} of the lanes that decided otherwise at a
+    candidate of that score, ``_nms_flips``):
+    within each run of rows whose CPU scores lie within SSD_SWAP_TOL,
+    each card row matches a CPU row of its run of the same class, its
+    score and box within SSD_DET_TOL (the CPU's row at its own place if
+    that one matches); a run that reaches the last row runs on through
+    the CPU's rows past it, so a card row there may match one the CPU
+    dropped. In an image with a flipped lane, each card row matches a CPU
+    row of its class anywhere (a flipped lane's rows move the rest) but
+    a flipped lane's rows from the departing candidate's score down
+    (within SSD_SWAP_TOL) and -1 rows, which are counted. Returns
+    (the largest difference, the rows that changed places, the rows in
+    a run that reaches the last row, the rows of flipped lanes); a
+    mismatch raises."""
+    worst, moved, tail, loose = 0.0, 0, 0, 0
+    K = card.shape[1]
+    for b in range(cpu.shape[0]):
+        if flipped.get(b):
+            out = card[b, :, 0] < 0
+            for c, top in flipped[b].items():
+                out |= (card[b, :, 0] == c) & (
+                    card[b, :, 1] <= top + SSD_SWAP_TOL)
+            w, _ = _det_rows(card[b][~out], cpu[b], np.zeros(len(cpu[b]),
+                                                              bool),
+                             b, 0, cpu.shape[1])
+            worst, loose = max(worst, w), loose + int(out.sum())
+            continue
+        for s, e in _det_groups(cpu[b, :, 1]):
+            if s >= K:
+                break
+            g = card[b, s:min(e, K)]
+            tail += len(g) if e > K else 0
+            w, m = _det_rows(g, cpu[b, s:e], np.zeros(e - s, bool), b, s, e)
+            worst, moved = max(worst, w), moved + m
+    return worst, moved, tail, loose
+
+
+def _nms_lanes(bboxes, scores, attrs):
+    """``multiclass_nms``' lanes on the CPU, by the lowering's own steps
+    (``_top_k``, ``_greedy_nms``): per (image, class) the nms_top_k
+    candidates in score order (``idx``), their scores (``score``, -1
+    under score_threshold), the keep decisions (``keep``), and each
+    one's largest IoU with a box kept before it (``iou``), [B, C, K]
+    numpy each."""
+    from paddle_tpu_torch.ops.detection_ops import (_greedy_nms,
+                                                    _pairwise_iou_xyxy,
+                                                    _top_k)
+
+    boxes, s = torch.from_numpy(bboxes), torch.from_numpy(scores)
+    B, C, M = s.shape
+    K = min(int(attrs["nms_top_k"]), M)
+    s = torch.where(s >= float(attrs["score_threshold"]), s, -1.0)
+    top_s, top_i = _top_k(s, K)
+    cand = boxes[torch.arange(B)[:, None, None], top_i]
+    cls = torch.arange(C)[None, :, None]
+    valid = (top_s > -1.0) & (cls != int(attrs.get("background_label",
+                                                   -1)))
+    thresh = float(attrs["nms_threshold"])
+    keep = _greedy_nms(cand.reshape(B * C, K, 4), valid.reshape(B * C, K),
+                       thresh, eta=float(attrs.get("nms_eta", 1.0))
+                       ).reshape(B, C, K)
+    before = keep[:, :, None, :] & torch.ones(K, K, dtype=torch.bool).tril(
+        -1)
+    iou = torch.where(before, _pairwise_iou_xyxy(cand, cand), 0.0).amax(-1)
+    return dict(idx=top_i.numpy(), score=top_s.numpy(), keep=keep.numpy(),
+                iou=iou.numpy())
+
+
+def _nms_departure(lanes, ins, b, c, attrs):
+    """The first candidate of lane (image b, class c), in the CPU's order
+    and then the card's others, that one side keeps and the other does
+    not, and what rounding turned it: "score" (its score within
+    SSD_DET_TOL of score_threshold), "cut" (in one side's nms_top_k only,
+    its score within SSD_SWAP_TOL of the other side's last one), "iou"
+    (its largest IoU with a box kept before it on the two sides of
+    nms_threshold, within SSD_DET_TOL on the two inputs) or "order" (a
+    box kept on a side, ordered before it on one side only, its scores
+    within SSD_SWAP_TOL of it on both inputs, their IoU over
+    nms_threshold); None where no rounding can."""
+    from paddle_tpu_torch.ops.detection_ops import _pairwise_iou_xyxy
+
+    order = [L["idx"][b, c].tolist() for L in lanes]
+    pos = [{x: i for i, x in enumerate(o)} for o in order]
+
+    def kept(side, x):
+        i = pos[side].get(x)
+        return i is not None and bool(lanes[side]["keep"][b, c, i])
+
+    x = next(x for x in order[1] + order[0]
+             if kept(0, x) != kept(1, x))
+    sc = [ins[k][1][b, c] for k in (0, 1)]
+    thr = float(attrs["nms_threshold"])
+    if any(abs(v[x] - float(attrs["score_threshold"])) <= SSD_DET_TOL
+           for v in sc):
+        return x, "score"
+    if any(x not in p for p in pos):
+        return x, "cut" if all(abs(v[x] - v[o[-1]]) <= SSD_SWAP_TOL
+                               for v, o in zip(sc, order)) else None
+    m = [float(L["iou"][b, c, p[x]]) for L, p in zip(lanes, pos)]
+    if (m[0] - thr) * (m[1] - thr) <= 0 and abs(m[0] - m[1]) <= SSD_DET_TOL:
+        return x, "iou"
+    for y in set(order[0]) & set(order[1]):
+        if (pos[0][y] < pos[0][x]) != (pos[1][y] < pos[1][x]) and \
+                (kept(0, y) or kept(1, y)) and \
+                all(abs(v[x] - v[y]) <= SSD_SWAP_TOL for v in sc) and \
+                any(float(_pairwise_iou_xyxy(
+                    torch.from_numpy(ins[k][0][b, [x]]),
+                    torch.from_numpy(ins[k][0][b, [y]]))) > thr
+                    for k in (0, 1)):
+            return x, "order"
+    return x, None
+
+
+def _nms_flips(card_in, cpu_in, attrs):
+    """Where the card's NMS inputs, within SSD_DET_TOL of the CPU's,
+    lead ``multiclass_nms`` to keep other boxes: per image, the classes
+    whose lane keeps another set of candidates, each explained at its
+    first departure by a decision that rounding can turn
+    (``_nms_departure``; the later ones follow from it); any other
+    departure raises. A lane that keeps the same candidates in another
+    order is no departure (its rows may change places). Returns
+    ({image: {class: the departing candidate's higher score}}, [(image,
+    class, candidate, kind, that score)])."""
+    if float(attrs.get("nms_eta", 1.0)) != 1.0:
+        raise AssertionError("_nms_flips reads a fixed nms_threshold")
+    ins = (card_in, cpu_in)
+    lanes = [_nms_lanes(*v, attrs) for v in ins]
+    flipped, kinds = {}, []
+    B, C, _ = lanes[0]["idx"].shape
+    for b in range(B):
+        for c in range(C):
+            sets = [set(L["idx"][b, c][L["keep"][b, c]].tolist())
+                    for L in lanes]
+            if sets[0] == sets[1]:
+                continue
+            x, kind = _nms_departure(lanes, ins, b, c, attrs)
+            if kind is None:
+                raise AssertionError(
+                    "image %d class %d: the card's NMS keeps candidate %d "
+                    "%s, the CPU's %s, where rounding cannot turn it "
+                    "(scores %s)" % (b, c, x, x in sets[0], x in sets[1],
+                                     [v[1][b, c, x] for v in ins]))
+            top = max(float(v[1][b, c, x]) for v in ins)
+            flipped.setdefault(b, {})[c] = top
+            kinds.append((b, c, x, kind, top))
+    return flipped, kinds
+
+
+def _nms_inputs(run, program):
+    """``run(extra fetch names)`` -> fetched values, with the inputs of
+    ``program``'s one ``multiclass_nms`` op fetched beside its answer:
+    (answer, (BBoxes, Scores), the op's attrs)."""
+    (op,) = [o for o in program.global_block().ops
+             if o.type == "multiclass_nms"]
+    got = run(op.input("BBoxes") + op.input("Scores"))
+    return got[0], (got[1], got[2]), dict(op.attrs)
+
+
+def _cpu_detections(fluid, infer, dets, req, params):
+    """The CPU's answer to ``req``, with its ``multiclass_nms`` rows past
+    keep_top_k: the op's inputs fetched in the same run and its lowering
+    run again on them keeping every candidate (``_det_against_cpu``),
+    whose first keep_top_k rows must be the program's answer. Returns
+    (those rows, the op's inputs, its attrs)."""
+    got, ins, attrs = _nms_inputs(
+        lambda extra: fluid.Executor(fluid.CPUPlace()).run(
+            infer, feed=req, fetch_list=[dets] + extra, scope=params),
+        infer)
+    every = ins[1].shape[1] * min(int(attrs["nms_top_k"]), ins[1].shape[2])
+    wide = _op_on(torch.device("cpu"), "multiclass_nms",
+                  {"BBoxes": [ins[0]], "Scores": [ins[1]]},
+                  dict(attrs, keep_top_k=every))["Out"][0].numpy()
+    if not np.array_equal(wide[:, :got.shape[1]], got):
+        raise AssertionError("multiclass_nms keeping every candidate does "
+                             "not begin with the program's answer")
+    return wide, ins, attrs
+
+
+def _card_against_cpu(what, pred, req, got, cpu, cpu_in, attrs):
+    """The Predictor's detections ``got`` against the CPU's: the card's
+    NMS inputs (fetched in an eager run of the Predictor's program that
+    gives ``got`` bitwise) within SSD_DET_TOL of the CPU's; ``got``
+    bitwise what the CPU's ``multiclass_nms`` lowering makes of them;
+    the decisions that differ explained (``_nms_flips``); the rows
+    compared (``_det_against_cpu``). Returns a dict of the readings."""
+    ans, card_in, _ = _nms_inputs(
+        lambda extra: pred._exe._run_eager(
+            pred.program, feed=req, fetch_list=pred.fetch_names + extra,
+            scope=pred.scope), pred.program)
+    if not np.array_equal(ans, got):
+        raise AssertionError("%s: fetching the NMS inputs changed the "
+                             "answer" % what)
+    gap = max(float(np.abs(x - y).max()) for x, y in zip(card_in, cpu_in))
+    if gap > SSD_DET_TOL:
+        raise AssertionError("%s: the NMS inputs %.3e from the CPU's" % (
+            what, gap))
+    redo = _op_on(torch.device("cpu"), "multiclass_nms",
+                  {"BBoxes": [card_in[0]], "Scores": [card_in[1]]},
+                  attrs)["Out"][0].numpy()
+    if not np.array_equal(redo, got):
+        raise AssertionError("%s: the card's NMS is not the CPU's on the "
+                             "card's inputs" % what)
+    flipped, kinds = _nms_flips(card_in, cpu_in, attrs)
+    worst, moved, tail, loose = _det_against_cpu(got, cpu, flipped)
+    return dict(cpu_max_diff=worst, nms_input_diff=gap, rows_moved=moved,
+                tail_rows=tail, flipped_lanes=kinds, flipped_rows=loose)
+
+
+def _ssd_build(fluid, sp, batch, train, seed):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        out, priors = sp.build(fluid, batch, train=train)
+    return main, startup, out, priors
+
+
+def _ssd_serve(fluid, sp, workdir, seed, trained):
+    """Phase 19's serving: per bucket an inference program saved with
+    ``io.save_inference_model`` from the trained weights, a Predictor
+    (warmed up: eager, then captured) answering SSD_SERVE_REPEATS
+    replayed requests, each the same and the first the CPU's answer on
+    the same weights and image (``_det_against_cpu``) and bitwise the
+    Predictor's eager run of its own program; one request profiled."""
+    out = {}
+    for b in SSD_SERVE_BUCKETS:
+        what = "serve SSD300 batch %d (19)" % b
+        infer, _, dets, _ = _ssd_build(fluid, sp, b, False, seed)
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        scope = _restored(trained)
+        path = os.path.join(workdir, "ssd300_b%d" % b)
+        with fluid.scope_guard(scope):
+            fluid.io.save_inference_model(path, ["img"], [dets], exe,
+                                          main_program=infer)
+        req = sp.batch_feed(b, seed + 19 + b, train=False)
+        cpu, cpu_in, attrs = _cpu_detections(fluid, infer, dets, req,
+                                             _on_cpu(trained))
+        exe.close()
+        del exe, scope
+        config = fluid.inference.AnalysisConfig(path)
+        config.warmup_batch_sizes = [b]
+        answers, lat_ms = [], []
+
+        def check(_, rep, ans):
+            if rep == 0:
+                answers.append(ans)
+            elif not np.array_equal(ans, answers[0]):
+                raise AssertionError("%s: a repeated request gave another "
+                                     "answer" % what)
+
+        before = _uncaptured_total()
+        # ---- the main path: counts zeroed here, read after the last one
+        pred, init_s, p = _metered_serving(
+            what, lambda: fluid.inference.create_paddle_predictor(config),
+            [req], SSD_SERVE_REPEATS, (0,) * len(COUNT_NAMES), lat_ms,
+            check, buckets=[b], batch_feed="img")
+        # ---- end of the main path
+        got = answers[0]
+        eager = pred._exe._run_eager(pred.program, feed=req,
+                                     fetch_list=pred.fetch_names,
+                                     scope=pred.scope)[0]
+        plans = list(pred._exe._cache.values())
+        if _uncaptured_total() != before or not plans or \
+                any(pl.graph is None for pl in plans):
+            raise AssertionError("%s: a serving plan was not captured" % what)
+        if got.shape != (b, 200, 6) or not np.isfinite(got).all() or \
+                not np.array_equal(got, eager):
+            raise AssertionError("%s: detections %s, finite %s, bitwise the "
+                                 "eager run's %s" % (
+                                     what, got.shape, np.isfinite(got).all(),
+                                     np.array_equal(got, eager)))
+        vs = _card_against_cpu(what, pred, req, got, cpu, cpu_in, attrs)
+        prof = _profiled(lambda: pred.run(req))
+        kept = int((got[..., 0] >= 0).sum())
+        out[b] = dict(latency_ms=lat_ms[0],
+                      latency_median_ms=float(np.median(lat_ms[0])),
+                      latency_max_ms=max(lat_ms[0]), init_s=init_s,
+                      kept_rows=kept, kernels=prof["kernels"],
+                      busy_ms=prof["device_busy_ms"],
+                      busy_share=prof["busy_share"],
+                      by_class_ms=prof["by_class_ms"],
+                      peak_mem_mib=p["peak_mb"],
+                      launches=dict(zip(COUNT_NAMES, p["launches"])), **vs)
+        _log_breakdown("%s replayed request" % what, prof)
+        log("%s: latency median %.3f ms, max %.3f ms over %d replayed "
+            "requests; [%d, 200, 6] detections (%d rows kept), bitwise the "
+            "Predictor's eager run and the CPU's NMS on the card's NMS "
+            "inputs (%.2e from the CPU's); the CPU's within %.2e (%d rows "
+            "changed places among scores within %.0e; %d rows in a run that "
+            "reaches the last row, matched past it); NMS lanes deciding "
+            "otherwise on the card's inputs %s (%d rows of theirs not "
+            "held); init %.2f s, peak %.1f MiB" % (
+                what, out[b]["latency_median_ms"], out[b]["latency_max_ms"],
+                len(lat_ms[0]), b, kept, vs["nms_input_diff"],
+                vs["cpu_max_diff"], vs["rows_moved"], SSD_SWAP_TOL,
+                vs["tail_rows"], vs["flipped_lanes"], vs["flipped_rows"],
+                init_s, p["peak_mb"]))
+        del pred
+        _free()
+    return out
+
+
+def phase_ssd(workdir, seed):
+    """Phase 19: SSD300 (tools/ssd_programs.py: VGG-16 base, 300 x 300,
+    21 classes, 8732 priors) from ``seed`` at batch SSD_BATCH, f32, level
+    2: its first loss the port's on the CPU (the forward on the same
+    weights and feed), then the main path (``_seq_train``: SSD_STEPS Adam
+    steps, eager, capture, replays, K6 once a step on the card; replayed
+    against eager in turns bitwise; ms, kernels, busy share, device ms by
+    class, capture s, peak) with no plan left uncaptured; then served
+    (``_ssd_serve``)."""
+    import paddle_tpu_torch as fluid
+
+    what = "SSD300 (19)"
+    t0 = time.perf_counter()
+    sp = _ssd_programs()
+    main, startup, loss, priors = _ssd_build(fluid, sp, SSD_BATCH, True,
+                                             seed)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    tier = _tier_stats(main, [loss.name], scope)
+    batches = [sp.batch_feed(SSD_BATCH, seed + i) for i in range(4)]
+    # the CPU's first loss: the forward alone, from the same weights
+    cpu_loss, cpu_priors = fluid.Executor(fluid.CPUPlace()).run(
+        main._prune([loss, priors]), feed=batches[0],
+        fetch_list=[loss, priors], scope=_on_cpu(_snapshot(scope)))
+    cpu_loss, n_priors = float(cpu_loss), int(cpu_priors.shape[0])
+    if n_priors != sp.N_PRIORS:
+        raise AssertionError("%s: %d priors, not %d" % (what, n_priors,
+                                                        sp.N_PRIORS))
+    log("%s: batch %d, %d priors, %d params; built, started and the CPU's "
+        "first loss taken in %.1f s; level 2: %d ops of %d" % (
+            what, SSD_BATCH, n_priors, len(params),
+            time.perf_counter() - t0, tier["ops_after"],
+            tier["ops_before"]))
+    before = _uncaptured_total()
+    snap, _, res = _seq_train(what, exe, scope, main, loss, params, tier,
+                              batches, SSD_BATCH, "images",
+                              steps=SSD_STEPS, eager_readings=False)
+    gap = abs(res["losses"][0] - cpu_loss) / max(1.0, abs(cpu_loss))
+    if gap > SSD_CPU_TOL:
+        raise AssertionError("%s: the first loss %.6f on the card, %.6f on "
+                             "the CPU: %.3e apart (> %.0e)" % (
+                                 what, res["losses"][0], cpu_loss, gap,
+                                 SSD_CPU_TOL))
+    if _uncaptured_total() != before or not _captured(exe):
+        raise AssertionError("%s: the training plan was not captured" % what)
+    trained = _snapshot(scope)
+    exe.close()
+    del exe, scope
+    _free()
+    serve = _ssd_serve(fluid, sp, workdir, seed, trained)
+    c = res["compiled"]
+    prof = c["replay_profile"]
+    out = dict(batch=SSD_BATCH, priors=n_priors, n_params=res["n_params"],
+               n_weights=res["n_weights"],
+               ops=(tier["ops_before"], tier["ops_after"]),
+               losses=res["losses"], cpu_first_loss=cpu_loss,
+               cpu_gap=gap, replay_ms=c["replay_median_ms"],
+               eager_ms=c["eager_median_ms"],
+               replay_ms_all=c["replay_ms"], eager_ms_all=c["eager_ms"],
+               capture_s=c["capture_s"], kernels=prof["kernels"],
+               busy_share=prof["busy_share"],
+               busy_ms=prof["device_busy_ms"],
+               wall_ms=prof["wall_ms"], by_class_ms=prof["by_class_ms"],
+               top_kernels_ms=prof["top_kernels_ms"],
+               peak_mem_mib=res["peak_mem_mib"],
+               base_mem_mib=res["base_mem_mib"],
+               rise_mem_mib=res["rise_mem_mib"],
+               replay_peak_mib=c["peak_mem_mib"]["replay"],
+               launches=res["launches"], serve=serve,
+               seconds=time.perf_counter() - t0)
+    log("%s: first loss %.5f, the CPU's %.5f (%.2e apart); replayed %.3f "
+        "ms a step, eager %.3f; %d kernels a replayed step, %.1f%% busy; "
+        "%.1f s" % (what, res["losses"][0], cpu_loss, gap,
+                    out["replay_ms"], out["eager_ms"], out["kernels"],
+                    100 * out["busy_share"], out["seconds"]))
+    return out
+
+
+def _detection_cases(rs):
+    """(op, inputs as numpy, attrs, differentiable input slots, tolerance)
+    for phase 19b: a small case of each of the 19 detection ops but the
+    two samplers (``_detection_random``), shaped like
+    tests/test_torch_detection.py's (ties, padding gts, nms_eta < 1, a
+    background label), 0 where the card must give the CPU's bits."""
+    f = lambda *s: rs.randn(*s).astype("float32")  # noqa: E731
+
+    def boxes(*shape, scale=1.0):
+        lo = rs.rand(*shape, 2) * 0.7
+        return (np.concatenate([lo, lo + rs.rand(*shape, 2) * 0.4 + 0.05],
+                               -1) * scale).astype("float32")
+
+    T = DET_OP_TOL
+    prior = boxes(40)
+    pvar = (rs.rand(40, 4) * 0.2 + 0.1).astype("float32")
+    gt = boxes(2, 4)
+    gt[:, -1] = 0.0
+    nms_b = boxes(2, 30)
+    nms_b[:, 15:] = nms_b[:, :15]
+    ties = (rs.randint(0, 5, (2, 4, 30)) / 4.0).astype("float32")
+    dist = rs.rand(3, 4, 9).astype("float32")
+    dist[:, -1] = 0.0
+    dist[:, 1, :3] = dist[:, 0, :3]
+    feat = np.zeros((1, 8, 4, 5), "float32")
+    image = np.zeros((1, 3, 32, 40), "float32")
+    anc = _op_on(torch.device("cpu"), "anchor_generator", {"Input": [feat]},
+                 {"anchor_sizes": [8.0, 16.0, 24.0], "aspect_ratios": [1.0],
+                  "stride": [8.0, 8.0]})
+    anc = {k: [v[0].numpy()] for k, v in anc.items()}
+    rois = np.array([[0.5, 1.0, 5.0, 4.5], [2.0, 0.0, 6.5, 6.5],
+                     [1.0, 1.0, 1.2, 1.1], [-2.0, 3.0, 9.5, 8.0]], "float32")
+    roi_ins = {"X": [f(2, 3, 7, 8)], "ROIs": [rois],
+               "RoisBatch": [np.array([1, 0, 1, 0], "int32")]}
+    ygt = np.zeros((2, 4, 4), "float32")
+    ygt[:, :3, :2] = rs.rand(2, 3, 2) * 0.9 + 0.05
+    ygt[:, :3, 2:] = rs.rand(2, 3, 2) * 0.4 + 0.05
+    ygt[0, 0] = [0.05, 0.05, 0.1, 0.1]
+    fpn = np.array([[0, 0, 16, 16], [0, 0, 500, 500], [0, 0, 224, 224],
+                    [5, 5, 21, 21], [10, 10, 234, 234], [0, 0, 90, 120],
+                    [3, 3, 19, 19], [0, 0, 0, 0]], "float32")
+    return [
+        ("prior_box", {"Input": [feat], "Image": [image]},
+         {"min_sizes": [4.0, 9.0], "max_sizes": [9.0, 16.0],
+          "aspect_ratios": [2.0, 3.0], "flip": True, "clip": True}, [], 0),
+        ("density_prior_box", {"Input": [feat], "Image": [image]},
+         {"densities": [2, 1], "fixed_sizes": [6.0, 12.0],
+          "fixed_ratios": [1.0, 2.0], "clip": True}, [], 0),
+        ("anchor_generator", {"Input": [feat]},
+         {"anchor_sizes": [32.0, 64.0], "aspect_ratios": [0.5, 2.0],
+          "stride": [8.0, 6.0]}, [], 0),
+        ("iou_similarity", {"X": [boxes(5)], "Y": [boxes(6)]}, {}, [], 0),
+        ("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                       "TargetBox": [boxes(4)]},
+         {"code_type": "encode_center_size"}, [], T),
+        ("box_coder", {"PriorBox": [prior], "PriorBoxVar": [pvar],
+                       "TargetBox": [f(3, 40, 4) * 0.5]},
+         {"code_type": "decode_center_size"}, [], T),
+        ("multiclass_nms", {"BBoxes": [nms_b], "Scores": [rs.rand(
+            2, 4, 30).astype("float32")]},
+         {"score_threshold": 0.1, "nms_top_k": 12, "keep_top_k": 20,
+          "nms_threshold": 0.4, "background_label": 0}, [], 0),
+        ("multiclass_nms", {"BBoxes": [nms_b], "Scores": [ties]},
+         {"score_threshold": 0.3, "nms_top_k": 30, "keep_top_k": 60,
+          "nms_threshold": 0.95, "nms_eta": 0.8}, [], 0),
+        ("bipartite_match", {"DistMat": [dist]},
+         {"match_type": "per_prediction", "dist_threshold": 0.3}, [], 0),
+        ("target_assign", {"X": [f(2, 3, 4)], "MatchIndices": [np.array(
+            [[2, -1, 0, 0], [-1, 1, 1, 2]], "int32")]},
+         {"mismatch_value": 9.0}, [], 0),
+        ("ssd_loss", {"Location": [f(2, 40, 4) * 0.5],
+                      "Confidence": [f(2, 40, 5)], "GTBox": [gt],
+                      "GTLabel": [rs.randint(1, 5, (2, 4)).astype("int32")],
+                      "PriorBox": [prior], "PriorBoxVar": [pvar]},
+         {"background_label": 0}, ["Location", "Confidence"], T),
+        ("generate_proposals", {
+            "Scores": [rs.rand(2, 3, 4, 5).astype("float32")],
+            "BboxDeltas": [f(2, 12, 4, 5) * 0.3],
+            "ImInfo": [np.array([[32.0, 40.0, 1.0], [30.0, 36.0, 0.8]],
+                                "float32")],
+            "Anchors": anc["Anchors"], "Variances": anc["Variances"]},
+         {"pre_nms_topN": 30, "post_nms_topN": 12, "nms_thresh": 0.5,
+          "min_size": 2.0, "eta": 0.8}, [], T),
+        ("roi_align", roi_ins, {"pooled_height": 2, "pooled_width": 3,
+                                "spatial_scale": 0.9, "sampling_ratio": 2},
+         ["X"], T),
+        ("roi_pool", roi_ins, {"pooled_height": 2, "pooled_width": 3,
+                               "spatial_scale": 0.9}, ["X"], T),
+        ("distribute_fpn_proposals", {"FpnRois": [fpn]},
+         {"min_level": 2, "max_level": 5, "refer_level": 4,
+          "refer_scale": 224}, [], 0),
+        ("box_decoder_and_assign", {
+            "PriorBox": [boxes(5, scale=30.0)], "TargetBox": [f(5, 12) * 3],
+            "BoxScore": [rs.rand(5, 3).astype("float32")]},
+         {"box_clip": 4.135}, [], T),
+        ("box_clip", {"Input": [f(2, 5, 4) * 40 + 20],
+                      "ImInfo": [np.array([[40.0, 60.0, 1.0],
+                                           [30.0, 20.0, 0.5]], "float32")]},
+         {}, [], 0),
+        ("polygon_box_transform", {"Input": [f(2, 8, 3, 5)]}, {}, [], 0),
+        ("yolov3_loss", {"X": [f(2, 16, 5, 5)], "GTBox": [ygt],
+                         "GTLabel": [rs.randint(0, 3, (2, 4)).astype(
+                             "int32")]},
+         {"anchors": [10, 13, 16, 30, 33, 23], "anchor_mask": [0, 1],
+          "class_num": 3, "ignore_thresh": 0.5, "downsample_ratio": 32},
+         ["X"], T),
+    ]
+
+
+def _detection_random(dev):
+    """The two samplers on the card: tests/test_ssd_stack.py's
+    properties, and twice bitwise from one chain seed."""
+    chain = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
+    feat = np.zeros((1, 8, 4, 4), "float32")
+    anc = _op_on(torch.device("cpu"), "anchor_generator", {"Input": [feat]},
+                 {"anchor_sizes": [8.0, 16.0, 32.0], "aspect_ratios": [1.0],
+                  "stride": [8.0, 8.0]})["Anchors"][0].numpy()
+    ins = {"Anchor": [anc], "GtBoxes": [np.array(
+        [[[2, 2, 14, 14], [16, 16, 30, 30], [0, 0, 0, 0]]], "float32")]}
+    runs = [_op_on(dev, "rpn_target_assign", ins,
+                   {"rpn_batch_size_per_im": 16}, chain(3))
+            for _ in range(2)]
+    r = {k: v[0].cpu().numpy() for k, v in runs[0].items()}
+    lbl, inw = r["TargetLabel"], r["BBoxInsideWeight"]
+    if not (r["ScoreIndex"].shape == (1, 16) and set(np.unique(lbl)) <= {
+            -1, 0, 1} and (lbl == 1).sum() >= 1 and (inw[lbl == 1] == 1).all()
+            and (inw[lbl != 1] == 0).all()) or any(
+                not torch.equal(runs[0][k][0], runs[1][k][0]) for k in r):
+        raise AssertionError("detection ops (19b): rpn_target_assign on the "
+                             "card: %s" % r)
+    rs = np.random.RandomState(1)
+    base = rs.rand(1, 20, 4).astype("float32") * 20
+    ins = {"RpnRois": [np.concatenate([base[..., :2], base[..., :2] + 5
+                                       + base[..., 2:]], -1)],
+           "GtClasses": [np.array([[1, 3, 0]], "int32")],
+           "GtBoxes": [np.array([[[2, 2, 10, 10], [12, 12, 20, 20],
+                                  [0, 0, 0, 0]]], "float32")]}
+    attrs = {"batch_size_per_im": 12, "class_nums": 5, "fg_thresh": 0.5}
+    runs = [_op_on(dev, "generate_proposal_labels", ins, attrs, chain(4))
+            for _ in range(2)]
+    r = {k: v[0].cpu().numpy() for k, v in runs[0].items()}
+    lbl, tgt = r["LabelsInt32"], r["BboxTargets"]
+    blocks_ok = all(np.abs(np.delete(tgt[0, i].reshape(5, 4), lbl[0, i],
+                                     axis=0)).sum() == 0
+                    for i in np.where(lbl[0] > 0)[0])
+    if not (r["Rois"].shape == (1, 12, 4) and tgt.shape == (1, 12, 20) and
+            (lbl > 0).sum() >= 2 and blocks_ok) or any(
+                not torch.equal(runs[0][k][0], runs[1][k][0]) for k in r):
+        raise AssertionError("detection ops (19b): generate_proposal_labels "
+                             "on the card: %s" % r)
+    return ["rpn_target_assign", "generate_proposal_labels"]
+
+
+def _nms_at_ssd_scale(dev):
+    """``multiclass_nms`` at SSD300's detection_output shape (batch 8, 21
+    classes, 8732 candidates, nms_top_k 400, keep_top_k 200) over
+    tie-heavy scores (five levels, repeated boxes, most under the
+    threshold): the CPU's bits, twice; then one profiled call on
+    continuous scores (its kernels and device ms)."""
+    g = torch.Generator().manual_seed(19)
+    lo = torch.rand(8, 4366, 2, generator=g) * 0.7
+    bx = torch.cat([lo, lo + torch.rand(8, 4366, 2, generator=g) * 0.3
+                    + 0.02], -1)
+    bx = torch.cat([bx, bx], 1)
+    ties = torch.randint(0, 5, (8, 21, 8732), generator=g).float() / 4
+    attrs = {"score_threshold": 0.6, "nms_top_k": 400, "keep_top_k": 200,
+             "nms_threshold": 0.45, "background_label": 0}
+    want = _op_on(torch.device("cpu"), "multiclass_nms",
+                  {"BBoxes": [bx.numpy()], "Scores": [ties.numpy()]}, attrs)
+    runs = [_op_on(dev, "multiclass_nms", {"BBoxes": [bx.numpy()],
+                                           "Scores": [ties.numpy()]},
+                   attrs)["Out"][0].cpu() for _ in range(2)]
+    if not (torch.equal(runs[0], want["Out"][0]) and
+            torch.equal(runs[1], runs[0])):
+        raise AssertionError("detection ops (19b): multiclass_nms over ties "
+                             "at SSD300's shape differs from the CPU's")
+    scores = torch.softmax(torch.randn(8, 21, 8732, generator=g) * 3, 1)
+    ins = {"BBoxes": [bx.to(dev)], "Scores": [scores.to(dev)]}
+    from paddle_tpu_torch.core.lowering import LowerContext
+    from paddle_tpu_torch.core.registry import get_op
+
+    call = lambda: get_op("multiclass_nms").lowering(  # noqa: E731
+        LowerContext(None, None, dev), ins, dict(attrs, score_threshold=0.01))
+    call()
+    prof = _profiled(call)
+    _log_breakdown("multiclass_nms at SSD300's shape (19b)", prof)
+    return dict(kernels=prof["kernels"], busy_ms=prof["device_busy_ms"],
+                wall_ms=prof["wall_ms"], busy_share=prof["busy_share"])
+
+
+def phase_detection_ops(seed):
+    """Phase 19b: the 19 detection op types on the card against their CPU
+    lowerings (forward, and the grads of the four differentiable ones,
+    which also repeat bitwise on the card), 0-tolerance cases bitwise;
+    the two samplers by their properties and twice bitwise from one
+    seed; multiclass_nms over ties at SSD300's shape bitwise the CPU's,
+    and its kernels and device ms there."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed)
+    done, bad = _ops_against_cpu(_detection_cases(rs), rs, dev, repeat=True)
+    done.update(_detection_random(dev))
+    if bad:
+        raise AssertionError("detection ops (19b): the card differs from the "
+                             "CPU: %s" % bad)
+    if len(done) != 19:
+        raise AssertionError("detection ops (19b): %d op types checked, not "
+                             "19" % len(done))
+    nms = _nms_at_ssd_scale(dev)
+    secs = time.perf_counter() - t0
+    log("detection ops (19b): %d op types on the card against the CPU "
+        "(forward, and the grads of the differentiable ones, bitwise twice "
+        "on the card), the samplers by their properties and bitwise from "
+        "one seed; multiclass_nms over ties at SSD300's shape bitwise the "
+        "CPU's; %d kernels, %.3f ms busy a call there; %.1f s" % (
+            len(done), nms["kernels"], nms["busy_ms"], secs))
+    return dict(op_types=sorted(done), nms=nms, seconds=secs)
 
 
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
@@ -8632,7 +9324,8 @@ PHASES = (
     ("14", ()), ("15", ()),
     ("16", ()), ("16b", ()), ("16c", ()), ("16d", ()),
     ("17", ()), ("17b", ()), ("17c", ()),
-    ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()))
+    ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
+    ("19", ()), ("19b", ()))
 
 
 def selected_phases(spec):
@@ -8862,13 +9555,23 @@ def main():
     if want("18e"):
         R["18e"] = timed("18e", phase_misc_ops, args.seed)
         _free()
+    if want("19"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["19"] = timed("19", phase_ssd, workdir, args.seed)
+        _free()
+    if want("19b"):
+        R["19b"] = timed("19b", phase_detection_ops, args.seed)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
     # pl.pallas_call has its port; none is left out
     not_ported = []
-    log("chip_smoke: all phases passed in %.1f s"
-        % (time.perf_counter() - t_start))
+    log("chip_smoke: all phases passed in %.1f s; %d profiler windows "
+        "lost lead spins (at most %d of %d)" % (
+            time.perf_counter() - t_start, len(PROFILER_LOSSES),
+            max([n for n, _ in PROFILER_LOSSES], default=0),
+            PROFILER_LEAD_SPINS))
 
     if args.out is not None:
         os.makedirs(args.out, exist_ok=True)
@@ -8876,7 +9579,8 @@ def main():
             json.dump(dict(card=smi, torch=torch.__version__,
                            build_s=build_s, phase_s=phase_s, phases=run,
                            phases_left_out=left_out, results=R,
-                           kernels=kernels, not_ported=not_ported), f,
+                           kernels=kernels, not_ported=not_ported,
+                           profiler_losses=PROFILER_LOSSES), f,
                       indent=1, default=str)
     log(json.dumps({"kernels": kernels, "not_ported": not_ported,
                     "phases_left_out": left_out}))
@@ -9000,7 +9704,8 @@ def _kernel_rows(R):
                  op_tail_train=L("17c", "K6"),
                  autotune_tuned_loop=L("18b", "K6"),
                  dygraph_autotune=L("18c", "K6"),
-                 quantize_aware_train=L("18d", "K6"))
+                 quantize_aware_train=L("18d", "K6"),
+                 ssd_train=L("19", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"))
     k5 = R.get("3c K5 launches", 0)

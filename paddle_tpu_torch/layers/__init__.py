@@ -2,10 +2,11 @@
 paddle_tpu/layers that the serving, training, decoding,
 image-classification, sequence and loss slices need (control_flow.py,
 rnn_blocks.py, decode.py, nn.py, tensor.py, ops.py, sequence.py,
-scan_ext.py, metric_op.py, loss.py and learning_rate_scheduler.py are
-copies; io.py holds ``data``), imported in the JAX package's order."""
+scan_ext.py, metric_op.py, loss.py, detection.py and
+learning_rate_scheduler.py are copies; io.py holds ``data``), imported
+in the JAX package's order."""
 
-from . import (control_flow, decode, io,  # noqa: F401
+from . import (control_flow, decode, detection, io,  # noqa: F401
                learning_rate_scheduler, loss, metric_op, nn, ops,
                rnn_blocks, scan_ext, sequence, tensor)
 from .control_flow import *  # noqa: F401,F403
@@ -19,4 +20,5 @@ from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .scan_ext import *  # noqa: F401,F403

@@ -6,8 +6,8 @@ the MNIST CNN), CTR and sequence (stacked LSTM, GRU machine
 translation) training programs (forward, grads, Adam, metrics), their
 startup programs, the learning-rate schedules, recompute segments,
 control flow, the recurrent ops, beam search, the loss and
-structured-prediction ops, the Fluid book's models, the quantization ops
-and the rest of the layers' op tail, module by module
+structured-prediction ops, the Fluid book's models, the quantization ops,
+the detection ops and the rest of the layers' op tail, module by module
 beside their paddle_tpu/ops counterparts.
 """
 

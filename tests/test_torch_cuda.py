@@ -110,6 +110,9 @@ where only the port is installed:
   captured, right at every run and counted once; the book's CRF step
   (label_semantic_roles, Adam: K6 once a step) and fit_a_line's SGD
   step (K7 once a step) replay bitwise their eager steps.
+- Detection: ``multiclass_nms`` over tie-heavy scores (four levels,
+  repeated boxes, most scores under the threshold) on the card gives
+  the CPU's keep decisions and every row bitwise, twice.
 """
 
 import warnings
@@ -2354,3 +2357,28 @@ def test_cuda_book_step_replays_bitwise_eager(cuda_device, name, slot):
     assert any(p.graph is not None for p in exe._cache.values())
     for n in params:
         assert torch.equal(scope.find_var(n), eager_scope.find_var(n)), n
+
+
+@pytest.mark.cuda
+def test_cuda_multiclass_nms_ties_match_the_cpu(cuda_device):
+    """Eight images, 21 classes, 2000 candidates whose scores take five
+    levels (0, 0.25, ... 1; most under the 0.6 threshold, so set to -1)
+    and whose boxes repeat: the top 400 a class, their greedy NMS and
+    the 200 rows an image on the card equal the CPU's bitwise (the
+    padded rows carry the dropped candidates' boxes, so the tie order
+    shows in every row), and a second run on the card the first."""
+    g = torch.Generator().manual_seed(11)
+    lo = torch.rand(8, 1000, 2, generator=g) * 0.7
+    boxes = torch.cat([lo, lo + torch.rand(8, 1000, 2, generator=g) * 0.3
+                       + 0.02], -1)
+    boxes = torch.cat([boxes, boxes], 1)                 # repeated boxes
+    scores = torch.randint(0, 5, (8, 21, 2000), generator=g).float() / 4
+    attrs = {"score_threshold": 0.6, "nms_top_k": 400, "keep_top_k": 200,
+             "nms_threshold": 0.45, "background_label": 0}
+    ins = {"BBoxes": [boxes], "Scores": [scores]}
+    want = _lower("multiclass_nms", ins, attrs, torch.device("cpu"))
+    runs = [_lower("multiclass_nms", ins, attrs, cuda_device)["Out"][0]
+            .cpu() for _ in range(2)]
+    assert runs[0].shape == (8, 200, 6)
+    assert torch.equal(runs[0], want["Out"][0])
+    assert torch.equal(runs[1], runs[0])

@@ -1108,6 +1108,45 @@ def _g_fake_dequant(rs, op):
                 {"max_range": 127.0}, [("X", 0)], 1e-6)
 
 
+@grad_case("roi_align", "roi_pool")
+def _g_roi(rs, op):
+    rois = np.array([[0.5, 1.0, 5.0, 4.5], [2.0, 0.0, 6.5, 6.5],
+                     [-2.0, 3.0, 9.5, 8.0]], "float32")
+    _check_grad(op, {"X": [_arr(rs, (2, 3, 7, 8))], "ROIs": [rois],
+                     "RoisBatch": [np.array([1, 0, 1], "int32")]},
+                {"pooled_height": 2, "pooled_width": 3,
+                 "spatial_scale": 0.9, "sampling_ratio": 2},
+                [("X", 0)], 1e-5, cot_slots=["Out"])
+
+
+@grad_case("ssd_loss")
+def _g_ssd_loss(rs, op):
+    P, G = 30, 4
+    lo = rs.rand(P, 2) * 0.7
+    prior = np.concatenate([lo, lo + rs.rand(P, 2) * 0.3 + 0.05],
+                           1).astype("float32")
+    gt = np.zeros((2, G, 4), "float32")
+    gt[:, :3] = prior[rs.randint(0, P, (2, 3))] + 0.01
+    _check_grad(op, {"Location": [_arr(rs, (2, P, 4))],
+                     "Confidence": [_arr(rs, (2, P, 5))], "GTBox": [gt],
+                     "GTLabel": [rs.randint(1, 5, (2, G)).astype("int32")],
+                     "PriorBox": [prior]}, {"neg_pos_ratio": 2.0},
+                [("Location", 0), ("Confidence", 0)], 1e-5)
+
+
+@grad_case("yolov3_loss")
+def _g_yolov3_loss(rs, op):
+    gt = np.zeros((2, 4, 4), "float32")
+    gt[:, :3, :2] = rs.rand(2, 3, 2) * 0.9 + 0.05
+    gt[:, :3, 2:] = rs.rand(2, 3, 2) * 0.4 + 0.05
+    _check_grad(op, {"X": [_arr(rs, (2, 16, 5, 5))], "GTBox": [gt],
+                     "GTLabel": [rs.randint(0, 3, (2, 4)).astype("int32")]},
+                {"anchors": [10, 13, 16, 30, 33, 23], "anchor_mask": [0, 1],
+                 "class_num": 3, "ignore_thresh": 0.5,
+                 "downsample_ratio": 32}, [("X", 0)], 1e-5,
+                cot_slots=["Loss"])
+
+
 def test_every_differentiable_port_op_has_a_grad_case():
     want = sorted(t for t in all_ops()
                   if not get_op(t).no_grad and not get_op(t).synthesized)
@@ -1376,20 +1415,20 @@ def test_other_optimizers_build_and_sgd_momentum_run():
     ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
           for _ in range(3)]
     assert np.isfinite(ls).all()
-    # an op the port does not lower yet (one of the detection ops; every
-    # layer the port ships lowers since the misc ops) builds, and its run
-    # says so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1 under the
-    # tests) or, without it, the block analysis
+    # an op the port does not lower yet (one of the multi-device ops;
+    # every layer the port ships lowers since the misc ops) builds, and
+    # its run says so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1
+    # under the tests) or, without it, the block analysis
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         x = pt.layers.data("x", [4], dtype="float32")
-        y = main.global_block().create_var(name="roi_out", dtype="float32",
+        y = main.global_block().create_var(name="moe_out", dtype="float32",
                                            shape=[-1, 4])
-        main.global_block().append_op(type="roi_pool", inputs={"X": [x]},
+        main.global_block().append_op(type="moe_ffn", inputs={"X": [x]},
                                       outputs={"Out": [y]})
-    assert "roi_pool" not in OPS
+    assert "moe_ffn" not in OPS
     with pytest.raises((KeyError, ProgramVerifyError),
-                       match="'roi_pool' has no registered lowering"):
+                       match="'moe_ffn' has no registered lowering"):
         exe.run(main, feed={"x": np.ones((2, 4), "float32")},
                 fetch_list=[y], scope=scope)
 
