@@ -292,16 +292,17 @@ Phases, each of which passes or ends the script with a non-zero exit:
    factory) under them: every request ends exactly once with
    ``generate``'s tokens, both replicas end on v2, one roll counted;
    tokens/s through the roll and the seconds a replica swap;
-14. a deployable artifact (after 13c): BERT-base's serving program
-   (S = 512, f32, level 2) frozen by ``export.save_artifact`` with AOT
-   buckets 1, 4 and 8 (``torch.export``, K1 and K4 as operators) and
-   saved as an inference model; ``load_artifact`` +
-   ``LoadedArtifact.predictor()`` serve 10 requests per bucket through
+14. a deployable artifact (after 13c): BERT-base's serving program at
+   depth 4 of its 12 layers (S = 512, f32, level 2) frozen by
+   ``export.save_artifact`` with AOT buckets 1, 4 and 8 (``torch.export``,
+   K1 and K4 as operators) and saved as an inference model;
+   ``load_artifact`` + ``LoadedArtifact.predictor()`` serve 10 requests
+   per bucket through
    the AOT section (a bucket's first request runs its program, captures
    it as a CUDA graph and replays it; the rest replay): the load and
    the requests move no plan-cache miss, pipeline run or tuner miss,
-   3 plans seeded and 30 AOT calls counted, nothing degraded; K1 12 and
-   K4 25 a request on the card; the answers bitwise the seeded plan
+   3 plans seeded and 30 AOT calls counted, nothing degraded; K1 4 and
+   K4 9 a request on the card; the answers bitwise the seeded plan
    path's and a Predictor's from ``create_predictor_from_dir``; the
    artifact's bytes, save and load seconds, first and steady latency of
    the three paths, the AOT capture seconds;
@@ -411,7 +412,33 @@ Phases, each of which passes or ends the script with a non-zero exit:
    grads twice bitwise on the card; the two samplers by their
    properties and twice bitwise from one seed; ``multiclass_nms`` over
    ties at SSD300's shape bitwise the CPU's, and its kernels and device
-   ms a call there.
+   ms a call there;
+20. the book's recognize_digits (models/mnist.py ``build("cnn")``, 20
+   and 50 filters, batch 64, Adam) fed the Fluid way: ``dataset.mnist``
+   -> ``batch`` -> ``layers.PyReader`` (DataFeeder, capacity 8) to the
+   card, 128 ``exe.run`` steps (K6 once a step, the plan replayed),
+   bitwise the same batches fed as DataFeeder dicts and through
+   ``train_loop``; ``contrib.Trainer`` from the same seed bitwise, its
+   test accuracy and ``Inferencer.infer``'s on its saved params above
+   0.95; step ms of the three feeding paths in turns, the consumer's
+   wait, the busy share, the card memory the queue holds;
+20b. ``AsyncExecutor`` over 8 MultiSlot files of 4096 lines (a proto-text
+   ``DataFeedDesc``) training DeepFM at models/ctr.py's full width
+   (vocab 1,000,001, embedding 16, hidden 400-400) at batch 1024: one
+   reader thread bitwise a numpy loop over the same batches (K6 once a
+   step), four threads the same multiset of batches; rows/s at 1 and 4
+   threads, the reader's alone, a busy share;
+20c. the int8 ``Calibrator`` on ResNet-50's inference program at 224:
+   the card's ``max`` and KL scales against the CPU lowering's on one
+   shared batch of 2 (1e-5 relative, one histogram bin); KL and max
+   over 4 batches of 8, KL's ``save_int8_model`` served by the
+   Predictor at batch 1 and 8 within QUANT_TOLERANCE of f32 and, at
+   batch 1, within 8 quantization steps of the same saved program on
+   the CPU, every op of that program on the card held to the CPU's at
+   the CPU's inputs (1e-4 of a float output's abs max; fake-quant
+   outputs one-level flips in at most 1e-4 of their elements), two
+   planted faults of 1e-3 refused; calibration seconds, the rounding
+   control's and a planted fault's gaps, int8 and f32 latency in turns.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -5772,6 +5799,12 @@ def phase_other_optimizers(seed):
 # bucket's exact batch, so every one takes the AOT section
 ART_BUCKETS = (1, 4, 8)
 ART_REPEATS = 10
+# BERT-base's widths at ART_LAYERS of its 12 layers: most of phase 14's
+# time is the artifact's deflate, which its size sets (87.7 s at depth 12,
+# 44.2 s at 4 on an H100); the depth cut keeps the whole script inside its
+# 1200 s on a host as slow as the slowest whole runs seen (1153 s to
+# phase 20b at this depth)
+ART_LAYERS = 4
 # the dygraph encoder (15): BERT-base widths, S = 512, batch 8, 3 steps
 DY_BATCH, DY_STEPS, DY_MASK, DY_LR = 8, 3, 80, 1e-4
 DY_REPLAYS = 3  # the level-2 capture's replays timed after the gated steps
@@ -5787,7 +5820,7 @@ def _freeze_bert(workdir, seed):
     from paddle_tpu_torch import export
     from paddle_tpu_torch.models import bert
 
-    cfg = bert.base_config()
+    cfg = dict(bert.base_config(), n_layer=ART_LAYERS)
     feeds = ["src_ids", "sent_ids", "input_mask"]
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed
@@ -5851,7 +5884,8 @@ def _lat_row(lat):
 
 
 def phase_artifact(workdir, seed):
-    """Phase 14: BERT-base (S = 512, f32, level 2) frozen by
+    """Phase 14: BERT-base at depth ART_LAYERS (S = 512, f32, level 2)
+    frozen by
     ``save_artifact`` with the AOT section at buckets 1, 4, 8, loaded by
     ``load_artifact`` and served through ``LoadedArtifact.predictor()``:
     ART_REPEATS requests per bucket, each through the bucket's
@@ -5859,7 +5893,8 @@ def phase_artifact(workdir, seed):
     a CUDA graph and replays it; every later one replays). The cold start
     moves no plan-cache miss, no pipeline run and no tuner miss; plans
     are seeded and AOT calls counted; nothing degraded. Every request
-    launches K1 12 and K4 25 times on the card (the launch meter); the
+    launches K1 once and K4 twice a layer, and K4 once more, on the card
+    (the launch meter); the
     answers are bitwise the seeded plan path's and those of a Predictor
     built from scratch (``create_predictor_from_dir``) at level 2."""
     from paddle_tpu_torch import export, inference
@@ -7314,7 +7349,8 @@ def phase_srl(seed):
         _, loss, decode = bp.srl_db_lstm(fluid, cfg)
     exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
     exe.run(startup, scope=scope)
-    scope.find_var("emb").copy_(torch.from_numpy(bp.conll05_embedding()))
+    scope.find_var("emb").copy_(torch.from_numpy(
+        fluid.dataset.conll05.get_embedding()))
     params = [p.name for p in main.global_block().all_parameters()]
     tier = _tier_stats(main, [loss.name], scope)
     batches = bp.srl_batches(cfg)
@@ -7334,7 +7370,8 @@ def phase_srl(seed):
     lengths, target = b["length"], b["target"]
     valid = np.arange(cfg["max_len"])[None, :] < lengths[:, None]
     if path_ids.shape != target.shape or path_ids[~valid].any() or \
-            path_ids.min() < 0 or path_ids.max() >= bp.CONLL05["labels"]:
+            path_ids.min() < 0 or path_ids.max() >= len(
+                fluid.dataset.conll05.get_dict()[2]):
         raise AssertionError("%s: the decode is not a tag path: shape %s, "
                              "range [%s, %s]" % (what, path_ids.shape,
                                                  path_ids.min(),
@@ -9278,6 +9315,948 @@ def phase_detection_ops(seed):
     return dict(op_types=sorted(done), nms=nms, seconds=secs)
 
 
+# -------------------------------------------------------------- phase 20
+MNIST_BATCH = 64
+MNIST_CAPACITY = 8      # PyReader's queue: batches converted ahead
+MNIST_LR = 1e-3
+MNIST_MIN_STEPS = 100   # the main path's steps at least (the corpus: 128)
+MNIST_ACC_BAR = 0.95    # tests/test_book_mnist.py's bar
+FEED_TURNS = 3          # rounds of the three feeding paths, in turns
+FEED_TURN_STEPS = 24    # steps a path takes in a round
+
+
+def _mnist_program(fluid, seed):
+    """The book's recognize_digits network at the repo's widths
+    (models/mnist.py ``build("cnn")``: 20 and 50 5x5 filters, pool 2,
+    fc 10 softmax) with Adam at MNIST_LR, from ``seed``: (main, startup,
+    test program, loss, acc, feed vars)."""
+    from paddle_tpu_torch.models import mnist
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, acc, feeds = mnist.build("cnn")
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=MNIST_LR).minimize(loss)
+    return main, startup, test, loss, acc, feeds
+
+
+def _loss(vals):
+    return float(np.asarray(vals[0]).reshape(-1)[0])
+
+
+def _feed_turns(paths):
+    """Each of ``paths`` (name -> fn(steps) -> extra seconds) run for
+    FEED_TURN_STEPS steps, FEED_TURNS rounds in turns (the order rotated
+    each round): per path the rounds' ms a step (wall over steps, the
+    card synchronized at the end) and the extra seconds it returned
+    over steps, in ms."""
+    names = list(paths)
+    ms = {n: [] for n in names}
+    extra = {n: [] for n in names}
+    for r in range(FEED_TURNS):
+        for n in names[r % len(names):] + names[:r % len(names)]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = paths[n](FEED_TURN_STEPS)
+            torch.cuda.synchronize()
+            ms[n].append((time.perf_counter() - t0) * 1e3 / FEED_TURN_STEPS)
+            extra[n].append(x * 1e3 / FEED_TURN_STEPS)
+    return ms, extra
+
+
+def phase_mnist_fed(seed):
+    """Phase 20: the book's recognize_digits trained the Fluid way at the
+    repo's widths (``_mnist_program``), f32, level 2: ``dataset.mnist``
+    -> ``batch(64)`` -> ``layers.PyReader(capacity=8)`` fed through
+    ``decorate_sample_list_generator`` (DataFeeder) to the card, ``for
+    feed in reader(): exe.run(main, feed=feed, ...)`` over the corpus's
+    128 batches (the main path: K6 once a step, counted; the plan
+    captured and replayed; the feeds card tensors, labels int32); the
+    losses bitwise those of the same batches fed as DataFeeder numpy
+    dicts and through ``train_loop``, each from the same startup. Then
+    ``contrib.Trainer`` (its default place, the card) trains the same
+    network from the same seed, bitwise the ``exe.run`` loop, and
+    ``Trainer.test`` and ``Inferencer.infer`` on its saved params pass
+    the book's accuracy bar. Logged: step ms fed by dicts, by PyReader
+    and by train_loop in turns; the consumer's wait a step; a profiled
+    reader-fed window's busy share; the card memory the queue holds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import EndStepEvent, Inferencer, Trainer
+    from paddle_tpu_torch.models import mnist
+
+    what = "recognize_digits (20)"
+    t0 = time.perf_counter()
+    card = fluid.CUDAPlace(0)
+    main, startup, test, loss, acc, feeds = _mnist_program(fluid, seed)
+    exe, scope = fluid.Executor(card), fluid.Scope()
+    exe.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    tier = _tier_stats(main, [loss.name], scope)
+    n_trainable = len([p for p in main.global_block().all_parameters()
+                       if p.trainable])
+    if tier["optimizer_groups"] != [n_trainable]:
+        raise AssertionError("%s: level 2 made optimizer groups %s of %d "
+                             "params" % (what, tier["optimizer_groups"],
+                                         n_trainable))
+    per_step = _per_step("Adam", 1)
+    train = fluid.batch(fluid.dataset.mnist.train(), MNIST_BATCH)
+    reader = fluid.layers.PyReader(feed_list=feeds, capacity=MNIST_CAPACITY)
+    reader.decorate_sample_list_generator(train, places=card)
+    losses, kinds = [], None
+    # ---- the main path: counts zeroed here, read after the last step
+    _zero_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with LaunchMeter() as meter:
+        for feed in reader():
+            meter.mark()
+            if kinds is None:
+                kinds = {n: (str(v.device), str(v.dtype), tuple(v.shape))
+                         for n, v in feed.items()}
+            losses.append(_loss(exe.run(main, feed=feed, fetch_list=[loss],
+                                        scope=scope)))
+    path_s = time.perf_counter() - t1
+    host = _counts()
+    # ---- end of the main path
+    bad = [i for i, u in enumerate(meter.units) if u != per_step]
+    if bad or host != _times(per_step, 2):
+        raise AssertionError("%s: steps %s ran other than %s = %s on the "
+                             "card, or the wrappers counted %s" % (
+                                 what, bad[:5], COUNT_NAMES, per_step, host))
+    if len(losses) < MNIST_MIN_STEPS or not _captured(exe) or \
+            not np.isfinite(losses).all():
+        raise AssertionError("%s: %d steps, captured %s, losses %s" % (
+            what, len(losses), bool(_captured(exe)), losses[-3:]))
+    if kinds != {"img": ("cuda:0", "torch.float32", (MNIST_BATCH, 784)),
+                 "label": ("cuda:0", "torch.int32", (MNIST_BATCH, 1))}:
+        raise AssertionError("%s: the reader fed %s" % (what, kinds))
+    launches = meter.total()
+
+    # the same batches as DataFeeder numpy dicts, and through train_loop
+    feeder = fluid.DataFeeder(feeds)
+    dicts = [feeder.feed(b) for b in train()]
+    exe_d, scope_d = fluid.Executor(card), _restored(snap)
+    dict_losses = [_loss(exe_d.run(main, feed=d, fetch_list=[loss],
+                                   scope=scope_d)) for d in dicts]
+    exe_l, scope_l = fluid.Executor(card), _restored(snap)
+    loop_losses = []
+    exe_l.train_loop(main, lambda: iter(dicts), fetch_list=[loss],
+                     scope=scope_l, steps_per_call=1,
+                     on_step=lambda i, v: loop_losses.append(_loss(v)))
+    if dict_losses != losses or loop_losses != losses:
+        first = next((i for i, (a, b, c) in enumerate(zip(
+            losses, dict_losses, loop_losses)) if not a == b == c), None)
+        raise AssertionError("%s: reader-fed losses differ from dict-fed / "
+                             "train_loop ones from step %s: %s / %s / %s" % (
+                                 what, first, losses[first:first + 2],
+                                 dict_losses[first:first + 2],
+                                 loop_losses[first:first + 2]))
+
+    # step ms in turns: dicts (the reader, DataFeeder and run on the
+    # loop's thread), PyReader (the conversion and copy on its thread;
+    # the consumer's wait apart), train_loop over dicts
+    def dict_path(n):
+        for b in fluid.reader.firstn(train, n)():
+            exe_d.run(main, feed=feeder.feed(b), fetch_list=[loss],
+                      scope=scope_d)
+        return 0.0
+
+    def reader_path(n):
+        r = fluid.layers.PyReader(feed_list=feeds, capacity=MNIST_CAPACITY)
+        r.decorate_sample_list_generator(fluid.reader.firstn(train, n),
+                                         places=card)
+        wait, it = 0.0, iter(r())
+        while True:
+            w0 = time.perf_counter()
+            feed = next(it, None)
+            wait += time.perf_counter() - w0
+            if feed is None:
+                return wait
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+    def loop_path(n):
+        exe_l.train_loop(main, lambda: (feeder.feed(b) for b in
+                                        fluid.reader.firstn(train, n)()),
+                         fetch_list=[loss], scope=scope_l, steps_per_call=1)
+        return 0.0
+
+    ms, extra = _feed_turns(dict(dicts=dict_path, pyreader=reader_path,
+                                 train_loop=loop_path))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    wait_ms = float(np.median(extra["pyreader"]))
+    prof = _profiled(lambda: reader_path(FEED_TURN_STEPS))
+    # the card memory the queue holds: the consumer takes one batch and
+    # stops while the producer fills the queue
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    r = fluid.layers.PyReader(feed_list=feeds, capacity=MNIST_CAPACITY)
+    r.decorate_sample_list_generator(
+        fluid.reader.firstn(train, 4 * MNIST_CAPACITY), places=card)
+    it = iter(r())
+    first = next(it)
+    batch_bytes = sum(v.numel() * v.element_size() for v in first.values())
+    time.sleep(0.5)
+    torch.cuda.synchronize()
+    queued = torch.cuda.memory_allocated() - base
+    it.close()
+    del first, it
+    exe_d.close()
+    exe_l.close()
+
+    # contrib.Trainer from the same seed, on its default place; then
+    # Trainer.test and Inferencer.infer on its saved params
+    def train_func():
+        fluid.default_main_program().random_seed = seed
+        fluid.default_startup_program().random_seed = seed
+        lo, ac, _ = mnist.build("cnn")
+        return [lo, ac]
+
+    def infer_func():
+        return mnist.cnn(fluid.layers.data("img", [784]))
+
+    def labelled(reader):
+        return fluid.reader.map_readers(
+            lambda s: (s[0], np.array([s[1]], "int64")), reader)
+
+    t2 = time.perf_counter()
+    trainer = Trainer(train_func,
+                      lambda: fluid.optimizer.Adam(learning_rate=MNIST_LR))
+    trainer_losses = []
+    trainer.train(1, lambda e: isinstance(e, EndStepEvent) and
+                  trainer_losses.append(_loss(e.metrics)),
+                  fluid.batch(labelled(fluid.dataset.mnist.train()),
+                              MNIST_BATCH), ["img", "label"])
+    trainer_s = time.perf_counter() - t2
+    if trainer.exe.device != torch.device("cuda", 0) or \
+            trainer_losses != losses:
+        raise AssertionError("%s: the Trainer on %s, its losses %s against "
+                             "the exe.run loop's %s" % (
+                                 what, trainer.exe.device,
+                                 trainer_losses[:3], losses[:3]))
+    test_reader = fluid.batch(labelled(fluid.dataset.mnist.test()),
+                              MNIST_BATCH)
+    test_loss, test_acc = trainer.test(test_reader, ["img", "label"])
+    samples = list(fluid.dataset.mnist.test()())
+    imgs = np.stack([s[0] for s in samples])
+    labels = np.array([s[1] for s in samples])
+    with tempfile.TemporaryDirectory() as d:
+        trainer.save_params(d)
+        inferencer = Inferencer(infer_func, d)
+        (probs,) = inferencer.infer({"img": imgs})
+    infer_acc = float((probs.argmax(1) == labels).mean())
+    if test_acc <= MNIST_ACC_BAR or infer_acc <= MNIST_ACC_BAR or \
+            inferencer.exe.device != torch.device("cuda", 0):
+        raise AssertionError("%s: test accuracy %.4f, the Inferencer's %.4f "
+                             "(on %s), bar %.2f" % (
+                                 what, test_acc, infer_acc,
+                                 inferencer.exe.device, MNIST_ACC_BAR))
+    trainer.exe.close()
+    inferencer.exe.close()
+    secs = time.perf_counter() - t0
+    out = dict(steps=len(losses), losses=losses[:3] + losses[-3:],
+               path_s=path_s, launches=dict(zip(COUNT_NAMES, launches)),
+               host_launches=dict(zip(COUNT_NAMES, host)),
+               feed_kinds=kinds, step_ms=ms, step_ms_median=med,
+               wait_ms=extra["pyreader"], wait_ms_median=wait_ms,
+               busy_share=prof["busy_share"], busy_ms=prof["device_busy_ms"],
+               wall_ms=prof["wall_ms"], kernels=prof["kernels"],
+               by_class_ms=prof["by_class_ms"], queued_bytes=queued,
+               batch_bytes=batch_bytes, trainer_s=trainer_s,
+               test_loss=test_loss, test_acc=test_acc, infer_acc=infer_acc,
+               seconds=secs)
+    log("%s: %d PyReader-fed steps (capacity %d) at batch %d, K6 %d, the "
+        "plan replayed; losses %.4f -> %.4f, bitwise the DataFeeder dicts' "
+        "and train_loop's; the feeds %s" % (
+            what, len(losses), MNIST_CAPACITY, MNIST_BATCH,
+            launches[COUNT_NAMES.index("K6")], losses[0], losses[-1],
+            kinds))
+    log("%s: ms a step in turns (%d rounds of %d): dicts %s, PyReader %s, "
+        "train_loop %s; the consumer's wait %.4f ms a step; a profiled "
+        "reader-fed window of %d steps %.1f%% busy (%d kernels, %.3f busy "
+        "ms of %.3f); the queue held %d bytes on the card (%.2f batches of "
+        "%d)" % (what, FEED_TURNS, FEED_TURN_STEPS,
+                 ["%.4f" % v for v in ms["dicts"]],
+                 ["%.4f" % v for v in ms["pyreader"]],
+                 ["%.4f" % v for v in ms["train_loop"]], wait_ms,
+                 FEED_TURN_STEPS, 100 * prof["busy_share"], prof["kernels"],
+                 prof["device_busy_ms"], prof["wall_ms"], queued,
+                 queued / batch_bytes, batch_bytes))
+    log("%s: contrib.Trainer on the card, %d steps bitwise the exe.run "
+        "loop (%.1f s); Trainer.test loss %.5f accuracy %.4f, "
+        "Inferencer.infer accuracy %.4f on %d images (bar %.2f); %.1f s" % (
+            what, len(trainer_losses), trainer_s, test_loss, test_acc,
+            infer_acc, len(labels), MNIST_ACC_BAR, secs))
+    return out
+
+
+# ------------------------------------------------------------- phase 20b
+CTR_FILES, CTR_LINES, CTR_BATCH, CTR_THREADS = 8, 4096, 1024, 4
+CTR_LR = 1e-3
+CTR_PROTO = """name: "MultiSlotDataFeed"
+batch_size: %d
+multi_slot_desc {
+    slots { name: "sparse_ids" type: "uint64" is_dense: false is_used: true dim: %d }
+    slots { name: "dense" type: "float" is_dense: true is_used: true dim: %d }
+    slots { name: "label" type: "uint64" is_dense: false is_used: true dim: 1 }
+}
+"""
+
+
+def _ctr_slot_files(workdir, seed, n_fields, n_dense, vocab):
+    """CTR_FILES MultiSlot files of CTR_LINES lines (Criteo's layout: the
+    26 sparse ids, the 13 dense features, the label, each slot as
+    "<count> values"), from ``seed``; dense values are multiples of 1/64,
+    exact in float32 and in their printed form. Returns the paths and
+    each file's (ids, dense, label) arrays."""
+    rs = np.random.RandomState(seed)
+    paths, arrays = [], []
+    fmt = (["%d"] * (n_fields + 1) + ["%d"] + ["%.6f"] * n_dense
+           + ["%d", "%d"])
+    for i in range(CTR_FILES):
+        ids = rs.randint(0, vocab, (CTR_LINES, n_fields)).astype(np.int64)
+        dense = (rs.randint(0, 4096, (CTR_LINES, n_dense)) / 64.0).astype(
+            np.float32)
+        label = rs.randint(0, 2, (CTR_LINES, 1)).astype(np.int64)
+        col = lambda v: np.full((CTR_LINES, 1), v)  # noqa: E731
+        rows = np.concatenate([col(n_fields), ids, col(n_dense), dense,
+                               col(1), label], axis=1).astype(np.float64)
+        path = os.path.join(workdir, "part-%05d" % i)
+        np.savetxt(path, rows, fmt=fmt)
+        paths.append(path)
+        arrays.append((ids, dense, label))
+    return paths, arrays
+
+
+def _batch_hash(feed):
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(feed):
+        h.update(n.encode())
+        h.update(np.ascontiguousarray(np.asarray(feed[n])).tobytes())
+    return h.hexdigest()
+
+
+def phase_async_ctr(workdir, seed):
+    """Phase 20b: ``AsyncExecutor`` over MultiSlot files on the card:
+    DeepFM at the full width of models/ctr.py's ``build("deepfm")`` (26
+    sparse fields, 13 dense features, vocab 1,000,001, embedding 16,
+    hidden 400-400: Criteo's layout) with Adam, f32, level 2; CTR_FILES
+    files of CTR_LINES lines from ``seed``, a ``DataFeedDesc`` parsed
+    from proto text (batch CTR_BATCH). The main path: one reader thread,
+    every step's loss (K6 once a step, counted), bitwise a numpy loop
+    over the same batches from the same startup; then CTR_THREADS reader
+    threads: the batches' multiset (a hash of each) the one-thread run's,
+    the last loss finite. Logged: rows/s through AsyncExecutor and
+    through the reader alone at 1 and CTR_THREADS threads, a profiled
+    file's busy share."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import (add_feed_observer,
+                                                remove_feed_observer)
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.native.data_feed import MultiSlotDataFeed
+
+    what = "AsyncExecutor DeepFM (20b)"
+    t0 = time.perf_counter()
+    n_fields, n_dense, vocab, emb = 26, 13, 1000001, 16
+    files, arrays = _ctr_slot_files(workdir, seed + 20, n_fields, n_dense,
+                                    vocab)
+    proto = os.path.join(workdir, "data.proto")
+    with open(proto, "w") as f:
+        f.write(CTR_PROTO % (CTR_BATCH, n_fields, n_dense))
+    desc = fluid.DataFeedDesc(proto)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = ctr.build("deepfm", n_fields=n_fields, n_dense=n_dense,
+                               vocab=vocab, emb_dim=emb)
+        fluid.optimizer.Adam(learning_rate=CTR_LR).minimize(loss)
+    exe0, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe0.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    exe0.close()
+    params = main.global_block().all_parameters()
+    tier = _tier_stats(main, [loss.name], scope)
+    if tier["optimizer_groups"] != [len(params)]:
+        raise AssertionError("%s: level 2 made optimizer groups %s of %d "
+                             "params" % (what, tier["optimizer_groups"],
+                                         len(params)))
+    setup_s = time.perf_counter() - t0
+    rows = CTR_FILES * CTR_LINES
+    per_step = _per_step("Adam", 1)
+
+    def run(threads, scope, meter=None):
+        """AsyncExecutor (its default place, the card) over every file at
+        ``threads`` reader threads: (every step's loss, the batches'
+        hashes, seconds). Each step's fetch is read from the executor's
+        run (a wrapper of the harness's, marking the meter)."""
+        ae = fluid.AsyncExecutor()
+        inner, step_losses, hashes = ae._exe.run, [], []
+
+        def recorded(*a, **kw):
+            if meter is not None:
+                meter.mark()
+            vals = inner(*a, **kw)
+            step_losses.append(_loss(vals))
+            return vals
+
+        def observe(feed):
+            hashes.append(_batch_hash(feed))
+
+        ae._exe.run = recorded
+        add_feed_observer(observe)
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ae.run(main, desc, files, thread_num=threads, fetch=[loss],
+                   scope=scope)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+        finally:
+            remove_feed_observer(observe)
+        if ae._exe.device != torch.device("cuda", 0):
+            raise AssertionError("%s: AsyncExecutor ran on %s"
+                                 % (what, ae._exe.device))
+        ae._exe.close()
+        return step_losses, hashes, secs
+
+    # ---- the main path: counts zeroed here, read after the last step
+    _zero_counts()
+    with LaunchMeter() as meter:
+        one, one_hashes, one_s = run(1, _restored(snap), meter)
+    host = _counts()
+    # ---- end of the main path
+    if any(u != per_step for u in meter.units) or \
+            len(meter.units) != len(one) or \
+            host != _times(per_step, 2) or len(one) != rows // CTR_BATCH:
+        raise AssertionError("%s: %d steps ran %s = %s on the card (%s "
+                             "expected each), the wrappers counted %s" % (
+                                 what, len(one), COUNT_NAMES, meter.units[:3],
+                                 per_step, host))
+    # the numpy loop over the same batches, in file order
+    exe_n, scope_n = fluid.Executor(fluid.CUDAPlace(0)), _restored(snap)
+    numpy_losses, numpy_hashes = [], []
+    for ids, dense, label in arrays:
+        for b in range(0, CTR_LINES, CTR_BATCH):
+            feed = {"sparse_ids": ids[b:b + CTR_BATCH],
+                    "dense": dense[b:b + CTR_BATCH],
+                    "label": label[b:b + CTR_BATCH]}
+            numpy_hashes.append(_batch_hash(feed))
+            numpy_losses.append(_loss(exe_n.run(
+                main, feed=feed, fetch_list=[loss], scope=scope_n)))
+    exe_n.close()
+    if one != numpy_losses or one_hashes != numpy_hashes:
+        raise AssertionError("%s: at one thread the losses %s, the numpy "
+                             "loop's %s (batches equal: %s)" % (
+                                 what, one[:3], numpy_losses[:3],
+                                 one_hashes == numpy_hashes))
+    many, many_hashes, many_s = run(CTR_THREADS, _restored(snap))
+    if sorted(many_hashes) != sorted(one_hashes) or \
+            not np.isfinite(many[-1]):
+        raise AssertionError("%s: at %d threads %d batches, %d of them the "
+                             "one-thread run's; last loss %s" % (
+                                 what, CTR_THREADS, len(many_hashes),
+                                 len(set(many_hashes) & set(one_hashes)),
+                                 many[-1]))
+    order_moved = many_hashes != one_hashes
+
+    def parse_only(threads):
+        feed = MultiSlotDataFeed(files, desc.slot_descs, CTR_BATCH,
+                                 n_threads=threads)
+        t1 = time.perf_counter()
+        n = sum(b[0].shape[0] for b in feed)
+        secs = time.perf_counter() - t1
+        feed.close()
+        if n != rows:
+            raise AssertionError("%s: the reader gave %d rows" % (what, n))
+        return rows / secs
+
+    parse = {1: parse_only(1), CTR_THREADS: parse_only(CTR_THREADS)}
+    # rows/s of a warm AsyncExecutor (its plan prepared and captured, as
+    # from a user's second epoch on) at 1 and CTR_THREADS threads in turns
+    warm_scope = _restored(snap)
+    ae = fluid.AsyncExecutor()
+    ae.run(main, desc, files[:1], thread_num=1, fetch=[loss],
+           scope=warm_scope)
+    rates = {1: [], CTR_THREADS: []}
+    for t in (1, CTR_THREADS, CTR_THREADS, 1):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ae.run(main, desc, files, thread_num=t, fetch=[loss],
+               scope=warm_scope)
+        torch.cuda.synchronize()
+        rates[t].append(rows / (time.perf_counter() - t1))
+    prof = _profiled(lambda: ae.run(main, desc, files, thread_num=CTR_THREADS,
+                                    fetch=[loss], scope=warm_scope))
+    ae._exe.close()
+    secs = time.perf_counter() - t0
+    out = dict(rows=rows, steps=len(one), losses=one[:3] + one[-3:],
+               launches=dict(zip(COUNT_NAMES, meter.total())),
+               host_launches=dict(zip(COUNT_NAMES, host)),
+               first_run_rows_per_s={1: rows / one_s,
+                                     CTR_THREADS: rows / many_s},
+               rows_per_s=rates, reader_rows_per_s=parse,
+               order_moved=order_moved,
+               busy_share=prof["busy_share"], busy_ms=prof["device_busy_ms"],
+               wall_ms=prof["wall_ms"], kernels=prof["kernels"],
+               by_class_ms=prof["by_class_ms"], setup_s=setup_s,
+               seconds=secs)
+    log("%s: %d files x %d lines, batch %d; one reader thread: %d steps, "
+        "K6 %d, losses %.5f -> %.5f bitwise the numpy loop's; %d threads: "
+        "the same %d batches (order moved: %s), last loss %.5f" % (
+            what, CTR_FILES, CTR_LINES, CTR_BATCH, len(one),
+            out["launches"]["K6"], one[0], one[-1], CTR_THREADS,
+            len(many_hashes), order_moved, many[-1]))
+    log("%s: rows/s through a warm AsyncExecutor in turns %s at 1 thread, "
+        "%s at %d (its first runs, plan prepared and captured: %.0f / %.0f); "
+        "the reader alone %.0f / %.0f; a profiled warm run at %d threads "
+        "(%d steps) %.1f%% busy, %d kernels, %.3f busy ms of %.3f, by class "
+        "%s; set-up %.1f s (files, startup), %.1f s" % (
+            what, ["%.0f" % v for v in rates[1]],
+            ["%.0f" % v for v in rates[CTR_THREADS]], CTR_THREADS,
+            rows / one_s, rows / many_s, parse[1], parse[CTR_THREADS],
+            CTR_THREADS, len(one), 100 * prof["busy_share"],
+            prof["kernels"], prof["device_busy_ms"], prof["wall_ms"],
+            {k: round(v, 3) for k, v in prof["by_class_ms"].items()},
+            setup_s, secs))
+    return out
+
+
+# ------------------------------------------------------------- phase 20c
+CALIB_BATCH, CALIB_BATCHES, CALIB_CHECK_BATCH = 8, 4, 2
+# from its random startup ResNet-50's activations grow through its 16
+# residual blocks (the batch norms' running stats are 0 and 1), so its
+# logits spread over thousands and its softmax is one-hot; the fc's
+# weight is scaled so the shared batch's logits have this std, and the
+# answers compared below are probabilities that int8 rounding can move
+CALIB_LOGIT_STD = 3.0
+CALIB_BINS = 2048          # the Calibrator's default histogram
+CALIB_MAX_RTOL = 1e-5      # card against CPU, the max scales
+# a KL threshold more than one bin from the CPU's is a rounding
+# departure only where the two histograms hold the same counts but for
+# CALIB_TV of their mass (the card's convolutions round values across
+# bin edges), and then it is at most CALIB_KL_BINS bins away
+CALIB_TV = 1e-3
+CALIB_KL_BINS = 4
+# each op of the served int8 program run on the card at the CPU's inputs
+# (``_int8_ops_held``): a float output within CALIB_OP_RTOL of its abs
+# max, a fake-quant output equal to the CPU's but for one-level flips in
+# at most CALIB_FLIP_SHARE of its elements; an op whose output is off by
+# CALIB_FAULT (relative) must fail this, and the check is shown to refuse
+# one such conv and one such fake-quant op on every run
+CALIB_OP_RTOL = 1e-4
+CALIB_FLIP_SHARE = 1e-4
+CALIB_FAULT = 1e-3
+# the card's whole batch-1 answer within CALIB_GAP_STEPS quantization
+# steps (its abs max / 127) of the CPU's, twice the most that rounding
+# alone moved it on an H100's host: the rounding control (the CPU with
+# every float op's output moved by CALIB_NOISE relative, seeds
+# CALIB_CONTROL_SEEDS) read 1.257, 2.291 and 4.003 steps. The whole
+# answer cannot tell a small fault from rounding (one deep conv off by
+# CALIB_FAULT moved it 0.604 steps), so the op check above is what holds
+# each op; this bound catches a gross one. Both readings are logged.
+CALIB_GAP_STEPS = 8.0
+CALIB_NOISE = 2.0 ** -22
+CALIB_CONTROL_SEEDS = (1, 2, 3)
+CALIB_SERVE = (1, 8)
+CALIB_REPEATS = 5          # requests of each bucket, int8 and f32 in turns
+
+
+def _int8_program(fluid, int8_dir):
+    """The saved int8 program as a Predictor lowers it: loaded on the
+    host, through the pass pipeline (``optimize_for_execution``). Returns
+    its block, its ops (no feed or fetch op), the host scope and its
+    feed and fetch names."""
+    from paddle_tpu_torch.core.passes import optimize_for_execution
+
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    with fluid.scope_guard(scope):
+        prog, feeds, fetches = fluid.io.load_inference_model(int8_dir, exe)
+    exe.close()
+    fetch = [v.name for v in fetches]
+    prog = optimize_for_execution(prog, fetch, scope=scope)
+    block = prog.global_block()
+    ops = [op for op in block.ops if op.type not in ("feed", "fetch")]
+    return block, ops, scope, list(feeds), fetch
+
+
+def _int8_env(ops, scope, req):
+    """The host values the ops read before any op writes them: the
+    request's feeds and the scope's state, as CPU tensors."""
+    env = {n: torch.from_numpy(np.ascontiguousarray(v))
+           for n, v in req.items()}
+    written = set()
+    for op in ops:
+        for n in op.input_names():
+            if n and n not in env and n not in written:
+                v = scope.find_var(n)
+                env[n] = (v.detach().cpu() if isinstance(v, torch.Tensor)
+                          else torch.from_numpy(np.asarray(v)))
+        written.update(n for n in op.output_names() if n)
+    return env
+
+
+def _run_int8(block, ops, env, hook=None):
+    """The ops lowered in order on the CPU over ``env`` (in place);
+    ``hook(i, op, env)`` after each."""
+    from paddle_tpu_torch.core.lowering import LowerContext, lower_op
+
+    ctx = LowerContext(block, None, torch.device("cpu"))
+    for i, op in enumerate(ops):
+        lower_op(ctx, op, env)
+        if hook is not None:
+            hook(i, op, env)
+    return env
+
+
+def _op_departure(op, a, b, env):
+    """``a`` (the card's output of ``op``) against ``b`` (the CPU's,
+    from the same inputs): (how far, whether within the bound). A
+    fake-quant output: the elements that differ, each by one level
+    (its InScale / qmax) and at most CALIB_FLIP_SHARE of them; a float
+    output: max |a - b| over max |b|, within CALIB_OP_RTOL; other
+    dtypes: equal."""
+    if not b.is_floating_point():
+        same = torch.equal(a.to(b.dtype), b)
+        return (0.0 if same else float("inf")), same
+    d = (a.double() - b.double()).abs()
+    if op.type.startswith("fake_quantize") and "InScale" in op.inputs:
+        qmax = float((1 << (int(op.attrs.get("bit_length", 8)) - 1)) - 1)
+        step = float(env[op.input("InScale")[0]].reshape(-1)[0]) / qmax
+        moved = d > 1e-3 * step
+        units = d[moved] / step
+        share = float(moved.sum()) / max(d.numel(), 1)
+        ok = share <= CALIB_FLIP_SHARE and bool(
+            ((units - 1).abs() <= 1e-3).all())
+        return share, ok
+    rel = float(d.max()) / max(float(b.abs().max()), 1e-30) \
+        if d.numel() else 0.0
+    return rel, rel <= CALIB_OP_RTOL
+
+
+def _int8_ops_held(block, ops, env, dev, fault_at=()):
+    """Each op of the int8 program lowered on ``dev`` at the CPU's
+    inputs (taken from ``env``, the CPU's values, which the same op then
+    extends on the CPU), its outputs held to the CPU's
+    (``_op_departure``). For each op index in ``fault_at`` the card's
+    output is also checked moved by CALIB_FAULT, which must be refused.
+    Returns (per op type: count and the worst departure, the ops
+    refused, the planted faults' departures and verdicts)."""
+    from paddle_tpu_torch.core.lowering import LowerContext, lower_op
+
+    ctx_dev = LowerContext(block, None, dev)
+    ctx_cpu = LowerContext(block, None, torch.device("cpu"))
+    by_type, refused, planted = {}, [], []
+    for i, op in enumerate(ops):
+        on_dev = {n: env[n].to(dev) for n in op.input_names() if n}
+        lower_op(ctx_dev, op, on_dev)
+        lower_op(ctx_cpu, op, env)
+        row = by_type.setdefault(op.type, dict(ops=0, worst=0.0))
+        row["ops"] += 1
+        for n in op.output_names():
+            if not n or n not in env:
+                continue
+            a = on_dev[n].cpu()
+            how, ok = _op_departure(op, a, env[n], env)
+            row["worst"] = max(row["worst"], how)
+            if not ok:
+                refused.append(dict(op=i, type=op.type, out=n, how=how))
+            if i in fault_at and n == op.output_names()[0]:
+                how_f, ok_f = _op_departure(op, a * (1 + CALIB_FAULT),
+                                            env[n], env)
+                planted.append(dict(op=i, type=op.type, out=n, how=how_f,
+                                    refused=not ok_f))
+        del on_dev
+    return by_type, refused, planted
+
+
+def phase_calibrate(workdir, seed):
+    """Phase 20c: the int8 ``Calibrator`` on ResNet-50's inference program
+    at 224 x 224 from its startup (``seed``; the fc's weight scaled to
+    CALIB_LOGIT_STD), f32: the scales the card
+    computes from one shared batch of CALIB_CHECK_BATCH images against
+    the CPU lowering's from the same weights (``max`` within
+    CALIB_MAX_RTOL relative, KL within one histogram bin, edge /
+    CALIB_BINS, or a rounding departure of at most CALIB_KL_BINS bins
+    between histograms within CALIB_TV); then ``algo="KL"`` and ``"max"``
+    over CALIB_BATCHES batches of CALIB_BATCH images each, KL's program
+    saved with ``save_int8_model`` and served by the Predictor at batch 1
+    and 8 (the main path, metered: cuDNN's convolutions and the
+    fake-quant ops, no kernel of the port), every answer within
+    QUANT_TOLERANCE of the f32 Predictor's; a batch-1 answer held to the
+    same saved program served on the CPU within CALIB_GAP_STEPS
+    quantization steps (its abs-max / 127), and every op of that program
+    on the card held to the CPU's at the CPU's inputs, with two planted
+    faults refused (``_int8_ops_held``). Logged: calibration seconds, the
+    rounding control and a planted fault's gaps, int8 and f32 latency in
+    turns."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib.int8_inference import Calibrator
+    from paddle_tpu_torch.core.passes.quantize_pass import QUANT_TOLERANCE
+    from paddle_tpu_torch.models import resnet
+
+    what = "Calibrator ResNet-50 (20c)"
+    t0 = time.perf_counter()
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        _, _, probs = _resnet_probs(resnet)
+    infer = main.clone(for_test=True)
+    for op in infer.global_block().ops:
+        if op.type in ("batch_norm", "dropout"):
+            op.attrs["is_test"] = True
+    infer._bump()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(seed + 21)
+    shared = {"img": rs.randn(CALIB_CHECK_BATCH, 3, 224, 224).astype(
+        "float32")}
+    blk = infer.global_block()
+    logits = next(op for op in blk.ops if op.type == "softmax").input("X")[0]
+    fc = [op for op in blk.ops if op.type == "mul"][-1]
+    (raw,) = exe.run(infer, feed=shared, fetch_list=[logits], scope=scope)
+    spread = CALIB_LOGIT_STD / float(np.std(raw))
+    for n in fc.input("Y"):
+        scope.set_var(n, scope.find_var(n) * spread)
+    snap = _snapshot(scope)
+    cpu_exe, cpu_scope = fluid.Executor(fluid.CPUPlace()), _on_cpu(snap)
+
+    # the card's scales against the CPU lowering's, one shared batch
+    gaps = {}
+    for algo in ("max", "KL"):
+        c_card = Calibrator(infer, scope=scope, algo=algo, bins=CALIB_BINS)
+        c_card.sample_data(exe, feed=shared, fetch_list=[probs])
+        c_cpu = Calibrator(infer, scope=cpu_scope, algo=algo,
+                           bins=CALIB_BINS)
+        c_cpu.sample_data(cpu_exe, feed=shared, fetch_list=[probs])
+        a, b = c_card.scales(), c_cpu.scales()
+        if sorted(a) != sorted(b) or not a:
+            raise AssertionError("%s: scales of %s on the card, %s on the "
+                                 "CPU" % (what, sorted(a)[:3], sorted(b)[:3]))
+        departures = {}
+        if algo == "max":
+            gap = {n: abs(a[n] - b[n]) / abs(b[n]) for n in a}
+            bound = CALIB_MAX_RTOL
+        else:
+            gap = {n: abs(a[n] - b[n]) / (c_cpu._hist_edge[n] / CALIB_BINS)
+                   for n in a}
+            bound = 1.0
+            for n in a:
+                if gap[n] > bound:
+                    hc, hp = c_card._hist[n], c_cpu._hist[n]
+                    departures[n] = 0.5 * float(np.abs(
+                        hc / hc.sum() - hp / hp.sum()).sum())
+                    log("%s: KL threshold of %s %.6f on the card, %.6f on "
+                        "the CPU, %.2f bins apart (at most %d), the "
+                        "histograms %.3e apart in total variation (at most "
+                        "%.0e)" % (what, n, a[n], b[n], gap[n],
+                                   CALIB_KL_BINS, departures[n], CALIB_TV))
+        unexplained = {n: g for n, g in gap.items() if g > bound and not (
+            g <= CALIB_KL_BINS and departures[n] <= CALIB_TV)}
+        worst = max(gap, key=gap.get)
+        if unexplained:
+            n = max(unexplained, key=unexplained.get)
+            raise AssertionError("%s: %s scale of %s %.9g on the card, %.9g "
+                                 "on the CPU (%.3e of its bound)%s" % (
+                                     what, algo, n, a[n], b[n],
+                                     gap[n] / bound,
+                                     ", %s" % departures[n]
+                                     if n in departures else ""))
+        gaps[algo] = dict(vars=len(a), worst=worst, gap=gap[worst],
+                          bound=bound, departures=departures,
+                          within=sum(g <= bound for g in gap.values()),
+                          equal=sum(a[n] == b[n] for n in a))
+    check_s = time.perf_counter() - t0
+
+    # calibration proper: 4 batches of 8, KL and max
+    batches = [{"img": rs.randn(CALIB_BATCH, 3, 224, 224).astype("float32")}
+               for _ in range(CALIB_BATCHES)]
+    cal, cal_s = {}, {}
+    for algo in ("KL", "max"):
+        t1 = time.perf_counter()
+        c = Calibrator(infer, scope=scope, algo=algo, bins=CALIB_BINS)
+        for b in batches:
+            c.sample_data(exe, feed=b, fetch_list=[probs])
+        c.scales()
+        cal_s[algo] = time.perf_counter() - t1
+        cal[algo] = c
+    kl, mx = cal["KL"].scales(), cal["max"].scales()
+    clipped = sum(kl[n] < mx[n] for n in kl)
+    int8_dir = os.path.join(workdir, "int8")
+    f32_dir = os.path.join(workdir, "f32")
+    with fluid.scope_guard(scope):
+        cal["KL"].save_int8_model(int8_dir, exe, ["img"], [probs])
+        fluid.io.save_inference_model(f32_dir, ["img"], [probs], exe,
+                                      main_program=infer)
+    exe.close()
+    del exe, scope
+    _free()
+
+    def predictor(d, cpu=False):
+        config = fluid.inference.AnalysisConfig(d)
+        if cpu:
+            config.disable_gpu()
+        else:
+            config.warmup_batch_sizes = list(CALIB_SERVE)
+        return fluid.inference.create_paddle_predictor(config)
+
+    reqs = [{"img": rs.randn(b, 3, 224, 224).astype("float32")}
+            for b in CALIB_SERVE]
+    p32 = predictor(f32_dir)
+    want = [p32.run(r)[0] for r in reqs]
+    answers, lat_ms = [], []
+
+    def check(b, rep, out):
+        if rep == 0:
+            answers.append(out)
+        elif not np.array_equal(out, answers[-1]):
+            raise AssertionError("%s: batch %d: a repeated request gave "
+                                 "another answer" % (what, b))
+
+    # ---- the main path: counts zeroed here, read after the last request
+    p8, init_s, path = _metered_serving(
+        what, lambda: predictor(int8_dir), reqs, CALIB_REPEATS,
+        (0,) * len(COUNT_NAMES), lat_ms, check, buckets=list(CALIB_SERVE),
+        batch_feed="img")
+    # ---- end of the main path
+    n_fq = [op.type for op in p8.program.global_block().ops].count(
+        "fake_quantize_abs_max")
+    errs = [float(np.abs(a - w).max()) for a, w in zip(answers, want)]
+    for a, w, b in zip(answers, want, CALIB_SERVE):
+        if a.shape != (b, IMG_CLASSES) or not np.isfinite(a).all() or \
+                not np.allclose(a, w, **QUANT_TOLERANCE):
+            raise AssertionError("%s: batch %d: int8 answers %s, %.4g from "
+                                 "f32's" % (what, b, a.shape,
+                                            float(np.abs(a - w).max())))
+    # the same saved program served on the CPU, one batch-1 request: the
+    # card's answer within CALIB_GAP_STEPS quantization steps of it, and
+    # every op of the program on the card held to the CPU's at the CPU's
+    # inputs, two planted faults refused (``_int8_ops_held``)
+    t1 = time.perf_counter()
+    cpu_out = predictor(int8_dir, cpu=True).run(reqs[0])[0]
+    step = float(np.abs(cpu_out).max()) / 127
+    cpu_gap = float(np.abs(answers[0] - cpu_out).max())
+    block, ops, hscope, _, fetch = _int8_program(fluid, int8_dir)
+    convs = [i for i, op in enumerate(ops) if op.type == "conv2d"]
+    quants = [i for i, op in enumerate(ops)
+              if op.type.startswith("fake_quantize")]
+    if not convs or not quants:
+        raise AssertionError("%s: the served program has %d convs and %d "
+                             "fake-quant ops" % (what, len(convs),
+                                                 len(quants)))
+    env = _int8_env(ops, hscope, reqs[0])
+    by_type, refused, planted = _int8_ops_held(
+        block, ops, env, torch.device("cuda"),
+        fault_at=(convs[-1], quants[-1]))
+    interp_gap = float(np.abs(env[fetch[0]].numpy() - cpu_out).max())
+
+    def moved(hook):
+        e = _run_int8(block, ops, _int8_env(ops, hscope, reqs[0]), hook)
+        return float(np.abs(e[fetch[0]].numpy() - cpu_out).max()) / step
+
+    def noise(seed):
+        g = torch.Generator().manual_seed(seed)
+
+        def hook(i, op, e):
+            if op.type.startswith("fake_quantize"):
+                return
+            for n in op.output_names():
+                v = e.get(n)
+                if isinstance(v, torch.Tensor) and v.is_floating_point():
+                    e[n] = v * (1 + CALIB_NOISE * (
+                        2 * torch.rand(v.shape, generator=g) - 1)).to(v.dtype)
+        return hook
+
+    def fault(i, op, e):
+        if i == convs[-1]:
+            n = op.output_names()[0]
+            e[n] = e[n] * (1 + CALIB_FAULT)
+
+    control = [moved(noise(k)) for k in CALIB_CONTROL_SEEDS]
+    fault_gap = moved(fault)
+    op_check_s = time.perf_counter() - t1
+    op_check = dict(by_type=by_type, refused=refused, planted=planted,
+                    ops=len(ops), interp_gap=interp_gap,
+                    control_steps=control, fault_steps=fault_gap,
+                    seconds=op_check_s)
+    log("%s: the int8 program's %d ops on the card at the CPU's inputs: "
+        "worst by type %s (bounds: fake-quant a share of one-level flips "
+        "%.0e, else %.0e of the abs max); planted faults of %.0e %s; "
+        "%.1f s" % (what, len(ops), {t: "%d x %.3e" % (r["ops"], r["worst"])
+                                     for t, r in by_type.items()},
+                    CALIB_FLIP_SHARE, CALIB_OP_RTOL, CALIB_FAULT,
+                    ["%s %.3e %s" % (p["type"], p["how"], "refused"
+                                     if p["refused"] else "PASSED")
+                     for p in planted], op_check_s))
+    log("%s: batch 1, the card's answer %.3f steps from the CPU's (bound "
+        "%.1f; one step %.3e); the CPU's ops run in turn %.3e from its "
+        "Predictor; the rounding control (every float output moved by "
+        "%.1e) %s steps; one deep conv off by %.0e: %.3f steps" % (
+            what, cpu_gap / step, CALIB_GAP_STEPS, step, interp_gap,
+            CALIB_NOISE, ["%.3f" % c for c in control], CALIB_FAULT,
+            fault_gap))
+    if refused:
+        raise AssertionError("%s: %d ops of the int8 program depart on the "
+                             "card from the CPU at the CPU's inputs, the "
+                             "first %s" % (what, len(refused), refused[0]))
+    if not planted or not all(p["refused"] for p in planted):
+        raise AssertionError("%s: a planted fault of %.0e passed the op "
+                             "check: %s" % (what, CALIB_FAULT, planted))
+    if cpu_gap > CALIB_GAP_STEPS * step:
+        raise AssertionError("%s: batch 1: the card's int8 answer %.4g from "
+                             "the CPU's, %.2f quantization steps of %.4g "
+                             "(bound %.1f)" % (what, cpu_gap, cpu_gap / step,
+                                               step, CALIB_GAP_STEPS))
+    lat = {b: ([], []) for b in CALIB_SERVE}
+    for i in range(CALIB_REPEATS):
+        for b, r in zip(CALIB_SERVE, reqs):
+            for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+                p = p8 if j else p32
+                lat[b][j].append(_synced_ms(lambda: p.run(r)))
+    med = {b: dict(f32=float(np.median(v[0])), int8=float(np.median(v[1])))
+           for b, v in lat.items()}
+    del p8, p32
+    secs = time.perf_counter() - t0
+    agree = [float((a.argmax(1) == w.argmax(1)).mean())
+             for a, w in zip(answers, want)]
+    out = dict(scale_check=gaps, check_s=check_s, calibrate_s=cal_s,
+               logit_std_raw=float(np.std(raw)), top1_agree=agree,
+               max_prob=[float(a.max()) for a in answers],
+               kl_clipped=clipped, act_vars=len(kl), fake_quant_ops=n_fq,
+               int8_vs_f32_err=errs, cpu_gap=cpu_gap, cpu_step=step,
+               op_check=op_check,
+               latency_ms={b: dict(f32=v[0], int8=v[1])
+                           for b, v in lat.items()},
+               latency_median_ms=med, replay_lat_ms=lat_ms, init_s=init_s,
+               launches=dict(zip(COUNT_NAMES, path["launches"])),
+               peak_mem_mib=path["peak_mb"], seconds=secs)
+    log("%s: %d activation vars; card against CPU on %d images: max %s "
+        "(worst %.3e relative, bound %.0e), KL %s, %d within one bin "
+        "(worst %.3f bins; %d rounding departures); "
+        "%.1f s" % (what, len(kl), CALIB_CHECK_BATCH,
+                    "%d of %d equal" % (gaps["max"]["equal"],
+                                        gaps["max"]["vars"]),
+                    gaps["max"]["gap"], CALIB_MAX_RTOL,
+                    "%d of %d equal" % (gaps["KL"]["equal"],
+                                        gaps["KL"]["vars"]),
+                    gaps["KL"]["within"], gaps["KL"]["gap"],
+                    len(gaps["KL"]["departures"]), check_s))
+    log("%s: the raw logits' std %.1f, the fc scaled to %.1f; calibrated "
+        "over %d x %d images in %.1f s (KL) and %.1f s (max); KL clips %d "
+        "of %d ranges below their max; %d fake-quant ops served; int8 "
+        "within %s of f32 (QUANT_TOLERANCE), top-1 agreeing %s, largest "
+        "probability %s; batch 1 %.3e from the CPU's (one step %.3e)" % (
+            what, out["logit_std_raw"], CALIB_LOGIT_STD, CALIB_BATCHES,
+            CALIB_BATCH, cal_s["KL"], cal_s["max"], clipped, len(kl), n_fq,
+            ["%.3e" % e for e in errs], agree,
+            ["%.3f" % v for v in out["max_prob"]], cpu_gap, step))
+    log("%s: median ms in turns (%d each): %s; %.1f s" % (
+        what, CALIB_REPEATS, {b: {k: round(v, 3) for k, v in m.items()}
+                              for b, m in med.items()}, secs))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, by_path, err, t,
                 library_ms, library_call_ms, amp=None):
     """One kernel's entry of the result line: ``ms`` and ``library_ms``
@@ -9325,7 +10304,7 @@ PHASES = (
     ("16", ()), ("16b", ()), ("16c", ()), ("16d", ()),
     ("17", ()), ("17b", ()), ("17c", ()),
     ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
-    ("19", ()), ("19b", ()))
+    ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()))
 
 
 def selected_phases(spec):
@@ -9562,6 +10541,17 @@ def main():
     if want("19b"):
         R["19b"] = timed("19b", phase_detection_ops, args.seed)
         _free()
+    if want("20"):
+        R["20"] = timed("20", phase_mnist_fed, args.seed)
+        _free()
+    if want("20b"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["20b"] = timed("20b", phase_async_ctr, workdir, args.seed)
+        _free()
+    if want("20c"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["20c"] = timed("20c", phase_calibrate, workdir, args.seed)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -9705,7 +10695,8 @@ def _kernel_rows(R):
                  autotune_tuned_loop=L("18b", "K6"),
                  dygraph_autotune=L("18c", "K6"),
                  quantize_aware_train=L("18d", "K6"),
-                 ssd_train=L("19", "K6"))
+                 ssd_train=L("19", "K6"), mnist_pyreader=L("20", "K6"),
+                 deepfm_async=L("20b", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"))
     k5 = R.get("3c K5 launches", 0)

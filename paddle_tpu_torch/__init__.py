@@ -8,7 +8,10 @@ first use). ``optimizer.Adam(...).minimize(loss)`` appends the backward
 and the updates, and ``Executor.run`` trains; wrapped in
 ``contrib.mixed_precision.decorate``, it trains under bf16 AMP
 (core/amp.py). ``Executor.train_loop`` / ``run_pipelined`` drive the
-steps over a reader with a ``DevicePrefetcher`` (core/pipeline.py).
+steps over a reader with a ``DevicePrefetcher`` (core/pipeline.py);
+``layers.PyReader``, ``DataFeeder``, ``dataset``, ``AsyncExecutor`` over
+the native slot feed and ``contrib.Trainer`` / ``Inferencer`` feed and
+drive it the Fluid way.
 Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
@@ -25,7 +28,8 @@ from .core.pipeline import (ConstFeedCache, DevicePrefetcher,  # noqa: F401
                             FetchHandle, WindowFeed)
 from .reader import batch  # noqa: F401  (paddle.batch top-level parity)
 from .flags import get_flag, set_flag  # noqa: F401
-from .core.place import CPUPlace, CUDAPlace  # noqa: F401
+from .core.place import (CPUPlace, CUDAPinnedPlace,  # noqa: F401
+                         CUDAPlace)
 from .core.program import (  # noqa: F401
     Program,
     Variable,
@@ -36,6 +40,14 @@ from .core.program import (  # noqa: F401
     unique_name,
 )
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
-from .param_attr import ParamAttr  # noqa: F401
+from .param_attr import ParamAttr, WeightNormParamAttr  # noqa: F401
+from . import (average, compat, data_feed_desc, dataset,  # noqa: F401
+               lod_tensor, recordio_writer, version)
+from .lod_tensor import (LoDTensor, LoDTensorArray, Tensor,  # noqa: F401
+                         create_lod_tensor, create_random_int_lodtensor)
+from .async_executor import AsyncExecutor, DataFeedDesc  # noqa: F401
+from .data_feeder import DataFeeder  # noqa: F401
+
+__version__ = version.full_version
 
 name = "paddle_tpu_torch"

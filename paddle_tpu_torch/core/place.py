@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace", "Place", "default_place",
-           "require_device"]
+__all__ = ["CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "Place",
+           "default_place", "require_device"]
 
 
 class Place:
@@ -40,6 +40,15 @@ class CPUPlace(Place):
 class CUDAPlace(Place):
     def torch_device(self) -> torch.device:
         return torch.device("cuda", self.device_id)
+
+
+class CUDAPinnedPlace(Place):
+    """Pinned host memory place (reference place.h). Staging in pinned
+    memory is the feed path's own job (``feeds_to_device``), so this
+    place feeds like ``CPUPlace``."""
+
+    def torch_device(self) -> torch.device:
+        return torch.device("cpu")
 
 
 def default_place() -> Place:

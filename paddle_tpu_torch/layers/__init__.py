@@ -3,8 +3,9 @@ paddle_tpu/layers that the serving, training, decoding,
 image-classification, sequence and loss slices need (control_flow.py,
 rnn_blocks.py, decode.py, nn.py, tensor.py, ops.py, sequence.py,
 scan_ext.py, metric_op.py, loss.py, detection.py and
-learning_rate_scheduler.py are copies; io.py holds ``data``), imported
-in the JAX package's order."""
+learning_rate_scheduler.py are copies; io.py holds ``data`` and the
+readers, ``PyReader`` among them), imported in the JAX package's
+order."""
 
 from . import (control_flow, decode, detection, io,  # noqa: F401
                learning_rate_scheduler, loss, metric_op, nn, ops,

@@ -15,17 +15,18 @@ names a book whose assertion the JAX package's own test misses
 scope)``, where a book program has one, runs what the chapter does
 after training (machine translation's beam-search step).
 
-The data are copies of the JAX package's dataset surrogates
-(paddle_tpu/dataset/uci_housing.py, cifar.py, movielens.py,
-conll05.py; tests/test_torch_book.py holds each copy against its
-original), so this module imports numpy alone and runs where only the
-port is installed (chip_smoke.py phases 17 and 17b).
+The data are the port's dataset surrogates (``paddle_tpu_torch.dataset``:
+uci_housing, cifar, movielens, conll05, imdb), which equal the JAX
+package's bitwise (tests/test_torch_data.py), so this module imports no
+JAX and runs where only the port is installed (chip_smoke.py phases 17
+and 17b).
 
     python3 tools/book_programs.py            # train all seven on the CPU
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
 from dataclasses import dataclass, field
@@ -40,95 +41,19 @@ BOOK = ("fit_a_line", "understand_sentiment_lstm", "word2vec",
 
 
 # ------------------------------------------------------------- the data
-def uci_housing_train(n=404):
-    """dataset.uci_housing.train(): (13 features, [price]) rows."""
-    w = np.random.RandomState(99).randn(13).astype("float32")
-    rng = np.random.RandomState(0)
-    rows = []
-    for _ in range(n):
-        x = rng.rand(13).astype("float32")
-        rows.append((x, np.array([float(x @ w + 0.1 * rng.randn())],
-                                 "float32")))
-    return rows
+def _rows(reader, n=None):
+    """The first ``n`` samples of a dataset reader (all with None)."""
+    return list(itertools.islice(reader(), n))
 
 
-def cifar_train10(n):
-    """dataset.cifar.train10(n) (the synthetic surrogate): (3072-float
-    image, label) rows."""
-    t = np.random.RandomState(5).randn(10, 3072).astype("float32") * 0.5
-    rng = np.random.RandomState(0)
-    rows = []
-    for _ in range(n):
-        label = int(rng.randint(10))
-        rows.append((np.clip(t[label] + 0.5 * rng.randn(3072), -1, 1)
-                     .astype("float32"), label))
-    return rows
+def movielens_rows(n):
+    """The first ``n`` rows of ``dataset.movielens.train()`` as the book
+    program reads them: (uid, gender, age index, job, movie id,
+    rating); the movie's categories and title are left out."""
+    from paddle_tpu_torch.dataset import movielens
 
-
-MOVIELENS = dict(max_user_id=400, max_movie_id=500, max_job_id=20,
-                 n_ages=7)
-
-
-def movielens_train(n=8192):
-    """dataset.movielens.train()'s first ``n`` rows, as (uid, gender,
-    age index, job, movie id, rating): the surrogate's users, movies and
-    latent factors drawn in its order (the categories and titles too,
-    which the book program does not read)."""
-    age_table = [1, 18, 25, 35, 45, 50, 56]
-    rng = np.random.RandomState(77)
-    users = {}
-    for i in range(1, 401):
-        male = rng.rand() < 0.5
-        age = age_table.index(age_table[rng.randint(len(age_table))])
-        users[i] = (0 if male else 1, age, int(rng.randint(21)))
-    for _ in range(1, 501):
-        rng.choice(18, rng.randint(1, 4), replace=False)
-        rng.randint(512, size=rng.randint(1, 5))
-    uf, mf = rng.randn(401, 6) * 0.6, rng.randn(501, 6) * 0.6
-    rng = np.random.RandomState(31)
-    rows = []
-    for _ in range(n):
-        u = int(rng.randint(1, 401))
-        m = int(rng.randint(1, 501))
-        score = float(np.clip(3.0 + uf[u] @ mf[m] + 0.3 * rng.randn(),
-                              1.0, 5.0))
-        rows.append((u,) + users[u] + (m, score))
-    return rows
-
-
-CONLL05 = dict(words=512, verbs=64, labels=6)
-
-
-def conll05_test(n=512):
-    """dataset.conll05.test(): (word ids, five predicate-context ids,
-    verb ids, mark, labels) rows, each a list over the sentence."""
-    rng = np.random.RandomState(73)
-    rows = []
-    for _ in range(n):
-        ln = int(rng.randint(6, 25))
-        words = [int(w) for w in rng.randint(0, CONLL05["words"], ln)]
-        vpos = int(rng.randint(1, ln - 1))
-        verb = int(rng.randint(CONLL05["verbs"]))
-        ctx = [words[max(vpos - 2, 0)], words[max(vpos - 1, 0)],
-               words[vpos], words[min(vpos + 1, ln - 1)],
-               words[min(vpos + 2, ln - 1)]]
-        mark = [1 if i == vpos else 0 for i in range(ln)]
-        labels = [0] * ln
-        labels[vpos] = 5
-        if vpos >= 2:
-            labels[vpos - 2], labels[vpos - 1] = 1, 2
-        if vpos + 2 < ln:
-            labels[vpos + 1], labels[vpos + 2] = 3, 4
-        rows.append((words, [ctx[0]] * ln, [ctx[1]] * ln, [ctx[2]] * ln,
-                     [ctx[3]] * ln, [ctx[4]] * ln, [verb] * ln, mark,
-                     labels))
-    return rows
-
-
-def conll05_embedding():
-    """dataset.conll05.get_embedding(): [512, 32] float32."""
-    return (np.random.RandomState(71).randn(CONLL05["words"], 32)
-            * 0.1).astype("float32")
+    return [(r[0], r[1], r[2], r[3], r[4], r[7][0])
+            for r in _rows(movielens.train(), n)]
 
 
 # ------------------------------------------------------------ the books
@@ -158,7 +83,9 @@ def _fit_a_line(fluid):
     pred = L.fc(x, size=1)
     loss = L.mean(L.square_error_cost(pred, y))
     fluid.optimizer.SGD(0.01).minimize(loss)
-    data = uci_housing_train()[:256]
+    from paddle_tpu_torch.dataset import uci_housing
+
+    data = _rows(uci_housing.train(), 256)
     feed = {"x": np.stack([d[0] for d in data]).astype(np.float32),
             "y": np.stack([d[1] for d in data]).astype(np.float32)
             .reshape(-1, 1)}
@@ -356,7 +283,9 @@ def _image_classification(fluid):
     loss = L.mean(L.cross_entropy(probs, lbl))
     acc = L.accuracy(probs, lbl)
     fluid.optimizer.Adam(learning_rate=2e-3).minimize(loss)
-    rows = cifar_train10(512)
+    from paddle_tpu_torch.dataset import cifar
+
+    rows = _rows(cifar.train10(512))
     feeds = []
     for _epoch in range(4):
         for i in range(0, 512, 64):
@@ -375,6 +304,8 @@ def _image_classification(fluid):
 
 
 def _recommender_system(fluid):
+    from paddle_tpu_torch.dataset import movielens
+
     L = fluid.layers
     B = 64
     uid = L.data("uid", [1], dtype="int64")
@@ -391,14 +322,14 @@ def _recommender_system(fluid):
             feats.append(L.reshape(emb, shape=[-1, 16]))
         return L.fc(L.concat(feats, axis=1), size=32, act="tanh")
 
-    usr = tower([(uid, MOVIELENS["max_user_id"] + 1), (gender, 2),
-                 (age, MOVIELENS["n_ages"]),
-                 (job, MOVIELENS["max_job_id"] + 1)])
-    mov = tower([(mid, MOVIELENS["max_movie_id"] + 1)])
+    usr = tower([(uid, movielens.max_user_id() + 1), (gender, 2),
+                 (age, len(movielens.age_table)),
+                 (job, movielens.max_job_id() + 1)])
+    mov = tower([(mid, movielens.max_movie_id() + 1)])
     pred = L.scale(L.cos_sim(usr, mov), scale=5.0)
     loss = L.mean(L.square_error_cost(pred, score))
     fluid.optimizer.Adam(learning_rate=5e-3).minimize(loss)
-    rows = movielens_train(1024)
+    rows = movielens_rows(1024)
 
     def feed_of(batch):
         cols = list(zip(*batch))
@@ -445,6 +376,9 @@ def srl_db_lstm(fluid, cfg=SRL):
     and the last LSTM; ``linear_chain_crf`` over the label scores as the
     loss (negated log-likelihood), ``crf_decoding`` with its
     transition, Adam. Returns (feed names, loss, decode)."""
+    from paddle_tpu_torch.dataset import conll05
+
+    words, verbs, labels = (len(d) for d in conll05.get_dict())
     L = fluid.layers
     T = cfg["max_len"]
     names = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
@@ -452,12 +386,12 @@ def srl_db_lstm(fluid, cfg=SRL):
     ins = {n: L.data(n, [T], dtype="int64") for n in names}
     length = L.data("length", [], dtype="int64")
     hidden = cfg["hidden_dim"]
-    pred_emb = L.embedding(ins["verb"], size=[CONLL05["verbs"],
+    pred_emb = L.embedding(ins["verb"], size=[verbs,
                                               cfg["word_dim"]],
                            param_attr=fluid.ParamAttr(name="vemb"))
     mark_emb = L.embedding(ins["mark"], size=[cfg["mark_dict_len"],
                                               cfg["mark_dim"]])
-    embs = [L.embedding(ins[n], size=[CONLL05["words"], cfg["word_dim"]],
+    embs = [L.embedding(ins[n], size=[words, cfg["word_dim"]],
                         param_attr=fluid.ParamAttr(name="emb",
                                                    trainable=False))
             for n in names[:6]] + [pred_emb, mark_emb]
@@ -476,9 +410,9 @@ def srl_db_lstm(fluid, cfg=SRL):
                                  gate_activation="sigmoid",
                                  cell_activation="sigmoid",
                                  is_reverse=(i % 2) == 1, seq_len=length)
-    feature = L.sums([L.fc(mix, size=CONLL05["labels"], act="tanh",
+    feature = L.sums([L.fc(mix, size=labels, act="tanh",
                            num_flatten_dims=2),
-                      L.fc(lstm, size=CONLL05["labels"], act="tanh",
+                      L.fc(lstm, size=labels, act="tanh",
                            num_flatten_dims=2)])
     ll = L.linear_chain_crf(feature, ins["target"], length=length,
                             param_attr=fluid.ParamAttr(name="crfw"))
@@ -492,7 +426,9 @@ def srl_db_lstm(fluid, cfg=SRL):
 def srl_batches(cfg=SRL, n=4):
     """``n`` batches of ``cfg["batch"]`` conll05 test rows, padded with 0
     to ``cfg["max_len"]``, with their lengths."""
-    rows = conll05_test()
+    from paddle_tpu_torch.dataset import conll05
+
+    rows = _rows(conll05.test())
     B, T = cfg["batch"], cfg["max_len"]
     out = []
     for k in range(n):
@@ -521,13 +457,12 @@ CHAPTER = {
     # 01.fit_a_line: fc 13 -> 1, SGD, batch 20
     "fit_a_line": dict(batch=20, lr=0.001, n=4),
     # 06.understand_sentiment stacked_lstm_net: EMB_DIM 128, HID_DIM 512,
-    # STACKED_NUM 3, batch 128; imdb's dictionary (5148 words, as
-    # paddle_tpu/dataset/imdb.py); reviews of 20-79 words, padded to 80
-    # (the surrogate's run to 119: cut, as 16b's stacked_lstm is)
-    "understand_sentiment_lstm": dict(vocab=5148, emb=128, hid=512,
-                                      stacked=3, classes=2, batch=128,
-                                      min_len=20, max_len=80, lr=0.002,
-                                      n=4),
+    # STACKED_NUM 3, batch 128; dataset.imdb's reviews over its dictionary
+    # (``imdb.VOCAB`` words), cut to 80 words (the surrogate's run to 119,
+    # as 16b's stacked_lstm is cut) and padded
+    "understand_sentiment_lstm": dict(emb=128, hid=512, stacked=3,
+                                      classes=2, batch=128, max_len=80,
+                                      lr=0.002, n=4),
     # 04.word2vec: EMBED_SIZE 32, HIDDEN_SIZE 256, N 5 (four context
     # words), BATCH_SIZE 100; imikolov's dictionary at min_word_freq 50
     # (2073 words)
@@ -558,7 +493,9 @@ def _chapter_fit_a_line(fluid, cfg):
     y = L.data("y", [1])
     loss = L.mean(L.square_error_cost(L.fc(x, size=1), y))
     fluid.optimizer.SGD(cfg["lr"]).minimize(loss)
-    data, B = uci_housing_train(), cfg["batch"]
+    from paddle_tpu_torch.dataset import uci_housing
+
+    data, B = _rows(uci_housing.train()), cfg["batch"]
     feeds = [{"x": np.stack([d[0] for d in data[i:i + B]]),
               "y": np.stack([d[1] for d in data[i:i + B]])}
              for i in range(0, B * cfg["n"], B)]
@@ -566,8 +503,10 @@ def _chapter_fit_a_line(fluid, cfg):
 
 
 def _chapter_sentiment(fluid, cfg):
+    from paddle_tpu_torch.dataset import imdb
+
     L = fluid.layers
-    V, T, B = cfg["vocab"], cfg["max_len"], cfg["batch"]
+    V, T, B = imdb.VOCAB, cfg["max_len"], cfg["batch"]
     words = L.data("words", [T], dtype="int64")
     label = L.data("label", [1], dtype="int64")
     length = L.data("length", [], dtype="int64")
@@ -582,15 +521,17 @@ def _chapter_sentiment(fluid, cfg):
     probs = L.fc(pooled, size=cfg["classes"], act="softmax")
     loss = L.mean(L.cross_entropy(probs, label))
     fluid.optimizer.Adam(cfg["lr"]).minimize(loss)
-    rng = np.random.RandomState(0)
+    rows = _rows(imdb.train(n=B * cfg["n"]))
     feeds = []
-    for _ in range(cfg["n"]):
-        ln = rng.randint(cfg["min_len"], T, B).astype(np.int64)
-        ids = rng.randint(0, V, (B, T)).astype(np.int64)
-        ids[np.arange(T)[None, :] >= ln[:, None]] = 0
-        lab = (np.mean(ids < V // 2, axis=1) > 0.5).astype(np.int64)
-        feeds.append({"words": ids, "label": lab.reshape(-1, 1),
-                      "length": ln})
+    for i in range(0, B * cfg["n"], B):
+        chunk = rows[i:i + B]
+        ids = np.zeros((B, T), np.int64)
+        for r, (seq, _) in enumerate(chunk):
+            ids[r, :min(len(seq), T)] = seq[:T]
+        feeds.append({"words": ids,
+                      "label": np.array([[y] for _, y in chunk], np.int64),
+                      "length": np.array([min(len(q), T) for q, _ in chunk],
+                                         np.int64)})
     return feeds, loss, "Adam"
 
 
@@ -677,7 +618,9 @@ def _chapter_image_classification(fluid, cfg):
     loss = L.mean(L.cross_entropy(probs, lbl))
     fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
     B = cfg["batch"]
-    rows = cifar_train10(B * cfg["n"])
+    from paddle_tpu_torch.dataset import cifar
+
+    rows = _rows(cifar.train10(B * cfg["n"]))
     feeds = [{"img": np.stack([r[0] for r in rows[i:i + B]]).reshape(
         -1, 3, 32, 32), "lbl": np.array([[r[1]] for r in rows[i:i + B]],
                                         "int64")}
@@ -707,7 +650,7 @@ def _chapter_recommender(fluid, cfg):
     loss = L.mean(L.square_error_cost(pred, score))
     fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
     B = cfg["batch"]
-    rows = movielens_train(B * cfg["n"])
+    rows = movielens_rows(B * cfg["n"])
     feeds = []
     for i in range(0, B * cfg["n"], B):
         cols = list(zip(*rows[i:i + B]))
