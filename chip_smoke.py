@@ -285,8 +285,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    2e-6); ModelAverage's ``apply()`` averages exact and ``restore()``
    bitwise.
 14b. the fleet from an artifact (after 12d): GPT-2 small's weights saved
-   twice as serving-only artifacts (v1, v2: the same weights under two
-   names); ``ReplicaRouter`` over two replicas built by
+   as a serving-only artifact (v1; v2 a copy of its file at another
+   path); ``ReplicaRouter`` over two replicas built by
    ``DecodeEngine.from_artifact`` from v1; phase 12's 48 requests
    submitted at once and the fleet rolled to v2 (``roll``, the default
    factory) under them: every request ends exactly once with
@@ -439,6 +439,39 @@ Phases, each of which passes or ends the script with a non-zero exit:
    outputs one-level flips in at most 1e-4 of their elements), two
    planted faults of 1e-3 refused; calibration seconds, the rounding
    control's and a planted fault's gaps, int8 and f32 latency in turns.
+21. the mesh tier, data and tensor parallel: BERT-base MLM at its
+   widths (768, 12 heads, S = 512, batch 8) cut to 4 layers, Adam, f32,
+   level 2, 4 steps each of ``Executor.run`` (the reference),
+   ``CompiledProgram(main).with_data_parallel`` over (data 4) positions
+   on the card, and a ``ParallelEngine`` over (data 2, model 2) with
+   megatron FFN rules and ZeRO-1, from one startup scope: losses within
+   1e-5 relative and params within 1e-4 of the reference's (the log
+   says where bitwise), the rules' placement and a shard's view; K1/K2/
+   K3 8/4/4, K4 9 and K6 1 a step, counted; replayed step ms. Then
+   ``contrib.Trainer(parallel=True)`` on recognize_digits for 8 steps
+   against ``parallel=False``;
+21b. sequence parallel: GPT-2 small at its widths (S = 1024, batch 8)
+   cut to 4 layers on a (seq 4) mesh, every causal ``fused_attention``
+   on the zigzag ring (one K1 launch a ring step for every position's
+   chunk pairs: K1 40, K2 and K3 20 a step, against 8, 4, 4 without a
+   mesh; no composed attention), 3 steps against the no-mesh run
+   within 2e-4 relative + 2e-5, the first step's grads within 4 times
+   the gap between two sound runs without a mesh (flash kernels,
+   composed attention); a packed batch with segment ids the same way;
+   the plan's ``ring_ppermute`` collectives;
+21c. experts: a Switch-style stack (GPT-2 small's widths, 4 layers,
+   ``layers.moe_ffn`` with 8 experts of d_ff 3072, capacity factor 1.25,
+   in every other layer), top-1 and top-2, 3 steps on an (expert 8)
+   mesh against the run without a mesh: routing bitwise, the MoE
+   output, aux and losses within 1e-6, the output within 1e-6 of the
+   every-expert formula;
+21d. pipeline: ``layers.pipeline`` of 4 GPT-width MLP stages (768 ->
+   3072 -> 768, residual), batch 32 of 256 positions, 8 microbatches,
+   3 Adam steps on (pipe 4) and (data 2, pipe 4) against the sequential
+   fallback (losses within 1e-5, the first step's grads within 4 times
+   the gap between plain torch's f32 and f64 grads); with dropout both
+   meshes bitwise the fallback.
+   ``--phases 21,21b,21c,21d`` runs the four alone.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -468,6 +501,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -824,10 +858,25 @@ ATTN_CASES = [
     # causal
     ("vit_f32", (32, 12, 197, 64), torch.float32, None, False),
     ("vit_bf16", (32, 12, 197, 64), torch.bfloat16, None, False),
+    # the ring's pairs (phase 21b: GPT-2 small on (seq 4), zigzag): a
+    # ring step stacks 8 (position, chunk) pairs of batch 8 along the
+    # batch dim, chunks of 128 rows; the first step's diagonal pairs are
+    # causal, the later steps' are not. Each pair carries its chunk of
+    # the key-pad bias (the padded run) or the packed rows' segment mask
+    # over that chunk pair (the packed run), rows wholly masked included,
+    # and its backward takes an lse cotangent (``RING_CASES``)
+    ("ring_causal_f32", (64, 12, 128, 64), torch.float32, "ringpad", True),
+    ("ring_f32", (64, 12, 128, 64), torch.float32, "ringpad", False),
+    ("ring_packed_causal_f32", (64, 12, 128, 64), torch.float32, "ringseg",
+     True),
+    ("ring_packed_f32", (64, 12, 128, 64), torch.float32, "ringseg", False),
 ]
+RING_CASES = {c[0] for c in ATTN_CASES if c[3] in ("ringpad", "ringseg")}
+RING_PAIRS, RING_SEQ = 8, 1024  # pairs a ring step stacks; the global S
+DEAD_LSE = -1e8  # a row whose every key is masked has lse near -1e9
 
 
-def _attn_inputs(shape, dtype, bias_kind, gen, dev):
+def _attn_inputs(shape, dtype, bias_kind, gen, dev, causal_pairs=False):
     B, H, S, D = shape
     q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                for _ in range(3))
@@ -845,7 +894,47 @@ def _attn_inputs(shape, dtype, bias_kind, gen, dev):
             bias[b, ..., S - int(pads[b]):] = -1e9
     elif bias_kind == "full":
         bias = torch.randn(B, 1, S, S, generator=gen, device=dev)
+    elif bias_kind in ("ringpad", "ringseg"):
+        bias = _ring_pair_bias(B, S, bias_kind, causal_pairs, gen, dev)
     return q, k, v, bias
+
+
+def _ring_pair_bias(B, S, kind, diagonal, gen, dev):
+    """The bias of RING_PAIRS stacked ring pairs of S-row chunks of a
+    RING_SEQ sequence, batch B // RING_PAIRS: stacked row b pairs query
+    chunk cq with key chunk ck (the same chunk on the ``diagonal``, an
+    earlier one elsewhere). ``ringpad``: the key chunk of a trailing
+    key-pad bias of 0-40% of RING_SEQ (a chunk may be wholly padded),
+    [B, 1, 1, S]. ``ringseg``: packed rows (documents of 64-511 tokens,
+    then padding, ids 0) whose segment mask over the chunk pair is added
+    to that pad bias, as the ring adds them, [B, 1, S, S]."""
+    from paddle_tpu_torch.ops.attention import seg_mask
+
+    rows, n_chunks = B // RING_PAIRS, RING_SEQ // S
+    seg = torch.zeros(rows, RING_SEQ, dtype=torch.int64, device=dev)
+    for r in range(rows):
+        at, doc = 0, 1
+        end = RING_SEQ - int(torch.randint(0, 2 * RING_SEQ // 5 + 1, (),
+                                           generator=gen, device=dev))
+        while at < end:
+            n = int(torch.randint(64, 512, (), generator=gen, device=dev))
+            seg[r, at:min(at + n, end)] = doc
+            at, doc = at + n, doc + 1
+    pad = torch.where(seg > 0, 0.0, -1e9)
+    out = []
+    for b in range(B):
+        r = b % rows
+        cq = int(torch.randint(1 - int(diagonal), n_chunks, (),
+                               generator=gen, device=dev))
+        ck = cq if diagonal else int(torch.randint(0, cq, (), generator=gen,
+                                                   device=dev))
+        ks = slice(ck * S, (ck + 1) * S)
+        bias = pad[r, ks].reshape(1, 1, 1, S)
+        if kind == "ringseg":
+            bias = bias + seg_mask(seg[r:r + 1, cq * S:(cq + 1) * S],
+                                   seg[r:r + 1, ks])
+        out.append(bias)
+    return torch.cat(out)
 
 
 def _library_mask(bias, causal, dtype):
@@ -909,7 +998,8 @@ def phase_kernels(seed):
     gen.manual_seed(seed)
     rows = []
     for name, shape, dtype, bias_kind, causal in ATTN_CASES:
-        q, k, v, bias = _attn_inputs(shape, dtype, bias_kind, gen, dev)
+        q, k, v, bias = _attn_inputs(shape, dtype, bias_kind, gen, dev,
+                                     causal)
         scale = shape[3] ** -0.5
         before = attn.flash_attention_fwd.launches
         out, lse = attn.flash_attention_fwd(q, k, v, bias, scale, causal)
@@ -923,8 +1013,17 @@ def phase_kernels(seed):
         del out2, lse2
         want, want_lse = attn.composed_attention_with_lse(
             q.float(), k.float(), v.float(), bias, scale, causal)
-        err_o = float((out.float() - want).abs().max())
-        err_lse = float((lse - want_lse).abs().max())
+        # a row whose every key is masked (only the ring's pairs have
+        # them) has an lse near -1e9, where the ulp is 64, and its output
+        # spreads over whichever masked keys a side visits: both sides
+        # must find it dead (the ring merges it with weight 0), and the
+        # live rows are compared
+        dead = want_lse <= DEAD_LSE
+        live = ~dead if torch.equal(dead, lse <= DEAD_LSE) else None
+        err_o = float("inf") if live is None else float(
+            (out.float() - want)[live].abs().max())
+        err_lse = float("inf") if live is None else float(
+            (lse - want_lse)[live].abs().max())
         same_dtype = None
         if dtype != torch.float32:
             b_out, b_lse = attn.composed_attention_with_lse(q, k, v, bias,
@@ -1033,6 +1132,27 @@ def _bwd_occupancy():
     return out
 
 
+def _lse_cotangent_errs(q, k, v, bias, g, g_lse, scale, causal):
+    """The ring's use of the kernels, end to end: the grads of (out, lse)
+    under the cotangents (g, g_lse) through ``flash_attention_with_lse``
+    (K1, then K2 and K3 with g_lse folded into delta) against autograd
+    through the plain version in f32. Returns the errors as dq_lse,
+    dk_lse, dv_lse."""
+    from paddle_tpu_torch.ops import attention as attn
+
+    def grads(fn, *xs):
+        leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+        out, lse = fn(*leaves, bias, scale, causal)
+        return torch.autograd.grad((out, lse), leaves, (g.to(out.dtype),
+                                                        g_lse))
+
+    got = grads(attn.flash_attention_with_lse, q, k, v)
+    want = grads(attn.composed_attention_with_lse,
+                 *[t.float() for t in (q, k, v)])
+    return {n + "_lse": float((a.float() - b).abs().max())
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+
+
 def phase_bwd_kernels(seed):
     from paddle_tpu_torch.ops import attention as attn
 
@@ -1043,13 +1163,22 @@ def phase_bwd_kernels(seed):
     rows = []
     for name, shape, dtype, bias_kind, causal in ATTN_CASES:
         want_db = name in BWD_WANT_DB
-        q, k, v, bias = _attn_inputs(shape, dtype, bias_kind, gen, dev)
+        q, k, v, bias = _attn_inputs(shape, dtype, bias_kind, gen, dev,
+                                     causal)
         g = torch.randn(shape, generator=gen, device=dev).to(dtype)
         scale = shape[3] ** -0.5
+        o, lse = attn.composed_attention_with_lse(
+            *[t.float() for t in (q, k, v)], bias, scale, causal)
+        g_lse = None
+        if name in RING_CASES:
+            # the ring's merge hands a pair an lse cotangent, and gives a
+            # dead row (every key masked) weight 0: no cotangent at all
+            live = (lse > DEAD_LSE)[..., None]
+            g = torch.where(live, g, 0.0).to(dtype)
+            g_lse = torch.randn(shape[:3], generator=gen,
+                                device=dev) * live[..., 0]
         f32 = [t.float() for t in (q, k, v, g)]
-        o, lse = attn.composed_attention_with_lse(*f32[:3], bias, scale,
-                                                  causal)
-        delta = torch.sum(f32[3] * o, dim=-1)
+        delta = attn._delta(f32[3], o, g_lse)
         args = (q, k, v, bias, g, lse, delta, scale, causal)
         n_dkv = attn.flash_attention_dkv.launches
         n_dq = attn.flash_attention_dq.launches
@@ -1089,6 +1218,9 @@ def phase_bwd_kernels(seed):
                           for n, a, b in (("dq", dq, bdq), ("dk", dk, bdk),
                                           ("dv", dv, bdv))}
             del bdk, bdv, bdq
+        if g_lse is not None:
+            errs.update(_lse_cotangent_errs(q, k, v, bias, g, g_lse, scale,
+                                            causal))
         tol = BWD_TOL[dtype]
         ok = max(errs.values()) <= tol and bitwise and all(
             bool(torch.isfinite(t).all()) for t in (dq, dk, dv))
@@ -1151,9 +1283,9 @@ def phase_bwd_kernels(seed):
                 bitwise, "" if not same_dtype else
                 " | err vs the plain versions at bf16 " + " ".join(
                     "%s %.2e" % kv for kv in same_dtype.items())))
-        del q, k, v, g, bias, f32, o, lse, delta, args, ref_args, dk, dv, ds
-        del dq, rdk, rdv, rds, rdq, lq, lk, lv, lib_out, dkv_fn, dq_fn
-        del lib_fn
+        del q, k, v, g, g_lse, bias, f32, o, lse, delta, args, ref_args
+        del dk, dv, ds, dq, rdk, rdv, rds, rdq, lq, lk, lv, lib_out, dkv_fn
+        del dq_fn, lib_fn
     bad = [r["case"] for r in rows if not r["ok"]]
     if bad:
         raise AssertionError("flash backward kernels disagree with their "
@@ -6033,8 +6165,8 @@ def phase_fleet_artifact(seed, ref, engine):
     (``save_artifact(None, params=, serving={cfg, b_max 8, max_len
     1024})``): ``ReplicaRouter`` over two replicas built by
     ``DecodeEngine.from_artifact`` from v1; phase 12's 48 requests
-    submitted at once and the fleet rolled to v2 (the same weights saved
-    again under another name) while they run. Every request ends exactly
+    submitted at once and the fleet rolled to v2 (a copy of v1's file at
+    another path) while they run. Every request ends exactly
     once with ``generate()``'s tokens, both replicas end on v2, and the
     roll is counted once."""
     from paddle_tpu_torch import export
@@ -6044,13 +6176,14 @@ def phase_fleet_artifact(seed, ref, engine):
     params = {n: to_numpy(v) for n, v in ref.params.items()}
     serving = dict(cfg=ref.cfg, b_max=ENGINE_B_MAX, max_len=ENGINE_MAX_LEN)
     with tempfile.TemporaryDirectory() as d:
-        paths = {}
-        for v in ("v1", "v2"):
-            paths[v] = os.path.join(d, "gpt2_%s.pdz" % v)
-            ts = time.perf_counter()
-            export.save_artifact(None, paths[v], params=params,
-                                 serving=serving, name="gpt2-small-" + v)
-            save_s = time.perf_counter() - ts
+        paths = {v: os.path.join(d, "gpt2_%s.pdz" % v) for v in ("v1", "v2")}
+        ts = time.perf_counter()
+        export.save_artifact(None, paths["v1"], params=params,
+                             serving=serving, name="gpt2-small")
+        save_s = time.perf_counter() - ts
+        # v2: the same artifact at another path (a second save would only
+        # deflate the same 650 MB again, about 47 s)
+        shutil.copyfile(paths["v1"], paths["v2"])
         art_v1 = export.load_artifact(paths["v1"])
         v1_engines = []
 
@@ -10278,6 +10411,787 @@ def _kernel_row(name, source, replaces, launches, by_path, err, t,
     return row
 
 
+# ------------------------------------------------------------ phase 21
+# Phases 21-21d: the mesh tier (paddle_tpu_torch/parallel) at full width,
+# TF32 off, f32, level 2, each model cut to MESH_DEPTH layers; every run
+# on a mesh is held against the port's own single-device Executor.run of
+# the same program from the same startup scope, on the card.
+MESH_DEPTH = 4
+MESH_STEPS = 4          # phase 21's steps a run; 21b-21d take 3
+MESH_LOSS_RTOL = 1e-5   # tests/test_torch_training.py's tolerances
+MESH_PARAM_ATOL = 1e-4
+SP_RTOL, SP_ATOL = 2e-4, 2e-5   # tests/test_parallel_engine.py:236
+# the first step's grads, ring against no mesh (21b) and pipe against
+# the sequential fallback (21d), by ``_grad_gap``: a param's largest
+# error over its grad's largest. At the random init these grads are sums
+# of cancelling terms, so two sound f32 runs are about 1e-2 apart on
+# that measure (21b: the flash kernels' run and the composed
+# attention's; 21d: plain torch autograd in f32 against f64): a mesh run
+# is held within GRAD_FACTOR times that control gap, taken as at least
+# GRAD_FLOOR (tools/torch_mesh_grad_bounds.py reads both gaps and a
+# planted fault's)
+GRAD_FACTOR, GRAD_FLOOR = 4.0, 1e-5
+SP_POSITIONS = 4
+MOE_EXPERTS, MOE_CAPACITY_FACTOR, MOE_ATOL = 8, 1.25, 1e-6
+PIPE_STAGES, PIPE_BATCH, PIPE_SEQ, PIPE_MB, PIPE_ATOL = 4, 32, 256, 8, 1e-5
+PIPE_D, PIPE_DFF = 768, 3072  # GPT-2 small's widths
+MESH_MNIST_STEPS = 8
+
+
+def _mesh(axes, shape):
+    """A mesh of ``shape`` positions, every one on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel.engine import make_mesh
+
+    return make_mesh([fluid.CUDAPlace(0)] * int(np.prod(shape)), axes,
+                     shape)
+
+
+def _engine_step(engine, loss, fetch=()):
+    """One engine step on a scope: its loss (and, with ``fetch``, those
+    values as f32 tensors on the card)."""
+    def step(sc, feed):
+        vals = engine.run(feed, [loss, *fetch], sc, return_numpy=False)
+        torch.cuda.synchronize()
+        val = float(vals[0].float().reshape(()))
+        return (val, vals[1:]) if fetch else val
+
+    return step
+
+
+def _mesh_run(what, step, snap, batches, n_steps, per_step, params):
+    """``n_steps`` steps of ``step`` on a scope restored from ``snap``
+    under the launch meter (``_metered_steps``: the counts zeroed just
+    before, every step's launches on the card ``per_step``): the metered
+    path, the params after the steps and the scope."""
+    scope = _restored(snap)
+    path = _metered_steps(what, step, scope, batches, n_steps, per_step)
+    return path, {n: scope.find_var(n).clone() for n in params}, scope
+
+
+def _held(what, ref, ref_p, got, got_p, rtol, atol):
+    """The run ``got`` held to ``ref``: its losses within ``rtol`` of
+    the reference's (an absolute bound besides where ``rtol`` is a
+    pair), its params within ``atol`` after the steps (not held where
+    ``atol`` is None: Adam turns a grad's rounding near 0 into an
+    lr-sized move). Returns the errors and whether both were bitwise."""
+    rt, at = rtol if isinstance(rtol, tuple) else (rtol, 0.0)
+    a, b = np.asarray(got["losses"]), np.asarray(ref["losses"])
+    loss_err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    ok = np.all(np.abs(a - b) <= at + rt * np.abs(b))
+    p_err = max(float((got_p[n] - ref_p[n]).abs().max()) for n in ref_p)
+    if not ok or (atol is not None and p_err > atol):
+        raise AssertionError(
+            "%s: losses %s against %s (rel err %.3e, bound %s), params off "
+            "by %.3e (bound %g)" % (what, list(a), list(b), loss_err, rtol,
+                                    p_err, atol))
+    return dict(loss_rel_err=loss_err, param_max_abs=p_err,
+                bitwise=bool(np.array_equal(a, b)) and p_err == 0.0)
+
+
+def _first_grads(run, snap, feed, params):
+    """The grads of ``params`` in one step from a scope restored from
+    ``snap`` on ``feed``, as f32 tensors: ``run(scope, feed, names)``
+    returns the fetched values (``_exe_fetch``, ``_engine_fetch``)."""
+    vals = run(_restored(snap), feed, [p + "@GRAD" for p in params])
+    torch.cuda.synchronize()
+    return {p: v.float() for p, v in zip(params, vals)}
+
+
+def _composed_grads(main, snap, feed, params):
+    """The first step's grads of ``params`` without a mesh, every
+    attention composed (the flash kernels' plain version) on a fresh
+    executor: a second sound run beside the flash kernels' one."""
+    import paddle_tpu_torch as fluid
+
+    was = os.environ.get("PADDLE_TPU_FLASH_MIN_SEQ")
+    os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = str(1 << 30)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    try:
+        return _first_grads(_exe_fetch(exe, main), snap, feed, params)
+    finally:
+        exe.close()
+        if was is None:
+            del os.environ["PADDLE_TPU_FLASH_MIN_SEQ"]
+        else:
+            os.environ["PADDLE_TPU_FLASH_MIN_SEQ"] = was
+
+
+def _pipe_control(snap, feed, params):
+    """The gap (``_grad_gap``) between the first step's grads of
+    ``_pipe_program``'s stages (no dropout) from ``snap`` on ``feed`` by
+    plain torch autograd in f32 and in f64: the f32 rounding the step
+    allows a sound run."""
+    n, d, f = PIPE_STAGES, PIPE_D, PIPE_DFF
+    roles = {(n, d, f): "w1", (n, f): "b1", (n, f, d): "w2", (n, d): "b2"}
+
+    def grads(dtype):
+        ps = {p: snap[p].detach().to(dtype, copy=True).requires_grad_()
+              for p in params}
+        w = {roles[tuple(t.shape)]: t for t in ps.values()}
+        dev = snap[params[0]].device
+        h, y = (torch.as_tensor(feed[k], device=dev, dtype=dtype)
+                for k in ("x", "y"))
+        for i in range(n):
+            h = h + torch.relu(h @ w["w1"][i] + w["b1"][i]) @ w["w2"][i] \
+                + w["b2"][i]
+        loss = torch.mean((h - y) ** 2)
+        return dict(zip(ps, torch.autograd.grad(loss, list(ps.values()))))
+
+    return _grad_gap(grads(torch.float64), grads(torch.float32))
+
+
+def _exe_fetch(exe, main):
+    return lambda sc, feed, names: exe.run(
+        main, feed=feed, fetch_list=names, scope=sc, return_numpy=False)
+
+
+def _engine_fetch(engine):
+    return lambda sc, feed, names: engine.run(feed, names, sc,
+                                              return_numpy=False)
+
+
+def _grad_gap(ref, got):
+    """Each param's largest grad error over its grad's largest magnitude:
+    (the largest, its param)."""
+    errs = {p: float((got[p] - r).abs().max() / r.abs().max().clamp_min(
+        1e-30)) for p, r in ref.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _grads_held(what, ref, got, rtol):
+    """The first step's grads ``got`` held to ``ref`` (``_grad_gap``)
+    within ``rtol``. Returns the gap, its param and the bound."""
+    err, worst = _grad_gap(ref, got)
+    if not err <= rtol:
+        raise AssertionError(
+            "%s: the first step's grads off the reference's by %.3e of "
+            "their largest (%s; bound %g)" % (what, err, worst, rtol))
+    return dict(grad_rel_err=err, grad_worst=worst, grad_bound=rtol,
+                grads_bitwise=all(torch.equal(got[p], r)
+                                  for p, r in ref.items()))
+
+
+def _replayed_ms(path):
+    return float(np.median(path["step_ms"][2:]))
+
+
+def phase_mesh_dp_tp(seed):
+    """Phase 21: BERT-base MLM at its widths (768, 12 heads, S = 512,
+    batch 8) cut to 4 layers, Adam at level 2, from one startup scope:
+    MESH_STEPS steps of ``Executor.run`` (the reference), of
+    ``CompiledProgram(main).with_data_parallel(loss_name)`` over a (data
+    4) mesh on the card through ``Executor.run``, and of a
+    ``ParallelEngine`` over (data 2, model 2) with the FFN weights split
+    megatron-style (``ffn1`` by columns, ``ffn2`` by rows, as
+    examples/train_multichip.py writes them) and ZeRO-1. Each held to
+    the reference (losses 1e-5 relative, params 1e-4 after the steps;
+    bitwise where the log says so); every step launches the flash
+    kernels 8/4/4, K4 9 and K6 once on the card (counted). Then
+    ``contrib.Trainer(parallel=True)`` on recognize_digits for
+    MESH_MNIST_STEPS steps, its losses those of ``parallel=False``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import ParallelEngine, ShardingRules
+    from paddle_tpu_torch.parallel.mesh import P
+
+    what = "BERT-base, 4 layers, on a mesh (21)"
+    t0 = time.perf_counter()
+    card = fluid.CUDAPlace(0)
+    cfg = dict(bert.base_config(), n_layer=MESH_DEPTH)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = bert.build(cfg, seq_len=SEQ, max_mask=MAX_MASK)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(card), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    snap = _snapshot(scope)
+    rs = np.random.RandomState(seed)
+    batches = [_train_batch(cfg, rs) for _ in range(MESH_STEPS)]
+    n = MESH_DEPTH
+    per_step = (2 * n, n, n, 2 * n + 1, 1, 0, 0, 0, 0, 0)
+
+    ref, ref_p, _ = _mesh_run(what + " single", _amp_step_fn(exe, main, loss),
+                              snap, batches, MESH_STEPS, per_step, params)
+    exe.close()
+    compiled = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, places=[card] * 4)
+    exe_c = fluid.Executor(card)
+    # ---- the main path (data parallel): counts zeroed in _metered_steps
+    dp, dp_p, _ = _mesh_run(what + " data 4", _amp_step_fn(
+        exe_c, compiled, loss), snap, batches, MESH_STEPS, per_step, params)
+    eng = compiled._engine
+    if eng.mesh.shape != {"data": 4} or \
+            eng.mesh.device != card.torch_device():
+        raise AssertionError("%s: CompiledProgram ran on %r" % (what,
+                                                                 eng.mesh))
+    dp_held = _held(what + " data 4", ref, ref_p, dp, dp_p, MESH_LOSS_RTOL,
+                    MESH_PARAM_ATOL)
+    eng._exe.close()
+
+    rules = ShardingRules([(r"^enc_\d+_ffn1\.w_0$", P(None, "model")),
+                           (r"^enc_\d+_ffn2\.w_0$", P("model", None))],
+                          zero1=True)
+    tp_eng = ParallelEngine(main, loss.name,
+                            mesh=_mesh(("data", "model"), (2, 2)),
+                            rules=rules)
+    # ---- the main path (data x tensor parallel, ZeRO-1)
+    tp, tp_p, tp_scope = _mesh_run(what + " data 2 x model 2", _engine_step(
+        tp_eng, loss), snap, batches, MESH_STEPS, per_step, params)
+    tp_held = _held(what + " data 2 x model 2", ref, ref_p, tp, tp_p,
+                    MESH_LOSS_RTOL, MESH_PARAM_ATOL)
+    specs = next(iter(tp_eng._cache.values())).state_specs
+    want = {"enc_0_ffn1.w_0": P(None, "model"),
+            "enc_0_ffn2.w_0": P("model", None),
+            "enc_0_ffn1.w_0_moment1_0": P("data"),
+            "enc_0_ffn1.w_0_beta1_pow_0": P(), "word_embedding": P()}
+    got_specs = {k: specs.get(k) for k in want}
+    view = tp_eng.shard("enc_0_ffn1.w_0", {"data": 1, "model": 1}, tp_scope)
+    half = cfg["d_ff"] // 2
+    if got_specs != want or tuple(view.shape) != (cfg["d_model"], half) or \
+            view.data_ptr() != tp_scope.find_var(
+                "enc_0_ffn1.w_0")[:, half:].data_ptr():
+        raise AssertionError("%s: the rules placed %s (want %s); a shard "
+                             "%s" % (what, got_specs, want,
+                                     tuple(view.shape)))
+    tp_eng._exe.close()
+
+    trainer = _mesh_trainer(seed)
+    secs = time.perf_counter() - t0
+    out = dict(launches=dict(zip(COUNT_NAMES, dp["launches"])),
+               tp_launches=dict(zip(COUNT_NAMES, tp["launches"])),
+               per_step=dict(zip(COUNT_NAMES, per_step)),
+               losses=dict(single=ref["losses"], dp=dp["losses"],
+                           tp=tp["losses"]),
+               held=dict(dp=dp_held, tp=tp_held),
+               replayed_ms=dict(single=_replayed_ms(ref),
+                                dp=_replayed_ms(dp), tp=_replayed_ms(tp)),
+               specs={k: str(v) for k, v in got_specs.items()},
+               trainer=trainer, seconds=secs)
+    log("%s: a step launches %s = %s on the card in each run; replayed "
+        "step %.3f ms single, %.3f on (data 4) through CompiledProgram, "
+        "%.3f on (data 2, model 2) with megatron FFN rules and ZeRO-1; "
+        "losses %s; data 4 %s (loss rel %.3e, params %.3e), data x model "
+        "%s (loss rel %.3e, params %.3e); Trainer(parallel=True) on "
+        "recognize_digits over %d positions: %d losses %s parallel=False's "
+        "(%.1f s)" % (
+            what, COUNT_NAMES[:5], per_step[:5], out["replayed_ms"]["single"],
+            out["replayed_ms"]["dp"], out["replayed_ms"]["tp"],
+            ["%.6f" % v for v in ref["losses"]],
+            "bitwise" if dp_held["bitwise"] else "held",
+            dp_held["loss_rel_err"], dp_held["param_max_abs"],
+            "bitwise" if tp_held["bitwise"] else "held",
+            tp_held["loss_rel_err"], tp_held["param_max_abs"],
+            trainer["positions"], trainer["steps"],
+            "bitwise" if trainer["bitwise"] else "within 1e-5 of", secs))
+    return out
+
+
+def _mesh_trainer(seed):
+    """``contrib.Trainer`` on recognize_digits (phase 20's network) for
+    MESH_MNIST_STEPS steps with ``parallel=True`` (CompiledProgram over
+    the card's positions) and ``parallel=False``, from one seed: the
+    losses held to each other within 1e-5 relative."""
+    import itertools
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.contrib import EndStepEvent, Trainer
+    from paddle_tpu_torch.models import mnist
+
+    def train_func():
+        fluid.default_main_program().random_seed = seed
+        fluid.default_startup_program().random_seed = seed
+        lo, ac, _ = mnist.build("cnn")
+        return [lo, ac]
+
+    batches = fluid.batch(fluid.reader.map_readers(
+        lambda s: (s[0], np.array([s[1]], "int64")),
+        fluid.dataset.mnist.train()), MNIST_BATCH)
+
+    def reader():
+        return itertools.islice(batches(), MESH_MNIST_STEPS)
+
+    losses, positions = {}, None
+    for parallel in (False, True):
+        got = []
+        t = Trainer(train_func,
+                    lambda: fluid.optimizer.Adam(learning_rate=MNIST_LR),
+                    place=fluid.CUDAPlace(0), parallel=parallel)
+        t.train(1, lambda e: isinstance(e, EndStepEvent) and
+                got.append(_loss(e.metrics)), reader, ["img", "label"])
+        if parallel:
+            positions = t._compiled._engine.device_count
+            t._compiled._engine._exe.close()
+        t.exe.close()
+        losses[parallel] = got
+    a, b = np.asarray(losses[True]), np.asarray(losses[False])
+    if len(a) != MESH_MNIST_STEPS or not np.allclose(a, b, rtol=1e-5,
+                                                      atol=0):
+        raise AssertionError("Trainer(parallel=True) (21): losses %s "
+                             "against parallel=False's %s" % (a, b))
+    return dict(steps=len(a), positions=positions, losses=list(a),
+                bitwise=bool(np.array_equal(a, b)))
+
+
+def _gpt_mesh_program(seed, packed=False):
+    """GPT-2 small at its widths cut to MESH_DEPTH layers (dropout 0.1,
+    as the model's config), Adam at level 2, started on the card:
+    (exe, scope, main, loss, params, feed names)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+
+    cfg = dict(gpt.base_config(), n_layer=MESH_DEPTH)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, feeds = gpt.build(cfg, seq_len=GPT_SEQ, packed=packed)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    return exe, scope, main, loss, params, feeds, cfg
+
+
+def _ring_lines(eng, feed, loss, scope):
+    txt = eng.lowered_collectives(feed, [loss], scope)
+    return [ln for ln in txt.splitlines() if ln.startswith("ring_ppermute")]
+
+
+def phase_mesh_sp(seed):
+    """Phase 21b: GPT-2 small at its widths (768, 12 heads, S = 1024,
+    batch 8) cut to 4 layers, Adam, dropout 0.1, level 2: 3 steps on a
+    (seq 4) mesh, every causal ``fused_attention`` riding the zigzag
+    ring (the ids split over ``seq``), against 3 ``Executor.run`` steps
+    without a mesh, losses within 2e-4 relative + 2e-5, and the first
+    step's grads (``_grad_gap``) within GRAD_FACTOR times the gap
+    between two sound runs without a mesh, the flash kernels' and the
+    composed attention's (the params' distance logged). A ring step
+    batches every position's chunk pairs into one K1
+    launch (5 a ring of 4: the first step's diagonal pairs are causal),
+    so a step launches K1 40 times (each layer's forward and its grad's
+    re-run), K2 and K3 20 each (the no-mesh step: 8, 4, 4), K4 8 and K6
+    once, counted; no composed attention runs. Then a packed batch
+    (``reader.pack_sequences``, segment ids riding the ring as id
+    vectors) the same way, 2 steps."""
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.parallel import ParallelEngine, ShardingRules
+    from paddle_tpu_torch.parallel.mesh import P
+
+    what = "GPT-2 small, 4 layers, on (seq 4) (21b)"
+    t0 = time.perf_counter()
+    n, r = MESH_DEPTH, SP_POSITIONS
+    launches = r + 1  # a zigzag ring's K1 launches
+    plain = (2 * n, n, n, 2 * n, 1, 0, 0, 0, 0, 0)
+    ring = (2 * n * launches, n * launches, n * launches, 2 * n, 1, 0, 0, 0,
+            0, 0)
+    runs = {}
+    for packed in (False, True):
+        exe, scope, main, loss, params, feeds, cfg = _gpt_mesh_program(
+            seed, packed)
+        snap = _snapshot(scope)
+        rs = np.random.RandomState(seed + 8)
+        if packed:
+            docs = [list(rs.randint(1, cfg["vocab"], rs.randint(
+                GPT_SEQ // 16, GPT_SEQ // 2))) for _ in range(2 * GPT_BATCH)]
+            batches = [reader.pack_sequences(docs, seq_len=GPT_SEQ,
+                                             n_rows=GPT_BATCH)]
+            steps = 2
+        else:
+            batches = [_gpt_batch(cfg["vocab"], rs) for _ in range(3)]
+            steps = 3
+        kind = "packed" if packed else "padded"
+        ref, ref_p, _ = _mesh_run("%s %s, no mesh" % (what, kind),
+                                  _amp_step_fn(exe, main, loss), snap,
+                                  batches, steps, plain, params)
+        ref_g = _first_grads(_exe_fetch(exe, main), snap, batches[0], params)
+        exe.close()
+        control = _grad_gap(ref_g, _composed_grads(main, snap, batches[0],
+                                                   params))
+        eng = ParallelEngine(main, loss.name, mesh=_mesh(("seq",), (r,)),
+                             rules=ShardingRules(feed_rules=[(
+                                 "^(%s)$" % "|".join(feeds),
+                                 P(None, "seq"))]))
+        # ---- the main path: counts zeroed in _metered_steps
+        with _ComposedAttention() as composed:
+            sp, sp_p, sp_scope = _mesh_run(
+                "%s %s" % (what, kind), _engine_step(eng, loss), snap,
+                batches, steps, ring, params)
+        if composed.calls:
+            raise AssertionError("%s: the composed attention ran %d times"
+                                 % (what, composed.calls))
+        held = _held("%s %s" % (what, kind), ref, ref_p, sp, sp_p,
+                     (SP_RTOL, SP_ATOL), None)
+        held.update(_grads_held("%s %s" % (what, kind), ref_g, _first_grads(
+            _engine_fetch(eng), snap, batches[0], params),
+            GRAD_FACTOR * max(control[0], GRAD_FLOOR)))
+        held.update(grad_control=control[0], grad_control_worst=control[1])
+        lines = _ring_lines(eng, batches[0], loss, sp_scope)
+        if len(lines) != 2 * n or not all(
+                "positions=%d" % r in ln and "schedule=zigzag" in ln
+                and "flash=True" in ln for ln in lines):
+            raise AssertionError("%s: the plan's rings %s" % (what, lines))
+        runs[kind] = dict(ref=ref, sp=sp, held=held, rings=len(lines))
+        eng._exe.close()
+        del exe, scope, snap, eng
+        _free()
+    secs = time.perf_counter() - t0
+    padded = runs["padded"]
+    out = dict(launches=dict(zip(COUNT_NAMES, padded["sp"]["launches"])),
+               packed_launches=dict(zip(COUNT_NAMES,
+                                        runs["packed"]["sp"]["launches"])),
+               per_step=dict(zip(COUNT_NAMES, ring)),
+               no_mesh_per_step=dict(zip(COUNT_NAMES, plain)),
+               ring_ppermute=padded["rings"],
+               held={k: v["held"] for k, v in runs.items()},
+               losses={k: dict(no_mesh=v["ref"]["losses"],
+                               seq=v["sp"]["losses"])
+                       for k, v in runs.items()},
+               replayed_ms={k: dict(no_mesh=_replayed_ms(v["ref"]),
+                                    seq=_replayed_ms(v["sp"]))
+                            for k, v in runs.items() if k == "padded"},
+               seconds=secs)
+    log("%s: a step launches %s = %s on the card (no mesh: %s), %d "
+        "ring_ppermute collectives a step; replayed step %.3f ms on the "
+        "ring, %.3f ms without a mesh; losses %s against %s (rel %.3e, "
+        "first grads %.3e of their largest (%s; composed attention "
+        "without a mesh %.3e (%s)), params %.3e); packed with segment "
+        "ids: rel %.3e, first grads %.3e (%s; composed %.3e (%s)), params "
+        "%.3e (%.1f s)" % (
+            what, COUNT_NAMES[:5], ring[:5], plain[:5], padded["rings"],
+            out["replayed_ms"]["padded"]["seq"],
+            out["replayed_ms"]["padded"]["no_mesh"],
+            ["%.6f" % v for v in padded["sp"]["losses"]],
+            ["%.6f" % v for v in padded["ref"]["losses"]],
+            *[runs[k]["held"][f] for k in ("padded", "packed") for f in (
+                "loss_rel_err", "grad_rel_err", "grad_worst", "grad_control",
+                "grad_control_worst", "param_max_abs")], secs))
+    return out
+
+
+def _switch_program(seed, top_k):
+    """A Switch-style stack (Switch Transformer's switch-base-8 layout):
+    GPT-2 small's widths, MESH_DEPTH layers of causal self-attention,
+    ``layers.moe_ffn`` (8 experts of d_ff 3072, top-k, capacity factor
+    1.25) in place of every other FFN, an LM head over the ids, loss
+    the mean cross entropy plus 0.01 times the aux losses; Adam, level
+    2, started on the card: (exe, scope, main, loss, params, fetches
+    (the aux losses, the first MoE layer's input and output), cfg)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.models.transformer import (_ffn, _pad_bias,
+                                                     _prenorm,
+                                                     multi_head_attention)
+
+    cfg = dict(gpt.base_config(), n_layer=MESH_DEPTH, dropout=0.0)
+    d, T = cfg["d_model"], GPT_BATCH * GPT_SEQ
+    capacity = int(np.ceil(MOE_CAPACITY_FACTOR * T * top_k / MOE_EXPERTS))
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    auxes, moe_io = [], []
+
+    def moe(h):
+        out, aux = layers.moe_ffn(h, MOE_EXPERTS, cfg["d_ff"],
+                                  capacity=capacity, top_k=top_k)
+        auxes.append(aux)
+        moe_io.append((h, out))
+        return out
+
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        ids = layers.data("ids", [GPT_SEQ], dtype="int64")
+        bias = _pad_bias(ids)
+        x = layers.elementwise_add(
+            layers.embedding(ids, [cfg["vocab"], d]),
+            layers.embedding(layers.reshape(layers.range(
+                0, GPT_SEQ, 1, "int64"), [1, GPT_SEQ]),
+                [cfg["max_length"], d]))
+        for i in range(MESH_DEPTH):
+            nm = "switch_%d" % i
+            x = _prenorm(x, lambda h, nm=nm: multi_head_attention(
+                h, h, bias, d, cfg["n_head"], 0.0, False, nm + "_att",
+                True, causal=True), 0.0, False, nm + "_pre1")
+            ffn = moe if i % 2 else (lambda h, nm=nm: _ffn(
+                h, d, cfg["d_ff"], nm))
+            x = _prenorm(x, ffn, 0.0, False, nm + "_pre2")
+        logits = layers.fc(layers.layer_norm(x, begin_norm_axis=2),
+                           cfg["vocab"], num_flatten_dims=2)
+        cost = layers.mean(layers.softmax_with_cross_entropy(
+            logits, layers.reshape(ids, [-1, GPT_SEQ, 1])))
+        loss = layers.elementwise_add(cost, layers.scale(
+            layers.sums(auxes), scale=0.01))
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    fetches = list(auxes) + list(moe_io[0])
+    return exe, scope, main, loss, params, fetches, capacity, cfg
+
+
+def _every_expert(x, w1, b1, w2, b2, gate_w, capacity, top_k):
+    """The JAX package's single-device ``moe_ffn`` formula (every expert
+    on every token, the outputs selected by routing), in torch: the
+    plain reference of the port's lowering, which runs each expert on
+    its capacity rows only."""
+    from paddle_tpu_torch.parallel.moe import route_tokens
+
+    expert_idx, gate, _pos, keep, _aux = route_tokens(
+        x, gate_w, MOE_EXPERTS, capacity, top_k)
+    out = torch.zeros_like(x)
+    for e in range(MOE_EXPERTS):
+        y = torch.relu(x @ w1[e] + b1[e]) @ w2[e] + b2[e]
+        for kk in range(top_k):
+            sel = ((expert_idx[kk] == e) & keep[kk])[:, None]
+            out = out + torch.where(sel, y * gate[kk][:, None], 0.0)
+    return out
+
+
+def phase_mesh_experts(seed):
+    """Phase 21c: the Switch-style stack (``_switch_program``) top-1 and
+    top-2, 3 steps each on an (expert 8) mesh (each expert at its
+    position computes the capacity rows routed to it; one all_gather)
+    against the run without a mesh, from one startup scope: the routing
+    of the first MoE layer's input bitwise (expert index, slot position,
+    keep mask), its output and the losses within 1e-6 (relative for the
+    losses), the aux losses within 1e-6; that output within 1e-6 of the
+    every-expert formula (``_every_expert``) on the same input; the
+    expert params placed P('expert'). Counted: K1 8, K2 4, K3 4, K4
+    (what level 2 fuses) and K6 1 a step, on both runs."""
+    from paddle_tpu_torch.parallel import ParallelEngine
+    from paddle_tpu_torch.parallel.mesh import P
+    from paddle_tpu_torch.parallel.moe import route_tokens
+
+    what = "Switch stack, 4 layers (21c)"
+    t0 = time.perf_counter()
+    out = dict(runs={})
+    n = MESH_DEPTH
+    for top_k in (1, 2):
+        exe, scope, main, loss, params, fetches, capacity, cfg = \
+            _switch_program(seed, top_k)
+        tier = _tier_stats(main, [loss.name], scope)
+        per_step = (2 * n, n, n, tier["ln_residual_fused"], 1, 0, 0, 0, 0, 0)
+        snap = _snapshot(scope)
+        rs = np.random.RandomState(seed + 21)
+        batches = [_gpt_batch(cfg["vocab"], rs) for _ in range(3)]
+        eng = ParallelEngine(main, loss.name,
+                             mesh=_mesh(("expert",), (MOE_EXPERTS,)))
+        vals = {}
+        paths = {}
+        for kind, step in (("no_mesh", _amp_step_fn(exe, main, loss)),
+                           ("expert", _engine_step(eng, loss))):
+            # ---- the main path (the expert one): counts zeroed inside
+            paths[kind], _, sc = _mesh_run(
+                "%s top-%d %s" % (what, top_k, kind), step, snap, batches,
+                3, per_step, params)
+            # the first step's MoE values, from the snapshot again
+            first = _restored(snap)
+            if kind == "no_mesh":
+                got = exe.run(main, feed=batches[0], fetch_list=fetches,
+                              scope=first, return_numpy=False)
+            else:
+                got = eng.run(batches[0], fetches, first,
+                              return_numpy=False)
+            vals[kind] = [g.float() for g in got]
+        moe_op = next(op for op in main.global_block().ops
+                      if op.type == "moe_ffn")
+        w1, b1, w2, b2, g = (snap[moe_op.input(k)[0]] for k in (
+            "W1", "B1", "W2", "B2", "Gate"))
+        x_in = {k: v[-2].reshape(-1, cfg["d_model"])
+                for k, v in vals.items()}
+        routes = {k: route_tokens(x, g, MOE_EXPERTS, capacity, top_k)
+                  for k, x in x_in.items()}
+        same_route = all(torch.equal(a, b) for a, b in zip(
+            [routes["no_mesh"][i] for i in (0, 2, 3)],
+            [routes["expert"][i] for i in (0, 2, 3)]))
+        out_err = float((vals["expert"][-1] - vals["no_mesh"][-1]).abs()
+                        .max())
+        want = _every_expert(x_in["expert"], w1, b1, w2, b2, g, capacity,
+                             top_k)
+        ref_err = float((vals["expert"][-1].reshape(want.shape) - want)
+                        .abs().max())
+        aux_err = max(abs(float(a) - float(b)) for a, b in zip(
+            vals["expert"][:-2], vals["no_mesh"][:-2]))
+        la = np.asarray(paths["expert"]["losses"])
+        lb = np.asarray(paths["no_mesh"]["losses"])
+        loss_err = float(np.max(np.abs(la - lb) / np.abs(lb)))
+        specs = next(iter(eng._cache.values())).state_specs
+        placed = all(specs[p] == P("expert") for p in main._expert_params)
+        kept = int(routes["expert"][3].sum())
+        if not (same_route and torch.equal(x_in["no_mesh"], x_in["expert"])
+                ) or out_err > MOE_ATOL or aux_err > MOE_ATOL or \
+                loss_err > MOE_ATOL or ref_err > MOE_ATOL or not placed:
+            raise AssertionError(
+                "%s top-%d: routing the same %s, inputs bitwise %s, output "
+                "off by %.3e, aux by %.3e, losses by %.3e, the output off "
+                "the every-expert formula by %.3e (bound %g); expert params "
+                "placed %s" % (
+                    what, top_k, same_route,
+                    torch.equal(x_in["no_mesh"], x_in["expert"]), out_err,
+                    aux_err, loss_err, ref_err, MOE_ATOL, placed))
+        out["runs"]["top%d" % top_k] = dict(
+            capacity=capacity, kept=kept, choices=top_k * GPT_BATCH * GPT_SEQ,
+            output_max_abs=out_err, aux_max_abs=aux_err,
+            loss_rel_err=loss_err, every_expert_max_abs=ref_err,
+            bitwise=bool(out_err == 0.0 and loss_err == 0.0),
+            losses=dict(no_mesh=list(lb), expert=list(la)),
+            replayed_ms=dict(no_mesh=_replayed_ms(paths["no_mesh"]),
+                             expert=_replayed_ms(paths["expert"])),
+            launches=dict(zip(COUNT_NAMES, paths["expert"]["launches"])))
+        exe.close()
+        eng._exe.close()
+        del exe, scope, snap, eng, vals, paths, want, w1, b1, w2, b2, g
+        _free()
+    out["launches"] = {
+        c: sum(r["launches"][c] for r in out["runs"].values())
+        for c in COUNT_NAMES}
+    out["seconds"] = time.perf_counter() - t0
+    for k, r in out["runs"].items():
+        log("%s %s: capacity %d, %d of %d choices kept; routing bitwise on "
+            "both runs, the MoE output off by %.3e, aux by %.3e, losses by "
+            "%.3e (%s); the output %.3e off the every-expert formula; "
+            "replayed step %.3f ms on (expert 8), %.3f without a mesh" % (
+                what, k, r["capacity"], r["kept"], r["choices"],
+                r["output_max_abs"], r["aux_max_abs"], r["loss_rel_err"],
+                "bitwise" if r["bitwise"] else "within 1e-6",
+                r["every_expert_max_abs"], r["replayed_ms"]["expert"],
+                r["replayed_ms"]["no_mesh"]))
+    return out
+
+
+def _pipe_program(seed, dropout):
+    """``layers.pipeline`` of PIPE_STAGES stages, each a GPT-width MLP
+    block with a residual (768 -> 3072 -> relu -> 768, + x; dropout 0.1
+    after the relu with ``dropout``), PIPE_MB microbatches, on [batch,
+    PIPE_SEQ, 768] activations, an MSE loss, Adam, level 2, started on
+    the card: (exe, scope, main, loss, params)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+
+    d, dff = PIPE_D, PIPE_DFF
+
+    def stage(pb, h):
+        w1, b1 = pb.param([d, dff]), pb.param([dff], is_bias=True)
+        w2, b2 = pb.param([dff, d]), pb.param([d], is_bias=True)
+        u = layers.relu(layers.elementwise_add(layers.matmul(h, w1), b1))
+        if dropout:
+            u = layers.dropout(u, dropout_prob=0.1)
+        return layers.elementwise_add(
+            h, layers.elementwise_add(layers.matmul(u, w2), b2))
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data("x", [PIPE_SEQ, d])
+        y = layers.data("y", [PIPE_SEQ, d])
+        h = layers.pipeline(x, n_stages=PIPE_STAGES, stage_fn=stage,
+                            n_microbatches=PIPE_MB)
+        loss = layers.mean(layers.square(layers.elementwise_sub(h, y)))
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    return exe, scope, main, loss, params
+
+
+def phase_mesh_pipeline(seed):
+    """Phase 21d: ``layers.pipeline`` (``_pipe_program``: 4 GPT-width MLP
+    stages, batch 32 of 256 positions, 8 microbatches) trained 3 Adam
+    steps on a (pipe 4) and a (data 2, pipe 4) mesh and on the
+    sequential fallback, from one startup scope: without dropout the
+    meshes' losses within 1e-5 relative and the first step's grads
+    (``_grad_gap``) within GRAD_FACTOR times the gap between plain torch
+    autograd's f32 and f64 grads of the same step (``_pipe_control``)
+    from the fallback's (the params' distance after the steps logged:
+    Adam's steps move a param whose grad rounds apart near 0 by up to
+    the learning rate); with dropout
+    (each (stage, microbatch) on its folded chain) both meshes bitwise
+    the fallback, grads too; the stacked params placed P('pipe'); K6
+    once a step (counted)."""
+    from paddle_tpu_torch.parallel import ParallelEngine
+    from paddle_tpu_torch.parallel.mesh import P
+
+    what = "pipeline, 4 stages (21d)"
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(seed + 4)
+    shape = (PIPE_BATCH, PIPE_SEQ, PIPE_D)
+    batches = [{"x": rs.randn(*shape).astype("float32"),
+                "y": rs.randn(*shape).astype("float32")} for _ in range(3)]
+    out = dict(runs={})
+    control = None
+    for dropout in (False, True):
+        exe, scope, main, loss, params = _pipe_program(seed, dropout)
+        tier = _tier_stats(main, [loss.name], scope)
+        if tier["optimizer_groups"] != [len(params)]:
+            raise AssertionError("%s: level 2 made optimizer groups %s of "
+                                 "%d params" % (what,
+                                                tier["optimizer_groups"],
+                                                len(params)))
+        per_step = (0, 0, 0, 0, 1, 0, 0, 0, 0, 0)
+        snap = _snapshot(scope)
+        kind = "dropout" if dropout else "plain"
+        ref, ref_p, _ = _mesh_run("%s %s sequential" % (what, kind),
+                                  _amp_step_fn(exe, main, loss), snap,
+                                  batches, 3, per_step, params)
+        ref_g = _first_grads(_exe_fetch(exe, main), snap, batches[0], params)
+        exe.close()
+        if control is None:
+            control = _pipe_control(snap, batches[0], params)
+            out["grad_control"], out["grad_control_worst"] = control
+        runs = dict(sequential=dict(losses=ref["losses"],
+                                    replayed_ms=_replayed_ms(ref)))
+        for axes, shape in ((("pipe",), (PIPE_STAGES,)),
+                            (("data", "pipe"), (2, PIPE_STAGES))):
+            name = " x ".join("%s %d" % a for a in zip(axes, shape))
+            eng = ParallelEngine(main, loss.name, mesh=_mesh(axes, shape))
+            # ---- the main path: counts zeroed in _metered_steps
+            got, got_p, sc = _mesh_run("%s %s on (%s)" % (what, kind, name),
+                                       _engine_step(eng, loss), snap,
+                                       batches, 3, per_step, params)
+            held = _held("%s %s on (%s)" % (what, kind, name), ref, ref_p,
+                         got, got_p, PIPE_ATOL, None)
+            held.update(_grads_held(
+                "%s %s on (%s)" % (what, kind, name), ref_g, _first_grads(
+                    _engine_fetch(eng), snap, batches[0], params),
+                GRAD_FACTOR * max(control[0], GRAD_FLOOR)))
+            if dropout and not (held["bitwise"] and held["grads_bitwise"]):
+                raise AssertionError("%s: with dropout (%s) is not bitwise "
+                                     "the sequential fallback: %s" % (
+                                         what, name, held))
+            specs = next(iter(eng._cache.values())).state_specs
+            if not all(specs[p] == P("pipe") for p in main._pipeline_params):
+                raise AssertionError("%s: stacked params placed %s" % (
+                    what, {p: specs[p] for p in main._pipeline_params}))
+            txt = eng.lowered_collectives(batches[0], [loss], sc)
+            runs[name] = dict(held=held, losses=got["losses"],
+                              replayed_ms=_replayed_ms(got),
+                              launches=dict(zip(COUNT_NAMES,
+                                                got["launches"])),
+                              collectives=txt.splitlines()[1:])
+            eng._exe.close()
+        out["runs"][kind] = runs
+        del exe, scope, snap
+        _free()
+    out["launches"] = {c: sum(r["launches"][c] for k in out["runs"].values()
+                              for r in k.values() if "launches" in r)
+                       for c in COUNT_NAMES}
+    out["seconds"] = time.perf_counter() - t0
+    for kind, runs in out["runs"].items():
+        log("%s %s: replayed step %s ms; plain torch's f32 grads %.3e of "
+            "their largest off its f64 ones (%s); %s" % (
+            what, kind, {k: round(v["replayed_ms"], 3)
+                         for k, v in runs.items()}, out["grad_control"],
+            out["grad_control_worst"],
+            {k: ("bitwise" if v["held"]["bitwise"] else
+                 "loss rel %.3e, first grads %.3e of their largest (%s), "
+                 "params %.3e" % (
+                     v["held"]["loss_rel_err"], v["held"]["grad_rel_err"],
+                     v["held"]["grad_worst"], v["held"]["param_max_abs"]))
+             for k, v in runs.items() if "held" in v}))
+    return out
+
+
 def _free():
     """Between phases: collect what a phase left in reference cycles (its
     executors, whose graphs hold memory pools), then hand the caching
@@ -10304,7 +11218,8 @@ PHASES = (
     ("16", ()), ("16b", ()), ("16c", ()), ("16d", ()),
     ("17", ()), ("17b", ()), ("17c", ()),
     ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
-    ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()))
+    ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()),
+    ("21", ()), ("21b", ()), ("21c", ()), ("21d", ()))
 
 
 def selected_phases(spec):
@@ -10552,6 +11467,18 @@ def main():
         with tempfile.TemporaryDirectory() as workdir:
             R["20c"] = timed("20c", phase_calibrate, workdir, args.seed)
         _free()
+    if want("21"):
+        R["21"] = timed("21", phase_mesh_dp_tp, args.seed)
+        _free()
+    if want("21b"):
+        R["21b"] = timed("21b", phase_mesh_sp, args.seed)
+        _free()
+    if want("21c"):
+        R["21c"] = timed("21c", phase_mesh_experts, args.seed)
+        _free()
+    if want("21d"):
+        R["21d"] = timed("21d", phase_mesh_pipeline, args.seed)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -10645,7 +11572,13 @@ def _kernel_rows(R):
                  autotune_kernel_axis=L("18b", "flash fwd", "tune_launches"),
                  autotune_tuned_loop=L("18b", "flash fwd"),
                  dygraph_autotune=L("18c", "flash fwd"),
-                 quantize_aware_train=L("18d", "flash fwd"))
+                 quantize_aware_train=L("18d", "flash fwd"),
+                 mesh_dp=L("21", "flash fwd"),
+                 mesh_dp_tp=L("21", "flash fwd", "tp_launches"),
+                 mesh_sp_ring=L("21b", "flash fwd"),
+                 mesh_sp_ring_packed=L("21b", "flash fwd",
+                                       "packed_launches"),
+                 mesh_experts=L("21c", "flash fwd"))
     k2, k3 = (by_path(train=L("6", c), train_amp=L("6b", c),
                       train_sgd_amp=L("7b", c), train_loop=L("6e", c),
                       train_loop_amp=L("6f", c), recompute=L("6g", c),
@@ -10657,7 +11590,12 @@ def _kernel_rows(R):
                       other_optimizers=ot[c], dygraph=L("15", c),
                       autotune_tuned_loop=L("18b", c),
                       dygraph_autotune=L("18c", c),
-                      quantize_aware_train=L("18d", c))
+                      quantize_aware_train=L("18d", c),
+                      mesh_dp=L("21", c),
+                      mesh_dp_tp=L("21", c, "tp_launches"),
+                      mesh_sp_ring=L("21b", c),
+                      mesh_sp_ring_packed=L("21b", c, "packed_launches"),
+                      mesh_experts=L("21c", c))
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=L("4", "K4"), train=L("6", "K4"),
                  train_sgd=L("7", "K4"), serve_amp=L("4b", "K4 AMP"),
@@ -10675,7 +11613,12 @@ def _kernel_rows(R):
                  other_optimizers=ot["K4"], artifact_aot=L("14", "K4"),
                  dygraph=L("15", "K4"), autotune_tuned_loop=L("18b", "K4"),
                  dygraph_autotune=L("18c", "K4"),
-                 quantize_aware_train=L("18d", "K4"))
+                 quantize_aware_train=L("18d", "K4"),
+                 mesh_dp=L("21", "K4"),
+                 mesh_dp_tp=L("21", "K4", "tp_launches"),
+                 mesh_sp_ring=L("21b", "K4"),
+                 mesh_sp_ring_packed=L("21b", "K4", "packed_launches"),
+                 mesh_experts=L("21c", "K4"))
     k6 = by_path(train=L("6", "K6"), train_amp=L("6b", "K6"),
                  train_loop=L("6e", "K6"), train_loop_amp=L("6f", "K6"),
                  recompute=L("6g", "K6"), gpt_train=L("8", "K6"),
@@ -10696,7 +11639,13 @@ def _kernel_rows(R):
                  dygraph_autotune=L("18c", "K6"),
                  quantize_aware_train=L("18d", "K6"),
                  ssd_train=L("19", "K6"), mnist_pyreader=L("20", "K6"),
-                 deepfm_async=L("20b", "K6"))
+                 deepfm_async=L("20b", "K6"),
+                 mesh_dp=L("21", "K6"),
+                 mesh_dp_tp=L("21", "K6", "tp_launches"),
+                 mesh_sp_ring=L("21b", "K6"),
+                 mesh_sp_ring_packed=L("21b", "K6", "packed_launches"),
+                 mesh_experts=L("21c", "K6"),
+                 mesh_pipeline=L("21d", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"))
     k5 = R.get("3c K5 launches", 0)

@@ -11,7 +11,10 @@ and the updates, and ``Executor.run`` trains; wrapped in
 steps over a reader with a ``DevicePrefetcher`` (core/pipeline.py);
 ``layers.PyReader``, ``DataFeeder``, ``dataset``, ``AsyncExecutor`` over
 the native slot feed and ``contrib.Trainer`` / ``Inferencer`` feed and
-drive it the Fluid way.
+drive it the Fluid way. ``CompiledProgram(main).with_data_parallel()``
+and ``ParallelExecutor`` run a step over a mesh of positions that share
+one device (``parallel.ParallelEngine``: data, tensor, sequence, expert
+and pipeline axes).
 Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
@@ -22,7 +25,9 @@ from . import ops as _ops  # registers all op lowerings  # noqa: F401
 from . import (clip, contrib, convert, core, evaluator,  # noqa: F401
                flags, imperative, inference, initializer, io, layers,
                learning_rate_decay, metrics, models, nets, optimizer,
-               profiler, reader, regularizer)
+               parallel, profiler, reader, regularizer)
+from .compiler import (BuildStrategy, CompiledProgram,  # noqa: F401
+                       ExecutionStrategy, ParallelExecutor)
 from .core.executor import Executor  # noqa: F401
 from .core.pipeline import (ConstFeedCache, DevicePrefetcher,  # noqa: F401
                             FetchHandle, WindowFeed)

@@ -6,8 +6,9 @@ Compact version: train_func builds the loss program,
 optimizer_func supplies the optimizer; train() drives epochs over a
 reader with Begin/End Epoch/Step events, test() evaluates on a reader,
 save_params/save_inference_model export. The executor runs on the card
-unless ``place`` is ``CPUPlace()``. ``parallel=True`` needs
-``CompiledProgram``, which the port does not have yet: it raises.
+unless ``place`` is ``CPUPlace()``; ``parallel=True`` trains through
+``CompiledProgram(...).with_data_parallel``, the mesh engine over the
+place's positions (parallel/engine.py).
 """
 
 from __future__ import annotations
@@ -84,10 +85,9 @@ class Trainer:
                                  scope=self.scope)
         self._compiled = None
         if parallel:
-            raise NotImplementedError(
-                "Trainer(parallel=True) needs CompiledProgram, which the "
-                "port does not have yet; train on one card with "
-                "parallel=False")
+            self._compiled = fluid.CompiledProgram(
+                self.train_program).with_data_parallel(
+                    loss_name=self.loss.name)
 
     # ---------------------------------------------------------------- train
     def _feed_dict(self, data, feed_order):

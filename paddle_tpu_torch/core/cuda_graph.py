@@ -40,7 +40,10 @@ reads fixed addresses, which the port keeps so:
   re-runs its forward's random ops on generators of their own, each
   re-seeded with the seed its forward slot took in the same replay
   (slot kind ``("same", i)``), so the recomputed masks are the
-  forward's.
+  forward's. A pipeline stage's random ops draw from a chain folded from
+  one slot's seed (``("fold", i, path)``: ``fold_seed(seed of slot i,
+  *path)``), so its masks depend on the (stage, microbatch) and not on
+  the schedule.
 - **K6/K7's pointer table** is built once, at capture, and kept on the
   card by the graph (``keep_table``), in a buffer made before the
   capture: a pinned host buffer would be freed while replays still read
@@ -83,17 +86,20 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .lowering import draw_seed, seeded_generator
+from .lowering import draw_seed, fold_seed, seeded_generator
 
 __all__ = ["StepGraph", "StepTrace", "slot_seeds", "state_changes"]
 
 CHAIN = None  # a random op whose seed comes from the chain (else: its
-#               seed, or ("same", i): the seed slot i took in this step)
+#               seed, ("same", i): the seed slot i took in this step, or
+#               ("fold", i, path): that seed folded with path)
 
 
 def _kind(slot) -> str:
     if slot is CHAIN:
         return "from the chain"
+    if isinstance(slot, tuple) and slot[0] == "fold":
+        return "slot %d's seed folded with %s" % (slot[1], slot[2])
     if isinstance(slot, tuple):
         return "slot %d's seed again" % slot[1]
     return "seed %d" % slot
@@ -106,6 +112,8 @@ def slot_seeds(slots, chain) -> List[int]:
     for slot in slots:
         if slot is CHAIN:
             seeds.append(draw_seed(chain))
+        elif isinstance(slot, tuple) and slot[0] == "fold":
+            seeds.append(fold_seed(seeds[slot[1]], *slot[2]))
         elif isinstance(slot, tuple):
             seeds.append(seeds[slot[1]])
         else:
@@ -151,6 +159,12 @@ class StepTrace:
         """A generator seeded as slot ``token``'s (a recompute segment's
         re-run of a random op its forward ran)."""
         return self._generator(("same", token), self.seeds[token], device)
+
+    def folded_generator(self, token, path, device):
+        """A generator seeded with slot ``token``'s seed folded with
+        ``path`` (a pipeline stage's draw, ``FoldedChain``)."""
+        return self._generator(("fold", token, tuple(path)),
+                               fold_seed(self.seeds[token], *path), device)
 
     def constant(self, host: torch.Tensor, device) -> torch.Tensor:
         self.constants.append((tuple(host.shape), host.dtype))
@@ -333,6 +347,9 @@ class StepGraph:
 
     def same_generator(self, token, device):
         return self._slot(("same", token))
+
+    def folded_generator(self, token, path, device):
+        return self._slot(("fold", token, tuple(path)))
 
     def constant(self, host: torch.Tensor, device) -> torch.Tensor:
         """A host tensor's value on the card for the graph's life (an

@@ -42,7 +42,12 @@ graphs of one executor share one memory pool (core/cuda_graph.py).
 ``run_repeated`` runs K steps per call (on the card, K replays with no
 host sync between them), identical to K ``run`` calls. With
 ``FLAGS_check_nan_inf`` (flags.py) a fetched float value that is not
-finite raises ``FloatingPointError``.
+finite raises ``FloatingPointError``. A ``CompiledProgram`` goes to its
+mesh engine (parallel/engine.py), which runs this executor's machinery
+with the mesh in every lowering context. Under
+``Program.set_gradient_accumulation(k)`` a step runs the compute ops on
+k slices of the feeds and the optimize-role ops once on the mean
+gradients (``_accum_step``).
 
 ``run_pipelined`` and ``train_loop`` drive the same steps over a reader
 (core/pipeline.py): a ``DevicePrefetcher`` copies batches to the card
@@ -71,7 +76,7 @@ from ..observe.families import REGISTRY as _METRICS
 from ..profiler import RecordEvent
 from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
-                       release_schedule)
+                       lower_ops, release_schedule)
 from .place import Place, default_place, require_device
 from .program import Program, Variable, default_main_program, op_effects
 from .registry import get_op, has_op
@@ -161,6 +166,11 @@ class Executor:
         tensors on the executor's device (the reference's device
         arrays); on the card both are copies, which no later step
         changes."""
+        from ..compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            # a data-parallel program runs through its mesh engine
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         program, scope, feeds, fetch_names = self._args(
             program, feed, fetch_list, scope)
         plan = self._plan(program, feeds, fetch_names, scope)
@@ -204,6 +214,13 @@ class Executor:
                 feed = unstack_singleton_feed(feed)
             return self.run(program, feed, fetch_list, scope,
                             return_numpy=return_numpy)
+        from ..compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            # data-parallel: the engine runs the K steps
+            return program._run_repeated(self, feed, fetch_list, scope,
+                                         steps, return_numpy, feed_stacked,
+                                         reduce_fetches)
         if feed_stacked:
             validate_stacked_feeds(sorted(feed or {}),
                                    [feed[n] for n in sorted(feed or {})],
@@ -756,6 +773,10 @@ class Executor:
             return [v.clone() for v in fetches]
         return list(fetches)
 
+    def _prepare(self, program, feeds, fetch_names, scope):
+        """A new plan for (program, feed signature, fetches)."""
+        return _prepare(program, sorted(feeds), fetch_names, scope)
+
     def _plan(self, program, feeds, fetch_names, scope):
         """The cached plan for this run, prepared on a miss."""
         from ..observe.families import (EXECUTOR_CACHE_EVICTIONS,
@@ -771,7 +792,7 @@ class Executor:
             return plan
         EXECUTOR_CACHE_MISSES.inc()
         t0 = time.perf_counter()
-        plan = _prepare(program, sorted(feeds), fetch_names, scope)
+        plan = self._prepare(program, feeds, fetch_names, scope)
         EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
         self._note_uncaptured(plan)
         self._cache[key] = plan
@@ -806,7 +827,7 @@ class Executor:
         if key in self._cache:
             return False
         t0 = time.perf_counter()
-        plan = _prepare(program, sorted(feeds), fetch_names, scope)
+        plan = self._prepare(program, feeds, fetch_names, scope)
         EXECUTOR_PREPARE_SECONDS.observe(time.perf_counter() - t0)
         self._note_uncaptured(plan)
         self._cache[key] = plan
@@ -946,9 +967,11 @@ def _cache_key(program, feeds, fetch_names):
             kernels.config_key(), sig, tuple(fetch_names))
 
 
-def _prepare(program: Program, feed_names, fetch_names, scope):
+def _prepare(program: Program, feed_names, fetch_names, scope,
+             mesh_kw=None):
     """Verify (under ``PADDLE_TPU_VALIDATE``), optimize on a clone, then
-    analyze: the plan ``run`` caches."""
+    analyze: the plan ``run`` caches. ``mesh_kw`` (the engine's mesh and
+    axis names) goes to every op's lowering context."""
     from ..analysis import validation_enabled, verify_program
     from .passes import optimize_for_execution
 
@@ -961,7 +984,8 @@ def _prepare(program: Program, feed_names, fetch_names, scope):
     exact = bool(getattr(program, "exact_numerics", False))
     if not exact and not getattr(program, "_pre_optimized", False):
         program = optimize_for_execution(program, fetch_names, scope=view)
-    return _Plan(*analyze_block(program, feed_names, fetch_names, scope),
+    return _Plan(*analyze_block(program, feed_names, fetch_names, scope,
+                                mesh_kw),
                  exact=exact, host_sync=host_sync_ops(program))
 
 
@@ -1006,7 +1030,8 @@ def host_sync_ops(program: Program, block=None) -> List[str]:
     return sorted(found)
 
 
-def analyze_block(program: Program, feed_names, fetch_names, scope):
+def analyze_block(program: Program, feed_names, fetch_names, scope,
+                  mesh_kw=None):
     """Classify block vars into feeds / read-only state / read-write
     state / write-only persistables, and build the step function — the
     same classification as the JAX package's ``analyze_block``.
@@ -1016,7 +1041,9 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
     ``step(feeds, state, rng, device, graph=None) -> (fetches,
     written)``; ``written`` maps every state name in mut_state +
     pure_written to its new value; ``graph`` is the lowering context's
-    CUDA-graph hook (core/cuda_graph.py), None for a plain eager step.
+    CUDA-graph hook (core/cuda_graph.py), None for a plain eager step;
+    ``mesh_kw`` the mesh and axis names of the lowering context
+    (``LowerContext``), under a ``ParallelEngine``.
     """
     block = program.global_block()
     feed_names = sorted(feed_names)
@@ -1062,16 +1089,24 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
     const_state = [n for n in external if n not in seen_w]
     pure_written = [n for n in written if n not in external]
 
+    amp = bool(getattr(program, "amp", False))
+    accum = int(getattr(program, "grad_accum_steps", 1))
+    if accum > 1:
+        step = _accum_step(block, feed_names, fetch_names, mut_state,
+                           pure_written, amp, accum, mesh_kw or {})
+        return (feed_names, fetch_names, const_state, mut_state,
+                pure_written, needs_rng, step)
+
     # temporaries leave the env after their last reader, so the step's
     # peak memory is its live set, not every activation it ever made
     release = release_schedule(
         block.ops, set(fetch_names) | set(mut_state) | set(pure_written))
-    amp = bool(getattr(program, "amp", False))
 
     def step(feeds, state, rng, device, graph=None):
         env: Dict[str, Any] = dict(state)
         env.update(feeds)
-        ctx = LowerContext(block, rng, device, amp=amp, graph=graph)
+        ctx = LowerContext(block, rng, device, amp=amp, graph=graph,
+                           **(mesh_kw or {}))
         lower_block(ctx, block, env, release)
         missing_f = [n for n in fetch_names if n not in env]
         if missing_f:
@@ -1085,6 +1120,78 @@ def analyze_block(program: Program, feed_names, fetch_names, scope):
 
     return (feed_names, fetch_names, const_state, mut_state, pure_written,
             needs_rng, step)
+
+
+def _accum_step(block, feed_names, fetch_names, mut_state, pure_written,
+                amp, k, mesh_kw):
+    """The gradient-accumulation step (``Program.set_gradient_accumulation``):
+    the compute ops (forward and backward) run on each of k microbatch
+    slices of the feeds in turn, the gradients crossing into the
+    optimize-role ops are averaged, and those ops run once. The JAX
+    package's ``_accum_step`` (a ``lax.scan`` over the slices), the
+    analog of the reference's ir/multi_batch_merge_pass.cc. The RNG chain
+    runs on across the slices, as the scan carries it."""
+    scan_ops = [op for op in block.ops
+                if op.attrs.get("__op_role__") != "optimize"]
+    apply_ops = [op for op in block.ops
+                 if op.attrs.get("__op_role__") == "optimize"]
+    written_scan = {n for op in scan_ops for n in op.output_names()}
+    read_apply = {n for op in apply_ops for n in op.input_names()}
+    # values flowing compute -> update (the gradients, and anything else
+    # the apply side reads that the compute side makes)
+    boundary = sorted(read_apply & written_scan)
+    # only the backward-role outputs (the gradients) are averaged; other
+    # crossing values keep their last slice's value
+    grad_names = {n for op in scan_ops
+                  if op.attrs.get("__op_role__") == "backward"
+                  for n in op.output_names()}
+    scan_fetch = [n for n in fetch_names
+                  if n in written_scan and n not in boundary]
+    scan_pure = [n for n in pure_written if n in written_scan]
+    ys_names = boundary + scan_fetch + scan_pure
+
+    def step(feeds, state, rng, device, graph=None):
+        mb_feeds, mb_size = {}, None
+        for name in feed_names:
+            f = feeds[name]
+            b = f.shape[0] if f.dim() else 0
+            if f.dim() == 0 or b % k:
+                raise ValueError(
+                    "feed %r batch dim %s is not divisible by "
+                    "gradient accumulation steps %d" % (name, b, k))
+            mb_size = b // k
+            mb_feeds[name] = f.reshape((k, mb_size) + tuple(f.shape[1:]))
+        ctx = LowerContext(block, rng, device, amp=amp, graph=graph,
+                           **mesh_kw)
+        carried = dict(state)
+        ys: Dict[str, List[Any]] = {n: [] for n in ys_names}
+        for i in range(k):
+            env = dict(carried)
+            env.update((n, mb_feeds[n][i]) for n in feed_names)
+            lower_ops(ctx, scan_ops, env)
+            carried.update((n, env[n]) for n in mut_state if n in env)
+            for n in ys_names:
+                ys[n].append(env[n])
+        env = dict(carried)
+        env.update(feeds)  # the full batch, if the apply side reads one
+        for name in ys_names:
+            stacked = torch.stack(ys[name])
+            # a per-example fetch concatenates back to the full batch; a
+            # gradient (and a float fetch) is the slices' mean; anything
+            # else keeps the last slice's value
+            if name in scan_fetch and stacked.dim() >= 2 and \
+                    stacked.shape[1] == mb_size:
+                env[name] = stacked.reshape((-1,) + tuple(stacked.shape[2:]))
+            elif name in grad_names or (name in scan_fetch
+                                        and stacked.is_floating_point()):
+                env[name] = torch.mean(stacked, dim=0)
+            else:
+                env[name] = stacked[-1]
+        lower_ops(ctx, apply_ops, env)
+        return ([env[n] for n in fetch_names],
+                {n: env[n] for n in mut_state + pure_written})
+
+    return step
 
 
 def _op_uses_rng(program, op) -> bool:

@@ -8,6 +8,8 @@ ops/attention.py) on the context's device.
 
 from __future__ import annotations
 
+import hashlib
+import struct
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -16,9 +18,9 @@ from .amp import amp_cast
 from .program import Block, op_effects
 from .registry import get_op
 
-__all__ = ["LowerContext", "lower_op", "lower_ops", "lower_block",
-           "release_schedule", "as_torch_dtype", "draw_seed",
-           "seeded_generator"]
+__all__ = ["FoldedChain", "LowerContext", "lower_op", "lower_ops",
+           "lower_block", "release_schedule", "as_torch_dtype", "draw_seed",
+           "fold_seed", "seeded_generator"]
 
 
 def draw_seed(chain: torch.Generator) -> int:
@@ -26,6 +28,30 @@ def draw_seed(chain: torch.Generator) -> int:
     random op's stream starts from. The eager step and a replayed graph
     draw through this one function, in program order."""
     return int(torch.randint(0, 2 ** 62, (1,), generator=chain))
+
+
+def fold_seed(seed: int, *path: int) -> int:
+    """A seed derived from ``seed`` and the integers ``path``: the
+    counterpart of ``jax.random.fold_in``. The same (seed, path) always
+    gives the same seed, whatever order the derivations are made in."""
+    digest = hashlib.blake2b(struct.pack("<%dq" % (1 + len(path)),
+                                         int(seed), *map(int, path)),
+                             digest_size=8).digest()
+    return int.from_bytes(digest, "little") >> 2
+
+
+class FoldedChain:
+    """An RNG chain derived from one drawn stream: draw ``j`` of a
+    context over it takes ``fold_seed(seed, *path, j)``, where ``seed``
+    is the seed of the stream ``token`` names (its seed in an eager
+    step, its slot under a CUDA graph hook). The pipeline op gives each
+    (stage, microbatch) such a chain, so its masks depend on the pair and
+    not on the schedule that ran it."""
+
+    def __init__(self, token, path):
+        self.token = token
+        self.path = tuple(int(p) for p in path)
+        self.drawn = 0
 
 
 def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
@@ -59,25 +85,55 @@ class LowerContext:
     chain draw in ``streams`` (the seed, or with a graph hook the hook's
     slot), and the grad's re-run context hands them back from
     ``replay``, each a generator seeded like the one its token names, so
-    the recomputed dropout masks are the forward's."""
+    the recomputed dropout masks are the forward's.
+
+    ``mesh`` is the ``ParallelEngine``'s mesh (parallel/mesh.py) when the
+    step runs under one, with the names of its batch, tensor-parallel
+    and sequence-parallel axes: the ops with a per-position algorithm
+    (``fused_attention``'s ring, ``moe_ffn``'s experts, the
+    ``pipeline`` schedule) read them; every other op computes with
+    global semantics. ``sub`` and ``pure`` keep them.
+
+    ``rng`` may also be a ``FoldedChain``: its draws derive from one
+    stream of the enclosing step (the pipeline op's stages)."""
 
     def __init__(self, block: Optional[Block] = None,
                  rng: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cpu"),
-                 is_test: bool = False, amp: bool = False, graph=None):
+                 is_test: bool = False, amp: bool = False, graph=None,
+                 mesh=None, data_axis: str = "data",
+                 model_axis: str = "model", seq_axis: str = "seq"):
         self.block = block
         self._rng = rng
         self.device = device
         self.is_test = is_test
         self.amp = amp
         self.graph = graph
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.seq_axis = seq_axis
         self.op = None
         self.streams: Optional[List[Any]] = None
         self.replay: Optional[List[Any]] = None
 
+    def mesh_kw(self) -> Dict[str, Any]:
+        """The mesh and its axis names, for a context made elsewhere."""
+        return dict(mesh=self.mesh, data_axis=self.data_axis,
+                    model_axis=self.model_axis, seq_axis=self.seq_axis)
+
     def next_rng(self) -> torch.Generator:
         """The next random op's generator, seeded from the chain (in a
         recompute segment's re-run: the next of the forward's streams)."""
+        return self._draw()[0]
+
+    def next_token(self):
+        """Draw the next stream as ``next_rng`` does and return its token
+        (its seed, or under a CUDA graph hook its slot): what a
+        ``FoldedChain`` derives from."""
+        return self._draw()[1]
+
+    def _draw(self):
         if self._rng is None:
             raise RuntimeError(
                 "op requested RNG in a pure context; register a custom grad "
@@ -90,9 +146,21 @@ class LowerContext:
                     "its forward drew")
             token = self.replay.pop(0)
             if self.graph is not None:
-                return self.graph.same_generator(token, self.device)
-            return seeded_generator(token, self.device)
-        if self.graph is not None:
+                return (self.graph.same_generator(token, self.device),
+                        self.graph.last_stream())
+            return seeded_generator(token, self.device), token
+        if isinstance(self._rng, FoldedChain):
+            chain = self._rng
+            path = chain.path + (chain.drawn,)
+            chain.drawn += 1
+            if self.graph is not None:
+                gen = self.graph.folded_generator(chain.token, path,
+                                                  self.device)
+                token = self.graph.last_stream()
+            else:
+                token = fold_seed(chain.token, *path)
+                gen = seeded_generator(token, self.device)
+        elif self.graph is not None:
             gen = self.graph.chain_generator(self._rng, self.device)
             token = self.graph.last_stream()
         else:
@@ -100,7 +168,7 @@ class LowerContext:
             gen = seeded_generator(token, self.device)
         if self.streams is not None:
             self.streams.append(token)
-        return gen
+        return gen, token
 
     def seeded_rng(self, seed: int) -> torch.Generator:
         """A generator with a fixed seed (``fix_seed`` dropout, a seeded
@@ -114,7 +182,7 @@ class LowerContext:
         same block, device, modes and graph hook, no RNG (as in the JAX
         package)."""
         return LowerContext(self.block, None, self.device, self.is_test,
-                            self.amp, self.graph)
+                            self.amp, self.graph, **self.mesh_kw())
 
     def final_rng(self):
         """The chain after this context's draws (the JAX package's key
@@ -127,7 +195,7 @@ class LowerContext:
         device, modes and graph hook, and the same recorded or replayed
         streams (a recurrent op's body records into its op's list)."""
         c = LowerContext(block, self._rng, self.device, self.is_test,
-                         self.amp, self.graph)
+                         self.amp, self.graph, **self.mesh_kw())
         c.streams, c.replay = self.streams, self.replay
         return c
 

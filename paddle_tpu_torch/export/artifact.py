@@ -330,7 +330,7 @@ def _aot_blob(program, feed_names, fetch_names, params, batch_sizes,
     platform = device.type
     buckets: List[dict] = []
     inner = io.BytesIO()
-    with zipfile.ZipFile(inner, "w", zipfile.ZIP_DEFLATED) as zf:
+    with zipfile.ZipFile(inner, "w", zipfile.ZIP_STORED) as zf:
         for bs in sorted(set(int(b) for b in batch_sizes)):
             feed = _zero_feed(block, feed_names, bs)
             (f_names, o_names, const_state, mut_state, pure_written,

@@ -119,7 +119,10 @@ def write_artifact(path: str, manifest: dict,
     manifest["sections"] = [s for s in SECTIONS if s in blobs]
     tmp = "%s.tmp.%d.%d" % (path, os.getpid(), next(_TMP_SEQ))
     try:
-        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_DEFLATED) as zf:
+        # stored, not deflated: the sections are weights and exported
+        # programs, float bytes that deflate shrinks by a few percent
+        # at the cost of most of a save's time
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
             zf.writestr(MANIFEST_NAME,
                         json.dumps(manifest, indent=1, sort_keys=True))
             for name in manifest["sections"]:

@@ -49,6 +49,13 @@ kernels run only in training, which no artifact freezes.
 ``_fa_with_lse``) whose backward is the two backward kernels, so
 ``torch.func`` transforms and ``.backward()`` reach them.
 
+Under a ``ParallelEngine`` mesh whose ``seq`` axis divides S, a
+``fused_attention`` with a key-mask bias rides ring attention
+(parallel/ring_attention.py): each ring step's pairs from every position
+go to the forward kernel in one launch, with their lse, and the grad
+re-runs the ring under autograd, so the backward kernels take the lse
+cotangent. Its packed segment ids ride the ring as id vectors.
+
 Fully masked rows (every key at -1e9): the plain version and the kernel
 spread the weight uniformly over the real keys. The JAX kernel pads a
 ragged Sk with -1e9 keys and spreads it over the padded keys too; the
@@ -775,21 +782,65 @@ def _attention_inputs(ins):
     if bias is not None:
         bias = bias.float()  # mask bias adds in f32 in-kernel
     seg = (ins.get("SegmentIds") or [None])[0]
-    if seg is not None:
-        # one device: the packed rows' ids fold into a full [B, 1, S, S]
-        # mask, as the JAX package folds them off an sp mesh
-        sm = seg_mask(seg, seg)
-        bias = sm if bias is None else bias + sm
-    return q, k, v, bias
+    return q, k, v, bias, seg
+
+
+def _fold_seg(bias, seg):
+    """Off the ring, the packed rows' ids fold into a full [B, 1, S, S]
+    mask, as the JAX package folds them off an sp mesh."""
+    if seg is None:
+        return bias
+    sm = seg_mask(seg, seg)
+    return sm if bias is None else bias + sm
+
+
+def _ring_positions(ctx, q, k, bias) -> int:
+    """The positions of the ring that ``fused_attention`` rides under the
+    context's mesh, or 0. The JAX package's rule
+    (``_maybe_shard_mapped_flash``): self-attention rides the ring where
+    the mesh's ``seq`` axis has more than one position and divides S,
+    and the bias is a key mask [B|1, 1, 1, S]; elsewhere the op computes
+    its global attention (heads over ``model`` and batch over ``data``
+    positions share the device: one launch)."""
+    mesh = getattr(ctx, "mesh", None)
+    if mesh is None or mesh.size <= 1:
+        return 0
+    s_ax = ctx.seq_axis
+    S = q.shape[2]
+    n = mesh.shape.get(s_ax, 1)
+    if n > 1 and q.shape == k.shape and S % n == 0 and (
+            bias is None or (bias.shape[1] == 1 and bias.shape[2] == 1
+                             and bias.shape[3] == S)):
+        return n
+    return 0
+
+
+def _ring(ctx, n, q, k, v, bias, seg, scale, causal):
+    """The global attention through the ring over the ``seq`` axis' n
+    positions (parallel/ring_attention.py): q, k, v split into their
+    blocks (views), every step's pairs in one K1 launch on the card."""
+    from ..parallel.ring_attention import ring_attention
+
+    split = lambda x, dim: list(x.chunk(n, dim=dim))  # noqa: E731
+    out = ring_attention(
+        split(q, 2), split(k, 2), split(v, 2), scale, ctx.seq_axis,
+        causal=causal, kv_bias=None if bias is None else split(bias, 3),
+        use_flash=True, seg=None if seg is None else split(seg, 1))
+    return torch.cat(out, dim=2)
 
 
 @register_op("fused_attention", diff_inputs=["Q", "K", "V"], uses_rng=True)
 def _fused_attention(ctx, ins, attrs):
-    q, k, v, bias = _attention_inputs(ins)
+    q, k, v, bias, seg = _attention_inputs(ins)
     scale = attrs.get("scale", 1.0)
     dropout = attrs.get("dropout", 0.0)
-    out = flash_attention(q, k, v, bias, scale,
-                          causal=bool(attrs.get("causal", False)))
+    causal = bool(attrs.get("causal", False))
+    n = _ring_positions(ctx, q, k, bias)
+    if n:
+        out = _ring(ctx, n, q, k, v, bias, seg, scale, causal)
+    else:
+        out = flash_attention(q, k, v, _fold_seg(bias, seg), scale,
+                              causal=causal)
     if dropout and not ctx.is_test:
         # dropout on the output, mask saved for the grad op (as in the
         # JAX package)
@@ -806,11 +857,13 @@ def _fused_attention(ctx, ins, attrs):
 @register_grad_lowering("fused_attention")
 def _fused_attention_grad(ctx, ins, attrs):
     """The saved dropout mask applied to the output grad, then the
-    backward of the path the forward took: at or above the flash
-    threshold the flash forward kernel recomputes (out, lse) and the
-    dK/dV and dQ kernels run on them; below it, the vjp of the composed
-    attention. The bias is a constant mask: it takes no grad."""
-    q, k, v, bias = _attention_inputs(ins)
+    backward of the path the forward took: on the ring, autograd through
+    a re-run of it (each step's K1 launch backs into a K2 and a K3
+    launch, the lse cotangent folded into delta); off it, at or above the
+    flash threshold the flash forward kernel recomputes (out, lse) and
+    the dK/dV and dQ kernels run on them; below it, the vjp of the
+    composed attention. The bias is a constant mask: it takes no grad."""
+    q, k, v, bias, seg = _attention_inputs(ins)
     g = ins["Out@GRAD"][0]
     mask = (ins.get("Mask") or [None])[0]
     if mask is not None:
@@ -818,6 +871,14 @@ def _fused_attention_grad(ctx, ins, attrs):
     g = g.to(q.dtype).contiguous()
     scale = attrs.get("scale", 1.0)
     causal = bool(attrs.get("causal", False))
+    n = _ring_positions(ctx, q, k, bias)
+    if n:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = _ring(ctx, n, *leaves, bias, seg, scale, causal)
+        dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return {"Q@GRAD": [dq], "K@GRAD": [dk], "V@GRAD": [dv]}
+    bias = _fold_seg(bias, seg)
     if flash_effective(q.shape[2], k.shape[2]):
         out, lse = flash_attention_fwd(q, k, v, bias, scale, causal)
         dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, out, lse, g,

@@ -62,7 +62,7 @@ def _run_segment(ctx, block, in_names, out_names, in_vals, streams=None,
                  replay=None):
     env: Dict[str, Any] = dict(zip(in_names, in_vals))
     sctx = LowerContext(block, ctx._rng, ctx.device, ctx.is_test, ctx.amp,
-                        ctx.graph)
+                        ctx.graph, **ctx.mesh_kw())
     sctx.streams, sctx.replay = streams, replay
     lower_ops(sctx, block.ops, env)
     missing = [n for n in out_names if n not in env]

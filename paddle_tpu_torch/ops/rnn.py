@@ -242,7 +242,7 @@ def _run_recurrent(ctx, block, xs, inits, params, length, attrs,
     if not time_major:
         xs = [x.transpose(0, 1) for x in xs]
     sctx = LowerContext(block, ctx._rng, ctx.device, ctx.is_test, ctx.amp,
-                        ctx.graph)
+                        ctx.graph, **ctx.mesh_kw())
     sctx.streams, sctx.replay = streams, replay
     states = list(inits)
     ys: List[List[torch.Tensor]] = []

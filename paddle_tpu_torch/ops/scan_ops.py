@@ -42,7 +42,7 @@ def _layer(ctx, sub, attrs, x, slices, captured, streams=None,
     env.update(zip(attrs["captured_names"], captured))
     env[attrs["in_name"]] = x
     sctx = LowerContext(sub, ctx._rng, ctx.device, ctx.is_test, ctx.amp,
-                        ctx.graph)
+                        ctx.graph, **ctx.mesh_kw())
     sctx.streams, sctx.replay = streams, replay
     lower_ops(sctx, sub.ops, env)
     return env[attrs["out_name"]]

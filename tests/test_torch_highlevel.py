@@ -201,9 +201,13 @@ def test_trainer_stops_saves_and_refuses_parallel(tmp_path):
         prog, feeds, fetches = pt.io.load_inference_model(
             str(tmp_path / "m"), t.exe)
     assert feeds == ["x"] and len(fetches) == 1
-    with pytest.raises(NotImplementedError, match="CompiledProgram"):
-        Trainer(_linear_train(pt), lambda: pt.optimizer.SGD(0.1),
-                place=CPU, parallel=True)
+    # parallel=True was refused before the port had CompiledProgram; it
+    # now trains through one, on the CPU positions of its place
+    tp = Trainer(_linear_train(pt), lambda: pt.optimizer.SGD(0.1),
+                 place=CPU, parallel=True)
+    assert isinstance(tp._compiled, pt.CompiledProgram)
+    tp.train(1, lambda event: None, _linear_reader(), ["x", "y"])
+    assert tp._compiled._engine.mesh.device == torch.device("cpu")
 
 
 def test_trainer_and_inferencer_default_to_the_card(monkeypatch):

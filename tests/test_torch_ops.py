@@ -1036,6 +1036,35 @@ def case_while(rs):
                                for v in (0.0, 1.0, 7.0)], 0)
 
 
+def case_moe_ffn(rs):
+    """The local path, top-2 with overflow and the z-loss: Out and
+    AuxLoss (the expert path under a mesh is held in
+    test_torch_moe_pipeline.py)."""
+    def build(pkg):
+        out, aux = pkg.layers.moe_ffn(pkg.layers.data("x", [8]), n_experts=4,
+                                      d_hidden=16, capacity=3, top_k=2,
+                                      z_loss=1e-2)
+        return [out, aux]
+
+    _control_flow_case(build, [{"x": _arr(rs, (12, 8))}], 1e-5)
+
+
+def case_pipeline(rs):
+    """Three stages applied in turn (the sequential fallback; the pipe
+    schedule under a mesh is held in test_torch_moe_pipeline.py)."""
+    def build(pkg):
+        L = pkg.layers
+
+        def stage(pb, h):
+            return L.tanh(L.elementwise_add(L.matmul(h, pb.param([8, 8])),
+                                            pb.param([8], is_bias=True)))
+
+        return [L.pipeline(L.data("x", [8]), n_stages=3, stage_fn=stage,
+                           n_microbatches=2)]
+
+    _control_flow_case(build, [{"x": _arr(rs, (4, 8))}], 1e-5)
+
+
 def case_conditional_block(rs):
     def build(pkg):
         L = pkg.layers

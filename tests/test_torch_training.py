@@ -893,6 +893,37 @@ def _recurrent(rs, op):
                            "ln": np.array([1, 5, 3], "int64")})
 
 
+@grad_case("moe_ffn")
+def _moe_ffn(rs, op):
+    """Top-2 with overflow and the z-loss: every param's grad (the
+    experts', the router's through the gates and the aux loss)."""
+    def build(pkg):
+        L = pkg.layers
+        out, aux = L.moe_ffn(L.data("x", [8]), n_experts=4, d_hidden=16,
+                             capacity=3, top_k=2, z_loss=1e-2)
+        return L.elementwise_add(L.mean(L.square(out)), aux)
+
+    _program_grads(build, {"x": _arr(rs, (12, 8))})
+
+
+@grad_case("pipeline")
+def _pipeline(rs, op):
+    """Three stages through the op's own grad (the forward re-run under
+    autograd)."""
+    def build(pkg):
+        L = pkg.layers
+
+        def stage(pb, h):
+            return L.tanh(L.elementwise_add(L.matmul(h, pb.param([8, 8])),
+                                            pb.param([8], is_bias=True)))
+
+        y = L.pipeline(L.fc(L.data("x", [8]), 8), n_stages=3,
+                       stage_fn=stage, n_microbatches=2)
+        return L.mean(L.square(y))
+
+    _program_grads(build, {"x": _arr(rs, (4, 8))})
+
+
 @grad_case("scan_layers")
 def _scan_layers(rs, op):
     """Three fc layers with a captured tensor, plain and remat."""
@@ -1415,20 +1446,20 @@ def test_other_optimizers_build_and_sgd_momentum_run():
     ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
           for _ in range(3)]
     assert np.isfinite(ls).all()
-    # an op the port does not lower yet (one of the multi-device ops;
+    # an op the port does not lower yet (one of the distributed ops;
     # every layer the port ships lowers since the misc ops) builds, and
     # its run says so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1
     # under the tests) or, without it, the block analysis
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         x = pt.layers.data("x", [4], dtype="float32")
-        y = main.global_block().create_var(name="moe_out", dtype="float32",
+        y = main.global_block().create_var(name="sent", dtype="float32",
                                            shape=[-1, 4])
-        main.global_block().append_op(type="moe_ffn", inputs={"X": [x]},
+        main.global_block().append_op(type="send", inputs={"X": [x]},
                                       outputs={"Out": [y]})
-    assert "moe_ffn" not in OPS
+    assert "send" not in OPS
     with pytest.raises((KeyError, ProgramVerifyError),
-                       match="'moe_ffn' has no registered lowering"):
+                       match="'send' has no registered lowering"):
         exe.run(main, feed={"x": np.ones((2, 4), "float32")},
                 fetch_list=[y], scope=scope)
 
