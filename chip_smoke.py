@@ -7,8 +7,8 @@ NVIDIA GPU.
 ``--phases 17,17b,17c`` runs those phases alone (with the phases they
 take results from, ``PHASES``: 4c, 5, 12e and 4b need 4, 6b, 6e and 6g
 need 6, 6f needs 6b, 8c needs 8, 10c needs 10, 12b-12d and 14b need 12,
-13checkpoint needs 13; 18 reads 6, 6b, 8 and 10's step times where they
-ran; 1 and 2 always run); the result line then holds
+13checkpoint needs 13, 22b needs 22; 18 reads 6, 6b, 8 and 10's step
+times where they ran; 1 and 2 always run); the result line then holds
 the rows and launch counts of the phases that ran and names the ones
 left out. With no ``--phases`` every phase runs.
 
@@ -471,7 +471,25 @@ Phases, each of which passes or ends the script with a non-zero exit:
    fallback (losses within 1e-5, the first step's grads within 4 times
    the gap between plain torch's f32 and f64 grads); with dropout both
    meshes bitwise the fallback.
-   ``--phases 21,21b,21c,21d`` runs the four alone.
+   ``--phases 21,21b,21c,21d`` runs the four alone;
+22. the parameter-server path: DeepFM at the full width of
+   models/ctr.py (26 sparse fields, 13 dense, vocab 1,000,001,
+   embedding 16, hidden 400-400), SGD, f32, level 2, transpiled by
+   ``DistributeTranspiler`` in bench.py's layout: one trainer on the
+   card at batch 8192 against 2 pserver processes on the CPU (each binds
+   port 0 itself and reports its endpoint through a file; this script
+   run as ``--ps-worker``), the sparse tables only on the pservers
+   (prefetch and SelectedRows grads over the native transport); 3
+   warm-up, 10 timed and 1 profiled step. The trainer's plan holds the
+   host-sync PS ops (uncaptured, counted) and no kernel of the port's;
+   its losses within PS_LOSS_RTOL of the single-process run on the card
+   from the same post-startup state; examples/s, ms a step, RPC seconds
+   and MB a step, the busy share and kernels of a step;
+22b. the same with pserver 0 serving from a default ``Executor()`` on
+   the card: its dense updates fused into one K7 launch a sync round
+   (counted on the card by the pserver process), its params and every
+   other pserver's within PS_PARAM_RTOL of phase 22's.
+   ``--phases 22,22b`` runs the two alone.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -11192,6 +11210,528 @@ def phase_mesh_pipeline(seed):
     return out
 
 
+# --------------------------------------------------------- phases 22, 22b
+# Phases 22 and 22b: the parameter-server path (distributed/, the six PS
+# ops of ops/distributed_ops.py, native/ps_service.cc) with DeepFM at the
+# full width of models/ctr.py's build("deepfm", distributed=True) (26
+# sparse fields, 13 dense features, vocab 1,000,001, embedding 16, hidden
+# 400-400: Criteo's layout), SGD, f32, level 2, in bench.py's layout of
+# bench_deepfm_dist: one trainer at batch PS_BATCH against PS_SERVERS
+# pserver processes on localhost, each binding port 0 itself (a
+# prebound RPCServer) and reporting its endpoint through a file.
+PS_FIELDS, PS_DENSE, PS_VOCAB, PS_EMB = 26, 13, 1000001, 16
+PS_BATCH = 8192
+PS_LR = 1e-3
+PS_SERVERS = 2
+PS_WARMUP, PS_TIMED = 3, 10
+PS_STEPS = PS_WARMUP + PS_TIMED + 1  # the last step profiled
+PS_RENDEZVOUS_S = 180  # a pserver process's start, a trainer's finish
+# the trainer's losses against the single-process run of the same
+# program (distributed=False) from the same post-startup state on the
+# same feeds. The same comparison on the CPU (``ps_cpu_gap``: trainer,
+# pservers and the single-process run on the CPU, all PS_STEPS steps at
+# this width and batch) reads 0: the two paths' forward and backward are
+# the same ops, and their updates (a CPU pserver's sgd and np.add.at,
+# the single-process run's sgd) move a loss by less than its last bit.
+# On the card the single-process run updates on the card (K7's fused
+# multiply-add, the table's grad summed by the card) where the cluster's
+# CPU pservers multiply and add on the host: a rounding of each update a
+# step, which may move a loss by a few float32 ulps (1e-7 relative). The
+# bound is about 115 ulps of a loss near ln 2.
+PS_LOSS_RTOL = 1e-5
+# 22b: the card pserver's params against 22's CPU pserver's, per param:
+# the largest difference over the largest magnitude
+PS_PARAM_RTOL = 1e-6
+
+
+def _ps_program(fluid, seed, distributed):
+    """DeepFM at full width with SGD: (main, startup, loss), its names
+    those of every other build (``unique_name.guard``)."""
+    from paddle_tpu_torch.models import ctr
+
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _, _ = ctr.build("deepfm", PS_FIELDS, PS_DENSE, PS_VOCAB,
+                               emb_dim=PS_EMB, distributed=distributed)
+        fluid.optimizer.SGD(learning_rate=PS_LR).minimize(loss)
+    return main, startup, loss
+
+
+def _ps_transpile(fluid, main, startup, endpoints):
+    t = fluid.DistributeTranspiler()
+    t.transpile(trainer_id=0, program=main, pservers=endpoints, trainers=1,
+                sync_mode=True, startup_program=startup)
+    return t
+
+
+def _ps_feeds(seed, n, batch):
+    """``n`` Criteo-shaped batches from ``seed``."""
+    rs = np.random.RandomState(seed + 22)
+    return [{"sparse_ids": rs.randint(0, PS_VOCAB, (batch, PS_FIELDS))
+             .astype(np.int64),
+             "dense": rs.rand(batch, PS_DENSE).astype(np.float32),
+             "label": rs.randint(0, 2, (batch, 1)).astype(np.int64)}
+            for _ in range(n)]
+
+
+def _write_atomic(path, text):
+    tmp = "%s.tmp.%d" % (path, os.getpid())
+    with open(tmp, "w") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+def _wait_for_file(path, timeout_s, procs=()):
+    """``path``'s contents once it exists and is not empty; raises when
+    ``timeout_s`` passes or a process of ``procs`` has ended."""
+    t0 = time.monotonic()
+    while True:
+        try:
+            with open(path) as f:
+                data = f.read().strip()
+            if data:
+                return data
+        except OSError:
+            pass
+        for p in procs:
+            if p.poll() is not None:
+                raise RuntimeError("a pserver process ended (rc %s) before "
+                                   "it reported its endpoint" % p.returncode)
+        if time.monotonic() - t0 > timeout_s:
+            raise RuntimeError("timed out after %d s waiting for %s"
+                               % (timeout_s, path))
+        time.sleep(0.02)
+
+
+def _ps_worker():
+    """A pserver process of phases 22 and 22b (``chip_smoke.py
+    --ps-worker``, started by ``_ps_start``): binds port 0 through a
+    prebound ``RPCServer`` and reports its endpoint (PS_PORT_FILE), waits
+    for the cluster's list (PS_ENDPOINTS_FILE), transpiles the same
+    DeepFM and serves its shards from ``Executor()`` on the card
+    (PS_PLACE=cuda) or ``Executor(CPUPlace())``. When the trainer is done
+    it writes the params it hosts (PS_OUT.npz) and its K7 launches
+    (PS_OUT.json): the wrapper's launch calls, zeroed just before
+    serving, and the card's own count."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import to_numpy
+    from paddle_tpu_torch.distributed import ps
+    from paddle_tpu_torch.distributed.rpc import RPCServer
+    from paddle_tpu_torch.kernels import optimizer_update as ou
+
+    srv = RPCServer(port=0, num_trainers=1, sync=True)
+    ep = "127.0.0.1:%d" % srv.port
+    _write_atomic(os.environ["PS_PORT_FILE"], ep)
+    eps = _wait_for_file(os.environ["PS_ENDPOINTS_FILE"], PS_RENDEZVOUS_S)
+    ps.register_prebound_server(ep, srv)
+    card = os.environ["PS_PLACE"] == "cuda"
+    main, startup, _ = _ps_program(fluid, int(os.environ["PS_SEED"]), True)
+    t = _ps_transpile(fluid, main, startup, eps)
+    exe = fluid.Executor() if card else fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(t.get_startup_program(ep), scope=scope)
+    program = t.get_pserver_program(ep)
+    hosted = [s["param_block"] for s in
+              program.global_block().ops[0].attrs["block_specs"]]
+    ou.sgd_group.launches = 0
+    t0 = time.perf_counter()
+    exe.run(program, scope=scope)
+    serve_s = time.perf_counter() - t0
+    device = 0
+    if card:
+        from paddle_tpu_torch.kernels import build
+
+        torch.cuda.synchronize()
+        device = int(build.device_launches("optimizer_update", 2)[1])
+    out = os.environ["PS_OUT"]
+    np.savez(out + ".npz", **{n: to_numpy(scope.find_var(n))
+                              for n in hosted})
+    _write_atomic(out + ".json", json.dumps(dict(
+        endpoint=ep, device=str(exe.device), hosted=hosted,
+        k7_host=int(ou.sgd_group.launches), k7_device=device,
+        serve_s=serve_s)))
+    return 0
+
+
+def _ps_start(workdir, seed, places):
+    """One pserver process per entry of ``places`` ("cpu" or "cuda"):
+    (the processes, the endpoint list, their output prefixes, their log
+    files). Each binds port 0 itself; the list is published once every
+    one has reported."""
+    eps_file = os.path.join(workdir, "endpoints")
+    procs, ports, outs, logs = [], [], [], []
+    for i, place in enumerate(places):
+        ports.append(os.path.join(workdir, "ps%d.endpoint" % i))
+        outs.append(os.path.join(workdir, "ps%d" % i))
+        logs.append(os.path.join(workdir, "ps%d.log" % i))
+        env = dict(os.environ, PS_PORT_FILE=ports[-1],
+                   PS_ENDPOINTS_FILE=eps_file, PS_PLACE=place,
+                   PS_SEED=str(seed), PS_OUT=outs[-1])
+        with open(logs[-1], "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ps-worker"],
+                env=env, stdout=log_f, stderr=subprocess.STDOUT))
+    try:
+        eps = ",".join(_wait_for_file(p, PS_RENDEZVOUS_S, procs)
+                       for p in ports)
+    except Exception:
+        _ps_stop(procs, logs)
+        raise
+    _write_atomic(eps_file, eps)
+    return procs, eps, outs, logs
+
+
+def _ps_stop(procs, logs, timeout_s=0):
+    """Wait up to ``timeout_s`` for the pserver processes, then kill what
+    is left; raises, with the logs' tails, when one failed."""
+    t0 = time.monotonic()
+    for p in procs:
+        try:
+            p.wait(timeout=max(timeout_s - (time.monotonic() - t0), 0.01))
+        except subprocess.TimeoutExpired:
+            pass
+    bad = []
+    for p, path in zip(procs, logs):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+            bad.append((path, "killed"))
+        elif p.returncode != 0:
+            bad.append((path, "rc %d" % p.returncode))
+    if bad:
+        tails = []
+        for path, why in bad:
+            with open(path) as f:
+                tails.append("%s (%s):\n%s" % (path, why, f.read()[-3000:]))
+        raise AssertionError("pserver processes failed:\n" +
+                             "\n".join(tails))
+
+
+def _rpc_reading():
+    """The trainer's RPC client seconds by method and bytes sent and
+    received so far (the ``paddle_rpc_client_*`` families)."""
+    from paddle_tpu_torch.observe.families import (RPC_BYTES_RECV,
+                                                   RPC_BYTES_SENT,
+                                                   RPC_SECONDS)
+
+    methods = ("prefetch", "send_var", "send_barrier", "get_var",
+               "fetch_barrier")
+    return ({m: RPC_SECONDS.labels(method=m).sum for m in methods},
+            RPC_BYTES_SENT.value, RPC_BYTES_RECV.value)
+
+
+class _NoMeter:
+    """``LaunchMeter``'s face for a run on the CPU, where no kernel of
+    the port's launches: every count 0."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def mark(self):
+        pass
+
+    def total(self):
+        return (0,) * len(COUNT_NAMES)
+
+
+def _ps_cluster(workdir, seed, feeds, places, device, profile=False):
+    """DeepFM trained through the cluster: the trainer on ``device``
+    against a pserver process per entry of ``places``, one step per feed
+    (the first PS_WARMUP untimed, the last profiled with ``profile``);
+    the trainer's post-startup state (copies), losses, the timed steps'
+    ms and RPC readings, and what each pserver wrote at its end."""
+    import paddle_tpu_torch as fluid
+
+    procs, eps, outs, logs = _ps_start(workdir, seed, places)
+    try:
+        main, startup, loss = _ps_program(fluid, seed, True)
+        t = _ps_transpile(fluid, main, startup, eps)
+        place = fluid.CPUPlace() if device == "cpu" else fluid.CUDAPlace(0)
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        t0 = time.perf_counter()
+        exe.run(t.get_trainer_startup_program(), scope=scope)
+        startup_s = time.perf_counter() - t0
+        snap = _snapshot(scope)
+        tp = t.get_trainer_program()
+        step = lambda f: float(exe.run(  # noqa: E731
+            tp, feed=f, fetch_list=[loss], scope=scope)[0])
+        losses, step_ms, prof = [], [], None
+        n_timed = len(feeds) - PS_WARMUP - (1 if profile else 0)
+        _zero_counts()
+        with (LaunchMeter() if device != "cpu" else _NoMeter()) as meter:
+            for f in feeds[:PS_WARMUP]:
+                meter.mark()
+                losses.append(step(f))
+            rpc0 = _rpc_reading()
+            for f in feeds[PS_WARMUP:PS_WARMUP + n_timed]:
+                meter.mark()
+                t1 = time.perf_counter()
+                losses.append(step(f))
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+            rpc1 = _rpc_reading()
+            if profile:
+                meter.mark()
+                holder = []
+                prof = _profiled(lambda: holder.append(step(feeds[-1])))
+                losses.append(holder[0])
+        host = _counts()
+        exe.close()  # tells the pservers this trainer is done
+        _ps_stop(procs, logs, PS_RENDEZVOUS_S)
+    except BaseException:
+        _ps_stop(procs, logs)
+        raise
+    served = []
+    for out in outs:
+        with open(out + ".json") as f:
+            info = json.load(f)
+        with np.load(out + ".npz") as z:
+            info["params"] = {n: z[n] for n in z.files}
+        served.append(info)
+    rpc_s = {m: (rpc1[0][m] - rpc0[0][m]) / n_timed for m in rpc0[0]}
+    return dict(
+        endpoints=eps, transpiler=t, snapshot=snap, losses=losses,
+        step_ms=step_ms, rpc_s=rpc_s,
+        rpc_sent_mb=(rpc1[1] - rpc0[1]) / n_timed / 1e6,
+        rpc_recv_mb=(rpc1[2] - rpc0[2]) / n_timed / 1e6,
+        startup_s=startup_s, profile=prof, served=served,
+        launches=dict(zip(COUNT_NAMES, meter.total())),
+        host_launches=dict(zip(COUNT_NAMES, host)),
+        trainer_device=str(exe.device))
+
+
+def _ps_reference(snap, feeds, seed, device):
+    """The single-process run of the same DeepFM (``distributed=False``)
+    on ``device``, from ``snap``'s values: one loss per feed."""
+    import paddle_tpu_torch as fluid
+
+    main, startup, loss = _ps_program(fluid, seed, False)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    missing = [n for n in names if n not in snap]
+    if missing:
+        raise AssertionError("the trainer's state lacks %s" % missing)
+    place = fluid.CPUPlace() if device == "cpu" else fluid.CUDAPlace(0)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    for n in names:
+        scope.set_var(n, snap[n].clone())
+    losses = [float(exe.run(main, feed=f, fetch_list=[loss],
+                            scope=scope)[0]) for f in feeds]
+    exe.close()
+    return losses
+
+
+def _rel_gap(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def ps_cpu_gap(seed=SEED, workdir=None):
+    """Phase 22's comparison on the CPU, which PS_LOSS_RTOL's reason
+    reads:
+    the cluster (trainer and pservers on the CPU) against the
+    single-process run over PS_STEPS batches at full width, the largest
+    relative loss gap. Run as ``python3 -c "import chip_smoke as c;
+    print(c.ps_cpu_gap())"`` (no card needed; a few minutes)."""
+    workdir = workdir or tempfile.mkdtemp(prefix="ps_cpu_gap_")
+    feeds = _ps_feeds(seed, PS_STEPS, PS_BATCH)
+    r = _ps_cluster(workdir, seed, feeds, ["cpu"] * PS_SERVERS, "cpu")
+    ref = _ps_reference(r["snapshot"], feeds, seed, "cpu")
+    return dict(gap=_rel_gap(r["losses"], ref), losses=r["losses"],
+                reference=ref)
+
+
+def phase_ps_trainer(workdir, seed):
+    """Phase 22: the PS cluster with the trainer on the card: DeepFM at
+    full width (``_ps_program``), the trainer on ``cuda:0`` (a default
+    ``Executor()``) at batch PS_BATCH against PS_SERVERS CPU pserver
+    processes (``Executor(CPUPlace())``, bench.py's layout); PS_WARMUP
+    warm-up steps, PS_TIMED timed steps and one profiled. The trainer's
+    plan holds the host-sync PS ops, so it runs eagerly at every step,
+    counted in ``paddle_executor_uncaptured_plans_total{op}``; it runs
+    no kernel of the port's (the update moved to the pservers), counted.
+    Its losses are held to the single-process run (``_ps_reference``) on
+    the card within PS_LOSS_RTOL. Logged: examples/s, ms a step, RPC
+    seconds by method and MB a step, the trainer's busy share and kernels
+    a step. A pserver that does not start or fails, and an RPC that
+    fails, fail the phase."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+
+    what = "PS DeepFM, trainer on the card (22)"
+    t0 = time.perf_counter()
+    native.load("ps_service")  # its build counts here
+    build_s = time.perf_counter() - t0
+    feeds = _ps_feeds(seed, PS_STEPS, PS_BATCH)
+    uncaptured0 = {op: UNCAPTURED_PLANS.labels(op=op).value
+                   for op in ("prefetch", "send", "recv")}
+    r = _ps_cluster(workdir, seed, feeds, ["cpu"] * PS_SERVERS, "cuda",
+                    profile=True)
+    if r["trainer_device"] != "cuda:0":
+        raise AssertionError("%s: the trainer ran on %s" % (
+            what, r["trainer_device"]))
+    uncaptured = {op: UNCAPTURED_PLANS.labels(op=op).value - v
+                  for op, v in uncaptured0.items()}
+    if min(uncaptured.values()) < 1:
+        raise AssertionError("%s: the trainer's plan was not counted "
+                             "uncaptured: %s" % (what, uncaptured))
+    if any(r["launches"].values()) or any(r["host_launches"].values()):
+        raise AssertionError("%s: the trainer ran the port's kernels %s "
+                             "(wrappers %s); its update is the pservers'"
+                             % (what, r["launches"], r["host_launches"]))
+    if any(s["k7_host"] or s["k7_device"] for s in r["served"]) or \
+            any(s["device"] != "cpu" for s in r["served"]):
+        raise AssertionError("%s: the CPU pservers %s" % (what, [
+            {k: s[k] for k in ("device", "k7_host", "k7_device")}
+            for s in r["served"]]))
+    ref = _ps_reference(r["snapshot"], feeds, seed, "cuda")
+    gap = _rel_gap(r["losses"], ref)
+    if not np.all(np.isfinite(r["losses"])) or gap > PS_LOSS_RTOL:
+        raise AssertionError("%s: losses %s, the single-process run's %s: "
+                             "%.3g relative apart (bound %.3g)" % (
+                                 what, r["losses"], ref, gap, PS_LOSS_RTOL))
+    med = float(np.median(r["step_ms"]))
+    prof = r["profile"]
+    rpc_total = sum(r["rpc_s"].values())
+    out = dict(
+        losses=r["losses"], reference_losses=ref, loss_gap=gap,
+        step_ms=r["step_ms"], median_step_ms=med,
+        examples_per_s=PS_BATCH / med * 1e3,
+        rpc_s_per_step=r["rpc_s"], rpc_share=rpc_total / (med / 1e3),
+        rpc_sent_mb_per_step=r["rpc_sent_mb"],
+        rpc_recv_mb_per_step=r["rpc_recv_mb"],
+        busy_share=prof["busy_share"], busy_ms=prof["device_busy_ms"],
+        wall_ms=prof["wall_ms"], kernels=prof["kernels"],
+        by_class_ms=prof["by_class_ms"], uncaptured=uncaptured,
+        launches=r["launches"], host_launches=r["host_launches"],
+        pserver_serve_s=[s["serve_s"] for s in r["served"]],
+        startup_s=r["startup_s"], ps_service_build_s=build_s,
+        seconds=time.perf_counter() - t0)
+    log("%s: %d steps at batch %d against %d CPU pservers (%s); losses "
+        "%.6f -> %.6f, %.3g relative of the single-process run's (bound "
+        "%.3g); the trainer's plan uncaptured %s, the port's kernels in "
+        "it %s" % (what, len(r["losses"]), PS_BATCH, PS_SERVERS,
+                   r["endpoints"], r["losses"][0], r["losses"][-1], gap,
+                   PS_LOSS_RTOL, uncaptured, sum(r["launches"].values())))
+    log("%s: %.3f ms a step median of %d (%s), %.0f examples/s; RPC a "
+        "step %.3f s (%.1f%% of the step: %s), %.2f MB sent, %.2f MB "
+        "received; a profiled step %.1f%% busy, %d kernels, %.3f busy ms "
+        "of %.3f, by class %s; trainer startup (init push) %.1f s, "
+        "ps_service build %.1f s, %.1f s" % (
+            what, med, len(r["step_ms"]),
+            ", ".join("%.1f" % v for v in r["step_ms"]),
+            out["examples_per_s"], rpc_total, 100 * out["rpc_share"],
+            {m: round(v, 4) for m, v in r["rpc_s"].items()},
+            r["rpc_sent_mb"], r["rpc_recv_mb"], 100 * prof["busy_share"],
+            prof["kernels"], prof["device_busy_ms"], prof["wall_ms"],
+            {k: round(v, 3) for k, v in prof["by_class_ms"].items()},
+            r["startup_s"], build_s, out["seconds"]))
+    return out, dict(snapshot=r["snapshot"], served=r["served"],
+                     losses=r["losses"])
+
+
+def _param_gap(got, want):
+    """The largest difference over the largest magnitude of ``want``."""
+    d = np.max(np.abs(got.astype(np.float64) - want.astype(np.float64)))
+    return float(d / max(np.max(np.abs(want)), 1e-30))
+
+
+def phase_ps_dense_card(workdir, seed, p22):
+    """Phase 22b: the same cluster, except that pserver 0 serves from a
+    default ``Executor()`` on the card beside the trainer: its dense
+    optimize program fused at level 2 into one ``fused_optimizer_update``
+    runs K7 once a sync round (eager, captured, then replayed), counted
+    by the pserver process on the card and written at its exit. Held:
+    the trainer's post-startup state bitwise phase 22's, K7's launches
+    (one a round, PS_STEPS rounds; the wrapper's calls the eager run's
+    and the capture's), every pserver's params against phase 22's CPU
+    pservers' within PS_PARAM_RTOL (bitwise named where bitwise), the
+    losses against 22's."""
+    from paddle_tpu_torch.core.passes import optimize_for_execution
+
+    what = "PS DeepFM, pserver 0 on the card (22b)"
+    t0 = time.perf_counter()
+    feeds = _ps_feeds(seed, PS_STEPS, PS_BATCH)
+    r = _ps_cluster(workdir, seed, feeds,
+                    ["cuda"] + ["cpu"] * (PS_SERVERS - 1), "cuda",
+                    profile=True)
+    card, cpu = r["served"][0], r["served"][1:]
+    ep0 = r["endpoints"].split(",")[0]
+    opt = r["transpiler"].get_pserver_program(ep0).global_block().ops[0] \
+        .attrs["optimize_program"]
+    fused = [op.type for op in optimize_for_execution(opt, [])
+             .global_block().ops]
+    if fused != ["fused_optimizer_update"]:
+        raise AssertionError("%s: level 2 made %s of the pserver's %d sgd "
+                             "ops" % (what, fused,
+                                      len(opt.global_block().ops)))
+    snap_gap = [n for n in p22["snapshot"]
+                if isinstance(p22["snapshot"][n], torch.Tensor)
+                and not torch.equal(p22["snapshot"][n], r["snapshot"][n])]
+    if snap_gap:
+        raise AssertionError("%s: the trainer's post-startup state differs "
+                             "from phase 22's in %s" % (what, snap_gap))
+    if card["device"] != "cuda:0" or card["k7_device"] != PS_STEPS or \
+            card["k7_host"] != 2 or any(s["k7_device"] or s["k7_host"]
+                                        for s in cpu):
+        raise AssertionError("%s: the card pserver (%s) ran K7 %d times on "
+                             "the card (%d launch calls) in %d sync rounds "
+                             "with grads; the CPU pservers %s" % (
+                                 what, card["device"], card["k7_device"],
+                                 card["k7_host"], PS_STEPS,
+                                 [s["k7_device"] for s in cpu]))
+    gaps, bitwise = {}, []
+    for got, want in zip(r["served"], p22["served"]):
+        for n, v in want["params"].items():
+            g = got["params"][n]
+            if g.shape != v.shape or g.dtype != v.dtype:
+                raise AssertionError("%s: %s is %s %s, phase 22's %s %s" % (
+                    what, n, g.shape, g.dtype, v.shape, v.dtype))
+            if np.array_equal(g, v):
+                bitwise.append(n)
+            gaps[n] = _param_gap(g, v)
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst] > PS_PARAM_RTOL:
+        raise AssertionError("%s: %s %.3g off phase 22's CPU pserver's "
+                             "(bound %.3g); gaps %s" % (
+                                 what, worst, gaps[worst], PS_PARAM_RTOL,
+                                 gaps))
+    loss_gap = _rel_gap(r["losses"], p22["losses"])
+    if loss_gap > PS_LOSS_RTOL:
+        raise AssertionError("%s: losses %s, phase 22's %s" % (
+            what, r["losses"], p22["losses"]))
+    med = float(np.median(r["step_ms"]))
+    card_params = set(card["params"])
+    out = dict(
+        losses=r["losses"], loss_gap_to_22=loss_gap, param_gaps=gaps,
+        bitwise=bitwise, step_ms=r["step_ms"], median_step_ms=med,
+        examples_per_s=PS_BATCH / med * 1e3, rpc_s_per_step=r["rpc_s"],
+        busy_share=r["profile"]["busy_share"],
+        kernels=r["profile"]["kernels"],
+        launches=dict(r["launches"], K7=card["k7_device"]),
+        trainer_launches=r["launches"],
+        k7_host_calls=card["k7_host"], sync_rounds=PS_STEPS,
+        pserver_serve_s=[s["serve_s"] for s in r["served"]],
+        seconds=time.perf_counter() - t0)
+    log("%s: K7 %d on the card in %d sync rounds (launch calls %d: eager, "
+        "capture), the pserver's %d sgd ops one fused_optimizer_update; "
+        "params against phase 22's CPU pservers': largest gap %.3g (%s), "
+        "bitwise %d of %d (the card's: %s); losses %.3g relative of 22's" % (
+            what, card["k7_device"], PS_STEPS, card["k7_host"],
+            len(opt.global_block().ops), gaps[worst], worst, len(bitwise),
+            len(gaps), sorted(card_params & set(bitwise)), loss_gap))
+    log("%s: %.3f ms a step median (%s), %.0f examples/s; the trainer's "
+        "profiled step %.1f%% busy, %d kernels; pservers served %s s; "
+        "%.1f s" % (what, med, ", ".join("%.1f" % v for v in r["step_ms"]),
+                    out["examples_per_s"], 100 * out["busy_share"],
+                    out["kernels"],
+                    ["%.1f" % s["serve_s"] for s in r["served"]],
+                    out["seconds"]))
+    return out
+
+
 def _free():
     """Between phases: collect what a phase left in reference cycles (its
     executors, whose graphs hold memory pools), then hand the caching
@@ -11219,7 +11759,8 @@ PHASES = (
     ("17", ()), ("17b", ()), ("17c", ()),
     ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
     ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()),
-    ("21", ()), ("21b", ()), ("21c", ()), ("21d", ()))
+    ("21", ()), ("21b", ()), ("21c", ()), ("21d", ()),
+    ("22", ()), ("22b", ("22",)))
 
 
 def selected_phases(spec):
@@ -11245,6 +11786,9 @@ def selected_phases(spec):
 
 
 def main():
+    if sys.argv[1:] == ["--ps-worker"]:
+        # a pserver process of phases 22 and 22b, started by _ps_start
+        return _ps_worker()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to "
                     "OUT/chip_smoke.json")
@@ -11479,6 +12023,16 @@ def main():
     if want("21d"):
         R["21d"] = timed("21d", phase_mesh_pipeline, args.seed)
         _free()
+    if want("22"):
+        with tempfile.TemporaryDirectory() as workdir:
+            R["22"], p22 = timed("22", phase_ps_trainer, workdir, args.seed)
+        _free()
+        if want("22b"):
+            with tempfile.TemporaryDirectory() as workdir:
+                R["22b"] = timed("22b", phase_ps_dense_card, workdir,
+                                 args.seed, p22)
+        del p22
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -11647,7 +12201,8 @@ def _kernel_rows(R):
                  mesh_experts=L("21c", "K6"),
                  mesh_pipeline=L("21d", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
-                 book_train=L("17", "K7"))
+                 book_train=L("17", "K7"),
+                 ps_dense_update=L("22b", "K7"))
     k5 = R.get("3c K5 launches", 0)
 
     def row(name, source, replaces, by, err, t, lib, lib_call, amp=None):

@@ -14,7 +14,11 @@ the native slot feed and ``contrib.Trainer`` / ``Inferencer`` feed and
 drive it the Fluid way. ``CompiledProgram(main).with_data_parallel()``
 and ``ParallelExecutor`` run a step over a mesh of positions that share
 one device (``parallel.ParallelEngine``: data, tensor, sequence, expert
-and pipeline axes).
+and pipeline axes). ``DistributeTranspiler`` splits a training program
+into a trainer and parameter servers over the native TCP transport
+(``distributed``: the trainer's step on the card, its wire ops on the
+host; ``exe.run(pserver_program)`` serves, its dense updates on the
+executor's device).
 Entry points run on the card unless the caller passes
 ``CPUPlace()`` (or ``AnalysisConfig.disable_gpu()``).
 
@@ -52,6 +56,10 @@ from .lod_tensor import (LoDTensor, LoDTensorArray, Tensor,  # noqa: F401
                          create_lod_tensor, create_random_int_lodtensor)
 from .async_executor import AsyncExecutor, DataFeedDesc  # noqa: F401
 from .data_feeder import DataFeeder  # noqa: F401
+from . import (distribute_lookup_table, distributed,  # noqa: F401
+               resilience, transpiler)
+from .transpiler import (DistributeTranspiler,  # noqa: F401
+                         DistributeTranspilerConfig)
 
 __version__ = version.full_version
 

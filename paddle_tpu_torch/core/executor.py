@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -171,6 +172,19 @@ class Executor:
         if isinstance(program, CompiledProgram):
             # a data-parallel program runs through its mesh engine
             return program._run(self, feed, fetch_list, scope, return_numpy)
+        # a pserver program is one listen_and_serv op: enter the PS loop
+        # (the reference enters ListenAndServOp::RunImpl the same way),
+        # its dense updates on this executor's device
+        ops0 = (program if program is not None
+                else default_main_program()).global_block().ops
+        if ops0 and ops0[0].type == "listen_and_serv":
+            from ..distributed.ps import run_pserver_loop
+
+            require_device(self.device)
+            run_pserver_loop(ops0[0].attrs,
+                             scope if scope is not None else global_scope(),
+                             executor=self)
+            return []
         program, scope, feeds, fetch_names = self._args(
             program, feed, fetch_list, scope)
         plan = self._plan(program, feeds, fetch_names, scope)
@@ -615,11 +629,16 @@ class Executor:
 
     def close(self):
         """Drop every cached plan, freeing their CUDA graphs and the
-        graphs' memory pool."""
+        graphs' memory pool, and tell any connected pservers this trainer
+        is done (Executor.close → SendComplete analog, executor.py:388-405
+        / rpc_client.h:86)."""
         for plan in self._cache.values():
             plan.release()
         self._cache.clear()
         self._pool = None
+        from ..ops.distributed_ops import complete_and_reset
+
+        complete_and_reset()
 
     # ------------------------------------------------------------ steps
     def _args(self, program, feed, fetch_list, scope):
@@ -1311,16 +1330,16 @@ def _fetch_names(fetch_list) -> List[str]:
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A fetched tensor as a host numpy array. numpy has no bfloat16 of
-    its own: a bf16 tensor (an AMP fetch) comes back as an
-    ``ml_dtypes.bfloat16`` array, bit for bit, as the JAX package's
-    fetches do, where ``ml_dtypes`` is installed, and widened exactly to
-    float32 where it is not."""
+    its own, and the port imports no package that adds one: a bf16
+    tensor (an AMP fetch) comes back as an ``ml_dtypes.bfloat16`` array,
+    bit for bit, as the JAX package's fetches do, where the caller's
+    process has loaded ``ml_dtypes`` already, and widened exactly to
+    float32 where it has not."""
     t = t.detach().cpu()
     if t.dtype != torch.bfloat16:
         return t.numpy()
-    try:
-        import ml_dtypes
-    except ImportError:
+    ml_dtypes = sys.modules.get("ml_dtypes")
+    if ml_dtypes is None:
         return t.float().numpy()
     return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 

@@ -1,9 +1,12 @@
 """Host-side native pieces of the port.
 
 ``tensor_store`` reads and writes the JAX package's checkpoint format in
-pure Python. ``datafeed.cc`` (the threaded MultiSlot parser behind
-``data_feed.MultiSlotDataFeed``) is the port's own copy of the C++
-source: at first use ``load`` compiles it with the host's C++ compiler
+pure Python; ``dtypes`` is the dtype-code table of the wire and the
+checkpoint files. ``datafeed.cc`` (the threaded MultiSlot parser behind
+``data_feed.MultiSlotDataFeed``) and ``ps_service.cc`` (the parameter
+server's TCP transport behind ``distributed.rpc``) are the port's own
+copies of the C++ sources: at first use ``load`` compiles each with the
+host's C++ compiler
 (``$CXX``, else ``g++``, else ``c++``) into ``paddle_tpu_torch/_build/``,
 named by a hash of the source and the flags (``CXX_FLAGS``: the C++
 runtime linked in and kept private), and checks its exported symbols.
@@ -39,7 +42,23 @@ CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
 # the C API each library must export
 _SYMBOLS = {"datafeed": ("mdf_create", "mdf_start", "mdf_next_batch",
                          "mdf_batch_rows", "mdf_batch_data",
-                         "mdf_batch_free", "mdf_destroy")}
+                         "mdf_batch_free", "mdf_destroy"),
+            "ps_service": (
+                "ps_server_create", "ps_server_port", "ps_server_start",
+                "ps_server_stop", "ps_server_destroy", "ps_server_active",
+                "ps_server_set_var", "ps_server_var_meta",
+                "ps_server_read_var", "ps_server_wait_grads",
+                "ps_server_serve", "ps_server_pop_async",
+                "ps_server_poll_notify", "ps_server_pop_trace",
+                "ps_batch_count", "ps_batch_name", "ps_batch_dtype",
+                "ps_batch_ndim", "ps_batch_dims", "ps_batch_nrows",
+                "ps_batch_rows", "ps_batch_data", "ps_batch_nbytes",
+                "ps_batch_trainer", "ps_batch_free", "ps_client_create",
+                "ps_client_destroy", "ps_client_connect",
+                "ps_client_send_var", "ps_client_get_var",
+                "ps_client_prefetch", "ps_client_send_barrier",
+                "ps_client_fetch_barrier", "ps_client_complete",
+                "ps_client_checkpoint")}
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -50,8 +69,8 @@ def _compiler() -> str:
         if found:
             return found
     raise RuntimeError("no C++ compiler found ($CXX, g++ or c++ on PATH): "
-                       "the native data feed is built from "
-                       "paddle_tpu_torch/native/datafeed.cc at first use")
+                       "the native libraries are built from "
+                       "paddle_tpu_torch/native/*.cc at first use")
 
 
 def lib_path(name: str) -> str:

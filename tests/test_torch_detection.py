@@ -497,12 +497,10 @@ def test_registry_misses_only_the_multi_device_ops():
 
     jax_ops = {t for t, d in JOPS.items() if not d.synthesized}
     port_ops = {t for t, d in OPS.items() if not d.synthesized}
-    # moe_ffn and pipeline are ported since the mesh tier; the six
-    # distributed ops are left
-    assert sorted(jax_ops - port_ops) == sorted([
-        "send", "recv", "send_barrier", "fetch_barrier", "prefetch",
-        "send_sparse"])
-    assert len(jax_ops & port_ops) == len(jax_ops) - 6
+    # moe_ffn and pipeline are ported since the mesh tier, the six
+    # distributed ops since the parameter-server tier: none is left
+    assert sorted(jax_ops - port_ops) == []
+    assert len(jax_ops & port_ops) == len(jax_ops)
 
 
 def test_public_names_equal_the_jax_modules():

@@ -2131,11 +2131,13 @@ def test_every_port_op_has_a_case():
     # grad ops synthesized from a forward lowering (core/autodiff.py)
     # enter the registry when first asked for; they are held against the
     # JAX package in test_torch_training.py. The detection ops' cases
-    # live in test_torch_detection.py
+    # live in test_torch_detection.py, the parameter server's six in
+    # test_torch_dist_ps.py (they talk to a live server)
     from test_torch_detection import DETECTION_OPS
+    from test_torch_dist_ps import DIST_OPS
 
-    assert not set(CASES) & set(DETECTION_OPS)
-    assert sorted(list(CASES) + DETECTION_OPS) == [
+    assert not set(CASES) & set(DETECTION_OPS + DIST_OPS)
+    assert sorted(list(CASES) + DETECTION_OPS + DIST_OPS) == [
         t for t in all_ops() if not get_op(t).synthesized]
 
 

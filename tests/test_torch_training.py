@@ -1446,20 +1446,25 @@ def test_other_optimizers_build_and_sgd_momentum_run():
     ls = [exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0]
           for _ in range(3)]
     assert np.isfinite(ls).all()
-    # an op the port does not lower yet (one of the distributed ops;
-    # every layer the port ships lowers since the misc ops) builds, and
-    # its run says so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1
+    # an op type with no lowering (the port lowers every op type of the
+    # JAX package's since the parameter-server tier; listen_and_serv is
+    # the pserver loop's entry, which no package lowers) builds, and its
+    # run says so: the prepare-time verifier (PADDLE_TPU_VALIDATE=1
     # under the tests) or, without it, the block analysis
     main, startup = pt.Program(), pt.Program()
     with pt.program_guard(main, startup):
         x = pt.layers.data("x", [4], dtype="float32")
         y = main.global_block().create_var(name="sent", dtype="float32",
                                            shape=[-1, 4])
-        main.global_block().append_op(type="send", inputs={"X": [x]},
+        main.global_block().append_op(type="scale", inputs={"X": [x]},
                                       outputs={"Out": [y]})
-    assert "send" not in OPS
+        main.global_block().append_op(type="listen_and_serv",
+                                      inputs={"X": [y]},
+                                      outputs={"Out": [y]})
+    assert "listen_and_serv" not in OPS
     with pytest.raises((KeyError, ProgramVerifyError),
-                       match="'send' has no registered lowering"):
+                       match="'listen_and_serv' has no registered "
+                             "lowering"):
         exe.run(main, feed={"x": np.ones((2, 4), "float32")},
                 fetch_list=[y], scope=scope)
 
