@@ -275,7 +275,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    same state, ``save_params`` / ``load_params`` round-tripping; the
    caller's blocked ms, the write's seconds and the bytes;
 13b. phase 13 under bf16 AMP (AMP's bounds, no checkpoint);
-13c. BERT-base f32 at depth 4 (batch 2) with ``LarsMomentum``,
+13c. BERT-base f32 at depth 2 (batch 2) with ``LarsMomentum``,
    ``Adamax``, ``Adagrad``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp``
    (centered), ``Ftrl`` and ``ModelAverage`` over Adam: 3 steps each (eager,
    capture, replay) bitwise the plan's eager steps, the launches of
@@ -489,7 +489,29 @@ Phases, each of which passes or ends the script with a non-zero exit:
    the card: its dense updates fused into one K7 launch a sync round
    (counted on the card by the pserver process), its params and every
    other pserver's within PS_PARAM_RTOL of phase 22's.
-   ``--phases 22,22b`` runs the two alone.
+   ``--phases 22,22b`` runs the two alone;
+23. the supervised loop at full width: BERT-base MLM (phase 6's
+   program, dropout 0.1) through ``resilient_train_loop`` on the card,
+   12 steps, a checkpoint every 4 (the last kept): run A uninterrupted;
+   run B from the same startup state with a ``Watchdog`` armed, a
+   ``MetricsExporter`` serving and a thread reading its ``/healthz``,
+   step 6's dispatch raising and step 10's wedging 4 s (past the 2 s
+   steady deadline). B's losses (replays included), persistables and
+   RNG chain bitwise A's; 2 restarts resumed from steps 4 and 8; one
+   wedge, not compiling; ``/healthz`` 200, 503, 200; the
+   ``paddle_resilience_*`` families on ``/metrics``; per-step launches
+   on every dispatched step; reserved memory after the second recovery
+   within 5% of after the first; each recovery's seconds by part, the
+   checkpoint's blocked ms, write seconds and bytes;
+23b. the elastic job on the card: bench.py's ``bench_elastic`` row at
+   its full setting (3 trainers, 12 steps, a checkpoint every 2, the
+   demo model, 1 pserver, every worker on the card), trainer 1 killed
+   at step 5: 1 eviction, 2 generations, generation 1 on [0, 2] over
+   shards [0, 1, 2] from the archived manifest; the final dense params
+   and RNG chain bitwise a fresh job's on [0, 2] from that checkpoint;
+   K7 once a sync round on the card pservers, by their sidecars;
+   steps/s through the failure, the reshard's and each generation's
+   seconds. ``--phases 23,23b`` runs the two alone.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -523,6 +545,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -5550,7 +5573,7 @@ LAMB_STEPS, LAMB_PAIRS, CKPT_STEPS, CKPT_AT = 4, 2, 10, 5
 # (lars_momentum) at 1e-5, K6 (ModelAverage's Adam) at OPT_TOL absolute;
 # BERT-base's widths at OTHER_LAYERS of its 12 layers (every param shape
 # of the 12 is there; the depth cut keeps the whole script in its time)
-OTHER_STEPS, OTHER_BATCH, OTHER_LAYERS = 3, 2, 4
+OTHER_STEPS, OTHER_BATCH, OTHER_LAYERS = 3, 2, 2
 OTHER_RTOL, OTHER_NORM_RTOL, OTHER_ATOL = 2e-6, 1e-5, 1e-7
 
 
@@ -11732,6 +11755,470 @@ def phase_ps_dense_card(workdir, seed, p22):
     return out
 
 
+# ------------------------------------------------------- phases 23-23b
+# phase 23: BERT-base MLM (phase 6's program: f32, level 2, Adam, dropout
+# 0.1) through resilient_train_loop: RES_STEPS steps, a checkpoint every
+# RES_EVERY, the last one kept. Run B's fault plan: step 6's dispatch
+# raises (occurrence 6); after the resume from step 4, step 10's dispatch
+# (occurrence 12: steps 5-9 are 7-11) wedges RES_WEDGE_S, past the
+# watchdog's steady deadline RES_DEADLINE_S (a replayed step takes about
+# 0.1 s; a plan's eager first step and capture are judged against the
+# compile grace, 60 s), then raises; the resume is from step 8. Run B
+# dispatches 5 + 5 + 4 steps. Reserved memory after the second recovery
+# within RES_MEM_SLACK of after the first: the old executors' graph pools
+# are freed, not kept one a recovery
+RES_STEPS, RES_EVERY = 12, 4
+RES_DEADLINE_S, RES_WEDGE_S = 2.0, 4.0
+RES_FAULTS = "executor.dispatch@6:raise;executor.dispatch@12:wedge=%g" % (
+    RES_WEDGE_S)
+RES_DISPATCHED, RES_RESUMES = 14, (1, 5, 9)
+RES_MEM_SLACK = 0.05
+RES_SCRAPE_S = 0.05  # the /healthz scraper's period
+
+
+def _resilient_run(main, loss, batches, scope, ckdir, **kw):
+    """``resilient_train_loop`` over ``batches`` on the card from
+    ``scope``: (its result, each resolved step's (step, loss, host time,
+    reserved bytes, recoveries taken before it), the steps
+    dispatched)."""
+    from paddle_tpu_torch import observe
+    from paddle_tpu_torch.resilience import resilient_train_loop
+
+    seen = []
+    resumes = observe.get_metric(
+        "paddle_resilience_recoveries_total").labels(kind="resume")
+    r0 = resumes.value
+
+    def on_step(step, vals):
+        seen.append((step, float(np.asarray(vals[0]).reshape(())),
+                     time.perf_counter(), torch.cuda.memory_reserved(),
+                     int(resumes.value - r0)))
+
+    steps = observe.get_metric("paddle_executor_steps_total")
+    s0 = steps.value
+    r = resilient_train_loop(
+        main, lambda: iter(batches), [loss], scope=scope,
+        checkpoint_dir=ckdir, place=None, checkpoint_every=RES_EVERY,
+        keep_last=1, max_restarts=2, backoff_base_s=0.05,
+        backoff_cap_s=0.2, backoff_seed=SEED, on_step=on_step, **kw)
+    return r, seen, int(steps.value - s0)
+
+
+def _segments(seen):
+    """``seen`` by the recoveries taken before each step: one list a
+    segment, in order."""
+    segs = {}
+    for rec in seen:
+        segs.setdefault(rec[-1], []).append(rec)
+    return [segs[k] for k in sorted(segs)]
+
+
+class _Scraper:
+    """A thread reading ``url`` every RES_SCRAPE_S: the status codes in
+    order, repeats collapsed, and each code's count."""
+
+    def __init__(self, url):
+        self.url, self.codes, self.counts = url, [], {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        import urllib.error
+        import urllib.request
+
+        while not self._stop.wait(RES_SCRAPE_S):
+            try:
+                with urllib.request.urlopen(self.url, timeout=5) as r:
+                    code = r.status
+            except urllib.error.HTTPError as e:
+                code = e.code
+            self.counts[code] = self.counts.get(code, 0) + 1
+            if not self.codes or self.codes[-1] != code:
+                self.codes.append(code)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        return False
+
+
+def phase_resilient(seed):
+    """Phase 23: the supervised loop at full width. BERT-base MLM (phase
+    6's program) trained by ``resilient_train_loop`` on the card (its
+    default place): run A uninterrupted, run B on a second scope from the
+    same startup state under RES_FAULTS with a ``Watchdog`` armed, a
+    ``MetricsExporter`` serving in this process and a thread reading its
+    ``/healthz``. Held: every loss of B (replays included) and every
+    persistable and the RNG chain at the end bitwise A's; 2 restarts,
+    resumed from steps 4 and 8; one wedge, ``executor.dispatch``, not
+    compiling; ``/healthz`` 200, 503, 200; ``/metrics`` with the restart
+    and checkpoint families; per_step launches on the card for every
+    dispatched step of both runs; reserved memory after the second
+    recovery within RES_MEM_SLACK of after the first. Logged: the
+    replayed ms a step, each recovery's seconds by part, the checkpoint's
+    blocked ms, write seconds and bytes, reserved MiB."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import RNG_VAR
+    from paddle_tpu_torch.native import tensor_store
+    from paddle_tpu_torch.observe.export import MetricsExporter
+    from paddle_tpu_torch.observe.families import (
+        RESILIENCE_CHECKPOINT_SECONDS)
+    from paddle_tpu_torch.resilience import FaultPlan, Watchdog
+
+    what = "resilient BERT-base (23)"
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("%s: TF32 is on" % what)
+    cfg = bert_cfg()
+    if cfg["dropout"] <= 0:
+        raise AssertionError("%s: no dropout, no RNG chain" % what)
+    main, startup, loss, params_grads = _bert_train_program("Adam")
+    main.random_seed = startup.random_seed = seed
+    exe0, scope0 = fluid.Executor(), fluid.Scope()
+    exe0.run(startup, scope=scope0)
+    snap = _snapshot(scope0)
+    exe0.close()
+    del exe0, scope0
+    rs = np.random.RandomState(seed + 23)
+    batches = [_train_batch(cfg, rs) for _ in range(RES_STEPS)]
+    per_step = (2 * cfg["n_layer"], cfg["n_layer"], cfg["n_layer"],
+                2 * cfg["n_layer"] + 1, 1, 0, 0, 0, 0, 0)
+    persist = [v.name for v in main.list_vars() if v.persistable]
+    writes = []  # (seconds, bytes) of each checkpoint file written
+    orig_save = tensor_store.save_tensors
+
+    def timed_save(path, tensors):
+        t = time.perf_counter()
+        orig_save(path, tensors)
+        writes.append((time.perf_counter() - t, os.path.getsize(path)))
+
+    ck = RESILIENCE_CHECKPOINT_SECONDS.labels()
+    tensor_store.save_tensors = timed_save
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # ---- the main path: counts zeroed here, read after run B
+            _zero_counts()
+            with LaunchMeter() as meter:
+                scope_a = _restored(snap)
+                meter.mark()
+                ck0 = (ck.sum, ck.count)
+                ra, seen_a, disp_a = _resilient_run(
+                    main, loss, batches, scope_a, os.path.join(tmp, "a"))
+                ck_a = (ck.sum - ck0[0], ck.count - ck0[1])
+                writes_a = list(writes)
+                _free()
+                scope_b = _restored(snap)
+                wd = Watchdog(RES_DEADLINE_S)
+                exporter = MetricsExporter(port=0,
+                                           stale_after_s=RES_DEADLINE_S,
+                                           compile_grace_s=wd.compile_grace_s)
+                exporter.start()
+                try:
+                    meter.mark()
+                    with _Scraper("http://%s/healthz" % exporter.endpoint) \
+                            as scraper, FaultPlan.parse(RES_FAULTS):
+                        rb, seen_b, disp_b = _resilient_run(
+                            main, loss, batches, scope_b,
+                            os.path.join(tmp, "b"), watchdog=wd)
+                    import urllib.request
+
+                    with urllib.request.urlopen(
+                            "http://%s/metrics" % exporter.endpoint) as r:
+                        metrics_text = r.read().decode()
+                finally:
+                    exporter.stop()
+            # ---- end of the main path
+    finally:
+        tensor_store.save_tensors = orig_save
+    host = _counts()
+    units = [tuple(int(v) for v in u) for u in meter.units]
+    want = [_times(per_step, disp_a), _times(per_step, disp_b)]
+    if (disp_a, disp_b) != (RES_STEPS, RES_DISPATCHED) or units != want:
+        raise AssertionError("%s: %d and %d steps dispatched (expected %d "
+                             "and %d), launches %s = %s on the card, "
+                             "expected %s" % (what, disp_a, disp_b,
+                                              RES_STEPS, RES_DISPATCHED,
+                                              COUNT_NAMES, units, want))
+    if not all(host[i] for i in range(5) if per_step[i]):
+        raise AssertionError("%s: a kernel of the path made no launch "
+                             "call: %s" % (what, host))
+    loss_a = {s: v for s, v, *_ in seen_a}
+    if sorted(loss_a) != list(range(1, RES_STEPS + 1)):
+        raise AssertionError("%s: run A resolved steps %s" % (
+            what, [s for s, *_ in seen_a]))
+    off = [(s, v, loss_a[s]) for s, v, *_ in seen_b if v != loss_a[s]]
+    if off:
+        raise AssertionError("%s: run B's losses differ from run A's: %s"
+                             % (what, off))
+    diff = [n for n in persist
+            if not torch.equal(scope_a.find_var(n), scope_b.find_var(n))]
+    rng_a, rng_b = (s.find_var(RNG_VAR).get_state()
+                    for s in (scope_a, scope_b))
+    if diff or not torch.equal(rng_a, rng_b):
+        raise AssertionError("%s: at the end run B's %s and RNG chain "
+                             "(equal: %s) differ from run A's" % (
+                                 what, diff[:5], torch.equal(rng_a, rng_b)))
+    segs = _segments(seen_b)
+    starts = tuple(seg[0][0] for seg in segs)
+    if (ra.restarts, rb.restarts, starts) != (0, 2, RES_RESUMES) or \
+            rb.steps != RES_STEPS or ra.steps != RES_STEPS:
+        raise AssertionError("%s: run A %r, run B %r resolving segments "
+                             "from steps %s (expected 2 restarts, resumed "
+                             "from steps 4 and 8)" % (what, ra, rb, starts))
+    wedges = [(w.site, w.compiling) for w in wd.wedges]
+    if wedges != [("executor.dispatch", False)] or rb.wedges != 1:
+        raise AssertionError("%s: the watchdog fired %s (expected once, "
+                             "executor.dispatch, not compiling)" % (
+                                 what, wd.wedges))
+    if scraper.codes != [200, 503, 200]:
+        raise AssertionError("%s: /healthz read %s in turn (counts %s), "
+                             "expected 200, 503, 200" % (
+                                 what, scraper.codes, scraper.counts))
+    fams = ("paddle_resilience_restarts_total",
+            "paddle_resilience_checkpoints_total",
+            "paddle_resilience_recoveries_total",
+            "paddle_resilience_wedges_detected_total")
+    missing = [f for f in fams if "\n%s{" % f not in metrics_text]
+    if missing:
+        raise AssertionError("%s: /metrics lacks %s" % (what, missing))
+    mem = [max(rec[3] for rec in seg) for seg in segs]
+    if mem[2] > mem[1] * (1 + RES_MEM_SLACK):
+        raise AssertionError("%s: reserved %.1f MiB after the second "
+                             "recovery, %.1f after the first: a graph pool "
+                             "kept per recovery" % (what, mem[2] / 2**20,
+                                                    mem[1] / 2**20))
+    times_a = [rec[2] for rec in seen_a]
+    step_ms = [(b - a) * 1e3 for a, b in zip(times_a[2:], times_a[3:])]
+    med = float(np.median(step_ms))
+    recov = [{k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in p.items()} for p in rb.recoveries]
+    write_s = [w for w, _ in writes_a]
+    out = dict(
+        steps=RES_STEPS, dispatched=dict(a=disp_a, b=disp_b),
+        losses=[loss_a[s] for s in range(1, RES_STEPS + 1)],
+        replayed_ms_a_step=med, step_ms_a=step_ms, recoveries=recov,
+        resumed_segments=starts, wedges=len(wd.wedges),
+        wedge_age_s=wd.wedges[0].age_s, healthz=scraper.codes,
+        healthz_counts=scraper.counts,
+        checkpoint_blocked_ms=ck_a[0] / max(ck_a[1], 1) * 1e3,
+        checkpoint_calls=ck_a[1], checkpoint_write_s=write_s,
+        checkpoint_bytes=writes_a[0][1] if writes_a else 0,
+        reserved_mib=[m / 2**20 for m in mem],
+        launches=dict(zip(COUNT_NAMES, meter.total())),
+        host_launches=dict(zip(COUNT_NAMES, host)),
+        per_step=dict(zip(COUNT_NAMES, per_step)),
+        seconds=time.perf_counter() - t0)
+    log("%s: run A %d steps, run B %d dispatched through a raise at step 6 "
+        "and a %.1f s wedge at step 10 (watchdog deadline %.1f s, fired "
+        "once at %.2f s, not compiling); B's losses, %d persistables and "
+        "RNG chain bitwise A's; resumed from steps 4 and 8; /healthz %s "
+        "(%s); launches %s = %s on the card (per step %s; launch calls %s)"
+        % (what, disp_a, disp_b, RES_WEDGE_S, RES_DEADLINE_S,
+           wd.wedges[0].age_s, len(persist), scraper.codes, scraper.counts,
+           COUNT_NAMES, out["launches"], per_step, host))
+    log("%s: %.3f ms a step median (run A, steps 4-12, checkpoints "
+        "included); recoveries (s by part: backoff, executor swap, restore, "
+        "eager step, capture) %s; checkpoint blocked %.1f ms a call over "
+        "%d calls, writes %s s of %.1f MB each; reserved MiB by segment "
+        "%s; %.1f s" % (
+            what, med, recov, out["checkpoint_blocked_ms"], ck_a[1],
+            ["%.2f" % w for w in write_s], out["checkpoint_bytes"] / 1e6,
+            ["%.1f" % m for m in out["reserved_mib"]], out["seconds"]))
+    return out
+
+
+# phase 23b: bench.py's bench_elastic row at its full setting (3
+# trainers, 12 steps an epoch, a checkpoint every 2, a 30 s lease, the
+# demo model, 1 pserver), trainer 1 crashing on its 6th heartbeat (step
+# 5), every worker on the card; then a fresh job on the surviving world
+# from the archived checkpoint
+EL_TRAINERS, EL_STEPS, EL_EVERY, EL_LEASE_S = 3, 12, 2, 30.0
+EL_KILL = "trainer.heartbeat@6:crash"
+EL_TIMEOUT_S = 300.0
+
+
+def _timeline_has(workdir, event):
+    """Whether an elastic job's timeline holds ``event`` yet (a line
+    still being written is skipped)."""
+    try:
+        with open(os.path.join(workdir, "timeline.jsonl")) as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return False
+    for line in lines:
+        try:
+            if json.loads(line)["event"] == event:
+                return True
+        except ValueError:
+            continue
+    return False
+
+
+def _elastic_sidecar_k7(workdir, name):
+    """The K7 launches a worker's telemetry sidecar records: (the card's
+    count, the wrapper's launch calls); None where the file is absent."""
+    path = os.path.join(workdir, "telemetry", name)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        fam = json.load(f)["metrics"]["paddle_elastic_worker_kernel_launches"]
+    by = {(s["labels"]["library"], s["labels"]["slot"]): int(s["value"])
+          for s in fam["samples"]}
+    return by.get(("optimizer_update", "1"), 0), \
+        by.get(("optimizer_update.sgd", "host"), 0)
+
+
+def _elastic_final(ckdir):
+    from paddle_tpu_torch.io import _load_blob
+    from paddle_tpu_torch.resilience import read_manifest
+
+    man = read_manifest(ckdir)
+    return man, _load_blob(os.path.join(ckdir, man["latest"]), None)[1]
+
+
+def phase_elastic(seed):
+    """Phase 23b: the elastic job on the card (ElasticJobSupervisor's
+    default platform): EL_TRAINERS trainers and one pserver, trainer 1
+    killed at step 5; and the reference, a fresh job on the surviving
+    world [0, 2] from the chaos job's ``reshard_g0/``, run beside the
+    chaos job's generation 1 (a thread runs the chaos job). Held: the job
+    completes with 1 eviction and 2 generations; generation 1 deals
+    shards [0, 1, 2] over [0, 2] and resumes from the archived manifest's
+    step (the port's trainers finish the round they dispatched, so that
+    is step 4 where the JAX package's job resumes from 2, or step 2 when
+    the teardown wins the race); the final dense params and RNG chain
+    bitwise the reference's; K7 once a sync round on each finished
+    pserver, by its sidecar. Logged: steps/s through the failure
+    (bench.py's elastic_chaos_steps_per_sec: final step over wall time),
+    the reshard's seconds, each generation's start seconds."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.resilience import read_manifest
+    from paddle_tpu_torch.resilience.elastic import ElasticJobSupervisor
+
+    what = "elastic job on the card (23b)"
+    t0 = time.perf_counter()
+    del seed  # the demo job's data and weights are its own (demo_feed)
+    native.load("ps_service")  # built before the workers start
+    _free()
+    free_b, total_b = torch.cuda.mem_get_info()
+    log("%s: before spawning, the card has %.1f of %.1f GiB free" % (
+        what, free_b / 2**30, total_b / 2**30))
+    with tempfile.TemporaryDirectory() as tmp:
+        chaos_dir = os.path.join(tmp, "chaos")
+        sup = ElasticJobSupervisor(
+            chaos_dir, trainers=EL_TRAINERS, steps_per_epoch=EL_STEPS,
+            checkpoint_every=EL_EVERY, lease_s=EL_LEASE_S,
+            worker_env={1: {"PADDLE_TPU_FAULT_PLAN": EL_KILL}})
+        if sup.platform != "cuda":
+            raise AssertionError("%s: the job's platform is %s" % (
+                what, sup.platform))
+        box = {}
+
+        def chaos():
+            tj = time.perf_counter()
+            try:
+                box["res"] = sup.run(timeout_s=EL_TIMEOUT_S)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                box["err"] = e
+            box["wall"] = time.perf_counter() - tj
+
+        job = threading.Thread(target=chaos, name="elastic-chaos-job")
+        job.start()
+        # the reference starts once the chaos job has archived the
+        # checkpoint its generation 1 resumes from (the timeline's
+        # "reshard" event follows the copy), and runs beside generation 1:
+        # their workers' starts (most of a generation's seconds) overlap
+        ref_dir = os.path.join(tmp, "ref")
+        while job.is_alive() and not _timeline_has(chaos_dir, "reshard"):
+            time.sleep(0.05)
+        rres, ref_wall = None, None
+        if _timeline_has(chaos_dir, "reshard"):
+            shutil.copytree(os.path.join(chaos_dir, "reshard_g0"),
+                            os.path.join(ref_dir, "checkpoints"))
+            tr = time.perf_counter()
+            rres = ElasticJobSupervisor(
+                ref_dir, trainer_ids=[0, 2], steps_per_epoch=EL_STEPS,
+                checkpoint_every=EL_EVERY, lease_s=EL_LEASE_S).run(
+                    timeout_s=EL_TIMEOUT_S)
+            ref_wall = time.perf_counter() - tr
+        job.join()
+        if "err" in box:
+            raise box["err"]
+        res, wall = box.get("res"), box["wall"]
+        if res is None or not res.completed:
+            tails = {}
+            for fn in sorted(os.listdir(os.path.join(chaos_dir, "logs"))):
+                with open(os.path.join(chaos_dir, "logs", fn)) as f:
+                    tails[fn] = f.read()[-2000:]
+            raise AssertionError("%s: %r; logs %s" % (what, res, tails))
+        gens = [ev for ev in res.timeline
+                if ev["event"] == "generation_start"]
+        archived = read_manifest(os.path.join(chaos_dir, "reshard_g0"))
+        resume = gens[1]["resume_step"] if len(gens) > 1 else None
+        covered = sorted(s for sh in gens[1]["assignment"].values()
+                         for s in sh) if len(gens) > 1 else None
+        if (res.evictions, res.generations) != (1, 2) or \
+                gens[1]["trainers"] != [0, 2] or covered != [0, 1, 2] or \
+                resume != archived["step"] or resume not in (2, 4):
+            raise AssertionError(
+                "%s: %r; generation 1 %s resuming from %s (archived "
+                "manifest at step %s)" % (what, res, gens[1:], resume,
+                                          archived["step"]))
+        if rres is None or not rres.completed or rres.evictions:
+            raise AssertionError("%s: the reference job %r" % (what, rres))
+        man1, d1 = _elastic_final(os.path.join(chaos_dir, "checkpoints"))
+        man2, d2 = _elastic_final(os.path.join(ref_dir, "checkpoints"))
+        diff = [n for n in sorted(set(d1) | set(d2))
+                if n not in d1 or n not in d2 or
+                d1[n].dtype != d2[n].dtype or
+                d1[n].tobytes() != d2[n].tobytes()]
+        if man1["step"] != EL_STEPS or man2["step"] != EL_STEPS or diff or \
+                "@RNG_STATE@" not in d1:
+            raise AssertionError("%s: final steps %s / %s; differing from "
+                                 "the reference: %s" % (
+                                     what, man1["step"], man2["step"], diff))
+        rounds = EL_STEPS - resume
+        k7 = {"chaos gen1": _elastic_sidecar_k7(chaos_dir,
+                                                "gen1_pserver0.json"),
+              "reference": _elastic_sidecar_k7(ref_dir,
+                                               "gen0_pserver0.json"),
+              "chaos gen0 (torn down)": _elastic_sidecar_k7(
+                  chaos_dir, "gen0_pserver0.json")}
+        if k7["chaos gen1"] != (rounds, 2) or k7["reference"] != (rounds, 2):
+            raise AssertionError("%s: the pservers' K7 (on the card, launch "
+                                 "calls) %s, expected %d a sync round of %d "
+                                 "rounds and 2 calls (eager, capture)" % (
+                                     what, k7, 1, rounds))
+        t_start = res.timeline[0]["t"]
+        gen_start_s = [round(g["t"] - t_start, 3) for g in gens]
+        reshard_s = sum(r.get("seconds", 0.0) for r in res.reshards)
+    out = dict(
+        trainers=EL_TRAINERS, steps=EL_STEPS, resume_step=resume,
+        generations=res.generations, evictions=res.evictions,
+        steps_per_sec=res.final_step / wall, wall_s=wall,
+        reference_wall_s=ref_wall, reshard_s=reshard_s,
+        generation_start_s=gen_start_s, k7=k7,
+        launches=dict(zip(COUNT_NAMES, (0,) * len(COUNT_NAMES)),
+                      K7=k7["chaos gen1"][0] + k7["reference"][0]),
+        bitwise_vars=len(d1), card_free_gib=free_b / 2**30,
+        seconds=time.perf_counter() - t0)
+    log("%s: %d trainers, %d steps, trainer 1 killed at step 5: completed "
+        "in %.1f s (%.3f steps/s through the failure, the reference job "
+        "beside generation 1), 1 eviction, 2 generations started at %s s, "
+        "the reshard %.3f s, generation 1 on [0, 2] from step %d; %d vars "
+        "bitwise the reference job's (%.1f s); "
+        "K7 on the card pservers (card count, launch calls) %s, %d sync "
+        "rounds each; %.1f s" % (
+            what, EL_TRAINERS, EL_STEPS, wall, out["steps_per_sec"],
+            gen_start_s, reshard_s, resume, len(d1), ref_wall, k7, rounds,
+            out["seconds"]))
+    return out
+
+
 def _free():
     """Between phases: collect what a phase left in reference cycles (its
     executors, whose graphs hold memory pools), then hand the caching
@@ -11760,7 +12247,7 @@ PHASES = (
     ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
     ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()),
     ("21", ()), ("21b", ()), ("21c", ()), ("21d", ()),
-    ("22", ()), ("22b", ("22",)))
+    ("22", ()), ("22b", ("22",)), ("23", ()), ("23b", ()))
 
 
 def selected_phases(spec):
@@ -12033,6 +12520,12 @@ def main():
                                  args.seed, p22)
         del p22
         _free()
+    if want("23"):
+        R["23"] = timed("23", phase_resilient, args.seed)
+        _free()
+    if want("23b"):
+        R["23b"] = timed("23b", phase_elastic, args.seed)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -12132,7 +12625,8 @@ def _kernel_rows(R):
                  mesh_sp_ring=L("21b", "flash fwd"),
                  mesh_sp_ring_packed=L("21b", "flash fwd",
                                        "packed_launches"),
-                 mesh_experts=L("21c", "flash fwd"))
+                 mesh_experts=L("21c", "flash fwd"),
+                 resilient_train=L("23", "flash fwd"))
     k2, k3 = (by_path(train=L("6", c), train_amp=L("6b", c),
                       train_sgd_amp=L("7b", c), train_loop=L("6e", c),
                       train_loop_amp=L("6f", c), recompute=L("6g", c),
@@ -12149,7 +12643,8 @@ def _kernel_rows(R):
                       mesh_dp_tp=L("21", c, "tp_launches"),
                       mesh_sp_ring=L("21b", c),
                       mesh_sp_ring_packed=L("21b", c, "packed_launches"),
-                      mesh_experts=L("21c", c))
+                      mesh_experts=L("21c", c),
+                      resilient_train=L("23", c))
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=L("4", "K4"), train=L("6", "K4"),
                  train_sgd=L("7", "K4"), serve_amp=L("4b", "K4 AMP"),
@@ -12172,7 +12667,8 @@ def _kernel_rows(R):
                  mesh_dp_tp=L("21", "K4", "tp_launches"),
                  mesh_sp_ring=L("21b", "K4"),
                  mesh_sp_ring_packed=L("21b", "K4", "packed_launches"),
-                 mesh_experts=L("21c", "K4"))
+                 mesh_experts=L("21c", "K4"),
+                 resilient_train=L("23", "K4"))
     k6 = by_path(train=L("6", "K6"), train_amp=L("6b", "K6"),
                  train_loop=L("6e", "K6"), train_loop_amp=L("6f", "K6"),
                  recompute=L("6g", "K6"), gpt_train=L("8", "K6"),
@@ -12199,10 +12695,12 @@ def _kernel_rows(R):
                  mesh_sp_ring=L("21b", "K6"),
                  mesh_sp_ring_packed=L("21b", "K6", "packed_launches"),
                  mesh_experts=L("21c", "K6"),
-                 mesh_pipeline=L("21d", "K6"))
+                 mesh_pipeline=L("21d", "K6"),
+                 resilient_train=L("23", "K6"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"),
-                 ps_dense_update=L("22b", "K7"))
+                 ps_dense_update=L("22b", "K7"),
+                 elastic_pserver=L("23b", "K7"))
     k5 = R.get("3c K5 launches", 0)
 
     def row(name, source, replaces, by, err, t, lib, lib_call, amp=None):

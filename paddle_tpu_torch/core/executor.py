@@ -58,6 +58,16 @@ compute stream; nothing waits for the card but a handle's ``wait`` and
 the cap of ``max_in_flight`` unresolved handles. So the host's work for
 step N+1 runs under step N's graph, and the values are bitwise those of
 ``run`` called once per batch.
+
+Every dispatch (``run``, ``run_repeated``, each step or window of
+``run_pipelined``) stamps the process heartbeat that the resilience
+watchdog reads (resilience/watchdog.py) and passes the
+``executor.dispatch`` fault site; every host wait on the card (a
+handle's ``wait``, the fetches' copy to numpy) stamps it too, and a host
+feed passes the ``device_put`` site before it is copied to the device.
+A plan's dispatches count as ``compiling`` until its step is compiled:
+on the card its eager first step and its capture, on the CPU its first
+step.
 """
 
 from __future__ import annotations
@@ -75,6 +85,8 @@ import torch
 from ..observe import trace as _tr
 from ..observe.families import REGISTRY as _METRICS
 from ..profiler import RecordEvent
+from ..resilience.faults import fault_point
+from ..resilience.watchdog import heartbeat
 from .cuda_graph import StepGraph, StepTrace, state_changes
 from .lowering import (LowerContext, as_torch_dtype, lower_block,
                        lower_ops, release_schedule)
@@ -115,7 +127,9 @@ class _Plan:
         self.exact = exact  # exact_numerics: never captured
         # op types that read on the host, at any depth: never captured
         self.host_sync = list(host_sync)
-        self.compiled_sigs = set()  # dispatch signatures already captured
+        # dispatch signatures whose step is compiled: captured on the card,
+        # dispatched once where the plan is never captured
+        self.compiled_sigs = set()
         self.trace = None  # the first eager run's StepTrace on the card:
         #                    set once that run warmed the plan
         self.graph: Optional[StepGraph] = None  # the captured step
@@ -190,7 +204,8 @@ class Executor:
         plan = self._plan(program, feeds, fetch_names, scope)
         t0 = time.perf_counter()
         # the whole step under one profiler marker (the JAX package's)
-        with RecordEvent("executor_run"):
+        with RecordEvent("executor_run"), \
+                _dispatch_guard(plan, "run", self._graphed(plan)):
             fetches, captured = self._step(plan, program, feeds, scope)
         _record_dispatch(plan, "run", "run", 1, time.perf_counter() - t0,
                          captured)
@@ -245,12 +260,13 @@ class Executor:
                       else feeds)
         plan = self._plan(program, step_feeds, fetch_names, scope)
         t0 = time.perf_counter()
-        with RecordEvent("executor_run_repeated[%d]" % steps):
+        sig = ("run_repeated", steps, feed_stacked, reduce_fetches)
+        with RecordEvent("executor_run_repeated[%d]" % steps), \
+                _dispatch_guard(plan, sig, self._graphed(plan)):
             fetches, captured = self._k_steps(plan, program, feeds, scope,
                                               steps, feed_stacked,
                                               reduce_fetches)
-        _record_dispatch(plan, ("run_repeated", steps, feed_stacked,
-                                reduce_fetches), "run_repeated", steps,
+        _record_dispatch(plan, sig, "run_repeated", steps,
                          time.perf_counter() - t0, captured)
         return self._finish(plan, fetches, return_numpy,
                             " after %d scanned steps" % steps)
@@ -422,7 +438,7 @@ class Executor:
         def wait_oldest():
             nonlocal blocked
             tw = time.perf_counter()
-            with att, _wait_guard(step_i):
+            with att:  # the handle's wait stamps the heartbeat
                 window.popleft().wait()
             dt = time.perf_counter() - tw
             blocked += dt
@@ -447,7 +463,9 @@ class Executor:
                 _observe_feed(feeds)
                 plan = self._plan(program, feeds, fetch_names, scope)
                 t0 = time.perf_counter()
-                fetches, captured = self._step(plan, program, feeds, scope)
+                with _dispatch_guard(plan, "run", self._graphed(plan)):
+                    fetches, captured = self._step(plan, program, feeds,
+                                                   scope)
                 steady = _record_dispatch(plan, "run", "run_pipelined", 1,
                                           time.perf_counter() - t0,
                                           captured)
@@ -460,14 +478,15 @@ class Executor:
             with att:
                 _observe_feed(plan_feed)
                 plan = self._plan(program, plan_feed, fetch_names, scope)
+                sig = ("run_repeated", kk, True, reduce_fetches)
                 t0 = time.perf_counter()
-                fetches, captured = self._k_steps(
-                    plan, program, stacked, scope, kk, True,
-                    reduce_fetches)
+                with _dispatch_guard(plan, sig, self._graphed(plan)):
+                    fetches, captured = self._k_steps(
+                        plan, program, stacked, scope, kk, True,
+                        reduce_fetches)
                 dt = time.perf_counter() - t0
-                steady = _record_dispatch(
-                    plan, ("run_repeated", kk, True, reduce_fetches),
-                    "run_pipelined", kk, dt, captured)
+                steady = _record_dispatch(plan, sig, "run_pipelined", kk,
+                                          dt, captured)
                 if steady:
                     PIPELINE_WINDOW_SECONDS.labels(
                         phase="dispatch").observe(dt)
@@ -549,7 +568,7 @@ class Executor:
             # max_in_flight never stalls IN the loop
             while window:
                 tw = time.perf_counter()
-                with att, _wait_guard(step_i):
+                with att:
                     window.popleft().wait()
                 dt = time.perf_counter() - tw
                 blocked += dt
@@ -632,13 +651,20 @@ class Executor:
         graphs' memory pool, and tell any connected pservers this trainer
         is done (Executor.close → SendComplete analog, executor.py:388-405
         / rpc_client.h:86)."""
+        self.release_plans()
+        from ..ops.distributed_ops import complete_and_reset
+
+        complete_and_reset()
+
+    def release_plans(self):
+        """Drop every cached plan, freeing their CUDA graphs and the
+        graphs' memory pool (which the caching allocator then frees at
+        its next ``empty_cache``), and nothing else: what a supervisor
+        does to an executor it replaces."""
         for plan in self._cache.values():
             plan.release()
         self._cache.clear()
         self._pool = None
-        from ..ops.distributed_ops import complete_and_reset
-
-        complete_and_reset()
 
     # ------------------------------------------------------------ steps
     def _args(self, program, feed, fetch_list, scope):
@@ -650,6 +676,8 @@ class Executor:
         _observe_feed(feed)
         fetch_names = _fetch_names(fetch_list)
         block = program.global_block()
+        if any(not isinstance(v, torch.Tensor) for v in (feed or {}).values()):
+            fault_point("device_put")
         feeds = {n: feed_to_device(n, v, block.vars.get(n), self.device)
                  for n, v in (feed or {}).items()}
         return program, scope, feeds, fetch_names
@@ -785,7 +813,11 @@ class Executor:
         tensors (a replay overwrites its outputs, and a state tensor is
         updated in place by the next step)."""
         if return_numpy:
-            out = [to_numpy(v) for v in fetches]
+            out = []
+            if fetches:
+                # the copy to the host is where a wedged card hangs a run
+                with _wait_guard():
+                    out = [to_numpy(v) for v in fetches]
             _check_fetches_finite(plan.fetch_names, out, nan_suffix)
             return out
         if self.device.type == "cuda":
@@ -905,14 +937,57 @@ def _completion_probe(device):
 
 @contextlib.contextmanager
 def _wait_guard(step=None):
-    """The ``executor.complete`` trace span around a host wait on a
-    step's results (the pipelined loop's window waits); nothing when
-    tracing is off."""
-    if not _tr.trace_enabled():
+    """Heartbeat around a HOST WAIT on the card's results (a handle's
+    event wait, the fetches' copy to numpy). Dispatch is asynchronous,
+    so a wedged card shows up exactly here: without this stamp the
+    watchdog would read it as an idle host and never fire. Doubles as
+    the ``executor.complete`` trace span (the JAX package's
+    ``_wait_guard``)."""
+    hb = heartbeat()
+    tok = hb.begin("executor.wait", step=step)
+    sp = _tr.trace_span("executor.complete", step=step) \
+        if _tr.trace_enabled() else None
+    if sp is not None:
+        sp.__enter__()
+    try:
         yield
-        return
-    with _tr.trace_span("executor.complete", step=step):
+    finally:
+        if sp is not None:
+            sp.__exit__(None, None, None)
+        hb.end("executor.wait", tok)
+
+
+@contextlib.contextmanager
+def _dispatch_guard(plan, sig, graphed):
+    """Resilience wrapper around ONE dispatch of ``plan`` (a step of
+    ``run``, the K steps of ``run_repeated`` or of a pipelined window):
+    stamps the process heartbeat, with ``compiling=True`` until the
+    plan's step is compiled for this signature (on the card, where
+    ``graphed``, its eager first step and its CUDA-graph capture; else
+    its first dispatch), so the watchdog judges those against its
+    compile grace and not the steady deadline; then passes the
+    ``executor.dispatch`` fault site. The fault fires AFTER the begin
+    stamp, so an injected wedge looks to the watchdog exactly like a
+    real one, and the end stamp lands even when it raises. The trace
+    span opens before the fault point for the same reason: a wedged
+    dispatch sits in the flight recorder as an open
+    ``executor.dispatch`` span. The JAX package's ``_dispatch_guard``."""
+    hb = heartbeat()
+    tok = hb.begin("executor.dispatch",
+                   compiling=sig not in plan.compiled_sigs)
+    sp = _tr.trace_span("executor.dispatch", plan="%x" % id(plan)) \
+        if _tr.trace_enabled() else None
+    if sp is not None:
+        sp.__enter__()
+    try:
+        fault_point("executor.dispatch")
         yield
+        if not graphed or plan.graph is not None:
+            plan.compiled_sigs.add(sig)
+    finally:
+        if sp is not None:
+            sp.__exit__(None, None, None)
+        hb.end("executor.dispatch", tok)
 
 
 def _record_completion(steady, site, dt):
@@ -1275,6 +1350,8 @@ def feeds_to_device(feed: Dict[str, Any], var_lookup, device: torch.device,
     copy (a tensor already on ``device`` costs nothing)."""
     out: Dict[str, Any] = {}
     nbytes = 0
+    if any(not isinstance(v, torch.Tensor) for v in feed.values()):
+        fault_point("device_put")
     with (torch.cuda.stream(stream) if stream is not None
           else contextlib.nullcontext()):
         for n, v in feed.items():

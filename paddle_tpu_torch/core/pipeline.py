@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..observe import trace as _tr
+from ..resilience.faults import fault_point
 from .place import default_place, require_device
 
 __all__ = ["DevicePrefetcher", "ConstFeedCache", "FetchHandle",
@@ -389,6 +390,10 @@ class DevicePrefetcher:
                 for feed in it:
                     if self._stop.is_set():
                         return
+                    # fault-injection site, once per batch pulled: an
+                    # injected raise lands in self._error and re-raises
+                    # in the consumer, as a real reader failure does
+                    fault_point("reader.next")
                     if self._window_resolver is not None:
                         k, src = self._window_resolver(feed)
                         win = max(1, int(k))
@@ -566,26 +571,37 @@ class FetchHandle:
             self._window_obs = None
 
     def wait(self) -> "FetchHandle":
+        """Wait for the step's event, under the heartbeat's
+        ``executor.wait`` stamp (a wedged card hangs here)."""
+        from .executor import _wait_guard
+
+        with _wait_guard(self.step):
+            self._sync()
+        return self
+
+    def _sync(self) -> None:
         for e in self._block_on:
             e.synchronize()
         self._block_on = ()  # released once done
         self._record_complete()
-        return self
 
     def result(self):
         """Wait and return the fetch values (numpy when the dispatching
-        call used return_numpy=True). Idempotent."""
+        call used return_numpy=True). Idempotent. The wait and the copy
+        to numpy run under one ``executor.wait`` heartbeat stamp."""
         if self._materialized:
             return self._values
-        self.wait()
-        if self._return_numpy and self._fetches:
-            from .executor import _check_fetches_finite, to_numpy
+        from .executor import _check_fetches_finite, _wait_guard, to_numpy
 
-            out = [to_numpy(v) for v in self._fetches]
+        with _wait_guard(self.step):
+            self._sync()
+            if self._return_numpy and self._fetches:
+                out = [to_numpy(v) for v in self._fetches]
+            else:
+                out = list(self._fetches)
+        if self._return_numpy and self._fetches:
             _check_fetches_finite(self.fetch_names, out,
                                   " at pipelined step %d" % self.step)
-        else:
-            out = list(self._fetches)
         self._values = out
         self._materialized = True
         self._fetches = out

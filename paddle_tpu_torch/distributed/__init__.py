@@ -16,10 +16,23 @@ the reference (SURVEY §2.9):
   host inside it; a pserver's dense updates run on its executor's
   device too.
 
-The elastic membership tier is not ported yet.
+The elastic tier's membership (``membership.py``: heartbeat leases and
+the reshard math, over the same transport) and the multi-process
+launcher (``launch.py``, ``python -m paddle_tpu_torch.distributed.launch``)
+are copies of the JAX package's.
 """
 
 from ..parallel.env import ParallelEnv, init_parallel_env  # noqa: F401
+from .membership import (  # noqa: F401
+    HeartbeatSender,
+    MembershipServer,
+    MembershipView,
+    TrainerLease,
+    make_world,
+    reshard,
+    shard_assignment,
+    world_from_manifest,
+)
 from .rpc import (  # noqa: F401
     PeerGoneError,
     RPCClient,

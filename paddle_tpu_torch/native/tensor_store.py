@@ -9,11 +9,16 @@ directory either package writes loads in the other. Little-endian:
 
 Dtype codes are the JAX package's table (native/dtypes.py); bfloat16
 (code 5) has no numpy dtype here and is refused. Writes go to a staging
-file renamed into place, so a failed save never clobbers a good file.
+file renamed into place, so a failed save never clobbers a good file;
+the ``checkpoint.write`` fault site sits between a complete staging file
+and its rename, and each save first removes the staging files that dead
+writers left for the same target (the JAX package's
+``_clean_orphan_tmps``).
 """
 
 from __future__ import annotations
 
+import glob as _glob
 import itertools
 import os
 import struct
@@ -50,7 +55,43 @@ def _code_of(dtype) -> int:
     return code
 
 
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except OSError:
+        # EPERM etc: the pid exists but isn't ours — treat as alive
+        return True
+    return True
+
+
+def _clean_orphan_tmps(path: str) -> None:
+    """Remove staging files for THIS target left by DEAD writer pids — a
+    SIGKILLed/power-lost writer dies between the tmp write and the
+    rename, and nothing else ever collects its litter. Live pids (a
+    concurrent writer in another process) are never touched; neither is
+    this process's own staging (same-path writes serialize in io.py, so
+    any same-pid tmp seen here belongs to an in-flight writer)."""
+    for tmp in _glob.glob(_glob.escape(path) + ".tmp.*"):
+        parts = tmp[len(path):].split(".")  # ['', 'tmp', '<pid>', '<seq>']
+        try:
+            pid = int(parts[2])
+        except (IndexError, ValueError):
+            continue
+        if pid == os.getpid() or _pid_alive(pid):
+            continue
+        try:
+            os.remove(tmp)
+        except OSError:
+            continue
+        from ..observe.families import RESILIENCE_ORPHANS_CLEANED
+
+        RESILIENCE_ORPHANS_CLEANED.inc()
+
+
 def save_tensors(path: str, tensors: Dict[str, np.ndarray]) -> None:
+    _clean_orphan_tmps(path)
     prepared = []
     for name, arr in tensors.items():
         a = np.asarray(arr)
@@ -68,6 +109,15 @@ def save_tensors(path: str, tensors: Dict[str, np.ndarray]) -> None:
                 f.write(struct.pack("<Q", a.nbytes))
                 f.write(a.astype(a.dtype.newbyteorder("<"), copy=False)
                         .tobytes())
+        # fault-injection site, EXACTLY in the crash window that matters:
+        # the staged tmp is complete, the rename has not happened — a
+        # 'crash' here leaves the litter a real power loss leaves
+        # (previous checkpoint intact, orphaned tmp on disk, collected by
+        # the next save); a 'raise' surfaces like any transient write
+        # error (the finally below removes the staging file)
+        from ..resilience.faults import fault_point
+
+        fault_point("checkpoint.write")
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
