@@ -511,7 +511,21 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and RNG chain bitwise a fresh job's on [0, 2] from that checkpoint;
    K7 once a sync round on the card pservers, by their sidecars;
    steps/s through the failure, the reshard's and each generation's
-   seconds. ``--phases 23,23b`` runs the two alone.
+   seconds. ``--phases 23,23b`` runs the two alone;
+24. the data axis across trainer processes: two ranks started after
+   phase 3d by ``python -m paddle_tpu_torch.distributed.launch --nproc 2
+   chip_smoke.py --collective-rank`` and held on a pipe until this
+   phase, each on cuda:0 with 2 positions, a (data 4) mesh over a gloo
+   process group (logged); BERT-base MLM at full width (phase 6's
+   program, global batch 8, dropout 0.1, f32, level 2, ZeRO-1) for 2
+   ``run`` steps and one ``run_repeated(steps=2)``; every rank's losses
+   within XP_LOSS_RTOL / XP_LOSS_ATOL of this process' single-process
+   run; the first step's all-reduced grads within GRAD_FACTOR times the
+   flash-vs-composed gap, a planted dropped-rank fault refused; K1 24,
+   K2 12, K3 12, K4 25 and K6 1 a step on each rank (counted on the
+   card); each split ZeRO-1 slot at half its rows; optimizer-slot bytes,
+   reserved MiB, the collectives' calls, MB and seconds a step, step ms
+   a rank, the plans uncaptured. ``--phases 24`` runs it alone.
 
 From its second run on, every plan of a Program that ``Executor.run``
 runs on the card is a replay of its CUDA graph (paddle_tpu_torch/core/
@@ -12219,6 +12233,394 @@ def phase_elastic(seed):
     return out
 
 
+# ------------------------------------------------------------ phase 24
+# Phase 24: the data axis across trainer processes at full width. Two
+# ranks started through the port's launcher (this script run as
+# ``--collective-rank``), each on cuda:0 with 2 positions: a (data 4)
+# mesh over 2 processes joined by a gloo process group (NCCL refuses two
+# ranks on one card). They are started after phase 3d and held on the
+# launcher's stdin before they touch the card, so their interpreters'
+# start (import torch, the program's build) runs beside the phases in
+# between; phase 24 releases them.
+XP_RANKS = 2
+XP_POSITIONS = 2         # each rank's positions: (data 4) over 2 ranks
+XP_LOSS_RTOL, XP_LOSS_ATOL = 2e-4, 1e-5  # tests/test_dist_collective.py:101
+XP_TIMEOUT_S = 420       # the ranks' run after their release
+XP_BATCHES = 3           # run, run, run_repeated(steps=2)
+
+
+def _xp_batches(seed):
+    cfg = bert_cfg()
+    rs = np.random.RandomState(seed)
+    return [_train_batch(cfg, rs) for _ in range(XP_BATCHES)]
+
+
+def _xp_start(seed):
+    """Start the ranks: ``python -m paddle_tpu_torch.distributed.launch
+    --nproc 2 chip_smoke.py --collective-rank`` with stdin a pipe that
+    holds them. Returns the handle ``phase_collective`` takes."""
+    import socket
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_xp_")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    log = os.path.join(workdir, "ranks.log")
+    env = dict(os.environ, XP_DIR=workdir, XP_SEED=str(seed),
+               XP_T0=repr(time.time()))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc", str(XP_RANKS), "--started_port", str(port),
+             os.path.abspath(__file__), "--collective-rank"],
+            cwd=here, env=env, stdin=subprocess.PIPE, stdout=f,
+            stderr=subprocess.STDOUT)
+    return dict(proc=proc, dir=workdir, log=log, t0=time.perf_counter())
+
+
+def _xp_stop(ranks):
+    """End the ranks (a no-op once they have exited) and remove their
+    directory."""
+    proc = ranks["proc"]
+    if proc.poll() is None:
+        try:
+            proc.stdin.close()
+        except OSError:
+            pass
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    shutil.rmtree(ranks["dir"], ignore_errors=True)
+
+
+def _xp_counters():
+    """The cross-process collectives so far: calls, bytes and host
+    seconds by kind."""
+    from paddle_tpu_torch.observe.families import ENGINE_COLLECTIVES
+    from paddle_tpu_torch.parallel.collective import (COLLECTIVE_BYTES,
+                                                      COLLECTIVE_SECONDS)
+
+    kinds = ("xproc_all_reduce", "xproc_all_gather", "xproc_broadcast",
+             "xproc_reduce_scatter")
+    return {k: (ENGINE_COLLECTIVES.labels(kind=k).value,
+                COLLECTIVE_BYTES.labels(kind=k).value,
+                COLLECTIVE_SECONDS.labels(kind=k).value) for k in kinds}
+
+
+def _xp_delta(a, b, steps):
+    return {k: dict(calls=(b[k][0] - a[k][0]) / steps,
+                    mb=(b[k][1] - a[k][1]) / steps / 1e6,
+                    s=(b[k][2] - a[k][2]) / steps) for k in a
+            if b[k][0] > a[k][0]}
+
+
+def _xp_warm_on_cpu(seed):
+    """One training step of a narrow BERT (phase 24's ops at widths 64)
+    on the CPU: a first step's one-time host work (the generic grads'
+    lazy imports of ``torch._dynamo``, ``torch.distributed.tensor`` and
+    sympy, about 3 s) made while a rank is held, before it touches the
+    card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+
+    cfg = dict(bert_cfg(), n_layer=1, d_model=64, d_ff=128, n_head=4,
+               vocab=128, max_length=16)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        loss, _ = bert.build(cfg, seq_len=16, max_mask=4)
+        fluid.optimizer.Adam(learning_rate=TRAIN_LR).minimize(loss)
+    exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+    exe.run(startup, scope=scope)
+    rs = np.random.RandomState(seed)
+    feed = {"src_ids": rs.randint(0, 128, (2, 16)),
+            "sent_ids": rs.randint(0, 2, (2, 16)),
+            "input_mask": np.ones((2, 16), "float32"),
+            "mask_pos": np.array([[0, 3, 5, 7], [16, 18, 20, 30]]),
+            "mask_label": rs.randint(0, 128, (2, 4)),
+            "mask_weight": np.ones((2, 4), "float32")}
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+
+
+def _xp_rank():
+    """A trainer rank of phase 24 (``chip_smoke.py --collective-rank``,
+    under the launcher's env contract): builds phase 6's program, waits
+    for one byte on stdin (EOF ends it), joins the process group on the
+    card and trains through a ``ParallelEngine`` over (data 4) with
+    ZeRO-1: a ``run`` that fetches the first step's grads, a ``run``, a
+    ``run_repeated(steps=2)``, each under the launch meter; then the
+    first step again from the start state with rank 1's contribution
+    dropped from the grad all-reduce (a planted fault). Writes its
+    readings to ``XP_DIR/rank<r>.json`` and, rank 0, the grads to
+    ``XP_DIR/grads.pt`` and ``grads_fault.pt``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.core.executor import UNCAPTURED_PLANS
+    from paddle_tpu_torch.parallel import ParallelEngine, ShardingRules
+    from paddle_tpu_torch.parallel.collective import Comm
+    from paddle_tpu_torch.parallel.env import ParallelEnv, init_parallel_env
+
+    t_spawn = float(os.environ["XP_T0"])
+    d, seed = os.environ["XP_DIR"], int(os.environ["XP_SEED"])
+    os.environ["PADDLE_TPU_KERNEL_CACHE_DIR"] = "0"
+    rank = ParallelEnv().rank
+    main, startup, loss, params_grads = _bert_train_program("Adam")
+    main.random_seed = startup.random_seed = seed
+    params = [p.name for p, _ in params_grads]
+    grads = [g.name for _, g in params_grads]
+    batches = _xp_batches(seed)
+    _xp_warm_on_cpu(seed)
+    t_ready = time.time()
+    if os.read(0, 1) != b"g":
+        return 1  # the parent closed the pipe: no run
+    t_go = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    penv = init_parallel_env()
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    engine = ParallelEngine(main, loss.name,
+                            places=[fluid.CUDAPlace(0)] * XP_POSITIONS,
+                            rules=ShardingRules(zero1=True))
+    if engine.mesh.shape != {"data": XP_RANKS * XP_POSITIONS} or \
+            engine.mesh.world != XP_RANKS:
+        raise AssertionError("the rank's mesh is %r" % engine.mesh)
+    units = [("run", batches[0], 1, [loss.name] + grads),
+             ("run", batches[1], 1, [loss.name]),
+             ("run_repeated", batches[2], 2, [loss.name])]
+    # the first step's parts before its ops run: the plans (the pass
+    # pipeline and the row propagation) and rank 0's broadcast of the
+    # state, each timed alone
+    t_plans = time.time()
+    plans = [engine._plan_for(u[1], u[3], scope)[0] for u in units[:2]]
+    t_sync = time.time()
+    engine._sync_state(plans[0], scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_started = time.time()
+    losses, step_ms, coll = [], [], []
+    _zero_counts()
+    with LaunchMeter() as meter:
+        for how, feed, k, fetch in units:
+            meter.mark()
+            c0 = _xp_counters()
+            t1 = time.perf_counter()
+            if how == "run":
+                vals = engine.run(feed, fetch, scope, return_numpy=False)
+            else:
+                vals = engine.run_repeated(feed, fetch, scope, steps=k,
+                                           return_numpy=False)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3 / k)
+            coll.append(_xp_delta(c0, _xp_counters(), k))
+            losses.append(float(vals[0].float().reshape(())))
+            if len(vals) > 1 and rank == 0:
+                torch.save({p: v.float().cpu() for p, v in
+                            zip(params, vals[1:])},
+                           os.path.join(d, "grads.pt"))
+            del vals
+    host = _counts()
+    slots = sorted(getattr(main, "_optimizer_slots", ()))
+    blocks = engine._cache[next(iter(engine._cache))].xplan.blocks
+    slot_bytes = sum(scope.find_var(n).numel() * 4 for n in slots)
+    whole_bytes = sum(int(np.prod(main.global_block().var(n).shape)) * 4
+                      for n in slots)
+    halves = all(scope.find_var(n).shape[0] * XP_RANKS == blocks[n]
+                 for n in blocks)
+    reserved_mb = torch.cuda.max_memory_reserved() / 2 ** 20
+    uncaptured = UNCAPTURED_PLANS.labels(op="xproc_collective").value
+    t_steps = time.time()
+    # the planted fault: rank 1's addend dropped from the grad
+    # all-reduce, the first step again from the start state
+    orig = Comm.all_reduce_flat
+
+    def dropped(self, tensors, *a, **kw):
+        if self.rank == 1:
+            tensors = [torch.zeros_like(t) for t in tensors]
+        return orig(self, tensors, *a, **kw)
+
+    Comm.all_reduce_flat = dropped
+    try:
+        vals = engine.run(batches[0], units[0][3], _restored(snap),
+                          return_numpy=False)
+    finally:
+        Comm.all_reduce_flat = orig
+    if rank == 0:
+        torch.save({p: v.float().cpu() for p, v in zip(params, vals[1:])},
+                   os.path.join(d, "grads_fault.pt"))
+    del vals
+    out = dict(
+        rank=rank, backend=penv.backend, device=str(penv.device),
+        mesh=dict(engine.mesh.shape), losses=losses, step_ms=step_ms,
+        launches=[list(u) for u in meter.units],
+        host_launches=list(host), collectives=coll,
+        slot_bytes=slot_bytes, whole_slot_bytes=whole_bytes,
+        sharded_slots=len(blocks), slots=len(slots), halves=halves,
+        reserved_mb=reserved_mb, uncaptured=uncaptured,
+        start_s=dict(held=t_ready - t_spawn, go_to_plans=t_plans - t_go,
+                     plans=t_sync - t_plans, broadcast=t_started - t_sync,
+                     steps=t_steps - t_started,
+                     fault=time.time() - t_steps))
+    _write_atomic(os.path.join(d, "rank%d.json" % rank), json.dumps(out))
+    return 0
+
+
+def phase_collective(seed, ranks):
+    """Phase 24: BERT-base MLM at full width (phase 6's program: 12
+    layers, d 768, S = 512, global batch 8, Adam, dropout 0.1, f32, TF32
+    off, level 2) trained by two ranks on the card over gloo, with
+    ``ShardingRules(zero1=True)``, against this process' single-process
+    run of the same program, seed and batches. Gated: every rank's losses
+    within XP_LOSS_RTOL / XP_LOSS_ATOL of the single process'; the first
+    step's all-reduced grads within GRAD_FACTOR times the gap between the
+    single process' flash and composed-attention grads (``_grad_gap``),
+    and the planted dropped-rank fault refused by that bound; K1 24, K2
+    12, K3 12, K4 25 and K6 1 a step on each rank (counted on the card);
+    each ZeRO-1 slot the axis splits at half its rows; the plans
+    uncaptured. Logged: the transport, slot bytes and reserved MiB a
+    rank, the collectives' calls, MB and seconds a step, step ms a rank,
+    the phase's seconds with the ranks' start split out."""
+    import paddle_tpu_torch as fluid
+
+    what = "BERT-base over 2 ranks (24)"
+    t0 = time.perf_counter()
+    proc = ranks["proc"]
+    if proc.poll() is not None:
+        raise AssertionError("%s: the ranks ended before their release "
+                             "(rc %s)" % (what, proc.returncode))
+    proc.stdin.write(b"g" * XP_RANKS)
+    proc.stdin.flush()
+    # the control, while the ranks run: the same program, seed and global
+    # batches in this process
+    main, startup, loss, params_grads = _bert_train_program("Adam")
+    main.random_seed = startup.random_seed = seed
+    params = [p.name for p, _ in params_grads]
+    batches = _xp_batches(seed)
+    exe, scope = fluid.Executor(fluid.CUDAPlace(0)), fluid.Scope()
+    exe.run(startup, scope=scope)
+    snap = _snapshot(scope)
+    step = lambda f: float(exe.run(main, feed=f, fetch_list=[loss],  # noqa
+                                   scope=scope)[0])
+    single = [step(batches[0]), step(batches[1])]
+    step(batches[2])
+    single.append(step(batches[2]))
+    exe.close()
+    exe_g = fluid.Executor(fluid.CUDAPlace(0))
+    ref = _first_grads(_exe_fetch(exe_g, main), snap, batches[0], params)
+    exe_g.close()
+    control = _grad_gap(ref, _composed_grads(main, snap, batches[0],
+                                             params))
+    bound = GRAD_FACTOR * max(control[0], GRAD_FLOOR)
+    t_control = time.perf_counter() - t0
+    try:
+        proc.wait(timeout=XP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(ranks["log"]) as f:
+        log_text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError("%s: the ranks failed (rc %s):\n%s" % (
+            what, proc.returncode, log_text[-6000:]))
+    outs = []
+    for r in range(XP_RANKS):
+        with open(os.path.join(ranks["dir"], "rank%d.json" % r)) as f:
+            outs.append(json.load(f))
+    got = {p: g.to("cuda") for p, g in torch.load(
+        os.path.join(ranks["dir"], "grads.pt")).items()}
+    fault = {p: g.to("cuda") for p, g in torch.load(
+        os.path.join(ranks["dir"], "grads_fault.pt")).items()}
+    held = _grads_held(what + " grads", ref, got, bound)
+    fault_gap = _grad_gap(ref, fault)
+    if not fault_gap[0] > bound:
+        raise AssertionError("%s: the planted fault (rank 1's addend "
+                             "dropped from the grad all-reduce) read %.3e, "
+                             "within the bound %.3e" % (what, fault_gap[0],
+                                                        bound))
+    del got, fault, ref
+    cfg = bert_cfg()
+    n = cfg["n_layer"]
+    per_step = [2 * n, n, n, 2 * n + 1, 1, 0, 0, 0, 0, 0]
+    for o in outs:
+        want = [per_step, per_step, [2 * c for c in per_step]]
+        if o["launches"] != want:
+            raise AssertionError("%s: rank %d ran %s = %s on the card, "
+                                 "expected %s" % (what, o["rank"],
+                                                  COUNT_NAMES, o["launches"],
+                                                  want))
+        a, b = np.asarray(o["losses"]), np.asarray(single)
+        if not np.all(np.abs(a - b) <= XP_LOSS_ATOL + XP_LOSS_RTOL *
+                      np.abs(b)) or not np.isfinite(a).all():
+            raise AssertionError("%s: rank %d's losses %s against the "
+                                 "single process' %s" % (what, o["rank"],
+                                                         list(a), list(b)))
+        if o["backend"] != "gloo" or o["device"] != "cuda:0" or \
+                not o["halves"] or o["uncaptured"] < 1:
+            raise AssertionError("%s: rank %d: backend %s on %s, ZeRO-1 "
+                                 "halves %s, uncaptured plans %s" % (
+                                     what, o["rank"], o["backend"],
+                                     o["device"], o["halves"],
+                                     o["uncaptured"]))
+    transport = [ln for ln in log_text.splitlines()
+                 if "process group over" in ln]
+    if len(transport) != XP_RANKS or not all(
+            "over gloo (ranks share a card)" in ln for ln in transport):
+        raise AssertionError("%s: the ranks logged %s as their transport"
+                             % (what, transport))
+    for ln in transport:
+        log("%s: %s" % (what, ln))
+    secs = time.perf_counter() - t0
+    loss_err = max(float(np.max(np.abs(np.asarray(o["losses"]) - single)
+                                / np.abs(single))) for o in outs)
+    out = dict(
+        single=single, losses=[o["losses"] for o in outs],
+        loss_rel_err=loss_err, grads=held, control_gap=control[0],
+        control_worst=control[1], fault_gap=fault_gap[0],
+        launches=dict(zip(COUNT_NAMES, [sum(u[i] for u in outs[0][
+            "launches"]) for i in range(len(COUNT_NAMES))])),
+        launches_rank1=dict(zip(COUNT_NAMES, [sum(u[i] for u in outs[1][
+            "launches"]) for i in range(len(COUNT_NAMES))])),
+        per_step=dict(zip(COUNT_NAMES, per_step)),
+        ranks=[{k: o[k] for k in ("backend", "device", "mesh", "step_ms",
+                                  "slot_bytes", "whole_slot_bytes",
+                                  "sharded_slots", "slots", "reserved_mb",
+                                  "uncaptured", "collectives",
+                                  "start_s")} for o in outs],
+        transport=transport, control_s=t_control, seconds=secs,
+        held_before_release_s=time.perf_counter() - ranks["t0"] - secs)
+    for o in outs:
+        log("%s: rank %d on %s over %s, mesh %s: step ms %s; optimizer "
+            "slots %.1f MiB (single process %.1f MiB, %d of %d slots "
+            "halved); reserved %.0f MiB; collectives a step %s; %d "
+            "uncaptured plans; start %s s" % (
+                what, o["rank"], o["device"], o["backend"], o["mesh"],
+                ["%.1f" % v for v in o["step_ms"]], o["slot_bytes"] / 2 ** 20,
+                o["whole_slot_bytes"] / 2 ** 20, o["sharded_slots"],
+                o["slots"], o["reserved_mb"],
+                {k: {kk: round(vv, 4) for kk, vv in v.items()}
+                 for k, v in o["collectives"][1].items()},
+                o["uncaptured"], {k: round(v, 2)
+                                  for k, v in o["start_s"].items()}))
+    log("%s: losses %s (ranks) against %s (single process), rel err %.3e; "
+        "first-step grads %.3e of their largest (%s; bound %.3e = %g x the "
+        "flash-vs-composed gap %.3e), the dropped-rank fault %.3e: refused; "
+        "a step launches %s = %s on each rank; %.1f s (the control %.1f s)"
+        % (what, [["%.6f" % v for v in o["losses"]] for o in outs],
+           ["%.6f" % v for v in single], loss_err, held["grad_rel_err"],
+           held["grad_worst"], bound, GRAD_FACTOR, control[0],
+           fault_gap[0], COUNT_NAMES[:5], per_step[:5], secs, t_control))
+    return out
+
+
 def _free():
     """Between phases: collect what a phase left in reference cycles (its
     executors, whose graphs hold memory pools), then hand the caching
@@ -12247,7 +12649,7 @@ PHASES = (
     ("18", ()), ("18b", ()), ("18c", ()), ("18d", ()), ("18e", ()),
     ("19", ()), ("19b", ()), ("20", ()), ("20b", ()), ("20c", ()),
     ("21", ()), ("21b", ()), ("21c", ()), ("21d", ()),
-    ("22", ()), ("22b", ("22",)), ("23", ()), ("23b", ()))
+    ("22", ()), ("22b", ("22",)), ("23", ()), ("23b", ()), ("24", ()))
 
 
 def selected_phases(spec):
@@ -12276,6 +12678,9 @@ def main():
     if sys.argv[1:] == ["--ps-worker"]:
         # a pserver process of phases 22 and 22b, started by _ps_start
         return _ps_worker()
+    if sys.argv[1:] == ["--collective-rank"]:
+        # a trainer rank of phase 24, started by _xp_start
+        return _xp_rank()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write every measurement to "
                     "OUT/chip_smoke.json")
@@ -12326,6 +12731,19 @@ def main():
     if want("3d"):
         R["3d"] = timed("3d", phase_tune)
     _free()
+    # phase 24's ranks start now, after the kernels' timing, and wait
+    xp_ranks = _xp_start(args.seed) if want("24") else None
+    try:
+        return _after_start(args, run, left_out, smi, build_s, t_start,
+                            phase_s, R, timed, want, xp_ranks)
+    finally:
+        if xp_ranks is not None:
+            _xp_stop(xp_ranks)
+
+
+def _after_start(args, run, left_out, smi, build_s, t_start, phase_s, R,
+                 timed, want, xp_ranks):
+    """``main`` from phase 4 on (phase 24's ranks wait meanwhile)."""
     if want("4"):
         with tempfile.TemporaryDirectory() as workdir:
             serve, pred, reqs = timed("4", phase_serve, workdir, args.seed)
@@ -12526,6 +12944,9 @@ def main():
     if want("23b"):
         R["23b"] = timed("23b", phase_elastic, args.seed)
         _free()
+    if want("24"):
+        R["24"] = timed("24", phase_collective, args.seed, xp_ranks)
+        _free()
 
     kernels = _kernel_rows(R)
     # every TPU kernel of the JAX package (paddle_tpu) that reaches
@@ -12626,7 +13047,9 @@ def _kernel_rows(R):
                  mesh_sp_ring_packed=L("21b", "flash fwd",
                                        "packed_launches"),
                  mesh_experts=L("21c", "flash fwd"),
-                 resilient_train=L("23", "flash fwd"))
+                 resilient_train=L("23", "flash fwd"),
+                 xproc_rank0=L("24", "flash fwd"),
+                 xproc_rank1=L("24", "flash fwd", "launches_rank1"))
     k2, k3 = (by_path(train=L("6", c), train_amp=L("6b", c),
                       train_sgd_amp=L("7b", c), train_loop=L("6e", c),
                       train_loop_amp=L("6f", c), recompute=L("6g", c),
@@ -12644,7 +13067,9 @@ def _kernel_rows(R):
                       mesh_sp_ring=L("21b", c),
                       mesh_sp_ring_packed=L("21b", c, "packed_launches"),
                       mesh_experts=L("21c", c),
-                      resilient_train=L("23", c))
+                      resilient_train=L("23", c),
+                      xproc_rank0=L("24", c),
+                      xproc_rank1=L("24", c, "launches_rank1"))
               for c in ("flash dkv", "flash dq"))
     k4 = by_path(serve=L("4", "K4"), train=L("6", "K4"),
                  train_sgd=L("7", "K4"), serve_amp=L("4b", "K4 AMP"),
@@ -12668,7 +13093,9 @@ def _kernel_rows(R):
                  mesh_sp_ring=L("21b", "K4"),
                  mesh_sp_ring_packed=L("21b", "K4", "packed_launches"),
                  mesh_experts=L("21c", "K4"),
-                 resilient_train=L("23", "K4"))
+                 resilient_train=L("23", "K4"),
+                 xproc_rank0=L("24", "K4"),
+                 xproc_rank1=L("24", "K4", "launches_rank1"))
     k6 = by_path(train=L("6", "K6"), train_amp=L("6b", "K6"),
                  train_loop=L("6e", "K6"), train_loop_amp=L("6f", "K6"),
                  recompute=L("6g", "K6"), gpt_train=L("8", "K6"),
@@ -12696,7 +13123,9 @@ def _kernel_rows(R):
                  mesh_sp_ring_packed=L("21b", "K6", "packed_launches"),
                  mesh_experts=L("21c", "K6"),
                  mesh_pipeline=L("21d", "K6"),
-                 resilient_train=L("23", "K6"))
+                 resilient_train=L("23", "K6"),
+                 xproc_rank0=L("24", "K6"),
+                 xproc_rank1=L("24", "K6", "launches_rank1"))
     k7 = by_path(train_sgd=L("7", "K7"), train_sgd_amp=L("7b", "K7"),
                  book_train=L("17", "K7"),
                  ps_dense_update=L("22b", "K7"),

@@ -48,13 +48,17 @@ def make_generic_grad(fwd_type: str):
 
         fwd_ins = {s: list(ins[s])[:n] for s, n in fwd_in_slots.items()}
         pure = ctx.pure()
+        forward = fdef.lowering
+        if pure.xp is not None:
+            # the forward as the cross-process plan completes it
+            forward = pure.xp.lowering_for(fwd_type, forward)
         float_outs: List = []  # (slot, index) of the float outputs, set by f
 
         def f(dvals):
             merged = {s: list(v) for s, v in fwd_ins.items()}
             for s, i in diff:
                 merged[s][i] = dvals["%s:%d" % (s, i)]
-            outs = fdef.lowering(pure, merged, attrs)
+            outs = forward(pure, merged, attrs)
             outs = {s: _as_list(outs.get(s)) for s in fwd_out_slots}
             float_outs[:] = [(s, i) for s in fwd_out_slots
                              for i, v in enumerate(outs[s])

@@ -35,9 +35,12 @@ that reads a value on the host (the registry's ``host_sync``: a
 ``while`` loop's condition, ``py_func``, ``print_op``): such a step
 cannot be captured, so it runs eagerly at every run, and on the card
 ``paddle_executor_uncaptured_plans_total{op}`` counts each such plan
-and a warning names the op once per process. The eager step's ops return new tensors, written
-back to the scope. The RNG chain lives in the scope between runs. The
-graphs of one executor share one memory pool (core/cuda_graph.py).
+and a warning names the op once per process; so does a mesh engine's
+plan whose data axis spans trainer processes (its collectives, labelled
+``xproc_collective``: parallel/partition.py). The eager step's ops
+return new tensors, written back to the scope. The RNG chain lives in
+the scope between runs. The graphs of one executor share one memory
+pool (core/cuda_graph.py).
 
 ``run_repeated`` runs K steps per call (on the card, K replays with no
 host sync between them), identical to K ``run`` calls. With
@@ -1137,7 +1140,9 @@ def analyze_block(program: Program, feed_names, fetch_names, scope,
     pure_written to its new value; ``graph`` is the lowering context's
     CUDA-graph hook (core/cuda_graph.py), None for a plain eager step;
     ``mesh_kw`` the mesh and axis names of the lowering context
-    (``LowerContext``), under a ``ParallelEngine``.
+    (``LowerContext``), under a ``ParallelEngine``; its ``xp``, where the
+    mesh's data axis spans trainer processes, the engine's
+    ``partition.Partitioner``, whose plan makes the step (``step.xplan``).
     """
     block = program.global_block()
     feed_names = sorted(feed_names)
@@ -1185,6 +1190,11 @@ def analyze_block(program: Program, feed_names, fetch_names, scope,
 
     amp = bool(getattr(program, "amp", False))
     accum = int(getattr(program, "grad_accum_steps", 1))
+    xp = (mesh_kw or {}).get("xp")
+    if xp is not None and accum > 1:
+        raise NotImplementedError(
+            "gradient accumulation over a data axis that spans trainer "
+            "processes is not supported; accumulate with one process")
     if accum > 1:
         step = _accum_step(block, feed_names, fetch_names, mut_state,
                            pure_written, amp, accum, mesh_kw or {})
@@ -1195,6 +1205,17 @@ def analyze_block(program: Program, feed_names, fetch_names, scope,
     # peak memory is its live set, not every activation it ever made
     release = release_schedule(
         block.ops, set(fetch_names) | set(mut_state) | set(pure_written))
+    if xp is not None:
+        # the data axis spans trainer processes: the step as the
+        # cross-process plan completes it (parallel/partition.py)
+        xplan = xp.plan(program, feed_names, fetch_names, const_state,
+                        mut_state, pure_written)
+        step = xplan.step_fn(block, fetch_names, mut_state, pure_written,
+                             amp, {k: v for k, v in mesh_kw.items()
+                                   if k != "xp"}, release)
+        step.xplan = xplan
+        return (feed_names, fetch_names, const_state, mut_state,
+                pure_written, needs_rng, step)
 
     def step(feeds, state, rng, device, graph=None):
         env: Dict[str, Any] = dict(state)

@@ -20,7 +20,7 @@ from .registry import get_op
 
 __all__ = ["FoldedChain", "LowerContext", "lower_op", "lower_ops",
            "lower_block", "release_schedule", "as_torch_dtype", "draw_seed",
-           "fold_seed", "seeded_generator"]
+           "fold_seed", "rand_rows", "seeded_generator"]
 
 
 def draw_seed(chain: torch.Generator) -> int:
@@ -52,6 +52,20 @@ class FoldedChain:
         self.token = token
         self.path = tuple(int(p) for p in path)
         self.drawn = 0
+
+
+def rand_rows(ctx, shape, gen: torch.Generator, device: torch.device,
+              slot: str) -> torch.Tensor:
+    """``torch.rand(shape)`` for a random op whose rows follow its input
+    ``slot``. Where that input holds only this rank's rows (a data axis
+    across trainer processes), the draw is the global shape's, from the
+    same stream, and the rank keeps its rows: its masks are the rows of
+    the single-process run's, bit for bit."""
+    xp = ctx.xp
+    if xp is None or not xp.holds_rows(ctx, slot):
+        return torch.rand(shape, generator=gen, device=device)
+    full = (shape[0] * xp.world,) + tuple(shape[1:])
+    return xp.rows(torch.rand(full, generator=gen, device=device))
 
 
 def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
@@ -95,14 +109,22 @@ class LowerContext:
     global semantics. ``sub`` and ``pure`` keep them.
 
     ``rng`` may also be a ``FoldedChain``: its draws derive from one
-    stream of the enclosing step (the pipeline op's stages)."""
+    stream of the enclosing step (the pipeline op's stages).
+
+    ``xp``, when the mesh's data axis spans trainer processes, is the
+    step's cross-process plan (parallel/partition.py ``XPlan``): which of
+    each op's inputs hold only this rank's rows, and the lowerings that
+    complete such ops with collectives (``lower_op`` takes them).
+    ``sub`` and ``pure`` keep it, and ``pure`` keeps the op being
+    lowered, so a grad op's re-run of its forward finds its plan."""
 
     def __init__(self, block: Optional[Block] = None,
                  rng: Optional[torch.Generator] = None,
                  device: torch.device = torch.device("cpu"),
                  is_test: bool = False, amp: bool = False, graph=None,
                  mesh=None, data_axis: str = "data",
-                 model_axis: str = "model", seq_axis: str = "seq"):
+                 model_axis: str = "model", seq_axis: str = "seq",
+                 xp=None):
         self.block = block
         self._rng = rng
         self.device = device
@@ -113,6 +135,7 @@ class LowerContext:
         self.data_axis = data_axis
         self.model_axis = model_axis
         self.seq_axis = seq_axis
+        self.xp = xp
         self.op = None
         self.streams: Optional[List[Any]] = None
         self.replay: Optional[List[Any]] = None
@@ -120,7 +143,8 @@ class LowerContext:
     def mesh_kw(self) -> Dict[str, Any]:
         """The mesh and its axis names, for a context made elsewhere."""
         return dict(mesh=self.mesh, data_axis=self.data_axis,
-                    model_axis=self.model_axis, seq_axis=self.seq_axis)
+                    model_axis=self.model_axis, seq_axis=self.seq_axis,
+                    xp=self.xp)
 
     def next_rng(self) -> torch.Generator:
         """The next random op's generator, seeded from the chain (in a
@@ -181,8 +205,10 @@ class LowerContext:
         """Context for re-running a forward lowering inside a vjp: the
         same block, device, modes and graph hook, no RNG (as in the JAX
         package)."""
-        return LowerContext(self.block, None, self.device, self.is_test,
-                            self.amp, self.graph, **self.mesh_kw())
+        c = LowerContext(self.block, None, self.device, self.is_test,
+                         self.amp, self.graph, **self.mesh_kw())
+        c.op = self.op
+        return c
 
     def final_rng(self):
         """The chain after this context's draws (the JAX package's key
@@ -215,7 +241,11 @@ def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
         # a control-flow op reads and rebinds the live env
         attrs = dict(op.attrs)
         attrs["__env__"] = env
-    outs = opdef.lowering(ctx, ins, attrs)
+    lowering = opdef.lowering
+    if ctx.xp is not None:
+        # an op completed across trainer ranks (parallel/partition.py)
+        lowering = ctx.xp.lowering_for(op.type, lowering)
+    outs = lowering(ctx, ins, attrs)
     upd = outs.pop("__env_update__", None) if isinstance(outs, dict) else None
     if upd:
         env.update(upd)

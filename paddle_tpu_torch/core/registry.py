@@ -60,6 +60,12 @@ class OpDef:
         # Python callback's inputs): a step that holds such an op at any
         # depth cannot be captured as a CUDA graph (core/executor.py)
         self.host_sync = host_sync
+        # what the op does to inputs split by rows over trainer ranks
+        # (the data axis across processes): "local", "reduce",
+        # "batch_norm", "accuracy", "gather_rows", "random" or
+        # "optimizer"; None: no rule, such an input raises at plan time
+        # (parallel/partition.py attaches them, register_row_rule)
+        self.rows = None
 
 
 OPS: Dict[str, OpDef] = {}
@@ -134,6 +140,17 @@ def register_shape_rule(*op_types: str):
         return fn
 
     return deco
+
+
+def register_row_rule(rule: str, *op_types: str) -> None:
+    """Attach the row rule ``rule`` (see ``OpDef.rows``) to registered
+    ops; raises for an unregistered type so a typo never silently
+    leaves an op without one."""
+    for t in op_types:
+        if t not in OPS:
+            raise KeyError("cannot attach a row rule to op %r: it has no "
+                           "registered lowering" % t)
+        OPS[t].rows = rule
 
 
 def get_op(type: str) -> OpDef:

@@ -71,6 +71,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.lowering import rand_rows
 from ..core.registry import register_grad_lowering, register_op
 from ..kernels import build
 from ..kernels.common import ceil_div, check_launch, check_tensor, on_device
@@ -846,7 +847,7 @@ def _fused_attention(ctx, ins, attrs):
         # JAX package)
         keep = 1.0 - dropout
         gen = ctx.next_rng()
-        mask = (torch.rand(out.shape, generator=gen, device=out.device)
+        mask = (rand_rows(ctx, out.shape, gen, out.device, "Q")
                 < keep).to(out.dtype) / keep
         return {"Out": [out * mask], "Mask": [mask]}
     # no dropout: the mask is all ones; a broadcast view costs no memory

@@ -74,6 +74,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..core.lowering import rand_rows
 from ..core.registry import register_grad_lowering, register_op
 from .basic import weak_scalar
 from .tensor_ops import bounded_index, scatter_add_rows, take_rows
@@ -364,7 +365,7 @@ def _dropout(ctx, ins, attrs):
         gen = ctx.seeded_rng(int(attrs.get("seed", 0)))
     else:
         gen = ctx.next_rng()
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    keep = rand_rows(ctx, x.shape, gen, x.device, "X") < (1.0 - p)
     mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
         mask = mask / weak_scalar(max(1.0 - p, 1e-8), mask)

@@ -15,6 +15,18 @@ its axis names in every op's lowering context. Batch-coupled ops
 there. The three mesh-aware lowerings run per position, in rounds
 (parallel/mesh.py, ring_attention.py, moe.py, pipeline.py).
 
+Across trainer processes (``init_parallel_env``, then a global mesh:
+parallel/mesh.py) the ``data`` axis spans the ranks, and the engine
+runs what its rank holds: its rows of every feed, the replicated state
+(rank 0 broadcasts it at a scope's first step, Fluid's
+``BCastParamsToDevices``), and under ZeRO-1 its block of each optimizer
+slot. The plan's row propagation (parallel/partition.py) completes the
+ops that mix rows with collectives over the process group
+(parallel/collective.py), the grads of replicated params all-reduced
+through flat buckets before the optimizer; every rank computes what the
+single-process program computes, to rounding. Such a plan runs eagerly
+at every step: its collectives keep it from a CUDA graph.
+
 Placement follows the rules (``ShardingRules.spec_for`` /
 ``feed_spec``, with their divisibility check and fall back to
 replicated; ``merged_ext_rules`` adds the stacked pipeline / expert
@@ -28,6 +40,7 @@ where the JAX engine has its partitioned HLO.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Optional
 
 import torch
@@ -36,7 +49,9 @@ from ..core.executor import (Executor, _chain, _check_reduce, _prepare,
                              _require, validate_stacked_feeds)
 from ..core.program import Program
 from ..core.scope import Scope, global_scope
+from .collective import Comm
 from .mesh import P, default_places, make_mesh, recording, shard
+from .partition import UNCAPTURED_LABEL, Partitioner
 from .sharding import ShardingRules
 
 __all__ = ["ParallelEngine", "make_mesh", "merged_ext_rules"]
@@ -53,27 +68,35 @@ class _MeshExecutor(Executor):
     def _prepare(self, program, feeds, fetch_names, scope):
         eng = self._engine
         mesh, rules = eng.mesh, eng.rules
+        feed_specs = {n: rules.feed_spec(tuple(feeds[n].shape), mesh, name=n)
+                      for n in sorted(feeds)}
+        ext = merged_ext_rules(eng.program, mesh, rules)
+        mesh_kw = dict(mesh=mesh, data_axis=rules.data_axis,
+                       model_axis=rules.model_axis, seq_axis=rules.seq_axis)
+        if mesh.world > 1:
+            mesh_kw["xp"] = Partitioner(eng.comm, rules.data_axis,
+                                        feed_specs,
+                                        eng._zero1_slots(ext, scope))
         plan = _prepare(program, sorted(feeds), fetch_names, scope,
-                        mesh_kw=dict(mesh=mesh, data_axis=rules.data_axis,
-                                     model_axis=rules.model_axis,
-                                     seq_axis=rules.seq_axis))
-        plan.feed_specs = {
-            n: rules.feed_spec(tuple(feeds[n].shape), mesh, name=n)
-            for n in plan.feed_names}
+                        mesh_kw=mesh_kw)
+        plan.xplan = getattr(plan.step, "xplan", None)
+        if plan.xplan is not None:
+            plan.host_sync = sorted(set(plan.host_sync)
+                                    | {UNCAPTURED_LABEL})
+        plan.feed_specs = {n: feed_specs[n] for n in plan.feed_names}
         # a stacked window's leading K axis stays whole; each step's
         # slice keeps its feed's spec
         plan.window_specs = {n: P(None, *s)
                              for n, s in plan.feed_specs.items()}
-        ext = merged_ext_rules(eng.program, mesh, rules)
-        plan.state_specs = {}
-        for n in plan.const_state + plan.mut_state:
-            shape = getattr(scope.find_var(n), "shape", None)
-            plan.state_specs[n] = ext.spec_for(
-                n, None if shape is None else tuple(shape), mesh)
+        plan.state_specs = {n: ext.spec_for(n, eng._global_shape(n, scope),
+                                            mesh)
+                            for n in plan.const_state + plan.mut_state}
         plan.collectives = None  # recorded by the plan's first step
         return plan
 
     def _step(self, plan, program, feeds, scope, eager=False):
+        if plan.xplan is not None:
+            self._engine._sync_state(plan, scope)
         into = None
         if plan.collectives is None:
             into = plan.collectives = []
@@ -97,6 +120,11 @@ class ParallelEngine:
                              else default_places(place))
         self.mesh = mesh
         self.rules = rules or ShardingRules()
+        self.comm = None
+        if mesh.world > 1:
+            self.comm = _comm(mesh, self.rules.data_axis)
+        # per scope, the state names rank 0 has broadcast to it
+        self._synced = weakref.WeakKeyDictionary()
         self._exe = _MeshExecutor(self)
         from ..observe.families import ENGINE_DEVICES
 
@@ -104,8 +132,46 @@ class ParallelEngine:
 
     @property
     def device_count(self) -> int:
-        """The mesh's positions."""
+        """The mesh's positions (every rank's)."""
         return self.mesh.size
+
+    def _global_shape(self, name, scope):
+        """A state var's shape in the single-process program: its
+        declared shape (a ZeRO-1 slot's scope tensor holds this rank's
+        block), else the scope value's."""
+        var = self.program.global_block().vars.get(name)
+        shape = getattr(var, "shape", None)
+        if shape is not None and getattr(var, "persistable", False) and \
+                all(int(d) >= 0 for d in shape):
+            return tuple(int(d) for d in shape)
+        shape = getattr(scope.find_var(name), "shape", None)
+        return None if shape is None else tuple(shape)
+
+    def _zero1_slots(self, ext, scope):
+        """The ZeRO-1 slots the data axis splits (``spec_for`` gives them
+        P(data)): name -> its global dim 0."""
+        out = {}
+        for n in sorted(getattr(self.program, "_optimizer_slots", ())):
+            shape = self._global_shape(n, scope)
+            spec = ext.spec_for(n, shape, self.mesh)
+            if shape and spec[:1] == (self.rules.data_axis,):
+                out[n] = shape[0]
+        return out
+
+    def _sync_state(self, plan, scope):
+        """Rank 0's values of the plan's replicated state on every rank,
+        once per scope and name (Fluid's ``BCastParamsToDevices`` after
+        startup), through flat buckets."""
+        done = self._synced.setdefault(scope, set())
+        names = [n for n in plan.const_state + plan.mut_state
+                 if n not in done and n not in plan.xplan.blocks
+                 and isinstance(scope.find_var(n), torch.Tensor)]
+        if names:
+            vals = self.comm.broadcast_flat([scope.find_var(n)
+                                             for n in names])
+            for n, v in zip(names, vals):
+                scope.set_var(n, v)
+            done.update(names)
 
     @property
     def _cache(self):
@@ -207,7 +273,41 @@ class ParallelEngine:
         if spec is None:
             raise KeyError("%r is no state var of a plan this engine ran"
                            % name)
-        return shard(_require(scope, name), spec, self.mesh, position)
+        t = _require(scope, name)
+        if self.mesh.world > 1:
+            pos = position if isinstance(position, dict) else dict(
+                zip(self.mesh.axis_names, position))
+            idx = tuple(int(pos.get(a, 0)) for a in self.mesh.axis_names)
+            if not self.mesh.is_local(idx):
+                raise ValueError("position %s is held by rank %d, not this "
+                                 "one (%d)" % (idx, self.mesh.rank_of(idx),
+                                               self.mesh.rank))
+            shape = self._global_shape(name, scope)
+            if shape and tuple(t.shape) != shape:
+                # a ZeRO-1 slot: this rank's block of the data axis
+                d = self.mesh.shape[self.rules.data_axis]
+                per = shape[0] // d
+                first = self.mesh.rank * (d // self.mesh.world)
+                return t.narrow(0, (pos.get(self.rules.data_axis, 0)
+                                    - first) * per, per)
+        return shard(t, spec, self.mesh, position)
+
+
+def _comm(mesh, data_axis):
+    """The process group a cross-process mesh runs over."""
+    from .mesh import process_group
+
+    rank, world = process_group()
+    if (rank, world) != (mesh.rank, mesh.world):
+        raise RuntimeError(
+            "a mesh over %d ranks needs init_parallel_env's process group "
+            "of as many (this process: rank %d of %d)"
+            % (mesh.world, rank, world))
+    if data_axis not in mesh.axis_names:
+        raise NotImplementedError(
+            "a mesh across ranks needs the rules' data axis %r" % data_axis)
+    return Comm(rank, world, axis=data_axis,
+                positions=mesh.shape[data_axis])
 
 
 def merged_ext_rules(program, mesh, rules: ShardingRules) -> ShardingRules:

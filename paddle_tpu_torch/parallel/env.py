@@ -10,9 +10,15 @@ PADDLE_CURRENT_ENDPOINT.
 The port: the same env contract feeds
 ``torch.distributed.init_process_group`` — trainer 0's endpoint is the
 rendezvous (``tcp://<endpoint>``) that takes the place of the
-broadcasted ncclUniqueId, with gloo on the CPU and NCCL on the card. At
-world size 1 nothing is initialized: the engine (parallel/engine.py)
-needs no process group for a mesh whose positions share one device.
+broadcasted ncclUniqueId. A card rank takes ``cuda:(trainer_id %
+device_count)``, and a card rank on a machine with no card raises
+before it joins. The backend (``ParallelEnv.backend``, logged once) is
+NCCL only where every host's ranks have cards of their own; it is gloo
+where ranks share a card (NCCL refuses two ranks on one device) and on
+the CPU (``init_parallel_env(place=CPUPlace())``). Every rank derives
+it from the same endpoint list and card count, so all agree. At world
+size 1 nothing is initialized: the engine (parallel/engine.py) needs no
+process group for a mesh whose positions share one device.
 """
 
 from __future__ import annotations
@@ -50,21 +56,26 @@ class ParallelEnv:
 _initialized = False
 
 
-def init_parallel_env(env: Optional[ParallelEnv] = None) -> ParallelEnv:
+def init_parallel_env(env: Optional[ParallelEnv] = None,
+                      place=None) -> ParallelEnv:
     """Initialize the multi-process runtime. World size 1 is a no-op;
     otherwise every process joins trainer 0's rendezvous with its rank,
-    over NCCL where a card is visible, else gloo."""
+    on its card (``place`` None or a ``CUDAPlace``) or on the CPU
+    (``CPUPlace()``), over the backend ``collective.choose_backend``
+    picks."""
     global _initialized
     penv = env or ParallelEnv()
     if _initialized or penv.nranks <= 1:
         _initialized = True
         return penv
-    import torch
     import torch.distributed as dist
 
+    from .collective import rank_device
+
     coordinator = penv.trainer_endpoints[0]
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    dist.init_process_group(backend, init_method="tcp://" + coordinator,
+    penv.device, penv.backend = rank_device(penv, place)
+    dist.init_process_group(penv.backend,
+                            init_method="tcp://" + coordinator,
                             world_size=penv.nranks, rank=penv.trainer_id)
     _initialized = True
     return penv

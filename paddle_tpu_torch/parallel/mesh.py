@@ -5,11 +5,17 @@ The port's counterpart of ``jax.sharding.Mesh``, ``PartitionSpec`` and
 ``psum``, ``all_gather``, ``ppermute``, ``all_to_all``) that the JAX
 package's ``shard_map`` bodies call.
 
-A ``Mesh`` names its axes and holds the place of each position. Several
-positions may share one device: the tests run 8 positions on
-``CPUPlace()``, the card 4 or 8 on ``cuda:0``. A mesh whose positions
-sit on different devices raises: that is the cross-process tier
-(ROADMAP A11, part 2), which is not ported.
+A ``Mesh`` names its axes and holds the place of each position, and the
+rank of the trainer process that holds it. Several positions may share
+one device: the tests run 8 positions on ``CPUPlace()``, the card 4 or 8
+on ``cuda:0``. After ``init_parallel_env`` has joined N trainer
+processes (parallel/env.py), ``default_places`` and ``make_mesh`` build
+the global mesh: N times the local positions, rank r's r-th along the
+outermost ``data`` axis. Only the ``data`` axis may cross ranks; its
+rows are completed across them by the collectives of
+parallel/collective.py, as parallel/partition.py plans them. A mesh
+whose other axis crosses ranks, or whose positions of one rank sit on
+different devices, raises.
 
 The engine (parallel/engine.py) runs one controller over the mesh. Every
 op computes with the global semantics of the single-device program, as
@@ -59,10 +65,14 @@ class Mesh:
     """Axis names and an array of places, one per position.
 
     ``shape`` maps each axis to its size (in axis order), ``size`` is the
-    number of positions and ``device`` the one torch device they share.
+    number of positions and ``device`` the one torch device this
+    process' positions share. ``ranks`` (same shape as ``places``, default
+    all 0) holds the trainer rank that holds each position; ``rank`` is
+    this process' and ``world`` the number of ranks.
     """
 
-    def __init__(self, places, axis_names: Sequence[str]):
+    def __init__(self, places, axis_names: Sequence[str], ranks=None,
+                 rank: int = 0):
         arr = np.array(places, dtype=object)
         axis_names = tuple(axis_names)
         if arr.ndim != len(axis_names):
@@ -74,18 +84,30 @@ class Mesh:
         if bad or arr.size == 0:
             raise TypeError("a mesh's positions are Places (CPUPlace(), "
                             "CUDAPlace(i)); got %r" % (bad[:1] or "none",))
-        devices = sorted({str(p.torch_device()) for p in arr.flat})
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "a mesh over several devices (%s) needs one process per "
-                "device and collectives between them: the cross-process "
-                "tier (ROADMAP A11, part 2), which is not ported; put "
-                "every position on one device" % ", ".join(devices))
+        rk = np.zeros(arr.shape, dtype=np.int64) if ranks is None \
+            else np.asarray(ranks, dtype=np.int64).reshape(arr.shape)
         self.places = arr
+        self.ranks = rk
+        self.rank = int(rank)
+        self.world = int(rk.max()) + 1
         self.axis_names = axis_names
         self.shape: "OrderedDict[str, int]" = OrderedDict(
             zip(axis_names, arr.shape))
-        self.device = arr.flat[0].torch_device()
+        mine = [p for p, r in zip(arr.flat, rk.flat) if r == self.rank]
+        if not mine:
+            raise ValueError("rank %d holds no position of the mesh"
+                             % self.rank)
+        devices = sorted({str(p.torch_device()) for p in mine})
+        if len(devices) > 1:
+            raise NotImplementedError(
+                "rank %d's positions sit on several devices (%s): a rank "
+                "runs its positions on one device; a device of its own "
+                "takes a process of its own (ROADMAP A11, part 2c: launch "
+                "one rank per device with distributed.launch)"
+                % (self.rank, ", ".join(devices)))
+        if self.world > 1:
+            _check_cross_rank(rk, axis_names)
+        self.device = mine[0].torch_device()
 
     @property
     def size(self) -> int:
@@ -93,23 +115,76 @@ class Mesh:
 
     @property
     def place(self) -> Place:
-        return self.places.flat[0]
+        """This process' place (the first position it holds)."""
+        return next(p for p, r in zip(self.places.flat, self.ranks.flat)
+                    if r == self.rank)
+
+    def rank_of(self, position: Sequence[int]) -> int:
+        """The rank that holds ``position`` (one index per axis)."""
+        return int(self.ranks[tuple(position)])
+
+    def is_local(self, position: Sequence[int]) -> bool:
+        """Whether this process holds ``position``."""
+        return self.rank_of(position) == self.rank
 
     def __repr__(self):
-        return "Mesh(%s on %s)" % (
+        return "Mesh(%s on %s%s)" % (
             ", ".join("%s=%d" % kv for kv in self.shape.items()),
-            self.device)
+            self.device, "" if self.world == 1 else
+            ", rank %d of %d" % (self.rank, self.world))
+
+
+def _check_cross_rank(ranks: np.ndarray, axis_names) -> None:
+    """Only the ``data`` axis may cross ranks, each rank's positions a
+    block of it in rank order: moving along any other axis keeps the
+    rank."""
+    if "data" not in axis_names:
+        raise NotImplementedError(
+            "a mesh of axes %s spans %d ranks but has no 'data' axis: only "
+            "the data axis crosses processes (ROADMAP A11: other axes "
+            "across ranks)" % (tuple(axis_names), int(ranks.max()) + 1))
+    for i, a in enumerate(axis_names):
+        if a == "data":
+            continue
+        moved = np.moveaxis(ranks, i, 0)
+        if (moved != moved[:1]).any():
+            raise NotImplementedError(
+                "mesh axis %r crosses ranks: only the 'data' axis spans "
+                "processes; every other axis stays inside one (ROADMAP "
+                "A11: other axes across ranks)" % a)
+    d = list(axis_names).index("data")
+    along = np.moveaxis(ranks, d, 0).reshape(ranks.shape[d], -1)[:, 0]
+    if (np.diff(along) < 0).any() or (np.diff(along) > 1).any() or \
+            along[0] != 0:
+        raise NotImplementedError(
+            "the data axis must hold rank r's positions r-th, in blocks "
+            "(got ranks %s along it)" % along.tolist())
+
+
+def process_group():
+    """(rank, world size) of the process group ``init_parallel_env``
+    joined, or (0, 1) where there is none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def default_places(place: Optional[Place] = None) -> List[Place]:
-    """One position per visible device of ``place``'s kind (the card's
-    by default), as the reference's ``CompiledProgram`` takes every
-    visible GPU: ``torch.cuda.device_count()`` cards, or ``CPU_NUM``
-    (default 1) positions on the CPU. Touches no device for the CPU."""
+    """This process' positions: one per visible device of ``place``'s
+    kind (the card's by default), as the reference's ``CompiledProgram``
+    takes every visible GPU: ``torch.cuda.device_count()`` cards, or
+    ``CPU_NUM`` (default 1) positions on the CPU. Touches no device for
+    the CPU. A trainer rank of a process group takes its own card,
+    ``cuda:(rank % device_count)`` (parallel/env.py): one position."""
     place = default_place() if place is None else place
     if place.torch_device().type == "cpu":
         return [CPUPlace()] * max(int(os.environ.get("CPU_NUM", "1")), 1)
     n = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    rank, world = process_group()
+    if world > 1:
+        return [CUDAPlace(rank % max(n, 1))]
     return [CUDAPlace(i) for i in range(max(n, 1))]
 
 
@@ -118,16 +193,24 @@ def make_mesh(places=None, axis_names: Tuple[str, ...] = ("data",),
     """A mesh over ``places`` (default: ``default_places()``), reshaped to
     ``shape`` (default: every position on the first axis). The
     counterpart of the JAX package's ``make_mesh`` (engine.py:38); a
-    place may repeat, so ``[CPUPlace()] * 8`` is an 8-position mesh."""
+    place may repeat, so ``[CPUPlace()] * 8`` is an 8-position mesh.
+    Under a process group of N ranks, ``places`` are this rank's and the
+    mesh is global: N times as many positions, rank r's r-th in order
+    (``shape`` counts them all)."""
     places = list(places) if places is not None else default_places()
+    rank, world = process_group()
+    ranks = [r for r in range(world) for _ in places]
+    places = places * world
     if shape is None:
         shape = (len(places),) + (1,) * (len(axis_names) - 1)
     if int(np.prod(shape)) != len(places):
-        raise ValueError("mesh shape %s does not hold %d places"
-                         % (tuple(shape), len(places)))
+        raise ValueError("mesh shape %s does not hold %d places%s" % (
+            tuple(shape), len(places), "" if world == 1 else
+            " (%d ranks x %d)" % (world, len(places) // world)))
     arr = np.empty(len(places), dtype=object)
     arr[:] = places
-    return Mesh(arr.reshape(shape), axis_names)
+    return Mesh(arr.reshape(shape), axis_names,
+                np.asarray(ranks).reshape(shape), rank)
 
 
 def _axes(part) -> Tuple[str, ...]:
@@ -238,6 +321,14 @@ def recording(into: Optional[List[Dict[str, Any]]]):
         yield
     finally:
         stack.pop()
+
+
+def recording_target() -> Optional[List[Dict[str, Any]]]:
+    """The list an engine's recording appends to, or None (no recording,
+    or a plan's later runs)."""
+    stack = getattr(_LOCAL, "stack", None)
+    target = stack[-1] if stack else None
+    return None if target is _MUTED else target
 
 
 def note_collective(kind: str, axis: str, positions: int,

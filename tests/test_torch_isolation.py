@@ -163,6 +163,9 @@ _SHARDING_MESH = [(
     "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P\n",
     "from .mesh import Mesh, NamedSharding, P\n")]
 _ENV_TORCH = [
+    ("""def init_parallel_env(env: Optional[ParallelEnv] = None) -> ParallelEnv:""",
+     """def init_parallel_env(env: Optional[ParallelEnv] = None,
+                      place=None) -> ParallelEnv:"""),
     ("""    import jax
 
     coordinator = penv.trainer_endpoints[0]
@@ -171,12 +174,16 @@ _ENV_TORCH = [
         num_processes=penv.nranks,
         process_id=penv.trainer_id,
     )""",
-     """    import torch
-    import torch.distributed as dist
+     # a card rank takes its card (or raises without one) and the
+     # backend every rank derives alike (parallel/collective.py)
+     """    import torch.distributed as dist
+
+    from .collective import rank_device
 
     coordinator = penv.trainer_endpoints[0]
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    dist.init_process_group(backend, init_method="tcp://" + coordinator,
+    penv.device, penv.backend = rank_device(penv, place)
+    dist.init_process_group(penv.backend,
+                            init_method="tcp://" + coordinator,
                             world_size=penv.nranks, rank=penv.trainer_id)""")]
 _COMPILER_PLACE = [
     ("    def _ensure_engine(self):", "    def _ensure_engine(self, place=None):"),
@@ -393,7 +400,19 @@ COPIES = {
          "        host_sync: bool = False,\n    ):"),
         ("        self.needs_env = needs_env\n",
          "        self.needs_env = needs_env\n"
-         "        self.host_sync = host_sync\n"),
+         "        self.host_sync = host_sync\n"
+         "        self.rows = None\n"),
+        # the row rules: what an op does to inputs split by rows over
+        # trainer ranks (parallel/partition.py)
+        ("\n\ndef get_op(type: str) -> OpDef:",
+         '\n\ndef register_row_rule(rule: str, *op_types: str) -> None:\n'
+         '    for t in op_types:\n'
+         '        if t not in OPS:\n'
+         '            raise KeyError("cannot attach a row rule to op %r: it '
+         'has no "\n'
+         '                           "registered lowering" % t)\n'
+         '        OPS[t].rows = rule\n'
+         '\n\ndef get_op(type: str) -> OpDef:'),
         ("    needs_env: bool = False,\n):",
          "    needs_env: bool = False,\n    host_sync: bool = False,\n):"),
         ("            needs_env=needs_env,\n        )",
