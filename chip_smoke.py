@@ -520,8 +520,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
    program, global batch 8, dropout 0.1, f32, level 2, ZeRO-1) for 2
    ``run`` steps and one ``run_repeated(steps=2)``; every rank's losses
    within XP_LOSS_RTOL / XP_LOSS_ATOL of this process' single-process
-   run; the first step's all-reduced grads within GRAD_FACTOR times the
-   flash-vs-composed gap, a planted dropped-rank fault refused; K1 24,
+   run (the control, made before the ranks are released); the first
+   step's all-reduced grads within GRAD_FACTOR times the
+   flash-vs-composed gap, a planted dropped-rank fault refused, and the
+   gaps of the ranks' grads to the composed run's and of each f32 run
+   to a float64 copy's logged; K1 24,
    K2 12, K3 12, K4 25 and K6 1 a step on each rank (counted on the
    card); each split ZeRO-1 slot at half its rows; optimizer-slot bytes,
    reserved MiB, the collectives' calls, MB and seconds a step, step ms
@@ -10596,6 +10599,44 @@ def _pipe_control(snap, feed, params):
     return _grad_gap(grads(torch.float64), grads(torch.float32))
 
 
+def _f64_grads(main, snap, feed, params):
+    """The first step's grads of ``params`` from ``snap`` on ``feed`` by a
+    float64 copy of ``main`` (its float32 vars, the snapshot's floats and
+    the feeds' float64; attention composed and the kernel tier off, so
+    every op is its plain torch version) on the card, as float64: the
+    reference that says which of several f32 runs is nearer the exact
+    grads. Dropout draws its f32 uniforms from the same chain, so the
+    masks are the f32 runs'."""
+    import paddle_tpu_torch as fluid
+
+    prog = main.clone()
+    for v in prog.global_block().vars.values():
+        if getattr(v, "dtype", None) == "float32":
+            v.dtype = "float64"
+    snap = {n: v.double() if isinstance(v, torch.Tensor) and
+            v.is_floating_point() else v for n, v in snap.items()}
+    feed = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in feed.items()}
+    saved = {k: os.environ.get(k) for k in ("PADDLE_TPU_FLASH_MIN_SEQ",
+                                            "PADDLE_TPU_KERNELS")}
+    os.environ.update(PADDLE_TPU_FLASH_MIN_SEQ=str(1 << 30),
+                      PADDLE_TPU_KERNELS="0")
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    try:
+        vals = exe.run(prog, feed=feed, fetch_list=[p + "@GRAD"
+                                                    for p in params],
+                       scope=_restored(snap), return_numpy=False)
+        torch.cuda.synchronize()
+        return {p: v for p, v in zip(params, vals)}
+    finally:
+        exe.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _exe_fetch(exe, main):
     return lambda sc, feed, names: exe.run(
         main, feed=feed, fetch_list=names, scope=sc, return_numpy=False)
@@ -12443,10 +12484,10 @@ def _xp_rank():
     # all-reduce, the first step again from the start state
     orig = Comm.all_reduce_flat
 
-    def dropped(self, tensors, *a, **kw):
+    def dropped(self, tensors):
         if self.rank == 1:
             tensors = [torch.zeros_like(t) for t in tensors]
-        return orig(self, tensors, *a, **kw)
+        return orig(self, tensors)
 
     Comm.all_reduce_flat = dropped
     try:
@@ -12479,11 +12520,16 @@ def phase_collective(seed, ranks):
     layers, d 768, S = 512, global batch 8, Adam, dropout 0.1, f32, TF32
     off, level 2) trained by two ranks on the card over gloo, with
     ``ShardingRules(zero1=True)``, against this process' single-process
-    run of the same program, seed and batches. Gated: every rank's losses
+    run of the same program, seed and batches, made before the ranks are
+    released (the ranks' step times are theirs alone). Gated: every
+    rank's losses
     within XP_LOSS_RTOL / XP_LOSS_ATOL of the single process'; the first
     step's all-reduced grads within GRAD_FACTOR times the gap between the
     single process' flash and composed-attention grads (``_grad_gap``),
-    and the planted dropped-rank fault refused by that bound; K1 24, K2
+    and the planted dropped-rank fault refused by that bound (logged
+    beside it: the ranks' grads against the composed run's, and the
+    flash, composed and ranks' grads against a float64 copy's,
+    ``_f64_grads``); K1 24, K2
     12, K3 12, K4 25 and K6 1 a step on each rank (counted on the card);
     each ZeRO-1 slot the axis splits at half its rows; the plans
     uncaptured. Logged: the transport, slot bytes and reserved MiB a
@@ -12497,10 +12543,10 @@ def phase_collective(seed, ranks):
     if proc.poll() is not None:
         raise AssertionError("%s: the ranks ended before their release "
                              "(rc %s)" % (what, proc.returncode))
-    proc.stdin.write(b"g" * XP_RANKS)
-    proc.stdin.flush()
-    # the control, while the ranks run: the same program, seed and global
-    # batches in this process
+    # the control, before the ranks are released, so that their steps
+    # have the card to themselves: the same program, seed and global
+    # batches in this process; the first step's grads by the flash
+    # kernels, by composed attention and by a float64 copy
     main, startup, loss, params_grads = _bert_train_program("Adam")
     main.random_seed = startup.random_seed = seed
     params = [p.name for p, _ in params_grads]
@@ -12517,15 +12563,25 @@ def phase_collective(seed, ranks):
     exe_g = fluid.Executor(fluid.CUDAPlace(0))
     ref = _first_grads(_exe_fetch(exe_g, main), snap, batches[0], params)
     exe_g.close()
-    control = _grad_gap(ref, _composed_grads(main, snap, batches[0],
-                                             params))
+    composed = _composed_grads(main, snap, batches[0], params)
+    control = _grad_gap(ref, composed)
+    exact = _f64_grads(main, snap, batches[0], params)
     bound = GRAD_FACTOR * max(control[0], GRAD_FLOOR)
+    del step, scope, snap
+    _free()
     t_control = time.perf_counter() - t0
+    if proc.poll() is not None:
+        raise AssertionError("%s: the ranks ended before their release "
+                             "(rc %s)" % (what, proc.returncode))
+    t_release = time.perf_counter()
+    proc.stdin.write(b"g" * XP_RANKS)
+    proc.stdin.flush()
     try:
         proc.wait(timeout=XP_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.wait()
+    t_ranks = time.perf_counter() - t_release
     with open(ranks["log"]) as f:
         log_text = f.read()
     if proc.returncode != 0:
@@ -12546,7 +12602,13 @@ def phase_collective(seed, ranks):
                              "dropped from the grad all-reduce) read %.3e, "
                              "within the bound %.3e" % (what, fault_gap[0],
                                                         bound))
-    del got, fault, ref
+    # where the gate's reading comes from: the two ranks' grads against
+    # the composed run's, and each f32 run against the float64 copy's
+    gaps = dict(ranks_composed=_grad_gap(composed, got),
+                flash_f64=_grad_gap(exact, ref),
+                composed_f64=_grad_gap(exact, composed),
+                ranks_f64=_grad_gap(exact, got))
+    del got, fault, ref, composed, exact
     cfg = bert_cfg()
     n = cfg["n_layer"]
     per_step = [2 * n, n, n, 2 * n + 1, 1, 0, 0, 0, 0, 0]
@@ -12595,8 +12657,9 @@ def phase_collective(seed, ranks):
                                   "sharded_slots", "slots", "reserved_mb",
                                   "uncaptured", "collectives",
                                   "start_s")} for o in outs],
-        transport=transport, control_s=t_control, seconds=secs,
-        held_before_release_s=time.perf_counter() - ranks["t0"] - secs)
+        gaps={k: dict(gap=v[0], param=v[1]) for k, v in gaps.items()},
+        transport=transport, control_s=t_control, ranks_s=t_ranks,
+        seconds=secs, held_before_release_s=t_release - ranks["t0"])
     for o in outs:
         log("%s: rank %d on %s over %s, mesh %s: step ms %s; optimizer "
             "slots %.1f MiB (single process %.1f MiB, %d of %d slots "
@@ -12612,12 +12675,17 @@ def phase_collective(seed, ranks):
                                   for k, v in o["start_s"].items()}))
     log("%s: losses %s (ranks) against %s (single process), rel err %.3e; "
         "first-step grads %.3e of their largest (%s; bound %.3e = %g x the "
-        "flash-vs-composed gap %.3e), the dropped-rank fault %.3e: refused; "
-        "a step launches %s = %s on each rank; %.1f s (the control %.1f s)"
+        "flash-vs-composed gap %.3e at %s), the dropped-rank fault %.3e: "
+        "refused; a step launches %s = %s on each rank; %.1f s (the "
+        "control %.1f s before the release, the ranks %.1f s after it)"
         % (what, [["%.6f" % v for v in o["losses"]] for o in outs],
            ["%.6f" % v for v in single], loss_err, held["grad_rel_err"],
-           held["grad_worst"], bound, GRAD_FACTOR, control[0],
-           fault_gap[0], COUNT_NAMES[:5], per_step[:5], secs, t_control))
+           held["grad_worst"], bound, GRAD_FACTOR, control[0], control[1],
+           fault_gap[0], COUNT_NAMES[:5], per_step[:5], secs, t_control,
+           t_ranks))
+    log("%s: first-step grad gaps (a param's largest error over its "
+        "grad's largest): %s" % (what, ", ".join(
+            "%s %.3e (%s)" % (k, v[0], v[1]) for k, v in gaps.items())))
     return out
 
 

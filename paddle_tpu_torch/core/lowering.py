@@ -229,6 +229,9 @@ class LowerContext:
 def lower_op(ctx: LowerContext, op, env: Dict[str, Any]) -> None:
     opdef = get_op(op.type)
     ctx.op = op
+    if ctx.xp is not None:
+        # the partials the cross-process plan completes before this op
+        ctx.xp.before(op, env)
     ins: Dict[str, List[Any]] = {}
     for slot, names in op.inputs.items():
         ins[slot] = [env[n] if n else None for n in names]

@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -213,18 +213,13 @@ class Comm:
             if run:
                 yield run
 
-    def all_reduce_flat(self, tensors: Sequence[torch.Tensor],
-                        prepare: Optional[Callable] = None
+    def all_reduce_flat(self, tensors: Sequence[torch.Tensor]
                         ) -> List[torch.Tensor]:
         """Each tensor summed over the ranks, through flat buckets: new
-        tensors (views of the buckets), the inputs untouched.
-        ``prepare(buf)``, where given, runs on each bucket before it is
-        reduced."""
+        tensors (views of the buckets), the inputs untouched."""
         out: List[Optional[torch.Tensor]] = [None] * len(tensors)
         for run in self._buckets(tensors):
             buf = torch.cat([tensors[i].reshape(-1) for i in run])
-            if prepare is not None:
-                prepare(buf)
             self.all_reduce_(buf)
             at = 0
             for i in run:

@@ -61,7 +61,7 @@ from typing import Any, Callable, Dict, List, Optional, Set
 
 import torch
 
-from ..core.lowering import LowerContext, lower_op
+from ..core.lowering import LowerContext, lower_block
 from ..core.program import op_effects
 from ..core.registry import OPS, get_op, register_row_rule
 from .collective import all_gather_rows, all_reduce
@@ -308,6 +308,7 @@ class XPlan:
             for n in op_effects(program, op)[0]:
                 last[n] = i
         self.in_kinds: Dict[int, Dict[str, str]] = {}
+        # id(op) -> the partials all-reduced just before op runs
         self.pre: Dict[int, List[str]] = {}
         for i, op in enumerate(ops):
             reads = [n for ns in op.inputs.values() for n in ns if n]
@@ -334,7 +335,7 @@ class XPlan:
                     live = sorted(n for n, k in pl.kind.items()
                                   if k == PARTIAL and (last.get(n, -1) >= i
                                                        or n in keep))
-                    self.pre[i] = live
+                    self.pre[id(op)] = live
                     pl.kind.update((n, REPL) for n in live)
             if is_grad:
                 outs = pl.grad(op)
@@ -393,6 +394,13 @@ class XPlan:
             return base
         return lambda ctx, ins, attrs: fn(self, ctx, ins, attrs, base)
 
+    def before(self, op, env: Dict[str, Any]) -> None:
+        """What ``lower_op`` runs before ``op``: the partials the plan
+        completes there, all-reduced in ``env``."""
+        names = self.pre.get(id(op))
+        if names:
+            self.complete(env, names)
+
     def complete(self, env: Dict[str, Any], names: List[str]) -> None:
         """All-reduce the partial values ``names`` in place in ``env``
         (flat buckets)."""
@@ -422,9 +430,9 @@ class XPlan:
     def step_fn(self, block, fetch_names, mut_state, pure_written, amp,
                 mesh_kw, release):
         """The plan's step (``analyze_block``'s contract): this rank's
-        rows of the feeds, each op as the plan completes it, partials
-        all-reduced where the plan says, fetches made global."""
-        ops = block.ops
+        rows of the feeds and blocks of the ZeRO-1 slots, the block
+        lowered as the plan completes it (``lower_op`` consults ``xp``),
+        fetches made global."""
         kw = dict(mesh_kw, xp=self)
 
         def step(feeds, state, rng, device, graph=None):
@@ -436,18 +444,7 @@ class XPlan:
                 env[n] = self.comm.rows(v) if n in self.row_feeds else v
             ctx = LowerContext(block, rng, device, amp=amp, graph=graph,
                                **kw)
-            for i, op in enumerate(ops):
-                if i in self.pre:
-                    self.complete(env, self.pre[i])
-                try:
-                    lower_op(ctx, op, env)
-                except Exception as e:
-                    raise RuntimeError(
-                        "while lowering op %r (inputs=%s outputs=%s): "
-                        "%s: %s" % (op.type, op.inputs, op.outputs,
-                                    type(e).__name__, e)) from e
-                for n in release[i]:
-                    env.pop(n, None)
+            lower_block(ctx, block, env, release)
             if self.final:
                 self.complete(env, self.final)
             missing = [n for n in fetch_names if n not in env]

@@ -18,9 +18,12 @@ run:
   within rtol 2e-4, atol 1e-5 (tests/test_dist_collective.py:101), each
   rank's moment its 4 of the 8 rows;
 - (b) a 2-layer BERT (d 64, S 16, global batch 8) with is_test dropout,
-  which gathers its MLM rows across ranks: losses within 1e-5 of the JAX
-  package's; then with dropout 0.1 against the port's single-process
-  run: the dropout masks bitwise, losses within 1e-6;
+  which gathers its MLM rows from the global batch: losses within 1e-5
+  of the JAX package's, once with each rank's mask ids in its own rows
+  and once with half of them in the other rank's (so the gather's
+  backward, a reduce-scatter, carries the other rank's addends); then
+  with dropout 0.1 against the port's single-process run: the dropout
+  masks bitwise, losses within 1e-6;
 - (c) conv + batch_norm + pool + fc with ``accuracy``, through
   ``CompiledProgram`` and ``ParallelExecutor(num_trainers, trainer_id)``:
   losses, accuracy and the running statistics against the JAX package's;
@@ -102,18 +105,25 @@ def bert_masks(main):
             and op.output("Mask")]
 
 
-def bert_feed(step):
+def bert_feed(step, cross=False):
+    """Step ``step``'s batch; each row's mask ids pick tokens of its own
+    sequence, or with ``cross`` every second id picks from the sequence
+    half a batch away, which the other rank holds."""
     rs = np.random.RandomState(40 + step)
     B, S, M = BERT_BATCH, BERT_SEQ, BERT_MASK
     mask = np.ones((B, S), np.float32)
     mask[:, S - 3:] = 0.0
-    return {"src_ids": rs.randint(1, BERT_CFG["vocab"], (B, S)),
+    feed = {"src_ids": rs.randint(1, BERT_CFG["vocab"], (B, S)),
             "sent_ids": rs.randint(0, 2, (B, S)),
             "input_mask": mask,
             "mask_pos": (np.arange(B)[:, None] * S
                          + rs.randint(0, S - 3, (B, M))).astype(np.int64),
             "mask_label": rs.randint(0, BERT_CFG["vocab"], (B, M)),
             "mask_weight": np.ones((B, M), np.float32)}
+    if cross:
+        pos = feed["mask_pos"]
+        pos[:, 1::2] = (pos[:, 1::2] + (B // 2) * S) % (B * S)
+    return feed
 
 
 def bn_program(pkg):
@@ -238,24 +248,28 @@ def _rank_lr(pt, penv, out):
         .splitlines()[:2])
 
 
-def _rank_bert(pt, penv, out, state_file, masks_file):
+def _rank_bert(pt, penv, out, d):
     from paddle_tpu_torch.parallel import ParallelEngine
 
-    for is_test in (True, False):
+    for key, is_test, cross in (("bert_test", True, False),
+                                ("bert_cross", True, True),
+                                ("bert_dropout", False, False)):
         main, _, loss = bert_program(pt, is_test)
-        scope = _port_scope(pt, main, state_file)
+        scope = _port_scope(pt, main, os.path.join(
+            d, "cross.npz" if cross else "bert.npz"))
         engine = ParallelEngine(main, loss_name=loss.name,
                                 places=[pt.CPUPlace()] * POSITIONS)
         masks = [] if is_test else bert_masks(main)
         losses, got = [], {}
         for s in range(BERT_STEPS):
-            vals = engine.run(bert_feed(s), [loss.name] + masks, scope)
+            vals = engine.run(bert_feed(s, cross), [loss.name] + masks,
+                              scope)
             losses.append(_first(vals[0]))
             if s == 0:
                 got = {m: v for m, v in zip(masks, vals[1:])}
-        out["bert_test" if is_test else "bert_dropout"] = losses
+        out[key] = losses
         if not is_test:
-            np.savez(masks_file, **got)
+            np.savez(os.path.join(d, "masks%d.npz" % penv.rank), **got)
 
 
 def _rank_bn(pt, penv, out, state_file):
@@ -337,8 +351,7 @@ def _rank_main():
     out = dict(rank=penv.rank, backend=penv.backend)
     _rank_collectives(penv, out)
     _rank_lr(pt, penv, out)
-    _rank_bert(pt, penv, out, os.path.join(d, "bert.npz"),
-               os.path.join(d, "masks%d.npz" % penv.rank))
+    _rank_bert(pt, penv, out, d)
     _rank_bn(pt, penv, out, os.path.join(d, "bn.npz"))
     _rank_reduce(pt, penv, out, os.path.join(d, "reduce.npz"))
     out["jax_modules"] = sorted(m for m in sys.modules
@@ -378,6 +391,7 @@ def _references(jf, pt, d):
     dropout (its masks)."""
     ref = {}
     bert = _jax_start(jf, bert_program, os.path.join(d, "bert.npz"), True)
+    cross = _jax_start(jf, bert_program, os.path.join(d, "cross.npz"), True)
     bn = _jax_start(jf, bn_program, os.path.join(d, "bn.npz"))
     red = _jax_start(jf, reduce_program, os.path.join(d, "reduce.npz"))
 
@@ -393,10 +407,12 @@ def _references(jf, pt, d):
         last = run(lr_data(LR_STEPS))
     ref["lr"].append(last)
 
-    main, exe, scope, (loss,) = bert
-    ref["bert_test"] = [_first(exe.run(
-        main, feed=bert_feed(s), fetch_list=[loss.name], scope=scope)[0])
-        for s in range(BERT_STEPS)]
+    for key, start, c in (("bert_test", bert, False),
+                          ("bert_cross", cross, True)):
+        main, exe, scope, (loss,) = start
+        ref[key] = [_first(exe.run(
+            main, feed=bert_feed(s, c), fetch_list=[loss.name],
+            scope=scope)[0]) for s in range(BERT_STEPS)]
 
     main, _, loss = bert_program(pt, False)
     scope = _port_scope(pt, main, os.path.join(d, "bert.npz"))
@@ -556,10 +572,25 @@ def test_ranks_import_no_jax_and_log_gloo(ranks):
 
 def test_bert_gathers_rows_across_ranks(ranks):
     """(b) The 2-layer BERT, is_test dropout, against the JAX package's
-    single process (its MLM head gathers rows of other ranks)."""
+    single process (its MLM head gathers from the global rows; each
+    rank's mask ids pick from its own)."""
     for r in range(RANKS):
         np.testing.assert_allclose(ranks.out(r)["bert_test"],
                                    ranks.ref["bert_test"],
+                                   rtol=BERT_JAX_TOL, atol=0)
+
+
+def test_bert_mlm_picks_rows_of_the_other_rank(ranks):
+    """(b) As above, with every second mask id in the other rank's rows:
+    the gather's backward reduce-scatters those rows' cotangents to the
+    rank that holds them, so the later steps' losses see it."""
+    feed = bert_feed(0, cross=True)["mask_pos"]
+    half = BERT_BATCH // RANKS * BERT_SEQ
+    assert ((feed[:BERT_BATCH // RANKS] >= half).any()
+            and (feed[BERT_BATCH // RANKS:] < half).any())
+    for r in range(RANKS):
+        np.testing.assert_allclose(ranks.out(r)["bert_cross"],
+                                   ranks.ref["bert_cross"],
                                    rtol=BERT_JAX_TOL, atol=0)
 
 
@@ -650,9 +681,9 @@ def test_plan_kinds_of_a_training_step():
     main, _, loss = lr_program(pt)
     plan = _plan(main, loss.name, {"x": P("data"), "y": P("data")})
     ops = main.global_block().ops
-    (at,) = plan.pre
-    assert ops[at].type == "adam" and plan.pre[at] == ["fc_b@GRAD",
-                                                       "fc_w@GRAD"]
+    (at,) = [op for op in ops if id(op) in plan.pre]
+    assert at.type == "adam" and plan.pre[id(at)] == ["fc_b@GRAD",
+                                                      "fc_w@GRAD"]
     assert plan.fetch_kinds == {loss.name: "repl"}
 
 
